@@ -1,0 +1,41 @@
+"""JSON / CSV artifact readers (counterpart of ``shm_tpu/utils/io.py``).
+
+numpy only: the CSV reader is the ``np.loadtxt`` branch of the JAX package's
+``load_csv_numeric``, with the same shape and finiteness guards.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+
+
+def load_json(path: str | Path) -> Any:
+    p = Path(path)
+    if not p.exists():
+        raise FileNotFoundError(f"Missing: {p}")
+    with p.open("r", encoding="utf-8") as f:
+        return json.load(f)
+
+
+def load_csv_numeric(path: str | Path, num_features: int | None = None) -> np.ndarray:
+    """Numeric CSV with one header row -> float32 (rows, cols).
+
+    Raises on a shape other than 2-D with ``num_features`` columns, and on any
+    non-finite value (run CSVs are simulator output and must be all-finite).
+    """
+    p = Path(path)
+    if not p.exists():
+        raise FileNotFoundError(f"Missing CSV: {p}")
+    X = np.loadtxt(str(p), delimiter=",", skiprows=1, ndmin=2).astype(np.float32)
+    if X.ndim != 2 or (num_features is not None and X.shape[1] != num_features):
+        raise ValueError(f"Bad CSV shape in {p}: {X.shape}")
+    if not np.isfinite(X).all():
+        raise ValueError(f"Non-finite values in {p}")
+    return X
+
+
+__all__ = ["load_json", "load_csv_numeric"]

@@ -1,0 +1,69 @@
+"""The PyTorch port imports no JAX, flax, optax or ``shm_tpu`` module.
+
+The scan is static (AST), because the test process may have JAX imported
+already: a runtime check of ``sys.modules`` could not tell who imported it.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "shm_tpu")
+PORT_FILES = sorted((ROOT / "shm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None)
+              == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN            # "shm_tpu_torch" is a different top name
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for must in ("chip_smoke.py", "shm_tpu_torch/ops/fused_vae.py",
+                 "shm_tpu_torch/serve.py", "shm_tpu_torch/pipeline.py"):
+        assert must in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_package_import(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    bad = sorted({m for m in _imported_modules(tree) if _forbidden(m)})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module, bad", [
+    ("jax", True), ("jax.numpy", True), ("flax.linen", True), ("optax", True),
+    ("shm_tpu", True), ("shm_tpu.utils.io", True), ("shm_tpu_torch", False),
+    ("shm_tpu_torch.ops", False), ("torch", False), ("numpy", False),
+])
+def test_forbidden_rule(module, bad):
+    assert _forbidden(module) is bad
+
+
+def test_scan_sees_every_import_form():
+    src = ("import jax\nfrom flax import linen\nimport shm_tpu.serve as s\n"
+           "from shm_tpu_torch import ops\n__import__('optax')\n"
+           "import importlib\nimportlib.import_module('shm_tpu.config')\n")
+    found = sorted(m for m in _imported_modules(ast.parse(src)) if _forbidden(m))
+    assert found == ["flax", "jax", "optax", "shm_tpu.config", "shm_tpu.serve"]
