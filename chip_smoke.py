@@ -15,7 +15,22 @@ Phases (any failure exits non-zero before the final line):
    operation/byte bound, a cuDNN ``nn.LSTM`` yardstick, and ``score()``
    windows/s end to end;
 5. where one ``score()`` call's time goes (``torch.profiler``): device time
-   by kernel and the device's idle share.
+   by kernel and the device's idle share;
+6. the four LSTM training kernels (encoder and decoder, forward and backward)
+   against autograd of their plain versions: both forwards and every
+   gradient, at the 4DOF training shape, a ragged batch, the 1DOF shape and
+   a unit mask; and both forwards in the trainer's validation mode (no
+   gradient, no stash, null mask) at the same shapes;
+7. the training path at full width: ``train-vae`` on the committed normal
+   runs into a temporary root, the recipe unchanged but for 8 epochs of 50,
+   on the card through the kernels;
+   launch counts, finite and falling losses, the same losses bit for bit
+   from a second run, the kernel path's first-batch loss and gradient against
+   the plain autograd path, the written checkpoint read back, and
+   ``reconstruction_mse`` through the fused gate kernel;
+8. timings of the four kernels and of one training step (kernel path, plain
+   autograd path, a cuDNN ``nn.LSTM`` yardstick), their bounds, and where a
+   step's time goes.
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -46,6 +61,13 @@ PEAK_BYTES = 3.35e12            # HBM3
 ATOL, RTOL = 1e-4, 1e-4
 N_BENCH = 5440                  # bench.py's workload
 REPS = 7
+# gradients of the LSTM training kernels against autograd of the plain
+# versions: each weight-gradient entry sums T*B (25,600 at 4DOF) products in
+# another order, and the recurrence carries last-bit differences of
+# expf/tanhf through 2*T steps in both directions; |kernel - plain| must stay
+# within GRAD_ATOL_REL * max|plain| + RTOL * |plain| elementwise
+GRAD_ATOL_REL = 2e-4
+TRAIN_EPOCHS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -105,13 +127,15 @@ def phase_build():
     from shm_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    res = _build.build(["fused_vae"])
+    res = _build.build(["fused_vae", "lstm_train"])
     wall = time.perf_counter() - t0
     for name, (path, secs, log) in res.items():
         print(f"[build] {name}: {path.relative_to(ROOT)} in {secs:.2f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                print(f"[build]   {line.split('Compiling entry function')[1].strip()[:100]}")
+            elif "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build]     {line.strip()}")
     print(f"[build] total {wall:.2f} s")
 
 
@@ -127,6 +151,7 @@ def random_vae(seed: int, D, Z, H, L, ln):
 
 def compare(name: str, got, ref) -> float:
     """Max |got - ref|; fails past ATOL + RTOL * |ref|."""
+    got, ref = got.detach(), ref.detach()
     err = (got - ref).abs()
     worst = float((err - RTOL * ref.abs()).max())
     max_abs = float(err.max())
@@ -270,8 +295,8 @@ def cudnn_vae_pass(vae):
             for l, layer in enumerate(stack.layers):
                 getattr(m, f"weight_ih_l{l}").copy_(layer.weight_ih)
                 getattr(m, f"weight_hh_l{l}").copy_(layer.weight_hh)
-                getattr(m, f"bias_ih_l{l}").copy_(layer.bias)
-                getattr(m, f"bias_hh_l{l}").zero_()
+                getattr(m, f"bias_ih_l{l}").copy_(layer.bias_ih)
+                getattr(m, f"bias_hh_l{l}").copy_(layer.bias_hh)
         m.flatten_parameters()
         return m
 
@@ -348,16 +373,18 @@ def phase_timing(scorer, W):
     print(f"[time] score() end to end, {N} windows: median {wall * 1e3:.2f} ms "
           f"over 5 -> {N / wall:.1f} windows/s (one dispatch padded to "
           f"{bucket} windows)")
-    phase_profile(scorer, Wb)
+    profile_device(lambda: scorer.score(Wb), f"score() of {len(Wb)} windows")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if t_f32 >= t_bytes else "bytes",
             "library_ms": cudnn_ms}
 
 
-def phase_profile(scorer, Wb, calls: int = 3):
-    """Where one ``score()`` call's time goes: device time by kernel from
-    ``torch.profiler`` over ``calls`` calls, against their host wall time."""
+def profile_device(fn, what: str, calls: int = 3, groups=None, rest: str = ""):
+    """Where the time of one ``fn()`` goes: device time by kernel from
+    ``torch.profiler`` over ``calls`` calls, against their host wall time,
+    and the device's idle share. ``groups`` ({label: name fragments}) sums the
+    kernels under labels first; ``rest`` labels what no group matched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -367,7 +394,8 @@ def phase_profile(scorer, Wb, calls: int = 3):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            scorer.score(Wb)
+            fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     # device-side events only (kernels, copies): the CPU operators that
     # launched them report the same device time again
@@ -376,15 +404,463 @@ def phase_profile(scorer, Wb, calls: int = 3):
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
-    busy = sum(ms for _, ms in rows)
     if not rows:
         print("[profile] the profiler recorded no device time: not measured")
         return
-    print(f"[profile] score() of {len(Wb)} windows under the profiler: "
-          f"wall {wall_ms:.2f} ms/call, device busy {busy:.2f} ms/call, "
-          f"device idle share {1 - busy / wall_ms:.3f}")
+    busy = sum(ms for _, ms in rows)
+    print(f"[profile] {what} under the profiler: wall {wall_ms:.2f} ms/call, "
+          f"device busy {busy:.2f} ms/call, device idle share "
+          f"{max(1 - busy / wall_ms, 0.0):.3f}")
+    if groups:
+        left = busy
+        for label, keys in groups.items():
+            g = sum(ms for n, ms in rows if any(k in n.lower() for k in keys))
+            left -= g
+            print(f"[profile]   {g:9.3f} ms  {g / busy * 100:5.1f}%  {label}")
+        print(f"[profile]   {left:9.3f} ms  {left / busy * 100:5.1f}%  {rest}")
     for name, ms in rows[:10]:
-        print(f"[profile]   {ms:9.3f} ms  {ms / busy * 100:5.1f}%  {name[:90]}")
+        print(f"[profile]     {ms:9.3f} ms  {ms / busy * 100:5.1f}%  {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# the LSTM training kernels (phases 6-8)
+# ---------------------------------------------------------------------------
+
+LSTM_KERNELS = {   # name in the kernels line: the TPU kernel it replaces
+    "lstm2_enc_fwd": "shm_tpu/ops/lstm_train.py:153",
+    "lstm2_enc_bwd": "shm_tpu/ops/lstm_train.py:191",
+    "lstm2_dec_fwd": "shm_tpu/ops/lstm_train.py:359",
+    "lstm2_dec_bwd": "shm_tpu/ops/lstm_train.py:399",
+}
+
+
+def lstm_work(kernel: str, T: int, D: int, H: int, B: int, K: int = 0,
+              with_dx: bool = False, mask: bool = True):
+    """(FLOPs, bytes) one call of an LSTM training kernel must do. FLOPs are
+    matmul FLOPs (elementwise excluded, as in ``vae_work``): the forward's
+    gate products; for a backward the same again (the recompute), the
+    transposed products of the dh chain and the weight-gradient products.
+    Bytes: each input read once, each output written once (the gate
+    gradients that pass between the backward's two passes are neither)."""
+    G = 4 * H
+    n_w = G * (3 * H + 2) + G * (D if kernel.startswith("lstm2_enc") else K)
+    stream = T * H * B * (1 if mask else 0) + T * G * B + G * B  # dm, stash, fin
+    if kernel == "lstm2_enc_fwd":
+        flops = 2 * G * (D + 3 * H) * T * B
+        words = T * D * B + stream + H * B + n_w
+    elif kernel == "lstm2_enc_bwd":
+        flops = (2 * G * (D + 3 * H) * T * B            # recompute
+                 + 2 * G * 3 * H * T * B                # W^T dg for dh0, dh1
+                 + 2 * G * (D + 3 * H) * T * B          # weight gradients
+                 + (2 * G * D * T * B if with_dx else 0))
+        words = (T * D * B + stream + H * B + n_w        # inputs
+                 + n_w + (T * D * B if with_dx else 0))  # gradients out
+    elif kernel == "lstm2_dec_fwd":
+        flops = 2 * G * K * B + T * B * (2 * G * 3 * H + 2 * D * H)
+        words = K * B + stream + n_w + (H + 1) * D + T * D * B
+    elif kernel == "lstm2_dec_bwd":
+        flops = (2 * G * K * B + T * B * 2 * G * 3 * H   # recompute
+                 + T * B * (2 * G * 3 * H + 2 * D * H)   # W^T dg, head^T dr
+                 + T * B * (2 * G * 3 * H + 2 * D * H)   # weight + head grads
+                 + 2 * 2 * G * K * B)                    # layer-0 fold, d dec_in
+        words = (K * B + stream + n_w + (H + 1) * D + T * D * B
+                 + K * B + n_w + (H + 1) * D)
+    else:
+        raise ValueError(kernel)
+    return float(flops), 4.0 * words
+
+
+def lstm_case(seed: int, T, D, H, B, drop):
+    """numpy-seeded inputs of one case, on the card, in the ops' layouts."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    u = lambda *s: t(rng.uniform(-1, 1, size=s) / np.sqrt(H))
+    stack = lambda in_dim: [u(4 * H, in_dim), u(4 * H, H), u(4 * H, 1),
+                            u(4 * H, H), u(4 * H, H), u(4 * H, 1)]
+    mask = lambda: (t((rng.random((T, H, B)) > drop) / (1.0 - drop))
+                    if drop else None)
+    return dict(
+        xs=t(rng.normal(size=(T, D, B))), dm_enc=mask(), enc_w=stack(D),
+        R_enc=t(rng.normal(size=(H, B))),
+        din=t(np.tanh(rng.normal(size=(H, B)))), dm_dec=mask(),
+        dec_w=stack(H) + [u(D, H), u(D, 1)],
+        R_dec=t(rng.normal(size=(T, D, B))))
+
+
+def compare_grads(tag: str, got, want, names) -> float:
+    """Max |got - want| over all gradients; fails past the stated tolerance."""
+    worst_abs = 0.0
+    for n, g, w in zip(names, got, want):
+        err = (g - w).abs()
+        atol = GRAD_ATOL_REL * max(float(w.abs().max()), 1e-12)
+        over = float((err - RTOL * w.abs()).max())
+        worst_abs = max(worst_abs, float(err.max()))
+        print(f"[lstm]     {tag} d{n}: max |diff| {float(err.max()):.3e}, max "
+              f"|plain| {float(w.abs().max()):.3e} (tolerance {GRAD_ATOL_REL:g}"
+              f"*max|plain| + {RTOL:g}*|plain|) {'ok' if over <= atol else 'FAIL'}")
+        check(over <= atol, f"{tag}: gradient {n} disagrees with autograd of "
+                            f"the plain version (max |diff| {float(err.max()):.3e})")
+    return worst_abs
+
+
+def phase_lstm_kernels_vs_plain():
+    """Both forwards and every gradient of the four kernels against autograd
+    of the plain versions, and both forwards in the validation mode, same
+    inputs, on the card. Returns the max |diff| per kernel at the 4DOF
+    training shape."""
+    import torch
+
+    from shm_tpu_torch.ops import (
+        lstm2_dec_head, lstm2_dec_head_reference, lstm2_enc_last,
+        lstm2_scan_reference,
+    )
+
+    cases = [  # name, T, D, H, B, dropout
+        ("4dof training shape", 100, 12, 128, 256, 0.3),
+        ("4dof ragged batch", 100, 12, 128, 200, 0.3),
+        ("1dof 2-layer shape", 80, 12, 32, 64, 0.2),
+        ("unit mask", 100, 12, 128, 64, 0.0),
+    ]
+    errs = {}
+    leaf = lambda ts: [a.clone().requires_grad_(True) for a in ts]
+    for i, (name, T, D, H, B, drop) in enumerate(cases):
+        c = lstm_case(200 + i, T, D, H, B, drop)
+        print(f"[lstm] {name}: T={T} D={D} H={H} B={B} dropout={drop}")
+
+        lv = leaf([c["xs"]] + c["enc_w"])
+        out = lstm2_enc_last(lv[0], c["dm_enc"], *lv[1:])
+        got = torch.autograd.grad((out * c["R_enc"]).sum(), lv)
+        torch.cuda.synchronize()
+        lp = leaf([c["xs"]] + c["enc_w"])
+        ref = lstm2_scan_reference(lp[0], c["dm_enc"], *lp[1:])[-1]
+        want = torch.autograd.grad((ref * c["R_enc"]).sum(), lp)
+        check(out.shape == (H, B) and bool(torch.isfinite(out).all()),
+              f"{name}: h_last not finite / wrong shape")
+        e_fwd = compare("encoder h_last", out, ref)
+        e_bwd = compare_grads("encoder", got, want,
+                              ["x", "w0i", "w0h", "b0", "w1i", "w1h", "b1"])
+        if i == 0:
+            errs["lstm2_enc_fwd"], errs["lstm2_enc_bwd"] = e_fwd, e_bwd
+
+        lv = leaf([c["din"]] + c["dec_w"])
+        out = lstm2_dec_head(lv[0], c["dm_dec"], *lv[1:], T=T)
+        got = torch.autograd.grad((out * c["R_dec"]).sum(), lv)
+        torch.cuda.synchronize()
+        lp = leaf([c["din"]] + c["dec_w"])
+        ref = lstm2_dec_head_reference(lp[0], c["dm_dec"], *lp[1:], T)
+        want = torch.autograd.grad((ref * c["R_dec"]).sum(), lp)
+        check(out.shape == (T, D, B) and bool(torch.isfinite(out).all()),
+              f"{name}: recon not finite / wrong shape")
+        e_fwd = compare("decoder recon", out, ref)
+        e_bwd = compare_grads("decoder", got, want,
+                              ["dec_in", "w0i", "w0h", "b0", "w1i", "w1h", "b1",
+                               "out_w", "out_b"])
+        if i == 0:
+            errs["lstm2_dec_fwd"], errs["lstm2_dec_bwd"] = e_fwd, e_bwd
+
+        # the trainer's validation mode: no gradient, so no stash is written,
+        # and a null mask pointer
+        with torch.no_grad():
+            e_val = compare(
+                "validation-mode encoder h_last",
+                lstm2_enc_last(c["xs"], None, *c["enc_w"]),
+                lstm2_scan_reference(c["xs"], None, *c["enc_w"])[-1])
+            d_val = compare(
+                "validation-mode decoder recon",
+                lstm2_dec_head(c["din"], None, *c["dec_w"], T=T),
+                lstm2_dec_head_reference(c["din"], None, *c["dec_w"], T))
+        if i == 0:
+            errs["lstm2_enc_fwd"] = max(errs["lstm2_enc_fwd"], e_val)
+            errs["lstm2_dec_fwd"] = max(errs["lstm2_dec_fwd"], d_val)
+    return errs
+
+
+def lstm_launch_counts():
+    from shm_tpu_torch.ops import lstm2_dec_head, lstm2_enc_last
+
+    return {"lstm2_enc_fwd": lstm2_enc_last.fwd_launches,
+            "lstm2_enc_bwd": lstm2_enc_last.bwd_launches,
+            "lstm2_dec_fwd": lstm2_dec_head.fwd_launches,
+            "lstm2_dec_bwd": lstm2_dec_head.bwd_launches}
+
+
+def reset_lstm_launch_counts():
+    from shm_tpu_torch.ops import lstm2_dec_head, lstm2_enc_last
+
+    lstm2_enc_last.fwd_launches = lstm2_enc_last.bwd_launches = 0
+    lstm2_dec_head.fwd_launches = lstm2_dec_head.bwd_launches = 0
+
+
+def phase_train_path():
+    """``train-vae`` at full width on the committed normal runs, the recipe of
+    ``Stage4DofConfig`` cut to ``TRAIN_EPOCHS`` epochs, on the card through
+    the kernels, into a temporary root."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from shm_tpu_torch.cli.stage4dof import Paths, cmd_train_vae
+    from shm_tpu_torch.config import Stage4DofConfig, replace
+    from shm_tpu_torch.convert import vae_from_flax, vae_state_dict
+    from shm_tpu_torch.models.vae import vae_from_config
+    from shm_tpu_torch.ops import fused_vae_gate
+    from shm_tpu_torch.train import reconstruction_mse, train_vae
+    from shm_tpu_torch.train.vae import batch_loss, draw_batch_noise
+    from shm_tpu_torch.utils.checkpoint import load_checkpoint
+    from shm_tpu_torch.utils.io import load_json
+
+    # the recipe unchanged; only the depth is cut (8 epochs of 50): the KL
+    # weight of the cut run still ramps over its first 30%, and the
+    # reconstruction loss falls over the 8 epochs under it
+    cfg = Stage4DofConfig()
+    tcfg = cfg.vae_train
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        paths = Paths(tmp)
+        paths.processed.mkdir(parents=True)
+        shutil.copy(Paths(str(ROOT / "data" / "4dof")).run_splits,
+                    paths.run_splits)
+
+        reset_lstm_launch_counts()
+        gate0 = fused_vae_gate.launches
+        res = cmd_train_vae(paths, cfg, epochs=TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        counts = lstm_launch_counts()
+
+        # the windows, as the command built them, for the checks below
+        from shm_tpu_torch.cli.stage4dof import (
+            _load_stats, build_fraction_windows_multi,
+        )
+        from shm_tpu_torch.data.windows import normalize_windows
+
+        files = load_json(paths.run_splits)["normal"]["files"]
+        Wtr, Wva = build_fraction_windows_multi(
+            files, (cfg.train_frac, cfg.val_frac), cfg)
+        mean, std = (torch.from_numpy(a).cuda() for a in _load_stats(paths))
+        Ztr = normalize_windows(torch.from_numpy(Wtr).cuda(), mean, std)
+        Zva = normalize_windows(torch.from_numpy(Wva).cuda(), mean, std)
+
+        steps = TRAIN_EPOCHS * -(-len(Wtr) // tcfg.batch_size)
+        vals = TRAIN_EPOCHS * -(-len(Wva) // tcfg.batch_size)
+        print(f"[train] {len(Wtr)} train / {len(Wva)} val windows, "
+              f"{TRAIN_EPOCHS} epochs = {steps} steps + {vals} validation "
+              f"batches in {res.seconds:.2f} s ({res.seconds / TRAIN_EPOCHS:.3f} "
+              f"s/epoch); launches {counts}")
+        # every step launches each forward and each backward once; every
+        # validation batch launches the two forwards (unit mask, no stash)
+        check(counts["lstm2_enc_bwd"] == steps and counts["lstm2_dec_bwd"] == steps,
+              f"backward launches {counts} != {steps} training steps")
+        check(counts["lstm2_enc_fwd"] == steps + vals
+              and counts["lstm2_dec_fwd"] == steps + vals,
+              f"forward launches {counts} != {steps} steps + {vals} validation batches")
+        h = res.history
+        check(len(h["epoch"]) == TRAIN_EPOCHS and all(
+            np.isfinite(h[k]).all() for k in h), "non-finite loss in the history")
+        print(f"[train] train recon by epoch {h['train_recon']}, val total "
+              f"{h['val_total']}, best epoch {res.best_epoch}")
+        check(h["train_recon"][-1] < h["train_recon"][0],
+              "the training reconstruction loss did not fall")
+
+        # the written checkpoint, read back by the port's reader
+        tree = load_checkpoint(paths.models / "temporal_vae.msgpack")
+        sd = vae_state_dict(tree["params"], cfg.vae.num_layers,
+                            cfg.vae.use_layernorm)
+        check(sd.keys() == res.params.keys() and all(
+            torch.equal(sd[k], res.params[k].cpu()) for k in sd),
+            "temporal_vae.msgpack read back differs from the trained params")
+        vae = vae_from_flax(tree["params"], cfg.vae).cuda()
+
+        # gate-only scoring of the validation windows through the fused kernel
+        mse_k = reconstruction_mse(vae, Zva)
+        gate_launches = fused_vae_gate.launches - gate0
+        mse_p = reconstruction_mse(vae, Zva, fused=False)
+        check(gate_launches == 1, f"reconstruction_mse launched the gate "
+                                  f"kernel {gate_launches} times, not once")
+        check(mse_k.shape == (len(Wva),) and np.isfinite(mse_k).all(),
+              "reconstruction_mse not finite / wrong shape")
+        print(f"[train] reconstruction_mse of {len(Wva)} val windows through "
+              f"fused_vae_gate(with_residual=False): mean {mse_k.mean():.6f}")
+        compare("reconstruction_mse vs plain model",
+                torch.from_numpy(mse_k), torch.from_numpy(mse_p))
+
+    # the same run again, now that every kernel of the loop is loaded: the
+    # first call above pays the first use of each of them
+    again = train_vae(vae_from_config(cfg.vae), Ztr, Zva,
+                      replace(tcfg, epochs=TRAIN_EPOCHS))
+    print(f"[train] second run of {TRAIN_EPOCHS} epochs: "
+          f"{again.seconds / TRAIN_EPOCHS:.3f} s/epoch (first run "
+          f"{res.seconds / TRAIN_EPOCHS:.3f} s/epoch)")
+    check(again.history["train_total"] == res.history["train_total"],
+          "two runs from one seed gave different training losses")
+
+    # first batch, same noise: kernel path against plain autograd path
+    model = vae_from_config(cfg.vae).cuda()
+    model.init_parameters(torch.Generator().manual_seed(tcfg.seed))
+    model.train()
+    bs = tcfg.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(tcfg.seed)
+    xb = Ztr[:bs].contiguous()
+    bmask = torch.ones(bs, device="cuda")
+    eps, dm_e, dm_d = draw_batch_noise(model, bs, xb.shape[1], gen, xb.device)
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    out = {}
+    for kernel in (True, False):
+        total, _, _ = batch_loss(model, xb, bmask, eps, dm_e, dm_d, 0.5, kernel)
+        out[kernel] = (total.detach(), torch.autograd.grad(total, params))
+    torch.cuda.synchronize()
+    print("[train] first batch, same noise, kernel path vs plain autograd path:")
+    compare("loss", out[True][0], out[False][0])
+    compare_grads("step", out[True][1], out[False][1], names)
+    return counts, dict(model=model, xb=xb, bmask=bmask, noise=(eps, dm_e, dm_d),
+                        seconds_per_epoch=again.seconds / TRAIN_EPOCHS)
+
+
+def cudnn_lstm(in_dim: int, H: int, drop: float):
+    from torch import nn
+
+    m = nn.LSTM(in_dim, H, 2, batch_first=True, dropout=drop).cuda().train()
+    m.flatten_parameters()
+    return m
+
+
+def time_fwd_bwd(make_loss, leaves, reps: int = REPS):
+    """(forward ms, backward ms): the forward alone, and forward + backward
+    minus it (a graph is built anew for every backward)."""
+    import torch
+
+    fwd = time_ms(make_loss, reps=reps)
+    both = time_ms(lambda: torch.autograd.grad(make_loss(), leaves), reps=reps)
+    return fwd, max(both - fwd, 0.0)
+
+
+def phase_lstm_timing(errs, counts, ctx):
+    """CUDA-event times of the four kernels at the 4DOF training shape, of
+    their plain versions and of a cuDNN ``nn.LSTM`` yardstick; one training
+    step on the three paths; where a kernel-path step's time goes."""
+    import torch
+    from torch import nn
+
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.ops import (
+        lstm2_dec_head_reference, lstm2_scan_reference,
+    )
+    from shm_tpu_torch.ops.lstm_train import (
+        dec_backward_cuda, dec_forward_cuda, enc_backward_cuda,
+        enc_forward_cuda,
+    )
+    from shm_tpu_torch.train.vae import batch_loss, make_optimizer
+
+    cfg = Stage4DofConfig()
+    T, D, H, B, drop = cfg.seq_len, cfg.vae.input_dim, cfg.vae.hidden_dim, \
+        cfg.vae_train.batch_size, cfg.vae.dropout
+    c = lstm_case(300, T, D, H, B, drop)
+    leaf = lambda ts: [a.clone().requires_grad_(True) for a in ts]
+
+    # --- the four kernels (a training step asks for no dx)
+    _, enc_saved = enc_forward_cuda(c["xs"], c["dm_enc"], *c["enc_w"])
+    _, dec_saved = dec_forward_cuda(c["din"], c["dm_dec"], *c["dec_w"], T=T)
+    ms = {
+        "lstm2_enc_fwd": time_ms(lambda: enc_forward_cuda(
+            c["xs"], c["dm_enc"], *c["enc_w"])),
+        "lstm2_enc_bwd": time_ms(lambda: enc_backward_cuda(
+            enc_saved, c["R_enc"], need_dx=False)),
+        "lstm2_dec_fwd": time_ms(lambda: dec_forward_cuda(
+            c["din"], c["dm_dec"], *c["dec_w"], T=T)),
+        "lstm2_dec_bwd": time_ms(lambda: dec_backward_cuda(dec_saved, c["R_dec"])),
+    }
+    # --- plain versions under autograd (weights are the leaves, as in training)
+    ew, dw = leaf(c["enc_w"]), leaf(c["dec_w"])
+    din = c["din"].clone().requires_grad_(True)
+    plain = {}
+    plain["lstm2_enc_fwd"], plain["lstm2_enc_bwd"] = time_fwd_bwd(
+        lambda: (lstm2_scan_reference(c["xs"], c["dm_enc"], *ew)[-1]
+                 * c["R_enc"]).sum(), ew, reps=5)
+    plain["lstm2_dec_fwd"], plain["lstm2_dec_bwd"] = time_fwd_bwd(
+        lambda: (lstm2_dec_head_reference(din, c["dm_dec"], *dw, T)
+                 * c["R_dec"]).sum(), [din] + dw, reps=5)
+    # --- cuDNN yardstick: nn.LSTM (2 layers, dropout between) computes the
+    # same scans, all T outputs included; the decoder adds a Linear head
+    enc_l, dec_l = cudnn_lstm(D, H, drop), cudnn_lstm(H, H, drop)
+    head = nn.Linear(H, D).cuda()
+    x_bt = c["xs"].permute(2, 0, 1).contiguous()
+    din_bt = c["din"].t().contiguous().requires_grad_(True)
+    R_enc_bt, R_dec_bt = c["R_enc"].t().contiguous(), c["R_dec"].permute(2, 0, 1).contiguous()
+    lib = {}
+    lib["lstm2_enc_fwd"], lib["lstm2_enc_bwd"] = time_fwd_bwd(
+        lambda: (enc_l(x_bt)[1][0][-1] * R_enc_bt).sum(), list(enc_l.parameters()))
+    lib["lstm2_dec_fwd"], lib["lstm2_dec_bwd"] = time_fwd_bwd(
+        lambda: (head(dec_l(din_bt[:, None].expand(B, T, H))[0]) * R_dec_bt).sum(),
+        [din_bt] + list(dec_l.parameters()) + list(head.parameters()))
+
+    rows = []
+    for name, replaces in LSTM_KERNELS.items():
+        flops, nbytes = lstm_work(name, T, D, H, B, K=H)
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        print(f"[time] {name} T={T} H={H} B={B}: kernel {ms[name]:.4f} ms | "
+              f"plain {plain[name]:.4f} ms | cuDNN nn.LSTM {lib[name]:.4f} ms | "
+              f"work {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
+              f"{bound:.4f} ms (f32 {t_ops:.4f}, bytes {t_bytes:.4f}); kernel at "
+              f"{bound / ms[name] * 100:.1f}% of the bound")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="shm_tpu_torch/ops/csrc/lstm_train.cu", replaces=replaces,
+            launches=counts[name], max_abs_err=errs[name], ms=ms[name],
+            plain_ms=plain[name], bound_ms=bound,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=lib[name]))
+
+    # --- one training step: kernel path, plain autograd path, cuDNN yardstick
+    model, xb, bmask = ctx["model"], ctx["xb"], ctx["bmask"]
+    eps, dm_e, dm_d = ctx["noise"]
+    opt = make_optimizer(model.parameters(), cfg.vae_train)
+
+    def step(kernel):
+        opt.zero_grad()
+        total, _, _ = batch_loss(model, xb, bmask, eps, dm_e, dm_d, 0.5, kernel)
+        total.backward()
+        opt.step()
+
+    others = [model.fc_mu, model.fc_logvar, model.fc_latent_to_hidden,
+              model.output_layer] + ([model.layer_norm] if model.layer_norm is not None else [])
+    cparams = [p for m in [enc_l, dec_l] + others for p in m.parameters()]
+    copt = make_optimizer(cparams, cfg.vae_train)
+
+    def cudnn_step():
+        from shm_tpu_torch.models.vae import vae_loss
+
+        copt.zero_grad()
+        h = enc_l(xb)[1][0][-1]
+        if model.layer_norm is not None:
+            h = model.layer_norm(h)
+        mu, logvar = model.fc_mu(h), model.fc_logvar(h)
+        z = mu + eps * torch.exp(0.5 * logvar)
+        d = torch.tanh(model.fc_latent_to_hidden(z))
+        recon = model.output_layer(dec_l(d[:, None].expand(B, T, H))[0])
+        vae_loss(recon, xb, mu, logvar, 0.5, mask=bmask)[0].backward()
+        copt.step()
+
+    step_ms = time_ms(lambda: step(True))
+    plain_step_ms = time_ms(lambda: step(False), reps=3, warm=1)
+    cudnn_step_ms = time_ms(cudnn_step)
+    print(f"[time] one training step (batch {B}, forward + backward + "
+          f"optimizer): kernel path {step_ms:.3f} ms | plain autograd path "
+          f"{plain_step_ms:.3f} ms | cuDNN nn.LSTM yardstick {cudnn_step_ms:.3f} ms; "
+          f"train-vae's loop ran at {ctx['seconds_per_epoch']:.3f} s/epoch")
+    kern = sum(ms.values())
+    print(f"[time] the four kernels sum to {kern:.3f} ms = "
+          f"{kern / step_ms * 100:.1f}% of the kernel-path step")
+    profile_device(
+        lambda: step(True), "one kernel-path training step",
+        groups={"recurrent scans (lstm2_*_kernel)": ("lstm2_",),
+                "gradient pass (contract/reduce/sum/wt_dg)":
+                    ("contract_partial", "reduce_partial", "sum_t_rowsum", "wt_dg"),
+                "optimizer (foreach/Adam kernels)": ("multi_tensor", "foreach", "adam")},
+        rest="autograd glue (LayerNorm, heads, loss, transposes, clip)")
+    return rows
 
 
 def main() -> int:
@@ -414,6 +890,9 @@ def main() -> int:
         W, y = test_windows()
         scorer, launches = phase_main_path(W, y)
         nums = phase_timing(scorer, W)
+        errs = phase_lstm_kernels_vs_plain()
+        counts, ctx = phase_train_path()
+        lstm_rows = phase_lstm_timing(errs, counts, ctx)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -421,6 +900,7 @@ def main() -> int:
         name="fused_vae_gate", route="cuda",
         source="shm_tpu_torch/ops/csrc/fused_vae.cu",
         replaces="shm_tpu/ops/fused_vae.py:125", launches=launches, **nums)]
+    kernels += lstm_rows
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

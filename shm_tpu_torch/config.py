@@ -1,8 +1,8 @@
 """Typed, frozen configuration for the port (counterpart of ``shm_tpu/config.py``).
 
-Only the dataclasses the 4DOF scoring path reads are kept: ``VAEConfig``,
-``CNNConfig`` and the windowing / split / model fields of ``Stage4DofConfig``.
-Defaults are identical to the JAX package's.
+Only the dataclasses the ported 4DOF paths read are kept: ``VAEConfig``,
+``CNNConfig``, ``TrainConfig`` and the windowing / split / model / VAE-training
+fields of ``Stage4DofConfig``. Defaults are identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -39,6 +39,21 @@ class CNNConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Shared optimizer/loop settings."""
+
+    seed: int = 42
+    epochs: int = 50
+    batch_size: int = 256
+    lr: float = 1e-3
+    weight_decay: float = 1e-5
+    grad_clip: float = 2.0
+    kl_warmup_ratio: float = 0.30
+    early_stop_patience: int = 0  # 0 disables early stopping
+    decoupled_wd: bool = False    # False = torch Adam L2 coupling; True = AdamW
+
+
+@dataclass(frozen=True)
 class Stage4DofConfig:
     """4DOF stage: windowing, per-run time-fraction splits and models."""
 
@@ -55,6 +70,12 @@ class Stage4DofConfig:
             dropout=0.3, use_layernorm=True,
         )
     )
+    vae_train: TrainConfig = field(
+        default_factory=lambda: TrainConfig(
+            epochs=50, batch_size=256, lr=1e-3, weight_decay=1e-5,
+            grad_clip=2.0, kl_warmup_ratio=0.30,
+        )
+    )
     cnn: CNNConfig = field(
         default_factory=lambda: CNNConfig(
             variant="4dof", input_channels=2, num_classes=2, dropout=0.5,
@@ -68,4 +89,5 @@ def replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["VAEConfig", "CNNConfig", "Stage4DofConfig", "replace"]
+__all__ = ["VAEConfig", "CNNConfig", "TrainConfig", "Stage4DofConfig",
+           "replace"]

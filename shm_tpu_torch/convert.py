@@ -3,7 +3,8 @@
 Layouts handled here, once, at load:
 
 - LSTM: flax ``w_ih`` [in, 4H] and ``w_hh`` [H, 4H] -> torch [4H, in] / [4H, H]
-  (transposed; gate order i|f|g|o is the same), ``b_ih + b_hh`` -> one bias.
+  (transposed; gate order i|f|g|o is the same), ``b_ih`` / ``b_hh`` ->
+  ``bias_ih`` / ``bias_hh``, kept apart because they train apart.
 - Dense: flax ``kernel`` [in, out] -> ``nn.Linear.weight`` [out, in].
 - LayerNorm: ``scale`` / ``bias`` -> ``weight`` / ``bias`` (eps 1e-5 in both).
 - Conv: HWIO -> OIHW.
@@ -14,7 +15,7 @@ Layouts handled here, once, at load:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -43,8 +44,8 @@ def vae_state_dict(params: Mapping, num_layers: int,
             pre = f"{stack}.layers.{l}"
             sd[f"{pre}.weight_ih"] = _t(np.asarray(p["w_ih"]).T)
             sd[f"{pre}.weight_hh"] = _t(np.asarray(p["w_hh"]).T)
-            sd[f"{pre}.bias"] = _t(np.asarray(p["b_ih"], np.float32)
-                                   + np.asarray(p["b_hh"], np.float32))
+            sd[f"{pre}.bias_ih"] = _t(p["b_ih"])
+            sd[f"{pre}.bias_hh"] = _t(p["b_hh"])
     if use_layernorm:
         sd["layer_norm.weight"] = _t(params["layer_norm"]["scale"])
         sd["layer_norm.bias"] = _t(params["layer_norm"]["bias"])
@@ -58,6 +59,34 @@ def vae_from_flax(params: Mapping, cfg: VAEConfig) -> TemporalVAE:
     vae.load_state_dict(vae_state_dict(params, cfg.num_layers,
                                        cfg.use_layernorm))
     return vae.eval()
+
+
+def vae_to_flax(vae: Union[TemporalVAE, Mapping]) -> Dict:
+    """The flax ``params`` tree (numpy float32) of a :class:`TemporalVAE` or of
+    its state dict: the inverse of :func:`vae_state_dict`, transposes undone,
+    so a VAE trained by the port is saved in the layout both packages read."""
+    sd = vae.state_dict() if isinstance(vae, torch.nn.Module) else vae
+    a = lambda k: np.ascontiguousarray(
+        sd[k].detach().cpu().numpy().astype(np.float32))
+    dense = lambda name: {"kernel": np.ascontiguousarray(a(f"{name}.weight").T),
+                          "bias": a(f"{name}.bias")}
+    params: Dict = {}
+    for stack in ("encoder_lstm", "decoder_lstm"):
+        params[stack] = {}
+        l = 0
+        while f"{stack}.layers.{l}.weight_ih" in sd:
+            pre = f"{stack}.layers.{l}"
+            params[stack][f"layer{l}"] = {
+                "w_ih": np.ascontiguousarray(a(f"{pre}.weight_ih").T),
+                "w_hh": np.ascontiguousarray(a(f"{pre}.weight_hh").T),
+                "b_ih": a(f"{pre}.bias_ih"), "b_hh": a(f"{pre}.bias_hh")}
+            l += 1
+    if "layer_norm.weight" in sd:
+        params["layer_norm"] = {"scale": a("layer_norm.weight"),
+                                "bias": a("layer_norm.bias")}
+    for name in ("fc_mu", "fc_logvar", "fc_latent_to_hidden", "output_layer"):
+        params[name] = dense(name)
+    return params
 
 
 def cnn4dof_state_dict(variables: Mapping, seq_len: int = 100,
@@ -131,5 +160,5 @@ def random_flax_vae_params(rng: np.random.Generator, cfg: VAEConfig) -> Dict:
     return params
 
 
-__all__ = ["vae_state_dict", "vae_from_flax", "cnn4dof_state_dict",
+__all__ = ["vae_state_dict", "vae_from_flax", "vae_to_flax", "cnn4dof_state_dict",
            "cnn4dof_from_flax", "random_flax_vae_params"]

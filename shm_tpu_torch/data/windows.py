@@ -32,6 +32,16 @@ def normalize_windows(W: torch.Tensor, mean: torch.Tensor,
     return torch.nan_to_num((W - mean) / std, nan=0.0, posinf=0.0, neginf=0.0)
 
 
+def compute_mean_std_from_windows(W: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-feature mean and population std over a window stack (N, L, F),
+    flattened over (N, L); ``std == 0 -> 1e-6``."""
+    X = W.reshape(-1, W.shape[-1])
+    mean = X.mean(dim=0)
+    std = X.std(dim=0, correction=0)
+    return mean, torch.where(std == 0.0, torch.full_like(std, 1e-6), std)
+
+
 def slice_frac(x, frac: Tuple[float, float]):
     """Slice a (T, ...) array to the [frac[0], frac[1]) time fraction
     (``int(n*f0) : int(n*f1)``, end clamped >= start)."""
@@ -48,4 +58,4 @@ def make_windows_np(x: np.ndarray, seq_len: int, stride: int = 1) -> np.ndarray:
 
 
 __all__ = ["num_windows", "make_windows", "make_windows_np",
-           "normalize_windows", "slice_frac"]
+           "normalize_windows", "compute_mean_std_from_windows", "slice_frac"]

@@ -1,56 +1,93 @@
-"""Temporal LSTM-VAE, deterministic inference (counterpart of ``shm_tpu/models/vae.py``).
+"""Temporal LSTM-VAE (counterpart of ``shm_tpu/models/vae.py``).
 
 LSTM encoder -> last hidden state [-> LayerNorm, eps 1e-5] -> fc_mu / fc_logvar
--> z = mu -> ``tanh(fc_latent_to_hidden(z))`` fed at every step of the LSTM
-decoder -> linear output head. Only the LSTM cell and ``sample=False`` are
-ported; the sampled path belongs to training.
+-> z -> ``tanh(fc_latent_to_hidden(z))`` fed at every step of the LSTM decoder
+-> linear output head. ``sample=False`` decodes the posterior mean (z = mu,
+deterministic scoring); ``sample=True`` decodes ``mu + eps * exp(0.5 * logvar)``
+with ``eps`` given or drawn from ``generator`` (training and stochastic
+validation). Inter-layer dropout is active in training mode only. Only the
+LSTM cell is ported.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from shm_tpu_torch.config import VAEConfig
-from shm_tpu_torch.models.lstm import LSTMStack
+from shm_tpu_torch.models.lstm import LSTMStack, MaskArg, uniform_init_
 
 
 class TemporalVAE(nn.Module):
     def __init__(self, input_dim: int = 12, latent_dim: int = 16,
                  hidden_dim: int = 128, num_layers: int = 2,
-                 use_layernorm: bool = True):
+                 use_layernorm: bool = True, dropout: float = 0.0):
         super().__init__()
         H, Z, D = hidden_dim, latent_dim, input_dim
         self.input_dim, self.latent_dim, self.hidden_dim = D, Z, H
         self.num_layers = num_layers
         self.use_layernorm = use_layernorm
-        self.encoder_lstm = LSTMStack(D, H, num_layers)
+        self.dropout = float(dropout)
+        self.encoder_lstm = LSTMStack(D, H, num_layers, dropout)
         # eps is torch's 1e-5, as in the JAX model (not flax's 1e-6 default)
         self.layer_norm = nn.LayerNorm(H, eps=1e-5) if use_layernorm else None
         self.fc_mu = nn.Linear(H, Z)
         self.fc_logvar = nn.Linear(H, Z)
         self.fc_latent_to_hidden = nn.Linear(Z, H)
-        self.decoder_lstm = LSTMStack(H, H, num_layers)
+        self.decoder_lstm = LSTMStack(H, H, num_layers, dropout)
         self.output_layer = nn.Linear(H, D)
 
-    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        _, h_last = self.encoder_lstm(x)
+    def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Fresh parameters, as the JAX model draws them: LSTM weights and both
+        biases ~ U(+-1/sqrt(H)); dense kernels and biases ~ U(+-1/sqrt(fan_in))
+        (torch's ``nn.Linear`` default); LayerNorm at (1, 0). ``generator`` is
+        a CPU generator; the values are copied to the module's device."""
+        cpu = TemporalVAE(self.input_dim, self.latent_dim, self.hidden_dim,
+                          self.num_layers, self.use_layernorm, self.dropout)
+        for stack in (cpu.encoder_lstm, cpu.decoder_lstm):
+            uniform_init_(stack, 1.0 / self.hidden_dim ** 0.5, generator)
+        for fc in (cpu.fc_mu, cpu.fc_logvar, cpu.fc_latent_to_hidden,
+                   cpu.output_layer):
+            uniform_init_(fc, 1.0 / fc.in_features ** 0.5, generator)
+        self.load_state_dict(cpu.state_dict())
+
+    def encode(self, x: torch.Tensor, dropout_masks: MaskArg = None,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        _, h_last = self.encoder_lstm(x, dropout_masks=dropout_masks,
+                                      generator=generator)
         if self.layer_norm is not None:
             h_last = self.layer_norm(h_last)
         return self.fc_mu(h_last), self.fc_logvar(h_last)
 
-    def decode(self, z: torch.Tensor, seq_len: int) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, seq_len: int,
+               dropout_masks: MaskArg = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h0 = torch.tanh(self.fc_latent_to_hidden(z))               # [B, H]
-        decoded, _ = self.decoder_lstm(h0, broadcast_steps=seq_len)
+        decoded, _ = self.decoder_lstm(h0, broadcast_steps=seq_len,
+                                       dropout_masks=dropout_masks,
+                                       generator=generator)
         return self.output_layer(decoded)                           # [B, T, D]
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, sample: bool = False,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[Tuple[MaskArg, MaskArg]] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(recon, mu, logvar), decoding the posterior mean (z = mu)."""
-        mu, logvar = self.encode(x)
-        return self.decode(mu, x.shape[1]), mu, logvar
+        """(recon, mu, logvar). ``dropout_masks`` is an (encoder, decoder)
+        pair of explicit inverted masks (see :class:`LSTMStack`)."""
+        m_enc, m_dec = dropout_masks if dropout_masks is not None else (None, None)
+        mu, logvar = self.encode(x, m_enc, generator)
+        if sample:
+            if eps is None:
+                eps = torch.randn(mu.shape, generator=generator,
+                                  device=mu.device, dtype=mu.dtype)
+            z = mu + eps * torch.exp(0.5 * logvar)
+        else:
+            z = mu
+        return self.decode(z, x.shape[1], m_dec, generator), mu, logvar
 
 
 def vae_from_config(cfg: VAEConfig) -> TemporalVAE:
@@ -59,7 +96,30 @@ def vae_from_config(cfg: VAEConfig) -> TemporalVAE:
             f"cell={cfg.cell!r} is not ported yet (LSTM cell only)")
     return TemporalVAE(input_dim=cfg.input_dim, latent_dim=cfg.latent_dim,
                        hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
-                       use_layernorm=cfg.use_layernorm)
+                       use_layernorm=cfg.use_layernorm, dropout=cfg.dropout)
 
 
-__all__ = ["TemporalVAE", "vae_from_config"]
+def vae_loss(recon: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,
+             logvar: torch.Tensor, kl_weight,
+             mask: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(total, recon_loss, kl): total = MSE(recon, x) + w * KL, mean-reduced.
+
+    ``mask``: per-window validity [B] of a padded batch; the masked means
+    equal the unpadded reduction.
+    """
+    if mask is None:
+        recon_loss = torch.mean((recon - x) ** 2)
+        kl = -0.5 * torch.mean(1.0 + logvar - mu ** 2 - torch.exp(logvar))
+    else:
+        m = mask.to(recon.dtype)
+        n = m.sum()
+        denom_r = torch.clamp(n * (x.shape[1] * x.shape[2]), min=1.0)
+        recon_loss = torch.sum(((recon - x) ** 2) * m[:, None, None]) / denom_r
+        denom_k = torch.clamp(n * mu.shape[1], min=1.0)
+        kl_terms = (1.0 + logvar - mu ** 2 - torch.exp(logvar)) * m[:, None]
+        kl = -0.5 * torch.sum(kl_terms) / denom_k
+    return recon_loss + kl_weight * kl, recon_loss, kl
+
+
+__all__ = ["TemporalVAE", "vae_from_config", "vae_loss"]

@@ -76,9 +76,22 @@ def build(names: Iterable[str]) -> Dict[str, Tuple[Path, float, str]]:
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it if needed."""
+    """The built library of ``csrc/<name>.cu``, building it if needed. Every
+    source exports ``shm_cuda_error_string``; it is declared here."""
     path, _, _ = build([name])[name]
-    return ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(path))
+    lib.shm_cuda_error_string.restype = ctypes.c_char_p
+    lib.shm_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
-__all__ = ["build", "load_library", "library_path", "BUILD_DIR", "CSRC"]
+def raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise for the non-zero CUDA error code a C entry of ``lib`` returned."""
+    if err != 0:
+        msg = lib.shm_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+
+
+__all__ = ["build", "load_library", "raise_on_error", "library_path",
+           "BUILD_DIR", "CSRC"]

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from shm_tpu_torch.models.vae import TemporalVAE
+from shm_tpu_torch.ops._build import load_library, raise_on_error
 
 # pointer order of the C entry (csrc/fused_vae.cu: shm_fused_vae_gate_f32)
 _WEIGHT_ORDER = (
@@ -42,7 +43,8 @@ def vae_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
     """The kernel's weight dict from a :class:`TemporalVAE`, on its device.
 
     Matmul weights are [in, out] (LSTM ``*_wih`` [in, 4H], ``*_whh`` [H, 4H],
-    gates i|f|g|o), biases 1-D; every tensor is contiguous float32.
+    gates i|f|g|o), biases 1-D (the cell's ``bias_ih + bias_hh``); every
+    tensor is contiguous float32.
     """
     f32 = lambda t: t.detach().to(torch.float32).contiguous()
     w = {}
@@ -50,7 +52,7 @@ def vae_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
         for l, layer in enumerate(stack.layers):
             w[f"{prefix}{l}_wih"] = f32(layer.weight_ih.t())
             w[f"{prefix}{l}_whh"] = f32(layer.weight_hh.t())
-            w[f"{prefix}{l}_b"] = f32(layer.bias)
+            w[f"{prefix}{l}_b"] = f32(layer.bias_ih + layer.bias_hh)
     if vae.layer_norm is not None:
         w["ln_scale"] = f32(vae.layer_norm.weight)
         w["ln_bias"] = f32(vae.layer_norm.bias)
@@ -145,15 +147,11 @@ def _check(weights, Z, num_layers, use_layernorm):
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C entries declared (built at first
     use, never at import)."""
-    from shm_tpu_torch.ops._build import load_library
-
     lib = load_library("fused_vae")
     fn = lib.shm_fused_vae_gate_f32
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
-    lib.shm_cuda_error_string.restype = ctypes.c_char_p
-    lib.shm_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -173,10 +171,7 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual):
             Z.data_ptr(), resid.data_ptr() if with_residual else None,
             mse.data_ptr(), ptrs, len(_WEIGHT_ORDER), N, T, D, H, Zd,
             num_layers, int(use_layernorm), int(with_residual), stream)
-    if err != 0:
-        msg = lib.shm_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_vae_gate kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
+    raise_on_error(lib, err, "fused_vae_gate")
     fused_vae_gate.launches += 1
     return mse, resid
 

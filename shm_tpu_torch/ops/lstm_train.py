@@ -1,0 +1,396 @@
+"""Two-layer LSTM training scans with hand-written CUDA forward and backward.
+
+Counterpart of ``shm_tpu/ops/lstm_train.py``, with its public layouts (batch
+last) so the two can be compared like with like:
+
+- :func:`lstm2_enc_last`: xs [T, D, B], inverted-dropout mask dm [T, H, B]
+  (multiplies layer 0's output before layer 1; constant, no gradient),
+  weights [4H, in] with gates i|f|g|o, biases [4H, 1] -> the top layer's
+  last hidden state h_last [H, B]. Nothing else of the scan is kept.
+- :func:`lstm2_dec_head`: dec_in [K, B], fed to layer 0 at every one of T
+  steps (projected once), same mask and weights, output head out_w [D, H],
+  out_b [D, 1] folded in -> recon [T, D, B].
+- :func:`vae_train_forward`: the training-mode VAE forward built on the two
+  ops; LayerNorm, the latent heads, the reparameterisation and
+  ``tanh(fc_latent_to_hidden)`` are plain PyTorch under autograd.
+
+On CUDA tensors each op is a ``torch.autograd.Function`` whose forward and
+backward launch the kernels of ``csrc/lstm_train.cu`` (built with nvcc for
+``sm_90a`` at first use) and count their launches in ``<op>.fwd_launches`` and
+``<op>.bwd_launches``; a failed launch raises, and nothing falls back. The
+forward stashes only the pre-step state (h0, c0, h1, c1) per step; the
+backward recomputes the gates. Under ``torch.no_grad()`` no stash is written.
+On CPU tensors the ops run their plain versions, :func:`lstm2_scan_reference`
+and :func:`lstm2_dec_head_reference` (a Python time loop under autograd), which
+the tests hold against the JAX package and ``chip_smoke.py`` holds the kernels
+against. Computation is float32 with float32 accumulation. ``dm=None`` means
+a unit mask.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from shm_tpu_torch.models.vae import TemporalVAE
+from shm_tpu_torch.ops._build import load_library, raise_on_error
+
+_HIDDEN = (32, 64, 128)
+_D_MAX, _K_MAX = 32, 128
+_T_PER_SPLIT = 4        # steps per partial sum of the weight-gradient pass
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _cell(h, c, gates, H):
+    i, f, g, o = gates.split(H, dim=0)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def lstm2_scan_reference(xs, dm, w0i, w0h, b0, w1i, w1h, b1) -> torch.Tensor:
+    """Plain two-layer scan, same layout: the per-step top-layer outputs
+    [T, H, B]."""
+    T, _, B = xs.shape
+    H = w0h.shape[1]
+    h0 = c0 = h1 = c1 = xs.new_zeros(H, B)
+    outs = []
+    for t in range(T):
+        h0, c0 = _cell(h0, c0, w0i @ xs[t] + w0h @ h0 + b0, H)
+        h0d = h0 if dm is None else h0 * dm[t]
+        h1, c1 = _cell(h1, c1, w1i @ h0d + w1h @ h1 + b1, H)
+        outs.append(h1)
+    return torch.stack(outs)
+
+
+def lstm2_dec_head_reference(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1,
+                             out_w, out_b, T: int) -> torch.Tensor:
+    """Plain version of :func:`lstm2_dec_head`: recon [T, D, B]."""
+    H, B = w0h.shape[1], dec_in.shape[1]
+    xp = w0i @ dec_in + b0                                    # once
+    h0 = c0 = h1 = c1 = dec_in.new_zeros(H, B)
+    outs = []
+    for t in range(T):
+        h0, c0 = _cell(h0, c0, xp + w0h @ h0, H)
+        h0d = h0 if dm is None else h0 * dm[t]
+        h1, c1 = _cell(h1, c1, w1i @ h0d + w1h @ h1 + b1, H)
+        outs.append(out_w @ h1 + out_b)
+    return torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C entries declared (built at first
+    use, never at import)."""
+    lib = load_library("lstm_train")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.shm_lstm2_enc_fwd_f32.argtypes = [P] * 6 + [I] * 4 + [P]
+    lib.shm_lstm2_enc_bwd_f32.argtypes = [P] * 8 + [I] * 5 + [P]
+    lib.shm_lstm2_dec_fwd_f32.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.shm_lstm2_dec_bwd_f32.argtypes = [P] * 8 + [I] * 6 + [P]
+    for fn in (lib.shm_lstm2_enc_fwd_f32, lib.shm_lstm2_enc_bwd_f32,
+               lib.shm_lstm2_dec_fwd_f32, lib.shm_lstm2_dec_bwd_f32):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _ptrs(tensors: Sequence[Optional[torch.Tensor]]):
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _f32c(name: str, t: torch.Tensor, device, shape=None) -> torch.Tensor:
+    if t.device != device or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 on {device}, got {t.dtype} "
+                         f"on {t.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t.detach().contiguous()
+
+
+def _stack_weights(dev, in_dim, H, w0i, w0h, b0, w1i, w1h, b1):
+    """Checked kernel weight list: the four matrices transposed to [in, 4H]
+    (coalesced for the gate products), the biases, and the matrices as given
+    ([4H, in], coalesced for the transposed products of the backward)."""
+    if H not in _HIDDEN:
+        raise ValueError(f"unsupported hidden size for the LSTM training "
+                         f"kernels: H={H} (need one of {_HIDDEN})")
+    w0i = _f32c("w0i", w0i, dev, (4 * H, in_dim))
+    w0h = _f32c("w0h", w0h, dev, (4 * H, H))
+    w1i = _f32c("w1i", w1i, dev, (4 * H, H))
+    w1h = _f32c("w1h", w1h, dev, (4 * H, H))
+    b0 = _f32c("b0", b0, dev, (4 * H, 1))
+    b1 = _f32c("b1", b1, dev, (4 * H, 1))
+    tr = lambda w: w.t().contiguous()
+    return [tr(w0i), tr(w0h), b0, tr(w1i), tr(w1h), b1, w0i, w0h, w1i, w1h]
+
+
+def _check_mask(dm, dev, T, H, B):
+    return None if dm is None else _f32c("dm", dm, dev, (T, H, B))
+
+
+def _splits(T: int) -> int:
+    return -(-T // _T_PER_SPLIT)
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def enc_forward_cuda(xs, dm, w0i, w0h, b0, w1i, w1h, b1, keep_stash=True):
+    """Launch the encoder forward kernel: (h_last [H,B], saved). ``saved`` is
+    what :func:`enc_backward_cuda` needs, or None without a stash."""
+    dev = xs.device
+    T, D, B = xs.shape
+    H = w0h.shape[1]
+    if D > _D_MAX:
+        raise ValueError(f"encoder input width {D} > {_D_MAX}")
+    xs = _f32c("xs", xs, dev)
+    dm = _check_mask(dm, dev, T, H, B)
+    w = _stack_weights(dev, D, H, w0i, w0h, b0, w1i, w1h, b1)
+    h_last = torch.empty(H, B, device=dev, dtype=torch.float32)
+    fin = torch.empty(4 * H, B, device=dev, dtype=torch.float32)
+    stash = (torch.empty(T, 4 * H, B, device=dev, dtype=torch.float32)
+             if keep_stash else None)
+    with torch.cuda.device(dev):
+        err = _library().shm_lstm2_enc_fwd_f32(
+            xs.data_ptr(), _ptr(dm), _ptrs(w), _ptr(stash), h_last.data_ptr(),
+            fin.data_ptr(), T, D, H, B, _stream(xs))
+    raise_on_error(_library(), err, "lstm2_enc_last forward")
+    lstm2_enc_last.fwd_launches += 1
+    return h_last, ((xs, dm, w, stash, fin) if keep_stash else None)
+
+
+def enc_backward_cuda(saved, d_hlast, need_dx=True):
+    """Launch the encoder backward kernels: (dx | None, gw0i, gw0h, gb0,
+    gw1i, gw1h, gb1)."""
+    xs, dm, w, stash, fin = saved
+    dev = xs.device
+    T, D, B = xs.shape
+    H = fin.shape[0] // 4
+    d_hlast = _f32c("d_hlast", d_hlast, dev, (H, B))
+    new = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
+    S = _splits(T)
+    scratch = [new(T, 4 * H, B), new(T, 4 * H, B), new(S, 4 * H, max(H, D))]
+    out = [new(T, D, B) if need_dx else None, new(4 * H, D), new(4 * H, H),
+           new(4 * H, 1), new(4 * H, H), new(4 * H, H), new(4 * H, 1)]
+    with torch.cuda.device(dev):
+        err = _library().shm_lstm2_enc_bwd_f32(
+            xs.data_ptr(), _ptr(dm), _ptrs(w), stash.data_ptr(),
+            fin.data_ptr(), d_hlast.data_ptr(), _ptrs(scratch), _ptrs(out),
+            T, D, H, B, S, _stream(xs))
+    raise_on_error(_library(), err, "lstm2_enc_last backward")
+    lstm2_enc_last.bwd_launches += 1
+    return tuple(out)
+
+
+def dec_forward_cuda(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1, out_w, out_b,
+                     T: int, keep_stash=True):
+    """Launch the decoder forward kernel: (recon [T,D,B], saved)."""
+    dev = dec_in.device
+    K, B = dec_in.shape
+    H = w0h.shape[1]
+    D = out_w.shape[0]
+    if D > _D_MAX or K > _K_MAX:
+        raise ValueError(f"decoder head width {D} > {_D_MAX} or input width "
+                         f"{K} > {_K_MAX}")
+    dec_in = _f32c("dec_in", dec_in, dev)
+    dm = _check_mask(dm, dev, T, H, B)
+    w = _stack_weights(dev, K, H, w0i, w0h, b0, w1i, w1h, b1)
+    w += [_f32c("out_w", out_w, dev, (D, H)), _f32c("out_b", out_b, dev, (D, 1))]
+    recon = torch.empty(T, D, B, device=dev, dtype=torch.float32)
+    fin = torch.empty(4 * H, B, device=dev, dtype=torch.float32)
+    stash = (torch.empty(T, 4 * H, B, device=dev, dtype=torch.float32)
+             if keep_stash else None)
+    with torch.cuda.device(dev):
+        err = _library().shm_lstm2_dec_fwd_f32(
+            dec_in.data_ptr(), _ptr(dm), _ptrs(w), recon.data_ptr(),
+            _ptr(stash), fin.data_ptr(), T, D, H, K, B, _stream(dec_in))
+    raise_on_error(_library(), err, "lstm2_dec_head forward")
+    lstm2_dec_head.fwd_launches += 1
+    return recon, ((dec_in, dm, w, stash, fin, T, D) if keep_stash else None)
+
+
+def dec_backward_cuda(saved, d_recon):
+    """Launch the decoder backward kernels: (d dec_in, gw0i, gw0h, gb0, gw1i,
+    gw1h, gb1, g out_w, g out_b)."""
+    dec_in, dm, w, stash, fin, T, D = saved
+    dev = dec_in.device
+    K, B = dec_in.shape
+    H = fin.shape[0] // 4
+    d_recon = _f32c("d_recon", d_recon, dev, (T, D, B))
+    new = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
+    S = _splits(T)
+    scratch = [new(T, 4 * H, B), new(T, 4 * H, B),
+               new(S, 4 * H, max(H, K, D)), new(4 * H, B)]
+    out = [new(K, B), new(4 * H, K), new(4 * H, H), new(4 * H, 1),
+           new(4 * H, H), new(4 * H, H), new(4 * H, 1), new(D, H), new(D, 1)]
+    with torch.cuda.device(dev):
+        err = _library().shm_lstm2_dec_bwd_f32(
+            dec_in.data_ptr(), _ptr(dm), _ptrs(w), stash.data_ptr(),
+            fin.data_ptr(), d_recon.data_ptr(), _ptrs(scratch), _ptrs(out),
+            T, D, H, K, B, S, _stream(dec_in))
+    raise_on_error(_library(), err, "lstm2_dec_head backward")
+    lstm2_dec_head.bwd_launches += 1
+    return tuple(out)
+
+
+class _EncLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xs, dm, keep, *weights):
+        h_last, saved = enc_forward_cuda(xs, dm, *weights, keep_stash=keep)
+        ctx.saved = saved
+        return h_last
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_hlast):
+        if ctx.saved is None:
+            raise RuntimeError("lstm2_enc_last: backward without a stash")
+        grads = enc_backward_cuda(ctx.saved, d_hlast,
+                                  need_dx=ctx.needs_input_grad[0])
+        ctx.saved = None
+        return (grads[0], None, None) + grads[1:]
+
+
+class _DecHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dec_in, dm, T, keep, *weights):
+        recon, saved = dec_forward_cuda(dec_in, dm, *weights, T=T,
+                                        keep_stash=keep)
+        ctx.saved = saved
+        return recon
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_recon):
+        if ctx.saved is None:
+            raise RuntimeError("lstm2_dec_head: backward without a stash")
+        grads = dec_backward_cuda(ctx.saved, d_recon)
+        ctx.saved = None
+        return (grads[0], None, None, None) + grads[1:]
+
+
+def _wants_grad(*tensors) -> bool:
+    """Whether a backward can follow (decided outside the Function: autograd
+    is switched off inside ``forward``); without one no stash is written."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def lstm2_enc_last(xs, dm, w0i, w0h, b0, w1i, w1h, b1) -> torch.Tensor:
+    """Two-layer LSTM over a sequence -> the LAST top-layer state [H, B].
+
+    Differentiable in xs and the six weights; the mask is a constant. A CUDA
+    tensor runs the kernels, a CPU tensor the plain version.
+    """
+    if xs.device.type == "cuda":
+        w = (w0i, w0h, b0, w1i, w1h, b1)
+        return _EncLast.apply(xs, dm, _wants_grad(xs, *w), *w)
+    if xs.device.type == "cpu":
+        if dm is not None:
+            dm = dm.detach()
+        return lstm2_scan_reference(xs, dm, w0i, w0h, b0, w1i, w1h, b1)[-1]
+    raise ValueError(f"lstm2_enc_last: unsupported device {xs.device}")
+
+
+def lstm2_dec_head(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1, out_w, out_b,
+                   T: int = 100) -> torch.Tensor:
+    """Two-layer LSTM decoder with a constant input and a fused output head
+    -> recon [T, D, B]. Differentiable in dec_in, the weights and the head.
+    """
+    if dec_in.device.type == "cuda":
+        w = (w0i, w0h, b0, w1i, w1h, b1, out_w, out_b)
+        return _DecHead.apply(dec_in, dm, T, _wants_grad(dec_in, *w), *w)
+    if dec_in.device.type == "cpu":
+        if dm is not None:
+            dm = dm.detach()
+        return lstm2_dec_head_reference(dec_in, dm, w0i, w0h, b0, w1i, w1h,
+                                        b1, out_w, out_b, T)
+    raise ValueError(f"lstm2_dec_head: unsupported device {dec_in.device}")
+
+
+# kernel launches so far (one per op call and direction); callers reset them
+# to 0 to count one run's launches
+lstm2_enc_last.fwd_launches = 0
+lstm2_enc_last.bwd_launches = 0
+lstm2_dec_head.fwd_launches = 0
+lstm2_dec_head.bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the VAE's training forward
+# ---------------------------------------------------------------------------
+
+def stack_op_weights(stack) -> Tuple[torch.Tensor, ...]:
+    """(w0i, w0h, b0, w1i, w1h, b1) of a 2-layer :class:`LSTMStack` in the
+    ops' layout, under autograd: each bias is ``bias_ih + bias_hh`` as a
+    [4H, 1] column, so both parameters receive the same gradient."""
+    out = []
+    for layer in stack.layers:
+        out += [layer.weight_ih, layer.weight_hh,
+                (layer.bias_ih + layer.bias_hh)[:, None]]
+    return tuple(out)
+
+
+def vae_train_forward(vae: TemporalVAE, Z: torch.Tensor,
+                      eps: Optional[torch.Tensor],
+                      dm_enc: Optional[torch.Tensor],
+                      dm_dec: Optional[torch.Tensor], *,
+                      use_kernel: Optional[bool] = None):
+    """Training-mode VAE forward on the two fused scans.
+
+    Z: [B, T, D] normalized windows; eps: [B, Zdim] reparameterisation noise
+    (None decodes the posterior mean); dm_enc / dm_dec: [T, H, B] inverted
+    dropout masks (None = no dropout). Returns (recon [B, T, D], mu, logvar),
+    differentiable in every parameter of ``vae``.
+
+    ``use_kernel``: None or True runs the ops (the CUDA kernels for CUDA
+    tensors, their plain versions for CPU tensors); False runs the plain
+    versions wherever the tensors are.
+    """
+    if vae.num_layers != 2:
+        raise ValueError("vae_train_forward requires a 2-layer LSTM preset")
+    B, T, _ = Z.shape
+    xs = Z.permute(1, 2, 0).to(torch.float32).contiguous()        # [T, D, B]
+    enc_w = stack_op_weights(vae.encoder_lstm)
+    dec_w = stack_op_weights(vae.decoder_lstm)
+    head = (vae.output_layer.weight, vae.output_layer.bias[:, None])
+    plain = use_kernel is False
+
+    if plain:
+        h_last = lstm2_scan_reference(xs, dm_enc, *enc_w)[-1]
+    else:
+        h_last = lstm2_enc_last(xs, dm_enc, *enc_w)
+    h = h_last.t()                                                # [B, H]
+    if vae.layer_norm is not None:
+        h = vae.layer_norm(h)
+    mu, logvar = vae.fc_mu(h), vae.fc_logvar(h)
+    z = mu if eps is None else mu + eps * torch.exp(0.5 * logvar)
+    dec_in = torch.tanh(vae.fc_latent_to_hidden(z)).t().contiguous()  # [H, B]
+    if plain:
+        recon = lstm2_dec_head_reference(dec_in, dm_dec, *dec_w, *head, T)
+    else:
+        recon = lstm2_dec_head(dec_in, dm_dec, *dec_w, *head, T)
+    return recon.permute(2, 0, 1), mu, logvar
+
+
+__all__ = [
+    "lstm2_enc_last", "lstm2_dec_head", "lstm2_scan_reference",
+    "lstm2_dec_head_reference", "vae_train_forward", "stack_op_weights",
+    "enc_forward_cuda", "enc_backward_cuda", "dec_forward_cuda",
+    "dec_backward_cuda",
+]

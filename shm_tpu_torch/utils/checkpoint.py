@@ -1,11 +1,14 @@
-"""Reader of flax msgpack checkpoints, in pure Python (no ``msgpack`` package).
+"""Reader and writer of flax msgpack checkpoints, in pure Python (no ``msgpack``
+package).
 
 The JAX package writes a checkpoint with ``flax.serialization.to_bytes``: a
 msgpack map of nested maps whose leaves are numpy arrays, each packed as
 msgpack ext type 1 holding a nested msgpack array ``(shape, dtype_name,
 row-major bytes)`` (``flax.serialization._ndarray_to_bytes``); numpy scalars
 use ext type 3 with the same payload. :func:`load_checkpoint` decodes that
-into a nested ``dict`` of numpy arrays.
+into a nested ``dict`` of numpy arrays; :func:`save_checkpoint` writes such a
+tree back in the same encoding, so that a checkpoint written by the port is
+restored by ``flax.serialization.from_bytes`` and by this reader alike.
 
 The decoder covers the msgpack types such a file can hold: nil, bool, ints,
 floats, str, bin, array, map and ext.
@@ -15,7 +18,7 @@ from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -134,4 +137,68 @@ def load_checkpoint(path: str | Path) -> Dict[str, Any]:
     return tree
 
 
-__all__ = ["load_checkpoint", "unpackb"]
+def _pack_len(n: int, fix: Optional[int], fix_max: int, codes) -> bytes:
+    """Length header: the fix form up to ``fix_max``, else the 8/16/32-bit
+    form of ``codes`` (None where msgpack has no such width)."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"),
+                                (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"object too large for msgpack ({n})")
+
+
+def packb(obj: Any) -> bytes:
+    """Encode nil, bool, int, float (as float64), str, bytes, list/tuple, dict
+    and numpy arrays (ext type 1, as flax packs them) as msgpack."""
+    if obj is None:
+        return b"\xc0"
+    if isinstance(obj, (bool, np.bool_)):
+        return b"\xc3" if obj else b"\xc2"
+    if isinstance(obj, (int, np.integer)):
+        n = int(obj)
+        if 0 <= n <= 0x7F:
+            return bytes([n])
+        if -32 <= n < 0:
+            return struct.pack(">b", n)
+        for code, fmt, lo, hi in ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF),
+                                  (0xCE, ">I", 0, 0xFFFFFFFF),
+                                  (0xCF, ">Q", 0, 2 ** 64 - 1),
+                                  (0xD0, ">b", -2 ** 7, -1),
+                                  (0xD1, ">h", -2 ** 15, -1),
+                                  (0xD2, ">i", -2 ** 31, -1),
+                                  (0xD3, ">q", -2 ** 63, -1)):
+            if lo <= n <= hi:
+                return bytes([code]) + struct.pack(fmt, n)
+        raise ValueError(f"integer out of msgpack range: {n}")
+    if isinstance(obj, (float, np.floating)):
+        return b"\xcb" + struct.pack(">d", float(obj))
+    if isinstance(obj, str):
+        data = obj.encode("utf-8")
+        return _pack_len(len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB)) + data
+    if isinstance(obj, (bytes, bytearray)):
+        return _pack_len(len(obj), None, 0, (0xC4, 0xC5, 0xC6)) + bytes(obj)
+    if isinstance(obj, (list, tuple)):
+        return (_pack_len(len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+                + b"".join(packb(x) for x in obj))
+    if isinstance(obj, dict):
+        return (_pack_len(len(obj), 0x80, 15, (None, 0xDE, 0xDF))
+                + b"".join(packb(k) + packb(v) for k, v in obj.items()))
+    if isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject:
+            raise ValueError("object arrays cannot be serialized")
+        payload = packb((list(obj.shape), obj.dtype.name, obj.tobytes("C")))
+        return (_pack_len(len(payload), None, 0, (0xC7, 0xC8, 0xC9))
+                + struct.pack(">b", _EXT_NDARRAY) + payload)
+    raise TypeError(f"cannot pack {type(obj).__name__} as msgpack")
+
+
+def save_checkpoint(tree: Dict[str, Any], path: str | Path) -> None:
+    """Write a nested dict of numpy arrays as a flax-readable msgpack file."""
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    p.write_bytes(packb(tree))
+
+
+__all__ = ["load_checkpoint", "save_checkpoint", "unpackb", "packb"]

@@ -1,4 +1,4 @@
-"""JSON / CSV artifact readers (counterpart of ``shm_tpu/utils/io.py``).
+"""JSON / npy / CSV artifact io (counterpart of ``shm_tpu/utils/io.py``).
 
 numpy only: the CSV reader is the ``np.loadtxt`` branch of the JAX package's
 ``load_csv_numeric``, with the same shape and finiteness guards.
@@ -11,6 +11,25 @@ from pathlib import Path
 from typing import Any
 
 import numpy as np
+
+
+def ensure_dir(path: str | Path) -> Path:
+    p = Path(path)
+    p.mkdir(parents=True, exist_ok=True)
+    return p
+
+
+def save_json(obj: Any, path: str | Path, indent: int = 2) -> None:
+    p = Path(path)
+    ensure_dir(p.parent)
+    with p.open("w", encoding="utf-8") as f:
+        json.dump(obj, f, indent=indent)
+
+
+def save_npy(arr, path: str | Path) -> None:
+    p = Path(path)
+    ensure_dir(p.parent)
+    np.save(p, np.asarray(arr), allow_pickle=False)
 
 
 def load_json(path: str | Path) -> Any:
@@ -38,4 +57,5 @@ def load_csv_numeric(path: str | Path, num_features: int | None = None) -> np.nd
     return X
 
 
-__all__ = ["load_json", "load_csv_numeric"]
+__all__ = ["ensure_dir", "save_json", "save_npy", "load_json",
+           "load_csv_numeric"]

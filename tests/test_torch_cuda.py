@@ -70,3 +70,123 @@ def test_fused_vae_kernel_refuses_bad_input(cuda_device):
     with pytest.raises(ValueError, match="unsupported shape"):
         fused_vae_gate(w, torch.zeros(2, 5, 12, device=cuda_device),
                        num_layers=1, use_layernorm=True)
+    # the caller does not give way to the plain model either
+    from shm_tpu_torch.train import reconstruction_mse
+
+    with pytest.raises(ValueError, match="unsupported shape"):
+        reconstruction_mse(vae, np.zeros((2, 5, 12), np.float32))
+
+
+# --- the LSTM training kernels (ops/lstm_train.py) ---------------------------
+# Kernel against plain version under autograd, both float32 on the card. The
+# backward sums T*B terms per weight-gradient entry in another order than
+# autograd does, so gradients are held to atol 2e-4 * max|plain| (+ rtol 1e-4).
+
+LSTM_CASES = {  # name: (T, D, H, B, dropout)
+    "4dof_small_T": (20, 12, 128, 64, 0.3),
+    "ragged_batch": (15, 12, 64, 37, 0.3),
+    "1dof_H32": (80, 12, 32, 64, 0.2),
+    "unit_mask": (10, 6, 32, 8, 0.0),
+}
+
+
+def _lstm_inputs(name, device):
+    T, D, H, B, drop = LSTM_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    u = lambda *s: t(rng.uniform(-1, 1, size=s) / np.sqrt(H))
+    ws = [u(4 * H, D), u(4 * H, H), u(4 * H, 1), u(4 * H, H), u(4 * H, H),
+          u(4 * H, 1)]
+    dm = (t((rng.random((T, H, B)) > drop) / (1.0 - drop)) if drop else None)
+    return (T, D, H, B), rng, t, u, ws, dm
+
+
+def _assert_grads_close(got, want, names):
+    for n, g, w in zip(names, got, want):
+        atol = 2e-4 * max(float(w.abs().max()), 1e-6)
+        torch.testing.assert_close(g, w, atol=atol, rtol=1e-4, msg=lambda m: f"{n}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LSTM_CASES))
+def test_lstm2_enc_last_kernel_matches_plain_version(cuda_device, name):
+    from shm_tpu_torch.ops import lstm2_enc_last, lstm2_scan_reference
+
+    (T, D, H, B), rng, t, u, ws, dm = _lstm_inputs(name, cuda_device)
+    xs = t(rng.normal(size=(T, D, B)))
+    R = t(rng.normal(size=(H, B)))
+    leaves = [a.clone().requires_grad_(True) for a in [xs] + ws]
+    f0, b0 = lstm2_enc_last.fwd_launches, lstm2_enc_last.bwd_launches
+    out = lstm2_enc_last(leaves[0], dm, *leaves[1:])
+    got = torch.autograd.grad((out * R).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (lstm2_enc_last.fwd_launches, lstm2_enc_last.bwd_launches) == (f0 + 1, b0 + 1)
+    ref_leaves = [a.clone().requires_grad_(True) for a in [xs] + ws]
+    ref = lstm2_scan_reference(ref_leaves[0], dm, *ref_leaves[1:])[-1]
+    want = torch.autograd.grad((ref * R).sum(), ref_leaves)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    _assert_grads_close(got, want, ["dx", "w0i", "w0h", "b0", "w1i", "w1h", "b1"])
+    with torch.no_grad():                       # no stash, same result
+        torch.testing.assert_close(lstm2_enc_last(xs, dm, *ws), out, atol=0, rtol=0)
+        # the trainer's validation mode: no stash and a null mask
+        torch.testing.assert_close(
+            lstm2_enc_last(xs, None, *ws),
+            lstm2_scan_reference(xs, None, *ws)[-1], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LSTM_CASES))
+def test_lstm2_dec_head_kernel_matches_plain_version(cuda_device, name):
+    from shm_tpu_torch.ops import lstm2_dec_head, lstm2_dec_head_reference
+
+    (T, D, H, B), rng, t, u, ws, dm = _lstm_inputs(name, cuda_device)
+    ws[0] = u(4 * H, H)                         # decoder input is H wide
+    head = [u(D, H), u(D, 1)]
+    din = t(rng.normal(size=(H, B)))
+    R = t(rng.normal(size=(T, D, B)))
+    leaves = [a.clone().requires_grad_(True) for a in [din] + ws + head]
+    f0, b0 = lstm2_dec_head.fwd_launches, lstm2_dec_head.bwd_launches
+    out = lstm2_dec_head(leaves[0], dm, *leaves[1:], T=T)
+    got = torch.autograd.grad((out * R).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (lstm2_dec_head.fwd_launches, lstm2_dec_head.bwd_launches) == (f0 + 1, b0 + 1)
+    ref_leaves = [a.clone().requires_grad_(True) for a in [din] + ws + head]
+    ref = lstm2_dec_head_reference(ref_leaves[0], dm, *ref_leaves[1:], T)
+    want = torch.autograd.grad((ref * R).sum(), ref_leaves)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    _assert_grads_close(got, want, ["ddin", "w0i", "w0h", "b0", "w1i", "w1h",
+                                    "b1", "out_w", "out_b"])
+    with torch.no_grad():                       # no stash, same result
+        torch.testing.assert_close(lstm2_dec_head(din, dm, *ws, *head, T=T),
+                                   out, atol=0, rtol=0)
+        # the trainer's validation mode: no stash and a null mask
+        torch.testing.assert_close(
+            lstm2_dec_head(din, None, *ws, *head, T=T),
+            lstm2_dec_head_reference(din, None, *ws, *head, T),
+            atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lstm_backward_is_reproducible_bit_for_bit(cuda_device):
+    from shm_tpu_torch.ops import lstm2_enc_last
+
+    (T, D, H, B), rng, t, u, ws, dm = _lstm_inputs("ragged_batch", cuda_device)
+    xs = t(rng.normal(size=(T, D, B)))
+    runs = []
+    for _ in range(2):
+        leaves = [a.clone().requires_grad_(True) for a in ws]
+        out = lstm2_enc_last(xs, dm, *leaves)
+        runs.append(torch.autograd.grad(out.sum(), leaves))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lstm_kernels_refuse_bad_input(cuda_device):
+    from shm_tpu_torch.ops import lstm2_enc_last
+
+    H = 48
+    z = lambda *s: torch.zeros(*s, device=cuda_device)
+    with pytest.raises(ValueError, match="unsupported hidden size"):
+        lstm2_enc_last(z(3, 4, 2), None, z(4 * H, 4), z(4 * H, H), z(4 * H, 1),
+                       z(4 * H, H), z(4 * H, H), z(4 * H, 1))

@@ -40,7 +40,11 @@ def _forbidden(module: str) -> bool:
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("chip_smoke.py", "shm_tpu_torch/ops/fused_vae.py",
-                 "shm_tpu_torch/serve.py", "shm_tpu_torch/pipeline.py"):
+                 "shm_tpu_torch/serve.py", "shm_tpu_torch/pipeline.py",
+                 "shm_tpu_torch/ops/lstm_train.py",
+                 "shm_tpu_torch/train/__init__.py", "shm_tpu_torch/train/vae.py",
+                 "shm_tpu_torch/train/checkpoint.py",
+                 "shm_tpu_torch/cli/stage4dof.py"):
         assert must in names
 
 
@@ -50,6 +54,28 @@ def test_no_jax_or_reference_package_import(path):
     tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
     bad = sorted({m for m in _imported_modules(tree) if _forbidden(m)})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_port_module_imports_without_a_card_or_compiler():
+    """Importing a module builds no kernel and needs no CUDA runtime."""
+    import importlib
+
+    for path in PORT_FILES:
+        rel = path.relative_to(ROOT).with_suffix("")
+        name = ".".join(rel.parts[:-1] if rel.name == "__init__" else rel.parts)
+        if name != "chip_smoke":
+            importlib.import_module(name)
+
+
+def test_kernel_sources_sit_beside_their_wrappers():
+    csrc = ROOT / "shm_tpu_torch" / "ops" / "csrc"
+    assert {p.name for p in csrc.glob("*.cu")} == {"fused_vae.cu", "lstm_train.cu"}
+    src = (csrc / "lstm_train.cu").read_text()
+    for entry in ("shm_lstm2_enc_fwd_f32", "shm_lstm2_enc_bwd_f32",
+                  "shm_lstm2_dec_fwd_f32", "shm_lstm2_dec_bwd_f32"):
+        assert f'extern "C" int {entry}(' in src
+    assert "atomicAdd" not in src and "use_fast_math" not in src.replace(
+        "no --use_fast_math", "")
 
 
 @pytest.mark.parametrize("module, bad", [
