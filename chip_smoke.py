@@ -4,18 +4,23 @@
 Phases (any failure exits non-zero before the final line):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
-   (nvcc, ``sm_90a``, from ``shm_tpu_torch/ops/csrc``);
-2. each kernel against its plain PyTorch version on the card, random weights
-   from a numpy seed, at four shapes;
-3. the main path: ``HybridScorer.from_artifacts("data/4dof")`` on cuda scoring
-   the 3,636 committed 4DOF test windows, held against
-   ``data/4dof/figures/pipeline_metrics.json`` and against the port's plain
-   path on the same card; the kernel's launch count must be > 0;
-4. timings at bench.py's 5,440-window workload: kernel, plain version, the
-   operation/byte bound, a cuDNN ``nn.LSTM`` yardstick, and ``score()``
-   windows/s end to end;
-5. where one ``score()`` call's time goes (``torch.profiler``): device time
-   by kernel and the device's idle share;
+   (nvcc, ``sm_90a``, from ``shm_tpu_torch/ops/csrc``, four sources at once);
+2. each of the three fused gate kernels (LSTM, minGRU, attention) against
+   its plain PyTorch version on the card, random weights from a numpy seed,
+   at four shapes (minGRU also at three layers);
+3. the main path, once per model family:
+   ``HybridScorer.from_artifacts("data/4dof" | "data/4dof_mingru" |
+   "data/4dof_attention")`` on cuda scoring the 3,636 committed 4DOF test
+   windows, held against the root's ``figures/pipeline_metrics.json`` and
+   against the port's plain path on the same card; the launch count of the
+   family's kernel must be > 0 (and of the LSTM kernel 0 in the other two);
+   then ``reconstruction_mse`` through the family's gate-only kernel mode;
+4. timings at bench.py's 5,440-window workload, per family: kernel, plain
+   version, the operation/byte bound, a library yardstick (cuDNN ``nn.LSTM``;
+   ``torch.matmul`` with a log-depth scan; ``scaled_dot_product_attention``),
+   and ``score()`` windows/s end to end;
+5. where one ``score()`` call's time goes (``torch.profiler``), per family:
+   device time by kernel and the device's idle share;
 6. the four LSTM training kernels (encoder and decoder, forward and backward)
    against autograd of their plain versions: both forwards and every
    gradient, at the 4DOF training shape, a ragged batch, the 1DOF shape and
@@ -23,8 +28,7 @@ Phases (any failure exits non-zero before the final line):
    gradient, no stash, null mask) at the same shapes;
 7. the training path at full width: ``train-vae`` on the committed normal
    runs into a temporary root, the recipe unchanged but for 8 epochs of 50,
-   on the card through the kernels;
-   launch counts, finite and falling losses, the same losses bit for bit
+   on the card through the kernels; launch counts, finite and falling losses, the same losses bit for bit
    from a second run, the kernel path's first-batch loss and gradient against
    the plain autograd path, the written checkpoint read back, and
    ``reconstruction_mse`` through the fused gate kernel;
@@ -123,11 +127,73 @@ def vae_work(N: int, T: int, D: int, H: int, Z: int, L: int,
     return float(flops), float(nbytes)
 
 
+def mingru_work(N: int, T: int, D: int, H: int, Z: int, L: int,
+                with_residual: bool = True):
+    """(FLOPs, bytes) one fused minGRU gate call must do, counted as
+    ``vae_work`` counts: a layer is one [in, 2H] product per step, the
+    decoder's layer 0 one product in all."""
+    enc = T * sum(2 * 2 * H * (D if l == 0 else H) for l in range(L))
+    heads = 2 * H * Z + 2 * Z * H
+    dec = 2 * 2 * H * H + T * ((L - 1) * 2 * 2 * H * H + 2 * H * D)
+    flops = N * (enc + heads + dec)
+    n_w = (sum(((D if l == 0 else H) + 1) * 2 * H for l in range(L))
+           + L * (H + 1) * 2 * H
+           + 2 * H + (H + 1) * Z + (Z + 1) * H + (H + 1) * D)
+    nbytes = 4 * (N * T * D * (2 if with_residual else 1) + N + n_w)
+    return float(flops), float(nbytes)
+
+
+def attention_work(N: int, T: int, D: int, H: int, Z: int, L: int,
+                   with_residual: bool = True):
+    """(FLOPs, bytes) one fused attention gate call must do. A block: QKV
+    2*T*H*3H, scores and PV 2*2*T*T*H, output projection 2*T*H*H, MLP
+    2*2*T*H*4H; the decoder's in_proj once a window. Bytes: x, resid, mse,
+    every weight and the [T, H] position table once."""
+    block = 2 * T * H * 3 * H + 2 * 2 * T * T * H + 2 * T * H * H + 2 * 2 * T * H * 4 * H
+    flops = N * (2 * T * D * H + 2 * L * block + 2 * H * Z + 2 * Z * H
+                 + 2 * H * H + 2 * T * H * D)
+    block_w = 4 * H + (3 * H + 1) * H + 3 * H + (H + 1) * H + (4 * H + 1) * H + 4 * H + 4 * H * H
+    stack_w = lambda i: (i + 1) * H + L * block_w + 2 * H
+    n_w = (stack_w(D) + stack_w(H) + 2 * H + (H + 1) * Z + (Z + 1) * H
+           + (H + 1) * D + T * H)
+    nbytes = 4 * (N * T * D * (2 if with_residual else 1) + N + n_w)
+    return float(flops), float(nbytes)
+
+
+# the three model families the port scores: the committed artifacts, the
+# fused gate kernel, the TPU kernel it replaces, and how many windows of the
+# root's committed confusion matrix may move on the card. LSTM root: 2,
+# because pipeline_metrics.json was made at another matmul precision and the
+# JAX package's own float32 CPU path moves the same 2 (logit margins 0.026,
+# 0.019). minGRU and attention roots: 0, because the JAX package's float32
+# CPU path and the port's reproduce both files exactly on all 3,636 windows
+# (tests/test_torch_pipeline_cells.py), and the narrowest logit margin of any
+# faulty test window is 0.028 (minGRU) and 0.012 (attention), a thousand
+# times a float32 reordering of the sums.
+FAMILIES = {
+    "lstm": dict(root="data/4dof", kernel="fused_vae_gate",
+                 source="shm_tpu_torch/ops/csrc/fused_vae.cu",
+                 replaces="shm_tpu/ops/fused_vae.py:125", work=vae_work,
+                 library="cuDNN nn.LSTM", cm_limit=2),
+    "min_gru": dict(root="data/4dof_mingru", kernel="fused_mingru_gate",
+                    source="shm_tpu_torch/ops/csrc/fused_mingru.cu",
+                    replaces="shm_tpu/ops/fused_mingru.py:69", work=mingru_work,
+                    library="torch.matmul + log-depth scan", cm_limit=0),
+    "attention": dict(root="data/4dof_attention", kernel="fused_attention_gate",
+                      source="shm_tpu_torch/ops/csrc/fused_attention.cu",
+                      replaces="shm_tpu/ops/fused_attention.py:157",
+                      work=attention_work,
+                      library="scaled_dot_product_attention + torch.matmul",
+                      cm_limit=0),
+}
+
+
 def phase_build():
     from shm_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    res = _build.build(["fused_vae", "lstm_train"])
+    res = _build.build(["fused_vae", "lstm_train", "fused_mingru",
+                        "fused_attention"])
     wall = time.perf_counter() - t0
     for name, (path, secs, log) in res.items():
         print(f"[build] {name}: {path.relative_to(ROOT)} in {secs:.2f} s")
@@ -139,12 +205,12 @@ def phase_build():
     print(f"[build] total {wall:.2f} s")
 
 
-def random_vae(seed: int, D, Z, H, L, ln):
+def random_vae(seed: int, D, Z, H, L, ln, cell: str = "lstm"):
     from shm_tpu_torch.config import VAEConfig
     from shm_tpu_torch.convert import random_flax_vae_params, vae_from_flax
 
     cfg = VAEConfig(input_dim=D, latent_dim=Z, hidden_dim=H, num_layers=L,
-                    use_layernorm=ln)
+                    use_layernorm=ln, cell=cell)
     rng = np.random.default_rng(seed)
     return vae_from_flax(random_flax_vae_params(rng, cfg), cfg).cuda(), rng
 
@@ -163,37 +229,42 @@ def compare(name: str, got, ref) -> float:
     return max_abs
 
 
-def phase_kernel_vs_plain():
+def phase_kernel_vs_plain(cell: str = "lstm"):
+    """A family's gate kernel against its plain version, random weights.
+    Returns the max |diff| over the cases."""
     import torch
 
-    from shm_tpu_torch.ops import (
-        fused_vae_gate, fused_vae_gate_reference, vae_params_to_kernel_weights,
-    )
+    from shm_tpu_torch.ops import FUSED_GATES
 
+    weights_fn, gate, reference = FUSED_GATES[cell]
     cases = [  # name, N, T, D, Z, H, L, LN, with_residual
         ("4dof N=1000 (ragged tile)", 1000, 100, 12, 16, 128, 2, True, True),
         ("openLAB 1-layer H=64 T=200 D=3", 300, 200, 3, 8, 64, 1, True, True),
         ("1dof 2-layer H=32 T=80 no LN", 300, 80, 12, 5, 32, 2, False, True),
         ("4dof with_residual=False", 333, 100, 12, 16, 128, 2, True, False),
     ]
+    if cell == "min_gru":
+        cases.append(("3-layer H=64 T=60", 200, 60, 12, 16, 64, 3, True, True))
+    worst = 0.0
     for i, (name, N, T, D, Zd, H, L, ln, wr) in enumerate(cases):
-        vae, rng = random_vae(100 + i, D, Zd, H, L, ln)
-        w = vae_params_to_kernel_weights(vae)
+        vae, rng = random_vae(100 + i, D, Zd, H, L, ln, cell)
+        w = weights_fn(vae)
         Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(np.float32)).cuda()
         kw = dict(num_layers=L, use_layernorm=ln, with_residual=wr)
-        mse, resid = fused_vae_gate(w, Z, **kw)
+        mse, resid = gate(w, Z, **kw)
         torch.cuda.synchronize()
-        mse_p, resid_p = fused_vae_gate_reference(w, Z, **kw)
-        print(f"[kernel] {name}: N={N} T={T} D={D} H={H} Z={Zd} L={L} "
-              f"LN={ln} with_residual={wr}")
+        mse_p, resid_p = reference(w, Z, **kw)
+        print(f"[kernel] {gate.__name__} {name}: N={N} T={T} D={D} H={H} "
+              f"Z={Zd} L={L} LN={ln} with_residual={wr}")
         check(mse.shape == (N,) and bool(torch.isfinite(mse).all()),
               f"{name}: mse not finite / wrong shape")
-        compare("mse", mse, mse_p)
+        worst = max(worst, compare("mse", mse, mse_p))
         if wr:
             check(resid.shape == (N, T, D), f"{name}: resid shape {resid.shape}")
-            compare("resid", resid, resid_p)
+            worst = max(worst, compare("resid", resid, resid_p))
         else:
             check(resid is None, f"{name}: resid returned with_residual=False")
+    return worst
 
 
 def test_windows():
@@ -209,28 +280,41 @@ def test_windows():
     return np.concatenate(groups), y
 
 
-def phase_main_path(W, y):
+def phase_main_path(W, y, cell: str = "lstm"):
+    """Score the 3,636 test windows through a family's committed artifacts on
+    the card; returns the scorer and its kernel's launch count."""
     import torch
 
     from shm_tpu_torch.evals import accuracy, confusion_matrix
-    from shm_tpu_torch.ops import fused_vae_gate
+    from shm_tpu_torch.ops import FUSED_GATES
     from shm_tpu_torch.serve import HybridScorer
+    from shm_tpu_torch.train import reconstruction_mse
     from shm_tpu_torch.utils.io import load_json
 
-    ref = load_json(ROOT / "data" / "4dof" / "figures" / "pipeline_metrics.json")
-    scorer = HybridScorer.from_artifacts(ROOT / "data" / "4dof")
-    check(scorer.device.type == "cuda" and scorer.use_fused_vae,
-          "scorer did not select the card and the fused kernel")
+    fam = FAMILIES[cell]
+    root = ROOT / fam["root"]
+    gate = FUSED_GATES[cell][1]
+    tag0 = f"[main {cell}]"
+    ref = load_json(root / "figures" / "pipeline_metrics.json")
+    scorer = HybridScorer.from_artifacts(root)
+    check(scorer.device.type == "cuda" and scorer.use_fused_vae
+          and scorer.vae.cell == cell,
+          f"{cell}: scorer did not select the card, the cell and its kernel")
 
-    fused_vae_gate.launches = 0
+    for _, g, _ in FUSED_GATES.values():
+        g.launches = 0
     t0 = time.perf_counter()
     out = scorer.score(W)
     wall = time.perf_counter() - t0
-    launches = fused_vae_gate.launches
-    print(f"[main] score() of {len(W)} windows in {wall * 1e3:.1f} ms "
-          f"(first call, includes the kernel's first load); fused_vae_gate "
-          f"launches: {launches}")
-    check(launches > 0, "the main path did not launch the fused kernel")
+    launches = gate.launches
+    others = {g.__name__: g.launches for _, g, _ in FUSED_GATES.values()
+              if g is not gate}
+    print(f"{tag0} score() of {len(W)} windows in {wall * 1e3:.1f} ms "
+          f"(first call, includes the kernel's first load); {gate.__name__} "
+          f"launches: {launches}; other gate kernels: {others}")
+    check(launches > 0, f"the {cell} main path did not launch {gate.__name__}")
+    check(not any(others.values()),
+          f"the {cell} main path launched another family's kernel: {others}")
     check(all(np.isfinite(out[k]).all() for k in ("mse", "p_struct"))
           and out["mse"].shape == (len(W),), "non-finite or mis-shaped output")
 
@@ -239,44 +323,67 @@ def phase_main_path(W, y):
         m = y == g
         anom = int(out["anomalous"][m].sum())
         want = int(ref["gate"]["gate_stats"][tag]["anom"])
-        print(f"[main] gate {tag}: {anom}/{int(m.sum())} anomalous "
+        print(f"{tag0} gate {tag}: {anom}/{int(m.sum())} anomalous "
               f"(rate {anom / m.sum():.4f}; reference {want})")
-        check(anom == want, f"gate decisions differ on {tag}")
+        check(anom == want, f"{cell}: gate decisions differ on {tag}")
 
     cm = confusion_matrix(y, out["y_pred"], 3)
     cm_ref = np.asarray(ref["confusion_matrix_counts"])
     acc = accuracy(y, out["y_pred"])
     moved = int(np.abs(cm - cm_ref).sum()) // 2
-    print(f"[main] confusion matrix {cm.tolist()} (reference "
-          f"{cm_ref.tolist()}); windows moved: {moved}")
-    print(f"[main] accuracy {acc:.6f} (reference {ref['accuracy']:.6f})")
+    print(f"{tag0} confusion matrix {cm.tolist()} (reference "
+          f"{cm_ref.tolist()}); windows moved: {moved} (limit "
+          f"{fam['cm_limit']})")
+    print(f"{tag0} accuracy {acc:.6f} (reference {ref['accuracy']:.6f})")
+    logits = scorer._dispatch(torch.from_numpy(W)).logits.cpu().numpy()
+    margin = np.abs(logits[:, 1] - logits[:, 0])
+    print(f"{tag0} narrowest logit margins of faulty windows: "
+          f"{np.sort(margin[y > 0])[:3].round(5).tolist()}")
     if moved:
         # the windows in the cells that gained are the flips; show those
         # nearest the CNN's decision boundary with their logit margins
-        logits = scorer._dispatch(torch.from_numpy(W)).logits.cpu().numpy()
-        margin = np.abs(logits[:, 1] - logits[:, 0])
         for t, p in zip(*np.nonzero(cm > cm_ref)):
             idx = np.nonzero((y == t) & (out["y_pred"] == p))[0]
             idx = idx[np.argsort(margin[idx])][: cm[t, p] - cm_ref[t, p]]
             for i in idx:
-                print(f"[main]   flip: window {i} true {t} -> pred {p}, "
+                print(f"{tag0}   flip: window {i} true {t} -> pred {p}, "
                       f"logit margin {margin[i]:.5f}")
-    check(moved <= 2, f"confusion matrix off by {moved} windows (> 2)")
+    check(moved <= fam["cm_limit"], f"{cell}: confusion matrix off by {moved} "
+                                    f"windows (> {fam['cm_limit']})")
 
-    plain = HybridScorer.from_artifacts(ROOT / "data" / "4dof",
-                                        use_fused_vae=False)
+    plain = HybridScorer.from_artifacts(root, use_fused_vae=False)
     outp = plain.score(W)
     gate_diff = int((outp["anomalous"] != out["anomalous"]).sum())
     y_diff = int((outp["y_pred"] != out["y_pred"]).sum())
     mse_rel = float(np.max(np.abs(outp["mse"] - out["mse"])
                            / np.abs(outp["mse"])))
-    print(f"[main] kernel path vs plain path on the card: gate decisions "
+    print(f"{tag0} kernel path vs plain path on the card: gate decisions "
           f"differing {gate_diff}, y_pred differing {y_diff}, max mse rel "
           f"diff {mse_rel:.3e}")
     # the gate's margins are wide, so its decisions must agree exactly; a
-    # CNN decision within float32 rounding of its boundary may flip
-    check(gate_diff == 0 and y_diff <= 2,
-          "kernel path and plain path disagree on the card")
+    # CNN decision within float32 rounding of its boundary may flip, within
+    # the family's limit
+    check(gate_diff == 0 and y_diff <= fam["cm_limit"],
+          f"{cell}: kernel path and plain path disagree on the card")
+
+    if cell != "lstm":
+        # reconstruction_mse through the family's gate-only kernel mode (the
+        # LSTM family's runs on freshly trained weights in the training phase)
+        from shm_tpu_torch.data.windows import normalize_windows
+
+        Zn = normalize_windows(torch.from_numpy(W).cuda(), scorer.mean,
+                               scorer.std).cpu().numpy()
+        before = gate.launches
+        mse_k = reconstruction_mse(scorer.vae, Zn)
+        n_launch = gate.launches - before
+        mse_p = reconstruction_mse(scorer.vae, Zn, fused=False)
+        check(n_launch == 1 and gate.launches - before == 1,
+              f"{cell}: reconstruction_mse launched {gate.__name__} "
+              f"{n_launch} times, not once")
+        print(f"{tag0} reconstruction_mse of {len(W)} windows through "
+              f"{gate.__name__}(with_residual=False): mean {mse_k.mean():.6f}")
+        compare(f"{cell} reconstruction_mse vs plain model",
+                torch.from_numpy(mse_k), torch.from_numpy(mse_p))
     return scorer, launches
 
 
@@ -318,45 +425,132 @@ def cudnn_vae_pass(vae):
     return run
 
 
-def phase_timing(scorer, W):
+def scan_mingru_pass(vae):
+    """The same minGRU-VAE pass from ``torch.matmul`` projections and the
+    log-depth (doubling) form of the linear recurrence, seven passes over
+    [T, N, H] instead of T steps: a yardstick timed here only; the port's
+    scoring never takes this form."""
+    import torch
+    import torch.nn.functional as F
+
+    from shm_tpu_torch.models.minrnn import linear_recurrence
+
+    H = vae.hidden_dim
+
+    def stack(layers, inp, T):
+        for layer in layers:
+            g = F.linear(inp, layer.weight_ih, layer.bias_ih)
+            z = torch.sigmoid(g[..., :H])
+            a, b = 1.0 - z, z * g[..., H:]
+            if g.dim() == 2:                      # constant decoder input
+                a, b = a.expand(T, *a.shape), b.expand(T, *b.shape)
+            else:
+                a, b = a.transpose(0, 1), b.transpose(0, 1)
+            inp = linear_recurrence(a, b, impl="associative").transpose(0, 1)
+        return inp
+
+    @torch.inference_mode()
+    def run(Z):
+        T = Z.shape[1]
+        h = stack(vae.encoder_lstm.layers, Z, T)[:, -1]
+        if vae.layer_norm is not None:
+            h = vae.layer_norm(h)
+        dec_in = torch.tanh(vae.fc_latent_to_hidden(vae.fc_mu(h)))
+        out = stack(vae.decoder_lstm.layers, dec_in, T)
+        r = (Z - vae.output_layer(out)) ** 2
+        return r.mean(dim=(1, 2)), r
+
+    return run
+
+
+def sdpa_attention_pass(vae):
+    """The same attention-VAE pass composed from
+    ``F.scaled_dot_product_attention``, ``F.linear``, ``F.layer_norm`` and
+    ``F.gelu``: a yardstick timed here only; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from shm_tpu_torch.models.attention import sinusoidal_positions
+
+    H = vae.hidden_dim
+
+    def ln(x, m, eps=1e-6):
+        return F.layer_norm(x, (H,), m.weight, m.bias, eps)
+
+    def stack(st, tok):
+        N, T, _ = tok.shape
+        heads = st.num_heads
+        s = tok + sinusoidal_positions(T, H, tok.device)
+        split = lambda t: t.view(N, T, heads, H // heads).transpose(1, 2)
+        for b in st.layers:
+            h = ln(s, b.attn_norm)
+            o = F.scaled_dot_product_attention(
+                split(b.query(h)), split(b.key(h)), split(b.value(h)))
+            s = s + b.out(o.transpose(1, 2).reshape(N, T, H))
+            s = s + b.mlp_out(F.gelu(b.mlp_in(ln(s, b.mlp_norm)),
+                                     approximate="tanh"))
+        return ln(s, st.final_norm)
+
+    @torch.inference_mode()
+    def run(Z):
+        N, T, _ = Z.shape
+        h = stack(vae.encoder_lstm, vae.encoder_lstm.in_proj(Z)).mean(dim=1)
+        if vae.layer_norm is not None:
+            h = vae.layer_norm(h)
+        h0 = torch.tanh(vae.fc_latent_to_hidden(vae.fc_mu(h)))
+        tok0 = vae.decoder_lstm.in_proj(h0)
+        out = stack(vae.decoder_lstm, tok0[:, None].expand(N, T, H))
+        r = (Z - vae.output_layer(out)) ** 2
+        return r.mean(dim=(1, 2)), r
+
+    return run
+
+
+LIBRARY_PASS = {"lstm": cudnn_vae_pass, "min_gru": scan_mingru_pass,
+                "attention": sdpa_attention_pass}
+
+
+def phase_timing(scorer, W, cell: str = "lstm"):
     import torch
 
     from shm_tpu_torch.data.windows import normalize_windows
-    from shm_tpu_torch.ops import (
-        fused_vae_gate, fused_vae_gate_reference, vae_params_to_kernel_weights,
-    )
+    from shm_tpu_torch.ops import FUSED_GATES
     from shm_tpu_torch.serve import bucket_size
 
+    fam = FAMILIES[cell]
+    weights_fn, gate, reference = FUSED_GATES[cell]
+    tag = f"[time {cell}]"
     Wb = np.resize(W, (N_BENCH,) + W.shape[1:]).astype(np.float32)
     vae = scorer.vae
     N, T, D = Wb.shape
     Z = normalize_windows(torch.from_numpy(Wb).cuda(), scorer.mean,
                           scorer.std).contiguous()
-    w = vae_params_to_kernel_weights(vae)
+    w = weights_fn(vae)
     kw = dict(num_layers=vae.num_layers, use_layernorm=vae.use_layernorm)
 
-    mse_k, resid_k = fused_vae_gate(w, Z, **kw)
-    mse_p, resid_p = fused_vae_gate_reference(w, Z, **kw)
+    mse_k, resid_k = gate(w, Z, **kw)
+    mse_p, resid_p = reference(w, Z, **kw)
     torch.cuda.synchronize()
-    print(f"[time] kernel vs plain at N={N} (trained weights, real windows):")
+    print(f"{tag} kernel vs plain at N={N} (trained weights, real windows):")
     err = max(compare("mse", mse_k, mse_p), compare("resid", resid_k, resid_p))
-    cudnn = cudnn_vae_pass(vae)
-    mse_c, _ = cudnn(Z)
-    print(f"[time] cuDNN yardstick vs kernel: max |mse diff| "
+    del resid_p
+    library = LIBRARY_PASS[cell](vae)
+    mse_c, _ = library(Z)
+    print(f"{tag} {fam['library']} yardstick vs kernel: max |mse diff| "
           f"{float((mse_c - mse_k).abs().max()):.3e}")
 
-    ms = time_ms(lambda: fused_vae_gate(w, Z, **kw))
-    plain_ms = time_ms(lambda: fused_vae_gate_reference(w, Z, **kw), reps=5)
-    cudnn_ms = time_ms(lambda: cudnn(Z))
-    flops, nbytes = vae_work(N, T, D, vae.hidden_dim, vae.latent_dim,
-                             vae.num_layers)
+    ms = time_ms(lambda: gate(w, Z, **kw))
+    plain_ms = time_ms(lambda: reference(w, Z, **kw), reps=5)
+    library_ms = time_ms(lambda: library(Z))
+    flops, nbytes = fam["work"](N, T, D, vae.hidden_dim, vae.latent_dim,
+                                vae.num_layers)
     t_f32 = flops / PEAK_F32_FLOPS * 1e3
     t_bf16 = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_f32, t_bytes)
-    print(f"[time] fused_vae_gate N={N}: kernel {ms:.4f} ms | plain "
-          f"{plain_ms:.4f} ms | cuDNN nn.LSTM yardstick {cudnn_ms:.4f} ms")
-    print(f"[time] work {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB -> "
+    print(f"{tag} {gate.__name__} N={N}: kernel {ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | {fam['library']} yardstick {library_ms:.4f} ms")
+    print(f"{tag} work {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB -> "
           f"bound {bound_ms:.4f} ms ({'operations' if t_f32 >= t_bytes else 'bytes'}"
           f"; f32 {t_f32:.4f} ms, bf16 tensor-core {t_bf16:.4f} ms, bytes "
           f"{t_bytes:.4f} ms); kernel at {t_f32 / ms * 100:.1f}% of the f32 "
@@ -370,14 +564,15 @@ def phase_timing(scorer, W):
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls))
     bucket = bucket_size(N, scorer.min_bucket, scorer.max_batch)
-    print(f"[time] score() end to end, {N} windows: median {wall * 1e3:.2f} ms "
+    print(f"{tag} score() end to end, {N} windows: median {wall * 1e3:.2f} ms "
           f"over 5 -> {N / wall:.1f} windows/s (one dispatch padded to "
           f"{bucket} windows)")
-    profile_device(lambda: scorer.score(Wb), f"score() of {len(Wb)} windows")
+    profile_device(lambda: scorer.score(Wb),
+                   f"{cell} score() of {len(Wb)} windows")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if t_f32 >= t_bytes else "bytes",
-            "library_ms": cudnn_ms}
+            "library_ms": library_ms}
 
 
 def profile_device(fn, what: str, calls: int = 3, groups=None, rest: str = ""):
@@ -873,10 +1068,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    if not (ROOT / "shm_tpu_torch" / "ops" / "csrc").is_dir() \
-            or not (ROOT / "data" / "4dof" / "models").is_dir():
+    if not (ROOT / "shm_tpu_torch" / "ops" / "csrc").is_dir() or not all(
+            (ROOT / fam["root"] / "models").is_dir() for fam in FAMILIES.values()):
         print(f"chip_smoke: {ROOT} does not hold the repository "
-              "(shm_tpu_torch/ and data/4dof/)", file=sys.stderr)
+              "(shm_tpu_torch/ and data/4dof*/)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from shm_tpu_torch.device import set_full_f32_precision
@@ -886,21 +1081,26 @@ def main() -> int:
     try:
         print(gpu_line())
         phase_build()
-        phase_kernel_vs_plain()
         W, y = test_windows()
-        scorer, launches = phase_main_path(W, y)
-        nums = phase_timing(scorer, W)
+        gate_rows = []
+        for cell, fam in FAMILIES.items():
+            err = phase_kernel_vs_plain(cell)
+            scorer, launches = phase_main_path(W, y, cell)
+            nums = phase_timing(scorer, W, cell)
+            nums["max_abs_err"] = max(nums["max_abs_err"], err)
+            gate_rows.append(dict(
+                name=fam["kernel"], route="cuda", source=fam["source"],
+                replaces=fam["replaces"], launches=launches, **nums))
+            del scorer
+            torch.cuda.empty_cache()
         errs = phase_lstm_kernels_vs_plain()
         counts, ctx = phase_train_path()
         lstm_rows = phase_lstm_timing(errs, counts, ctx)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    kernels = [dict(
-        name="fused_vae_gate", route="cuda",
-        source="shm_tpu_torch/ops/csrc/fused_vae.cu",
-        replaces="shm_tpu/ops/fused_vae.py:125", launches=launches, **nums)]
-    kernels += lstm_rows
+    # rows 1-5 of the kernel table first, then the two new families
+    kernels = gate_rows[:1] + lstm_rows + gate_rows[1:]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -138,20 +138,21 @@ def cmd_train_vae(paths: Paths, cfg: Stage4DofConfig,
 
 
 def _load_vae(paths: Paths, cfg: Stage4DofConfig) -> TemporalVAE:
-    """The trained VAE on the CPU. The cell family comes from the training
-    meta manifest; only the LSTM cell is ported so far."""
+    """The trained VAE on the CPU. The trainer records the cell family in its
+    meta manifest, so scoring needs no ``--cell``; a checkpoint of another
+    family than the manifest names raises ``ValueError`` and never loads."""
     meta_path = paths.processed / "stage1_vae_train_meta.json"
     vcfg = cfg.vae
     if meta_path.exists():
         cell = load_json(meta_path).get("cell", "lstm")
         if cell != vcfg.cell:
             vcfg = replace(vcfg, cell=cell)
-    if vcfg.cell != "lstm":
-        raise NotImplementedError(
-            f"{paths.root}: VAE cell {vcfg.cell!r} is not ported yet "
-            f"(LSTM cell only)")
     tree = load_checkpoint(paths.models / "temporal_vae.msgpack")
-    return vae_from_flax(tree["params"], vcfg)
+    try:
+        return vae_from_flax(tree["params"], vcfg)
+    except ValueError as e:
+        raise ValueError(f"{paths.models / 'temporal_vae.msgpack'}: {e} "
+                         f"(cell from {meta_path.name} or the config)") from e
 
 
 def _load_stats(paths: Paths) -> Tuple[np.ndarray, np.ndarray]:

@@ -14,7 +14,7 @@ from typing import Tuple
 
 @dataclass(frozen=True)
 class VAEConfig:
-    """LSTM temporal-VAE hyperparameters (4DOF preset by default)."""
+    """Temporal-VAE hyperparameters (4DOF preset by default)."""
 
     input_dim: int = 12
     latent_dim: int = 16
@@ -22,7 +22,8 @@ class VAEConfig:
     num_layers: int = 2
     dropout: float = 0.3
     use_layernorm: bool = True
-    # temporal-stack family; the port has the "lstm" cell only so far
+    # temporal-stack family: "lstm" (reference parity), "min_gru" or
+    # "attention" (opt-in presets; scoring only, their training is not ported)
     cell: str = "lstm"
 
 

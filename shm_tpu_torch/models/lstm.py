@@ -91,26 +91,35 @@ class LSTMStack(nn.Module):
     def forward(self, x: torch.Tensor, broadcast_steps: Optional[int] = None,
                 dropout_masks: MaskArg = None,
                 generator: Optional[torch.Generator] = None):
-        if isinstance(dropout_masks, torch.Tensor):
-            dropout_masks = [dropout_masks]
-        gaps = len(self.layers) - 1
-        if dropout_masks is not None and len(dropout_masks) != gaps:
-            raise ValueError(f"need {gaps} dropout masks, got "
-                             f"{len(dropout_masks)}")
-        out, h_last = x, None
-        for l, layer in enumerate(self.layers):
-            out, (h_last, _) = layer(
-                out, broadcast_steps=broadcast_steps if l == 0 else None)
-            if l == gaps:
-                break
-            if dropout_masks is not None:
-                out = out * dropout_masks[l]
-            elif self.training and self.dropout > 0.0:
-                keep = 1.0 - self.dropout
-                mask = torch.rand(out.shape, generator=generator,
-                                  device=out.device) < keep
-                out = out * (mask.to(out.dtype) / keep)
-        return out, h_last
+        return run_stack(self, x, broadcast_steps, dropout_masks, generator)
 
 
-__all__ = ["LSTMLayer", "LSTMStack", "uniform_init_"]
+def run_stack(stack: nn.Module, x: torch.Tensor,
+              broadcast_steps: Optional[int], dropout_masks: MaskArg,
+              generator: Optional[torch.Generator]):
+    """Run the recurrent layers ``stack.layers`` one after another with the
+    inter-layer dropout of ``stack.dropout``; shared by the LSTM and minGRU
+    stacks. Returns (outputs of the last layer, its final h)."""
+    if isinstance(dropout_masks, torch.Tensor):
+        dropout_masks = [dropout_masks]
+    gaps = len(stack.layers) - 1
+    if dropout_masks is not None and len(dropout_masks) != gaps:
+        raise ValueError(f"need {gaps} dropout masks, got "
+                         f"{len(dropout_masks)}")
+    out, h_last = x, None
+    for l, layer in enumerate(stack.layers):
+        out, (h_last, _) = layer(
+            out, broadcast_steps=broadcast_steps if l == 0 else None)
+        if l == gaps:
+            break
+        if dropout_masks is not None:
+            out = out * dropout_masks[l]
+        elif stack.training and stack.dropout > 0.0:
+            keep = 1.0 - stack.dropout
+            mask = torch.rand(out.shape, generator=generator,
+                              device=out.device) < keep
+            out = out * (mask.to(out.dtype) / keep)
+    return out, h_last
+
+
+__all__ = ["LSTMLayer", "LSTMStack", "run_stack", "uniform_init_"]

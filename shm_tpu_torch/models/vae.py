@@ -1,12 +1,16 @@
-"""Temporal LSTM-VAE (counterpart of ``shm_tpu/models/vae.py``).
+"""Temporal VAE (counterpart of ``shm_tpu/models/vae.py``).
 
-LSTM encoder -> last hidden state [-> LayerNorm, eps 1e-5] -> fc_mu / fc_logvar
--> z -> ``tanh(fc_latent_to_hidden(z))`` fed at every step of the LSTM decoder
--> linear output head. ``sample=False`` decodes the posterior mean (z = mu,
+Temporal encoder -> summary state [-> LayerNorm, eps 1e-5] -> fc_mu / fc_logvar
+-> z -> ``tanh(fc_latent_to_hidden(z))`` fed at every step of the temporal
+decoder -> linear output head. ``cell`` selects the temporal-stack family:
+``"lstm"`` (default; summary = last hidden state), ``"min_gru"``
+(:mod:`shm_tpu_torch.models.minrnn`) or ``"attention"``
+(:mod:`shm_tpu_torch.models.attention`; summary = mean over T). The stacks
+keep the attribute names ``encoder_lstm`` / ``decoder_lstm`` for every cell:
+they are the checkpoint's names. ``sample=False`` decodes the posterior mean (z = mu,
 deterministic scoring); ``sample=True`` decodes ``mu + eps * exp(0.5 * logvar)``
 with ``eps`` given or drawn from ``generator`` (training and stochastic
-validation). Inter-layer dropout is active in training mode only. Only the
-LSTM cell is ported.
+validation). Dropout is active in training mode only.
 """
 
 from __future__ import annotations
@@ -23,31 +27,53 @@ from shm_tpu_torch.models.lstm import LSTMStack, MaskArg, uniform_init_
 class TemporalVAE(nn.Module):
     def __init__(self, input_dim: int = 12, latent_dim: int = 16,
                  hidden_dim: int = 128, num_layers: int = 2,
-                 use_layernorm: bool = True, dropout: float = 0.0):
+                 use_layernorm: bool = True, dropout: float = 0.0,
+                 cell: str = "lstm", scan_impl: str = "sequential"):
         super().__init__()
         H, Z, D = hidden_dim, latent_dim, input_dim
         self.input_dim, self.latent_dim, self.hidden_dim = D, Z, H
         self.num_layers = num_layers
         self.use_layernorm = use_layernorm
         self.dropout = float(dropout)
-        self.encoder_lstm = LSTMStack(D, H, num_layers, dropout)
+        self.cell = cell
+        # time-scan form for cell="min_gru"; the other cells ignore it
+        self.scan_impl = scan_impl
+        if cell == "lstm":
+            Stack = LSTMStack
+        elif cell == "min_gru":
+            from shm_tpu_torch.models.minrnn import MinGRUStack
+
+            def Stack(i, h, l, drop):
+                return MinGRUStack(i, h, l, drop, scan_impl=scan_impl)
+        elif cell == "attention":
+            from shm_tpu_torch.models.attention import AttentionStack as Stack
+        else:
+            raise ValueError(f"unknown cell {cell!r} "
+                             "(expected 'lstm', 'min_gru' or 'attention')")
+        self.encoder_lstm = Stack(D, H, num_layers, dropout)
         # eps is torch's 1e-5, as in the JAX model (not flax's 1e-6 default)
         self.layer_norm = nn.LayerNorm(H, eps=1e-5) if use_layernorm else None
         self.fc_mu = nn.Linear(H, Z)
         self.fc_logvar = nn.Linear(H, Z)
         self.fc_latent_to_hidden = nn.Linear(Z, H)
-        self.decoder_lstm = LSTMStack(H, H, num_layers, dropout)
+        self.decoder_lstm = Stack(H, H, num_layers, dropout)
         self.output_layer = nn.Linear(H, D)
 
     def init_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """Fresh parameters, as the JAX model draws them: LSTM weights and both
-        biases ~ U(+-1/sqrt(H)); dense kernels and biases ~ U(+-1/sqrt(fan_in))
-        (torch's ``nn.Linear`` default); LayerNorm at (1, 0). ``generator`` is
-        a CPU generator; the values are copied to the module's device."""
+        """Fresh parameters, as the JAX model draws them: LSTM and minGRU
+        weights and biases ~ U(+-1/sqrt(H)), the attention stack as flax
+        draws it (``AttentionStack.init_parameters``); the VAE's dense kernels
+        and biases ~ U(+-1/sqrt(fan_in)) (torch's ``nn.Linear`` default);
+        LayerNorm at (1, 0). ``generator`` is a CPU generator; the values are
+        copied to the module's device."""
         cpu = TemporalVAE(self.input_dim, self.latent_dim, self.hidden_dim,
-                          self.num_layers, self.use_layernorm, self.dropout)
+                          self.num_layers, self.use_layernorm, self.dropout,
+                          self.cell, self.scan_impl)
         for stack in (cpu.encoder_lstm, cpu.decoder_lstm):
-            uniform_init_(stack, 1.0 / self.hidden_dim ** 0.5, generator)
+            if self.cell == "attention":
+                stack.init_parameters(generator)
+            else:
+                uniform_init_(stack, 1.0 / self.hidden_dim ** 0.5, generator)
         for fc in (cpu.fc_mu, cpu.fc_logvar, cpu.fc_latent_to_hidden,
                    cpu.output_layer):
             uniform_init_(fc, 1.0 / fc.in_features ** 0.5, generator)
@@ -91,12 +117,10 @@ class TemporalVAE(nn.Module):
 
 
 def vae_from_config(cfg: VAEConfig) -> TemporalVAE:
-    if cfg.cell != "lstm":
-        raise NotImplementedError(
-            f"cell={cfg.cell!r} is not ported yet (LSTM cell only)")
     return TemporalVAE(input_dim=cfg.input_dim, latent_dim=cfg.latent_dim,
                        hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
-                       use_layernorm=cfg.use_layernorm, dropout=cfg.dropout)
+                       use_layernorm=cfg.use_layernorm, dropout=cfg.dropout,
+                       cell=cfg.cell)
 
 
 def vae_loss(recon: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,

@@ -1,0 +1,493 @@
+// Fused deterministic attention-VAE gate for Hopper (sm_90a), float32.
+//
+// Replaces the Pallas TPU kernel shm_tpu/ops/fused_attention.py::_kernel
+// (:157), launched by fused_attention_gate (:401, pallas_call at :524). Same
+// function:
+//
+//   x [N,T,D] -> in_proj + sinusoidal positions -> L pre-LN transformer blocks
+//     -> final LayerNorm -> mean over the T rows -> [LayerNorm eps 1e-5]
+//     -> mu = fc_mu (z = mu) -> h0 = tanh(fc_latent_to_hidden(mu))
+//     -> decoder in_proj(h0) broadcast over T + positions -> L blocks
+//     -> final LayerNorm -> output head x_hat
+//     -> resid = (x - x_hat)^2 [N,T,D] and mse = sum(resid) / (T*D) [N]
+//
+// A block: LayerNorm (eps 1e-6, var = E[x^2] - E[x]^2 clamped at 0) -> QKV
+// (1/sqrt(32) already folded into the query weight and bias) -> per head
+// softmax(q k^T) v over the T keys, max-subtracted -> output projection ->
+// residual -> LayerNorm -> MLP with tanh-GELU -> residual.
+//
+// H in {32,64,128}, heads = H/32 of 32 columns, MLP width 4H, L in {1,2},
+// D <= 128, Z <= 32, any T whose buffers fit a block's shared memory (the
+// wrapper works that out and refuses the rest). Weights come in [in, out]
+// layout; wqkv is packed per head: columns h*96 .. h*96+95 hold q|k|v of
+// head h. The TPU kernel's paddings (T to 128, H to 128 lanes) and its key
+// mask exist only for its tiling and are not carried over: this kernel
+// attends over exactly T keys.
+//
+// Bound on this card. Per window and block: QKV 2*T*H*3H, scores and PV
+// 2*2*T*T*H, output projection 2*T*H*H, MLP 2*2*T*H*4H; for the 4DOF preset
+// (T=100, D=12, H=128, L=2+2) about 178 MFLOP a window, about 970 GFLOP at
+// N=5,440: ~14.5 ms at the 67 TFLOP/s float32 rate without tensor cores
+// (~1 ms in bf16 on the tensor cores). The bytes (x, resid, weights once) are
+// ~55 MB, ~17 us. So the kernel is bound by operations.
+//
+// Design (first, simple version: right before fast). One block of 512
+// threads owns one window and keeps its whole pass in shared memory; only x,
+// the weights, resid and mse touch device memory.
+//   * The residual stream s [T,H] and its normalised copy nrm [T,H] stay
+//     resident (rows padded to a multiple of 8, row stride H+4 floats). One
+//     window's QKV for all heads (154 KB at 4DOF) would not fit beside them,
+//     so attention runs head by head: q, k, v of one head [T,32] each, the
+//     scores of 32 query rows at a time [32,T], and the head's output written
+//     over its dead q rows, then multiplied into s by the head's 32 rows of
+//     the output weight. Nothing of another window or of a column >= T is
+//     ever in a softmax row.
+//   * The MLP's hidden layer [T,4H] (205 KB) is cut into column chunks of
+//     CC = 128 that reuse the attention buffers: gelu(nrm W1[:,chunk]) then
+//     s += that times W2[chunk,:].
+//   * Every product with a weight goes through one routine, gemm_rows: a
+//     thread owns an 8-row by 4-column tile of the output, reads its rows
+//     from shared memory as float4 along k (a warp shares the rows: a
+//     broadcast) and the weight from global memory through L1/L2 as float4
+//     along the columns (coalesced), 128 FMAs to 12 loads. The ~3.1 MB of
+//     weights stay in the 50 MB L2; every block re-reads them.
+//   * LayerNorm and softmax rows are one warp each with shuffle reductions;
+//     the window's MSE is reduced in a fixed order (no atomics).
+// It runs the f32 FMA pipes, so it cannot pass the f32 bound; several windows
+// a block to amortise the weight reads, and bf16 wgmma, are later work.
+//
+// Accurate expf/tanhf (no --use_fast_math).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int NT = 512;         // threads per block
+constexpr int NWARP = NT / 32;
+constexpr int HD = 32;          // head size
+constexpr int HDP = HD + 4;     // padded row of the per-head q/k/v buffers
+constexpr int QC = 32;          // query rows per score chunk
+constexpr int CC = 128;         // MLP hidden columns per chunk (divides 4H)
+constexpr int TM = 8;           // rows of a thread's output tile
+constexpr int LMAX = 2;
+constexpr int HMAX = 128;
+constexpr int ZMAX = 32;
+constexpr int DMAX = 128;
+constexpr int SMALL = 512;      // floats for the per-window vectors
+constexpr int NUM_W = 2 * (4 + 12 * LMAX) + 8;
+constexpr float STACK_EPS = 1e-6f;
+constexpr float MODEL_EPS = 1e-5f;
+
+struct BlockW {
+  const float *ln1s, *ln1b, *wqkv, *bqkv, *wo, *bo, *ln2s, *ln2b, *w1, *b1,
+      *w2, *b2;
+};
+struct StackW {
+  const float *in_w, *in_b;   // [in, H], [H]
+  BlockW layer[LMAX];
+  const float *fs, *fb;       // final norm
+};
+struct AttnW {
+  StackW enc;
+  const float *ln_s, *ln_b, *mu_w, *mu_b, *z2h_w, *z2h_b;
+  StackW dec;
+  const float *out_w, *out_b;  // [H, D], [D]
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float c = 0.7978845608028654f;   // sqrt(2/pi)
+  return x * (0.5f * (1.0f + tanhf(c * (x + 0.044715f * (x * x * x)))));
+}
+
+// One row of LayerNorm by one warp: out[c] = (in[c] - mean) * rsqrt(var + eps)
+// * scale[c] + bias[c], var = E[x^2] - E[x]^2 clamped at 0. in/out may alias.
+__device__ __forceinline__ void ln_row(const float* in, float* out,
+                                       const float* __restrict__ scale,
+                                       const float* __restrict__ bias, int H,
+                                       float eps, int lane) {
+  float sum = 0.0f, sq = 0.0f;
+  for (int c = lane; c < H; c += 32) {
+    const float v = in[c];
+    sum += v;
+    sq = fmaf(v, v, sq);
+  }
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
+  const float mean = sum / H;
+  const float var = fmaxf(sq / H - mean * mean, 0.0f);
+  const float r = 1.0f / sqrtf(var + eps);
+  for (int c = lane; c < H; c += 32)
+    out[c] = (in[c] - mean) * r * __ldg(scale + c) + __ldg(bias + c);
+}
+
+// nrm[row] = LayerNorm(s[row]) for every row < rows; one warp a row.
+__device__ __forceinline__ void ln_rows(const float* s, float* nrm, int ld,
+                                        int rows, const float* scale,
+                                        const float* bias, int H) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += NWARP)
+    ln_row(s + r * ld, nrm + r * ld, scale, bias, H, STACK_EPS, lane);
+}
+
+// For every row < M (a multiple of TM) and column group of 4 below Nc:
+//   epi(row, col, sum_k A[row][k] * B[k][col .. col+3])
+// A in shared memory (row stride lda, a multiple of 4), B in global memory
+// (row stride ldb, a multiple of 4, 16-byte aligned), K a multiple of 4. The
+// sum runs over k in order.
+template <class Epi>
+__device__ __forceinline__ void gemm_rows(const float* A, int lda,
+                                          const float* __restrict__ B, int ldb,
+                                          int M, int K, int Nc, Epi epi) {
+  const int CG = Nc >> 2;
+  const int tiles = (M / TM) * CG;
+  for (int tile = threadIdx.x; tile < tiles; tile += NT) {
+    const int cg = tile % CG, rg = tile / CG;
+    float acc[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+    const float* a = A + (size_t)rg * TM * lda;
+    const float* b = B + cg * 4;
+#pragma unroll 2
+    for (int k = 0; k < K; k += 4) {
+      float4 bv[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        bv[kk] = __ldg(reinterpret_cast<const float4*>(b + (size_t)(k + kk) * ldb));
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 av = *reinterpret_cast<const float4*>(a + i * lda + k);
+        const float ak[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          acc[i][0] = fmaf(ak[kk], bv[kk].x, acc[i][0]);
+          acc[i][1] = fmaf(ak[kk], bv[kk].y, acc[i][1]);
+          acc[i][2] = fmaf(ak[kk], bv[kk].z, acc[i][2]);
+          acc[i][3] = fmaf(ak[kk], bv[kk].w, acc[i][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) epi(rg * TM + i, cg * 4, acc[i]);
+  }
+}
+
+struct Smem {
+  float* s;      // [Tp][ld] residual stream
+  float* nrm;    // [Tp][ld] normalised stream
+  float* small;  // [SMALL] pooled | mu | h0 | tok0 | reduction slots
+  float* area;   // q|k|v [3][Tp][HDP] + scores [QC][Tld], or the MLP chunk
+};
+
+// One pre-LN transformer block on the window's stream, in place.
+__device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
+                                  int H) {
+  const int ld = H + 4, Tld = (T + 3) & ~3, heads = H / HD;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* s = m.s;
+  float* qh = m.area;
+  float* kh = qh + Tp * HDP;
+  float* vh = kh + Tp * HDP;
+  float* S = vh + Tp * HDP;
+
+  ln_rows(s, m.nrm, ld, Tp, w.ln1s, w.ln1b, H);
+  __syncthreads();
+
+  for (int h = 0; h < heads; ++h) {
+    // q | k | v of head h, all rows: nrm [Tp,H] x wqkv[:, h*96 .. h*96+95]
+    const float* bq = w.bqkv + h * 3 * HD;
+    gemm_rows(m.nrm, ld, w.wqkv + h * 3 * HD, 3 * H, Tp, H, 3 * HD,
+              [&](int row, int col, const float (&acc)[4]) {
+                float* dst = qh + (col / HD) * Tp * HDP + row * HDP + col % HD;
+                *reinterpret_cast<float4*>(dst) = make_float4(
+                    acc[0] + __ldg(bq + col), acc[1] + __ldg(bq + col + 1),
+                    acc[2] + __ldg(bq + col + 2), acc[3] + __ldg(bq + col + 3));
+              });
+    __syncthreads();
+
+    for (int r0 = 0; r0 < Tp; r0 += QC) {
+      const int rows = min(QC, Tp - r0);             // a multiple of TM
+      // scores S[i][j] = q[r0+i] . k[j]: a thread owns key j for 4 query rows
+      for (int tile = tid; tile < (rows / 4) * T; tile += NT) {
+        const int j = tile % T, qg = tile / T;
+        const float* kr = kh + j * HDP;
+        const float* qr = qh + (r0 + qg * 4) * HDP;
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int c = 0; c < HD; c += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 qv = *reinterpret_cast<const float4*>(qr + i * HDP + c);
+            acc[i] = fmaf(qv.x, kv.x, acc[i]);
+            acc[i] = fmaf(qv.y, kv.y, acc[i]);
+            acc[i] = fmaf(qv.z, kv.z, acc[i]);
+            acc[i] = fmaf(qv.w, kv.w, acc[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) S[(qg * 4 + i) * Tld + j] = acc[i];
+      }
+      __syncthreads();
+      // softmax over the T keys of each row, one warp a row
+      for (int i = warp; i < rows; i += NWARP) {
+        float* row = S + i * Tld;
+        float mx = -3.402823466e+38f;
+        for (int j = lane; j < T; j += 32) mx = fmaxf(mx, row[j]);
+        mx = warp_max(mx);
+        float sum = 0.0f;
+        for (int j = lane; j < T; j += 32) {
+          const float e = expf(row[j] - mx);
+          row[j] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        for (int j = lane; j < T; j += 32) row[j] = row[j] / sum;
+      }
+      __syncthreads();
+      // o[r0+i] = sum_j P[i][j] v[j], written over the dead q rows
+      for (int tile = tid; tile < rows * (HD / 4); tile += NT) {
+        const int c4 = tile % (HD / 4), i = tile / (HD / 4);
+        const float* p = S + i * Tld;
+        const float* v = vh + c4 * 4;
+        float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int j = 0; j < T; ++j) {
+          const float pj = p[j];
+          const float4 vv = *reinterpret_cast<const float4*>(v + j * HDP);
+          o.x = fmaf(pj, vv.x, o.x);
+          o.y = fmaf(pj, vv.y, o.y);
+          o.z = fmaf(pj, vv.z, o.z);
+          o.w = fmaf(pj, vv.w, o.w);
+        }
+        *reinterpret_cast<float4*>(qh + (r0 + i) * HDP + c4 * 4) = o;
+      }
+      __syncthreads();
+    }
+    // s += o_h [Tp,32] x wo[h*32 .. h*32+31, :] (+ bo with the first head)
+    const float* bo = w.bo;
+    const bool first = h == 0;
+    gemm_rows(qh, HDP, w.wo + (size_t)h * HD * H, H, Tp, HD, H,
+              [&](int row, int col, const float (&acc)[4]) {
+                float4* dst = reinterpret_cast<float4*>(s + row * ld + col);
+                float4 v = *dst;
+                v.x += first ? acc[0] + __ldg(bo + col) : acc[0];
+                v.y += first ? acc[1] + __ldg(bo + col + 1) : acc[1];
+                v.z += first ? acc[2] + __ldg(bo + col + 2) : acc[2];
+                v.w += first ? acc[3] + __ldg(bo + col + 3) : acc[3];
+                *dst = v;
+              });
+    __syncthreads();
+  }
+
+  ln_rows(s, m.nrm, ld, Tp, w.ln2s, w.ln2b, H);
+  __syncthreads();
+  // MLP, the hidden layer in column chunks of CC
+  float* h1 = m.area;
+  constexpr int ldh = CC + 4;
+  for (int c0 = 0; c0 < 4 * H; c0 += CC) {
+    const float* b1 = w.b1 + c0;
+    gemm_rows(m.nrm, ld, w.w1 + c0, 4 * H, Tp, H, CC,
+              [&](int row, int col, const float (&acc)[4]) {
+                *reinterpret_cast<float4*>(h1 + row * ldh + col) = make_float4(
+                    gelu_tanh(acc[0] + __ldg(b1 + col)),
+                    gelu_tanh(acc[1] + __ldg(b1 + col + 1)),
+                    gelu_tanh(acc[2] + __ldg(b1 + col + 2)),
+                    gelu_tanh(acc[3] + __ldg(b1 + col + 3)));
+              });
+    __syncthreads();
+    const float* b2 = w.b2;
+    const bool first = c0 == 0;
+    gemm_rows(h1, ldh, w.w2 + (size_t)c0 * H, H, Tp, CC, H,
+              [&](int row, int col, const float (&acc)[4]) {
+                float4* dst = reinterpret_cast<float4*>(s + row * ld + col);
+                float4 v = *dst;
+                v.x += first ? acc[0] + __ldg(b2 + col) : acc[0];
+                v.y += first ? acc[1] + __ldg(b2 + col + 1) : acc[1];
+                v.z += first ? acc[2] + __ldg(b2 + col + 2) : acc[2];
+                v.w += first ? acc[3] + __ldg(b2 + col + 3) : acc[3];
+                *dst = v;
+              });
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+fused_attention_gate_kernel(const float* __restrict__ x,
+                            const float* __restrict__ pos,   // [T, H]
+                            float* __restrict__ resid, float* __restrict__ mse,
+                            const AttnW W, int T, int Tp, int D, int H, int Z,
+                            int L, int use_ln, int with_resid) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = H + 4;
+  Smem m;
+  m.s = smem;
+  m.nrm = m.s + Tp * ld;
+  m.small = m.nrm + Tp * ld;
+  m.area = m.small + SMALL;
+  float* pooled = m.small;             // [H]
+  float* mu = pooled + HMAX;           // [Z]
+  float* h0 = mu + ZMAX;               // [H]
+  float* tok0 = h0 + HMAX;             // [H]
+  float* red = tok0 + HMAX;            // [NWARP]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t n = blockIdx.x;
+  const float* xw = x + n * T * D;
+
+  // ---------------- encoder tokens: x in_proj + positions (pad rows 0)
+  for (int i = tid; i < Tp * H; i += NT) {
+    const int t = i / H, c = i % H;
+    float v = 0.0f;
+    if (t < T) {
+      for (int d = 0; d < D; ++d)
+        v = fmaf(__ldg(xw + t * D + d), __ldg(W.enc.in_w + d * H + c), v);
+      v = v + __ldg(W.enc.in_b + c) + __ldg(pos + t * H + c);
+    }
+    m.s[t * ld + c] = v;
+  }
+  __syncthreads();
+  for (int l = 0; l < L; ++l) transformer_block(W.enc.layer[l], m, T, Tp, H);
+
+  // ---------------- final norm, mean over the T real rows
+  ln_rows(m.s, m.nrm, ld, T, W.enc.fs, W.enc.fb, H);
+  __syncthreads();
+  for (int c = tid; c < H; c += NT) {
+    float a = 0.0f;
+    for (int t = 0; t < T; ++t) a += m.nrm[t * ld + c];
+    pooled[c] = a / T;
+  }
+  __syncthreads();
+  if (use_ln) {
+    if (warp == 0) ln_row(pooled, pooled, W.ln_s, W.ln_b, H, MODEL_EPS, lane);
+    __syncthreads();
+  }
+  // ---------------- latent head (z = mu), decoder token
+  for (int z = tid; z < Z; z += NT) {
+    float a = 0.0f;
+    for (int k = 0; k < H; ++k) a = fmaf(pooled[k], __ldg(W.mu_w + k * Z + z), a);
+    mu[z] = a + __ldg(W.mu_b + z);
+  }
+  __syncthreads();
+  for (int c = tid; c < H; c += NT) {
+    float a = 0.0f;
+    for (int z = 0; z < Z; ++z) a = fmaf(mu[z], __ldg(W.z2h_w + z * H + c), a);
+    h0[c] = tanhf(a + __ldg(W.z2h_b + c));
+  }
+  __syncthreads();
+  for (int c = tid; c < H; c += NT) {
+    float a = 0.0f;
+    for (int k = 0; k < H; ++k) a = fmaf(h0[k], __ldg(W.dec.in_w + k * H + c), a);
+    tok0[c] = a + __ldg(W.dec.in_b + c);
+  }
+  __syncthreads();
+  for (int i = tid; i < Tp * H; i += NT) {
+    const int t = i / H, c = i % H;
+    m.s[t * ld + c] = t < T ? tok0[c] + __ldg(pos + t * H + c) : 0.0f;
+  }
+  __syncthreads();
+  for (int l = 0; l < L; ++l) transformer_block(W.dec.layer[l], m, T, Tp, H);
+
+  // ---------------- final norm, output head, residual, MSE
+  ln_rows(m.s, m.nrm, ld, T, W.dec.fs, W.dec.fb, H);
+  __syncthreads();
+  float part = 0.0f;
+  for (int i = tid; i < T * D; i += NT) {
+    const int t = i / D, d = i % D;
+    const float* r = m.nrm + t * ld;
+    float y = 0.0f;
+    for (int k = 0; k < H; ++k) y = fmaf(r[k], __ldg(W.out_w + k * D + d), y);
+    y += __ldg(W.out_b + d);
+    const float e = __ldg(xw + i) - y;
+    const float e2 = e * e;
+    if (with_resid) resid[n * T * D + i] = e2;
+    part += e2;
+  }
+  part = warp_sum(part);
+  if (lane == 0) red[warp] = part;
+  __syncthreads();
+  if (tid == 0) {
+    float a = 0.0f;
+    for (int k = 0; k < NWARP; ++k) a += red[k];
+    mse[n] = a / (float)(T * D);
+  }
+}
+
+}  // namespace
+
+static int padded_rows(int T) { return (T + TM - 1) / TM * TM; }
+
+// Bytes of dynamic shared memory one window of T steps at width H needs: the
+// stream and its normalised copy, the per-window vectors, and the larger of
+// one head's q | k | v with a score chunk and one chunk of the MLP's hidden
+// layer. The wrapper refuses, before any launch, a shape for which this
+// passes what a block may use.
+extern "C" long long shm_fused_attention_smem_bytes(int T, int H) {
+  const size_t Tp = padded_rows(T), Tld = (T + 3) & ~3;
+  const size_t attn = 3 * Tp * HDP + QC * Tld;
+  const size_t mlp = Tp * (CC + 4);
+  return sizeof(float) *
+         (2 * Tp * (H + 4) + SMALL + (attn > mlp ? attn : mlp));
+}
+
+// C entry for ctypes. `w` holds NUM_W = 64 device pointers: the encoder stack
+// (in_w in_b, then per layer ln1s ln1b wqkv bqkv wo bo ln2s ln2b w1 b1 w2 b2
+// for LMAX = 2 layers, then final-norm scale and bias), ln_scale ln_bias mu_w
+// mu_b z2h_w z2h_b, the decoder stack in the same order, out_w out_b
+// (pointers of an absent layer or LayerNorm may be null). `pos` is the
+// [T, H] position table. Returns cudaErrorInvalidValue for a shape the kernel
+// does not take, the error of cudaFuncSetAttribute for a window too long for
+// a block's shared memory, else the launch's cudaGetLastError(), 0 on success.
+extern "C" int shm_fused_attention_gate_f32(
+    const float* x, const float* pos, float* resid, float* mse,
+    const void* const* w, int n_w, int N, int T, int D, int H, int Z, int L,
+    int use_ln, int with_resid, void* stream) {
+  if (n_w != NUM_W || N <= 0 || T <= 0 || D <= 0 || D > DMAX || Z <= 0 ||
+      Z > ZMAX || L < 1 || L > LMAX || H % HD || H < HD || H > HMAX ||
+      (with_resid && resid == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int Tp = padded_rows(T);
+  const int smem_bytes = (int)shm_fused_attention_smem_bytes(T, H);
+  AttnW W;
+  const float* const* p = reinterpret_cast<const float* const*>(w);
+  auto stack = [&](StackW& s) {
+    s.in_w = *p++;
+    s.in_b = *p++;
+    for (int l = 0; l < LMAX; ++l) {
+      BlockW& b = s.layer[l];
+      b.ln1s = *p++; b.ln1b = *p++; b.wqkv = *p++; b.bqkv = *p++;
+      b.wo = *p++; b.bo = *p++; b.ln2s = *p++; b.ln2b = *p++;
+      b.w1 = *p++; b.b1 = *p++; b.w2 = *p++; b.b2 = *p++;
+    }
+    s.fs = *p++;
+    s.fb = *p++;
+  };
+  stack(W.enc);
+  W.ln_s = *p++; W.ln_b = *p++; W.mu_w = *p++; W.mu_b = *p++;
+  W.z2h_w = *p++; W.z2h_b = *p++;
+  stack(W.dec);
+  W.out_w = *p++; W.out_b = *p++;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_attention_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  fused_attention_gate_kernel<<<N, NT, smem_bytes,
+                                reinterpret_cast<cudaStream_t>(stream)>>>(
+      x, pos, resid, mse, W, T, Tp, D, H, Z, L, use_ln, with_resid);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* shm_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -27,6 +27,9 @@ import torch.nn.functional as F
 
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import load_library, raise_on_error
+from shm_tpu_torch.ops._gate import (
+    check_weights, check_windows, dispatch_gate, f32, pointer_array,
+)
 
 # pointer order of the C entry (csrc/fused_vae.cu: shm_fused_vae_gate_f32)
 _WEIGHT_ORDER = (
@@ -46,7 +49,6 @@ def vae_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
     gates i|f|g|o), biases 1-D (the cell's ``bias_ih + bias_hh``); every
     tensor is contiguous float32.
     """
-    f32 = lambda t: t.detach().to(torch.float32).contiguous()
     w = {}
     for stack, prefix in ((vae.encoder_lstm, "enc"), (vae.decoder_lstm, "dec")):
         for l, layer in enumerate(stack.layers):
@@ -116,9 +118,7 @@ def fused_vae_gate_reference(
 
 
 def _check(weights, Z, num_layers, use_layernorm):
-    if Z.dtype != torch.float32 or Z.dim() != 3 or not Z.is_contiguous():
-        raise ValueError(f"Z must be a contiguous float32 [N, T, D] tensor, "
-                         f"got {Z.dtype} {tuple(Z.shape)}")
+    check_windows(Z)
     if num_layers not in (1, 2):
         raise ValueError("the fused kernel supports 1- or 2-layer presets")
     H = weights["enc0_whh"].shape[0]
@@ -134,12 +134,7 @@ def _check(weights, Z, num_layers, use_layernorm):
     need = [k for k in _WEIGHT_ORDER
             if (num_layers == 2 or "1_" not in k)
             and (use_layernorm or not k.startswith("ln_"))]
-    for k in need:
-        w = weights[k]
-        if (w.device != Z.device or w.dtype != torch.float32
-                or not w.is_contiguous()):
-            raise ValueError(f"weight {k} must be contiguous float32 on "
-                             f"{Z.device}")
+    check_weights(weights, need, Z.device)
     return need, H, Zd
 
 
@@ -163,8 +158,7 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual):
     if N == 0:
         return mse, resid
     lib = _library()
-    ptrs = (ctypes.c_void_p * len(_WEIGHT_ORDER))(
-        *[weights[k].data_ptr() if k in need else None for k in _WEIGHT_ORDER])
+    ptrs = pointer_array(weights, _WEIGHT_ORDER, need)
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         err = lib.shm_fused_vae_gate_f32(
@@ -185,13 +179,10 @@ def fused_vae_gate(
     ``weights`` comes from :func:`vae_params_to_kernel_weights`. A CUDA
     tensor runs the kernel; a CPU tensor runs the plain version.
     """
-    if Z.device.type == "cuda":
-        return _launch(weights, Z, num_layers, use_layernorm, with_residual)
-    if Z.device.type == "cpu":
-        return fused_vae_gate_reference(weights, Z, num_layers=num_layers,
-                                        use_layernorm=use_layernorm,
-                                        with_residual=with_residual)
-    raise ValueError(f"fused_vae_gate: unsupported device {Z.device}")
+    return dispatch_gate("fused_vae_gate", Z, _launch,
+                         fused_vae_gate_reference, weights,
+                         num_layers=num_layers, use_layernorm=use_layernorm,
+                         with_residual=with_residual)
 
 
 # kernel launches so far; callers reset it to 0 to count one run's launches

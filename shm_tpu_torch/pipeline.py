@@ -37,25 +37,27 @@ def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *,
                    use_fused_vae: bool = False):
     """``fn(W, mean, std, threshold) -> HybridOutputs`` for raw (N, T, D) ``W``.
 
-    ``use_fused_vae=True`` runs the VAE pass through
-    :func:`shm_tpu_torch.ops.fused_vae_gate` (the CUDA kernel on a CUDA
-    tensor, its plain version on a CPU tensor); ``False`` runs the plain
+    ``use_fused_vae=True`` runs the VAE pass through the fused gate of
+    ``vae.cell`` (``fused_vae_gate`` for ``"lstm"``, ``fused_mingru_gate`` for
+    ``"min_gru"``, ``fused_attention_gate`` for ``"attention"``: the CUDA
+    kernel on a CUDA tensor, its plain version on a CPU tensor) and raises
+    ``ValueError`` for a cell with no kernel; ``False`` runs the plain
     :class:`TemporalVAE` modules. The kernel weights are taken from ``vae``
     once, here.
     """
     if use_fused_vae:
-        from shm_tpu_torch.ops import fused_vae_gate, vae_params_to_kernel_weights
+        from shm_tpu_torch.ops import fused_gate_for
 
-        weights = vae_params_to_kernel_weights(vae)
+        weights_fn, fused_gate = fused_gate_for(vae)
+        weights = weights_fn(vae)
 
     @torch.inference_mode()
     def hybrid(W: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                threshold: torch.Tensor) -> HybridOutputs:
         Z = normalize_windows(W, mean, std).contiguous()
         if use_fused_vae:
-            mse, resid = fused_vae_gate(weights, Z,
-                                        num_layers=vae.num_layers,
-                                        use_layernorm=vae.use_layernorm)
+            mse, resid = fused_gate(weights, Z, num_layers=vae.num_layers,
+                                    use_layernorm=vae.use_layernorm)
             xin = torch.stack([Z, resid], dim=-1)
         else:
             recon, _, _ = vae(Z)

@@ -71,8 +71,10 @@ class HybridScorer:
     """Artifact-loaded, bucket-batched scorer for the hybrid pipeline.
 
     ``device``: ``None`` means the CUDA card (raises without one); tests pass
-    ``"cpu"``. ``use_fused_vae``: ``None`` selects the fused kernel on CUDA
-    and the plain modules elsewhere.
+    ``"cpu"``. ``use_fused_vae``: ``None`` asks
+    :func:`shm_tpu_torch.ops.auto_fused_gate`: on CUDA the fused kernel of
+    the VAE's cell, which raises for a cell or a shape it does not take; on
+    the CPU the plain modules.
     """
 
     def __init__(self, vae, cnn, mean, std, threshold: float, *,
@@ -85,7 +87,9 @@ class HybridScorer:
         if self.device.type == "cuda":
             set_full_f32_precision()
         if use_fused_vae is None:
-            use_fused_vae = self.device.type == "cuda"
+            from shm_tpu_torch.ops import auto_fused_gate
+
+            use_fused_vae = auto_fused_gate(self.device)
         self.use_fused_vae = bool(use_fused_vae)
         self.vae = vae.to(self.device).eval()
         self.cnn = cnn.to(self.device).eval()
@@ -108,7 +112,9 @@ class HybridScorer:
     def from_artifacts(cls, root: str | Path, cfg=None, *, device=None,
                        **kw) -> "HybridScorer":
         """Load the 4DOF artifact layout (``models/*.msgpack``,
-        ``processed/normal_stats.npz``, ``processed/vae_threshold.json``)."""
+        ``processed/normal_stats.npz``, ``processed/vae_threshold.json``);
+        the VAE's cell family comes from
+        ``processed/stage1_vae_train_meta.json``."""
         from shm_tpu_torch.cli.stage4dof import Paths, _load_stats, _load_vae
         from shm_tpu_torch.config import Stage4DofConfig
         from shm_tpu_torch.convert import cnn4dof_from_flax

@@ -169,6 +169,12 @@ def _clone_state(model) -> Dict[str, torch.Tensor]:
 
 
 def _resolve_use_kernel(model, use_kernel: Optional[bool], device) -> bool:
+    if model.cell != "lstm":
+        raise NotImplementedError(
+            f"training of cell={model.cell!r} is not ported yet (ROADMAP.md "
+            "Queue 1 item 10: plain autograd, the JAX package has no training "
+            "kernel for it); the port scores such a VAE but trains the LSTM "
+            "cell only")
     if use_kernel is None:
         use_kernel = device.type == "cuda"
     if use_kernel and model.num_layers != 2:
@@ -365,10 +371,11 @@ def reconstruction_mse(
     The default ``sample=False`` scores the posterior-mean reconstruction;
     ``sample=True`` draws the reparameterisation noise from ``generator``.
     ``fused="auto"`` routes deterministic scoring on the card through the
-    gate-only mode of the fused VAE kernel (``fused_vae_gate(...,
-    with_residual=False)``: no residual store), which raises for a shape it
-    does not take; ``fused=False``, sampling, or the CPU run the model in
-    padded batches of ``batch_size``. The model is moved to ``device``
+    gate-only mode of the fused kernel of the model's cell
+    (``with_residual=False``: no residual store), which raises for a cell or
+    a shape it does not take;
+    ``fused=False``, sampling, or the CPU run the model in padded batches of
+    ``batch_size``. The model is moved to ``device``
     (None = the CUDA card) and put in eval mode.
     """
     device = resolve_device(device)
@@ -378,15 +385,14 @@ def reconstruction_mse(
         return np.zeros((0,), np.float32)
     model.to(device).eval()
 
-    if fused == "auto":
-        fused = device.type == "cuda" and not sample
-    if fused and not sample:
-        from shm_tpu_torch.ops.fused_vae import (
-            fused_vae_gate, vae_params_to_kernel_weights,
-        )
+    from shm_tpu_torch.ops import auto_fused_gate, fused_gate_for
 
-        mse, _ = fused_vae_gate(
-            vae_params_to_kernel_weights(model), Z.contiguous(),
+    if fused == "auto":
+        fused = auto_fused_gate(device)
+    if fused and not sample:
+        weights_fn, fused_gate = fused_gate_for(model)
+        mse, _ = fused_gate(
+            weights_fn(model), Z.contiguous(),
             num_layers=model.num_layers, use_layernorm=model.use_layernorm,
             with_residual=False)
         return mse.cpu().numpy().astype(np.float32)

@@ -12,7 +12,11 @@ from shm_tpu_torch.utils.checkpoint import (
 )
 
 ROOT = Path(__file__).resolve().parents[1]
-CKPTS = ["data/4dof/models/temporal_vae.msgpack", "data/4dof/models/cnn.msgpack"]
+CKPTS = [f"data/{root}/models/{name}.msgpack"
+         for root in ("4dof", "4dof_mingru", "4dof_attention")
+         for name in ("temporal_vae", "cnn")]
+VAE_ROOTS = {"lstm": "data/4dof", "min_gru": "data/4dof_mingru",
+             "attention": "data/4dof_attention"}
 
 
 def _flatten(tree, prefix=()):
@@ -123,3 +127,81 @@ def test_packb_refuses_what_it_cannot_encode():
         packb({"a": object()})
     with pytest.raises(ValueError, match="object arrays"):
         packb(np.array([object()]))
+
+
+# --- the VAE trees of the three cell families -----------------------------------
+
+@pytest.mark.parametrize("cell", list(VAE_ROOTS))
+def test_vae_tree_survives_the_port_bit_for_bit(cell):
+    """``vae_to_flax(vae_from_flax(p)) == p`` on the committed checkpoint of
+    each family: the transposes and head reshapes are undone exactly."""
+    from shm_tpu_torch.config import Stage4DofConfig, replace
+    from shm_tpu_torch.convert import tree_cell, vae_from_flax, vae_to_flax
+
+    tree = load_checkpoint(ROOT / VAE_ROOTS[cell] / "models/temporal_vae.msgpack")["params"]
+    assert tree_cell(tree) == cell
+    vae = vae_from_flax(tree, replace(Stage4DofConfig().vae, cell=cell))
+    back = dict(_flatten(vae_to_flax(vae)))
+    want = dict(_flatten(tree))
+    assert back.keys() == want.keys()
+    for key, a in want.items():
+        b = back[key]
+        assert b.dtype == np.float32 and b.flags["C_CONTIGUOUS"], key
+        assert b.shape == a.shape and b.tobytes() == np.asarray(a).tobytes(), key
+    # and from the state dict alone, as the trainer saves it
+    again = dict(_flatten(vae_to_flax(vae.state_dict())))
+    assert all(np.array_equal(again[k], back[k]) for k in back)
+
+
+@pytest.mark.parametrize("cell, shapes", [
+    ("min_gru", {("encoder_lstm", "layer0", "w_ih"): (12, 256),
+                 ("decoder_lstm", "layer1", "b_ih"): (256,)}),
+    ("attention", {("encoder_lstm", "layer0", "attn", "query", "kernel"): (128, 4, 32),
+                   ("encoder_lstm", "layer0", "attn", "query", "bias"): (4, 32),
+                   ("decoder_lstm", "layer1", "attn", "out", "kernel"): (4, 32, 128),
+                   ("decoder_lstm", "layer0", "mlp_in", "kernel"): (128, 512),
+                   ("decoder_lstm", "layer0", "mlp_out", "kernel"): (512, 128),
+                   ("encoder_lstm", "in_proj", "kernel"): (12, 128),
+                   ("decoder_lstm", "final_norm", "scale"): (128,)}),
+])
+def test_committed_vae_trees_have_the_flax_shapes(cell, shapes):
+    tree = load_checkpoint(ROOT / VAE_ROOTS[cell] / "models/temporal_vae.msgpack")["params"]
+    flat = dict(_flatten(tree))
+    for key, shape in shapes.items():
+        assert flat[key].shape == shape and flat[key].dtype == np.float32
+
+
+@pytest.mark.parametrize("cell", list(VAE_ROOTS))
+def test_random_tree_has_the_committed_trees_structure(cell):
+    from shm_tpu_torch.config import Stage4DofConfig, replace
+    from shm_tpu_torch.convert import random_flax_vae_params
+
+    cfg = replace(Stage4DofConfig().vae, cell=cell)
+    made = dict(_flatten(random_flax_vae_params(np.random.default_rng(0), cfg)))
+    tree = load_checkpoint(ROOT / VAE_ROOTS[cell] / "models/temporal_vae.msgpack")["params"]
+    want = dict(_flatten(tree))
+    assert made.keys() == want.keys()
+    assert all(made[k].shape == want[k].shape and made[k].dtype == np.float32
+               for k in want)
+
+
+def test_tree_of_another_family_is_refused():
+    from shm_tpu_torch.config import VAEConfig
+    from shm_tpu_torch.convert import (
+        random_flax_vae_params, vae_from_flax, vae_state_dict,
+    )
+
+    rng = np.random.default_rng(0)
+    small = dict(input_dim=5, latent_dim=4, hidden_dim=32, num_layers=1)
+    trees = {c: random_flax_vae_params(rng, VAEConfig(cell=c, **small))
+             for c in VAE_ROOTS}
+    for have, tree in trees.items():
+        for asked in VAE_ROOTS:
+            if asked == have:
+                vae_from_flax(tree, VAEConfig(cell=asked, **small))
+                continue
+            with pytest.raises(ValueError, match=f"holds a {have!r} VAE, not "
+                                                 f"the {asked!r}"):
+                vae_state_dict(tree, 1, True, asked)
+    with pytest.raises(ValueError, match="unknown cell 'gru'"):
+        random_flax_vae_params(rng, VAEConfig(cell="gru", **small))

@@ -3,7 +3,8 @@
 Run them on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 This file imports no JAX, so it also runs where only PyTorch is installed.
 Kernel against plain version: both float32 on the card, summed in other
-orders through a 2*L*T-step recurrence, so within atol 1e-4 + rtol 1e-4.
+orders through a 2*L*T-step recurrence (or, for the attention gate, through
+four transformer blocks), so within atol 1e-4 + rtol 1e-4.
 """
 
 import numpy as np
@@ -190,3 +191,166 @@ def test_lstm_kernels_refuse_bad_input(cuda_device):
     with pytest.raises(ValueError, match="unsupported hidden size"):
         lstm2_enc_last(z(3, 4, 2), None, z(4 * H, 4), z(4 * H, H), z(4 * H, 1),
                        z(4 * H, H), z(4 * H, H), z(4 * H, 1))
+
+
+# --- the minGRU and attention gates (ops/fused_mingru.py, ops/fused_attention.py)
+
+GATE_CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
+    "4dof_ragged": (77, 100, 12, 16, 128, 2, True, True),
+    "openlab_L1_H64_T200": (40, 200, 3, 8, 64, 1, True, True),
+    "1dof_H32_noln": (33, 80, 12, 5, 32, 2, False, True),
+    "gate_only": (50, 30, 12, 16, 128, 2, True, False),
+    "one_window": (1, 17, 12, 16, 64, 2, True, True),
+}
+
+
+def _gate(cell):
+    from shm_tpu_torch.ops import FUSED_GATES
+
+    return FUSED_GATES[cell]
+
+
+def _gate_case(cell, case, device, seed):
+    N, T, D, Zd, H, L, ln, wr = case
+    cfg = VAEConfig(input_dim=D, latent_dim=Zd, hidden_dim=H, num_layers=L,
+                    use_layernorm=ln, cell=cell)
+    rng = np.random.default_rng(seed)
+    vae = vae_from_flax(random_flax_vae_params(rng, cfg), cfg).to(device)
+    Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(np.float32))
+    return vae, Z.to(device), dict(num_layers=L, use_layernorm=ln,
+                                   with_residual=wr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GATE_CASES) + ["mingru_L3"])
+@pytest.mark.parametrize("cell", ["min_gru", "attention"])
+def test_fused_cell_gate_kernel_matches_plain_version(cuda_device, cell, name):
+    if name == "mingru_L3":
+        if cell != "min_gru":
+            pytest.skip("the attention kernel takes 1 or 2 layers")
+        case = (45, 40, 4, 5, 32, 3, True, True)
+    else:
+        case = GATE_CASES[name]
+    weights_fn, gate, reference = _gate(cell)
+    vae, Z, kw = _gate_case(cell, case, cuda_device, len(name))
+    w = weights_fn(vae)
+    before = gate.launches
+    mse, resid = gate(w, Z, **kw)
+    torch.cuda.synchronize()
+    assert gate.launches == before + 1
+    mse_p, resid_p = reference(w, Z, **kw)
+    assert mse.shape == (Z.shape[0],) and bool(torch.isfinite(mse).all())
+    torch.testing.assert_close(mse, mse_p, atol=1e-4, rtol=1e-4)
+    if kw["with_residual"]:
+        torch.testing.assert_close(resid, resid_p, atol=1e-4, rtol=1e-4)
+    else:
+        assert resid is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["min_gru", "attention"])
+def test_fused_cell_gate_kernel_is_reproducible_and_takes_no_windows(cuda_device, cell):
+    weights_fn, gate, _ = _gate(cell)
+    vae, Z, kw = _gate_case(cell, GATE_CASES["1dof_H32_noln"], cuda_device, 3)
+    w = weights_fn(vae)
+    a, b = gate(w, Z, **kw), gate(w, Z, **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])   # no atomics
+    before = gate.launches
+    mse, resid = gate(w, Z[:0], **kw)
+    assert mse.shape == (0,) and resid.shape == (0,) + Z.shape[1:]
+    assert gate.launches == before                               # no launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["min_gru", "attention"])
+def test_fused_cell_gate_kernel_refuses_bad_input(cuda_device, cell):
+    from shm_tpu_torch.train import reconstruction_mse
+
+    weights_fn, gate, _ = _gate(cell)
+    vae, Z, kw = _gate_case(cell, GATE_CASES["1dof_H32_noln"], cuda_device, 4)
+    w = weights_fn(vae)
+    before = gate.launches
+    with pytest.raises(ValueError, match="contiguous float32"):
+        gate(w, Z.transpose(0, 1), **kw)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        gate(w, Z.double(), **kw)
+    with pytest.raises(ValueError, match="must be contiguous float32 on"):
+        gate({k: v.cpu() for k, v in w.items()}, Z, **kw)
+    assert gate.launches == before
+    # the caller launches the cell's gate-only kernel and nothing else
+    mse = reconstruction_mse(vae, Z.cpu().numpy())
+    assert gate.launches == before + 1
+    ref = reconstruction_mse(vae, Z.cpu().numpy(), fused=False)
+    assert gate.launches == before + 1
+    np.testing.assert_allclose(mse, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_attention_kernel_refuses_a_window_too_long_for_a_block(cuda_device):
+    from shm_tpu_torch.ops import (
+        attention_params_to_kernel_weights, fused_attention_gate,
+    )
+
+    vae, Z, kw = _gate_case("attention", (2, 400, 12, 16, 128, 2, True, True),
+                            cuda_device, 5)
+    before = fused_attention_gate.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_attention_gate(attention_params_to_kernel_weights(vae), Z, **kw)
+    assert fused_attention_gate.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, H", [(100, 128), (200, 64), (80, 32), (130, 32), (1, 32)])
+def test_fused_attention_wrapper_counts_the_kernels_shared_memory(cuda_device, T, H):
+    """The bytes the wrapper holds against the card's limit are those the
+    built source computes for its own launch."""
+    from shm_tpu_torch.ops import fused_attention
+
+    assert (fused_attention._library().shm_fused_attention_smem_bytes(T, H)
+            == fused_attention.shared_memory_bytes(T, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell, H, L", [("lstm", 128, 3), ("attention", 64, 3),
+                                        ("attention", 256, 1)])
+def test_default_scorer_raises_for_a_preset_the_kernel_does_not_take(cuda_device, cell, H, L):
+    """On the card the default is the fused gate for every model: a preset
+    the cell's kernel does not take raises, it never runs the plain modules."""
+    from shm_tpu_torch.models import CNN4DOF, TemporalVAE
+    from shm_tpu_torch.serve import HybridScorer
+
+    gate = _gate(cell)[1]
+    before = gate.launches
+    with pytest.raises(ValueError, match="layer|unsupported shape"):
+        scorer = HybridScorer(TemporalVAE(12, 16, H, L, cell=cell),
+                              CNN4DOF(2, 100, 12), np.zeros(12), np.ones(12),
+                              0.5, min_bucket=8, max_batch=8)
+        assert scorer.use_fused_vae
+        scorer.score(np.zeros((8, 100, 12), np.float32))
+    assert gate.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("root, kernel", [("4dof_mingru", "fused_mingru_gate"),
+                                          ("4dof_attention", "fused_attention_gate")])
+def test_scorer_launches_the_kernel_of_the_roots_cell(cuda_device, root, kernel):
+    from pathlib import Path
+
+    from shm_tpu_torch import ops
+    from shm_tpu_torch.serve import HybridScorer
+
+    art = Path(__file__).resolve().parents[1] / "data" / root
+    scorer = HybridScorer.from_artifacts(art, min_bucket=64, max_batch=64)
+    assert scorer.device.type == "cuda" and scorer.use_fused_vae
+    gate = getattr(ops, kernel)
+    before, lstm_before = gate.launches, ops.fused_vae_gate.launches
+    rng = np.random.default_rng(0)
+    W = (scorer.mean.cpu().numpy() + scorer.std.cpu().numpy()
+         * rng.normal(size=(70, 100, 12))).astype(np.float32)
+    out = scorer.score(W)
+    assert gate.launches == before + 2            # 70 windows = 64 + 6 -> 2 buckets
+    assert ops.fused_vae_gate.launches == lstm_before
+    plain = HybridScorer.from_artifacts(art, min_bucket=64, max_batch=64,
+                                        use_fused_vae=False).score(W)
+    assert (out["anomalous"] == plain["anomalous"]).all()
+    np.testing.assert_allclose(out["mse"], plain["mse"], rtol=1e-3)

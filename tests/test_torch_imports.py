@@ -40,6 +40,11 @@ def _forbidden(module: str) -> bool:
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("chip_smoke.py", "shm_tpu_torch/ops/fused_vae.py",
+                 "shm_tpu_torch/ops/fused_mingru.py",
+                 "shm_tpu_torch/ops/fused_attention.py",
+                 "shm_tpu_torch/ops/_gate.py",
+                 "shm_tpu_torch/models/minrnn.py",
+                 "shm_tpu_torch/models/attention.py",
                  "shm_tpu_torch/serve.py", "shm_tpu_torch/pipeline.py",
                  "shm_tpu_torch/ops/lstm_train.py",
                  "shm_tpu_torch/train/__init__.py", "shm_tpu_torch/train/vae.py",
@@ -67,15 +72,33 @@ def test_every_port_module_imports_without_a_card_or_compiler():
             importlib.import_module(name)
 
 
+KERNEL_ENTRIES = {
+    "fused_vae.cu": ["shm_fused_vae_gate_f32"],
+    "lstm_train.cu": ["shm_lstm2_enc_fwd_f32", "shm_lstm2_enc_bwd_f32",
+                      "shm_lstm2_dec_fwd_f32", "shm_lstm2_dec_bwd_f32"],
+    "fused_mingru.cu": ["shm_fused_mingru_gate_f32"],
+    "fused_attention.cu": ["shm_fused_attention_gate_f32"],
+}
+
+
 def test_kernel_sources_sit_beside_their_wrappers():
     csrc = ROOT / "shm_tpu_torch" / "ops" / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == {"fused_vae.cu", "lstm_train.cu"}
-    src = (csrc / "lstm_train.cu").read_text()
-    for entry in ("shm_lstm2_enc_fwd_f32", "shm_lstm2_enc_bwd_f32",
-                  "shm_lstm2_dec_fwd_f32", "shm_lstm2_dec_bwd_f32"):
+    assert {p.name for p in csrc.glob("*.cu")} == set(KERNEL_ENTRIES)
+    for name in KERNEL_ENTRIES:
+        assert (csrc.parent / name).with_suffix(".py").is_file()
+
+
+@pytest.mark.parametrize("source", list(KERNEL_ENTRIES))
+def test_kernel_source_is_hand_written_cuda_with_a_c_entry(source):
+    src = (ROOT / "shm_tpu_torch" / "ops" / "csrc" / source).read_text()
+    for entry in KERNEL_ENTRIES[source]:
         assert f'extern "C" int {entry}(' in src
+    assert "__global__" in src and "<<<" in src
     assert "atomicAdd" not in src and "use_fast_math" not in src.replace(
         "no --use_fast_math", "")
+    # every product is the kernel's own code: no library header stands in
+    includes = [l.split()[1] for l in src.splitlines() if l.startswith("#include")]
+    assert includes == ["<cuda_runtime.h>"]
 
 
 @pytest.mark.parametrize("module, bad", [

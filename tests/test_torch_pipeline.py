@@ -239,13 +239,82 @@ def test_load_stats_floors_zero_std(tmp_path):
 
 @pytest.mark.parametrize("cell", ["min_gru", "attention"])
 def test_load_vae_refuses_unported_cells(tmp_path, cell):
+    """Every cell family is ported now; what is refused is a checkpoint of
+    another family than the root's manifest names: it raises and never
+    loads."""
+    import shutil
+
     from shm_tpu_torch.cli.stage4dof import _load_vae
 
-    (tmp_path / "processed").mkdir()
+    for sub in ("models", "processed"):
+        shutil.copytree(ART / sub, tmp_path / sub)
     (tmp_path / "processed" / "stage1_vae_train_meta.json").write_text(
         '{"cell": "%s"}' % cell)
-    with pytest.raises(NotImplementedError, match=cell):
+    with pytest.raises(ValueError, match=f"holds a 'lstm' VAE, not the {cell!r}"):
         _load_vae(Paths(str(tmp_path)), Stage4DofConfig())
+    # and the other way round: the family's checkpoint under an LSTM manifest
+    other = ROOT / "data" / ("4dof_mingru" if cell == "min_gru" else "4dof_attention")
+    shutil.copy(other / "models" / "temporal_vae.msgpack", tmp_path / "models")
+    (tmp_path / "processed" / "stage1_vae_train_meta.json").write_text(
+        '{"cell": "lstm"}')
+    with pytest.raises(ValueError, match=f"holds a {cell!r} VAE, not the 'lstm'"):
+        _load_vae(Paths(str(tmp_path)), Stage4DofConfig())
+    with pytest.raises(ValueError, match="temporal_vae.msgpack"):
+        HybridScorer.from_artifacts(tmp_path, device="cpu")
+
+
+@pytest.mark.parametrize("cell, H, L, device, takes", [
+    ("lstm", 128, 2, "cuda", True), ("lstm", 128, 1, "cuda", True),
+    ("lstm", 128, 3, "cuda", False), ("lstm", 128, 2, "cpu", True),
+    ("min_gru", 128, 2, "cuda", True), ("min_gru", 64, 1, "cuda:0", True),
+    ("min_gru", 32, 3, "cuda", True), ("min_gru", 128, 2, "cpu", True),
+    ("attention", 128, 2, "cuda", True), ("attention", 32, 1, "cuda", True),
+    ("attention", 256, 2, "cuda", False), ("attention", 48, 1, "cuda", False),
+    ("attention", 128, 2, "cpu", True), ("gru", 128, 2, "cuda", False),
+])
+def test_auto_fused_gate_policy(cell, H, L, device, takes):
+    """The default turns the fused gate on for every model on CUDA and off
+    on the CPU, whatever the model. A cell or a preset the cell's kernel
+    does not take is refused with ``ValueError`` by the look-up or by the
+    checks the wrapper makes before a launch: on the card nothing gives way
+    to the plain modules."""
+    from types import SimpleNamespace
+
+    from shm_tpu_torch import ops
+    from shm_tpu_torch.models import TemporalVAE
+
+    on_card = device.startswith("cuda")
+    assert ops.auto_fused_gate(device) is on_card
+    assert ops.auto_fused_gate(torch.device(device)) is on_card
+
+    if cell not in ops.FUSED_GATES:
+        with pytest.raises(ValueError, match=f"no fused kernel for cell={cell!r}"):
+            ops.fused_gate_for(SimpleNamespace(cell=cell))
+        return
+    Z = torch.zeros(2, 6, 5)
+    try:
+        model = TemporalVAE(5, 4, H, L, cell=cell)
+        weights_fn, gate = ops.fused_gate_for(model)
+        module = __import__(gate.__module__, fromlist=["_check"])
+        module._check(weights_fn(model), Z, L, True)
+        refused = False
+    except ValueError:
+        refused = True
+    assert refused is (not takes)
+
+
+def test_fused_flag_with_an_unknown_cell_raises(scorer):
+    from types import SimpleNamespace
+
+    from shm_tpu_torch.ops import FUSED_GATES, fused_gate_for
+
+    with pytest.raises(ValueError, match="no fused kernel for cell='gru'"):
+        make_hybrid_fn(SimpleNamespace(cell="gru"), scorer.cnn, use_fused_vae=True)
+    make_hybrid_fn(SimpleNamespace(cell="gru"), scorer.cnn)    # plain path: no lookup
+    assert set(FUSED_GATES) == {"lstm", "min_gru", "attention"}
+    for cell, (weights_fn, gate, reference) in FUSED_GATES.items():
+        assert fused_gate_for(SimpleNamespace(cell=cell)) == (weights_fn, gate)
+        assert gate.launches >= 0 and reference.__name__ == gate.__name__ + "_reference"
 
 
 def test_load_vae_reads_the_lstm_artifact():
