@@ -4,7 +4,7 @@
 Phases (any failure exits non-zero before the final line):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
-   (nvcc, ``sm_90a``, from ``shm_tpu_torch/ops/csrc``, four sources at once);
+   (nvcc, ``sm_90a``, from ``shm_tpu_torch/ops/csrc``, six sources at once);
 2. each of the three fused gate kernels (LSTM, minGRU, attention) against
    its plain PyTorch version on the card, random weights from a numpy seed,
    at four shapes (minGRU also at three layers);
@@ -34,7 +34,17 @@ Phases (any failure exits non-zero before the final line):
    ``reconstruction_mse`` through the fused gate kernel;
 8. timings of the four kernels and of one training step (kernel path, plain
    autograd path, a cuDNN ``nn.LSTM`` yardstick), their bounds, and where a
-   step's time goes.
+   step's time goes;
+9. the probes (``shm_tpu_torch/tools``): each of the three probe kernels
+   against its plain version (``matmul_loop`` in every mode at one tile and
+   at 21, bf16x3 also against the float32 loop; ``gate_variant``'s variants
+   at N=1000 ragged, and its float32 instance against ``fused_vae_gate`` bit
+   for bit; the minGRU clone at ``loop_T`` T and 1), with planted faults
+   (float32 for bf16, another LayerNorm eps, bf16 activations added) that
+   each tolerance must fail; then the probe path: the three probes' tables
+   at the TPU probes' sizes (launch counts reset before, read after), and
+   each kernel's time against its bound, its plain version and a library
+   yardstick.
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -53,10 +63,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# card peaks for the bound (H100 SXM data sheet, dense, at the 700 W limit)
-PEAK_F32_FLOPS = 67e12          # float32 without tensor cores
-PEAK_BF16_FLOPS = 989e12        # bf16 tensor cores, dense
-PEAK_BYTES = 3.35e12            # HBM3
+# the card's peaks and the bound they give: shm_tpu_torch/tools/workload.py
+# (PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES, bound_ms)
 
 # kernel vs plain, both float32 on the card: the two sum in different orders
 # and round differently inside expf/tanhf, and the 2*L*T-step recurrence
@@ -93,21 +101,9 @@ def gpu_line() -> str:
 
 def time_ms(fn, reps: int = REPS, warm: int = 2) -> float:
     """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
-    import torch
+    from shm_tpu_torch.tools.workload import timed
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        ts.append(s.elapsed_time(e))
-    return float(np.median(ts))
+    return timed(fn, reps, warm)
 
 
 def vae_work(N: int, T: int, D: int, H: int, Z: int, L: int,
@@ -193,7 +189,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     res = _build.build(["fused_vae", "lstm_train", "fused_mingru",
-                        "fused_attention"])
+                        "fused_attention", "probe_mingru_gate",
+                        "probe_matmul_loop"])
     wall = time.perf_counter() - t0
     for name, (path, secs, log) in res.items():
         print(f"[build] {name}: {path.relative_to(ROOT)} in {secs:.2f} s")
@@ -265,19 +262,6 @@ def phase_kernel_vs_plain(cell: str = "lstm"):
         else:
             check(resid is None, f"{name}: resid returned with_residual=False")
     return worst
-
-
-def test_windows():
-    from shm_tpu_torch.cli.stage4dof import Paths, build_fraction_windows
-    from shm_tpu_torch.config import Stage4DofConfig
-    from shm_tpu_torch.utils.io import load_json
-
-    cfg = Stage4DofConfig()
-    splits = load_json(Paths(str(ROOT / "data" / "4dof")).run_splits)
-    groups = [build_fraction_windows(splits[g]["files"], cfg.test_frac, cfg)
-              for g in ("normal", "sensor_fault", "structural_fault")]
-    y = np.concatenate([np.full(len(g), i) for i, g in enumerate(groups)])
-    return np.concatenate(groups), y
 
 
 def phase_main_path(W, y, cell: str = "lstm"):
@@ -516,6 +500,9 @@ def phase_timing(scorer, W, cell: str = "lstm"):
     from shm_tpu_torch.data.windows import normalize_windows
     from shm_tpu_torch.ops import FUSED_GATES
     from shm_tpu_torch.serve import bucket_size
+    from shm_tpu_torch.tools.workload import (
+        PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS, bound_ms,
+    )
 
     fam = FAMILIES[cell]
     weights_fn, gate, reference = FUSED_GATES[cell]
@@ -544,17 +531,15 @@ def phase_timing(scorer, W, cell: str = "lstm"):
     library_ms = time_ms(lambda: library(Z))
     flops, nbytes = fam["work"](N, T, D, vae.hidden_dim, vae.latent_dim,
                                 vae.num_layers)
-    t_f32 = flops / PEAK_F32_FLOPS * 1e3
-    t_bf16 = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_f32, t_bytes)
+    bound, bound_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
     print(f"{tag} {gate.__name__} N={N}: kernel {ms:.4f} ms | plain "
           f"{plain_ms:.4f} ms | {fam['library']} yardstick {library_ms:.4f} ms")
     print(f"{tag} work {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB -> "
-          f"bound {bound_ms:.4f} ms ({'operations' if t_f32 >= t_bytes else 'bytes'}"
-          f"; f32 {t_f32:.4f} ms, bf16 tensor-core {t_bf16:.4f} ms, bytes "
-          f"{t_bytes:.4f} ms); kernel at {t_f32 / ms * 100:.1f}% of the f32 "
-          f"bound")
+          f"bound {bound:.4f} ms ({bound_by}; f32 "
+          f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms, bf16 tensor-core "
+          f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms, bytes "
+          f"{nbytes / PEAK_BYTES * 1e3:.4f} ms); kernel at "
+          f"{bound / ms * 100:.1f}% of the f32 bound")
 
     scorer.score(Wb)                                   # warm the bucket
     walls = []
@@ -570,9 +555,7 @@ def phase_timing(scorer, W, cell: str = "lstm"):
     profile_device(lambda: scorer.score(Wb),
                    f"{cell} score() of {len(Wb)} windows")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if t_f32 >= t_bytes else "bytes",
-            "library_ms": library_ms}
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
 
 
 def profile_device(fn, what: str, calls: int = 3, groups=None, rest: str = ""):
@@ -946,6 +929,7 @@ def phase_lstm_timing(errs, counts, ctx):
         dec_backward_cuda, dec_forward_cuda, enc_backward_cuda,
         enc_forward_cuda,
     )
+    from shm_tpu_torch.tools.workload import PEAK_BYTES, PEAK_F32_FLOPS, bound_ms
     from shm_tpu_torch.train.vae import batch_loss, make_optimizer
 
     cfg = Stage4DofConfig()
@@ -993,19 +977,18 @@ def phase_lstm_timing(errs, counts, ctx):
     rows = []
     for name, replaces in LSTM_KERNELS.items():
         flops, nbytes = lstm_work(name, T, D, H, B, K=H)
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        bound = max(t_ops, t_bytes)
+        bound, bound_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
         print(f"[time] {name} T={T} H={H} B={B}: kernel {ms[name]:.4f} ms | "
               f"plain {plain[name]:.4f} ms | cuDNN nn.LSTM {lib[name]:.4f} ms | "
               f"work {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
-              f"{bound:.4f} ms (f32 {t_ops:.4f}, bytes {t_bytes:.4f}); kernel at "
+              f"{bound:.4f} ms (f32 {flops / PEAK_F32_FLOPS * 1e3:.4f}, bytes "
+              f"{nbytes / PEAK_BYTES * 1e3:.4f}); kernel at "
               f"{bound / ms[name] * 100:.1f}% of the bound")
         rows.append(dict(
             name=name, route="cuda",
             source="shm_tpu_torch/ops/csrc/lstm_train.cu", replaces=replaces,
             launches=counts[name], max_abs_err=errs[name], ms=ms[name],
-            plain_ms=plain[name], bound_ms=bound,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            plain_ms=plain[name], bound_ms=bound, bound_by=bound_by,
             library_ms=lib[name]))
 
     # --- one training step: kernel path, plain autograd path, cuDNN yardstick
@@ -1058,6 +1041,275 @@ def phase_lstm_timing(errs, counts, ctx):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the probes (phase 9)
+# ---------------------------------------------------------------------------
+
+PROBES = {   # name in the kernels line: (source, the TPU kernel it replaces)
+    "fused_vae_probe": ("shm_tpu_torch/ops/csrc/fused_vae.cu",
+                        "tools/probe_vpu_bound.py:76"),
+    "probe_mingru_gate": ("shm_tpu_torch/ops/csrc/probe_mingru_gate.cu",
+                          "tools/probe_mingru_recur.py:49"),
+    "probe_matmul_loop": ("shm_tpu_torch/ops/csrc/probe_matmul_loop.cu",
+                          "tools/probe_f32_cliff.py:50"),
+}
+# The probes' bf16 paths against their plain versions. A stored bf16 value
+# whose last bit flips when the two sum in another order moves by one bf16
+# ulp and the recurrence carries it forward: that moves a few elements far.
+# A kernel that drops or adds a rounding, or takes another LayerNorm eps,
+# moves every element a little. So each path is held on (max |diff| /
+# max |plain|, mean |diff| / mean |plain|), and the checks show that each
+# tolerance fails such a planted fault. Measured on the card (PERF.md §6):
+# gate_variant and make_gate, N=1000, T=100: kernel (1.5e-5, 8.8e-7); with
+# bf16 activations (6 more roundings a cell, so more flips) (2.3e-5, 2.4e-6);
+# the faults move the mean by 7.2e-6 (eps) to 1.4e-4 (float32).
+# matmul_loop bf16, T=100: kernel (4.8e-3, 4.3e-4); float32 instead of bf16
+# moves the mean by 7.3e-3.
+PROBE_TOL = {"gate": (1e-4, 2e-6), "gate_act_bf16": (1e-4, 5e-6),
+             "matmul_bf16": (1e-2, 1e-3)}
+# bf16x3 (three bf16 products) against the float32 loop's plain version at
+# T=100: measured at most (1.2e-4, 3.3e-5) over 14 input seeds, where bf16
+# alone is (1.4e-2, 6.2e-3) or more away
+BF16X3_F32_TOL = (3e-4, 1e-4)
+PROBE_REPS = 5
+
+
+def rel_errs(got, ref):
+    """(max |got - ref| / max |ref|, mean |got - ref| / mean |ref|)."""
+    d, r = (got - ref).abs().double(), ref.abs().double()
+    return float(d.max() / r.max()), float(d.mean() / r.mean())
+
+
+def compare_rel(name: str, got, ref, tol) -> float:
+    """Max |got - ref|; fails past either relative tolerance of ``tol``."""
+    max_rel, mean_rel = rel_errs(got, ref)
+    ok = max_rel <= tol[0] and mean_rel <= tol[1]
+    print(f"[probe]   {name}: max_rel {max_rel:.3e} (<= {tol[0]:g}), mean_rel "
+          f"{mean_rel:.3e} (<= {tol[1]:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name}: probe kernel disagrees with its plain version "
+              f"(max_rel {max_rel:.3e}, mean_rel {mean_rel:.3e})")
+    return float((got - ref).abs().max())
+
+
+def planted_fault(name: str, got, wrong_ref, tol) -> None:
+    """``tol`` must tell the kernel's output from ``wrong_ref``, the plain
+    version with one numerics knob changed."""
+    max_rel, mean_rel = rel_errs(got, wrong_ref)
+    caught = max_rel > tol[0] or mean_rel > tol[1]
+    print(f"[probe]   planted fault, {name}: max_rel {max_rel:.3e}, mean_rel "
+          f"{mean_rel:.3e} -> {'caught' if caught else 'MISSED'}")
+    check(caught, f"the tolerance {tol} does not tell {name}")
+
+
+def phase_probes_vs_plain():
+    """Each probe kernel against its plain version on the card, random
+    inputs from a numpy seed, and the planted faults each tolerance must
+    fail. Returns the max |diff| per kernel."""
+    import torch
+
+    from shm_tpu_torch.ops import (
+        fused_vae_gate, mingru_params_to_kernel_weights,
+        vae_params_to_kernel_weights,
+    )
+    from shm_tpu_torch.tools.probe_f32_cliff import (
+        MODES, make_inputs, matmul_loop, matmul_loop_reference,
+    )
+    from shm_tpu_torch.tools.probe_mingru_recur import (
+        make_gate, mingru_gate_reference,
+    )
+    from shm_tpu_torch.tools.probe_vpu_bound import (
+        MODEL_LN_EPS, PORT_VARIANTS, VARIANTS, gate_variant,
+        gate_variant_reference,
+    )
+
+    errs = dict.fromkeys(PROBES, 0.0)
+    tol = PROBE_TOL["matmul_bf16"]
+    for tiles in (1, 21):
+        w, x = make_inputs(tiles, seed=400 + tiles, device="cuda")
+        f32_ref = matmul_loop_reference(w, x, "f32")
+        for mode in MODES:
+            out = matmul_loop(w, x, mode)
+            torch.cuda.synchronize()
+            ref = f32_ref if mode == "f32" else matmul_loop_reference(w, x, mode)
+            check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+                  f"matmul_loop/{mode}: not finite / wrong shape")
+            name = f"matmul_loop/{mode} {tiles} tile(s), T=100"
+            if mode == "bf16":
+                e = compare_rel(name, out, ref, tol)
+                planted_fault(f"{name} held against the float32 loop", out,
+                              f32_ref, tol)
+            else:
+                e = compare(name, out, ref)
+            if mode == "bf16x3":
+                compare_rel(f"{name} against the float32 loop", out, f32_ref,
+                            BF16X3_F32_TOL)
+            errs["probe_matmul_loop"] = max(errs["probe_matmul_loop"], e)
+
+    tol = PROBE_TOL["gate"]
+    vae, rng = random_vae(410, 12, 16, 128, 2, True)
+    w = vae_params_to_kernel_weights(vae)
+    Z = torch.from_numpy(rng.normal(size=(1000, 100, 12)).astype(np.float32)).cuda()
+    out = {}
+    for name, kw in {**PORT_VARIANTS, **VARIANTS}.items():
+        out[name] = gate_variant(w, Z, **kw)
+        torch.cuda.synchronize()
+        check(out[name].shape == (1000,) and bool(torch.isfinite(out[name]).all()),
+              f"gate_variant {name}: not finite / wrong shape")
+        ref = gate_variant_reference(w, Z, **kw)
+        label = f"gate_variant {name} N=1000"
+        # float32 operands (bf16 weights at most): the gate's float32 tolerance
+        if kw.get("bf16", "all") != "all":
+            e = compare(label, out[name], ref)
+        else:
+            e = compare_rel(label, out[name], ref,
+                            PROBE_TOL["gate_act_bf16" if kw.get("act_bf16") else "gate"])
+        errs["fused_vae_probe"] = max(errs["fused_vae_probe"], e)
+    # float32 numerics and the model's eps: the shipping instance, bit for bit
+    a = gate_variant(w, Z, bf16="none", ln_eps=MODEL_LN_EPS)
+    ship = fused_vae_gate(w, Z, num_layers=2, use_layernorm=True,
+                          with_residual=False)[0]
+    check(torch.equal(a, ship), "gate_variant(bf16='none', eps 1e-5) is not "
+                                "fused_vae_gate bit for bit")
+    print("[probe]   gate_variant(bf16='none', eps 1e-5) == fused_vae_gate, "
+          "bit for bit")
+    planted_fault("gate_variant D held against float32 operands",
+                  out["D_probe_baseline"], gate_variant_reference(w, Z, bf16="none"), tol)
+    planted_fault("gate_variant D held against LayerNorm eps 1e-5",
+                  out["D_probe_baseline"],
+                  gate_variant_reference(w, Z, ln_eps=MODEL_LN_EPS), tol)
+    planted_fault("gate_variant F held against B (bf16 activations added)",
+                  out["F_tanh_bf16_act"],
+                  gate_variant_reference(w, Z, sig_via_tanh=True), tol)
+    planted_fault("gate_variant B held against F (bf16 activations dropped)",
+                  out["B_sig_via_tanh"],
+                  gate_variant_reference(w, Z, sig_via_tanh=True, act_bf16=True),
+                  PROBE_TOL["gate_act_bf16"])
+
+    vae, rng = random_vae(420, 12, 16, 128, 2, True, cell="min_gru")
+    w = mingru_params_to_kernel_weights(vae)
+    Z = torch.from_numpy(rng.normal(size=(1000, 100, 12)).astype(np.float32)).cuda()
+    for loop_T in (100, 1):
+        o = make_gate(loop_T)(w, Z)
+        torch.cuda.synchronize()
+        check(o.shape == (1000,) and bool(torch.isfinite(o).all()),
+              f"make_gate({loop_T}): not finite / wrong shape")
+        label = f"make_gate(loop_T={loop_T}) N=1000"
+        e = compare_rel(label, o, mingru_gate_reference(w, Z, loop_T), tol)
+        planted_fault(f"{label} held against float32 scratch and operands", o,
+                      mingru_gate_reference(w, Z, loop_T, bf16=False), tol)
+        planted_fault(f"{label} held against LayerNorm eps 1e-5", o,
+                      mingru_gate_reference(w, Z, loop_T, ln_eps=MODEL_LN_EPS), tol)
+        errs["probe_mingru_gate"] = max(errs["probe_mingru_gate"], e)
+    return errs
+
+
+def matmul_loop_library(w, x, dtype, T: int = 100):
+    """``matmul_loop``'s function as a T-step loop of ``torch.matmul`` in
+    ``dtype``: a yardstick timed here only."""
+    import torch
+
+    H = w.shape[1]
+    wd, h = w.to(dtype), x[:H].clone()
+    for _ in range(T):
+        g = torch.matmul(wd, h.to(dtype)).float()
+        h = torch.tanh(g[:H]) * 0.25 + h * 0.75
+    return h
+
+
+def phase_probe_path(errs, wl):
+    """The probe path: the three probes' tables at the TPU probes' sizes on
+    the trained 4DOF workload ``wl``, launch counts from 0; then each kernel
+    row's plain, library and bound."""
+    import torch
+
+    from shm_tpu_torch.ops import vae_params_to_kernel_weights
+    from shm_tpu_torch.tools import (
+        probe_f32_cliff, probe_mingru_recur, probe_vpu_bound,
+    )
+    from shm_tpu_torch.tools.workload import (
+        PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS, bound_ms,
+    )
+
+    vae8 = wl.vae.cuda()
+    w8 = vae_params_to_kernel_weights(vae8)
+    Z8 = torch.from_numpy(probe_vpu_bound.tiled_windows(wl)).cuda()
+    vae9, w9, Z9 = probe_mingru_recur.probe_inputs()
+    counters = {"fused_vae_probe": probe_vpu_bound.gate_variant,
+                "probe_mingru_gate": probe_mingru_recur.make_gate,
+                "probe_matmul_loop": probe_f32_cliff.matmul_loop}
+
+    for fn in counters.values():
+        fn.launches = 0
+    rows8 = probe_vpu_bound.probe_table(w8, Z8, wl.threshold, PROBE_REPS)
+    rows9 = probe_mingru_recur.probe_table(w9, Z9, PROBE_REPS)
+    rows10 = probe_f32_cliff.probe_table(reps=PROBE_REPS)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for tag, rows in (("probe_vpu_bound", rows8), ("probe_mingru_recur", rows9),
+                      ("probe_f32_cliff", rows10)):
+        for row in rows:
+            print(f"[{tag}] {json.dumps(row)}")
+    print(f"[probe] launches on the probe path: {launches}")
+    check(all(launches.values()), f"a probe kernel was not launched: {launches}")
+    for row in rows8[1:]:
+        check(row["gate_agree"] >= 0.99, f"{row['variant']}: gate decisions "
+                                         f"agree on {row['gate_agree']:.4f} < 0.99")
+
+    ms8 = next(r["ms"] for r in rows8 if r["variant"] == "D_probe_baseline")
+    ms9 = next(r["ms"] for r in rows9 if r.get("run") == "probe clone (full T)")
+    ms10 = next(r["ms"] for r in rows10 if r["probe"] == "matmul_loop/f32")
+    w, x = probe_f32_cliff.make_inputs(device="cuda")
+    plain = {
+        "fused_vae_probe": time_ms(lambda: probe_vpu_bound.gate_variant_reference(
+            w8, Z8), reps=2, warm=1),
+        "probe_mingru_gate": time_ms(
+            lambda: probe_mingru_recur.mingru_gate_reference(w9, Z9), reps=2, warm=1),
+        "probe_matmul_loop": time_ms(
+            lambda: probe_f32_cliff.matmul_loop_reference(w, x, "f32"), reps=3, warm=1),
+    }
+    lib8, lib9 = cudnn_vae_pass(vae8), scan_mingru_pass(vae9)
+    lib_bf16 = time_ms(lambda: matmul_loop_library(w, x, torch.bfloat16), reps=3, warm=1)
+    library = {
+        "fused_vae_probe": time_ms(lambda: lib8(Z8), reps=3, warm=1),
+        "probe_mingru_gate": time_ms(lambda: lib9(Z9), reps=3, warm=1),
+        "probe_matmul_loop": time_ms(
+            lambda: matmul_loop_library(w, x, torch.float32), reps=3, warm=1),
+    }
+    n = Z8.shape[0]
+    work = {
+        "fused_vae_probe": vae_work(n, 100, 12, 128, 16, 2, with_residual=False),
+        "probe_mingru_gate": mingru_work(n, 100, 12, 128, 16, 2, with_residual=False),
+        "probe_matmul_loop": (probe_f32_cliff.matmul_loop_flops(x.shape[1], "f32"),
+                              4.0 * (w.numel() + x.numel() + x.shape[1] * 128)),
+    }
+    ms = {"fused_vae_probe": ms8, "probe_mingru_gate": ms9, "probe_matmul_loop": ms10}
+    # rows 8 and 9 (variant D, the clone) multiply bf16 operands, as the TPU
+    # probes' `mm` does: their bound is at the bf16 tensor-core rate, though
+    # the kernels run the FMA pipes (that figure: bound_fma_ms); row 10 is
+    # its f32 mode
+    rows = []
+    for name, (source, replaces) in PROBES.items():
+        flops, nbytes = work[name]
+        peak = PEAK_F32_FLOPS if name == "probe_matmul_loop" else PEAK_BF16_FLOPS
+        bound, bound_by = bound_ms(flops, nbytes, peak)
+        fma_ms = flops / PEAK_F32_FLOPS * 1e3
+        print(f"[probe] {name}: kernel {ms[name]:.4f} ms | plain {plain[name]:.4f} "
+              f"ms | library {library[name]:.4f} ms | work {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB -> bound {bound:.4f} ms ({bound_by}, "
+              f"{'f32' if peak == PEAK_F32_FLOPS else 'bf16 tensor-core'} rate; "
+              f"f32 FMA pipes {fma_ms:.4f}, bytes {nbytes / PEAK_BYTES * 1e3:.4f}); "
+              f"kernel at {bound / ms[name] * 100:.1f}% of the bound, "
+              f"{fma_ms / ms[name] * 100:.1f}% of the FMA-pipe figure")
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=errs[name], ms=ms[name],
+            plain_ms=plain[name], bound_ms=bound, bound_by=bound_by,
+            library_ms=library[name], bound_fma_ms=fma_ms))
+    print(f"[probe] matmul_loop library yardstick in bf16 (torch.matmul loop): "
+          f"{lib_bf16:.4f} ms; the kernels row reports the f32 mode")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1081,7 +1333,10 @@ def main() -> int:
     try:
         print(gpu_line())
         phase_build()
-        W, y = test_windows()
+        from shm_tpu_torch.tools.workload import load_trained_workload
+
+        wl = load_trained_workload(ROOT / "data" / "4dof")
+        W, y = wl.W, wl.y                  # the 3,636 committed test windows
         gate_rows = []
         for cell, fam in FAMILIES.items():
             err = phase_kernel_vs_plain(cell)
@@ -1096,11 +1351,13 @@ def main() -> int:
         errs = phase_lstm_kernels_vs_plain()
         counts, ctx = phase_train_path()
         lstm_rows = phase_lstm_timing(errs, counts, ctx)
+        torch.cuda.empty_cache()
+        probe_rows = phase_probe_path(phase_probes_vs_plain(), wl)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # rows 1-5 of the kernel table first, then the two new families
-    kernels = gate_rows[:1] + lstm_rows + gate_rows[1:]
+    # the kernel table's order: rows 1-5, the two other families, the probes
+    kernels = gate_rows[:1] + lstm_rows + gate_rows[1:] + probe_rows
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

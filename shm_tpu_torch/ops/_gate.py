@@ -15,6 +15,12 @@ def f32(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to(torch.float32).contiguous()
 
 
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even), kept in float32: the plain
+    versions' stand-in for a kernel's bf16 operand or stored value."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 def check_windows(Z: torch.Tensor) -> None:
     if Z.dtype != torch.float32 or Z.dim() != 3 or not Z.is_contiguous():
         raise ValueError(f"Z must be a contiguous float32 [N, T, D] tensor, "

@@ -13,7 +13,9 @@ with ``with_residual``, the squared residual [N, T, D], with z = mu.
 
 The kernel source states its bound on the card and what its design does
 about it. Computation is float32 with float32 accumulation; the MSE divides
-by the real ``T * D`` (no feature padding).
+by the real ``T * D`` (no feature padding). The same kernel body also
+serves the probe variants of ``shm_tpu_torch/tools/probe_vpu_bound.py``
+(C entry ``shm_fused_vae_probe``).
 """
 
 from __future__ import annotations
@@ -147,6 +149,11 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
+    # the probe variants of the same kernel (tools/probe_vpu_bound.py)
+    fn = lib.shm_fused_vae_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
     return lib
 
 

@@ -354,3 +354,150 @@ def test_scorer_launches_the_kernel_of_the_roots_cell(cuda_device, root, kernel)
                                         use_fused_vae=False).score(W)
     assert (out["anomalous"] == plain["anomalous"]).all()
     np.testing.assert_allclose(out["mse"], plain["mse"], rtol=1e-3)
+
+
+# --- the three probe kernels (shm_tpu_torch/tools/probe_*.py)
+#
+# Kernel against plain version in the same numerics on the card. Float32
+# paths (matmul_loop vpu, f32, bf16x3; the LSTM probe's float32 and
+# bf16-weight variants) within atol/rtol 1e-4, as above. The bf16 paths
+# store bf16 values whose last bit can flip when the two sum in another
+# order; the recurrence carries a flip (one bf16 ulp, 2^-8) forward through
+# a few elements, while a kernel with other numerics moves every element. So
+# they are held on (max |diff| / max |plain|, mean |diff| / mean |plain|),
+# the tolerances of chip_smoke.py's phase 9 (PROBE_TOL), which shows that
+# each fails the planted faults.
+
+GATE_TOL, GATE_ACT_BF16_TOL = (1e-4, 2e-6), (1e-4, 5e-6)
+MATMUL_BF16_TOL, BF16X3_F32_TOL = (1e-2, 1e-3), (3e-4, 1e-4)
+
+
+def _close_rel(got, want, tol):
+    d, w = (got - want).abs().double(), want.abs().double()
+    max_rel, mean_rel = float(d.max() / w.max()), float(d.mean() / w.mean())
+    assert max_rel <= tol[0] and mean_rel <= tol[1], (max_rel, mean_rel, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles, T", [(1, 100), (2, 7)])
+@pytest.mark.parametrize("mode", ["vpu", "f32", "bf16", "bf16x3"])
+def test_probe_matmul_loop_kernel_matches_plain_version(cuda_device, mode, tiles, T):
+    from shm_tpu_torch.tools.probe_f32_cliff import (
+        make_inputs, matmul_loop, matmul_loop_reference,
+    )
+
+    w, x = make_inputs(tiles, seed=tiles, device=cuda_device)
+    before = matmul_loop.launches
+    out = matmul_loop(w, x, mode, T=T)
+    torch.cuda.synchronize()
+    assert matmul_loop.launches == before + 1
+    ref = matmul_loop_reference(w, x, mode, T=T)
+    assert out.shape == (128, tiles * 256) and bool(torch.isfinite(out).all())
+    if mode == "bf16":
+        _close_rel(out, ref, MATMUL_BF16_TOL)
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    if mode == "bf16x3":              # about float32 accuracy
+        _close_rel(out, matmul_loop_reference(w, x, "f32", T=T), BF16X3_F32_TOL)
+
+
+def _probe_vae(cell, N, T, device, seed):
+    cfg = VAEConfig(input_dim=12, latent_dim=16, hidden_dim=128, num_layers=2,
+                    use_layernorm=True, cell=cell)
+    rng = np.random.default_rng(seed)
+    vae = vae_from_flax(random_flax_vae_params(rng, cfg), cfg).to(device)
+    Z = torch.from_numpy(rng.normal(size=(N, T, 12)).astype(np.float32))
+    return vae, Z.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["A_plain_knobs", "B_sig_via_tanh",
+                                     "C_interleave2", "E_tanh_plus_il2",
+                                     "F_tanh_bf16_act", "bf16_act_only",
+                                     "W_bf16_weights", "G_f32_interleave2"])
+def test_probe_lstm_gate_kernel_matches_plain_version(cuda_device, variant):
+    from shm_tpu_torch.ops import vae_params_to_kernel_weights
+    from shm_tpu_torch.tools.probe_vpu_bound import (
+        PORT_VARIANTS, VARIANTS, gate_variant, gate_variant_reference,
+    )
+
+    kw = {**VARIANTS, **PORT_VARIANTS}.get(
+        variant, dict(act_bf16=True) if variant == "bf16_act_only" else {})
+    vae, Z = _probe_vae("lstm", 77, 40, cuda_device, len(variant))
+    w = vae_params_to_kernel_weights(vae)
+    before = gate_variant.launches
+    mse = gate_variant(w, Z, **kw)
+    torch.cuda.synchronize()
+    assert gate_variant.launches == before + 1
+    assert mse.shape == (77,) and bool(torch.isfinite(mse).all())
+    ref = gate_variant_reference(w, Z, **kw)
+    if kw.get("bf16", "all") == "all":
+        _close_rel(mse, ref, GATE_ACT_BF16_TOL if kw.get("act_bf16") else GATE_TOL)
+    else:                             # float32 operands
+        torch.testing.assert_close(mse, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_probe_lstm_gate_float32_instance_is_the_shipping_kernel(cuda_device):
+    from shm_tpu_torch.ops import fused_vae_gate, vae_params_to_kernel_weights
+    from shm_tpu_torch.tools.probe_vpu_bound import MODEL_LN_EPS, gate_variant
+
+    vae, Z = _probe_vae("lstm", 77, 40, cuda_device, 3)
+    w = vae_params_to_kernel_weights(vae)
+    ship = fused_vae_gate(w, Z, num_layers=2, use_layernorm=True,
+                          with_residual=False)[0]
+    assert torch.equal(gate_variant(w, Z, bf16="none", ln_eps=MODEL_LN_EPS), ship)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop_T", [None, 1, 5])
+def test_probe_mingru_gate_kernel_matches_plain_version(cuda_device, loop_T):
+    from shm_tpu_torch.ops import mingru_params_to_kernel_weights
+    from shm_tpu_torch.tools.probe_mingru_recur import (
+        make_gate, mingru_gate_reference,
+    )
+
+    vae, Z = _probe_vae("min_gru", 77, 30, cuda_device, 5)
+    w = mingru_params_to_kernel_weights(vae)
+    before = make_gate.launches
+    mse = make_gate(loop_T)(w, Z)
+    torch.cuda.synchronize()
+    assert make_gate.launches == before + 1
+    assert mse.shape == (77,) and bool(torch.isfinite(mse).all())
+    _close_rel(mse, mingru_gate_reference(w, Z, loop_T), GATE_TOL)
+
+
+@pytest.mark.cuda
+def test_probe_kernels_refuse_bad_input(cuda_device):
+    from shm_tpu_torch.ops import (
+        mingru_params_to_kernel_weights, vae_params_to_kernel_weights,
+    )
+    from shm_tpu_torch.tools.probe_f32_cliff import make_inputs, matmul_loop
+    from shm_tpu_torch.tools.probe_mingru_recur import make_gate
+    from shm_tpu_torch.tools.probe_vpu_bound import gate_variant
+
+    w, x = make_inputs(1, device=cuda_device)
+    with pytest.raises(ValueError, match="x must be"):
+        matmul_loop(w, x[:, :200].contiguous(), "f32")
+    with pytest.raises(ValueError, match="mode must be"):
+        matmul_loop(w, x, "tf32")
+    cfg = VAEConfig(input_dim=12, latent_dim=4, hidden_dim=64, num_layers=2)
+    vae = vae_from_flax(random_flax_vae_params(np.random.default_rng(0), cfg),
+                        cfg).to(cuda_device)
+    Z = torch.zeros(3, 10, 12, device=cuda_device)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        gate_variant(vae_params_to_kernel_weights(vae), Z)
+    vae, Z = _probe_vae("lstm", 3, 10, cuda_device, 0)
+    with pytest.raises(ValueError, match="interleave"):
+        gate_variant(vae_params_to_kernel_weights(vae), Z, interleave=3)
+    with pytest.raises(ValueError, match="take bf16='all'"):
+        gate_variant(vae_params_to_kernel_weights(vae), Z, bf16="none",
+                     sig_via_tanh=True)
+    vae, Z = _probe_vae("min_gru", 3, 10, cuda_device, 0)
+    with pytest.raises(ValueError, match="loop_T"):
+        make_gate(11)(mingru_params_to_kernel_weights(vae), Z)
+    # the scratch of 1.1M windows (~88 GB) does not fit the card: refused
+    # before any launch
+    big = torch.empty(1_100_000, 100, 12, device=cuda_device)
+    with pytest.raises(MemoryError, match="scratch"):
+        make_gate(None)(mingru_params_to_kernel_weights(vae), big)

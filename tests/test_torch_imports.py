@@ -49,7 +49,11 @@ def test_port_files_exist():
                  "shm_tpu_torch/ops/lstm_train.py",
                  "shm_tpu_torch/train/__init__.py", "shm_tpu_torch/train/vae.py",
                  "shm_tpu_torch/train/checkpoint.py",
-                 "shm_tpu_torch/cli/stage4dof.py"):
+                 "shm_tpu_torch/cli/stage4dof.py",
+                 "shm_tpu_torch/tools/workload.py",
+                 "shm_tpu_torch/tools/probe_f32_cliff.py",
+                 "shm_tpu_torch/tools/probe_vpu_bound.py",
+                 "shm_tpu_torch/tools/probe_mingru_recur.py"):
         assert must in names
 
 
@@ -73,11 +77,18 @@ def test_every_port_module_imports_without_a_card_or_compiler():
 
 
 KERNEL_ENTRIES = {
-    "fused_vae.cu": ["shm_fused_vae_gate_f32"],
+    "fused_vae.cu": ["shm_fused_vae_gate_f32", "shm_fused_vae_probe"],
     "lstm_train.cu": ["shm_lstm2_enc_fwd_f32", "shm_lstm2_enc_bwd_f32",
                       "shm_lstm2_dec_fwd_f32", "shm_lstm2_dec_bwd_f32"],
     "fused_mingru.cu": ["shm_fused_mingru_gate_f32"],
     "fused_attention.cu": ["shm_fused_attention_gate_f32"],
+    "probe_matmul_loop.cu": ["shm_probe_matmul_loop"],
+    "probe_mingru_gate.cu": ["shm_probe_mingru_gate"],
+}
+# the module that wraps each source: ops/<source>.py, or the probe's own
+WRAPPERS = {
+    "probe_matmul_loop.cu": "tools/probe_f32_cliff.py",
+    "probe_mingru_gate.cu": "tools/probe_mingru_recur.py",
 }
 
 
@@ -85,7 +96,10 @@ def test_kernel_sources_sit_beside_their_wrappers():
     csrc = ROOT / "shm_tpu_torch" / "ops" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == set(KERNEL_ENTRIES)
     for name in KERNEL_ENTRIES:
-        assert (csrc.parent / name).with_suffix(".py").is_file()
+        wrapper = ROOT / "shm_tpu_torch" / WRAPPERS.get(
+            name, "ops/" + name.replace(".cu", ".py"))
+        assert wrapper.is_file()
+        assert f'load_library("{name[:-3]}")' in wrapper.read_text()
 
 
 @pytest.mark.parametrize("source", list(KERNEL_ENTRIES))
