@@ -23,9 +23,13 @@ Phases (any failure exits non-zero before the final line):
    device time by kernel and the device's idle share;
 6. the four LSTM training kernels (encoder and decoder, forward and backward)
    against autograd of their plain versions: both forwards and every
-   gradient, at the 4DOF training shape, a ragged batch, the 1DOF shape and
-   a unit mask; and both forwards in the trainer's validation mode (no
-   gradient, no stash, null mask) at the same shapes;
+   gradient, at the 4DOF training shape, a ragged batch, the 1DOF shape, a
+   unit mask, a batch of 1,024 (the reverse scan's clusters in waves), one
+   window and H=64; the stash and gate stash both forwards keep for the
+   backward against ``lstm2_scan_stash_reference``; both forwards in the
+   trainer's validation mode (no gradient, no stash, null mask) at the same
+   shapes; and how the card places each reverse-scan instance (clusters at
+   once, shared memory, registers, spills);
 7. the training path at full width: ``train-vae`` on the committed normal
    runs into a temporary root, the recipe unchanged but for 8 epochs of 50,
    on the card through the kernels; launch counts, finite and falling losses, the same losses bit for bit
@@ -34,7 +38,10 @@ Phases (any failure exits non-zero before the final line):
    ``reconstruction_mse`` through the fused gate kernel;
 8. timings of the four kernels and of one training step (kernel path, plain
    autograd path, a cuDNN ``nn.LSTM`` yardstick), their bounds, and where a
-   step's time goes;
+   step's time goes; with ``--parent DIR`` (another checkout of the
+   repository, e.g. the parent commit unpacked), also rows 2-5 of that tree
+   on this card, in turns with this tree's, and its gradients against this
+   tree's on the same inputs;
 9. the probes (``shm_tpu_torch/tools``): each of the three probe kernels
    against its plain version (``matmul_loop`` in every mode at one tile and
    at 21, bf16x3 also against the float32 loop; ``gate_variant``'s variants
@@ -48,7 +55,8 @@ Phases (any failure exits non-zero before the final line):
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
-run from a directory that does not hold the repository.
+run from a directory that does not hold the repository. Usage:
+``python3 chip_smoke.py [--parent DIR]``.
 """
 
 from __future__ import annotations
@@ -610,24 +618,31 @@ LSTM_KERNELS = {   # name in the kernels line: the TPU kernel it replaces
     "lstm2_dec_fwd": "shm_tpu/ops/lstm_train.py:359",
     "lstm2_dec_bwd": "shm_tpu/ops/lstm_train.py:399",
 }
+# the gradients of the encoder and the decoder op, in their order
+LSTM_GRAD_NAMES = (["x", "w0i", "w0h", "b0", "w1i", "w1h", "b1"],
+                   ["dec_in", "w0i", "w0h", "b0", "w1i", "w1h", "b1", "out_w", "out_b"])
 
 
 def lstm_work(kernel: str, T: int, D: int, H: int, B: int, K: int = 0,
-              with_dx: bool = False, mask: bool = True):
+              with_dx: bool = False, mask: bool = True, recompute: bool = False):
     """(FLOPs, bytes) one call of an LSTM training kernel must do. FLOPs are
     matmul FLOPs (elementwise excluded, as in ``vae_work``): the forward's
-    gate products; for a backward the same again (the recompute), the
-    transposed products of the dh chain and the weight-gradient products.
-    Bytes: each input read once, each output written once (the gate
-    gradients that pass between the backward's two passes are neither)."""
+    gate products; for a backward the transposed products of the dh chain
+    and the weight-gradient products. Bytes: each input read once, each
+    output written once (the gate gradients that pass between the backward's
+    two passes are neither); the forward writes the gate stash [T,2,4H,B]
+    and the backward reads it. ``recompute=True`` counts the design before
+    the gate stash: no gate stash, and a backward that computes the forward's
+    gate products again."""
     G = 4 * H
     n_w = G * (3 * H + 2) + G * (D if kernel.startswith("lstm2_enc") else K)
-    stream = T * H * B * (1 if mask else 0) + T * G * B + G * B  # dm, stash, fin
+    gates = 0 if recompute else T * 2 * G * B
+    stream = T * H * B * (1 if mask else 0) + T * G * B + G * B + gates
     if kernel == "lstm2_enc_fwd":
         flops = 2 * G * (D + 3 * H) * T * B
         words = T * D * B + stream + H * B + n_w
     elif kernel == "lstm2_enc_bwd":
-        flops = (2 * G * (D + 3 * H) * T * B            # recompute
+        flops = ((2 * G * (D + 3 * H) * T * B if recompute else 0)
                  + 2 * G * 3 * H * T * B                # W^T dg for dh0, dh1
                  + 2 * G * (D + 3 * H) * T * B          # weight gradients
                  + (2 * G * D * T * B if with_dx else 0))
@@ -637,7 +652,7 @@ def lstm_work(kernel: str, T: int, D: int, H: int, B: int, K: int = 0,
         flops = 2 * G * K * B + T * B * (2 * G * 3 * H + 2 * D * H)
         words = K * B + stream + n_w + (H + 1) * D + T * D * B
     elif kernel == "lstm2_dec_bwd":
-        flops = (2 * G * K * B + T * B * 2 * G * 3 * H   # recompute
+        flops = ((2 * G * K * B + T * B * 2 * G * 3 * H if recompute else 0)
                  + T * B * (2 * G * 3 * H + 2 * D * H)   # W^T dg, head^T dr
                  + T * B * (2 * G * 3 * H + 2 * D * H)   # weight + head grads
                  + 2 * 2 * G * K * B)                    # layer-0 fold, d dec_in
@@ -700,7 +715,22 @@ def phase_lstm_kernels_vs_plain():
         ("4dof ragged batch", 100, 12, 128, 200, 0.3),
         ("1dof 2-layer shape", 80, 12, 32, 64, 0.2),
         ("unit mask", 100, 12, 128, 64, 0.0),
+        ("4dof batch of 1,024 (clusters in waves)", 100, 12, 128, 1024, 0.3),
+        ("one window", 100, 12, 128, 1, 0.3),
+        ("H=64", 40, 12, 64, 45, 0.3),
     ]
+    from shm_tpu_torch.ops.lstm_train import bwd_scan_info
+
+    # the reverse-scan instances as the card places them (cudaFuncGetAttributes,
+    # cudaOccupancyMaxActiveClusters); raises where no cluster fits
+    for H in (32, 64, 128):
+        for dec in (False, True):
+            info = bwd_scan_info(H, dec)
+            print(f"[lstm] reverse scan H={H} {'decoder' if dec else 'encoder'}: "
+                  f"{info['max_active_clusters']} clusters of 8 blocks at once, "
+                  f"{info['threads']} threads and {info['shared_bytes']} B of "
+                  f"shared memory a block, {info['registers']} registers and "
+                  f"{info['local_bytes']} B of local memory (spills) a thread")
     errs = {}
     leaf = lambda ts: [a.clone().requires_grad_(True) for a in ts]
     for i, (name, T, D, H, B, drop) in enumerate(cases):
@@ -717,8 +747,7 @@ def phase_lstm_kernels_vs_plain():
         check(out.shape == (H, B) and bool(torch.isfinite(out).all()),
               f"{name}: h_last not finite / wrong shape")
         e_fwd = compare("encoder h_last", out, ref)
-        e_bwd = compare_grads("encoder", got, want,
-                              ["x", "w0i", "w0h", "b0", "w1i", "w1h", "b1"])
+        e_bwd = compare_grads("encoder", got, want, LSTM_GRAD_NAMES[0])
         if i == 0:
             errs["lstm2_enc_fwd"], errs["lstm2_enc_bwd"] = e_fwd, e_bwd
 
@@ -732,11 +761,16 @@ def phase_lstm_kernels_vs_plain():
         check(out.shape == (T, D, B) and bool(torch.isfinite(out).all()),
               f"{name}: recon not finite / wrong shape")
         e_fwd = compare("decoder recon", out, ref)
-        e_bwd = compare_grads("decoder", got, want,
-                              ["dec_in", "w0i", "w0h", "b0", "w1i", "w1h", "b1",
-                               "out_w", "out_b"])
+        e_bwd = compare_grads("decoder", got, want, LSTM_GRAD_NAMES[1])
         if i == 0:
             errs["lstm2_dec_fwd"], errs["lstm2_dec_bwd"] = e_fwd, e_bwd
+
+        # what the forwards keep for the backward (pre-step state, the gate
+        # activations, the final state) against the plain forward's
+        e_stash = compare_stash(c, T)
+        if i == 0:
+            errs["lstm2_enc_fwd"] = max(errs["lstm2_enc_fwd"], e_stash)
+            errs["lstm2_dec_fwd"] = max(errs["lstm2_dec_fwd"], e_stash)
 
         # the trainer's validation mode: no gradient, so no stash is written,
         # and a null mask pointer
@@ -753,6 +787,28 @@ def phase_lstm_kernels_vs_plain():
             errs["lstm2_enc_fwd"] = max(errs["lstm2_enc_fwd"], e_val)
             errs["lstm2_dec_fwd"] = max(errs["lstm2_dec_fwd"], d_val)
     return errs
+
+
+def compare_stash(c, T: int) -> float:
+    """Both forwards' stash, gate stash and final state against
+    ``lstm2_scan_stash_reference`` on the same inputs; max |diff|."""
+    import torch
+
+    from shm_tpu_torch.ops import lstm2_scan_stash_reference
+    from shm_tpu_torch.ops.lstm_train import dec_forward_cuda, enc_forward_cuda
+
+    worst = 0.0
+    with torch.no_grad():
+        for tag, (_, saved), ref in (
+                ("encoder", enc_forward_cuda(c["xs"], c["dm_enc"], *c["enc_w"]),
+                 lstm2_scan_stash_reference(c["xs"], c["dm_enc"], *c["enc_w"])),
+                ("decoder", dec_forward_cuda(c["din"], c["dm_dec"], *c["dec_w"], T=T),
+                 lstm2_scan_stash_reference(c["din"], c["dm_dec"], *c["dec_w"][:6], T=T))):
+            stash, gates, fin = saved[3:6]
+            for what, got, want in (("stash", stash, ref[1]), ("gate stash", gates, ref[2]),
+                                    ("final state", fin, ref[3])):
+                worst = max(worst, compare(f"{tag} {what}", got, want))
+    return worst
 
 
 def lstm_launch_counts():
@@ -914,6 +970,27 @@ def time_fwd_bwd(make_loss, leaves, reps: int = REPS):
     return fwd, max(both - fwd, 0.0)
 
 
+def lstm_kernel_ms(c, T: int):
+    """CUDA-event ms of the four kernels on the inputs of one ``lstm_case``
+    (a training step asks for no dx), through the wrappers' public calls."""
+    from shm_tpu_torch.ops.lstm_train import (
+        dec_backward_cuda, dec_forward_cuda, enc_backward_cuda,
+        enc_forward_cuda,
+    )
+
+    _, enc_saved = enc_forward_cuda(c["xs"], c["dm_enc"], *c["enc_w"])
+    _, dec_saved = dec_forward_cuda(c["din"], c["dm_dec"], *c["dec_w"], T=T)
+    return {
+        "lstm2_enc_fwd": time_ms(lambda: enc_forward_cuda(
+            c["xs"], c["dm_enc"], *c["enc_w"])),
+        "lstm2_enc_bwd": time_ms(lambda: enc_backward_cuda(
+            enc_saved, c["R_enc"], need_dx=False)),
+        "lstm2_dec_fwd": time_ms(lambda: dec_forward_cuda(
+            c["din"], c["dm_dec"], *c["dec_w"], T=T)),
+        "lstm2_dec_bwd": time_ms(lambda: dec_backward_cuda(dec_saved, c["R_dec"])),
+    }
+
+
 def phase_lstm_timing(errs, counts, ctx):
     """CUDA-event times of the four kernels at the 4DOF training shape, of
     their plain versions and of a cuDNN ``nn.LSTM`` yardstick; one training
@@ -925,10 +1002,6 @@ def phase_lstm_timing(errs, counts, ctx):
     from shm_tpu_torch.ops import (
         lstm2_dec_head_reference, lstm2_scan_reference,
     )
-    from shm_tpu_torch.ops.lstm_train import (
-        dec_backward_cuda, dec_forward_cuda, enc_backward_cuda,
-        enc_forward_cuda,
-    )
     from shm_tpu_torch.tools.workload import PEAK_BYTES, PEAK_F32_FLOPS, bound_ms
     from shm_tpu_torch.train.vae import batch_loss, make_optimizer
 
@@ -938,18 +1011,7 @@ def phase_lstm_timing(errs, counts, ctx):
     c = lstm_case(300, T, D, H, B, drop)
     leaf = lambda ts: [a.clone().requires_grad_(True) for a in ts]
 
-    # --- the four kernels (a training step asks for no dx)
-    _, enc_saved = enc_forward_cuda(c["xs"], c["dm_enc"], *c["enc_w"])
-    _, dec_saved = dec_forward_cuda(c["din"], c["dm_dec"], *c["dec_w"], T=T)
-    ms = {
-        "lstm2_enc_fwd": time_ms(lambda: enc_forward_cuda(
-            c["xs"], c["dm_enc"], *c["enc_w"])),
-        "lstm2_enc_bwd": time_ms(lambda: enc_backward_cuda(
-            enc_saved, c["R_enc"], need_dx=False)),
-        "lstm2_dec_fwd": time_ms(lambda: dec_forward_cuda(
-            c["din"], c["dm_dec"], *c["dec_w"], T=T)),
-        "lstm2_dec_bwd": time_ms(lambda: dec_backward_cuda(dec_saved, c["R_dec"])),
-    }
+    ms = lstm_kernel_ms(c, T)
     # --- plain versions under autograd (weights are the leaves, as in training)
     ew, dw = leaf(c["enc_w"]), leaf(c["dec_w"])
     din = c["din"].clone().requires_grad_(True)
@@ -978,12 +1040,15 @@ def phase_lstm_timing(errs, counts, ctx):
     for name, replaces in LSTM_KERNELS.items():
         flops, nbytes = lstm_work(name, T, D, H, B, K=H)
         bound, bound_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        old = bound_ms(*lstm_work(name, T, D, H, B, K=H, recompute=True),
+                       PEAK_F32_FLOPS)[0]
         print(f"[time] {name} T={T} H={H} B={B}: kernel {ms[name]:.4f} ms | "
               f"plain {plain[name]:.4f} ms | cuDNN nn.LSTM {lib[name]:.4f} ms | "
               f"work {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
               f"{bound:.4f} ms (f32 {flops / PEAK_F32_FLOPS * 1e3:.4f}, bytes "
-              f"{nbytes / PEAK_BYTES * 1e3:.4f}); kernel at "
-              f"{bound / ms[name] * 100:.1f}% of the bound")
+              f"{nbytes / PEAK_BYTES * 1e3:.4f}; with the backward's gate "
+              f"recompute and no gate stash, as before the gate stash: "
+              f"{old:.4f}); kernel at {bound / ms[name] * 100:.1f}% of the bound")
         rows.append(dict(
             name=name, route="cuda",
             source="shm_tpu_torch/ops/csrc/lstm_train.cu", replaces=replaces,
@@ -1039,6 +1104,73 @@ def phase_lstm_timing(errs, counts, ctx):
                 "optimizer (foreach/Adam kernels)": ("multi_tensor", "foreach", "adam")},
         rest="autograd glue (LayerNorm, heads, loss, transposes, clip)")
     return rows
+
+
+def lstm_child(root: str, out: str) -> int:
+    """Child mode (``--lstm-child ROOT OUT``): the four LSTM kernels of the
+    tree at ROOT on this card, through its public calls only: the gradients
+    of phase 6's 4DOF case and the kernels' ms at the 4DOF training shape,
+    saved to OUT with ``torch.save``."""
+    sys.path.insert(0, root)
+    import torch
+
+    import shm_tpu_torch
+    from shm_tpu_torch.device import set_full_f32_precision
+    from shm_tpu_torch.ops import lstm2_dec_head, lstm2_enc_last
+
+    set_full_f32_precision()
+    T = 100
+    c = lstm_case(200, T, 12, 128, 256, 0.3)
+    leaf = lambda ts: [a.clone().requires_grad_(True) for a in ts]
+    lv = leaf([c["xs"]] + c["enc_w"])
+    enc = torch.autograd.grad((lstm2_enc_last(lv[0], c["dm_enc"], *lv[1:])
+                               * c["R_enc"]).sum(), lv)
+    lv = leaf([c["din"]] + c["dec_w"])
+    dec = torch.autograd.grad((lstm2_dec_head(lv[0], c["dm_dec"], *lv[1:], T=T)
+                               * c["R_dec"]).sum(), lv)
+    ms = lstm_kernel_ms(lstm_case(300, T, 12, 128, 256, 0.3), T)
+    torch.save(dict(package=str(Path(shm_tpu_torch.__file__).parent), ms=ms,
+                    enc=[g.cpu() for g in enc], dec=[g.cpu() for g in dec]), out)
+    return 0
+
+
+def phase_parent(parent: str, rows) -> None:
+    """Rows 2-5 of the tree at ``parent`` (e.g. the parent commit, unpacked)
+    and of this tree on this card, one child process each, in turns parent,
+    this, this, parent: their kernel ms side by side, and the gradients of
+    the two trees on the same inputs (bit for bit, or within the stated
+    tolerance). Adds ``parent_ms`` (median of the parent's two runs) to the
+    rows."""
+    import tempfile
+
+    import torch
+
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parent_") as tmp:
+        for k, root in enumerate([parent, str(ROOT), str(ROOT), parent]):
+            out = Path(tmp) / f"run{k}.pt"
+            r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                "--lstm-child", str(root), str(out)],
+                               capture_output=True, text=True, timeout=900)
+            check(r.returncode == 0, f"child run on {root} failed:\n{r.stderr[-3000:]}")
+            runs.append(torch.load(out))
+            print(f"[parent] run {k}: {runs[-1]['package']}: " + ", ".join(
+                f"{n} {v:.4f}" for n, v in runs[-1]["ms"].items()) + " ms")
+    for name in LSTM_KERNELS:
+        par = [runs[0]["ms"][name], runs[3]["ms"][name]]
+        new = [runs[1]["ms"][name], runs[2]["ms"][name]]
+        print(f"[parent] {name}: parent {par[0]:.4f} / {par[1]:.4f} ms, this tree "
+              f"{new[0]:.4f} / {new[1]:.4f} ms ({min(new) / min(par):.3f}x of the parent)")
+        for row in rows:
+            if row["name"] == name:
+                row["parent_ms"] = float(np.median(par))
+    for tag, names in zip(("enc", "dec"), LSTM_GRAD_NAMES):
+        same = [bool(torch.equal(a, b)) for a, b in zip(runs[0][tag], runs[1][tag])]
+        print(f"[parent] {tag} gradients equal to the parent's bit for bit: "
+              + ", ".join(f"d{n} {'yes' if s_ else 'no'}" for n, s_ in zip(names, same)))
+        compare_grads(f"{tag} this tree vs parent", runs[1][tag], runs[0][tag], names)
+        check(all(torch.equal(a, b) for a, b in zip(runs[1][tag], runs[2][tag])),
+              f"{tag}: two runs of this tree gave different gradients")
 
 
 # ---------------------------------------------------------------------------
@@ -1310,7 +1442,15 @@ def phase_probe_path(errs, wl):
     return rows
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv[:1] == ["--lstm-child"]:
+        return lstm_child(argv[1], argv[2])
+    parent = None
+    if argv[:1] == ["--parent"]:
+        parent = str(Path(argv[1]).resolve())
+    elif argv:
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1351,6 +1491,11 @@ def main() -> int:
         errs = phase_lstm_kernels_vs_plain()
         counts, ctx = phase_train_path()
         lstm_rows = phase_lstm_timing(errs, counts, ctx)
+        if parent is not None:
+            phase_parent(parent, lstm_rows)
+        else:
+            print("[parent] no --parent DIR given: the parent tree's rows 2-5 "
+                  "are not timed in this run")
         torch.cuda.empty_cache()
         probe_rows = phase_probe_path(phase_probes_vs_plain(), wl)
     except SmokeFailure as e:
@@ -1367,4 +1512,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -16,7 +16,8 @@ from shm_tpu_torch.ops.fused_vae import (
 )
 from shm_tpu_torch.ops.lstm_train import (
     lstm2_dec_head, lstm2_dec_head_reference, lstm2_enc_last,
-    lstm2_scan_reference, vae_train_forward,
+    lstm2_reverse_scan_reference, lstm2_scan_reference,
+    lstm2_scan_stash_reference, vae_train_forward,
 )
 
 # cell family -> (weights from a TemporalVAE, the fused gate, its plain version)
@@ -59,4 +60,5 @@ __all__ = ["auto_fused_gate", "fused_gate_for", "FUSED_GATES",
            "attention_params_to_kernel_weights",
            "lstm2_enc_last", "lstm2_dec_head",
            "lstm2_scan_reference", "lstm2_dec_head_reference",
+           "lstm2_scan_stash_reference", "lstm2_reverse_scan_reference",
            "vae_train_forward"]

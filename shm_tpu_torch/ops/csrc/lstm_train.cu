@@ -3,11 +3,11 @@
 //
 // Replaces the four Pallas TPU kernels of shm_tpu/ops/lstm_train.py:
 //   _enc_fwd_kernel (:153, pallas_call :299)  -> lstm2_enc_fwd_kernel
-//   _enc_bwd_kernel (:191, pallas_call :331)  -> lstm2_enc_bwd_kernel + the
-//                                                parallel gradient pass below
+//   _enc_bwd_kernel (:191, pallas_call :331)  -> lstm2_bwd_scan_kernel<H, false>
+//                                                + the parallel gradient pass
 //   _dec_fwd_kernel (:359, pallas_call :507)  -> lstm2_dec_fwd_kernel
-//   _dec_bwd_kernel (:399, pallas_call :543)  -> lstm2_dec_bwd_kernel + the
-//                                                parallel gradient pass below
+//   _dec_bwd_kernel (:399, pallas_call :543)  -> lstm2_bwd_scan_kernel<H, true>
+//                                                + the parallel gradient pass
 // Same functions, same public layouts (batch last): xs [T,D,B], dropout mask
 // dm [T,H,B] (inverted, constant; multiplies layer 0's output before layer 1),
 // weights [4H,in] with gates i|f|g|o, biases [4H], stash of the PRE-step
@@ -15,19 +15,24 @@
 //   encoder: xs -> h_last [H,B] (the top layer's last hidden state only);
 //   decoder: dec_in [K,B], constant over T (its layer-0 projection is
 //            computed once) -> recon [T,D,B] with the output head folded in.
-// The backward recomputes the gate pre-activations from the stash with the
-// same device function, in the same order, as the forward (gate_preact), so
-// the gradient is that of exactly this forward.
+// For a backward the forward also keeps the gate stash [T,2,4H,B]: the
+// activations (i, f, g, o) of layer 0 and layer 1 at every step, the values
+// it computed them as. The backward reads them and recomputes nothing of the
+// forward but tanh(c), so its gradient is that of exactly this forward. (The
+// TPU kernels recompute the gates, because a TPU's small VMEM made their
+// stash pipeline-bound; on this card the gate stash is 105 MB a stack at the
+// 4DOF shape, ~31 us of device memory each way, against 10.4 GFLOP of
+// recompute.)
 //
 // Bound on this card. At the 4DOF training shape (T=100, D=12, H=128, B=256)
 // the encoder forward is 8H(D+3H)*T*B = 10.4 GFLOP, 0.16 ms at the 67 TFLOP/s
-// float32 rate, and moves ~67 MB (x, mask, stash), 0.02 ms at 3.35 TB/s: it
-// is bound by operations, and beyond that by latency, because the scan is a
-// chain of 2*T dependent layer steps and a batch of 256 offers little to run
-// beside it. The backward does the forward's products again (recompute),
-// the transposed products for dh, and the weight-gradient products.
+// float32 rate, and moves ~170 MB (x, mask, stash, gate stash), 0.05 ms at
+// 3.35 TB/s: it is bound by operations, and beyond that by latency, because
+// the scan is a chain of 2*T dependent layer steps and a batch of 256 offers
+// little to run beside it. The backward does the transposed products for dh
+// and the weight-gradient products.
 //
-// Design (first version: right before fast).
+// Design of the forwards (first version: right before fast).
 //   * No sequential grid on this card, so the time loop lives inside the
 //     block and the stash streams to device memory; there is no time chunking.
 //   * The batch is small, so a block owns only BW=4 windows: B=256 gives 64
@@ -39,26 +44,27 @@
 //     load feeds 4 FMAs), each requesting its loads in explicit batches of 16
 //     with the next batch requested before the current one is consumed; the
 //     same threads then act as the H x 4 (unit, window) cell slots, with c
-//     and the dh/dc carries in registers and the gates passed through shared
-//     memory. (A first version with H threads, each owning the four gates of
-//     a unit, took 3.0-3.4x as long as the 4H-thread one; leaving the batching
-//     to `#pragma unroll 8` took 1.5x as long as this; PERF.md keeps the times.)
-//   * The wrapper passes each matrix in the layout that makes the read
-//     coalesced: [in,4H] for the gate products, the original [4H,in] for the
-//     transposed products of the backward, whose 4H rows are split over four
-//     thread groups and added in a fixed order.
+//     in registers and the gates passed through shared memory. (A first
+//     version with H threads, each owning the four gates of a unit, took
+//     3.0-3.4x as long as the 4H-thread one; leaving the batching to
+//     `#pragma unroll 8` took 1.5x as long as this; PERF.md keeps the times.)
+//   * The wrapper passes each matrix transposed, [in,4H], so that the read
+//     is coalesced; the backward takes W0h, W1i, W1h as given, [4H,H].
+// Design of the backwards: a reverse scan on 8-block clusters with its three
+// [4H,H] matrices resident in shared memory (below), then a parallel pass.
 //   * Weight gradients do not fit a block (one [4H,H] f32 accumulator is
-//     256 KiB), and blocks run in no order. So the recurrent backward kernel
-//     carries only the dh/dc chain and writes the gate gradients dg0, dg1
-//     [T,4H,B]; a second, parallel pass contracts them over T*B against
-//     x / h0 / h0*dm / h1 (all in the stash) with a tiled product, split over
-//     T into partial sums that a last kernel adds in a fixed order. Bias
-//     gradients, the decoder's layer-0 fold (dg0 summed over T first), the
-//     head gradient, dx and d(dec_in) are the same kind of pass. There are no
-//     float atomics anywhere: the same inputs give the same bits every run.
-//   * A ragged last tile (B not a multiple of 4) is masked in the kernels.
-// Against the bound: float32 FMA pipes, no tensor cores, half the SMs; the
-// bf16/wgmma path and a tiling that fills the card are later work.
+//     256 KiB), and blocks run in no order. So the reverse scan carries only
+//     the dh/dc chain and writes the gate gradients dg0, dg1 [T,4H,B]; a
+//     second, parallel pass contracts them over T*B against x / h0 / h0*dm /
+//     h1 (all in the stash) with a tiled product, split over T into partial
+//     sums that a last kernel adds in a fixed order. Bias gradients, the
+//     decoder's layer-0 fold (dg0 summed over T first), the head gradient, dx
+//     and d(dec_in) are the same kind of pass. There are no float atomics
+//     anywhere: the same inputs give the same bits every run.
+//   * A ragged last tile (B not a multiple of 4, or of 20 in the reverse
+//     scan) is masked in the kernels.
+// Against the bound: float32 FMA pipes, no tensor cores; the bf16/wgmma path
+// and the forwards on the cluster design are later work.
 //
 // Accurate expf/tanhf (no --use_fast_math); sigmoid(x) = 1/(1+exp(-x)).
 
@@ -125,8 +131,6 @@ __device__ __forceinline__ void row_matvec(float (&acc)[BW],
 }
 
 // Gate pre-activations of gate row r: acc = bias[r] + Wi[r,:]*in (+ Wh[r,:]*h).
-// The ONE function both directions use, so the backward's recompute equals
-// the forward bit for bit.
 template <int H>
 __device__ __forceinline__ void gate_preact(float (&acc)[BW],
                                             const float* __restrict__ bias,
@@ -158,84 +162,23 @@ __device__ __forceinline__ void store4(float* s, const float (&v)[BW], int row) 
 }
 
 // One cell of (unit, window) slot `slot` = unit*BW + window from the gate
-// pre-activations in shared gs[4H][BW].
+// pre-activations in shared gs[4H][BW]. With gq != nullptr the four
+// activations i, f, g, o go to the gate stash: gq[q * H * B] for gate q.
 template <int H>
-__device__ __forceinline__ float cell_fwd(const float* gs, int slot, float& c) {
+__device__ __forceinline__ float cell_fwd(const float* gs, int slot, float& c,
+                                          float* __restrict__ gq, int B) {
   const float i = sigmoid_f(gs[0 * H * BW + slot]);
   const float f = sigmoid_f(gs[1 * H * BW + slot]);
   const float gg = tanhf(gs[2 * H * BW + slot]);
   const float o = sigmoid_f(gs[3 * H * BW + slot]);
+  if (gq != nullptr) {
+    gq[0] = i;
+    gq[(size_t)H * B] = f;
+    gq[(size_t)2 * H * B] = gg;
+    gq[(size_t)3 * H * B] = o;
+  }
   c = f * c + i * gg;
   return o * tanhf(c);
-}
-
-// Backward through one cell from the recomputed pre-activations in gs and the
-// stashed cell states: writes the four gate gradients of the slot to shared
-// dgs[4H][BW] and to global dgo[4H][B]; dc <- dc * f.
-template <int H>
-__device__ __forceinline__ void cell_bwd(const float* gs, int slot, float dh,
-                                         float& dc, float c_aft, float c_prev,
-                                         float* dgs, float* __restrict__ dgo,
-                                         int B, int unit, int b, bool live) {
-  const float i = sigmoid_f(gs[0 * H * BW + slot]);
-  const float f = sigmoid_f(gs[1 * H * BW + slot]);
-  const float gg = tanhf(gs[2 * H * BW + slot]);
-  const float o = sigmoid_f(gs[3 * H * BW + slot]);
-  const float tc = tanhf(c_aft);
-  const float d_o = dh * tc;
-  const float d_c = dc + dh * o * (1.0f - tc * tc);
-  const float dg[4] = {(d_c * gg) * i * (1.0f - i), (d_c * c_prev) * f * (1.0f - f),
-                       (d_c * i) * (1.0f - gg * gg), d_o * o * (1.0f - o)};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    dgs[q * H * BW + slot] = dg[q];
-    if (live) dgo[(size_t)(q * H + unit) * B + b] = dg[q];
-  }
-  dc = d_c * f;
-}
-
-// Partial sums of the transposed products for thread (unit j, row group rg):
-//   pa[w] = sum_{r in group rg} Wa[r][j] * dgs[r][w]   (and pb with Wb)
-// over the H rows of gate rg; W row-major [4H,H], coalesced over j. The
-// four groups' partials are added in a fixed order by partial_sum.
-// The loads go out in batches of WT_BATCH rows (one buffer: a second one
-// costs the reverse scans more in registers than it hides).
-constexpr int WT_BATCH = 16;
-
-template <int H>
-__device__ __forceinline__ void wt_partial(const float* __restrict__ Wa,
-                                           const float* __restrict__ Wb,
-                                           const float* dgs, int j, int rg,
-                                           float* parts) {
-  constexpr int U = WT_BATCH;
-  static_assert(H % U == 0, "H is a multiple of the load batch");
-  float pa[BW] = {0.0f, 0.0f, 0.0f, 0.0f}, pb[BW] = {0.0f, 0.0f, 0.0f, 0.0f};
-  const float* ap = Wa + (size_t)rg * H * H + j;
-  const float* bp = Wb == nullptr ? nullptr : Wb + (size_t)rg * H * H + j;
-  const float* dg = dgs + rg * H * BW;
-#pragma unroll 1
-  for (int i = 0; i < H; i += U) {
-    float wa[U], wb[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      wa[u] = __ldg(ap + (size_t)(i + u) * H);
-      if (bp != nullptr) wb[u] = __ldg(bp + (size_t)(i + u) * H);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      fma4(pa, wa[u], dg + (i + u) * BW);
-      if (bp != nullptr) fma4(pb, wb[u], dg + (i + u) * BW);
-    }
-  }
-  store4(parts, pa, rg * H + j);
-  if (Wb != nullptr) store4(parts + 4 * H * BW, pb, rg * H + j);
-}
-
-// sum over the four row groups, in order, of the partials of one slot
-template <int H>
-__device__ __forceinline__ float partial_sum(const float* parts, int slot) {
-  return ((parts[0 * H * BW + slot] + parts[1 * H * BW + slot]) +
-          parts[2 * H * BW + slot]) + parts[3 * H * BW + slot];
 }
 
 // [rows,B] tile of step data -> shared [rows][BW], zero past the batch edge
@@ -259,10 +202,10 @@ struct LstmW {           // one 2-layer stack
   const float* w1h;      // [4H,H]   (backward only)
 };
 
-// Every recurrent kernel runs 4H threads on a tile of BW = 4 windows. A
+// Each forward kernel runs 4H threads on a tile of BW = 4 windows. A
 // thread plays two roles by turns: gate row r = tid of the matrix products,
 // and cell slot (unit = tid / BW, window = tid % BW) of the elementwise
-// update, whose c and gradient carries stay in its registers.
+// update, whose c stays in its registers.
 static_assert(BW == 4, "4H threads = H units x 4 windows");
 
 // ------------------------------------------------------------------ encoder
@@ -271,8 +214,8 @@ template <int H>
 __global__ void __launch_bounds__(4 * H)
 lstm2_enc_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ dm,
                      const LstmW W, float* __restrict__ stash,
-                     float* __restrict__ hlast, float* __restrict__ fin, int T,
-                     int D, int B) {
+                     float* __restrict__ gates, float* __restrict__ hlast,
+                     float* __restrict__ fin, int T, int D, int B) {
   __shared__ __align__(16) float h0s[H * BW], h0d[H * BW], h1s[H * BW];
   __shared__ __align__(16) float xsh[DMAX * BW];
   __shared__ __align__(16) float gs[4 * H * BW];
@@ -294,19 +237,21 @@ lstm2_enc_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ dm,
     }
     const float m = (dm != nullptr && live)
                         ? dm[((size_t)t * H + unit) * B + b] : 1.0f;
+    float* gq = (stash != nullptr && live)
+                    ? gates + ((size_t)2 * t * 4 * H + unit) * B + b : nullptr;
     __syncthreads();                       // x_t, h0s, h1s visible
     float g[BW];
     gate_preact<H>(g, W.b0, W.w0i_t, D, xsh, W.w0h_t, h0s, tid);
     store4(gs, g, tid);
     __syncthreads();                       // gates visible, reads of h0s done
-    h0 = cell_fwd<H>(gs, tid, c0);
+    h0 = cell_fwd<H>(gs, tid, c0, gq, B);
     h0s[tid] = h0;
     h0d[tid] = h0 * m;
     __syncthreads();                       // h0 visible, reads of gs done
     gate_preact<H>(g, W.b1, W.w1i_t, H, h0d, W.w1h_t, h1s, tid);
     store4(gs, g, tid);
     __syncthreads();                       // gates visible, reads of h1s done
-    h1 = cell_fwd<H>(gs, tid, c1);
+    h1 = cell_fwd<H>(gs, tid, c1, gq == nullptr ? nullptr : gq + (size_t)4 * H * B, B);
     h1s[tid] = h1;
   }
   if (live) {
@@ -318,88 +263,6 @@ lstm2_enc_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ dm,
   }
 }
 
-// The shared buffers and per-slot carries of a reverse scan.
-template <int H>
-struct BwdShared {
-  float h0ps[H * BW], h1ps[H * BW], h0ds[H * BW];
-  float io[DMAX * BW];                 // x_t (encoder) or d(recon_t) (decoder)
-  float gs0[4 * H * BW], gs1[4 * H * BW];
-  float dgs[4 * H * BW];
-  float parts[2 * 4 * H * BW];
-};
-
-// Steps 3-5 of one reverse step, common to both stacks: from the recomputed
-// gates in S.gs0/S.gs1 and the carries, the gate gradients dg1, dg0 (to
-// shared and to global) and the new dh0, dh1, dc0, dc1.
-template <int H>
-__device__ __forceinline__ void bwd_cells(BwdShared<H>& S, const LstmW& W, int tid,
-                                          float m, float c0a, float c0p, float c1a,
-                                          float c1p, float& dh0, float& dc0,
-                                          float& dh1, float& dc1,
-                                          float* __restrict__ dg0o,
-                                          float* __restrict__ dg1o, int B, int b,
-                                          bool live) {
-  const int unit = tid / BW, j = tid % H, rg = tid / H;
-  cell_bwd<H>(S.gs1, tid, dh1, dc1, c1a, c1p, S.dgs, dg1o, B, unit, b, live);
-  __syncthreads();                         // dg1 visible
-  wt_partial<H>(W.w1i, W.w1h, S.dgs, j, rg, S.parts);
-  __syncthreads();                         // partials visible, reads of dgs done
-  dh0 = dh0 + partial_sum<H>(S.parts, tid) * m;
-  dh1 = partial_sum<H>(S.parts + 4 * H * BW, tid);
-  cell_bwd<H>(S.gs0, tid, dh0, dc0, c0a, c0p, S.dgs, dg0o, B, unit, b, live);
-  __syncthreads();                         // dg0 visible, reads of parts done
-  wt_partial<H>(W.w0h, nullptr, S.dgs, j, rg, S.parts);
-  __syncthreads();                         // partials visible
-  dh0 = partial_sum<H>(S.parts, tid);
-}
-
-// Reverse scan of the encoder: the dh/dc chain only. Writes the gate
-// gradients dg0, dg1 [T,4H,B] for the parallel pass.
-template <int H>
-__global__ void __launch_bounds__(4 * H)
-lstm2_enc_bwd_kernel(const float* __restrict__ xs, const float* __restrict__ dm,
-                     const LstmW W, const float* __restrict__ stash,
-                     const float* __restrict__ fin,
-                     const float* __restrict__ dhl, float* __restrict__ dg0o,
-                     float* __restrict__ dg1o, int T, int D, int B) {
-  __shared__ __align__(16) BwdShared<H> S;
-  const int tid = threadIdx.x;
-  const int unit = tid / BW, b0 = blockIdx.x * BW, b = b0 + tid % BW;
-  const bool live = b < B;
-  const size_t at = (size_t)unit * B + b;          // [unit][b] of a [H,B] block
-  float h0a = live ? fin[at] : 0.0f;
-  float c0a = live ? fin[(size_t)H * B + at] : 0.0f;
-  float c1a = live ? fin[(size_t)3 * H * B + at] : 0.0f;
-  float dh1 = live ? dhl[at] : 0.0f;
-  float dh0 = 0.0f, dc0 = 0.0f, dc1 = 0.0f;
-
-  for (int t = T - 1; t >= 0; --t) {
-    const float* st = stash + (size_t)t * 4 * H * B;
-    const float h0p = live ? st[at] : 0.0f;
-    const float c0p = live ? st[(size_t)H * B + at] : 0.0f;
-    const float h1p = live ? st[(size_t)2 * H * B + at] : 0.0f;
-    const float c1p = live ? st[(size_t)3 * H * B + at] : 0.0f;
-    const float m = (dm != nullptr && live) ? dm[(size_t)t * H * B + at] : 1.0f;
-    S.h0ps[tid] = h0p;
-    S.h1ps[tid] = h1p;
-    S.h0ds[tid] = h0a * m;
-    load_rows_shared(S.io, xs + (size_t)t * D * B, D, B, b0, tid, 4 * H);
-    __syncthreads();
-    float g[BW];
-    gate_preact<H>(g, W.b0, W.w0i_t, D, S.io, W.w0h_t, S.h0ps, tid);
-    store4(S.gs0, g, tid);
-    gate_preact<H>(g, W.b1, W.w1i_t, H, S.h0ds, W.w1h_t, S.h1ps, tid);
-    store4(S.gs1, g, tid);
-    __syncthreads();                       // recomputed gates visible
-    bwd_cells<H>(S, W, tid, m, c0a, c0p, c1a, c1p, dh0, dc0, dh1, dc1,
-                 dg0o + (size_t)t * 4 * H * B, dg1o + (size_t)t * 4 * H * B, B, b,
-                 live);
-    h0a = h0p;
-    c0a = c0p;
-    c1a = c1p;
-  }
-}
-
 // ------------------------------------------------------------------ decoder
 
 template <int H>
@@ -407,8 +270,8 @@ __global__ void __launch_bounds__(4 * H)
 lstm2_dec_fwd_kernel(const float* __restrict__ din, const float* __restrict__ dm,
                      const LstmW W, const float* __restrict__ ow,
                      const float* __restrict__ ob, float* __restrict__ recon,
-                     float* __restrict__ stash, float* __restrict__ fin, int T,
-                     int D, int K, int B) {
+                     float* __restrict__ stash, float* __restrict__ gates,
+                     float* __restrict__ fin, int T, int D, int K, int B) {
   __shared__ __align__(16) float h0s[H * BW], h0d[H * BW], h1s[H * BW];
   __shared__ __align__(16) float gs[4 * H * BW];   // first holds dec_in
   __shared__ float ows[H * DMAX];                  // head weights, [k][d]
@@ -435,18 +298,20 @@ lstm2_dec_fwd_kernel(const float* __restrict__ din, const float* __restrict__ dm
     }
     const float m = (dm != nullptr && live)
                         ? dm[((size_t)t * H + unit) * B + b] : 1.0f;
+    float* gq = (stash != nullptr && live)
+                    ? gates + ((size_t)2 * t * 4 * H + unit) * B + b : nullptr;
     float g[BW];
     gate_preact_const<H>(g, xp, W.w0h_t, h0s, tid);
     store4(gs, g, tid);
     __syncthreads();                       // gates visible, reads of h0s done
-    h0 = cell_fwd<H>(gs, tid, c0);
+    h0 = cell_fwd<H>(gs, tid, c0, gq, B);
     h0s[tid] = h0;
     h0d[tid] = h0 * m;
     __syncthreads();                       // h0 visible, reads of gs done
     gate_preact<H>(g, W.b1, W.w1i_t, H, h0d, W.w1h_t, h1s, tid);
     store4(gs, g, tid);
     __syncthreads();                       // gates visible, reads of h1s done
-    h1 = cell_fwd<H>(gs, tid, c1);
+    h1 = cell_fwd<H>(gs, tid, c1, gq == nullptr ? nullptr : gq + (size_t)4 * H * B, B);
     h1s[tid] = h1;
     __syncthreads();                       // h1 visible, reads of gs done
     // output head of step t, from shared memory only (the weight stream of
@@ -471,57 +336,348 @@ lstm2_dec_fwd_kernel(const float* __restrict__ din, const float* __restrict__ dm
   }
 }
 
-template <int H>
-__global__ void __launch_bounds__(4 * H)
-lstm2_dec_bwd_kernel(const float* __restrict__ din, const float* __restrict__ dm,
-                     const LstmW W, const float* __restrict__ ow,
-                     const float* __restrict__ stash,
-                     const float* __restrict__ fin,
-                     const float* __restrict__ dr, float* __restrict__ dg0o,
-                     float* __restrict__ dg1o, int T, int D, int K, int B) {
-  __shared__ __align__(16) BwdShared<H> S;
-  const int tid = threadIdx.x;
-  const int unit = tid / BW, b0 = blockIdx.x * BW, b = b0 + tid % BW;
-  const bool live = b < B;
-  const size_t at = (size_t)unit * B + b;
-  float xp[BW];
-  load_rows_shared(S.parts, din, K, B, b0, tid, 4 * H);   // K*BW <= 8H*BW
-  __syncthreads();
-  gate_preact<H>(xp, W.b0, W.w0i_t, K, S.parts, nullptr, nullptr, tid);
+// ------------------------------------- the reverse scan, on a block cluster
+//
+// Both stacks' backward recurrence (the dh/dc chain) in one body. A cluster
+// of CL = 8 blocks takes NW = 20 windows; block k of it owns the units
+// j in [k*H/8, (k+1)*H/8) of those windows, one thread per (unit, window)
+// slot with c and the dh/dc carries in registers. At its start a block loads
+// its column slices W1i[:,j], W1h[:,j], W0h[:,j] ([4H, H/8] each, 96 KiB at
+// H=128) into shared memory, and no weight is read from device memory after
+// that. Why 20 windows: at H=128 a block takes 223 KiB of shared memory, so
+// an SM holds one, and an H100 80GB HBM3 places 15 such clusters at once
+// (cudaOccupancyMaxActiveClusters), not 16. With 16 windows B=256 needed 16
+// clusters, two waves (rows 3 and 5 took 1.2x as long); with 20 it needs 13,
+// one wave. One reverse step:
+//   1. layer-1 cell backward of the block's slots from the stashed gate
+//      activations: its 4*H/8 rows of dg1;
+//   2. those rows into the gather buffer of every block of the cluster
+//      (distributed shared memory), then a cluster barrier;
+//   3. dh0 += m * W1i[:,j]^T dg1 and the carry dh1 = W1h[:,j]^T dg1, over
+//      all 4H gathered rows;
+//   4. layer-0 cell backward: the block's rows of dg0, gathered the same
+//      way into a second buffer, then a cluster barrier;
+//   5. the carry dh0 = W0h[:,j]^T dg0.
+// dg0 and dg1 also go to device memory [T,4H,B] for the gradient pass. The
+// two gather buffers (one for dg1, one for dg0) make two cluster barriers a
+// step enough: a block writes a peer's dg1 buffer only after the barrier
+// that follows every block's reads of it in the step before, and the same
+// holds for dg0. The transposed products are tiled 4 units x 4 windows a
+// thread over RG = 16 groups of rows (each shared-memory float4 feeds 16 or
+// 32 FMAs), summed over a group's rows in order and then over the groups in
+// order: no atomics, the same bits every run. A cluster's windows past the
+// batch edge compute on zeros and write nothing; a batch of more clusters
+// than fit on the card runs in waves.
 
-  float h0a = live ? fin[at] : 0.0f;
-  float c0a = live ? fin[(size_t)H * B + at] : 0.0f;
-  float c1a = live ? fin[(size_t)3 * H * B + at] : 0.0f;
-  float dh0 = 0.0f, dc0 = 0.0f, dh1 = 0.0f, dc1 = 0.0f;
+constexpr int CL = 8;        // blocks a cluster
+constexpr int NW = 20;       // windows a cluster
+constexpr int RG = 16;       // row groups of the transposed products
+
+template <int H>
+struct Rev {
+  static constexpr int UB = H / CL;          // units a block
+  static constexpr int G = 4 * H;            // gate rows
+  static constexpr int NT = UB * NW;         // threads: one (unit, window) slot each
+  static constexpr int TILES = NT / 16;      // 4 x 4 (unit, window) output tiles
+  static constexpr int PF = (DMAX * NW + NT - 1) / NT;  // d(recon) prefetch a thread
+  // dynamic shared memory, in floats
+  static constexpr int WS = 0;                     // W1i | W1h | W0h slices [3][G][UB]
+  static constexpr int GA = WS + 3 * G * UB;       // gathered dg1 [G][NW]
+  static constexpr int GB = GA + G * NW;           // gathered dg0 [G][NW]
+  static constexpr int PART = GB + G * NW;         // partial sums [2][RG][NT]
+  static constexpr int OW = PART + 2 * RG * NT;    // head slice [DMAX][UB] (decoder)
+  static constexpr int DR = OW + DMAX * UB;        // d(recon_t) tiles [2][DMAX][NW]
+  static constexpr size_t BYTES = (size_t)(DR + 2 * DMAX * NW) * sizeof(float);
+  static_assert(UB % 4 == 0 && NW % 4 == 0 && G % RG == 0, "4x4 tiles");
+};
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; orders shared-memory writes
+// before it (this block's and remote ones) before the reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n\tbarrier.cluster.wait.aligned;"
+               ::: "memory");
+}
+
+// the address of *p in the shared memory of cluster block `rank`
+__device__ __forceinline__ float* peer_addr(float* p, unsigned rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;"
+               : "=l"(out) : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<float*>(out);
+}
+
+// What a slot reads of step t: both layers' gate activations (i, f, g, o),
+// the cells' pre-step states and the mask; zeros past the batch edge.
+struct StepIn {
+  float g0[4], g1[4], c0p, c1p, m;
+};
+
+template <int H>
+__device__ __forceinline__ StepIn load_step(const float* __restrict__ stash,
+                                            const float* __restrict__ gates,
+                                            const float* __restrict__ dm, int t,
+                                            int B, size_t at, bool live) {
+  StepIn s;
+  const size_t hb = (size_t)H * B, gb = 4 * hb;
+  const float* gq = gates + 2 * (size_t)t * gb + at;
+  const float* st = stash + (size_t)t * gb + at;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    s.g0[q] = live ? gq[q * hb] : 0.0f;
+    s.g1[q] = live ? gq[gb + q * hb] : 0.0f;
+  }
+  s.c0p = live ? st[hb] : 0.0f;
+  s.c1p = live ? st[3 * hb] : 0.0f;
+  s.m = (dm != nullptr && live) ? dm[(size_t)t * hb + at] : 1.0f;
+  return s;
+}
+
+// Backward through one cell from its gate activations a = (i, f, g, o) and
+// the cell state after (c_aft) and before (c_prev) the step: the four gate
+// gradients; dc <- dc * f.
+__device__ __forceinline__ void cell_bwd(const float (&a)[4], float dh, float& dc,
+                                         float c_aft, float c_prev, float (&dg)[4]) {
+  const float i = a[0], f = a[1], gg = a[2], o = a[3];
+  const float tc = tanhf(c_aft);
+  const float d_o = dh * tc;
+  const float d_c = dc + dh * o * (1.0f - tc * tc);
+  dg[0] = (d_c * gg) * i * (1.0f - i);
+  dg[1] = (d_c * c_prev) * f * (1.0f - f);
+  dg[2] = (d_c * i) * (1.0f - gg * gg);
+  dg[3] = d_o * o * (1.0f - o);
+  dc = d_c * f;
+}
+
+// The slot's four gate gradients to rows q*H + unit of device memory dgo
+// [4H,B] and of the gather buffer buf [G][NW] of every block of the cluster:
+// first into this block's own buffer, then the block's 4 runs of UB rows
+// (NT floats each) as one float4 a thread to each of the 7 peers.
+template <int H>
+__device__ __forceinline__ void gather_rows(float* buf, const float (&dg)[4], int tid,
+                                            unsigned k, float* __restrict__ dgo,
+                                            size_t at, int B, bool live) {
+  using R = Rev<H>;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    buf[(q * H + k * R::UB) * NW + tid] = dg[q];
+    if (live) dgo[(size_t)q * H * B + at] = dg[q];
+  }
+  __syncthreads();                         // the block's own rows complete
+  float* src = buf + ((tid / (R::NT / 4)) * H + k * R::UB) * NW + (tid % (R::NT / 4)) * 4;
+  const float4 v = *reinterpret_cast<const float4*>(src);
+#pragma unroll
+  for (unsigned r = 1; r < CL; ++r)
+    *reinterpret_cast<float4*>(peer_addr(src, (k + r) % CL)) = v;
+}
+
+// part[p][g][slot] = sum over rows r = i*RG + g (i in order) of
+// W_{p0+p}[r][unit] * dg[r][window], for the 4x4 (unit, window) tile of this
+// thread in row group g; Ws holds the slices [3][G][UB], dg [G][NW].
+template <int H, int NP>
+__device__ __forceinline__ void tr_products(const float* Ws, int p0, const float* dg,
+                                            float* part, int tid) {
+  using R = Rev<H>;
+  const int g = tid / R::TILES, tile = tid % R::TILES;
+  const int jt = tile / (NW / 4), wt = tile % (NW / 4);
+  float acc[NP][4][4];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[p][a][c] = 0.0f;
+  const float* dp = dg + g * NW + wt * 4;
+  const float* wp = Ws + (size_t)p0 * R::G * R::UB + g * R::UB + jt * 4;
+#pragma unroll 4
+  for (int i = 0; i < R::G / RG; ++i) {
+    const float4 d = *reinterpret_cast<const float4*>(dp + i * RG * NW);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float4 a = *reinterpret_cast<const float4*>(wp + p * R::G * R::UB + i * RG * R::UB);
+      const float av[4] = {a.x, a.y, a.z, a.w}, dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) acc[p][x][y] = fmaf(av[x], dv[y], acc[p][x][y]);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      *reinterpret_cast<float4*>(part + (p * RG + g) * R::NT + (jt * 4 + x) * NW + wt * 4) =
+          make_float4(acc[p][x][0], acc[p][x][1], acc[p][x][2], acc[p][x][3]);
+}
+
+// sum over the row groups, in order, of product p's partials of one slot
+template <int H>
+__device__ __forceinline__ float part_sum(const float* part, int p, int slot) {
+  using R = Rev<H>;
+  float s = part[p * RG * R::NT + slot];
+#pragma unroll
+  for (int g = 1; g < RG; ++g) s += part[(p * RG + g) * R::NT + slot];
+  return s;
+}
+
+// seed: d h_last [H,B] (encoder) or d recon [T,D,B] (decoder, with ow [D,H])
+template <int H, bool DEC>
+__global__ void __launch_bounds__(Rev<H>::NT, 1)
+lstm2_bwd_scan_kernel(const float* __restrict__ dm, const LstmW W,
+                      const float* __restrict__ ow,
+                      const float* __restrict__ stash,
+                      const float* __restrict__ gates,
+                      const float* __restrict__ fin,
+                      const float* __restrict__ seed, float* __restrict__ dg0o,
+                      float* __restrict__ dg1o, int T, int D, int B) {
+  using R = Rev<H>;
+  extern __shared__ __align__(16) float sm[];
+  float *Ws = sm + R::WS, *ga = sm + R::GA, *gb = sm + R::GB, *part = sm + R::PART;
+  float *ows = sm + R::OW, *drs = sm + R::DR;
+  const int tid = threadIdx.x;
+  const unsigned k = cluster_rank();
+  const int unit = k * R::UB + tid / NW;
+  const int b0 = (blockIdx.x / CL) * NW, b = b0 + tid % NW;
+  const bool live = b < B;
+  const size_t hb = (size_t)H * B, at = (size_t)unit * B + b;
+
+  for (int i = tid; i < R::G * R::UB; i += R::NT) {
+    const size_t src = (size_t)(i / R::UB) * H + k * R::UB + i % R::UB;
+    Ws[i] = W.w1i[src];
+    Ws[R::G * R::UB + i] = W.w1h[src];
+    Ws[2 * R::G * R::UB + i] = W.w0h[src];
+  }
+  // d(recon_t) of the cluster's windows, tile [D][NW]
+  auto dr_at = [&](int t, int e) {
+    const int w = e % NW;
+    return (e < D * NW && b0 + w < B) ? seed[((size_t)t * D + e / NW) * B + b0 + w] : 0.0f;
+  };
+  if (DEC) {
+    for (int i = tid; i < D * R::UB; i += R::NT)
+      ows[i] = ow[(size_t)(i / R::UB) * H + k * R::UB + i % R::UB];
+    for (int e = tid; e < D * NW; e += R::NT)
+      drs[((T - 1) & 1) * DMAX * NW + e] = dr_at(T - 1, e);
+  }
+  float c0a = live ? fin[hb + at] : 0.0f;
+  float c1a = live ? fin[3 * hb + at] : 0.0f;
+  float dh1 = (!DEC && live) ? seed[at] : 0.0f;
+  float dh0 = 0.0f, dc0 = 0.0f, dc1 = 0.0f;
+  StepIn cur = load_step<H>(stash, gates, dm, T - 1, B, at, live), nxt = cur;
+  cluster_sync();                          // the cluster runs, its weights are in place
 
   for (int t = T - 1; t >= 0; --t) {
-    const float* st = stash + (size_t)t * 4 * H * B;
-    const float h0p = live ? st[at] : 0.0f;
-    const float c0p = live ? st[(size_t)H * B + at] : 0.0f;
-    const float h1p = live ? st[(size_t)2 * H * B + at] : 0.0f;
-    const float c1p = live ? st[(size_t)3 * H * B + at] : 0.0f;
-    const float m = (dm != nullptr && live) ? dm[(size_t)t * H * B + at] : 1.0f;
-    S.h0ps[tid] = h0p;
-    S.h1ps[tid] = h1p;
-    S.h0ds[tid] = h0a * m;
-    load_rows_shared(S.io, dr + (size_t)t * D * B, D, B, b0, tid, 4 * H);
-    __syncthreads();                       // also: reads of dec_in in parts done
-    float g[BW];
-    gate_preact_const<H>(g, xp, W.w0h_t, S.h0ps, tid);
-    store4(S.gs0, g, tid);
-    gate_preact<H>(g, W.b1, W.w1i_t, H, S.h0ds, W.w1h_t, S.h1ps, tid);
-    store4(S.gs1, g, tid);
-    // output head backward: dh1 += ow^T d(recon_t)
-    for (int d = 0; d < D; ++d)
-      dh1 = fmaf(__ldg(ow + (size_t)d * H + unit), S.io[d * BW + tid % BW], dh1);
-    __syncthreads();                       // recomputed gates visible
-    bwd_cells<H>(S, W, tid, m, c0a, c0p, c1a, c1p, dh0, dc0, dh1, dc1,
-                 dg0o + (size_t)t * 4 * H * B, dg1o + (size_t)t * 4 * H * B, B, b,
-                 live);
-    h0a = h0p;
-    c0a = c0p;
-    c1a = c1p;
+    // step t-1's inputs, in flight while step t computes
+    float drn[R::PF];
+    if (t > 0) {
+      nxt = load_step<H>(stash, gates, dm, t - 1, B, at, live);
+      if (DEC) {
+#pragma unroll
+        for (int q = 0; q < R::PF; ++q) drn[q] = dr_at(t - 1, tid + q * R::NT);
+      }
+    }
+    if (DEC) {                             // output head: dh1 += ow^T d(recon_t)
+      const float* dr = drs + (t & 1) * DMAX * NW + tid % NW;
+      for (int d = 0; d < D; ++d) dh1 = fmaf(ows[d * R::UB + tid / NW], dr[d * NW], dh1);
+    }
+    float dg[4];
+    cell_bwd(cur.g1, dh1, dc1, c1a, cur.c1p, dg);
+    gather_rows<H>(ga, dg, tid, k, dg1o + (size_t)t * 4 * hb, at, B, live);
+    if (DEC && t > 0) {
+      float* next = drs + ((t - 1) & 1) * DMAX * NW;
+#pragma unroll
+      for (int q = 0; q < R::PF; ++q)
+        if (tid + q * R::NT < DMAX * NW) next[tid + q * R::NT] = drn[q];
+    }
+    cluster_sync();                        // dg1 gathered
+    tr_products<H, 2>(Ws, 0, ga, part, tid);
+    __syncthreads();                       // partials visible
+    dh0 = dh0 + part_sum<H>(part, 0, tid) * cur.m;
+    dh1 = part_sum<H>(part, 1, tid);
+    cell_bwd(cur.g0, dh0, dc0, c0a, cur.c0p, dg);
+    gather_rows<H>(gb, dg, tid, k, dg0o + (size_t)t * 4 * hb, at, B, live);
+    cluster_sync();                        // dg0 gathered, reads of part done
+    tr_products<H, 1>(Ws, 2, gb, part, tid);
+    __syncthreads();                       // partials visible
+    dh0 = part_sum<H>(part, 0, tid);
+    c0a = cur.c0p;
+    c1a = cur.c1p;
+    cur = nxt;
   }
+  cluster_sync();                          // no block leaves while a peer may address it
+}
+
+// Set up one instance once (its shared memory above 48 KB) and read what
+// the card makes of it: out = {clusters of CL blocks that fit at once,
+// dynamic shared bytes a block, registers a thread, local (spill) bytes a
+// thread, threads a block}.
+template <int H, bool DEC>
+cudaError_t bwd_scan_info(int* out) {
+  using R = Rev<H>;
+  static int info[5] = {-1, 0, 0, 0, 0};
+  if (info[0] < 0) {
+    auto kern = lstm2_bwd_scan_kernel<H, DEC>;
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)R::BYTES);
+    if (e != cudaSuccess) return e;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = CL;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CL);
+    cfg.blockDim = dim3(R::NT);
+    cfg.dynamicSmemBytes = R::BYTES;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return e;
+    info[0] = n;
+    info[1] = (int)R::BYTES;
+    info[2] = fa.numRegs;
+    info[3] = (int)fa.localSizeBytes;
+    info[4] = R::NT;
+  }
+  for (int i = 0; i < 5; ++i) out[i] = info[i];
+  return cudaSuccess;
+}
+
+// the reverse scan over B windows: ceil(B/NW) clusters of CL blocks
+template <int H, bool DEC>
+cudaError_t bwd_scan(const float* dm, const LstmW& W, const float* ow,
+                     const float* stash, const float* gates, const float* fin,
+                     const float* seed, float* dg0, float* dg1, int T, int D,
+                     int B, cudaStream_t s) {
+  using R = Rev<H>;
+  int info[5];
+  cudaError_t e = bwd_scan_info<H, DEC>(info);
+  if (e != cudaSuccess) return e;
+  if (info[0] == 0) return cudaErrorLaunchOutOfResources;   // no cluster fits
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CL;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((B + NW - 1) / NW) * CL);
+  cfg.blockDim = dim3(R::NT);
+  cfg.dynamicSmemBytes = R::BYTES;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, lstm2_bwd_scan_kernel<H, DEC>, dm, W, ow, stash,
+                         gates, fin, seed, dg0, dg1, T, D, B);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 // ------------------------------------------- the parallel gradient pass
@@ -701,10 +857,10 @@ LstmW stack_weights(const float* const* w, bool backward) {
 
 template <int H>
 cudaError_t enc_fwd(const float* xs, const float* dm, const float* const* w,
-                    float* stash, float* hlast, float* fin, int T, int D, int B,
-                    cudaStream_t s) {
+                    float* stash, float* gates, float* hlast, float* fin, int T,
+                    int D, int B, cudaStream_t s) {
   lstm2_enc_fwd_kernel<H><<<(B + BW - 1) / BW, 4 * H, 0, s>>>(
-      xs, dm, stack_weights(w, false), stash, hlast, fin, T, D, B);
+      xs, dm, stack_weights(w, false), stash, gates, hlast, fin, T, D, B);
   return cudaGetLastError();
 }
 
@@ -712,13 +868,12 @@ cudaError_t enc_fwd(const float* xs, const float* dm, const float* const* w,
 // scratch: dg0 dg1 partial;  out: dx gw0i gw0h gb0 gw1i gw1h gb1
 template <int H>
 cudaError_t enc_bwd(const float* xs, const float* dm, const float* const* w,
-                    const float* stash, const float* fin, const float* dhl,
-                    float* const* scratch, float* const* out, int T, int D,
-                    int B, int S, cudaStream_t s) {
+                    const float* stash, const float* gates, const float* fin,
+                    const float* dhl, float* const* scratch, float* const* out,
+                    int T, int D, int B, int S, cudaStream_t s) {
   float *dg0 = scratch[0], *dg1 = scratch[1], *partial = scratch[2];
-  lstm2_enc_bwd_kernel<H><<<(B + BW - 1) / BW, 4 * H, 0, s>>>(
-      xs, dm, stack_weights(w, true), stash, fin, dhl, dg0, dg1, T, D, B);
-  SHM_TRY(cudaGetLastError());
+  SHM_TRY((bwd_scan<H, false>(dm, stack_weights(w, true), nullptr, stash, gates,
+                              fin, dhl, dg0, dg1, T, D, B, s)));
   const long long st = 4LL * H * B;
   const Stream g0 = plain_stream(dg0, st, 4 * H), g1 = plain_stream(dg1, st, 4 * H);
   const Stream h0d{stash, st, fin, dm, (long long)H * B, H};
@@ -734,10 +889,11 @@ cudaError_t enc_bwd(const float* xs, const float* dm, const float* const* w,
 
 template <int H>
 cudaError_t dec_fwd(const float* din, const float* dm, const float* const* w,
-                    float* recon, float* stash, float* fin, int T, int D, int K,
-                    int B, cudaStream_t s) {
+                    float* recon, float* stash, float* gates, float* fin, int T,
+                    int D, int K, int B, cudaStream_t s) {
   lstm2_dec_fwd_kernel<H><<<(B + BW - 1) / BW, 4 * H, 0, s>>>(
-      din, dm, stack_weights(w, false), w[10], w[11], recon, stash, fin, T, D, K, B);
+      din, dm, stack_weights(w, false), w[10], w[11], recon, stash, gates, fin,
+      T, D, K, B);
   return cudaGetLastError();
 }
 
@@ -745,14 +901,13 @@ cudaError_t dec_fwd(const float* din, const float* dm, const float* const* w,
 // scratch: dg0 dg1 partial sum_t(dg0);  out: ddin gw0i gw0h gb0 gw1i gw1h gb1 gow gob
 template <int H>
 cudaError_t dec_bwd(const float* din, const float* dm, const float* const* w,
-                    const float* stash, const float* fin, const float* dr,
-                    float* const* scratch, float* const* out, int T, int D,
-                    int K, int B, int S, cudaStream_t s) {
+                    const float* stash, const float* gates, const float* fin,
+                    const float* dr, float* const* scratch, float* const* out,
+                    int T, int D, int K, int B, int S, cudaStream_t s) {
   float *dg0 = scratch[0], *dg1 = scratch[1], *partial = scratch[2],
         *adg0 = scratch[3];
-  lstm2_dec_bwd_kernel<H><<<(B + BW - 1) / BW, 4 * H, 0, s>>>(
-      din, dm, stack_weights(w, true), w[10], stash, fin, dr, dg0, dg1, T, D, K, B);
-  SHM_TRY(cudaGetLastError());
+  SHM_TRY((bwd_scan<H, true>(dm, stack_weights(w, true), w[10], stash, gates,
+                             fin, dr, dg0, dg1, T, D, B, s)));
   const long long st = 4LL * H * B;
   const Stream g0 = plain_stream(dg0, st, 4 * H), g1 = plain_stream(dg1, st, 4 * H);
   const Stream h0d{stash, st, fin, dm, (long long)H * B, H};
@@ -781,31 +936,33 @@ bool bad_dims(int T, int D, int H, int B, int S) {
 // float32; `w`, `scratch` and `out` are host arrays of device pointers in the
 // orders given above each launcher (a forward takes the same `w` array as its
 // backward and reads the first six entries, the decoder also ow and ob).
-// `dm` may be null (unit mask), `stash`
-// null in the forwards (nothing kept for a backward) and out[0] null in the
+// `dm` may be null (unit mask), `stash` and
+// `gates` null in the forwards (nothing kept for a backward; a forward writes
+// the gate stash [T,2,4H,B] only with a stash) and out[0] null in the
 // encoder backward (no dx wanted). Each returns the first cudaGetLastError()
 // that is not 0, else 0. S is the number of splits over T of the contraction
 // (partial holds S * 4H * max(H, K, D) floats).
 
 extern "C" int shm_lstm2_enc_fwd_f32(const float* xs, const float* dm,
                                      const void* const* w, float* stash,
-                                     float* hlast, float* fin, int T, int D,
-                                     int H, int B, void* stream) {
+                                     float* gates, float* hlast, float* fin,
+                                     int T, int D, int H, int B, void* stream) {
   if (bad_dims(T, D, H, B, 1)) return (int)cudaErrorInvalidValue;
   const float* const* wp = reinterpret_cast<const float* const*>(w);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (H) {
-    case 32: err = enc_fwd<32>(xs, dm, wp, stash, hlast, fin, T, D, B, s); break;
-    case 64: err = enc_fwd<64>(xs, dm, wp, stash, hlast, fin, T, D, B, s); break;
-    default: err = enc_fwd<128>(xs, dm, wp, stash, hlast, fin, T, D, B, s); break;
+    case 32: err = enc_fwd<32>(xs, dm, wp, stash, gates, hlast, fin, T, D, B, s); break;
+    case 64: err = enc_fwd<64>(xs, dm, wp, stash, gates, hlast, fin, T, D, B, s); break;
+    default: err = enc_fwd<128>(xs, dm, wp, stash, gates, hlast, fin, T, D, B, s); break;
   }
   return (int)err;
 }
 
 extern "C" int shm_lstm2_enc_bwd_f32(const float* xs, const float* dm,
                                      const void* const* w, const float* stash,
-                                     const float* fin, const float* dhl,
+                                     const float* gates, const float* fin,
+                                     const float* dhl,
                                      void* const* scratch, void* const* out,
                                      int T, int D, int H, int B, int S,
                                      void* stream) {
@@ -816,33 +973,35 @@ extern "C" int shm_lstm2_enc_bwd_f32(const float* xs, const float* dm,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (H) {
-    case 32: err = enc_bwd<32>(xs, dm, wp, stash, fin, dhl, sp, op, T, D, B, S, s); break;
-    case 64: err = enc_bwd<64>(xs, dm, wp, stash, fin, dhl, sp, op, T, D, B, S, s); break;
-    default: err = enc_bwd<128>(xs, dm, wp, stash, fin, dhl, sp, op, T, D, B, S, s); break;
+    case 32: err = enc_bwd<32>(xs, dm, wp, stash, gates, fin, dhl, sp, op, T, D, B, S, s); break;
+    case 64: err = enc_bwd<64>(xs, dm, wp, stash, gates, fin, dhl, sp, op, T, D, B, S, s); break;
+    default: err = enc_bwd<128>(xs, dm, wp, stash, gates, fin, dhl, sp, op, T, D, B, S, s); break;
   }
   return (int)err;
 }
 
 extern "C" int shm_lstm2_dec_fwd_f32(const float* din, const float* dm,
                                      const void* const* w, float* recon,
-                                     float* stash, float* fin, int T, int D,
-                                     int H, int K, int B, void* stream) {
+                                     float* stash, float* gates, float* fin,
+                                     int T, int D, int H, int K, int B,
+                                     void* stream) {
   if (bad_dims(T, D, H, B, 1) || K <= 0 || K > KMAX)
     return (int)cudaErrorInvalidValue;
   const float* const* wp = reinterpret_cast<const float* const*>(w);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (H) {
-    case 32: err = dec_fwd<32>(din, dm, wp, recon, stash, fin, T, D, K, B, s); break;
-    case 64: err = dec_fwd<64>(din, dm, wp, recon, stash, fin, T, D, K, B, s); break;
-    default: err = dec_fwd<128>(din, dm, wp, recon, stash, fin, T, D, K, B, s); break;
+    case 32: err = dec_fwd<32>(din, dm, wp, recon, stash, gates, fin, T, D, K, B, s); break;
+    case 64: err = dec_fwd<64>(din, dm, wp, recon, stash, gates, fin, T, D, K, B, s); break;
+    default: err = dec_fwd<128>(din, dm, wp, recon, stash, gates, fin, T, D, K, B, s); break;
   }
   return (int)err;
 }
 
 extern "C" int shm_lstm2_dec_bwd_f32(const float* din, const float* dm,
                                      const void* const* w, const float* stash,
-                                     const float* fin, const float* dr,
+                                     const float* gates, const float* fin,
+                                     const float* dr,
                                      void* const* scratch, void* const* out,
                                      int T, int D, int H, int K, int B, int S,
                                      void* stream) {
@@ -854,9 +1013,26 @@ extern "C" int shm_lstm2_dec_bwd_f32(const float* din, const float* dm,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (H) {
-    case 32: err = dec_bwd<32>(din, dm, wp, stash, fin, dr, sp, op, T, D, K, B, S, s); break;
-    case 64: err = dec_bwd<64>(din, dm, wp, stash, fin, dr, sp, op, T, D, K, B, S, s); break;
-    default: err = dec_bwd<128>(din, dm, wp, stash, fin, dr, sp, op, T, D, K, B, S, s); break;
+    case 32: err = dec_bwd<32>(din, dm, wp, stash, gates, fin, dr, sp, op, T, D, K, B, S, s); break;
+    case 64: err = dec_bwd<64>(din, dm, wp, stash, gates, fin, dr, sp, op, T, D, K, B, S, s); break;
+    default: err = dec_bwd<128>(din, dm, wp, stash, gates, fin, dr, sp, op, T, D, K, B, S, s); break;
+  }
+  return (int)err;
+}
+
+// {clusters that fit at once, shared bytes a block, registers a thread,
+// local bytes a thread, threads a block} of the reverse-scan instance of H
+// for the encoder (dec = 0) or the decoder (dec = 1)
+extern "C" int shm_lstm2_bwd_scan_info(int H, int dec, int* out) {
+  if (H != 32 && H != 64 && H != 128) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (H * 2 + (dec != 0)) {
+    case 64: err = bwd_scan_info<32, false>(out); break;
+    case 65: err = bwd_scan_info<32, true>(out); break;
+    case 128: err = bwd_scan_info<64, false>(out); break;
+    case 129: err = bwd_scan_info<64, true>(out); break;
+    case 256: err = bwd_scan_info<128, false>(out); break;
+    default: err = bwd_scan_info<128, true>(out); break;
   }
   return (int)err;
 }

@@ -17,9 +17,12 @@ last) so the two can be compared like with like:
 On CUDA tensors each op is a ``torch.autograd.Function`` whose forward and
 backward launch the kernels of ``csrc/lstm_train.cu`` (built with nvcc for
 ``sm_90a`` at first use) and count their launches in ``<op>.fwd_launches`` and
-``<op>.bwd_launches``; a failed launch raises, and nothing falls back. The
-forward stashes only the pre-step state (h0, c0, h1, c1) per step; the
-backward recomputes the gates. Under ``torch.no_grad()`` no stash is written.
+``<op>.bwd_launches``; a failed launch raises, and nothing falls back. For a
+backward the forward stashes the pre-step state (h0, c0, h1, c1) and the gate
+activations of both layers per step; the backward's reverse scan reads them,
+recomputes nothing, and runs on clusters of 8 blocks that hold its three
+[4H, H] matrices in shared memory (a card that cannot place such a cluster
+raises). Under ``torch.no_grad()`` no stash is written.
 On CPU tensors the ops run their plain versions, :func:`lstm2_scan_reference`
 and :func:`lstm2_dec_head_reference` (a Python time loop under autograd), which
 the tests hold against the JAX package and ``chip_smoke.py`` holds the kernels
@@ -83,6 +86,81 @@ def lstm2_dec_head_reference(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1,
     return torch.stack(outs)
 
 
+def lstm2_scan_stash_reference(x, dm, w0i, w0h, b0, w1i, w1h, b1,
+                               T: Optional[int] = None):
+    """Plain two-layer scan that also returns what the forward kernels keep
+    for the backward, in their layouts: (h1s [T,H,B], stash [T,4H,B] of the
+    pre-step state (h0, c0, h1, c1), gates [T,2,4H,B] of the activations
+    (i, f, g, o) of layer 0 then layer 1, fin [4H,B] the final state).
+
+    ``x`` is xs [T,D,B] (encoder) or, with ``T`` given, dec_in [K,B] fed to
+    layer 0 at every step (decoder; projected once)."""
+    H, B = w0h.shape[1], x.shape[-1]
+    xp = None if T is None else w0i @ x + b0
+    T = x.shape[0] if T is None else T
+    h0 = c0 = h1 = c1 = x.new_zeros(H, B)
+    outs, stash, gates = [], [], []
+
+    def cell(h, c, pre):
+        i, f, g, o = pre.split(H, dim=0)
+        act = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o))
+        c = act[1] * c + act[0] * act[2]
+        return act[3] * torch.tanh(c), c, torch.cat(act)
+
+    for t in range(T):
+        stash.append(torch.cat([h0, c0, h1, c1]))
+        pre0 = w0i @ x[t] + w0h @ h0 + b0 if xp is None else xp + w0h @ h0
+        h0, c0, a0 = cell(h0, c0, pre0)
+        h0d = h0 if dm is None else h0 * dm[t]
+        h1, c1, a1 = cell(h1, c1, w1i @ h0d + w1h @ h1 + b1)
+        gates.append(torch.stack([a0, a1]))
+        outs.append(h1)
+    return (torch.stack(outs), torch.stack(stash), torch.stack(gates),
+            torch.cat([h0, c0, h1, c1]))
+
+
+def _cell_bwd(act, dh, dc, c_aft, c_prev):
+    """Gate gradients [4H,B] of one cell from its activations act [4H,B];
+    returns (dg, the cell-state gradient carried to the step before)."""
+    i, f, g, o = act.chunk(4, dim=0)
+    tc = torch.tanh(c_aft)
+    d_c = dc + dh * o * (1.0 - tc * tc)
+    dg = torch.cat([(d_c * g) * i * (1.0 - i), (d_c * c_prev) * f * (1.0 - f),
+                    (d_c * i) * (1.0 - g * g), (dh * tc) * o * (1.0 - o)])
+    return dg, d_c * f
+
+
+def lstm2_reverse_scan_reference(stash, gates, fin, dm, w0h, w1i, w1h,
+                                 d_hlast=None, d_hseq=None):
+    """Plain reverse scan of the two-layer stack, the recurrence the backward
+    kernels run: from the stash, the gate stash and the final state of
+    :func:`lstm2_scan_stash_reference`, the gate gradients (dg0, dg1), each
+    [T,4H,B]. The seed of the top layer's dh is ``d_hlast`` [H,B] at the last
+    step (encoder) or ``d_hseq`` [T,H,B] at every step (decoder: the output
+    head's ``out_w^T d_recon``). Every weight gradient and the input gradient
+    are contractions of (dg0, dg1) with the stash and the inputs."""
+    T, G, B = stash.shape
+    H = G // 4
+    dh0 = dc0 = dc1 = dh1 = stash.new_zeros(H, B)
+    c0a, c1a = fin[H:2 * H], fin[3 * H:]
+    if d_hlast is not None:
+        dh1 = d_hlast
+    dg0s, dg1s = [None] * T, [None] * T
+    for t in reversed(range(T)):
+        if d_hseq is not None:
+            dh1 = dh1 + d_hseq[t]
+        c0p, c1p = stash[t, H:2 * H], stash[t, 3 * H:]
+        dg1, dc1 = _cell_bwd(gates[t, 1], dh1, dc1, c1a, c1p)
+        m = 1.0 if dm is None else dm[t]
+        dh0 = dh0 + (w1i.t() @ dg1) * m
+        dh1 = w1h.t() @ dg1
+        dg0, dc0 = _cell_bwd(gates[t, 0], dh0, dc0, c0a, c0p)
+        dh0 = w0h.t() @ dg0
+        dg0s[t], dg1s[t] = dg0, dg1
+        c0a, c1a = c0p, c1p
+    return torch.stack(dg0s), torch.stack(dg1s)
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
@@ -93,14 +171,35 @@ def _library() -> ctypes.CDLL:
     use, never at import)."""
     lib = load_library("lstm_train")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.shm_lstm2_enc_fwd_f32.argtypes = [P] * 6 + [I] * 4 + [P]
-    lib.shm_lstm2_enc_bwd_f32.argtypes = [P] * 8 + [I] * 5 + [P]
-    lib.shm_lstm2_dec_fwd_f32.argtypes = [P] * 6 + [I] * 5 + [P]
-    lib.shm_lstm2_dec_bwd_f32.argtypes = [P] * 8 + [I] * 6 + [P]
+    lib.shm_lstm2_enc_fwd_f32.argtypes = [P] * 7 + [I] * 4 + [P]
+    lib.shm_lstm2_enc_bwd_f32.argtypes = [P] * 9 + [I] * 5 + [P]
+    lib.shm_lstm2_dec_fwd_f32.argtypes = [P] * 7 + [I] * 5 + [P]
+    lib.shm_lstm2_dec_bwd_f32.argtypes = [P] * 9 + [I] * 6 + [P]
+    lib.shm_lstm2_bwd_scan_info.argtypes = [I, I, P]
     for fn in (lib.shm_lstm2_enc_fwd_f32, lib.shm_lstm2_enc_bwd_f32,
-               lib.shm_lstm2_dec_fwd_f32, lib.shm_lstm2_dec_bwd_f32):
+               lib.shm_lstm2_dec_fwd_f32, lib.shm_lstm2_dec_bwd_f32,
+               lib.shm_lstm2_bwd_scan_info):
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def bwd_scan_info(H: int, decoder: bool) -> dict:
+    """What the card makes of the reverse-scan kernel of one stack at hidden
+    size H (set up at its first call): the clusters of 8 blocks that fit at
+    once, the shared memory, registers and local (spill) bytes of one block
+    or thread, and its threads. Raises where no such cluster fits."""
+    out = (ctypes.c_int * 5)()
+    err = _library().shm_lstm2_bwd_scan_info(H, int(decoder), out)
+    raise_on_error(_library(), err, "lstm2 reverse-scan set-up")
+    info = dict(zip(("max_active_clusters", "shared_bytes", "registers",
+                     "local_bytes", "threads"), out))
+    if info["max_active_clusters"] == 0:
+        raise RuntimeError(
+            f"the LSTM reverse scan (H={H}) needs clusters of 8 blocks with "
+            f"{info['shared_bytes']} bytes of shared memory each, and this "
+            "card places none")
+    return info
 
 
 def _ptrs(tensors: Sequence[Optional[torch.Tensor]]):
@@ -143,6 +242,20 @@ def _check_mask(dm, dev, T, H, B):
     return None if dm is None else _f32c("dm", dm, dev, (T, H, B))
 
 
+def _new_stash(keep: bool, T: int, H: int, B: int, dev):
+    """(stash [T,4H,B], gates [T,2,4H,B]) for a forward that keeps them for a
+    backward, else (None, None)."""
+    if not keep:
+        return None, None
+    return (torch.empty(T, 4 * H, B, device=dev, dtype=torch.float32),
+            torch.empty(T, 2, 4 * H, B, device=dev, dtype=torch.float32))
+
+
+def _check_stash(stash, gates, dev, T, H, B):
+    return (_f32c("stash", stash, dev, (T, 4 * H, B)),
+            _f32c("gates", gates, dev, (T, 2, 4 * H, B)))
+
+
 def _splits(T: int) -> int:
     return -(-T // _T_PER_SPLIT)
 
@@ -164,34 +277,36 @@ def enc_forward_cuda(xs, dm, w0i, w0h, b0, w1i, w1h, b1, keep_stash=True):
     w = _stack_weights(dev, D, H, w0i, w0h, b0, w1i, w1h, b1)
     h_last = torch.empty(H, B, device=dev, dtype=torch.float32)
     fin = torch.empty(4 * H, B, device=dev, dtype=torch.float32)
-    stash = (torch.empty(T, 4 * H, B, device=dev, dtype=torch.float32)
-             if keep_stash else None)
+    stash, gates = _new_stash(keep_stash, T, H, B, dev)
     with torch.cuda.device(dev):
         err = _library().shm_lstm2_enc_fwd_f32(
-            xs.data_ptr(), _ptr(dm), _ptrs(w), _ptr(stash), h_last.data_ptr(),
-            fin.data_ptr(), T, D, H, B, _stream(xs))
+            xs.data_ptr(), _ptr(dm), _ptrs(w), _ptr(stash), _ptr(gates),
+            h_last.data_ptr(), fin.data_ptr(), T, D, H, B, _stream(xs))
     raise_on_error(_library(), err, "lstm2_enc_last forward")
     lstm2_enc_last.fwd_launches += 1
-    return h_last, ((xs, dm, w, stash, fin) if keep_stash else None)
+    return h_last, ((xs, dm, w, stash, gates, fin) if keep_stash else None)
 
 
 def enc_backward_cuda(saved, d_hlast, need_dx=True):
     """Launch the encoder backward kernels: (dx | None, gw0i, gw0h, gb0,
     gw1i, gw1h, gb1)."""
-    xs, dm, w, stash, fin = saved
+    xs, dm, w, stash, gates, fin = saved
     dev = xs.device
     T, D, B = xs.shape
     H = fin.shape[0] // 4
+    stash, gates = _check_stash(stash, gates, dev, T, H, B)
     d_hlast = _f32c("d_hlast", d_hlast, dev, (H, B))
     new = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
     S = _splits(T)
+    bwd_scan_info(H, False)
     scratch = [new(T, 4 * H, B), new(T, 4 * H, B), new(S, 4 * H, max(H, D))]
     out = [new(T, D, B) if need_dx else None, new(4 * H, D), new(4 * H, H),
            new(4 * H, 1), new(4 * H, H), new(4 * H, H), new(4 * H, 1)]
     with torch.cuda.device(dev):
         err = _library().shm_lstm2_enc_bwd_f32(
             xs.data_ptr(), _ptr(dm), _ptrs(w), stash.data_ptr(),
-            fin.data_ptr(), d_hlast.data_ptr(), _ptrs(scratch), _ptrs(out),
+            gates.data_ptr(), fin.data_ptr(), d_hlast.data_ptr(),
+            _ptrs(scratch), _ptrs(out),
             T, D, H, B, S, _stream(xs))
     raise_on_error(_library(), err, "lstm2_enc_last backward")
     lstm2_enc_last.bwd_launches += 1
@@ -214,27 +329,30 @@ def dec_forward_cuda(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1, out_w, out_b,
     w += [_f32c("out_w", out_w, dev, (D, H)), _f32c("out_b", out_b, dev, (D, 1))]
     recon = torch.empty(T, D, B, device=dev, dtype=torch.float32)
     fin = torch.empty(4 * H, B, device=dev, dtype=torch.float32)
-    stash = (torch.empty(T, 4 * H, B, device=dev, dtype=torch.float32)
-             if keep_stash else None)
+    stash, gates = _new_stash(keep_stash, T, H, B, dev)
     with torch.cuda.device(dev):
         err = _library().shm_lstm2_dec_fwd_f32(
             dec_in.data_ptr(), _ptr(dm), _ptrs(w), recon.data_ptr(),
-            _ptr(stash), fin.data_ptr(), T, D, H, K, B, _stream(dec_in))
+            _ptr(stash), _ptr(gates), fin.data_ptr(), T, D, H, K, B,
+            _stream(dec_in))
     raise_on_error(_library(), err, "lstm2_dec_head forward")
     lstm2_dec_head.fwd_launches += 1
-    return recon, ((dec_in, dm, w, stash, fin, T, D) if keep_stash else None)
+    return recon, ((dec_in, dm, w, stash, gates, fin, T, D) if keep_stash
+                   else None)
 
 
 def dec_backward_cuda(saved, d_recon):
     """Launch the decoder backward kernels: (d dec_in, gw0i, gw0h, gb0, gw1i,
     gw1h, gb1, g out_w, g out_b)."""
-    dec_in, dm, w, stash, fin, T, D = saved
+    dec_in, dm, w, stash, gates, fin, T, D = saved
     dev = dec_in.device
     K, B = dec_in.shape
     H = fin.shape[0] // 4
+    stash, gates = _check_stash(stash, gates, dev, T, H, B)
     d_recon = _f32c("d_recon", d_recon, dev, (T, D, B))
     new = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
     S = _splits(T)
+    bwd_scan_info(H, True)
     scratch = [new(T, 4 * H, B), new(T, 4 * H, B),
                new(S, 4 * H, max(H, K, D)), new(4 * H, B)]
     out = [new(K, B), new(4 * H, K), new(4 * H, H), new(4 * H, 1),
@@ -242,7 +360,7 @@ def dec_backward_cuda(saved, d_recon):
     with torch.cuda.device(dev):
         err = _library().shm_lstm2_dec_bwd_f32(
             dec_in.data_ptr(), _ptr(dm), _ptrs(w), stash.data_ptr(),
-            fin.data_ptr(), d_recon.data_ptr(), _ptrs(scratch), _ptrs(out),
+            gates.data_ptr(), fin.data_ptr(), d_recon.data_ptr(), _ptrs(scratch), _ptrs(out),
             T, D, H, K, B, S, _stream(dec_in))
     raise_on_error(_library(), err, "lstm2_dec_head backward")
     lstm2_dec_head.bwd_launches += 1
@@ -390,7 +508,8 @@ def vae_train_forward(vae: TemporalVAE, Z: torch.Tensor,
 
 __all__ = [
     "lstm2_enc_last", "lstm2_dec_head", "lstm2_scan_reference",
-    "lstm2_dec_head_reference", "vae_train_forward", "stack_op_weights",
+    "lstm2_dec_head_reference", "lstm2_scan_stash_reference",
+    "lstm2_reverse_scan_reference", "vae_train_forward", "stack_op_weights",
     "enc_forward_cuda", "enc_backward_cuda", "dec_forward_cuda",
-    "dec_backward_cuda",
+    "dec_backward_cuda", "bwd_scan_info",
 ]

@@ -88,6 +88,9 @@ LSTM_CASES = {  # name: (T, D, H, B, dropout)
     "ragged_batch": (15, 12, 64, 37, 0.3),
     "1dof_H32": (80, 12, 32, 64, 0.2),
     "unit_mask": (10, 6, 32, 8, 0.0),
+    "batch_1024_H128": (12, 12, 128, 1024, 0.3),
+    "one_window_H128": (9, 12, 128, 1, 0.3),
+    "ragged_H32": (11, 12, 32, 21, 0.3),
 }
 
 
@@ -169,17 +172,22 @@ def test_lstm2_dec_head_kernel_matches_plain_version(cuda_device, name):
 
 @pytest.mark.cuda
 def test_lstm_backward_is_reproducible_bit_for_bit(cuda_device):
-    from shm_tpu_torch.ops import lstm2_enc_last
+    from shm_tpu_torch.ops import lstm2_dec_head, lstm2_enc_last
 
-    (T, D, H, B), rng, t, u, ws, dm = _lstm_inputs("ragged_batch", cuda_device)
-    xs = t(rng.normal(size=(T, D, B)))
-    runs = []
-    for _ in range(2):
-        leaves = [a.clone().requires_grad_(True) for a in ws]
-        out = lstm2_enc_last(xs, dm, *leaves)
-        runs.append(torch.autograd.grad(out.sum(), leaves))
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    for name in ("ragged_batch", "batch_1024_H128"):
+        (T, D, H, B), rng, t, u, ws, dm = _lstm_inputs(name, cuda_device)
+        xs = t(rng.normal(size=(T, D, B)))
+        din = t(rng.normal(size=(H, B)))
+        dec_w = [u(4 * H, H)] + ws[1:] + [u(D, H), u(D, 1)]
+        runs = []
+        for _ in range(2):
+            enc, dec = ([a.clone().requires_grad_(True) for a in w]
+                        for w in (ws, [din] + dec_w))
+            runs.append(torch.autograd.grad(lstm2_enc_last(xs, dm, *enc).sum(), enc)
+                        + torch.autograd.grad(
+                            lstm2_dec_head(dec[0], dm, *dec[1:], T=T).sum(), dec))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
@@ -191,6 +199,26 @@ def test_lstm_kernels_refuse_bad_input(cuda_device):
     with pytest.raises(ValueError, match="unsupported hidden size"):
         lstm2_enc_last(z(3, 4, 2), None, z(4 * H, 4), z(4 * H, H), z(4 * H, 1),
                        z(4 * H, H), z(4 * H, H), z(4 * H, 1))
+
+
+@pytest.mark.cuda
+def test_lstm_backward_refuses_a_gate_stash_of_another_shape(cuda_device):
+    from shm_tpu_torch.ops.lstm_train import (
+        dec_backward_cuda, dec_forward_cuda, enc_backward_cuda, enc_forward_cuda,
+    )
+
+    (T, D, H, B), rng, t, u, ws, dm = _lstm_inputs("ragged_batch", cuda_device)
+    _, saved = enc_forward_cuda(t(rng.normal(size=(T, D, B))), dm, *ws)
+    bad = list(saved)
+    bad[4] = saved[4][:, :1]                    # one layer's gates only
+    with pytest.raises(ValueError, match="gates must have shape"):
+        enc_backward_cuda(tuple(bad), torch.zeros(H, B, device=cuda_device))
+    dec_w = [u(4 * H, H)] + ws[1:] + [u(D, H), u(D, 1)]
+    _, saved = dec_forward_cuda(t(rng.normal(size=(H, B))), dm, *dec_w, T=T)
+    bad = list(saved)
+    bad[4] = saved[4][:-1]                      # one step short
+    with pytest.raises(ValueError, match="gates must have shape"):
+        dec_backward_cuda(tuple(bad), torch.zeros(T, D, B, device=cuda_device))
 
 
 # --- the minGRU and attention gates (ops/fused_mingru.py, ops/fused_attention.py)
