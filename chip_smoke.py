@@ -25,11 +25,12 @@ Phases (any failure exits non-zero before the final line):
    against autograd of their plain versions: both forwards and every
    gradient, at the 4DOF training shape, a ragged batch, the 1DOF shape, a
    unit mask, a batch of 1,024 (the reverse scan's clusters in waves), one
-   window and H=64; the stash and gate stash both forwards keep for the
-   backward against ``lstm2_scan_stash_reference``; both forwards in the
+   window and H=64; every output of both forwards (h_last / recon, the
+   final state, and the stash and gate stash they keep for the backward)
+   against ``lstm2_scan_stash_reference``, in the training mode and in the
    trainer's validation mode (no gradient, no stash, null mask) at the same
-   shapes; and how the card places each reverse-scan instance (clusters at
-   once, shared memory, registers, spills);
+   shapes; and how the card places each forward- and reverse-scan instance
+   (clusters at once, shared memory, registers, spills);
 7. the training path at full width: ``train-vae`` on the committed normal
    runs into a temporary root, the recipe unchanged but for 8 epochs of 50,
    on the card through the kernels; launch counts, finite and falling losses, the same losses bit for bit
@@ -719,18 +720,20 @@ def phase_lstm_kernels_vs_plain():
         ("one window", 100, 12, 128, 1, 0.3),
         ("H=64", 40, 12, 64, 45, 0.3),
     ]
-    from shm_tpu_torch.ops.lstm_train import bwd_scan_info
+    from shm_tpu_torch.ops.lstm_train import bwd_scan_info, fwd_scan_info
 
-    # the reverse-scan instances as the card places them (cudaFuncGetAttributes,
-    # cudaOccupancyMaxActiveClusters); raises where no cluster fits
+    # the forward- and reverse-scan instances as the card places them
+    # (cudaFuncGetAttributes, cudaOccupancyMaxActiveClusters); raises where
+    # no cluster fits
     for H in (32, 64, 128):
         for dec in (False, True):
-            info = bwd_scan_info(H, dec)
-            print(f"[lstm] reverse scan H={H} {'decoder' if dec else 'encoder'}: "
-                  f"{info['max_active_clusters']} clusters of 8 blocks at once, "
-                  f"{info['threads']} threads and {info['shared_bytes']} B of "
-                  f"shared memory a block, {info['registers']} registers and "
-                  f"{info['local_bytes']} B of local memory (spills) a thread")
+            for scan, info in (("forward", fwd_scan_info(H, dec)),
+                               ("reverse", bwd_scan_info(H, dec))):
+                print(f"[lstm] {scan} scan H={H} {'decoder' if dec else 'encoder'}: "
+                      f"{info['max_active_clusters']} clusters of 8 blocks at once, "
+                      f"{info['threads']} threads and {info['shared_bytes']} B of "
+                      f"shared memory a block, {info['registers']} registers and "
+                      f"{info['local_bytes']} B of local memory (spills) a thread")
     errs = {}
     leaf = lambda ts: [a.clone().requires_grad_(True) for a in ts]
     for i, (name, T, D, H, B, drop) in enumerate(cases):
@@ -765,8 +768,8 @@ def phase_lstm_kernels_vs_plain():
         if i == 0:
             errs["lstm2_dec_fwd"], errs["lstm2_dec_bwd"] = e_fwd, e_bwd
 
-        # what the forwards keep for the backward (pre-step state, the gate
-        # activations, the final state) against the plain forward's
+        # every output of the forwards (what they keep for the backward too)
+        # against the plain forward's, in both modes
         e_stash = compare_stash(c, T)
         if i == 0:
             errs["lstm2_enc_fwd"] = max(errs["lstm2_enc_fwd"], e_stash)
@@ -776,11 +779,11 @@ def phase_lstm_kernels_vs_plain():
         # and a null mask pointer
         with torch.no_grad():
             e_val = compare(
-                "validation-mode encoder h_last",
+                "validation-mode lstm2_enc_last",
                 lstm2_enc_last(c["xs"], None, *c["enc_w"]),
                 lstm2_scan_reference(c["xs"], None, *c["enc_w"])[-1])
             d_val = compare(
-                "validation-mode decoder recon",
+                "validation-mode lstm2_dec_head",
                 lstm2_dec_head(c["din"], None, *c["dec_w"], T=T),
                 lstm2_dec_head_reference(c["din"], None, *c["dec_w"], T))
         if i == 0:
@@ -790,24 +793,39 @@ def phase_lstm_kernels_vs_plain():
 
 
 def compare_stash(c, T: int) -> float:
-    """Both forwards' stash, gate stash and final state against
-    ``lstm2_scan_stash_reference`` on the same inputs; max |diff|."""
+    """Every output of both forward kernels against
+    ``lstm2_scan_stash_reference`` on the same inputs, in the training mode
+    (the case's masks; stash and gate stash kept) and in the trainer's
+    validation mode (null mask, no stash): h_last / recon, the final state,
+    and in the training mode the stash and the gate stash; max |diff|."""
     import torch
 
     from shm_tpu_torch.ops import lstm2_scan_stash_reference
     from shm_tpu_torch.ops.lstm_train import dec_forward_cuda, enc_forward_cuda
 
     worst = 0.0
+    ow, ob = c["dec_w"][6:]
     with torch.no_grad():
-        for tag, (_, saved), ref in (
-                ("encoder", enc_forward_cuda(c["xs"], c["dm_enc"], *c["enc_w"]),
-                 lstm2_scan_stash_reference(c["xs"], c["dm_enc"], *c["enc_w"])),
-                ("decoder", dec_forward_cuda(c["din"], c["dm_dec"], *c["dec_w"], T=T),
-                 lstm2_scan_stash_reference(c["din"], c["dm_dec"], *c["dec_w"][:6], T=T))):
-            stash, gates, fin = saved[3:6]
-            for what, got, want in (("stash", stash, ref[1]), ("gate stash", gates, ref[2]),
-                                    ("final state", fin, ref[3])):
-                worst = max(worst, compare(f"{tag} {what}", got, want))
+        for mode, keep, dm_e, dm_d in (("training", True, c["dm_enc"], c["dm_dec"]),
+                                       ("validation-mode", False, None, None)):
+            h1s, *enc_ref = lstm2_scan_stash_reference(c["xs"], dm_e, *c["enc_w"])
+            h_last, enc_saved = enc_forward_cuda(c["xs"], dm_e, *c["enc_w"],
+                                                 keep_stash=keep)
+            h1d, *dec_ref = lstm2_scan_stash_reference(c["din"], dm_d, *c["dec_w"][:6], T=T)
+            recon, dec_saved = dec_forward_cuda(c["din"], dm_d, *c["dec_w"], T=T,
+                                                keep_stash=keep)
+            check(keep or enc_saved[3] is None and dec_saved[3] is None,
+                  "a forward in validation mode wrote a stash")
+            rows = [("encoder h_last", h_last, h1s[-1]),
+                    ("decoder recon", recon, ow @ h1d + ob)]
+            for tag, saved, ref in (("encoder", enc_saved, enc_ref),
+                                    ("decoder", dec_saved, dec_ref)):
+                rows.append((f"{tag} final state", saved[5], ref[2]))
+                if keep:
+                    rows += [(f"{tag} stash", saved[3], ref[0]),
+                             (f"{tag} gate stash", saved[4], ref[1])]
+            for what, got, want in rows:
+                worst = max(worst, compare(f"{mode} {what}", got, want))
     return worst
 
 

@@ -15,7 +15,7 @@ from shm_tpu_torch.ops.fused_vae import (
     fused_vae_gate, fused_vae_gate_reference, vae_params_to_kernel_weights,
 )
 from shm_tpu_torch.ops.lstm_train import (
-    lstm2_dec_head, lstm2_dec_head_reference, lstm2_enc_last,
+    fwd_scan_info, lstm2_dec_head, lstm2_dec_head_reference, lstm2_enc_last,
     lstm2_reverse_scan_reference, lstm2_scan_reference,
     lstm2_scan_stash_reference, vae_train_forward,
 )
@@ -61,4 +61,4 @@ __all__ = ["auto_fused_gate", "fused_gate_for", "FUSED_GATES",
            "lstm2_enc_last", "lstm2_dec_head",
            "lstm2_scan_reference", "lstm2_dec_head_reference",
            "lstm2_scan_stash_reference", "lstm2_reverse_scan_reference",
-           "vae_train_forward"]
+           "vae_train_forward", "fwd_scan_info"]

@@ -2,10 +2,10 @@
 // hand-written backward of the VAE's encoder and decoder stacks.
 //
 // Replaces the four Pallas TPU kernels of shm_tpu/ops/lstm_train.py:
-//   _enc_fwd_kernel (:153, pallas_call :299)  -> lstm2_enc_fwd_kernel
+//   _enc_fwd_kernel (:153, pallas_call :299)  -> lstm2_fwd_scan_kernel<H, false>
 //   _enc_bwd_kernel (:191, pallas_call :331)  -> lstm2_bwd_scan_kernel<H, false>
 //                                                + the parallel gradient pass
-//   _dec_fwd_kernel (:359, pallas_call :507)  -> lstm2_dec_fwd_kernel
+//   _dec_fwd_kernel (:359, pallas_call :507)  -> lstm2_fwd_scan_kernel<H, true>
 //   _dec_bwd_kernel (:399, pallas_call :543)  -> lstm2_bwd_scan_kernel<H, true>
 //                                                + the parallel gradient pass
 // Same functions, same public layouts (batch last): xs [T,D,B], dropout mask
@@ -32,39 +32,17 @@
 // little to run beside it. The backward does the transposed products for dh
 // and the weight-gradient products.
 //
-// Design of the forwards (first version: right before fast).
-//   * No sequential grid on this card, so the time loop lives inside the
-//     block and the stash streams to device memory; there is no time chunking.
-//   * The batch is small, so a block owns only BW=4 windows: B=256 gives 64
-//     blocks on 64 of the 132 SMs. Each block streams a stack's weights from
-//     L2 once per time step (one layer's f32 W_hh at H=128 is 256 KiB, more
-//     than a block's shared memory), so a step costs what that stream's
-//     latency costs, and the cure is loads in flight: the block has 4H
-//     threads, one per gate row of the matrix products (one coalesced weight
-//     load feeds 4 FMAs), each requesting its loads in explicit batches of 16
-//     with the next batch requested before the current one is consumed; the
-//     same threads then act as the H x 4 (unit, window) cell slots, with c
-//     in registers and the gates passed through shared memory. (A first
-//     version with H threads, each owning the four gates of a unit, took
-//     3.0-3.4x as long as the 4H-thread one; leaving the batching to
-//     `#pragma unroll 8` took 1.5x as long as this; PERF.md keeps the times.)
-//   * The wrapper passes each matrix transposed, [in,4H], so that the read
-//     is coalesced; the backward takes W0h, W1i, W1h as given, [4H,H].
-// Design of the backwards: a reverse scan on 8-block clusters with its three
-// [4H,H] matrices resident in shared memory (below), then a parallel pass.
-//   * Weight gradients do not fit a block (one [4H,H] f32 accumulator is
-//     256 KiB), and blocks run in no order. So the reverse scan carries only
-//     the dh/dc chain and writes the gate gradients dg0, dg1 [T,4H,B]; a
-//     second, parallel pass contracts them over T*B against x / h0 / h0*dm /
-//     h1 (all in the stash) with a tiled product, split over T into partial
-//     sums that a last kernel adds in a fixed order. Bias gradients, the
-//     decoder's layer-0 fold (dg0 summed over T first), the head gradient, dx
-//     and d(dec_in) are the same kind of pass. There are no float atomics
-//     anywhere: the same inputs give the same bits every run.
-//   * A ragged last tile (B not a multiple of 4, or of 20 in the reverse
-//     scan) is masked in the kernels.
+// Both scans, forward and reverse, run on clusters of 8 blocks that hold the
+// three [4H,H] matrices in shared memory, a slice a block (one [4H,H] f32
+// matrix is 256 KiB at H=128, more than a block's shared memory), and gather
+// what a step needs from the other blocks through distributed shared memory.
+// The TPU kernels keep every weight in VMEM for the whole scan (`_const_spec`)
+// over a batch tile of 256 windows; a cluster here takes 20 windows, so that
+// B=256 needs 13 clusters and the card places 15 at once. The backward's
+// weight gradients are a second, parallel pass. There are no float atomics
+// anywhere: the same inputs give the same bits every run.
 // Against the bound: float32 FMA pipes, no tensor cores; the bf16/wgmma path
-// and the forwards on the cluster design are later work.
+// is later work.
 //
 // Accurate expf/tanhf (no --use_fast_math); sigmoid(x) = 1/(1+exp(-x)).
 
@@ -72,267 +50,328 @@
 
 namespace {
 
-constexpr int BW = 4;        // windows per block
 constexpr int DMAX = 32;     // widest encoder input / head output
 constexpr int KMAX = 128;    // widest decoder input
+constexpr int CL = 8;        // blocks a cluster
+constexpr int NW = 20;       // windows a cluster
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// acc[w] += w * s4[0..3], s4 one broadcast float4 of a shared [.][BW] buffer
-__device__ __forceinline__ void fma4(float (&acc)[BW], float w, const float* s4) {
-  const float4 a = *reinterpret_cast<const float4*>(s4);
-  acc[0] = fmaf(w, a.x, acc[0]);
-  acc[1] = fmaf(w, a.y, acc[1]);
-  acc[2] = fmaf(w, a.z, acc[2]);
-  acc[3] = fmaf(w, a.w, acc[3]);
+struct LstmW {           // one 2-layer stack, every matrix as given, [4H,in]
+  const float* w0i;
+  const float* w0h;
+  const float* b0;       // [4H]
+  const float* w1i;
+  const float* w1h;
+  const float* b1;       // [4H]
+};
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
 }
 
-// acc[w] += sum_{k<K} Wt[k][r] * s[k][w]   (Wt row-major [K,4H]: the
-// transposed weight, so a warp reads 32 neighbouring rows r of one k;
-// s a shared [K][BW] buffer).
-// The weight loads go out in explicit batches of RM_BATCH, the next batch
-// before the FMAs of the current one (two register buffers), so that a
-// thread keeps 2*RM_BATCH loads in flight against the L2 latency. Left to
-// the compiler's scheduling of a `#pragma unroll` loop, the number in flight,
-// and with it a kernel's time, swung 3x between neighbouring unroll depths.
-// The sum runs over k in order whatever the batch.
-constexpr int RM_BATCH = 16;
+// every thread of every block of the cluster; orders shared-memory writes
+// before it (this block's and remote ones) before the reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n\tbarrier.cluster.wait.aligned;"
+               ::: "memory");
+}
 
+// the address of *p in the shared memory of cluster block `rank`
+__device__ __forceinline__ float* peer_addr(float* p, unsigned rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;"
+               : "=l"(out) : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<float*>(out);
+}
+
+// ------------------------------------------ the forwards, on a block cluster
+//
+// Both stacks' forward scan in one body (DEC: the decoder). A cluster of
+// CL = 8 blocks takes NW = 20 windows; block rk of it owns the units
+// j in [rk*UB, (rk+1)*UB), UB = H/8, of those windows, one thread per (unit,
+// window) slot (thread u*NW + w) with c0, c1 and the slot's state in
+// registers. At its start a block loads the gate rows {q*H + j} of W0h, W1i
+// and W1h (96 KiB at H=128) and the encoder's W0i into shared memory as
+// [unit][k][gate], so that one float4 gives the four gates of a unit at one
+// input k; the decoder's head ow and its layer-0 projection b0 + W0i dec_in
+// (constant over T, a slot's four values in registers) are made once. No
+// weight is read from device memory after that.
+//
+// The products: thread (u, w) also owns the register tile of unit u's four
+// gates x the four windows 4*(w/4).., over the inputs k = g, g+4, ... with
+// g = w % 4, so one float4 of weights and one of h feed 16 FMAs. The four
+// partial tiles of a quad of lanes are then summed by a fixed tree of
+// shuffles that leaves each lane its own window's four gates: no partial sums
+// in shared memory, no atomics, the same bits every run.
+//
+// The layers are skewed: phase s (0..T) computes layer 0 of step s and layer
+// 1 of step s-1 together (layer 0 at s needs only h0_{s-1} and x_s), pushes
+// h0_s, h0_s * m_s and h1_{s-1} into the gather buffers [H][NW] of every
+// block of the cluster (distributed shared memory), and ends with the one
+// cluster barrier of the phase. The buffers are double-buffered by parity: a
+// block writes a peer's buffer of a parity only in the phase after the one
+// whose barrier ends every read of it. The decoder's head recon_{s-2} =
+// ob + ow h1_{s-2} reads the gathered h1 in phase s, before that buffer is
+// written again; its D x NW outputs are split over the 8 blocks. Phase 0 has
+// only layer 0 and phase T only layer 1 (what the other half computes there
+// is discarded); stash[t] gets h0/c0 in phase t and h1/c1 in phase t+1, and
+// so does the gate stash. A cluster's windows past the batch edge compute on
+// zeros and write nothing; a batch of more clusters than the card places at
+// once runs in waves.
+
+template <int H, bool DEC>
+struct Fwd {
+  static constexpr int UB = H / CL;          // units a block
+  static constexpr int NT = UB * NW;         // threads: one (unit, window) slot each
+  static constexpr int HW = H * NW;          // one gather buffer [H][NW]
+  static constexpr int PF = (DMAX * NW + NT - 1) / NT;  // x tile prefetch a thread
+  // dynamic shared memory, in floats
+  static constexpr int W0H = 0;                          // [UB][H][4] each
+  static constexpr int W1I = W0H + 4 * UB * H;
+  static constexpr int W1H = W1I + 4 * UB * H;
+  static constexpr int W0I = W1H + 4 * UB * H;           // encoder: [UB][D][4]
+  static constexpr int OW = W0I + (DEC ? 0 : 4 * UB * DMAX);   // decoder: ow [H][D]
+  static constexpr int XS = OW + (DEC ? H * DMAX : 0);   // encoder: x_s [2][D][NW]
+  static constexpr int H0 = XS + (DEC ? 0 : 2 * DMAX * NW);    // gathered h0 [2][H][NW]
+  static constexpr int H0D = H0 + 2 * HW;                // gathered h0 * m [2][H][NW]
+  static constexpr int H1 = H0D + 2 * HW;                // gathered h1 [2][H][NW]
+  static constexpr size_t BYTES = (size_t)(H1 + 2 * HW) * sizeof(float);
+  static_assert(NW % 4 == 0 && (DMAX * NW + CL - 1) / CL <= NT, "tiles, head");
+};
+
+// rows {q*H + rk*UB + u} of W [4H,K] -> shared [UB][K][4]
 template <int H>
-__device__ __forceinline__ void row_matvec(float (&acc)[BW],
-                                           const float* __restrict__ Wt, int K,
-                                           const float* s, int r) {
-  constexpr int U = RM_BATCH;
-  const float* wp = Wt + r;
-  int k = 0;
-  if (K >= U) {
-    float w[U], wn[U];
+__device__ __forceinline__ void load_gate_rows(float* dst, const float* __restrict__ W,
+                                               int K, unsigned rk, int tid, int nt) {
+  constexpr int UB = H / CL;
+  for (int i = tid; i < 4 * UB * K; i += nt) {
+    const int k = i % K, u = (i / K) % UB, q = i / (K * UB);
+    dst[(u * K + k) * 4 + q] = W[(size_t)(q * H + rk * UB + u) * K + k];
+  }
+}
+
+struct Tile {
+  float v[4][4];         // [gate][window of the quad]
+};
+
+// acc[p].v[q][x] += sum over k = g, g+4, ... < K of Ws[p][u][k][q] * in[p][k][4*wq + x]
+// for NP products in one loop (independent FMA chains); Ws [UB][K][4], in [K][NW]
+template <int NP>
+__device__ __forceinline__ void tile_products(Tile* acc, const float* const (&Ws)[NP],
+                                              const float* const (&in)[NP], int K,
+                                              int u, int wq, int g) {
+#pragma unroll 2
+  for (int k = g; k < K; k += 4) {
 #pragma unroll
-    for (int u = 0; u < U; ++u) w[u] = __ldg(wp + (size_t)u * 4 * H);
-#pragma unroll 1
-    for (; k + U <= K; k += U) {
-      const bool more = k + 2 * U <= K;
-      if (more) {
+    for (int p = 0; p < NP; ++p) {
+      const float4 a = *reinterpret_cast<const float4*>(Ws[p] + (u * K + k) * 4);
+      const float4 h = *reinterpret_cast<const float4*>(in[p] + k * NW + wq * 4);
+      const float av[4] = {a.x, a.y, a.z, a.w}, hv[4] = {h.x, h.y, h.z, h.w};
 #pragma unroll
-        for (int u = 0; u < U; ++u) wn[u] = __ldg(wp + (size_t)(k + U + u) * 4 * H);
-      }
+      for (int q = 0; q < 4; ++q)
 #pragma unroll
-      for (int u = 0; u < U; ++u) fma4(acc, w[u], s + (k + u) * BW);
-      if (more) {
-#pragma unroll
-        for (int u = 0; u < U; ++u) w[u] = wn[u];
-      }
+        for (int x = 0; x < 4; ++x) acc[p].v[q][x] = fmaf(av[q], hv[x], acc[p].v[q][x]);
     }
   }
-#pragma unroll 4
-  for (; k < K; ++k) fma4(acc, __ldg(wp + (size_t)k * 4 * H), s + k * BW);
 }
 
-// Gate pre-activations of gate row r: acc = bias[r] + Wi[r,:]*in (+ Wh[r,:]*h).
-template <int H>
-__device__ __forceinline__ void gate_preact(float (&acc)[BW],
-                                            const float* __restrict__ bias,
-                                            const float* __restrict__ Wi_t,
-                                            int Ki, const float* in_s,
-                                            const float* __restrict__ Wh_t,
-                                            const float* h_s, int r) {
-  const float b = __ldg(bias + r);
+// out[q] = the sum over the quad's 4 lanes (g = lane % 4) of a.v[q][g]: lane
+// g keeps its own window's four gates, by a fixed tree (lanes g^2, then g^1)
+__device__ __forceinline__ void quad_sum(const Tile& a, float (&out)[4], int g,
+                                         unsigned lanes) {
+  const bool hi2 = g & 2, hi1 = g & 1;
+  float r[4][2];
 #pragma unroll
-  for (int w = 0; w < BW; ++w) acc[w] = b;
-  row_matvec<H>(acc, Wi_t, Ki, in_s, r);
-  if (Wh_t != nullptr) row_matvec<H>(acc, Wh_t, H, h_s, r);
-}
-
-// acc = xp + Wh[r,:]*h: the decoder's layer 0, whose input projection xp is
-// constant over T.
-template <int H>
-__device__ __forceinline__ void gate_preact_const(float (&acc)[BW],
-                                                  const float (&xp)[BW],
-                                                  const float* __restrict__ Wh_t,
-                                                  const float* h_s, int r) {
+  for (int q = 0; q < 4; ++q)
 #pragma unroll
-  for (int w = 0; w < BW; ++w) acc[w] = xp[w];
-  row_matvec<H>(acc, Wh_t, H, h_s, r);
+    for (int j = 0; j < 2; ++j) {
+      const float lo = a.v[q][j], hi = a.v[q][2 + j];
+      r[q][j] = (hi2 ? hi : lo) + __shfl_xor_sync(lanes, hi2 ? lo : hi, 2);
+    }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    out[q] = (hi1 ? r[q][1] : r[q][0]) + __shfl_xor_sync(lanes, hi1 ? r[q][0] : r[q][1], 1);
 }
 
-__device__ __forceinline__ void store4(float* s, const float (&v)[BW], int row) {
-  *reinterpret_cast<float4*>(s + row * BW) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// One cell of (unit, window) slot `slot` = unit*BW + window from the gate
-// pre-activations in shared gs[4H][BW]. With gq != nullptr the four
-// activations i, f, g, o go to the gate stash: gq[q * H * B] for gate q.
-template <int H>
-__device__ __forceinline__ float cell_fwd(const float* gs, int slot, float& c,
-                                          float* __restrict__ gq, int B) {
-  const float i = sigmoid_f(gs[0 * H * BW + slot]);
-  const float f = sigmoid_f(gs[1 * H * BW + slot]);
-  const float gg = tanhf(gs[2 * H * BW + slot]);
-  const float o = sigmoid_f(gs[3 * H * BW + slot]);
+// One cell of a slot from its gate pre-activations; c updated, h returned.
+// With gq != nullptr the activations i, f, g, o go to the gate stash gq[q*hb].
+__device__ __forceinline__ float cell_fwd(const float (&pre)[4], float& c,
+                                          float* __restrict__ gq, size_t hb) {
+  const float i = sigmoid_f(pre[0]);
+  const float f = sigmoid_f(pre[1]);
+  const float gg = tanhf(pre[2]);
+  const float o = sigmoid_f(pre[3]);
   if (gq != nullptr) {
     gq[0] = i;
-    gq[(size_t)H * B] = f;
-    gq[(size_t)2 * H * B] = gg;
-    gq[(size_t)3 * H * B] = o;
+    gq[hb] = f;
+    gq[2 * hb] = gg;
+    gq[3 * hb] = o;
   }
   c = f * c + i * gg;
   return o * tanhf(c);
 }
 
-// [rows,B] tile of step data -> shared [rows][BW], zero past the batch edge
-__device__ __forceinline__ void load_rows_shared(float* s, const float* p, int rows,
-                                                 int B, int b0, int tid, int nt) {
-  for (int i = tid; i < rows * BW; i += nt) {
-    const int r = i / BW, w = i % BW;
-    s[i] = (b0 + w < B) ? p[(size_t)r * B + b0 + w] : 0.0f;
+// The block's rows (NT floats from rk*NT) of the three gather buffers b0,
+// b1, b2, already in its own buffers and visible to the block, into the same
+// rows of the 7 peers' buffers: one float4 a thread and peer.
+template <int NT>
+__device__ __forceinline__ void push_rows(float* b0, float* b1, float* b2, int tid,
+                                          unsigned rk) {
+  for (int i = tid; i < 3 * NT / 4; i += NT) {
+    const int j = i / (NT / 4);            // a select, not an indexed array in local memory
+    float* src = (j == 0 ? b0 : j == 1 ? b1 : b2) + rk * NT + (i % (NT / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(src);
+#pragma unroll
+    for (unsigned r = 1; r < CL; ++r)
+      *reinterpret_cast<float4*>(peer_addr(src, (rk + r) % CL)) = v;
   }
 }
 
-struct LstmW {           // one 2-layer stack
-  const float* w0i_t;    // [in,4H]
-  const float* w0h_t;    // [H,4H]
-  const float* b0;       // [4H]
-  const float* w1i_t;    // [H,4H]
-  const float* w1h_t;    // [H,4H]
-  const float* b1;       // [4H]
-  const float* w0h;      // [4H,H]   (backward only)
-  const float* w1i;      // [4H,H]   (backward only)
-  const float* w1h;      // [4H,H]   (backward only)
-};
-
-// Each forward kernel runs 4H threads on a tile of BW = 4 windows. A
-// thread plays two roles by turns: gate row r = tid of the matrix products,
-// and cell slot (unit = tid / BW, window = tid % BW) of the elementwise
-// update, whose c stays in its registers.
-static_assert(BW == 4, "4H threads = H units x 4 windows");
-
-// ------------------------------------------------------------------ encoder
-
-template <int H>
-__global__ void __launch_bounds__(4 * H)
-lstm2_enc_fwd_kernel(const float* __restrict__ xs, const float* __restrict__ dm,
-                     const LstmW W, float* __restrict__ stash,
-                     float* __restrict__ gates, float* __restrict__ hlast,
-                     float* __restrict__ fin, int T, int D, int B) {
-  __shared__ __align__(16) float h0s[H * BW], h0d[H * BW], h1s[H * BW];
-  __shared__ __align__(16) float xsh[DMAX * BW];
-  __shared__ __align__(16) float gs[4 * H * BW];
+// x: xs [T,D,B] (encoder) or dec_in [K,B] (decoder); out: h_last [H,B]
+// (encoder) or recon [T,D,B] (decoder, with ow [D,H], ob [D])
+template <int H, bool DEC>
+__global__ void __launch_bounds__(Fwd<H, DEC>::NT, 1)
+lstm2_fwd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dm,
+                      const LstmW W, const float* __restrict__ ow,
+                      const float* __restrict__ ob, float* __restrict__ stash,
+                      float* __restrict__ gates, float* __restrict__ out,
+                      float* __restrict__ fin, int T, int D, int K, int B) {
+  using F = Fwd<H, DEC>;
+  constexpr int UB = F::UB, NT = F::NT, HW = F::HW;
+  extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
-  const int unit = tid / BW, b0 = blockIdx.x * BW, b = b0 + tid % BW;
+  const unsigned rk = cluster_rank();
+  const int u = tid / NW, w = tid % NW, wq = w / 4, g = tid % 4;
+  const int unit = rk * UB + u;
+  const int b0 = (blockIdx.x / CL) * NW, b = b0 + w;
   const bool live = b < B;
-  float h0 = 0.0f, c0 = 0.0f, h1 = 0.0f, c1 = 0.0f;
-  h0s[tid] = 0.0f;
-  h1s[tid] = 0.0f;
+  const size_t hb = (size_t)H * B, at = (size_t)unit * B + b;
+  // the lanes of this thread's warp (the last warp is partial at H=32)
+  const unsigned lanes = (tid | 31) < NT ? 0xffffffffu : (1u << (NT % 32)) - 1u;
 
-  for (int t = 0; t < T; ++t) {
-    load_rows_shared(xsh, xs + (size_t)t * D * B, D, B, b0, tid, 4 * H);
-    if (stash != nullptr && live) {
-      float* st = stash + (size_t)t * 4 * H * B + b;
-      st[(size_t)(0 * H + unit) * B] = h0;
-      st[(size_t)(1 * H + unit) * B] = c0;
-      st[(size_t)(2 * H + unit) * B] = h1;
-      st[(size_t)(3 * H + unit) * B] = c1;
-    }
-    const float m = (dm != nullptr && live)
-                        ? dm[((size_t)t * H + unit) * B + b] : 1.0f;
-    float* gq = (stash != nullptr && live)
-                    ? gates + ((size_t)2 * t * 4 * H + unit) * B + b : nullptr;
-    __syncthreads();                       // x_t, h0s, h1s visible
-    float g[BW];
-    gate_preact<H>(g, W.b0, W.w0i_t, D, xsh, W.w0h_t, h0s, tid);
-    store4(gs, g, tid);
-    __syncthreads();                       // gates visible, reads of h0s done
-    h0 = cell_fwd<H>(gs, tid, c0, gq, B);
-    h0s[tid] = h0;
-    h0d[tid] = h0 * m;
-    __syncthreads();                       // h0 visible, reads of gs done
-    gate_preact<H>(g, W.b1, W.w1i_t, H, h0d, W.w1h_t, h1s, tid);
-    store4(gs, g, tid);
-    __syncthreads();                       // gates visible, reads of h1s done
-    h1 = cell_fwd<H>(gs, tid, c1, gq == nullptr ? nullptr : gq + (size_t)4 * H * B, B);
-    h1s[tid] = h1;
+  load_gate_rows<H>(sm + F::W0H, W.w0h, H, rk, tid, NT);
+  load_gate_rows<H>(sm + F::W1I, W.w1i, H, rk, tid, NT);
+  load_gate_rows<H>(sm + F::W1H, W.w1h, H, rk, tid, NT);
+  // layer 0's constant part of the pre-activations (encoder: b0; decoder:
+  // b0 + W0i dec_in) and layer 1's bias, the slot's four gates each
+  float pre0c[4], bias1[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    pre0c[q] = W.b0[q * H + unit];
+    bias1[q] = W.b1[q * H + unit];
   }
-  if (live) {
-    hlast[(size_t)unit * B + b] = h1;
-    fin[(size_t)(0 * H + unit) * B + b] = h0;
-    fin[(size_t)(1 * H + unit) * B + b] = c0;
-    fin[(size_t)(2 * H + unit) * B + b] = h1;
-    fin[(size_t)(3 * H + unit) * B + b] = c1;
-  }
-}
-
-// ------------------------------------------------------------------ decoder
-
-template <int H>
-__global__ void __launch_bounds__(4 * H)
-lstm2_dec_fwd_kernel(const float* __restrict__ din, const float* __restrict__ dm,
-                     const LstmW W, const float* __restrict__ ow,
-                     const float* __restrict__ ob, float* __restrict__ recon,
-                     float* __restrict__ stash, float* __restrict__ gates,
-                     float* __restrict__ fin, int T, int D, int K, int B) {
-  __shared__ __align__(16) float h0s[H * BW], h0d[H * BW], h1s[H * BW];
-  __shared__ __align__(16) float gs[4 * H * BW];   // first holds dec_in
-  __shared__ float ows[H * DMAX];                  // head weights, [k][d]
-  const int tid = threadIdx.x;
-  const int unit = tid / BW, b0 = blockIdx.x * BW, b = b0 + tid % BW;
-  const bool live = b < B;
-  float h0 = 0.0f, c0 = 0.0f, h1 = 0.0f, c1 = 0.0f;
-  h0s[tid] = 0.0f;
-  h1s[tid] = 0.0f;
-  for (int i = tid; i < D * H; i += 4 * H) ows[(i % H) * D + i / H] = ow[i];
-  load_rows_shared(gs, din, K, B, b0, tid, 4 * H);
-  __syncthreads();
-  float xp[BW];                            // layer-0 input projection, once
-  gate_preact<H>(xp, W.b0, W.w0i_t, K, gs, nullptr, nullptr, tid);
-  __syncthreads();                         // reads of dec_in done
-
-  for (int t = 0; t < T; ++t) {
-    if (stash != nullptr && live) {
-      float* st = stash + (size_t)t * 4 * H * B + b;
-      st[(size_t)(0 * H + unit) * B] = h0;
-      st[(size_t)(1 * H + unit) * B] = c0;
-      st[(size_t)(2 * H + unit) * B] = h1;
-      st[(size_t)(3 * H + unit) * B] = c1;
+  if (DEC) {
+    for (int k = 0; k < K; ++k) {
+      const float xv = live ? x[(size_t)k * B + b] : 0.0f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        pre0c[q] = fmaf(W.w0i[(size_t)(q * H + unit) * K + k], xv, pre0c[q]);
     }
-    const float m = (dm != nullptr && live)
-                        ? dm[((size_t)t * H + unit) * B + b] : 1.0f;
-    float* gq = (stash != nullptr && live)
-                    ? gates + ((size_t)2 * t * 4 * H + unit) * B + b : nullptr;
-    float g[BW];
-    gate_preact_const<H>(g, xp, W.w0h_t, h0s, tid);
-    store4(gs, g, tid);
-    __syncthreads();                       // gates visible, reads of h0s done
-    h0 = cell_fwd<H>(gs, tid, c0, gq, B);
-    h0s[tid] = h0;
-    h0d[tid] = h0 * m;
-    __syncthreads();                       // h0 visible, reads of gs done
-    gate_preact<H>(g, W.b1, W.w1i_t, H, h0d, W.w1h_t, h1s, tid);
-    store4(gs, g, tid);
-    __syncthreads();                       // gates visible, reads of h1s done
-    h1 = cell_fwd<H>(gs, tid, c1, gq == nullptr ? nullptr : gq + (size_t)4 * H * B, B);
-    h1s[tid] = h1;
-    __syncthreads();                       // h1 visible, reads of gs done
-    // output head of step t, from shared memory only (the weight stream of
-    // the other warps' next step would make every global read of it miss);
-    // h1s is next written three barriers from here
-    for (int i = tid; i < D * BW; i += 4 * H) {
-      const int w = i / D, d = i % D;
-      if (b0 + w < B) {
-        float y = __ldg(ob + d);
-#pragma unroll 8
-        for (int k = 0; k < H; ++k)
-          y = fmaf(ows[k * D + d], h1s[k * BW + w], y);
-        recon[((size_t)t * D + d) * B + b0 + w] = y;
+    for (int i = tid; i < D * H; i += NT) sm[F::OW + (i % H) * D + i / H] = ow[i];
+  } else {
+    load_gate_rows<H>(sm + F::W0I, W.w0i, D, rk, tid, NT);
+  }
+  // the decoder head's output of this thread: recon[.][hd][b0 + hw]
+  const int per = (D * NW + CL - 1) / CL, e = rk * per + tid;
+  const bool head = DEC && tid < per && e < D * NW;
+  const int hd = head ? e / NW : 0, hw = head ? e % NW : 0;
+  const float hbias = head ? ob[hd] : 0.0f;
+  auto run_head = [&](int t, const float* h1g) {
+    if (!head) return;
+    const float* hv = h1g + hw;
+    const float* wv = sm + F::OW + hd;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int k = 0; k < H; k += 4)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = fmaf(wv[(k + j) * D], hv[(k + j) * NW], s[j]);
+    if (b0 + hw < B)
+      out[((size_t)t * D + hd) * B + b0 + hw] = hbias + ((s[0] + s[1]) + (s[2] + s[3]));
+  };
+  // the encoder's x_t tile [D][NW], zero past the batch edge
+  auto x_at = [&](int t, int i) {
+    const int ww = i % NW;
+    return (i < D * NW && b0 + ww < B) ? x[((size_t)t * D + i / NW) * B + b0 + ww] : 0.0f;
+  };
+  for (int i = tid; i < 6 * HW; i += NT) sm[F::H0 + i] = 0.0f;   // h_{-1} = 0
+  if (!DEC)
+    for (int i = tid; i < D * NW; i += NT) sm[F::XS + i] = x_at(0, i);
+  float h0 = 0.0f, c0 = 0.0f, h1 = 0.0f, c1 = 0.0f;
+  cluster_sync();                          // the cluster runs; weights, zeros, x_0 in place
+
+  for (int s = 0; s <= T; ++s) {
+    const int p = s & 1, q = p ^ 1;        // parity of s, and of s-1 and s+1
+    float xn[F::PF];                       // x_{s+1}, in flight during the phase
+    if (!DEC && s + 1 < T) {
+#pragma unroll
+      for (int i = 0; i < F::PF; ++i) xn[i] = x_at(s + 1, tid + i * NT);
+    }
+    const float m = (dm != nullptr && live && s < T) ? dm[(size_t)s * hb + at] : 1.0f;
+    const float* h1g = sm + F::H1 + p * HW;          // h1_{s-2}
+    if (DEC && s >= 2) run_head(s - 2, h1g);
+
+    Tile a[3] = {};
+    if (!DEC) tile_products<1>(a, {sm + F::W0I}, {sm + F::XS + p * DMAX * NW}, D, u, wq, g);
+    tile_products<3>(a, {sm + F::W0H, sm + F::W1I, sm + F::W1H},
+                     {sm + F::H0 + q * HW, sm + F::H0D + q * HW, h1g}, H, u, wq, g);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[1].v[i][j] += a[2].v[i][j];
+    float pre[4], pre1[4];
+    quad_sum(a[0], pre, g, lanes);         // layer 0 of step s
+    quad_sum(a[1], pre1, g, lanes);        // layer 1 of step s-1
+
+    const bool keep = stash != nullptr && live;
+    float* const bufs[3] = {sm + F::H0 + p * HW, sm + F::H0D + p * HW, sm + F::H1 + q * HW};
+    if (s < T) {
+      if (keep) {
+        float* st = stash + (size_t)s * 4 * hb + at;
+        st[0] = h0;
+        st[hb] = c0;
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pre[i] += pre0c[i];
+      h0 = cell_fwd(pre, c0, keep ? gates + (size_t)2 * s * 4 * hb + at : nullptr, hb);
+      bufs[0][rk * NT + tid] = h0;
+      bufs[1][rk * NT + tid] = h0 * m;
     }
+    if (s > 0) {
+      if (keep) {
+        float* st = stash + (size_t)(s - 1) * 4 * hb + at;
+        st[2 * hb] = h1;
+        st[3 * hb] = c1;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pre1[i] += bias1[i];
+      h1 = cell_fwd(pre1, c1,
+                    keep ? gates + (size_t)(2 * (s - 1) + 1) * 4 * hb + at : nullptr, hb);
+      bufs[2][rk * NT + tid] = h1;
+    }
+    __syncthreads();                       // the block's own rows complete
+    push_rows<NT>(bufs[0], bufs[1], bufs[2], tid, rk);
+    if (!DEC && s + 1 < T) {
+      float* xs_next = sm + F::XS + q * DMAX * NW;
+#pragma unroll
+      for (int i = 0; i < F::PF; ++i)
+        if (tid + i * NT < D * NW) xs_next[tid + i * NT] = xn[i];
+    }
+    cluster_sync();                        // h0_s, h0_s * m_s, h1_{s-1} gathered
   }
+  // The last barrier ended every write into this block's shared memory; what
+  // follows reads only its own.
+  if (DEC) run_head(T - 1, sm + F::H1 + ((T - 1) & 1) * HW);
   if (live) {
-    fin[(size_t)(0 * H + unit) * B + b] = h0;
-    fin[(size_t)(1 * H + unit) * B + b] = c0;
-    fin[(size_t)(2 * H + unit) * B + b] = h1;
-    fin[(size_t)(3 * H + unit) * B + b] = c1;
+    if (!DEC) out[at] = h1;
+    fin[at] = h0;
+    fin[hb + at] = c0;
+    fin[2 * hb + at] = h1;
+    fin[3 * hb + at] = c1;
   }
 }
 
@@ -369,8 +408,6 @@ lstm2_dec_fwd_kernel(const float* __restrict__ din, const float* __restrict__ dm
 // batch edge compute on zeros and write nothing; a batch of more clusters
 // than fit on the card runs in waves.
 
-constexpr int CL = 8;        // blocks a cluster
-constexpr int NW = 20;       // windows a cluster
 constexpr int RG = 16;       // row groups of the transposed products
 
 template <int H>
@@ -390,27 +427,6 @@ struct Rev {
   static constexpr size_t BYTES = (size_t)(DR + 2 * DMAX * NW) * sizeof(float);
   static_assert(UB % 4 == 0 && NW % 4 == 0 && G % RG == 0, "4x4 tiles");
 };
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// every thread of every block of the cluster; orders shared-memory writes
-// before it (this block's and remote ones) before the reads after it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;\n\tbarrier.cluster.wait.aligned;"
-               ::: "memory");
-}
-
-// the address of *p in the shared memory of cluster block `rank`
-__device__ __forceinline__ float* peer_addr(float* p, unsigned rank) {
-  unsigned long long out;
-  asm volatile("mapa.u64 %0, %1, %2;"
-               : "=l"(out) : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
-  return reinterpret_cast<float*>(out);
-}
 
 // What a slot reads of step t: both layers' gate activations (i, f, g, o),
 // the cells' pre-step states and the mask; zeros past the batch edge.
@@ -611,73 +627,110 @@ lstm2_bwd_scan_kernel(const float* __restrict__ dm, const LstmW W,
   cluster_sync();                          // no block leaves while a peer may address it
 }
 
-// Set up one instance once (its shared memory above 48 KB) and read what
-// the card makes of it: out = {clusters of CL blocks that fit at once,
-// dynamic shared bytes a block, registers a thread, local (spill) bytes a
-// thread, threads a block}.
-template <int H, bool DEC>
-cudaError_t bwd_scan_info(int* out) {
-  using R = Rev<H>;
-  static int info[5] = {-1, 0, 0, 0, 0};
-  if (info[0] < 0) {
-    auto kern = lstm2_bwd_scan_kernel<H, DEC>;
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)R::BYTES);
-    if (e != cudaSuccess) return e;
-    cudaLaunchAttribute attr;
+#define SHM_TRY(expr)                          \
+  do {                                         \
+    cudaError_t e_ = (expr);                   \
+    if (e_ != cudaSuccess) return e_;          \
+  } while (0)
+
+// ---------------------------------- setting up and launching the two scans
+
+// A launch of `clusters` clusters of CL blocks of nt threads (cfg.attrs
+// points into the object, so it is not copied).
+struct ClusterLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int clusters, int nt, size_t bytes, cudaStream_t s) : attr{}, cfg{} {
     attr.id = cudaLaunchAttributeClusterDimension;
     attr.val.clusterDim.x = CL;
     attr.val.clusterDim.y = 1;
     attr.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(CL);
-    cfg.blockDim = dim3(R::NT);
-    cfg.dynamicSmemBytes = R::BYTES;
+    cfg.gridDim = dim3(clusters * CL);
+    cfg.blockDim = dim3(nt);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = s;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    int n = 0;
-    e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
-    if (e != cudaSuccess) return e;
-    cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, kern);
-    if (e != cudaSuccess) return e;
-    info[0] = n;
-    info[1] = (int)R::BYTES;
-    info[2] = fa.numRegs;
-    info[3] = (int)fa.localSizeBytes;
-    info[4] = R::NT;
   }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+// Set up one scan instance once (its shared memory above 48 KB) and read
+// what the card makes of it: info = {clusters of CL blocks that fit at once,
+// dynamic shared bytes a block, registers a thread, local (spill) bytes a
+// thread, threads a block}; info[0] < 0 until then.
+template <typename Kernel>
+cudaError_t cluster_info(Kernel kern, size_t bytes, int nt, int* info) {
+  if (info[0] >= 0) return cudaSuccess;
+  SHM_TRY(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes));
+  ClusterLaunch one(1, nt, bytes, 0);
+  int n = 0;
+  SHM_TRY(cudaOccupancyMaxActiveClusters(&n, kern, &one.cfg));
+  cudaFuncAttributes fa;
+  SHM_TRY(cudaFuncGetAttributes(&fa, kern));
+  info[1] = (int)bytes;
+  info[2] = fa.numRegs;
+  info[3] = (int)fa.localSizeBytes;
+  info[4] = nt;
+  info[0] = n;
+  return cudaSuccess;
+}
+
+template <int H, bool DEC>
+cudaError_t fwd_scan_info(int* out) {
+  static int info[5] = {-1, 0, 0, 0, 0};
+  SHM_TRY(cluster_info(lstm2_fwd_scan_kernel<H, DEC>, Fwd<H, DEC>::BYTES,
+                       Fwd<H, DEC>::NT, info));
   for (int i = 0; i < 5; ++i) out[i] = info[i];
   return cudaSuccess;
 }
 
-// the reverse scan over B windows: ceil(B/NW) clusters of CL blocks
+template <int H, bool DEC>
+cudaError_t bwd_scan_info(int* out) {
+  static int info[5] = {-1, 0, 0, 0, 0};
+  SHM_TRY(cluster_info(lstm2_bwd_scan_kernel<H, DEC>, Rev<H>::BYTES, Rev<H>::NT, info));
+  for (int i = 0; i < 5; ++i) out[i] = info[i];
+  return cudaSuccess;
+}
+
+// a scan over B windows: ceil(B/NW) clusters; refused where no cluster fits
+template <typename Kernel, typename... Args>
+cudaError_t cluster_launch(Kernel kern, const int* info, int B, cudaStream_t s,
+                           Args... args) {
+  if (info[0] == 0) return cudaErrorLaunchOutOfResources;
+  ClusterLaunch l((B + NW - 1) / NW, info[4], info[1], s);
+  SHM_TRY(cudaLaunchKernelEx(&l.cfg, kern, args...));
+  return cudaGetLastError();
+}
+
+LstmW stack_weights(const float* const* w) {
+  return LstmW{w[0], w[1], w[2], w[3], w[4], w[5]};
+}
+
+// The forward scan. w: w0i w0h b0 w1i w1h b1, and the decoder's ow ob;
+// out: h_last (encoder) or recon (decoder)
+template <int H, bool DEC>
+cudaError_t fwd_scan(const float* x, const float* dm, const float* const* w,
+                     float* stash, float* gates, float* out, float* fin, int T,
+                     int D, int K, int B, cudaStream_t s) {
+  int info[5];
+  SHM_TRY((fwd_scan_info<H, DEC>(info)));
+  return cluster_launch(lstm2_fwd_scan_kernel<H, DEC>, info, B, s, x, dm,
+                        stack_weights(w), DEC ? w[6] : nullptr,
+                        DEC ? w[7] : nullptr, stash, gates, out, fin, T, D, K, B);
+}
+
+// the reverse scan over B windows
 template <int H, bool DEC>
 cudaError_t bwd_scan(const float* dm, const LstmW& W, const float* ow,
                      const float* stash, const float* gates, const float* fin,
                      const float* seed, float* dg0, float* dg1, int T, int D,
                      int B, cudaStream_t s) {
-  using R = Rev<H>;
   int info[5];
-  cudaError_t e = bwd_scan_info<H, DEC>(info);
-  if (e != cudaSuccess) return e;
-  if (info[0] == 0) return cudaErrorLaunchOutOfResources;   // no cluster fits
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = CL;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((B + NW - 1) / NW) * CL);
-  cfg.blockDim = dim3(R::NT);
-  cfg.dynamicSmemBytes = R::BYTES;
-  cfg.stream = s;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, lstm2_bwd_scan_kernel<H, DEC>, dm, W, ow, stash,
-                         gates, fin, seed, dg0, dg1, T, D, B);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  SHM_TRY((bwd_scan_info<H, DEC>(info)));
+  return cluster_launch(lstm2_bwd_scan_kernel<H, DEC>, info, B, s, dm, W, ow, stash,
+                        gates, fin, seed, dg0, dg1, T, D, B);
 }
 
 // ------------------------------------------- the parallel gradient pass
@@ -839,32 +892,7 @@ cudaError_t wt_dg(const float* W, const float* dg, int T, int R, int C, int B,
   return cudaGetLastError();
 }
 
-#define SHM_TRY(expr)                          \
-  do {                                         \
-    cudaError_t e_ = (expr);                   \
-    if (e_ != cudaSuccess) return e_;          \
-  } while (0)
-
-LstmW stack_weights(const float* const* w, bool backward) {
-  LstmW W;
-  W.w0i_t = w[0]; W.w0h_t = w[1]; W.b0 = w[2];
-  W.w1i_t = w[3]; W.w1h_t = w[4]; W.b1 = w[5];
-  W.w0h = backward ? w[7] : nullptr;
-  W.w1i = backward ? w[8] : nullptr;
-  W.w1h = backward ? w[9] : nullptr;
-  return W;
-}
-
-template <int H>
-cudaError_t enc_fwd(const float* xs, const float* dm, const float* const* w,
-                    float* stash, float* gates, float* hlast, float* fin, int T,
-                    int D, int B, cudaStream_t s) {
-  lstm2_enc_fwd_kernel<H><<<(B + BW - 1) / BW, 4 * H, 0, s>>>(
-      xs, dm, stack_weights(w, false), stash, gates, hlast, fin, T, D, B);
-  return cudaGetLastError();
-}
-
-// w: w0i_t w0h_t b0 w1i_t w1h_t b1 w0i w0h w1i w1h
+// w: w0i w0h b0 w1i w1h b1
 // scratch: dg0 dg1 partial;  out: dx gw0i gw0h gb0 gw1i gw1h gb1
 template <int H>
 cudaError_t enc_bwd(const float* xs, const float* dm, const float* const* w,
@@ -872,7 +900,7 @@ cudaError_t enc_bwd(const float* xs, const float* dm, const float* const* w,
                     const float* dhl, float* const* scratch, float* const* out,
                     int T, int D, int B, int S, cudaStream_t s) {
   float *dg0 = scratch[0], *dg1 = scratch[1], *partial = scratch[2];
-  SHM_TRY((bwd_scan<H, false>(dm, stack_weights(w, true), nullptr, stash, gates,
+  SHM_TRY((bwd_scan<H, false>(dm, stack_weights(w), nullptr, stash, gates,
                               fin, dhl, dg0, dg1, T, D, B, s)));
   const long long st = 4LL * H * B;
   const Stream g0 = plain_stream(dg0, st, 4 * H), g1 = plain_stream(dg1, st, 4 * H);
@@ -883,21 +911,11 @@ cudaError_t enc_bwd(const float* xs, const float* dm, const float* const* w,
   SHM_TRY(contract(g1, h0d, T, B, S, partial, out[4], s));
   SHM_TRY(contract(g1, plain_stream(stash + 2LL * H * B, st, H), T, B, S, partial, out[5], s));
   SHM_TRY(sum_t_rowsum(dg1, T, 4 * H, B, nullptr, out[6], s));
-  if (out[0] != nullptr) SHM_TRY(wt_dg(w[6], dg0, T, 4 * H, D, B, out[0], s));
+  if (out[0] != nullptr) SHM_TRY(wt_dg(w[0], dg0, T, 4 * H, D, B, out[0], s));
   return cudaSuccess;
 }
 
-template <int H>
-cudaError_t dec_fwd(const float* din, const float* dm, const float* const* w,
-                    float* recon, float* stash, float* gates, float* fin, int T,
-                    int D, int K, int B, cudaStream_t s) {
-  lstm2_dec_fwd_kernel<H><<<(B + BW - 1) / BW, 4 * H, 0, s>>>(
-      din, dm, stack_weights(w, false), w[10], w[11], recon, stash, gates, fin,
-      T, D, K, B);
-  return cudaGetLastError();
-}
-
-// w: w0i_t w0h_t b0 w1i_t w1h_t b1 w0i w0h w1i w1h ow ob
+// w: w0i w0h b0 w1i w1h b1 ow ob
 // scratch: dg0 dg1 partial sum_t(dg0);  out: ddin gw0i gw0h gb0 gw1i gw1h gb1 gow gob
 template <int H>
 cudaError_t dec_bwd(const float* din, const float* dm, const float* const* w,
@@ -906,7 +924,7 @@ cudaError_t dec_bwd(const float* din, const float* dm, const float* const* w,
                     int T, int D, int K, int B, int S, cudaStream_t s) {
   float *dg0 = scratch[0], *dg1 = scratch[1], *partial = scratch[2],
         *adg0 = scratch[3];
-  SHM_TRY((bwd_scan<H, true>(dm, stack_weights(w, true), w[10], stash, gates,
+  SHM_TRY((bwd_scan<H, true>(dm, stack_weights(w), w[6], stash, gates,
                              fin, dr, dg0, dg1, T, D, B, s)));
   const long long st = 4LL * H * B;
   const Stream g0 = plain_stream(dg0, st, 4 * H), g1 = plain_stream(dg1, st, 4 * H);
@@ -915,7 +933,7 @@ cudaError_t dec_bwd(const float* din, const float* dm, const float* const* w,
   // layer 0's input is constant over T: sum dg0 over T first, then fold once
   SHM_TRY(sum_t_rowsum(dg0, T, 4 * H, B, adg0, out[3], s));
   SHM_TRY(contract(plain_stream(adg0, 0, 4 * H), plain_stream(din, 0, K), 1, B, 1, partial, out[1], s));
-  SHM_TRY(wt_dg(w[6], adg0, 1, 4 * H, K, B, out[0], s));
+  SHM_TRY(wt_dg(w[0], adg0, 1, 4 * H, K, B, out[0], s));
   SHM_TRY(contract(g0, plain_stream(stash, st, H), T, B, S, partial, out[2], s));
   SHM_TRY(contract(g1, h0d, T, B, S, partial, out[4], s));
   SHM_TRY(contract(g1, plain_stream(stash + 2LL * H * B, st, H), T, B, S, partial, out[5], s));
@@ -934,8 +952,8 @@ bool bad_dims(int T, int D, int H, int B, int S) {
 
 // C entries for ctypes. Every pointer is a device pointer to contiguous
 // float32; `w`, `scratch` and `out` are host arrays of device pointers in the
-// orders given above each launcher (a forward takes the same `w` array as its
-// backward and reads the first six entries, the decoder also ow and ob).
+// orders given above fwd_scan, enc_bwd and dec_bwd (a forward takes the same
+// `w` array as its backward: the matrices as given, [4H,in]).
 // `dm` may be null (unit mask), `stash` and
 // `gates` null in the forwards (nothing kept for a backward; a forward writes
 // the gate stash [T,2,4H,B] only with a stash) and out[0] null in the
@@ -952,9 +970,9 @@ extern "C" int shm_lstm2_enc_fwd_f32(const float* xs, const float* dm,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (H) {
-    case 32: err = enc_fwd<32>(xs, dm, wp, stash, gates, hlast, fin, T, D, B, s); break;
-    case 64: err = enc_fwd<64>(xs, dm, wp, stash, gates, hlast, fin, T, D, B, s); break;
-    default: err = enc_fwd<128>(xs, dm, wp, stash, gates, hlast, fin, T, D, B, s); break;
+    case 32: err = fwd_scan<32, false>(xs, dm, wp, stash, gates, hlast, fin, T, D, 0, B, s); break;
+    case 64: err = fwd_scan<64, false>(xs, dm, wp, stash, gates, hlast, fin, T, D, 0, B, s); break;
+    default: err = fwd_scan<128, false>(xs, dm, wp, stash, gates, hlast, fin, T, D, 0, B, s); break;
   }
   return (int)err;
 }
@@ -991,9 +1009,9 @@ extern "C" int shm_lstm2_dec_fwd_f32(const float* din, const float* dm,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (H) {
-    case 32: err = dec_fwd<32>(din, dm, wp, recon, stash, gates, fin, T, D, K, B, s); break;
-    case 64: err = dec_fwd<64>(din, dm, wp, recon, stash, gates, fin, T, D, K, B, s); break;
-    default: err = dec_fwd<128>(din, dm, wp, recon, stash, gates, fin, T, D, K, B, s); break;
+    case 32: err = fwd_scan<32, true>(din, dm, wp, stash, gates, recon, fin, T, D, K, B, s); break;
+    case 64: err = fwd_scan<64, true>(din, dm, wp, stash, gates, recon, fin, T, D, K, B, s); break;
+    default: err = fwd_scan<128, true>(din, dm, wp, stash, gates, recon, fin, T, D, K, B, s); break;
   }
   return (int)err;
 }
@@ -1021,8 +1039,23 @@ extern "C" int shm_lstm2_dec_bwd_f32(const float* din, const float* dm,
 }
 
 // {clusters that fit at once, shared bytes a block, registers a thread,
-// local bytes a thread, threads a block} of the reverse-scan instance of H
-// for the encoder (dec = 0) or the decoder (dec = 1)
+// local bytes a thread, threads a block} of the forward-scan instance of H
+// for the encoder (dec = 0) or the decoder (dec = 1), set up at the first call
+extern "C" int shm_lstm2_fwd_scan_info(int H, int dec, int* out) {
+  if (H != 32 && H != 64 && H != 128) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (H * 2 + (dec != 0)) {
+    case 64: err = fwd_scan_info<32, false>(out); break;
+    case 65: err = fwd_scan_info<32, true>(out); break;
+    case 128: err = fwd_scan_info<64, false>(out); break;
+    case 129: err = fwd_scan_info<64, true>(out); break;
+    case 256: err = fwd_scan_info<128, false>(out); break;
+    default: err = fwd_scan_info<128, true>(out); break;
+  }
+  return (int)err;
+}
+
+// the same of the reverse-scan instance
 extern "C" int shm_lstm2_bwd_scan_info(int H, int dec, int* out) {
   if (H != 32 && H != 64 && H != 128) return (int)cudaErrorInvalidValue;
   cudaError_t err;

@@ -19,10 +19,12 @@ backward launch the kernels of ``csrc/lstm_train.cu`` (built with nvcc for
 ``sm_90a`` at first use) and count their launches in ``<op>.fwd_launches`` and
 ``<op>.bwd_launches``; a failed launch raises, and nothing falls back. For a
 backward the forward stashes the pre-step state (h0, c0, h1, c1) and the gate
-activations of both layers per step; the backward's reverse scan reads them,
-recomputes nothing, and runs on clusters of 8 blocks that hold its three
-[4H, H] matrices in shared memory (a card that cannot place such a cluster
-raises). Under ``torch.no_grad()`` no stash is written.
+activations of both layers per step; the backward's reverse scan reads them
+and recomputes nothing. Both scans run on clusters of 8 blocks that hold the
+stack's three [4H, H] matrices in shared memory, each block a slice, and take
+the weights as given (a card that cannot place such a cluster raises:
+:func:`fwd_scan_info`, :func:`bwd_scan_info`). Under ``torch.no_grad()`` no
+stash is written.
 On CPU tensors the ops run their plain versions, :func:`lstm2_scan_reference`
 and :func:`lstm2_dec_head_reference` (a Python time loop under autograd), which
 the tests hold against the JAX package and ``chip_smoke.py`` holds the kernels
@@ -175,31 +177,43 @@ def _library() -> ctypes.CDLL:
     lib.shm_lstm2_enc_bwd_f32.argtypes = [P] * 9 + [I] * 5 + [P]
     lib.shm_lstm2_dec_fwd_f32.argtypes = [P] * 7 + [I] * 5 + [P]
     lib.shm_lstm2_dec_bwd_f32.argtypes = [P] * 9 + [I] * 6 + [P]
+    lib.shm_lstm2_fwd_scan_info.argtypes = [I, I, P]
     lib.shm_lstm2_bwd_scan_info.argtypes = [I, I, P]
     for fn in (lib.shm_lstm2_enc_fwd_f32, lib.shm_lstm2_enc_bwd_f32,
                lib.shm_lstm2_dec_fwd_f32, lib.shm_lstm2_dec_bwd_f32,
-               lib.shm_lstm2_bwd_scan_info):
+               lib.shm_lstm2_fwd_scan_info, lib.shm_lstm2_bwd_scan_info):
         fn.restype = ctypes.c_int
     return lib
 
 
-@functools.cache
-def bwd_scan_info(H: int, decoder: bool) -> dict:
-    """What the card makes of the reverse-scan kernel of one stack at hidden
-    size H (set up at its first call): the clusters of 8 blocks that fit at
-    once, the shared memory, registers and local (spill) bytes of one block
-    or thread, and its threads. Raises where no such cluster fits."""
+def _scan_info(entry, what: str, H: int, decoder: bool) -> dict:
     out = (ctypes.c_int * 5)()
-    err = _library().shm_lstm2_bwd_scan_info(H, int(decoder), out)
-    raise_on_error(_library(), err, "lstm2 reverse-scan set-up")
+    raise_on_error(_library(), entry(H, int(decoder), out), f"lstm2 {what} set-up")
     info = dict(zip(("max_active_clusters", "shared_bytes", "registers",
                      "local_bytes", "threads"), out))
     if info["max_active_clusters"] == 0:
         raise RuntimeError(
-            f"the LSTM reverse scan (H={H}) needs clusters of 8 blocks with "
+            f"the LSTM {what} (H={H}) needs clusters of 8 blocks with "
             f"{info['shared_bytes']} bytes of shared memory each, and this "
             "card places none")
     return info
+
+
+@functools.cache
+def fwd_scan_info(H: int, decoder: bool) -> dict:
+    """What the card makes of the forward-scan kernel of one stack at hidden
+    size H (set up at its first call): the clusters of 8 blocks that fit at
+    once, the shared memory, registers and local (spill) bytes of one block
+    or thread, and its threads. Raises where no such cluster fits."""
+    return _scan_info(_library().shm_lstm2_fwd_scan_info, "forward scan", H,
+                      decoder)
+
+
+@functools.cache
+def bwd_scan_info(H: int, decoder: bool) -> dict:
+    """The same for the backward's reverse-scan kernel."""
+    return _scan_info(_library().shm_lstm2_bwd_scan_info, "reverse scan", H,
+                      decoder)
 
 
 def _ptrs(tensors: Sequence[Optional[torch.Tensor]]):
@@ -222,9 +236,8 @@ def _f32c(name: str, t: torch.Tensor, device, shape=None) -> torch.Tensor:
 
 
 def _stack_weights(dev, in_dim, H, w0i, w0h, b0, w1i, w1h, b1):
-    """Checked kernel weight list: the four matrices transposed to [in, 4H]
-    (coalesced for the gate products), the biases, and the matrices as given
-    ([4H, in], coalesced for the transposed products of the backward)."""
+    """Checked kernel weight list (w0i, w0h, b0, w1i, w1h, b1): the tensors
+    as given, [4H, in] and [4H, 1], no copy of a contiguous one."""
     if H not in _HIDDEN:
         raise ValueError(f"unsupported hidden size for the LSTM training "
                          f"kernels: H={H} (need one of {_HIDDEN})")
@@ -234,8 +247,7 @@ def _stack_weights(dev, in_dim, H, w0i, w0h, b0, w1i, w1h, b1):
     w1h = _f32c("w1h", w1h, dev, (4 * H, H))
     b0 = _f32c("b0", b0, dev, (4 * H, 1))
     b1 = _f32c("b1", b1, dev, (4 * H, 1))
-    tr = lambda w: w.t().contiguous()
-    return [tr(w0i), tr(w0h), b0, tr(w1i), tr(w1h), b1, w0i, w0h, w1i, w1h]
+    return [w0i, w0h, b0, w1i, w1h, b1]
 
 
 def _check_mask(dm, dev, T, H, B):
@@ -266,7 +278,8 @@ def _stream(t: torch.Tensor):
 
 def enc_forward_cuda(xs, dm, w0i, w0h, b0, w1i, w1h, b1, keep_stash=True):
     """Launch the encoder forward kernel: (h_last [H,B], saved). ``saved`` is
-    what :func:`enc_backward_cuda` needs, or None without a stash."""
+    what :func:`enc_backward_cuda` needs: (xs, dm, w, stash, gates, fin),
+    stash and gates None without a stash."""
     dev = xs.device
     T, D, B = xs.shape
     H = w0h.shape[1]
@@ -278,13 +291,14 @@ def enc_forward_cuda(xs, dm, w0i, w0h, b0, w1i, w1h, b1, keep_stash=True):
     h_last = torch.empty(H, B, device=dev, dtype=torch.float32)
     fin = torch.empty(4 * H, B, device=dev, dtype=torch.float32)
     stash, gates = _new_stash(keep_stash, T, H, B, dev)
+    fwd_scan_info(H, False)
     with torch.cuda.device(dev):
         err = _library().shm_lstm2_enc_fwd_f32(
             xs.data_ptr(), _ptr(dm), _ptrs(w), _ptr(stash), _ptr(gates),
             h_last.data_ptr(), fin.data_ptr(), T, D, H, B, _stream(xs))
     raise_on_error(_library(), err, "lstm2_enc_last forward")
     lstm2_enc_last.fwd_launches += 1
-    return h_last, ((xs, dm, w, stash, gates, fin) if keep_stash else None)
+    return h_last, (xs, dm, w, stash, gates, fin)
 
 
 def enc_backward_cuda(saved, d_hlast, need_dx=True):
@@ -315,7 +329,8 @@ def enc_backward_cuda(saved, d_hlast, need_dx=True):
 
 def dec_forward_cuda(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1, out_w, out_b,
                      T: int, keep_stash=True):
-    """Launch the decoder forward kernel: (recon [T,D,B], saved)."""
+    """Launch the decoder forward kernel: (recon [T,D,B], saved), ``saved``
+    as in :func:`enc_forward_cuda` with T and D added."""
     dev = dec_in.device
     K, B = dec_in.shape
     H = w0h.shape[1]
@@ -330,6 +345,7 @@ def dec_forward_cuda(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1, out_w, out_b,
     recon = torch.empty(T, D, B, device=dev, dtype=torch.float32)
     fin = torch.empty(4 * H, B, device=dev, dtype=torch.float32)
     stash, gates = _new_stash(keep_stash, T, H, B, dev)
+    fwd_scan_info(H, True)
     with torch.cuda.device(dev):
         err = _library().shm_lstm2_dec_fwd_f32(
             dec_in.data_ptr(), _ptr(dm), _ptrs(w), recon.data_ptr(),
@@ -337,8 +353,7 @@ def dec_forward_cuda(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1, out_w, out_b,
             _stream(dec_in))
     raise_on_error(_library(), err, "lstm2_dec_head forward")
     lstm2_dec_head.fwd_launches += 1
-    return recon, ((dec_in, dm, w, stash, gates, fin, T, D) if keep_stash
-                   else None)
+    return recon, (dec_in, dm, w, stash, gates, fin, T, D)
 
 
 def dec_backward_cuda(saved, d_recon):
@@ -377,7 +392,7 @@ class _EncLast(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_hlast):
-        if ctx.saved is None:
+        if ctx.saved[3] is None:
             raise RuntimeError("lstm2_enc_last: backward without a stash")
         grads = enc_backward_cuda(ctx.saved, d_hlast,
                                   need_dx=ctx.needs_input_grad[0])
@@ -396,7 +411,7 @@ class _DecHead(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_recon):
-        if ctx.saved is None:
+        if ctx.saved[3] is None:
             raise RuntimeError("lstm2_dec_head: backward without a stash")
         grads = dec_backward_cuda(ctx.saved, d_recon)
         ctx.saved = None
@@ -511,5 +526,5 @@ __all__ = [
     "lstm2_dec_head_reference", "lstm2_scan_stash_reference",
     "lstm2_reverse_scan_reference", "vae_train_forward", "stack_op_weights",
     "enc_forward_cuda", "enc_backward_cuda", "dec_forward_cuda",
-    "dec_backward_cuda", "bwd_scan_info",
+    "dec_backward_cuda", "fwd_scan_info", "bwd_scan_info",
 ]

@@ -221,6 +221,63 @@ def test_lstm_backward_refuses_a_gate_stash_of_another_shape(cuda_device):
         dec_backward_cuda(tuple(bad), torch.zeros(T, D, B, device=cuda_device))
 
 
+def _assert_forward_outputs(runs, want, keep):
+    """Two runs of a forward wrapper, (output, saved) each, against the plain
+    (output, stash, gates, fin); the second run equal to the first bit for bit."""
+    (out, saved), (again, saved2) = runs
+    close = lambda a, b, n: torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5,
+                                                       msg=lambda m: f"{n}: {m}")
+    close(out, want[0], "output")
+    close(saved[5], want[3], "final state")
+    if keep:
+        close(saved[3], want[1], "stash")
+        close(saved[4], want[2], "gate stash")
+    else:
+        assert saved[3] is None and saved[4] is None
+    for a, b in zip((out,) + saved[3:6], (again,) + saved2[3:6]):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LSTM_CASES))
+def test_lstm_forwards_write_what_the_plain_forward_keeps(cuda_device, name):
+    """Both forward kernels, with and without a stash: the output (h_last,
+    recon), the final state, the stash and the gate stash against
+    ``lstm2_scan_stash_reference``; two runs give the same bits."""
+    from shm_tpu_torch.ops import lstm2_scan_stash_reference
+    from shm_tpu_torch.ops.lstm_train import dec_forward_cuda, enc_forward_cuda
+
+    (T, D, H, B), rng, t, u, ws, dm = _lstm_inputs(name, cuda_device)
+    xs = t(rng.normal(size=(T, D, B)))
+    din = t(rng.normal(size=(H, B)))
+    dec_w = [u(4 * H, H)] + ws[1:] + [u(D, H), u(D, 1)]
+    with torch.no_grad():
+        h1s, stash, gates, fin = lstm2_scan_stash_reference(xs, dm, *ws)
+        enc_want = (h1s[-1], stash, gates, fin)
+        h1s, stash, gates, fin = lstm2_scan_stash_reference(din, dm, *dec_w[:6], T=T)
+        dec_want = (dec_w[6] @ h1s + dec_w[7], stash, gates, fin)
+        for keep in (True, False):
+            runs = [enc_forward_cuda(xs, dm, *ws, keep_stash=keep) for _ in range(2)]
+            torch.cuda.synchronize()
+            _assert_forward_outputs(runs, enc_want, keep)
+            runs = [dec_forward_cuda(din, dm, *dec_w, T=T, keep_stash=keep)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            _assert_forward_outputs(runs, dec_want, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 64, 128])
+def test_lstm_scans_place_clusters_on_the_card(cuda_device, H):
+    from shm_tpu_torch.ops.lstm_train import bwd_scan_info, fwd_scan_info
+
+    for dec in (False, True):
+        for info in (fwd_scan_info(H, dec), bwd_scan_info(H, dec)):
+            assert info["max_active_clusters"] >= 1
+            assert info["threads"] == H // 8 * 20
+            assert 0 < info["shared_bytes"] <= 232448
+
+
 # --- the minGRU and attention gates (ops/fused_mingru.py, ops/fused_attention.py)
 
 GATE_CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)

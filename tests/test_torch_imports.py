@@ -80,7 +80,7 @@ KERNEL_ENTRIES = {
     "fused_vae.cu": ["shm_fused_vae_gate_f32", "shm_fused_vae_probe"],
     "lstm_train.cu": ["shm_lstm2_enc_fwd_f32", "shm_lstm2_enc_bwd_f32",
                       "shm_lstm2_dec_fwd_f32", "shm_lstm2_dec_bwd_f32",
-                      "shm_lstm2_bwd_scan_info"],
+                      "shm_lstm2_fwd_scan_info", "shm_lstm2_bwd_scan_info"],
     "fused_mingru.cu": ["shm_fused_mingru_gate_f32"],
     "fused_attention.cu": ["shm_fused_attention_gate_f32"],
     "probe_matmul_loop.cu": ["shm_probe_matmul_loop"],
