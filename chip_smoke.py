@@ -18,7 +18,11 @@ Phases (any failure exits non-zero before the final line):
 4. timings at bench.py's 5,440-window workload, per family: kernel, plain
    version, the operation/byte bound, a library yardstick (cuDNN ``nn.LSTM``;
    ``torch.matmul`` with a log-depth scan; ``scaled_dot_product_attention``),
-   and ``score()`` windows/s end to end;
+   and ``score()`` windows/s end to end; for the attention kernel also its
+   registers, spills, threads and shared bytes a block, its packed TF32
+   weights and its split of activations against ``cvt.rna.tf32.f32`` on the
+   card (bit for bit), and the 3xTF32 tensor-core bound of its four weight
+   products beside the f32 bound;
 5. where one ``score()`` call's time goes (``torch.profiler``), per family:
    device time by kernel and the device's idle share;
 6. the four LSTM training kernels (encoder and decoder, forward and backward)
@@ -40,9 +44,9 @@ Phases (any failure exits non-zero before the final line):
 8. timings of the four kernels and of one training step (kernel path, plain
    autograd path, a cuDNN ``nn.LSTM`` yardstick), their bounds, and where a
    step's time goes; with ``--parent DIR`` (another checkout of the
-   repository, e.g. the parent commit unpacked), also rows 2-5 of that tree
-   on this card, in turns with this tree's, and its gradients against this
-   tree's on the same inputs;
+   repository, e.g. the parent commit unpacked), also rows 2-5 and 7 of that
+   tree on this card, in turns with this tree's, its gradients against this
+   tree's on the same inputs and its row-7 mse against this tree's;
 9. the probes (``shm_tpu_torch/tools``): each of the three probe kernels
    against its plain version (``matmul_loop`` in every mode at one tile and
    at 21, bf16x3 also against the float32 loop; ``gate_variant``'s variants
@@ -57,7 +61,8 @@ Phases (any failure exits non-zero before the final line):
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
 run from a directory that does not hold the repository. Usage:
-``python3 chip_smoke.py [--parent DIR]``.
+``python3 chip_smoke.py [--parent DIR]``; ``--child DIR OUT`` is the child
+mode ``--parent`` runs (``child``).
 """
 
 from __future__ import annotations
@@ -163,6 +168,61 @@ def attention_work(N: int, T: int, D: int, H: int, Z: int, L: int,
            + (H + 1) * D + T * H)
     nbytes = 4 * (N * T * D * (2 if with_residual else 1) + N + n_w)
     return float(flops), float(nbytes)
+
+
+def attention_dense_flops(N: int, T: int, H: int, L: int) -> float:
+    """The part of ``attention_work`` in the kernel's four weight products
+    (QKV, output projection, the MLP's two), which run in 3xTF32 on the
+    tensor cores."""
+    return float(N * 2 * L * (2 * T * H * 3 * H + 2 * T * H * H
+                              + 2 * 2 * T * H * 4 * H))
+
+
+def phase_attention_kernel(w, N: int, T: int, H: int, L: int) -> dict:
+    """How the card takes the attention kernel (registers, spills, threads,
+    shared bytes a block, at the trained root's shape and at the longest
+    window of each width), the wrapper's packed TF32 weights against the
+    kernel's own ``cvt.rna.tf32.f32`` on the trained weights ``w`` (bit for
+    bit), and the 3xTF32 tensor-core bound of the dense products."""
+    import torch
+
+    from shm_tpu_torch.ops.fused_attention import (
+        kernel_info, tf32_round_on_card, unpack_fragments,
+    )
+    from shm_tpu_torch.tools.workload import PEAK_F32_FLOPS, PEAK_TF32_FLOPS
+
+    tag = "[attention]"
+    for t_, h_ in ((T, H), (136, 128), (208, 64), (268, 32)):
+        info = kernel_info(t_, h_)
+        print(f"{tag} kernel at T={t_} H={h_}: {info['registers']} registers and "
+              f"{info['spill_bytes']} B of local memory (spills) a thread, "
+              f"{info['threads']} threads and {info['shared_bytes']} B of shared "
+              f"memory a block, {info['blocks_per_sm']} block(s) an SM")
+        check(info["blocks_per_sm"] >= 1, f"the attention kernel does not fit "
+                                          f"an SM at T={t_} H={h_}")
+    frags = [k for k in w if k.endswith("_frag")]
+    for k in frags:
+        src = w[k[:-len("_frag")]]
+        big, small = unpack_fragments(w[k])
+        same = (torch.equal(big, tf32_round_on_card(src))
+                and torch.equal(small, tf32_round_on_card((src - big).contiguous())))
+        check(same, f"{k}: packed TF32 parts differ from cvt.rna.tf32.f32 on the card")
+    print(f"{tag} packed TF32 big and small parts of {len(frags)} weights equal "
+          f"cvt.rna.tf32.f32 on the card, bit for bit")
+    # the kernel's own split of its activations (integer rounding) against
+    # cvt.rna.tf32.f32, on every weight and on 2^20 wide-ranging values
+    xs = [w[k[:-len("_frag")]] for k in frags]
+    for x in xs + [torch.randn(1 << 20, device="cuda") * 30.0]:
+        check(torch.equal(tf32_round_on_card(x, exact=False), tf32_round_on_card(x)),
+              "the kernel's TF32 split differs from cvt.rna.tf32.f32")
+    print(f"{tag} the kernel's split of A rounds as cvt.rna.tf32.f32, bit for "
+          f"bit, on {len(xs)} weights and 2^20 random values")
+    dense = attention_dense_flops(N, T, H, L)
+    tc_ms = 3 * dense / PEAK_TF32_FLOPS * 1e3
+    print(f"{tag} dense products at N={N}: {dense / 1e9:.2f} GFLOP -> 3xTF32 "
+          f"tensor-core bound {tc_ms:.4f} ms (3 x {PEAK_TF32_FLOPS / 1e12:g} "
+          f"TFLOP/s TF32), f32 FMA-pipe bound {dense / PEAK_F32_FLOPS * 1e3:.4f} ms")
+    return {"bound_3xtf32_ms": tc_ms}
 
 
 # the three model families the port scores: the committed artifacts, the
@@ -530,6 +590,8 @@ def phase_timing(scorer, W, cell: str = "lstm"):
     print(f"{tag} kernel vs plain at N={N} (trained weights, real windows):")
     err = max(compare("mse", mse_k, mse_p), compare("resid", resid_k, resid_p))
     del resid_p
+    extra = (phase_attention_kernel(w, N, T, vae.hidden_dim, vae.num_layers)
+             if cell == "attention" else {})
     library = LIBRARY_PASS[cell](vae)
     mse_c, _ = library(Z)
     print(f"{tag} {fam['library']} yardstick vs kernel: max |mse diff| "
@@ -564,7 +626,8 @@ def phase_timing(scorer, W, cell: str = "lstm"):
     profile_device(lambda: scorer.score(Wb),
                    f"{cell} score() of {len(Wb)} windows")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
+            **extra}
 
 
 def profile_device(fn, what: str, calls: int = 3, groups=None, rest: str = ""):
@@ -1124,11 +1187,42 @@ def phase_lstm_timing(errs, counts, ctx):
     return rows
 
 
-def lstm_child(root: str, out: str) -> int:
-    """Child mode (``--lstm-child ROOT OUT``): the four LSTM kernels of the
-    tree at ROOT on this card, through its public calls only: the gradients
-    of phase 6's 4DOF case and the kernels' ms at the 4DOF training shape,
-    saved to OUT with ``torch.save``."""
+def attention_row7():
+    """Row 7 of the importable tree: the trained VAE of this checkout's
+    ``data/4dof_attention`` through that tree's public calls, on the 3,636
+    committed test windows tiled to ``N_BENCH``. Returns (kernel ms, mse)."""
+    import torch
+
+    from shm_tpu_torch.cli.stage4dof import build_fraction_windows
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.data.windows import normalize_windows
+    from shm_tpu_torch.ops import FUSED_GATES
+    from shm_tpu_torch.serve import HybridScorer
+    from shm_tpu_torch.utils.io import load_json
+
+    cfg = Stage4DofConfig()
+    scorer = HybridScorer.from_artifacts(ROOT / "data" / "4dof_attention")
+    # the runs' paths are relative to this checkout, not to the child tree
+    splits = load_json(ROOT / "data" / "4dof" / "processed" / "run_splits.json")
+    W = np.concatenate([build_fraction_windows(
+        [str(ROOT / f) for f in splits[g]["files"]], cfg.test_frac, cfg)
+        for g in ("normal", "sensor_fault", "structural_fault")])
+    Wb = np.resize(W, (N_BENCH,) + W.shape[1:]).astype(np.float32)
+    Z = normalize_windows(torch.from_numpy(Wb).cuda(), scorer.mean,
+                          scorer.std).contiguous()
+    weights_fn, gate, _ = FUSED_GATES["attention"]
+    w = weights_fn(scorer.vae)
+    kw = dict(num_layers=scorer.vae.num_layers,
+              use_layernorm=scorer.vae.use_layernorm)
+    mse = gate(w, Z, **kw)[0]
+    return time_ms(lambda: gate(w, Z, **kw)), mse.cpu()
+
+
+def child(root: str, out: str) -> int:
+    """Child mode (``--child ROOT OUT``): kernels of the tree at ROOT on this
+    card, through its public calls only: the four LSTM kernels (the
+    gradients of phase 6's 4DOF case and their ms at the 4DOF training
+    shape) and row 7 (``attention_row7``), saved to OUT with ``torch.save``."""
     sys.path.insert(0, root)
     import torch
 
@@ -1147,18 +1241,23 @@ def lstm_child(root: str, out: str) -> int:
     dec = torch.autograd.grad((lstm2_dec_head(lv[0], c["dm_dec"], *lv[1:], T=T)
                                * c["R_dec"]).sum(), lv)
     ms = lstm_kernel_ms(lstm_case(300, T, 12, 128, 256, 0.3), T)
-    torch.save(dict(package=str(Path(shm_tpu_torch.__file__).parent), ms=ms,
+    ms["fused_attention_gate"], attn_mse = attention_row7()
+    package = str(Path(shm_tpu_torch.__file__).parent)
+    print(f"[child] {package}: " + ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
+          + " ms")
+    torch.save(dict(package=package, ms=ms, attn_mse=attn_mse,
                     enc=[g.cpu() for g in enc], dec=[g.cpu() for g in dec]), out)
     return 0
 
 
 def phase_parent(parent: str, rows) -> None:
-    """Rows 2-5 of the tree at ``parent`` (e.g. the parent commit, unpacked)
-    and of this tree on this card, one child process each, in turns parent,
-    this, this, parent: their kernel ms side by side, and the gradients of
-    the two trees on the same inputs (bit for bit, or within the stated
-    tolerance). Adds ``parent_ms`` (median of the parent's two runs) to the
-    rows."""
+    """Rows 2-5 and 7 of the tree at ``parent`` (e.g. the parent commit,
+    unpacked) and of this tree on this card, one child process each, in
+    turns parent, this, this, parent: their kernel ms side by side; the LSTM
+    gradients of the two trees on the same inputs (bit for bit, or within
+    the stated tolerance) and row 7's MSE (within the kernel tolerance of
+    the parent's; this tree's two runs bit for bit). Adds ``parent_ms``
+    (median of the parent's two runs) to those rows."""
     import tempfile
 
     import torch
@@ -1168,13 +1267,13 @@ def phase_parent(parent: str, rows) -> None:
         for k, root in enumerate([parent, str(ROOT), str(ROOT), parent]):
             out = Path(tmp) / f"run{k}.pt"
             r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                                "--lstm-child", str(root), str(out)],
+                                "--child", str(root), str(out)],
                                capture_output=True, text=True, timeout=900)
             check(r.returncode == 0, f"child run on {root} failed:\n{r.stderr[-3000:]}")
             runs.append(torch.load(out))
             print(f"[parent] run {k}: {runs[-1]['package']}: " + ", ".join(
                 f"{n} {v:.4f}" for n, v in runs[-1]["ms"].items()) + " ms")
-    for name in LSTM_KERNELS:
+    for name in list(LSTM_KERNELS) + ["fused_attention_gate"]:
         par = [runs[0]["ms"][name], runs[3]["ms"][name]]
         new = [runs[1]["ms"][name], runs[2]["ms"][name]]
         print(f"[parent] {name}: parent {par[0]:.4f} / {par[1]:.4f} ms, this tree "
@@ -1189,6 +1288,12 @@ def phase_parent(parent: str, rows) -> None:
         compare_grads(f"{tag} this tree vs parent", runs[1][tag], runs[0][tag], names)
         check(all(torch.equal(a, b) for a, b in zip(runs[1][tag], runs[2][tag])),
               f"{tag}: two runs of this tree gave different gradients")
+    print(f"[parent] row 7 mse at N={N_BENCH}, this tree against the parent's:")
+    compare("fused_attention_gate mse, this tree vs parent", runs[1]["attn_mse"],
+            runs[0]["attn_mse"])
+    check(torch.equal(runs[1]["attn_mse"], runs[2]["attn_mse"]),
+          "row 7: two runs of this tree gave different mse")
+    print("[parent] row 7 mse of this tree's two runs: equal bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -1461,8 +1566,8 @@ def phase_probe_path(errs, wl):
 
 
 def main(argv) -> int:
-    if argv[:1] == ["--lstm-child"]:
-        return lstm_child(argv[1], argv[2])
+    if argv[:1] == ["--child"]:
+        return child(argv[1], argv[2])
     parent = None
     if argv[:1] == ["--parent"]:
         parent = str(Path(argv[1]).resolve())
@@ -1510,10 +1615,10 @@ def main(argv) -> int:
         counts, ctx = phase_train_path()
         lstm_rows = phase_lstm_timing(errs, counts, ctx)
         if parent is not None:
-            phase_parent(parent, lstm_rows)
+            phase_parent(parent, lstm_rows + gate_rows)
         else:
             print("[parent] no --parent DIR given: the parent tree's rows 2-5 "
-                  "are not timed in this run")
+                  "and 7 are not timed in this run")
         torch.cuda.empty_cache()
         probe_rows = phase_probe_path(phase_probes_vs_plain(), wl)
     except SmokeFailure as e:

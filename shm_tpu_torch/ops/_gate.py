@@ -29,6 +29,10 @@ def check_windows(Z: torch.Tensor) -> None:
 
 def check_weights(weights: Dict[str, torch.Tensor], need: Iterable[str],
                   device: torch.device) -> None:
+    need = list(need)
+    missing = [k for k in need if k not in weights]
+    if missing:
+        raise ValueError(f"weights missing: {', '.join(missing)}")
     for k in need:
         w = weights[k]
         if (w.device != device or w.dtype != torch.float32

@@ -19,21 +19,22 @@
 // H in {32,64,128}, heads = H/32 of 32 columns, MLP width 4H, L in {1,2},
 // D <= 128, Z <= 32, any T whose buffers fit a block's shared memory (the
 // wrapper works that out and refuses the rest). Weights come in [in, out]
-// layout; wqkv is packed per head: columns h*96 .. h*96+95 hold q|k|v of
-// head h. The TPU kernel's paddings (T to 128, H to 128 lanes) and its key
-// mask exist only for its tiling and are not carried over: this kernel
-// attends over exactly T keys.
+// layout, the four products' as TF32 fragments (below); wqkv is packed per
+// head: columns h*96 .. h*96+95 hold q|k|v of head h. The TPU kernel's
+// paddings (T to 128, H to 128 lanes) and its key mask exist only for its
+// tiling and are not carried over: this kernel attends over exactly T keys.
 //
 // Bound on this card. Per window and block: QKV 2*T*H*3H, scores and PV
 // 2*2*T*T*H, output projection 2*T*H*H, MLP 2*2*T*H*4H; for the 4DOF preset
 // (T=100, D=12, H=128, L=2+2) about 178 MFLOP a window, about 970 GFLOP at
 // N=5,440: ~14.5 ms at the 67 TFLOP/s float32 rate without tensor cores
 // (~1 ms in bf16 on the tensor cores). The bytes (x, resid, weights once) are
-// ~55 MB, ~17 us. So the kernel is bound by operations.
+// ~55 MB, ~17 us. So the kernel is bound by operations. The four weight
+// products are ~89% of them (~862 GFLOP at N=5,440): in 3xTF32 on the
+// tensor cores (three products each, 495 TFLOP/s TF32) ~5.2 ms.
 //
-// Design (first, simple version: right before fast). One block of 512
-// threads owns one window and keeps its whole pass in shared memory; only x,
-// the weights, resid and mse touch device memory.
+// Design. One block of 512 threads owns one window and keeps its whole pass
+// in shared memory; only x, the weights, resid and mse touch device memory.
 //   * The residual stream s [T,H] and its normalised copy nrm [T,H] stay
 //     resident (rows padded to a multiple of 8, row stride H+4 floats). One
 //     window's QKV for all heads (154 KB at 4DOF) would not fit beside them,
@@ -45,16 +46,39 @@
 //   * The MLP's hidden layer [T,4H] (205 KB) is cut into column chunks of
 //     CC = 128 that reuse the attention buffers: gelu(nrm W1[:,chunk]) then
 //     s += that times W2[chunk,:].
-//   * Every product with a weight goes through one routine, gemm_rows: a
-//     thread owns an 8-row by 4-column tile of the output, reads its rows
-//     from shared memory as float4 along k (a warp shares the rows: a
-//     broadcast) and the weight from global memory through L1/L2 as float4
-//     along the columns (coalesced), 128 FMAs to 12 loads. The ~3.1 MB of
-//     weights stay in the 50 MB L2; every block re-reads them.
+//   * Every product with a weight (QKV, output projection, W1, W2) goes
+//     through one warp-level routine, mma_rows, on the tensor cores:
+//     mma.sync m16n8k8 TF32 in 3xTF32, a * b = a_s b_b + a_b b_s + a_b b_b
+//     with big = rna_tf32(x) and small = rna_tf32(x - big) (round to
+//     nearest, ties away from zero), summed in float32: relative error
+//     ~2^-21 a product, near float32's own. A warp owns NW n8 column tiles
+//     and walks the m16 row tiles of its m-group with the k loop outside, so
+//     it loads each weight fragment once for all of them and splits each A
+//     fragment once for its NW n-tiles. The products with N = 128 (output
+//     projection and W2 at H=128, every W1 chunk) give 4 n-tiles (32
+//     columns) to a warp and split the rows into 4 m-groups: each weight
+//     fragment is loaded by 4 warps of the block, each A element split 4
+//     times. One n-tile a warp (each fragment loaded once a block) splits
+//     every A element 16 times and was slower (PERF.md §6). QKV of a
+//     head (12 n-tiles) gives 3 n-tiles to a warp and its rows to 4
+//     m-groups; all 16 warps work. At H = 64 / 32 the products with
+//     N = H have 8 / 4 n-tiles: more m-groups, and at H = 32 some warps idle.
+//   * The weights come packed once by the wrapper in fragment order: for each
+//     (n-tile, k-step, lane) one float4 {b0 big, b1 big, b0 small, b1 small},
+//     so one coalesced 16-byte load gives a lane its whole B fragment. A stays
+//     in shared memory; its padded row strides (H+4, 36, CC+4 floats) make
+//     the fragment loads conflict-free (lane (g, t) hits bank 4g + t), and
+//     it is split in registers by the same two integer operations the
+//     wrapper rounds the weights with (cvt.rna.tf32.f32 costs four).
+//     A row past the padded T reads the last row (inside A; its results are
+//     never stored), so the k loop has no branch.
+//   * What binds is not the tensor cores: in an earlier version, four FMAs
+//     in place of every mma left the time unchanged, and no split of A
+//     saved a third of the products' time (PERF.md §6).
 //   * LayerNorm and softmax rows are one warp each with shuffle reductions;
-//     the window's MSE is reduced in a fixed order (no atomics).
-// It runs the f32 FMA pipes, so it cannot pass the f32 bound; several windows
-// a block to amortise the weight reads, and bf16 wgmma, are later work.
+//     sums over k and the window's MSE run in a fixed order (no atomics).
+// Scores, softmax and P.V stay on the FMA pipes; several windows a block,
+// bf16 wgmma and keys streamed beyond a block's shared memory are later work.
 //
 // Accurate expf/tanhf (no --use_fast_math).
 
@@ -68,19 +92,20 @@ constexpr int HD = 32;          // head size
 constexpr int HDP = HD + 4;     // padded row of the per-head q/k/v buffers
 constexpr int QC = 32;          // query rows per score chunk
 constexpr int CC = 128;         // MLP hidden columns per chunk (divides 4H)
-constexpr int TM = 8;           // rows of a thread's output tile
+constexpr int TM = 8;           // rows are padded to a multiple of TM
 constexpr int LMAX = 2;
 constexpr int HMAX = 128;
 constexpr int ZMAX = 32;
 constexpr int DMAX = 128;
 constexpr int SMALL = 512;      // floats for the per-window vectors
-constexpr int NUM_W = 2 * (4 + 12 * LMAX) + 8;
+constexpr int NUM_W = 2 * (4 + 16 * LMAX) + 8;
 constexpr float STACK_EPS = 1e-6f;
 constexpr float MODEL_EPS = 1e-5f;
 
+// the four products' weights as TF32 fragments (mma_rows), the rest as given
 struct BlockW {
-  const float *ln1s, *ln1b, *wqkv, *bqkv, *wo, *bo, *ln2s, *ln2b, *w1, *b1,
-      *w2, *b2;
+  const float *ln1s, *ln1b, *bqkv, *bo, *ln2s, *ln2b, *b1, *b2;
+  const float4 *wqkv_f, *wo_f, *w1_f, *w2_f;
 };
 struct StackW {
   const float *in_w, *in_b;   // [in, H], [H]
@@ -141,46 +166,119 @@ __device__ __forceinline__ void ln_rows(const float* s, float* nrm, int ld,
     ln_row(s + r * ld, nrm + r * ld, scale, bias, H, STACK_EPS, lane);
 }
 
-// For every row < M (a multiple of TM) and column group of 4 below Nc:
-//   epi(row, col, sum_k A[row][k] * B[k][col .. col+3])
-// A in shared memory (row stride lda, a multiple of 4), B in global memory
-// (row stride ldb, a multiple of 4, 16-byte aligned), K a multiple of 4. The
-// sum runs over k in order.
-template <class Epi>
-__device__ __forceinline__ void gemm_rows(const float* A, int lda,
-                                          const float* __restrict__ B, int ldb,
-                                          int M, int K, int Nc, Epi epi) {
-  const int CG = Nc >> 2;
-  const int tiles = (M / TM) * CG;
-  for (int tile = threadIdx.x; tile < tiles; tile += NT) {
-    const int cg = tile % CG, rg = tile / CG;
-    float acc[TM][4];
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;   // round to nearest, ties away from zero; low 13 bits zero
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The same rounding in two integer operations, as the wrapper packs the
+// weights (cvt.rna.tf32.f32 compiles to ~4 with its Inf/NaN guard): equal
+// to tf32_rna for every finite x, which is all the kernel feeds it.
+__device__ __forceinline__ unsigned tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// d += a (16x8, row) * b (8x8, col): TF32 operands, float32 accumulators.
+// Lane (g = lane/4, t = lane%4): a = A[g][t], A[g+8][t], A[g][t+4],
+// A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = C[g][2t, 2t+1], C[g+8][2t, 2t+1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// One k-step of mma_rows: the MW row tiles at A + ro (this lane's two rows
+// of each, as offsets) times the NW n-tiles' fragments b. Each A element is
+// split once for the NW n-tiles; each k-step adds a_s b_b, a_b b_s, then
+// a_b b_b into one float32 accumulator.
+template <int NW, int MW>
+__device__ __forceinline__ void mma_kstep(float (&acc)[MW][NW][4], const float* A,
+                                          const int (&ro)[MW][2],
+                                          const float4 (&b)[NW]) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
-      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-    const float* a = A + (size_t)rg * TM * lda;
-    const float* b = B + cg * 4;
-#pragma unroll 2
-    for (int k = 0; k < K; k += 4) {
-      float4 bv[4];
+  for (int i = 0; i < MW; ++i) {
+    const float x[4] = {A[ro[i][0]], A[ro[i][1]], A[ro[i][0] + 4], A[ro[i][1] + 4]};
+    unsigned big[4], sml[4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        bv[kk] = __ldg(reinterpret_cast<const float4*>(b + (size_t)(k + kk) * ldb));
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float4 av = *reinterpret_cast<const float4*>(a + i * lda + k);
-        const float ak[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          acc[i][0] = fmaf(ak[kk], bv[kk].x, acc[i][0]);
-          acc[i][1] = fmaf(ak[kk], bv[kk].y, acc[i][1]);
-          acc[i][2] = fmaf(ak[kk], bv[kk].z, acc[i][2]);
-          acc[i][3] = fmaf(ak[kk], bv[kk].w, acc[i][3]);
-        }
-      }
+    for (int q = 0; q < 4; ++q) {
+      big[q] = tf32_round(x[q]);
+      sml[q] = tf32_round(x[q] - __uint_as_float(big[q]));
     }
 #pragma unroll
-    for (int i = 0; i < TM; ++i) epi(rg * TM + i, cg * 4, acc[i]);
+    for (int j = 0; j < NW; ++j) {
+      mma_tf32(acc[i][j], sml, b[j].x, b[j].y);   // a_s b_b
+      mma_tf32(acc[i][j], big, b[j].z, b[j].w);   // a_b b_s
+      mma_tf32(acc[i][j], big, b[j].x, b[j].y);   // a_b b_b
+    }
+  }
+}
+
+// A weight product on the tensor cores in 3xTF32. For every row < M and
+// every column pair (col, col+1) of the NTL n-tiles (8 columns each) at Bf:
+//   epi(row, col, sum_k A[row][k] W[k][col], sum_k A[row][k] W[k][col+1])
+// over the KS k-steps (8 rows of W each) at Bf. A [M][lda] is in
+// shared memory. W [K, N] comes packed by the wrapper as float4 {b0 big, b1
+// big, b0 small, b1 small} at [(nt * KT + kt) * 32 + lane], KT = K/8, lane
+// (g, t) holding W[8kt+t][8nt+g] and W[8kt+t+4][8nt+g]; Bf points at the
+// first (n-tile, k-step).
+// Warp w owns the NW n-tiles of n-group w % NG (NG = NTL/NW) and the m16
+// row tiles of m-group w / NG (the 16 warps split the rows when NG < 16),
+// MW row tiles at a time. The k loop runs outside the row tiles, so each
+// fragment of W is loaded once for all of them (the loop is unrolled by two,
+// so two k-steps' loads are in flight), and each split A fragment serves NW
+// n-tiles.
+// A pass always computes MW row tiles, without a branch in the k loop: a
+// row past M (the last tile's second half at T = 100, or a tile past the
+// m-group's) reads row M-1 instead, which stays inside A, and is never
+// passed to epi (a row of the product depends only on its own row of A).
+// k runs in order (no atomics).
+template <int NW, int MW, class Epi>
+__device__ __forceinline__ void mma_rows(const float* A, int lda, int M,
+                                         const float4* __restrict__ Bf, int KT,
+                                         int KS, int NTL, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int NG = NTL / NW, MG = NG >= NWARP ? 1 : NWARP / NG;
+  if (warp >= NG * MG) return;
+  const int ng = warp % NG, mg = warp / NG;
+  const int MT = (M + 15) >> 4, per = (MT + MG - 1) / MG;
+  const int m_end = min(MT, (mg + 1) * per);
+  const float4* bw = Bf + (size_t)ng * NW * KT * 32 + lane;
+  for (int m0 = mg * per; m0 < m_end; m0 += MW) {
+    int ro[MW][2];
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ro[i][h] = min((m0 + i) * 16 + g + 8 * h, M - 1) * lda + t;
+    float acc[MW][NW][4];
+#pragma unroll
+    for (int i = 0; i < MW; ++i)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+        acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+#pragma unroll 2
+    for (int ks = 0; ks < KS; ++ks) {
+      float4 b[NW];
+#pragma unroll
+      for (int j = 0; j < NW; ++j) b[j] = __ldg(bw + ((size_t)j * KT + ks) * 32);
+      mma_kstep(acc, A + ks * 8, ro, b);
+    }
+#pragma unroll
+    for (int i = 0; i < MW; ++i) {
+      const int r = (m0 + i) * 16 + g;
+      if (m0 + i >= m_end) break;
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int col = (ng * NW + j) * 8 + 2 * t;
+        if (r < M) epi(r, col, acc[i][j][0], acc[i][j][1]);
+        if (r + 8 < M) epi(r + 8, col, acc[i][j][2], acc[i][j][3]);
+      }
+    }
   }
 }
 
@@ -195,6 +293,7 @@ struct Smem {
 __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
                                   int H) {
   const int ld = H + 4, Tld = (T + 3) & ~3, heads = H / HD;
+  const int KT = H / 8;   // k-steps of a product over H (n-tiles of one over H)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* s = m.s;
   float* qh = m.area;
@@ -208,13 +307,12 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
   for (int h = 0; h < heads; ++h) {
     // q | k | v of head h, all rows: nrm [Tp,H] x wqkv[:, h*96 .. h*96+95]
     const float* bq = w.bqkv + h * 3 * HD;
-    gemm_rows(m.nrm, ld, w.wqkv + h * 3 * HD, 3 * H, Tp, H, 3 * HD,
-              [&](int row, int col, const float (&acc)[4]) {
-                float* dst = qh + (col / HD) * Tp * HDP + row * HDP + col % HD;
-                *reinterpret_cast<float4*>(dst) = make_float4(
-                    acc[0] + __ldg(bq + col), acc[1] + __ldg(bq + col + 1),
-                    acc[2] + __ldg(bq + col + 2), acc[3] + __ldg(bq + col + 3));
-              });
+    mma_rows<3, 2>(m.nrm, ld, Tp, w.wqkv_f + (size_t)h * 12 * KT * 32, KT, KT,
+                   12, [&](int row, int col, float v0, float v1) {
+                     float* dst = qh + (col / HD) * Tp * HDP + row * HDP + col % HD;
+                     *reinterpret_cast<float2*>(dst) =
+                         make_float2(v0 + __ldg(bq + col), v1 + __ldg(bq + col + 1));
+                   });
     __syncthreads();
 
     for (int r0 = 0; r0 < Tp; r0 += QC) {
@@ -278,16 +376,14 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
     // s += o_h [Tp,32] x wo[h*32 .. h*32+31, :] (+ bo with the first head)
     const float* bo = w.bo;
     const bool first = h == 0;
-    gemm_rows(qh, HDP, w.wo + (size_t)h * HD * H, H, Tp, HD, H,
-              [&](int row, int col, const float (&acc)[4]) {
-                float4* dst = reinterpret_cast<float4*>(s + row * ld + col);
-                float4 v = *dst;
-                v.x += first ? acc[0] + __ldg(bo + col) : acc[0];
-                v.y += first ? acc[1] + __ldg(bo + col + 1) : acc[1];
-                v.z += first ? acc[2] + __ldg(bo + col + 2) : acc[2];
-                v.w += first ? acc[3] + __ldg(bo + col + 3) : acc[3];
-                *dst = v;
-              });
+    mma_rows<4, 2>(qh, HDP, Tp, w.wo_f + (size_t)h * (HD / 8) * 32, KT, HD / 8,
+                   KT, [&](int row, int col, float v0, float v1) {
+                     float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
+                     float2 v = *dst;
+                     v.x += first ? v0 + __ldg(bo + col) : v0;
+                     v.y += first ? v1 + __ldg(bo + col + 1) : v1;
+                     *dst = v;
+                   });
     __syncthreads();
   }
 
@@ -298,27 +394,23 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
   constexpr int ldh = CC + 4;
   for (int c0 = 0; c0 < 4 * H; c0 += CC) {
     const float* b1 = w.b1 + c0;
-    gemm_rows(m.nrm, ld, w.w1 + c0, 4 * H, Tp, H, CC,
-              [&](int row, int col, const float (&acc)[4]) {
-                *reinterpret_cast<float4*>(h1 + row * ldh + col) = make_float4(
-                    gelu_tanh(acc[0] + __ldg(b1 + col)),
-                    gelu_tanh(acc[1] + __ldg(b1 + col + 1)),
-                    gelu_tanh(acc[2] + __ldg(b1 + col + 2)),
-                    gelu_tanh(acc[3] + __ldg(b1 + col + 3)));
-              });
+    mma_rows<4, 2>(m.nrm, ld, Tp, w.w1_f + (size_t)(c0 / 8) * KT * 32, KT, KT,
+                   CC / 8, [&](int row, int col, float v0, float v1) {
+                     *reinterpret_cast<float2*>(h1 + row * ldh + col) =
+                         make_float2(gelu_tanh(v0 + __ldg(b1 + col)),
+                                     gelu_tanh(v1 + __ldg(b1 + col + 1)));
+                   });
     __syncthreads();
     const float* b2 = w.b2;
     const bool first = c0 == 0;
-    gemm_rows(h1, ldh, w.w2 + (size_t)c0 * H, H, Tp, CC, H,
-              [&](int row, int col, const float (&acc)[4]) {
-                float4* dst = reinterpret_cast<float4*>(s + row * ld + col);
-                float4 v = *dst;
-                v.x += first ? acc[0] + __ldg(b2 + col) : acc[0];
-                v.y += first ? acc[1] + __ldg(b2 + col + 1) : acc[1];
-                v.z += first ? acc[2] + __ldg(b2 + col + 2) : acc[2];
-                v.w += first ? acc[3] + __ldg(b2 + col + 3) : acc[3];
-                *dst = v;
-              });
+    mma_rows<4, 2>(h1, ldh, Tp, w.w2_f + (size_t)(c0 / 8) * 32, 4 * KT, CC / 8,
+                   KT, [&](int row, int col, float v0, float v1) {
+                     float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
+                     float2 v = *dst;
+                     v.x += first ? v0 + __ldg(b2 + col) : v0;
+                     v.y += first ? v1 + __ldg(b2 + col + 1) : v1;
+                     *dst = v;
+                   });
     __syncthreads();
   }
 }
@@ -424,6 +516,16 @@ fused_attention_gate_kernel(const float* __restrict__ x,
   }
 }
 
+// out[i] = x[i] rounded to TF32 by cvt.rna.tf32.f32 (exact = 1) or by the
+// kernel's tf32_round (exact = 0), for the checks that the wrapper's packing
+// and the kernel's split of A both round as cvt.rna.tf32.f32 does
+__global__ void tf32_round_kernel(const float* __restrict__ x,
+                                  float* __restrict__ out, int n, int exact) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n)
+    out[i] = __uint_as_float(exact ? tf32_rna(x[i]) : tf32_round(x[i]));
+}
+
 }  // namespace
 
 static int padded_rows(int T) { return (T + TM - 1) / TM * TM; }
@@ -441,9 +543,10 @@ extern "C" long long shm_fused_attention_smem_bytes(int T, int H) {
          (2 * Tp * (H + 4) + SMALL + (attn > mlp ? attn : mlp));
 }
 
-// C entry for ctypes. `w` holds NUM_W = 64 device pointers: the encoder stack
+// C entry for ctypes. `w` holds NUM_W = 80 device pointers: the encoder stack
 // (in_w in_b, then per layer ln1s ln1b wqkv bqkv wo bo ln2s ln2b w1 b1 w2 b2
-// for LMAX = 2 layers, then final-norm scale and bias), ln_scale ln_bias mu_w
+// and the fragments of wqkv wo w1 w2 (mma_rows; 16-byte aligned) for LMAX = 2
+// layers, then final-norm scale and bias), ln_scale ln_bias mu_w
 // mu_b z2h_w z2h_b, the decoder stack in the same order, out_w out_b
 // (pointers of an absent layer or LayerNorm may be null). `pos` is the
 // [T, H] position table. Returns cudaErrorInvalidValue for a shape the kernel
@@ -466,9 +569,13 @@ extern "C" int shm_fused_attention_gate_f32(
     s.in_b = *p++;
     for (int l = 0; l < LMAX; ++l) {
       BlockW& b = s.layer[l];
-      b.ln1s = *p++; b.ln1b = *p++; b.wqkv = *p++; b.bqkv = *p++;
-      b.wo = *p++; b.bo = *p++; b.ln2s = *p++; b.ln2b = *p++;
-      b.w1 = *p++; b.b1 = *p++; b.w2 = *p++; b.b2 = *p++;
+      // wqkv, wo, w1 and w2 as given [in, out] are the plain version's; the
+      // kernel reads their fragments
+      b.ln1s = *p++; b.ln1b = *p++; p++; b.bqkv = *p++;
+      p++; b.bo = *p++; b.ln2s = *p++; b.ln2b = *p++;
+      p++; b.b1 = *p++; p++; b.b2 = *p++;
+      auto frag = [&] { return reinterpret_cast<const float4*>(*p++); };
+      b.wqkv_f = frag(); b.wo_f = frag(); b.w1_f = frag(); b.w2_f = frag();
     }
     s.fs = *p++;
     s.fb = *p++;
@@ -485,6 +592,39 @@ extern "C" int shm_fused_attention_gate_f32(
   fused_attention_gate_kernel<<<N, NT, smem_bytes,
                                 reinterpret_cast<cudaStream_t>(stream)>>>(
       x, pos, resid, mse, W, T, Tp, D, H, Z, L, use_ln, with_resid);
+  return (int)cudaGetLastError();
+}
+
+// out = registers a thread, local memory (spill) bytes a thread, threads a
+// block, dynamic shared bytes a block at (T, H), blocks an SM at once.
+extern "C" int shm_fused_attention_info(int T, int H, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fused_attention_gate_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int smem_bytes = (int)shm_fused_attention_smem_bytes(T, H);
+  err = cudaFuncSetAttribute(fused_attention_gate_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fused_attention_gate_kernel, NT, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = NT;
+  out[3] = smem_bytes;
+  out[4] = blocks;
+  return 0;
+}
+
+// out[i] = x[i] rounded to TF32 by cvt.rna.tf32.f32 (exact = 1) or by the
+// kernel's own split of A (exact = 0)
+extern "C" int shm_tf32_round(const float* x, float* out, int n, int exact,
+                              void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  tf32_round_kernel<<<(n + 255) / 256, 256, 0,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(x, out, n, exact);
   return (int)cudaGetLastError();
 }
 

@@ -13,6 +13,11 @@ a ``TemporalVAE(cell="attention")``.
   PyTorch version of the same arithmetic, which the tests hold against the
   JAX kernel and ``chip_smoke.py`` holds the CUDA kernel against.
 
+The kernel computes its four weight products (QKV, output projection, the
+MLP's two) on the tensor cores in 3xTF32. It reads those weights as TF32
+fragments that :func:`attention_params_to_kernel_weights` packs once
+(:func:`tf32x3_fragments`); the plain version reads them as given.
+
 The kernel keeps one window's whole pass in a block's shared memory, so the
 window length it takes depends on the width: :func:`shared_memory_bytes` adds
 the buffers up from (T, H) and the wrapper raises ``ValueError``, before any
@@ -49,8 +54,9 @@ _TM, _QC, _SMALL = 8, 32, 512
 _MLP_CHUNK = 128             # divides 4H for every H the kernel takes
 SMEM_LIMIT = 232_448         # bytes of shared memory one block may use (H100)
 
-_BLOCK_KEYS = ("ln1_s", "ln1_b", "wqkv", "bqkv", "wo", "bo", "ln2_s", "ln2_b",
-               "w1", "b1", "w2", "b2")
+_PRODUCTS = ("wqkv", "wo", "w1", "w2")      # the kernel's tensor-core products
+_BLOCK_KEYS = (("ln1_s", "ln1_b", "wqkv", "bqkv", "wo", "bo", "ln2_s", "ln2_b",
+                "w1", "b1", "w2", "b2") + tuple(f"{k}_frag" for k in _PRODUCTS))
 
 
 def _stack_order(p: str):
@@ -67,6 +73,37 @@ _WEIGHT_ORDER = tuple(
     + _stack_order("dec") + ["out_w", "out_b"])
 
 
+def tf32_round(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (float32) rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, kept in float32 with the low 13 bits zero: what
+    ``cvt.rna.tf32.f32`` gives on the card."""
+    bits = w.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32x3_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A weight ``w`` [K, N] (K, N multiples of 8) as the kernel's 3xTF32 B
+    fragments [N/8, K/8, 32, 4]: for n-tile nt, k-step kt and lane
+    (g = lane // 4, t = lane % 4) the float4 {b0 big, b1 big, b0 small,
+    b1 small} with b0 = w[8kt + t, 8nt + g], b1 = w[8kt + t + 4, 8nt + g],
+    big = :func:`tf32_round` (w) and small = :func:`tf32_round` (w - big)."""
+    K, N = w.shape
+    big = tf32_round(w)
+    small = tf32_round(w - big)
+    # [kt, half, t, nt, g] -> [nt, kt, g, t, half]; w[8kt + 4half + t, 8nt + g]
+    frag = lambda x: x.reshape(K // 8, 2, 4, N // 8, 8).permute(3, 0, 4, 2, 1)
+    return torch.stack([frag(big), frag(small)], dim=-2).reshape(
+        N // 8, K // 8, 32, 4).contiguous()
+
+
+def unpack_fragments(f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) [K, N] from fragments made by :func:`tf32x3_fragments`."""
+    NT, KT = f.shape[:2]
+    x = f.reshape(NT, KT, 8, 4, 2, 2).permute(4, 1, 5, 3, 0, 2)
+    x = x.reshape(2, 8 * KT, 8 * NT)
+    return x[0], x[1]
+
+
 def attention_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
     """The kernel's weight dict from a ``cell="attention"``
     :class:`TemporalVAE`, on its device. Matmul weights are [in, out], biases
@@ -74,7 +111,9 @@ def attention_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tens
     and ``*_bqkv`` [3H] are packed per head (columns ``h*96 .. h*96+95`` hold
     q | k | v of head h), with the query's ``1/sqrt(head_dim)`` folded into
     its weight AND its bias: the model scales the biased projection, so the
-    folding is exact."""
+    folding is exact. Each of the four products' weights (``*_wqkv``,
+    ``*_wo``, ``*_w1``, ``*_w2``) also comes as ``*_frag``, its
+    :func:`tf32x3_fragments`, which is what the kernel reads."""
     if vae.cell != "attention":
         raise ValueError(f"expected a cell='attention' VAE, got {vae.cell!r}")
     w = {}
@@ -105,6 +144,8 @@ def attention_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tens
             w[f"{p}{l}_b1"] = f32(blk.mlp_in.bias)
             w[f"{p}{l}_w2"] = f32(blk.mlp_out.weight.t())
             w[f"{p}{l}_b2"] = f32(blk.mlp_out.bias)
+            for k in _PRODUCTS:
+                w[f"{p}{l}_{k}_frag"] = tf32x3_fragments(w[f"{p}{l}_{k}"])
         w[f"{p}_fn_s"] = f32(stack.final_norm.weight)
         w[f"{p}_fn_b"] = f32(stack.final_norm.bias)
     if vae.layer_norm is not None:
@@ -202,6 +243,12 @@ def _check(weights, Z, num_layers, use_layernorm):
             if not (k[3:4].isdigit() and int(k[3]) >= num_layers)
             and (use_layernorm or not k.startswith("ln_"))]
     check_weights(weights, need, Z.device)
+    for k in need:
+        if k.endswith("_frag"):
+            K, N = weights[k[:-len("_frag")]].shape
+            if weights[k].shape != (N // 8, K // 8, 32, 4):
+                raise ValueError(f"weight {k} {tuple(weights[k].shape)} is not "
+                                 f"the fragments of a [{K}, {N}] weight")
     return need, H, Zd
 
 
@@ -216,7 +263,43 @@ def _library() -> ctypes.CDLL:
                    + [ctypes.c_void_p])
     lib.shm_fused_attention_smem_bytes.restype = ctypes.c_longlong
     lib.shm_fused_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.shm_fused_attention_info.restype = ctypes.c_int
+    lib.shm_fused_attention_info.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.shm_tf32_round.restype = ctypes.c_int
+    lib.shm_tf32_round.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     return lib
+
+
+def kernel_info(T: int, H: int) -> dict:
+    """How the card takes the kernel for a window of T steps at width H:
+    registers and local-memory (spill) bytes a thread, threads and dynamic
+    shared bytes a block, blocks an SM at once."""
+    shared_memory_bytes(T, H)
+    lib = _library()
+    out = (ctypes.c_int * 5)()
+    raise_on_error(lib, lib.shm_fused_attention_info(T, H, out),
+                   "fused_attention_gate info")
+    return dict(zip(("registers", "spill_bytes", "threads", "shared_bytes",
+                     "blocks_per_sm"), out))
+
+
+def tf32_round_on_card(x: torch.Tensor, exact: bool = True) -> torch.Tensor:
+    """``x`` (contiguous float32, on the card) rounded to TF32 on the card:
+    by ``cvt.rna.tf32.f32`` (``exact``), which :func:`tf32_round` must equal
+    bit for bit, or by the integer rounding the kernel splits its
+    activations with (``exact=False``), which must equal it too."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32 CUDA tensor")
+    out = torch.empty_like(x)
+    if x.numel():
+        lib = _library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.shm_tf32_round(x.data_ptr(), out.data_ptr(), x.numel(),
+                                     int(exact), stream)
+        raise_on_error(lib, err, "tf32_round")
+    return out
 
 
 @functools.lru_cache(maxsize=16)
@@ -266,4 +349,6 @@ fused_attention_gate.launches = 0
 
 
 __all__ = ["fused_attention_gate", "fused_attention_gate_reference",
-           "attention_params_to_kernel_weights", "shared_memory_bytes"]
+           "attention_params_to_kernel_weights", "shared_memory_bytes",
+           "kernel_info", "tf32_round", "tf32_round_on_card",
+           "tf32x3_fragments", "unpack_fragments"]

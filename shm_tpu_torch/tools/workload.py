@@ -33,6 +33,7 @@ ROOT_4DOF = Path(__file__).resolve().parents[2] / "data" / "4dof"
 # 700 W power limit)
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12        # bf16 on the tensor cores
+PEAK_TF32_FLOPS = 495e12        # TF32 on the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
 N_SMS = 132
 
@@ -91,5 +92,6 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
 
 
 __all__ = ["TrainedWorkload", "load_trained_workload", "timed", "bound_ms",
-           "ROOT_4DOF", "PEAK_F32_FLOPS", "PEAK_BF16_FLOPS", "PEAK_BYTES",
+           "ROOT_4DOF", "PEAK_F32_FLOPS", "PEAK_BF16_FLOPS", "PEAK_TF32_FLOPS",
+           "PEAK_BYTES",
            "N_SMS"]

@@ -137,7 +137,7 @@ def test_kernel_weights_layout_and_query_scale():
     assert all(t.is_contiguous() and t.dtype == torch.float32
                for t in w.values())
     order = fused_attention_mod._WEIGHT_ORDER
-    assert set(w) == set(order) and len(order) == 64     # NUM_W of the C entry
+    assert set(w) == set(order) and len(order) == 80     # NUM_W of the C entry
 
 
 def test_kernel_weights_need_an_attention_model_with_heads_of_32():

@@ -286,6 +286,12 @@ GATE_CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
     "1dof_H32_noln": (33, 80, 12, 5, 32, 2, False, True),
     "gate_only": (50, 30, 12, 16, 128, 2, True, False),
     "one_window": (1, 17, 12, 16, 64, 2, True, True),
+    # ragged row tiles of the attention kernel's tensor-core products (T not
+    # a multiple of 16), the longest window it takes at H=128, H=64 with L=1
+    "T7_H32": (21, 7, 12, 5, 32, 2, True, True),
+    "T130_H32": (17, 130, 5, 4, 32, 2, True, True),
+    "T136_H128": (19, 136, 12, 16, 128, 2, True, True),
+    "H64_L1": (23, 100, 12, 16, 64, 1, True, True),
 }
 
 
@@ -333,10 +339,11 @@ def test_fused_cell_gate_kernel_matches_plain_version(cuda_device, cell, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["1dof_H32_noln", "4dof_ragged"])
 @pytest.mark.parametrize("cell", ["min_gru", "attention"])
-def test_fused_cell_gate_kernel_is_reproducible_and_takes_no_windows(cuda_device, cell):
+def test_fused_cell_gate_kernel_is_reproducible_and_takes_no_windows(cuda_device, cell, name):
     weights_fn, gate, _ = _gate(cell)
-    vae, Z, kw = _gate_case(cell, GATE_CASES["1dof_H32_noln"], cuda_device, 3)
+    vae, Z, kw = _gate_case(cell, GATE_CASES[name], cuda_device, 3)
     w = weights_fn(vae)
     a, b = gate(w, Z, **kw), gate(w, Z, **kw)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])   # no atomics
@@ -393,6 +400,53 @@ def test_fused_attention_wrapper_counts_the_kernels_shared_memory(cuda_device, T
 
     assert (fused_attention._library().shm_fused_attention_smem_bytes(T, H)
             == fused_attention.shared_memory_bytes(T, H))
+
+
+# bytes of local memory (spills) a thread the attention kernel may use:
+# ptxas reported 128-232 B for the versions measured (PERF.md §6)
+SPILL_GUARD = 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 64, 128])
+def test_fused_attention_packing_rounds_as_the_kernel(cuda_device, H):
+    """The wrapper's TF32 split of the weights (plain PyTorch) equals the
+    kernel's own cvt.rna.tf32.f32, bit for bit, big and small parts."""
+    from shm_tpu_torch.ops.fused_attention import (
+        tf32_round_on_card, unpack_fragments,
+    )
+
+    vae, _, _ = _gate_case("attention", (1, 8, 12, 16, H, 2, True, True),
+                           cuda_device, H)
+    w = _gate("attention")[0](vae)
+    for k in [k for k in w if k.endswith("_frag")]:
+        src = w[k[:-len("_frag")]]
+        big, small = unpack_fragments(w[k])
+        assert torch.equal(big, tf32_round_on_card(src))
+        assert torch.equal(small, tf32_round_on_card((src - big).contiguous()))
+    # the kernel splits its activations with integer operations: the same
+    # bits as cvt.rna.tf32.f32 on wide-ranging values and on planted ties
+    rng = np.random.default_rng(H)
+    x = rng.normal(size=100_000) * np.exp(rng.uniform(-30, 30, size=100_000))
+    ties = (rng.integers(0, 2 ** 31, size=1000) & ~0x1FFF | 0x1000).astype(np.uint32)
+    x = torch.cat([torch.from_numpy(x.astype(np.float32)),
+                   torch.from_numpy(ties.view(np.float32)).nan_to_num(0.0)]).to(cuda_device)
+    assert torch.equal(tf32_round_on_card(x, exact=False), tf32_round_on_card(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, H", [(100, 128), (136, 128), (208, 64), (268, 32)])
+def test_fused_attention_kernel_fits_the_card(cuda_device, T, H):
+    """One block of 512 threads an SM at every width's longest window, its
+    shared memory as the wrapper counts it. At 128 registers a thread the
+    kernel spills a little outside its k loops (chip_smoke.py prints how
+    much); SPILL_GUARD catches a change that spills far more."""
+    from shm_tpu_torch.ops.fused_attention import kernel_info, shared_memory_bytes
+
+    info = kernel_info(T, H)
+    assert info["threads"] == 512 and info["blocks_per_sm"] >= 1
+    assert info["shared_bytes"] == shared_memory_bytes(T, H)
+    assert info["registers"] <= 128 and info["spill_bytes"] <= SPILL_GUARD
 
 
 @pytest.mark.cuda
