@@ -18,7 +18,13 @@ Phases (any failure exits non-zero before the final line):
 4. timings at bench.py's 5,440-window workload, per family: kernel, plain
    version, the operation/byte bound, a library yardstick (cuDNN ``nn.LSTM``;
    ``torch.matmul`` with a log-depth scan; ``scaled_dot_product_attention``),
-   and ``score()`` windows/s end to end; for the attention kernel also its
+   and ``score()`` windows/s end to end; for the LSTM kernel also its
+   registers, spills and shared bytes a block at each width, its instances'
+   HMMA and FFMA counts (``cuobjdump -sass``), the 3xTF32 tensor-core bound
+   of its gate products, and on the real windows the largest relative mse
+   difference from the plain version, held to ``LSTM_MSE_RTOL`` (beside the
+   tensor-core body's other sums and the float32 FMA body, each timed; the
+   one-term instance must fail it); for the attention kernel also its
    registers, spills, threads and shared bytes a block, its packed TF32
    weights and its split of activations against ``cvt.rna.tf32.f32`` on the
    card (bit for bit), and the 3xTF32 tensor-core bound of its four weight
@@ -44,14 +50,17 @@ Phases (any failure exits non-zero before the final line):
 8. timings of the four kernels and of one training step (kernel path, plain
    autograd path, a cuDNN ``nn.LSTM`` yardstick), their bounds, and where a
    step's time goes; with ``--parent DIR`` (another checkout of the
-   repository, e.g. the parent commit unpacked), also rows 2-5 and 7 of that
-   tree on this card, in turns with this tree's, its gradients against this
-   tree's on the same inputs and its row-7 mse against this tree's;
+   repository, e.g. the parent commit unpacked), also rows 1-5 and 7 of that
+   tree on this card (rows 1 and 7 at 5,440 windows and at the 8,192
+   bucket), in turns with this tree's, its gradients against this tree's on
+   the same inputs and its row-1 and row-7 mse against this tree's;
 9. the probes (``shm_tpu_torch/tools``): each of the three probe kernels
    against its plain version (``matmul_loop`` in every mode at one tile and
    at 21, bf16x3 also against the float32 loop; ``gate_variant``'s variants
-   at N=1000 ragged, and its float32 instance against ``fused_vae_gate`` bit
-   for bit; the minGRU clone at ``loop_T`` T and 1), with planted faults
+   at N=1000 ragged, its float32 FMA instance A against its plain version
+   and its shipping tensor-core instance T against ``fused_vae_gate`` bit
+   for bit;
+   the minGRU clone at ``loop_T`` T and 1), with planted faults
    (float32 for bf16, another LayerNorm eps, bf16 activations added) that
    each tolerance must fail; then the probe path: the three probes' tables
    at the TPU probes' sizes (launch counts reset before, read after), and
@@ -93,6 +102,14 @@ REPS = 7
 # expf/tanhf through 2*T steps in both directions; |kernel - plain| must stay
 # within GRAD_ATOL_REL * max|plain| + RTOL * |plain| elementwise
 GRAD_ATOL_REL = 2e-4
+# row 1 (the LSTM gate) against its plain version on the 5,440 real windows,
+# on the largest relative mse difference: ATOL and RTOL let pass a gate whose
+# products keep one TF32 term, so row 1 is also held to LSTM_MSE_RTOL. Over
+# the 3,636 test windows the CPU model of the kernel's sums
+# (tests/test_torch_vae_gate_tf32.py) reads 7.8e-7 for the shipped sum,
+# 9.9e-6 for a sum chained through every mma, 9.7e-5 for one TF32 term; the
+# one-term instance must fail the bound on the card (PERF.md §6)
+LSTM_MSE_RTOL = 5e-6
 TRAIN_EPOCHS = 8
 
 
@@ -176,6 +193,107 @@ def attention_dense_flops(N: int, T: int, H: int, L: int) -> float:
     tensor cores."""
     return float(N * 2 * L * (2 * T * H * 3 * H + 2 * T * H * H
                               + 2 * 2 * T * H * 4 * H))
+
+
+def lstm_gate_flops(N: int, T: int, D: int, H: int, L: int) -> float:
+    """The part of ``vae_work`` in the LSTM gate products of both stacks
+    (each step's x_t W0i, h W_hh and h0 W1i, and the decoder's
+    once-per-window input projection), which the kernel runs in 3xTF32 on
+    the tensor cores."""
+    G = 4 * H
+    enc = T * sum(2 * G * ((D if l == 0 else H) + H) for l in range(L))
+    dec = 2 * G * H + T * (2 * G * H + (L - 1) * 2 * G * 2 * H)
+    return float(N * (enc + dec))
+
+
+def sass_counts(name: str, marker: str) -> dict:
+    """{kernel function of the built library ``name`` whose symbol holds
+    ``marker``: (HMMA, FFMA) instruction counts} from ``cuobjdump -sass``."""
+    import shutil
+
+    from shm_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    listing = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                             capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+    counts, fn = {}, None
+    for line in listing.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            if marker in fn:
+                counts[fn] = [0, 0]
+        elif fn in counts:
+            op = line.split("*/")[1].split() if "*/" in line else []
+            op = [t for t in op if not t.startswith("@")][:1]
+            if op and op[0].startswith("HMMA"):
+                counts[fn][0] += 1
+            elif op and op[0].startswith("FFMA"):
+                counts[fn][1] += 1
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def phase_lstm_kernel(w, Z, mse_k, mse_p, T: int, D: int, H: int, L: int) -> dict:
+    """How the card takes the LSTM gate kernel (registers, spills, threads,
+    shared bytes and windows a block, blocks an SM) at every width it takes;
+    what its instances run (HMMA and FFMA counts in SASS); the 3xTF32
+    tensor-core bound of its gate products; and on the real windows ``Z``,
+    the tensor-core body's three sums and the float32 FMA body each against
+    the plain version ``mse_p`` (time and largest relative mse difference):
+    the kernel's ``mse_k`` must stay within LSTM_MSE_RTOL, which the one-term
+    instance must fail."""
+    import torch
+
+    from shm_tpu_torch.ops.fused_vae import kernel_info
+    from shm_tpu_torch.tools.probe_vpu_bound import (
+        A_F32, SHIP_TC, TC_SUMS, gate_variant,
+    )
+    from shm_tpu_torch.tools.workload import PEAK_F32_FLOPS, PEAK_TF32_FLOPS
+
+    tag = "[lstm]"
+    N = Z.shape[0]
+    for h_ in (32, 64, 128):
+        info = kernel_info(T, h_, L)
+        print(f"{tag} kernel at T={T} H={h_} L={L}: {info['registers']} registers "
+              f"and {info['spill_bytes']} B of local memory (spills) a thread, "
+              f"{info['threads']} threads, {info['windows_per_block']} windows and "
+              f"{info['shared_bytes']} B of shared memory a block, "
+              f"{info['blocks_per_sm']} block(s) an SM")
+        check(info["blocks_per_sm"] >= 1, f"the LSTM gate kernel does not fit "
+                                          f"an SM at H={h_}")
+    counts = sass_counts("fused_vae", "fused_vae_")
+    for fn, (hmma, ffma) in sorted(counts.items()):
+        print(f"{tag} SASS {fn}: {hmma} HMMA, {ffma} FFMA")
+    # the shipping instances: fused_vae_tc_kernel<H, 2, TC_SPLIT = 1>
+    ship = [fn for fn in counts if any(
+        f"fused_vae_tc_kernelILi{h_}ELi2ELi1EE" in fn for h_ in (32, 64, 128))]
+    check(len(ship) == 3 and all(counts[fn][0] > 0 for fn in ship),
+          f"the shipping instances run no HMMA: {ship}")
+    dense = lstm_gate_flops(N, T, D, H, L)
+    tc_ms = 3 * dense / PEAK_TF32_FLOPS * 1e3
+    print(f"{tag} gate products at N={N}: {dense / 1e9:.2f} GFLOP -> 3xTF32 "
+          f"tensor-core bound {tc_ms:.4f} ms (3 x {PEAK_TF32_FLOPS / 1e12:g} "
+          f"TFLOP/s TF32), f32 FMA-pipe bound {dense / PEAK_F32_FLOPS * 1e3:.4f} ms")
+
+    rel = lambda m: float(((m - mse_p).abs() / mse_p.abs()).max())
+    got = {}
+    for name, kw in [("A (float32 FMA)", A_F32)] + [
+            (f"tc={s!r}", dict(A_F32, tc=s)) for s in TC_SUMS]:
+        got[name] = gate_variant(w, Z, **kw)
+        ms = time_ms(lambda: gate_variant(w, Z, **kw))
+        print(f"{tag} probe instance {name} at N={N}: {ms:.4f} ms, largest "
+              f"relative mse diff against the plain version {rel(got[name]):.3e}")
+    check(torch.equal(got[f"tc={SHIP_TC!r}"], mse_k),
+          "the probe's shipping tensor-core instance is not fused_vae_gate")
+    r_k, r_1 = rel(mse_k), rel(got["tc='one_term'"])
+    print(f"{tag} kernel vs plain, largest relative mse diff {r_k:.3e} (<= "
+          f"{LSTM_MSE_RTOL:g}); planted fault, the one-term instance: {r_1:.3e} "
+          f"-> {'caught' if r_1 > LSTM_MSE_RTOL else 'MISSED'}")
+    check(r_k <= LSTM_MSE_RTOL, f"row 1 is {r_k:.3e} from its plain version "
+                                f"(relative mse), past {LSTM_MSE_RTOL:g}")
+    check(r_1 > LSTM_MSE_RTOL, f"LSTM_MSE_RTOL {LSTM_MSE_RTOL:g} does not tell the "
+                               f"one-term instance ({r_1:.3e})")
+    return {"bound_3xtf32_ms": tc_ms}
 
 
 def phase_attention_kernel(w, N: int, T: int, H: int, L: int) -> dict:
@@ -589,9 +707,15 @@ def phase_timing(scorer, W, cell: str = "lstm"):
     torch.cuda.synchronize()
     print(f"{tag} kernel vs plain at N={N} (trained weights, real windows):")
     err = max(compare("mse", mse_k, mse_p), compare("resid", resid_k, resid_p))
+    print(f"{tag} max relative mse diff, kernel vs plain: "
+          f"{float(((mse_k - mse_p).abs() / mse_p.abs()).max()):.3e}")
     del resid_p
-    extra = (phase_attention_kernel(w, N, T, vae.hidden_dim, vae.num_layers)
-             if cell == "attention" else {})
+    extra = {}
+    if cell == "attention":
+        extra = phase_attention_kernel(w, N, T, vae.hidden_dim, vae.num_layers)
+    elif cell == "lstm":
+        extra = phase_lstm_kernel(w, Z, mse_k, mse_p, T, D, vae.hidden_dim,
+                                  vae.num_layers)
     library = LIBRARY_PASS[cell](vae)
     mse_c, _ = library(Z)
     print(f"{tag} {fam['library']} yardstick vs kernel: max |mse diff| "
@@ -1187,10 +1311,18 @@ def phase_lstm_timing(errs, counts, ctx):
     return rows
 
 
-def attention_row7():
-    """Row 7 of the importable tree: the trained VAE of this checkout's
-    ``data/4dof_attention`` through that tree's public calls, on the 3,636
-    committed test windows tiled to ``N_BENCH``. Returns (kernel ms, mse)."""
+# the gate rows that --child / --parent time: the trained VAE of this
+# checkout's root of the family (the committed test windows of data/4dof,
+# tiled), at bench.py's workload and at the 8,192-window bucket that score()
+# pads it to
+GATE_ROW_NS = (N_BENCH, 8192)
+
+
+def gate_row(cell: str):
+    """A gate row of the importable tree: the trained VAE of this checkout's
+    root of ``cell`` through that tree's public calls, on the 3,636 committed
+    test windows tiled to each of ``GATE_ROW_NS``. Returns ({N: kernel ms},
+    mse at ``N_BENCH``)."""
     import torch
 
     from shm_tpu_torch.cli.stage4dof import build_fraction_windows
@@ -1201,28 +1333,38 @@ def attention_row7():
     from shm_tpu_torch.utils.io import load_json
 
     cfg = Stage4DofConfig()
-    scorer = HybridScorer.from_artifacts(ROOT / "data" / "4dof_attention")
+    scorer = HybridScorer.from_artifacts(ROOT / FAMILIES[cell]["root"])
     # the runs' paths are relative to this checkout, not to the child tree
     splits = load_json(ROOT / "data" / "4dof" / "processed" / "run_splits.json")
     W = np.concatenate([build_fraction_windows(
         [str(ROOT / f) for f in splits[g]["files"]], cfg.test_frac, cfg)
         for g in ("normal", "sensor_fault", "structural_fault")])
-    Wb = np.resize(W, (N_BENCH,) + W.shape[1:]).astype(np.float32)
-    Z = normalize_windows(torch.from_numpy(Wb).cuda(), scorer.mean,
-                          scorer.std).contiguous()
-    weights_fn, gate, _ = FUSED_GATES["attention"]
+    weights_fn, gate, _ = FUSED_GATES[cell]
     w = weights_fn(scorer.vae)
     kw = dict(num_layers=scorer.vae.num_layers,
               use_layernorm=scorer.vae.use_layernorm)
-    mse = gate(w, Z, **kw)[0]
-    return time_ms(lambda: gate(w, Z, **kw)), mse.cpu()
+    ms, mse = {}, None
+    for n in GATE_ROW_NS:
+        Wb = np.resize(W, (n,) + W.shape[1:]).astype(np.float32)
+        Z = normalize_windows(torch.from_numpy(Wb).cuda(), scorer.mean,
+                              scorer.std).contiguous()
+        if n == N_BENCH:
+            mse = gate(w, Z, **kw)[0].cpu()
+        ms[n] = time_ms(lambda: gate(w, Z, **kw))
+    return ms, mse
+
+
+# the gate rows of --child / --parent: (cell, kernel name, row number)
+PARENT_GATE_ROWS = (("lstm", "fused_vae_gate", 1),
+                    ("attention", "fused_attention_gate", 7))
 
 
 def child(root: str, out: str) -> int:
     """Child mode (``--child ROOT OUT``): kernels of the tree at ROOT on this
     card, through its public calls only: the four LSTM kernels (the
     gradients of phase 6's 4DOF case and their ms at the 4DOF training
-    shape) and row 7 (``attention_row7``), saved to OUT with ``torch.save``."""
+    shape) and rows 1 and 7 (``gate_row``), saved to OUT with
+    ``torch.save``."""
     sys.path.insert(0, root)
     import torch
 
@@ -1241,23 +1383,30 @@ def child(root: str, out: str) -> int:
     dec = torch.autograd.grad((lstm2_dec_head(lv[0], c["dm_dec"], *lv[1:], T=T)
                                * c["R_dec"]).sum(), lv)
     ms = lstm_kernel_ms(lstm_case(300, T, 12, 128, 256, 0.3), T)
-    ms["fused_attention_gate"], attn_mse = attention_row7()
+    gate_mse = {}
+    for cell, name, _ in PARENT_GATE_ROWS:
+        by_n, gate_mse[name] = gate_row(cell)
+        ms[name] = by_n[N_BENCH]
+        for n, v in by_n.items():
+            if n != N_BENCH:
+                ms[f"{name} N={n}"] = v
     package = str(Path(shm_tpu_torch.__file__).parent)
     print(f"[child] {package}: " + ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
           + " ms")
-    torch.save(dict(package=package, ms=ms, attn_mse=attn_mse,
+    torch.save(dict(package=package, ms=ms, gate_mse=gate_mse,
                     enc=[g.cpu() for g in enc], dec=[g.cpu() for g in dec]), out)
     return 0
 
 
 def phase_parent(parent: str, rows) -> None:
-    """Rows 2-5 and 7 of the tree at ``parent`` (e.g. the parent commit,
+    """Rows 1-5 and 7 of the tree at ``parent`` (e.g. the parent commit,
     unpacked) and of this tree on this card, one child process each, in
-    turns parent, this, this, parent: their kernel ms side by side; the LSTM
-    gradients of the two trees on the same inputs (bit for bit, or within
-    the stated tolerance) and row 7's MSE (within the kernel tolerance of
-    the parent's; this tree's two runs bit for bit). Adds ``parent_ms``
-    (median of the parent's two runs) to those rows."""
+    turns parent, this, this, parent: their kernel ms side by side (rows 1
+    and 7 also at the 8,192 bucket); the LSTM gradients of the two trees on
+    the same inputs (bit for bit, or within the stated tolerance) and rows 1
+    and 7's MSE (within the kernel tolerance of the parent's; this tree's two
+    runs bit for bit). Adds ``parent_ms`` (median of the parent's two runs)
+    to those rows."""
     import tempfile
 
     import torch
@@ -1273,7 +1422,7 @@ def phase_parent(parent: str, rows) -> None:
             runs.append(torch.load(out))
             print(f"[parent] run {k}: {runs[-1]['package']}: " + ", ".join(
                 f"{n} {v:.4f}" for n, v in runs[-1]["ms"].items()) + " ms")
-    for name in list(LSTM_KERNELS) + ["fused_attention_gate"]:
+    for name in runs[0]["ms"]:
         par = [runs[0]["ms"][name], runs[3]["ms"][name]]
         new = [runs[1]["ms"][name], runs[2]["ms"][name]]
         print(f"[parent] {name}: parent {par[0]:.4f} / {par[1]:.4f} ms, this tree "
@@ -1288,12 +1437,14 @@ def phase_parent(parent: str, rows) -> None:
         compare_grads(f"{tag} this tree vs parent", runs[1][tag], runs[0][tag], names)
         check(all(torch.equal(a, b) for a, b in zip(runs[1][tag], runs[2][tag])),
               f"{tag}: two runs of this tree gave different gradients")
-    print(f"[parent] row 7 mse at N={N_BENCH}, this tree against the parent's:")
-    compare("fused_attention_gate mse, this tree vs parent", runs[1]["attn_mse"],
-            runs[0]["attn_mse"])
-    check(torch.equal(runs[1]["attn_mse"], runs[2]["attn_mse"]),
-          "row 7: two runs of this tree gave different mse")
-    print("[parent] row 7 mse of this tree's two runs: equal bit for bit")
+    for _, name, row in PARENT_GATE_ROWS:
+        new, par = runs[1]["gate_mse"][name], runs[0]["gate_mse"][name]
+        print(f"[parent] row {row} mse at N={N_BENCH}, this tree against the "
+              f"parent's:")
+        compare(f"{name} mse, this tree vs parent", new, par)
+        check(torch.equal(new, runs[2]["gate_mse"][name]),
+              f"row {row}: two runs of this tree gave different mse")
+        print(f"[parent] row {row} mse of this tree's two runs: equal bit for bit")
 
 
 # ---------------------------------------------------------------------------
@@ -1373,7 +1524,7 @@ def phase_probes_vs_plain():
         make_gate, mingru_gate_reference,
     )
     from shm_tpu_torch.tools.probe_vpu_bound import (
-        MODEL_LN_EPS, PORT_VARIANTS, VARIANTS, gate_variant,
+        A_F32, MODEL_LN_EPS, PORT_VARIANTS, SHIP_TC, VARIANTS, gate_variant,
         gate_variant_reference,
     )
 
@@ -1419,14 +1570,18 @@ def phase_probes_vs_plain():
             e = compare_rel(label, out[name], ref,
                             PROBE_TOL["gate_act_bf16" if kw.get("act_bf16") else "gate"])
         errs["fused_vae_probe"] = max(errs["fused_vae_probe"], e)
-    # float32 numerics and the model's eps: the shipping instance, bit for bit
-    a = gate_variant(w, Z, bf16="none", ln_eps=MODEL_LN_EPS)
+    # A, the float32 FMA instance, against the plain version; T, the
+    # tensor-core body at the model's eps, is the shipping kernel bit for bit
+    a = gate_variant(w, Z, **A_F32)
+    torch.cuda.synchronize()
+    errs["fused_vae_probe"] = max(errs["fused_vae_probe"], compare(
+        "gate_variant A (float32 FMA) N=1000", a, gate_variant_reference(w, Z, **A_F32)))
     ship = fused_vae_gate(w, Z, num_layers=2, use_layernorm=True,
                           with_residual=False)[0]
-    check(torch.equal(a, ship), "gate_variant(bf16='none', eps 1e-5) is not "
-                                "fused_vae_gate bit for bit")
-    print("[probe]   gate_variant(bf16='none', eps 1e-5) == fused_vae_gate, "
-          "bit for bit")
+    check(torch.equal(out["T_tensor_cores"], ship),
+          "gate_variant T (tc, eps 1e-5) is not fused_vae_gate bit for bit")
+    print(f"[probe]   gate_variant T (tc={SHIP_TC!r}, bf16='none', eps 1e-5) == "
+          "fused_vae_gate, bit for bit")
     planted_fault("gate_variant D held against float32 operands",
                   out["D_probe_baseline"], gate_variant_reference(w, Z, bf16="none"), tol)
     planted_fault("gate_variant D held against LayerNorm eps 1e-5",
@@ -1617,7 +1772,7 @@ def main(argv) -> int:
         if parent is not None:
             phase_parent(parent, lstm_rows + gate_rows)
         else:
-            print("[parent] no --parent DIR given: the parent tree's rows 2-5 "
+            print("[parent] no --parent DIR given: the parent tree's rows 1-5 "
                   "and 7 are not timed in this run")
         torch.cuda.empty_cache()
         probe_rows = phase_probe_path(phase_probes_vs_plain(), wl)

@@ -41,8 +41,9 @@ from shm_tpu_torch.models.attention import (
 )
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import load_library, raise_on_error
-from shm_tpu_torch.ops._gate import (
-    check_weights, check_windows, dispatch_gate, f32, pointer_array,
+from shm_tpu_torch.ops._gate import (  # noqa: F401  (the TF32 helpers re-exported)
+    check_fragments, check_weights, check_windows, dispatch_gate, f32,
+    pointer_array, tf32_round, tf32x3_fragments, unpack_fragments,
 )
 
 _H_MAX, _D_MAX, _Z_MAX, _L_MAX = 128, 128, 32, 2
@@ -71,37 +72,6 @@ _WEIGHT_ORDER = tuple(
     _stack_order("enc")
     + ["ln_scale", "ln_bias", "mu_w", "mu_b", "z2h_w", "z2h_b"]
     + _stack_order("dec") + ["out_w", "out_b"])
-
-
-def tf32_round(w: torch.Tensor) -> torch.Tensor:
-    """``w`` (float32) rounded to TF32 (10 mantissa bits) to nearest, ties
-    away from zero, kept in float32 with the low 13 bits zero: what
-    ``cvt.rna.tf32.f32`` gives on the card."""
-    bits = w.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32x3_fragments(w: torch.Tensor) -> torch.Tensor:
-    """A weight ``w`` [K, N] (K, N multiples of 8) as the kernel's 3xTF32 B
-    fragments [N/8, K/8, 32, 4]: for n-tile nt, k-step kt and lane
-    (g = lane // 4, t = lane % 4) the float4 {b0 big, b1 big, b0 small,
-    b1 small} with b0 = w[8kt + t, 8nt + g], b1 = w[8kt + t + 4, 8nt + g],
-    big = :func:`tf32_round` (w) and small = :func:`tf32_round` (w - big)."""
-    K, N = w.shape
-    big = tf32_round(w)
-    small = tf32_round(w - big)
-    # [kt, half, t, nt, g] -> [nt, kt, g, t, half]; w[8kt + 4half + t, 8nt + g]
-    frag = lambda x: x.reshape(K // 8, 2, 4, N // 8, 8).permute(3, 0, 4, 2, 1)
-    return torch.stack([frag(big), frag(small)], dim=-2).reshape(
-        N // 8, K // 8, 32, 4).contiguous()
-
-
-def unpack_fragments(f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(big, small) [K, N] from fragments made by :func:`tf32x3_fragments`."""
-    NT, KT = f.shape[:2]
-    x = f.reshape(NT, KT, 8, 4, 2, 2).permute(4, 1, 5, 3, 0, 2)
-    x = x.reshape(2, 8 * KT, 8 * NT)
-    return x[0], x[1]
 
 
 def attention_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
@@ -243,12 +213,7 @@ def _check(weights, Z, num_layers, use_layernorm):
             if not (k[3:4].isdigit() and int(k[3]) >= num_layers)
             and (use_layernorm or not k.startswith("ln_"))]
     check_weights(weights, need, Z.device)
-    for k in need:
-        if k.endswith("_frag"):
-            K, N = weights[k[:-len("_frag")]].shape
-            if weights[k].shape != (N // 8, K // 8, 32, 4):
-                raise ValueError(f"weight {k} {tuple(weights[k].shape)} is not "
-                                 f"the fragments of a [{K}, {N}] weight")
+    check_fragments(weights, need)
     return need, H, Zd
 
 

@@ -11,11 +11,17 @@ with ``with_residual``, the squared residual [N, T, D], with z = mu.
   PyTorch version of the same arithmetic, which the tests hold against the
   JAX kernel and ``chip_smoke.py`` holds the CUDA kernel against.
 
-The kernel source states its bound on the card and what its design does
-about it. Computation is float32 with float32 accumulation; the MSE divides
-by the real ``T * D`` (no feature padding). The same kernel body also
-serves the probe variants of ``shm_tpu_torch/tools/probe_vpu_bound.py``
-(C entry ``shm_fused_vae_probe``).
+The kernel computes every LSTM gate product of both stacks on the tensor
+cores in 3xTF32. It reads those weights as TF32 fragments that
+:func:`vae_params_to_kernel_weights` packs once (``tf32x3_fragments``, K
+padded to a multiple of 8); the plain version reads them as given. The
+kernel source states its bound on the card and what its design does about
+it. Computation is float32 with float32 accumulation (the tensor cores
+truncate their sums, so each pair of k-steps is summed apart and added to
+the float32 sum to nearest); the MSE divides by the real ``T * D`` (no
+feature padding). The same source also holds the float32
+FMA body that the probe variants of ``shm_tpu_torch/tools/probe_vpu_bound.py``
+time (C entry ``shm_fused_vae_probe``), which reaches the shipping body too.
 """
 
 from __future__ import annotations
@@ -30,16 +36,20 @@ import torch.nn.functional as F
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
-    check_weights, check_windows, dispatch_gate, f32, pointer_array,
+    check_fragments, check_weights, check_windows, dispatch_gate, f32,
+    pointer_array, tf32x3_fragments,
 )
 
+# the kernel's tensor-core products: every LSTM weight of both stacks
+_PRODUCTS = tuple(f"{p}{l}_{k}" for p in ("enc", "dec") for l in range(2)
+                  for k in ("wih", "whh"))
 # pointer order of the C entry (csrc/fused_vae.cu: shm_fused_vae_gate_f32)
 _WEIGHT_ORDER = (
     "enc0_wih", "enc0_whh", "enc0_b", "enc1_wih", "enc1_whh", "enc1_b",
     "ln_scale", "ln_bias", "mu_w", "mu_b", "z2h_w", "z2h_b",
     "dec0_wih", "dec0_whh", "dec0_b", "dec1_wih", "dec1_whh", "dec1_b",
     "out_w", "out_b",
-)
+) + tuple(f"{k}_frag" for k in _PRODUCTS)
 _HIDDEN = (32, 64, 128)
 _D_MAX, _Z_MAX = 16, 32
 
@@ -49,14 +59,20 @@ def vae_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
 
     Matmul weights are [in, out] (LSTM ``*_wih`` [in, 4H], ``*_whh`` [H, 4H],
     gates i|f|g|o), biases 1-D (the cell's ``bias_ih + bias_hh``); every
-    tensor is contiguous float32.
+    tensor is contiguous float32. Each LSTM weight also comes as
+    ``*_frag``, its ``tf32x3_fragments`` (the input rows padded with zeros
+    to a multiple of 8: D=12 to 16, D=3 to 8), which is what the kernel
+    reads.
     """
     w = {}
     for stack, prefix in ((vae.encoder_lstm, "enc"), (vae.decoder_lstm, "dec")):
         for l, layer in enumerate(stack.layers):
-            w[f"{prefix}{l}_wih"] = f32(layer.weight_ih.t())
-            w[f"{prefix}{l}_whh"] = f32(layer.weight_hh.t())
-            w[f"{prefix}{l}_b"] = f32(layer.bias_ih + layer.bias_hh)
+            p = f"{prefix}{l}"
+            w[f"{p}_wih"] = f32(layer.weight_ih.t())
+            w[f"{p}_whh"] = f32(layer.weight_hh.t())
+            w[f"{p}_b"] = f32(layer.bias_ih + layer.bias_hh)
+            for k in ("wih", "whh"):
+                w[f"{p}_{k}_frag"] = tf32x3_fragments(w[f"{p}_{k}"])
     if vae.layer_norm is not None:
         w["ln_scale"] = f32(vae.layer_norm.weight)
         w["ln_bias"] = f32(vae.layer_norm.bias)
@@ -137,6 +153,7 @@ def _check(weights, Z, num_layers, use_layernorm):
             if (num_layers == 2 or "1_" not in k)
             and (use_layernorm or not k.startswith("ln_"))]
     check_weights(weights, need, Z.device)
+    check_fragments(weights, need)
     return need, H, Zd
 
 
@@ -154,7 +171,25 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
+    lib.shm_fused_vae_info.restype = ctypes.c_int
+    lib.shm_fused_vae_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return lib
+
+
+def kernel_info(T: int, H: int, L: int) -> dict:
+    """How the card takes the shipping kernel for windows of T steps at width
+    H with L layers: registers and local-memory (spill) bytes a thread,
+    threads and dynamic shared bytes a block, windows a block, blocks an SM
+    at once."""
+    if H not in _HIDDEN or L not in (1, 2) or T < 1:
+        raise ValueError(f"unsupported shape for the fused kernel: T={T}, "
+                         f"H={H}, L={L}")
+    lib = _library()
+    out = (ctypes.c_int * 6)()
+    raise_on_error(lib, lib.shm_fused_vae_info(T, H, L, out),
+                   "fused_vae_gate info")
+    return dict(zip(("registers", "spill_bytes", "threads", "shared_bytes",
+                     "windows_per_block", "blocks_per_sm"), out))
 
 
 def _launch(weights, Z, num_layers, use_layernorm, with_residual):
@@ -196,5 +231,5 @@ def fused_vae_gate(
 fused_vae_gate.launches = 0
 
 
-__all__ = ["fused_vae_gate", "fused_vae_gate_reference",
+__all__ = ["fused_vae_gate", "fused_vae_gate_reference", "kernel_info",
            "vae_params_to_kernel_weights"]

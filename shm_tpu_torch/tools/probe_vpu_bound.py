@@ -14,16 +14,23 @@ its three knobs:
 
 Two more knobs take the numerics apart: ``bf16`` ("all" as above,
 "weights": only the weights kept in bf16, "none": float32) and ``ln_eps``.
-With ``bf16="none"`` and the model's eps a variant is the shipping gate.
+With ``bf16="none"`` and the model's eps a variant is the gate on the
+float32 FMA pipes (A); ``tc`` (float32 only) takes the tensor-core body
+instead, every LSTM gate product in 3xTF32, with one of its sums
+(``TC_SUMS``): ``"split"``, the shipping one (T: with the model's eps it is
+``fused_vae_gate`` bit for bit), ``"chain"`` (TC, every mma of a product
+chained into one sum) or ``"one_term"`` (T1, a_b b_b alone: a planted
+fault).
 
 On a CUDA tensor it launches the variant's instance of
-``ops/csrc/fused_vae.cu``, the shipping kernel's own body with the knobs as
-template parameters (C entry ``shm_fused_vae_probe``), and adds one to
-``gate_variant.launches``; on a CPU tensor it runs
-:func:`gate_variant_reference`. ``main`` prints one JSON line per variant on
-the committed 4DOF test windows tiled to 21,760: A = the port's float32
-``fused_vae_gate``, then the port's own variants, each of which differs from
-A in one knob, then the TPU probe's B-F, with ``rel_err`` against A and
+``ops/csrc/fused_vae.cu``: the gate's float32 FMA body with the knobs as
+template parameters, or with ``tc`` the tensor-core body (C entry
+``shm_fused_vae_probe``), and adds one to ``gate_variant.launches``; on a
+CPU tensor it runs :func:`gate_variant_reference`. ``main`` prints one JSON
+line per variant on the committed 4DOF test windows tiled to 21,760: A =
+the float32 FMA instance at the model's eps, then the port's own variants,
+each of which differs from A in one knob (T, TC, T1 their tensor-core
+products), then the TPU probe's B-F, with ``rel_err`` against A and
 ``gate_agree`` at the committed threshold.
 
     python -m shm_tpu_torch.tools.probe_vpu_bound          # on the card
@@ -34,24 +41,28 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from shm_tpu_torch.ops._build import raise_on_error
 from shm_tpu_torch.ops._gate import (
-    bf16_round, check_weights, check_windows, pointer_array,
+    bf16_round, check_weights, check_windows, pointer_array, tf32_round,
 )
-from shm_tpu_torch.ops.fused_vae import _WEIGHT_ORDER, _library
+from shm_tpu_torch.ops.fused_vae import _PRODUCTS, _WEIGHT_ORDER, _library
 from shm_tpu_torch.tools.workload import timed
 
 LN_EPS = 1e-6                     # tools/probe_vpu_bound.py:118
 MODEL_LN_EPS = 1e-5               # the model's and the shipping kernel's
 BF16 = ("none", "weights", "all")  # the C entry's `numerics` 0, 1, 2
+# the tensor-core body's sums, the C entry's `numerics` 3, 4, 5 (TcSum in
+# csrc/fused_vae.cu); the shipping kernel's is "split"
+TC_SUMS = ("chain", "split", "one_term")
+SHIP_TC = "split"
 N_WINDOWS = 21760                 # the TPU probe's workload: 4 x 5,440
 _H, _D_MAX, _Z_MAX = 128, 16, 32
-_MATMUL = tuple(k for k in _WEIGHT_ORDER if not k.endswith("_b")
+_MATMUL = tuple(k for k in _WEIGHT_ORDER if not k.endswith(("_b", "_frag"))
                 and not k.startswith("ln_"))
 # the TPU probe's variants (tools/probe_vpu_bound.py:225-232)
 VARIANTS = {
@@ -61,19 +72,28 @@ VARIANTS = {
     "E_tanh_plus_il2": dict(sig_via_tanh=True, interleave=2),
     "F_tanh_bf16_act": dict(sig_via_tanh=True, act_bf16=True),
 }
-# the port's own: each differs from A, the shipping gate, in one knob
+# A: the gate's float32 FMA instance at the model's eps
+A_F32 = dict(bf16="none", ln_eps=MODEL_LN_EPS)
+# the port's own: each differs from A in one knob; T is the shipping body
 PORT_VARIANTS = {
+    "T_tensor_cores": dict(A_F32, tc=SHIP_TC),
+    "TC_chained_sum": dict(A_F32, tc="chain"),
+    "T1_one_term": dict(A_F32, tc="one_term"),
     "W_bf16_weights": dict(bf16="weights", ln_eps=MODEL_LN_EPS),
-    "G_f32_interleave2": dict(bf16="none", interleave=2, ln_eps=MODEL_LN_EPS),
+    "G_f32_interleave2": dict(A_F32, interleave=2),
 }
 
 
 def gate_variant_reference(weights: Dict[str, torch.Tensor], Z: torch.Tensor,
                            *, sig_via_tanh: bool = False, interleave: int = 1,
                            act_bf16: bool = False, bf16: str = "all",
-                           ln_eps: float = LN_EPS) -> torch.Tensor:
+                           ln_eps: float = LN_EPS,
+                           tc: Optional[str] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: mse [N]. ``interleave`` changes
-    only the kernel's schedule, not the numbers."""
+    only the kernel's schedule, not the numbers; ``tc`` "split" and "chain"
+    change how the float32 products are summed (3xTF32, about float32's
+    accuracy), so their plain version is the float32 one; "one_term"
+    multiplies the LSTM gate products' operands rounded to TF32."""
     N, T, D = Z.shape
     H = weights["enc0_whh"].shape[0]
     r = bf16_round
@@ -84,6 +104,8 @@ def gate_variant_reference(weights: Dict[str, torch.Tensor], Z: torch.Tensor,
     W = {k: r_w(weights[k]) for k in _MATMUL}
 
     def mm(a, k):
+        if tc == "one_term" and k in _PRODUCTS:
+            return tf32_round(a) @ tf32_round(W[k])
         return r_op(a) @ W[k]
 
     def sig(v):
@@ -128,7 +150,12 @@ def gate_variant_reference(weights: Dict[str, torch.Tensor], Z: torch.Tensor,
     return acc / (T * D)
 
 
-def _check_knobs(interleave, bf16, sig_via_tanh, act_bf16, ln_eps):
+def _check_knobs(interleave, bf16, sig_via_tanh, act_bf16, ln_eps, tc):
+    if tc is not None and tc not in TC_SUMS:
+        raise ValueError(f"tc must be None or one of {TC_SUMS}, got {tc!r}")
+    if tc is not None and (bf16 != "none" or interleave != 1):
+        raise ValueError("tc takes bf16='none' and interleave=1 (the shipping "
+                         "body as it ships)")
     if interleave not in (1, 2):
         raise ValueError(f"interleave must be 1 or 2, got {interleave}")
     if bf16 not in BF16:
@@ -161,7 +188,7 @@ def _check(weights, Z, interleave):
     return H, Zd
 
 
-def _launch(weights, Z, sig_via_tanh, interleave, act_bf16, bf16, ln_eps):
+def _launch(weights, Z, sig_via_tanh, interleave, act_bf16, bf16, ln_eps, tc):
     H, Zd = _check(weights, Z, interleave)
     N, T, D = Z.shape
     mse = torch.empty(N, device=Z.device, dtype=torch.float32)
@@ -176,8 +203,8 @@ def _launch(weights, Z, sig_via_tanh, interleave, act_bf16, bf16, ln_eps):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         err = lib.shm_fused_vae_probe(
             Z.data_ptr(), mse.data_ptr(), ptrs, len(_WEIGHT_ORDER), N, T, D,
-            H, Zd, BF16.index(bf16), int(sig_via_tanh), interleave,
-            int(act_bf16), ln_eps, stream)
+            H, Zd, 3 + TC_SUMS.index(tc) if tc else BF16.index(bf16),
+            int(sig_via_tanh), interleave, int(act_bf16), ln_eps, stream)
     raise_on_error(lib, err, "fused_vae probe")
     gate_variant.launches += 1
     return mse
@@ -186,12 +213,13 @@ def _launch(weights, Z, sig_via_tanh, interleave, act_bf16, bf16, ln_eps):
 def gate_variant(weights: Dict[str, torch.Tensor], Z: torch.Tensor, *,
                  sig_via_tanh: bool = False, interleave: int = 1,
                  act_bf16: bool = False, bf16: str = "all",
-                 ln_eps: float = LN_EPS) -> torch.Tensor:
+                 ln_eps: float = LN_EPS,
+                 tc: Optional[str] = None) -> torch.Tensor:
     """Gate-only MSE [N] of one probe variant; ``weights`` from
     ``vae_params_to_kernel_weights``."""
     kw = dict(sig_via_tanh=sig_via_tanh, interleave=interleave,
-              act_bf16=act_bf16, bf16=bf16, ln_eps=ln_eps)
-    _check_knobs(interleave, bf16, sig_via_tanh, act_bf16, ln_eps)
+              act_bf16=act_bf16, bf16=bf16, ln_eps=ln_eps, tc=tc)
+    _check_knobs(interleave, bf16, sig_via_tanh, act_bf16, ln_eps, tc)
     if Z.device.type == "cuda":
         return _launch(weights, Z, **kw)
     if Z.device.type == "cpu":
@@ -211,16 +239,14 @@ def tiled_windows(wl, n: int = N_WINDOWS) -> np.ndarray:
 
 
 def probe_table(weights, Z, thr: float, reps: int = 5):
-    """One row per variant: A (the port's float32 ``fused_vae_gate``), the
-    port's own variants, then the TPU probe's; ``ms`` None off the card."""
-    from shm_tpu_torch.ops import fused_vae_gate
-
+    """One row per variant: A (the gate's float32 FMA instance), the port's
+    own variants (T, TC, T1: the tensor-core body), then the TPU probe's;
+    ``ms`` None off the card."""
     on_card = Z.device.type == "cuda"
     n = Z.shape[0]
-    base = lambda: fused_vae_gate(weights, Z, num_layers=2, use_layernorm=True,
-                                  with_residual=False)[0]
+    base = lambda: gate_variant(weights, Z, **A_F32)
     ref = base()
-    rows = [{"variant": "A_shipping_f32",
+    rows = [{"variant": "A_f32_fma",
              "ms": timed(base, reps) if on_card else None}]
     for name, kw in {**PORT_VARIANTS, **VARIANTS}.items():
         out = gate_variant(weights, Z, **kw)

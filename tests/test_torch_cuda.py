@@ -22,6 +22,23 @@ CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
     "openlab_L1_H64": (40, 200, 3, 8, 64, 1, True, True),
     "1dof_H32_noln": (33, 80, 12, 5, 32, 2, False, True),
     "gate_only": (50, 30, 12, 16, 128, 2, True, False),
+    # ragged against 32 and 64 windows a block: 1 and 33 windows in the last
+    "4dof_N97": (97, 100, 12, 16, 128, 2, True, True),
+}
+
+# the gate kernels' shared shapes (the LSTM kernel is also held at CASES)
+GATE_CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
+    "4dof_ragged": (77, 100, 12, 16, 128, 2, True, True),
+    "openlab_L1_H64_T200": (40, 200, 3, 8, 64, 1, True, True),
+    "1dof_H32_noln": (33, 80, 12, 5, 32, 2, False, True),
+    "gate_only": (50, 30, 12, 16, 128, 2, True, False),
+    "one_window": (1, 17, 12, 16, 64, 2, True, True),
+    # ragged row tiles of the attention kernel's tensor-core products (T not
+    # a multiple of 16), the longest window it takes at H=128, H=64 with L=1
+    "T7_H32": (21, 7, 12, 5, 32, 2, True, True),
+    "T130_H32": (17, 130, 5, 4, 32, 2, True, True),
+    "T136_H128": (19, 136, 12, 16, 128, 2, True, True),
+    "H64_L1": (23, 100, 12, 16, 64, 1, True, True),
 }
 
 
@@ -37,9 +54,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + [n for n in GATE_CASES if n not in CASES])
 def test_fused_vae_kernel_matches_plain_version(cuda_device, name):
-    N, T, D, Zd, H, L, ln, wr = CASES[name]
+    N, T, D, Zd, H, L, ln, wr = {**GATE_CASES, **CASES}[name]
     cfg = VAEConfig(input_dim=D, latent_dim=Zd, hidden_dim=H, num_layers=L,
                     use_layernorm=ln)
     rng = np.random.default_rng(len(name))
@@ -280,19 +297,6 @@ def test_lstm_scans_place_clusters_on_the_card(cuda_device, H):
 
 # --- the minGRU and attention gates (ops/fused_mingru.py, ops/fused_attention.py)
 
-GATE_CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
-    "4dof_ragged": (77, 100, 12, 16, 128, 2, True, True),
-    "openlab_L1_H64_T200": (40, 200, 3, 8, 64, 1, True, True),
-    "1dof_H32_noln": (33, 80, 12, 5, 32, 2, False, True),
-    "gate_only": (50, 30, 12, 16, 128, 2, True, False),
-    "one_window": (1, 17, 12, 16, 64, 2, True, True),
-    # ragged row tiles of the attention kernel's tensor-core products (T not
-    # a multiple of 16), the longest window it takes at H=128, H=64 with L=1
-    "T7_H32": (21, 7, 12, 5, 32, 2, True, True),
-    "T130_H32": (17, 130, 5, 4, 32, 2, True, True),
-    "T136_H128": (19, 136, 12, 16, 128, 2, True, True),
-    "H64_L1": (23, 100, 12, 16, 64, 1, True, True),
-}
 
 
 def _gate(cell):
@@ -340,7 +344,7 @@ def test_fused_cell_gate_kernel_matches_plain_version(cuda_device, cell, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["1dof_H32_noln", "4dof_ragged"])
-@pytest.mark.parametrize("cell", ["min_gru", "attention"])
+@pytest.mark.parametrize("cell", ["lstm", "min_gru", "attention"])
 def test_fused_cell_gate_kernel_is_reproducible_and_takes_no_windows(cuda_device, cell, name):
     weights_fn, gate, _ = _gate(cell)
     vae, Z, kw = _gate_case(cell, GATE_CASES[name], cuda_device, 3)
@@ -449,6 +453,28 @@ def test_fused_attention_kernel_fits_the_card(cuda_device, T, H):
     assert info["registers"] <= 128 and info["spill_bytes"] <= SPILL_GUARD
 
 
+# bytes of local memory (spills) a thread the LSTM gate kernel may use:
+# kernel_info reads 0 B at H=32 and 64 and 40 B at H=128 on an NVIDIA H100
+# (PERF.md §6)
+LSTM_SPILL_GUARD = 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 64, 128])
+def test_fused_vae_kernel_fits_the_card(cuda_device, H):
+    """At every width the shipping instance fits one block an SM at least,
+    with 4H threads and a register file's share, and spills at most
+    LSTM_SPILL_GUARD bytes."""
+    from shm_tpu_torch.ops.fused_vae import kernel_info
+
+    info = kernel_info(100, H, 2)
+    assert info["threads"] == 4 * H and info["blocks_per_sm"] >= 1
+    assert info["windows_per_block"] in (32, 64)
+    assert 0 < info["shared_bytes"] <= 232448
+    assert info["registers"] * info["threads"] <= 65536
+    assert info["spill_bytes"] <= LSTM_SPILL_GUARD
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell, H, L", [("lstm", 128, 3), ("attention", 64, 3),
                                         ("attention", 256, 1)])
@@ -553,14 +579,16 @@ def _probe_vae(cell, N, T, device, seed):
 @pytest.mark.parametrize("variant", ["A_plain_knobs", "B_sig_via_tanh",
                                      "C_interleave2", "E_tanh_plus_il2",
                                      "F_tanh_bf16_act", "bf16_act_only",
-                                     "W_bf16_weights", "G_f32_interleave2"])
+                                     "W_bf16_weights", "G_f32_interleave2",
+                                     "A_f32_fma", "T_tensor_cores",
+                                     "TC_chained_sum", "T1_one_term"])
 def test_probe_lstm_gate_kernel_matches_plain_version(cuda_device, variant):
     from shm_tpu_torch.ops import vae_params_to_kernel_weights
     from shm_tpu_torch.tools.probe_vpu_bound import (
-        PORT_VARIANTS, VARIANTS, gate_variant, gate_variant_reference,
+        A_F32, PORT_VARIANTS, VARIANTS, gate_variant, gate_variant_reference,
     )
 
-    kw = {**VARIANTS, **PORT_VARIANTS}.get(
+    kw = {**VARIANTS, **PORT_VARIANTS, "A_f32_fma": A_F32}.get(
         variant, dict(act_bf16=True) if variant == "bf16_act_only" else {})
     vae, Z = _probe_vae("lstm", 77, 40, cuda_device, len(variant))
     w = vae_params_to_kernel_weights(vae)
@@ -578,14 +606,20 @@ def test_probe_lstm_gate_kernel_matches_plain_version(cuda_device, variant):
 
 @pytest.mark.cuda
 def test_probe_lstm_gate_float32_instance_is_the_shipping_kernel(cuda_device):
+    """Variant T (the tensor-core body at float32 and the model's eps) is
+    the shipping kernel bit for bit; the FMA instance A is held to the plain
+    version in test_probe_lstm_gate_kernel_matches_plain_version."""
     from shm_tpu_torch.ops import fused_vae_gate, vae_params_to_kernel_weights
-    from shm_tpu_torch.tools.probe_vpu_bound import MODEL_LN_EPS, gate_variant
+    from shm_tpu_torch.tools.probe_vpu_bound import (
+        MODEL_LN_EPS, SHIP_TC, gate_variant,
+    )
 
     vae, Z = _probe_vae("lstm", 77, 40, cuda_device, 3)
     w = vae_params_to_kernel_weights(vae)
     ship = fused_vae_gate(w, Z, num_layers=2, use_layernorm=True,
                           with_residual=False)[0]
-    assert torch.equal(gate_variant(w, Z, bf16="none", ln_eps=MODEL_LN_EPS), ship)
+    assert torch.equal(gate_variant(w, Z, bf16="none", ln_eps=MODEL_LN_EPS,
+                                    tc=SHIP_TC), ship)
 
 
 @pytest.mark.cuda

@@ -77,7 +77,8 @@ def test_every_port_module_imports_without_a_card_or_compiler():
 
 
 KERNEL_ENTRIES = {
-    "fused_vae.cu": ["shm_fused_vae_gate_f32", "shm_fused_vae_probe"],
+    "fused_vae.cu": ["shm_fused_vae_gate_f32", "shm_fused_vae_probe",
+                     "shm_fused_vae_info"],
     "lstm_train.cu": ["shm_lstm2_enc_fwd_f32", "shm_lstm2_enc_bwd_f32",
                       "shm_lstm2_dec_fwd_f32", "shm_lstm2_dec_bwd_f32",
                       "shm_lstm2_fwd_scan_info", "shm_lstm2_bwd_scan_info"],

@@ -258,6 +258,30 @@ def test_gate_variant_is_the_gate_in_bf16(lstm_case):
                   ship(w_bf16), F32_TOL)
 
 
+@pytest.mark.parametrize("variant", ["T_tensor_cores", "TC_chained_sum"])
+def test_gate_variant_tc_plain_version_is_the_float32_gate(lstm_case, variant):
+    """Variants T and TC (the tensor-core body with its shipping and its
+    chained sum, 3xTF32 products at about float32's accuracy) have the
+    float32 gate as their plain version: on the CPU each is variant A's
+    number, bit for bit."""
+    _, w, Z = lstm_case
+    Zt = torch.from_numpy(Z)
+    got = probe_vpu_bound.gate_variant(
+        w, Zt, **probe_vpu_bound.PORT_VARIANTS[variant])
+    assert torch.equal(got, probe_vpu_bound.gate_variant(w, Zt, **probe_vpu_bound.A_F32))
+
+
+def test_gate_variant_one_term_plain_version_rounds_the_lstm_operands(lstm_case):
+    """Variant T1's plain version (the planted fault: TF32 products of one
+    term) moves variant A's mse by TF32's rounding, far more than a float32
+    order change and far less than bf16."""
+    _, w, Z = lstm_case
+    Zt = torch.from_numpy(Z)
+    one = probe_vpu_bound.gate_variant(w, Zt, **probe_vpu_bound.PORT_VARIANTS["T1_one_term"])
+    a = probe_vpu_bound.gate_variant(w, Zt, **probe_vpu_bound.A_F32)
+    assert 1e-6 < float(((one - a).abs() / a.abs()).max()) < 1e-2
+
+
 @pytest.mark.parametrize("bad, match", [
     (dict(H=64), "unsupported shape"),
     (dict(interleave=3), "interleave"),
@@ -279,6 +303,9 @@ def test_gate_variant_argument_checks(bad, match):
     (dict(bf16="none", sig_via_tanh=True), "take bf16='all'"),
     (dict(bf16="weights", act_bf16=True), "take bf16='all'"),
     (dict(ln_eps=0.0), "ln_eps"),
+    (dict(tc=True), "tc must be None or one of"),
+    (dict(tc="split"), "tc takes bf16='none'"),
+    (dict(tc="one_term", bf16="none", interleave=2), "and interleave=1"),
 ])
 def test_gate_variant_knob_checks_on_every_device(lstm_case, knobs, match):
     _, w, Z = lstm_case
