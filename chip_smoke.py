@@ -24,7 +24,10 @@ Phases (any failure exits non-zero before the final line):
    of its gate products, and on the real windows the largest relative mse
    difference from the plain version, held to ``LSTM_MSE_RTOL`` (beside the
    tensor-core body's other sums and the float32 FMA body, each timed; the
-   one-term instance must fail it); for the attention kernel also its
+   one-term instance must fail it); for the minGRU kernel the same, held to
+   ``MINGRU_MSE_RTOL``, beside every tile of its variant entry (TC steps x
+   MT m-tiles, and the chained and one-term sums), each timed at 5,440 and
+   at the 8,192 bucket; for the attention kernel also its
    registers, spills, threads and shared bytes a block, its packed TF32
    weights and its split of activations against ``cvt.rna.tf32.f32`` on the
    card (bit for bit), and the 3xTF32 tensor-core bound of its four weight
@@ -50,10 +53,10 @@ Phases (any failure exits non-zero before the final line):
 8. timings of the four kernels and of one training step (kernel path, plain
    autograd path, a cuDNN ``nn.LSTM`` yardstick), their bounds, and where a
    step's time goes; with ``--parent DIR`` (another checkout of the
-   repository, e.g. the parent commit unpacked), also rows 1-5 and 7 of that
-   tree on this card (rows 1 and 7 at 5,440 windows and at the 8,192
+   repository, e.g. the parent commit unpacked), also rows 1-7 of that
+   tree on this card (rows 1, 6 and 7 at 5,440 windows and at the 8,192
    bucket), in turns with this tree's, its gradients against this tree's on
-   the same inputs and its row-1 and row-7 mse against this tree's;
+   the same inputs and its rows 1, 6 and 7 mse against this tree's;
 9. the probes (``shm_tpu_torch/tools``): each of the three probe kernels
    against its plain version (``matmul_loop`` in every mode at one tile and
    at 21, bf16x3 also against the float32 loop; ``gate_variant``'s variants
@@ -110,6 +113,14 @@ GRAD_ATOL_REL = 2e-4
 # 9.9e-6 for a sum chained through every mma, 9.7e-5 for one TF32 term; the
 # one-term instance must fail the bound on the card (PERF.md §6)
 LSTM_MSE_RTOL = 5e-6
+# row 6 (the minGRU gate) on the same 5,440 real windows, held the same way.
+# Over the 3,636 test windows through data/4dof_mingru the CPU model of the
+# kernel's sums (tests/test_torch_mingru_gate_tf32.py) reads 3.5e-7 for the
+# shipped sum, 4.7e-7 for a sum chained through every mma (no recurrent
+# product carries the truncation here), 2.5e-5 for one TF32 term; on its 256
+# windows 2.4e-7 / 6.7e-7 (plain / JAX kernel) and 1.9e-5. The one-term
+# instance must fail the bound on the card (PERF.md §6)
+MINGRU_MSE_RTOL = 4e-6
 TRAIN_EPOCHS = 8
 
 
@@ -206,6 +217,17 @@ def lstm_gate_flops(N: int, T: int, D: int, H: int, L: int) -> float:
     return float(N * (enc + dec))
 
 
+def mingru_gate_flops(N: int, T: int, D: int, H: int, L: int) -> float:
+    """The part of ``mingru_work`` in the gate products of both stacks
+    (each step's [in, 2H] product of every layer but the decoder's layer 0,
+    which runs once a window), which the kernel runs in 3xTF32 on the
+    tensor cores."""
+    G = 2 * H
+    enc = T * sum(2 * G * (D if l == 0 else H) for l in range(L))
+    dec = 2 * G * H + T * (L - 1) * 2 * G * H
+    return float(N * (enc + dec))
+
+
 def sass_counts(name: str, marker: str) -> dict:
     """{kernel function of the built library ``name`` whose symbol holds
     ``marker``: (HMMA, FFMA) instruction counts} from ``cuobjdump -sass``."""
@@ -293,6 +315,80 @@ def phase_lstm_kernel(w, Z, mse_k, mse_p, T: int, D: int, H: int, L: int) -> dic
                                 f"(relative mse), past {LSTM_MSE_RTOL:g}")
     check(r_1 > LSTM_MSE_RTOL, f"LSTM_MSE_RTOL {LSTM_MSE_RTOL:g} does not tell the "
                                f"one-term instance ({r_1:.3e})")
+    return {"bound_3xtf32_ms": tc_ms}
+
+
+def phase_mingru_kernel(w, Z, mse_k, mse_p, T: int, D: int, H: int, L: int,
+                        ln: bool) -> dict:
+    """How the card takes the minGRU gate kernel (registers, spills, threads,
+    shared bytes, windows and steps a tile, blocks an SM) at every width;
+    what its instances run (HMMA and FFMA counts in SASS); the 3xTF32 bound
+    of its gate products; and on the real windows ``Z`` (N=5,440) and tiled
+    to the 8,192 bucket, each instance of the variant entry (the shipping sum
+    at every tile of TC steps and MT m-tiles, the chained and the one-term
+    sum at the shipping tile) timed beside the kernel with its largest
+    relative mse difference from the plain version ``mse_p``: the kernel's
+    ``mse_k`` must stay within MINGRU_MSE_RTOL, which the one-term instance
+    must fail."""
+    import torch
+
+    from shm_tpu_torch.ops.fused_mingru import gate_variant, kernel_info
+    from shm_tpu_torch.tools.workload import PEAK_F32_FLOPS, PEAK_TF32_FLOPS
+
+    tag = "[min_gru]"
+    N = Z.shape[0]
+    for h_ in (32, 64, 128):
+        info = kernel_info(T, h_, L)
+        print(f"{tag} kernel at T={T} H={h_} L={L}: {info['registers']} registers "
+              f"and {info['spill_bytes']} B of local memory (spills) a thread, "
+              f"{info['threads']} threads, {info['windows_per_block']} windows x "
+              f"{info['steps_per_tile']} steps a tile, {info['shared_bytes']} B of "
+              f"shared memory a block, {info['blocks_per_sm']} block(s) an SM")
+        check(info["blocks_per_sm"] >= 1, f"the minGRU gate kernel does not fit "
+                                          f"an SM at H={h_}")
+    tc, mt = info["steps_per_tile"], info["windows_per_block"] // 16
+    counts = sass_counts("fused_mingru", "fused_mingru_tc_kernel")
+    for fn, (hmma, ffma) in sorted(counts.items()):
+        print(f"{tag} SASS {fn}: {hmma} HMMA, {ffma} FFMA")
+    # the shipping instances: fused_mingru_tc_kernel<H, MT, TC, TC_SPLIT = 1>
+    ship = [fn for fn in counts if any(
+        f"fused_mingru_tc_kernelILi{h_}ELi{mt}ELi{tc}ELi1EE" in fn
+        for h_ in (32, 64, 128))]
+    check(len(ship) == 3 and all(counts[fn][0] > 0 for fn in ship),
+          f"the shipping instances run no HMMA: {ship}")
+    dense = mingru_gate_flops(N, T, D, H, L)
+    tc_ms = 3 * dense / PEAK_TF32_FLOPS * 1e3
+    dense8 = mingru_gate_flops(8192, T, D, H, L)
+    print(f"{tag} gate products at N={N}: {dense / 1e9:.2f} GFLOP -> 3xTF32 "
+          f"tensor-core bound {tc_ms:.4f} ms (3 x {PEAK_TF32_FLOPS / 1e12:g} "
+          f"TFLOP/s TF32), f32 FMA-pipe bound {dense / PEAK_F32_FLOPS * 1e3:.4f} ms; "
+          f"at N=8192: {dense8 / 1e9:.2f} GFLOP -> "
+          f"{3 * dense8 / PEAK_TF32_FLOPS * 1e3:.4f} ms")
+
+    Z8 = torch.cat([Z, Z[:8192 - N]]).contiguous()
+    kw = dict(num_layers=L, use_layernorm=ln)
+    rel = lambda m: float(((m - mse_p).abs() / mse_p.abs()).max())
+    variants = [("split", t_, m_) for t_ in (1, 2, 4) for m_ in (1, 2)] + [
+        ("chain", tc, mt), ("one_term", tc, mt)]
+    got = {}
+    for s_, t_, m_ in variants:
+        v = dict(tc_sum=s_, tc=t_, mt=m_, **kw)
+        got[s_, t_, m_] = gate_variant(w, Z, **v)
+        ms = time_ms(lambda: gate_variant(w, Z, **v))
+        ms8 = time_ms(lambda: gate_variant(w, Z8, **v))
+        print(f"{tag} variant sum={s_!r} TC={t_} MT={m_}: {ms:.4f} ms at N={N}, "
+              f"{ms8:.4f} ms at N=8192; largest relative mse diff against the "
+              f"plain version {rel(got[s_, t_, m_]):.3e}")
+    check(torch.equal(got["split", tc, mt], mse_k),
+          "the variant entry's shipping instance is not fused_mingru_gate")
+    r_k, r_1 = rel(mse_k), rel(got["one_term", tc, mt])
+    print(f"{tag} kernel vs plain, largest relative mse diff {r_k:.3e} (<= "
+          f"{MINGRU_MSE_RTOL:g}); planted fault, the one-term instance: {r_1:.3e} "
+          f"-> {'caught' if r_1 > MINGRU_MSE_RTOL else 'MISSED'}")
+    check(r_k <= MINGRU_MSE_RTOL, f"row 6 is {r_k:.3e} from its plain version "
+                                  f"(relative mse), past {MINGRU_MSE_RTOL:g}")
+    check(r_1 > MINGRU_MSE_RTOL, f"MINGRU_MSE_RTOL {MINGRU_MSE_RTOL:g} does not "
+                                 f"tell the one-term instance ({r_1:.3e})")
     return {"bound_3xtf32_ms": tc_ms}
 
 
@@ -716,6 +812,9 @@ def phase_timing(scorer, W, cell: str = "lstm"):
     elif cell == "lstm":
         extra = phase_lstm_kernel(w, Z, mse_k, mse_p, T, D, vae.hidden_dim,
                                   vae.num_layers)
+    else:
+        extra = phase_mingru_kernel(w, Z, mse_k, mse_p, T, D, vae.hidden_dim,
+                                    vae.num_layers, vae.use_layernorm)
     library = LIBRARY_PASS[cell](vae)
     mse_c, _ = library(Z)
     print(f"{tag} {fam['library']} yardstick vs kernel: max |mse diff| "
@@ -1356,6 +1455,7 @@ def gate_row(cell: str):
 
 # the gate rows of --child / --parent: (cell, kernel name, row number)
 PARENT_GATE_ROWS = (("lstm", "fused_vae_gate", 1),
+                    ("min_gru", "fused_mingru_gate", 6),
                     ("attention", "fused_attention_gate", 7))
 
 
@@ -1363,7 +1463,7 @@ def child(root: str, out: str) -> int:
     """Child mode (``--child ROOT OUT``): kernels of the tree at ROOT on this
     card, through its public calls only: the four LSTM kernels (the
     gradients of phase 6's 4DOF case and their ms at the 4DOF training
-    shape) and rows 1 and 7 (``gate_row``), saved to OUT with
+    shape) and rows 1, 6 and 7 (``gate_row``), saved to OUT with
     ``torch.save``."""
     sys.path.insert(0, root)
     import torch
@@ -1399,12 +1499,12 @@ def child(root: str, out: str) -> int:
 
 
 def phase_parent(parent: str, rows) -> None:
-    """Rows 1-5 and 7 of the tree at ``parent`` (e.g. the parent commit,
-    unpacked) and of this tree on this card, one child process each, in
-    turns parent, this, this, parent: their kernel ms side by side (rows 1
-    and 7 also at the 8,192 bucket); the LSTM gradients of the two trees on
-    the same inputs (bit for bit, or within the stated tolerance) and rows 1
-    and 7's MSE (within the kernel tolerance of the parent's; this tree's two
+    """Rows 1-7 of the tree at ``parent`` (e.g. the parent commit, unpacked)
+    and of this tree on this card, one child process each, in turns parent,
+    this, this, parent: their kernel ms side by side (rows 1, 6 and 7 also
+    at the 8,192 bucket); the LSTM gradients of the two trees on the same
+    inputs (bit for bit, or within the stated tolerance) and rows 1, 6 and
+    7's MSE (within the kernel tolerance of the parent's; this tree's two
     runs bit for bit). Adds ``parent_ms`` (median of the parent's two runs)
     to those rows."""
     import tempfile
@@ -1772,8 +1872,8 @@ def main(argv) -> int:
         if parent is not None:
             phase_parent(parent, lstm_rows + gate_rows)
         else:
-            print("[parent] no --parent DIR given: the parent tree's rows 1-5 "
-                  "and 7 are not timed in this run")
+            print("[parent] no --parent DIR given: the parent tree's rows 1-7 "
+                  "are not timed in this run")
         torch.cuda.empty_cache()
         probe_rows = phase_probe_path(phase_probes_vs_plain(), wl)
     except SmokeFailure as e:

@@ -12,9 +12,18 @@ with ``with_residual``, the squared residual [N, T, D], with z = mu, for a
   PyTorch version of the same arithmetic, which the tests hold against the
   JAX kernel and ``chip_smoke.py`` holds the CUDA kernel against.
 
-The kernel source states its bound on the card and what its design does
-about it. Computation is float32 with float32 accumulation; the MSE divides
-by the real ``T * D``.
+The kernel computes every gate product of both stacks on the tensor cores
+in 3xTF32, a tile's rows spanning several steps of its windows (the gates
+never see h_{t-1}). It reads the ``w_ih`` as TF32 fragments that
+:func:`mingru_params_to_kernel_weights` packs once (``tf32x3_fragments``,
+K padded to a multiple of 8); the plain version reads them as given. The
+kernel source states its bound on the card and what its design does about
+it. Computation is float32 with float32 accumulation (the tensor cores
+truncate their sums, so each pair of k-steps is summed apart and added to
+the float32 sum to nearest); the MSE divides by the real ``T * D``.
+:func:`gate_variant` reaches the same body with its other sums and tiles,
+and :func:`kernel_info` says how the card takes it; neither is on a main
+path.
 """
 
 from __future__ import annotations
@@ -29,23 +38,31 @@ import torch.nn.functional as F
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
-    check_weights, check_windows, dispatch_gate, f32, pointer_array,
+    check_fragments, check_weights, check_windows, dispatch_gate, f32,
+    pointer_array, tf32x3_fragments,
 )
 
 _HIDDEN = (32, 64, 128)
 _D_MAX, _Z_MAX, _L_MAX = 16, 32, 4
-# pointer order of the C entry (csrc/fused_mingru.cu: shm_fused_mingru_gate_f32)
+# pointer order of the C entries (csrc/fused_mingru.cu: shm_fused_mingru_gate_f32)
 _WEIGHT_ORDER = tuple(
     [f"enc{l}_wih" for l in range(_L_MAX)] + [f"enc{l}_b" for l in range(_L_MAX)]
     + ["ln_scale", "ln_bias", "mu_w", "mu_b", "z2h_w", "z2h_b"]
     + [f"dec{l}_wih" for l in range(_L_MAX)] + [f"dec{l}_b" for l in range(_L_MAX)]
-    + ["out_w", "out_b"])
+    + ["out_w", "out_b"]
+    + [f"{p}{l}_wih_frag" for p in ("enc", "dec") for l in range(_L_MAX)])
+# the variant entry's sums (csrc/fused_mingru.cu: TcSum) and its width
+TC_SUMS = {"chain": 0, "split": 1, "one_term": 2}
+_VARIANT_H = 128
 
 
 def mingru_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
     """The kernel's weight dict from a ``cell="min_gru"`` :class:`TemporalVAE`,
     on its device: ``*_wih`` [in, 2H] (the z half first), matmul weights
-    [in, out], biases 1-D; every tensor contiguous float32."""
+    [in, out], biases 1-D; every tensor contiguous float32. Each ``*_wih``
+    also comes as ``*_wih_frag``, its ``tf32x3_fragments`` (the input rows
+    padded with zeros to a multiple of 8: D=12 to 16, D=3 to 8), which is
+    what the kernel reads."""
     if vae.cell != "min_gru":
         raise ValueError(f"expected a cell='min_gru' VAE, got {vae.cell!r}")
     w = {}
@@ -53,6 +70,7 @@ def mingru_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]
         for l, layer in enumerate(stack.layers):
             w[f"{prefix}{l}_wih"] = f32(layer.weight_ih.t())
             w[f"{prefix}{l}_b"] = f32(layer.bias_ih)
+            w[f"{prefix}{l}_wih_frag"] = tf32x3_fragments(w[f"{prefix}{l}_wih"])
     if vae.layer_norm is not None:
         w["ln_scale"] = f32(vae.layer_norm.weight)
         w["ln_bias"] = f32(vae.layer_norm.bias)
@@ -123,19 +141,84 @@ def _check(weights, Z, num_layers, use_layernorm):
             if not (k[:3] in ("enc", "dec") and int(k[3]) >= num_layers)
             and (use_layernorm or not k.startswith("ln_"))]
     check_weights(weights, need, Z.device)
+    check_fragments(weights, need)
     return need, H, Zd
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The built kernel library with its C entry declared (built at first
+    """The built kernel library with its C entries declared (built at first
     use, never at import)."""
     lib = load_library("fused_mingru")
     fn = lib.shm_fused_mingru_gate_f32
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
+    fn = lib.shm_fused_mingru_variant
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+    lib.shm_fused_mingru_info.restype = ctypes.c_int
+    lib.shm_fused_mingru_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return lib
+
+
+def kernel_info(T: int, H: int, L: int) -> dict:
+    """How the card takes the shipping kernel for windows of T steps at width
+    H with L layers: registers and local-memory (spill) bytes a thread,
+    threads and dynamic shared bytes a block, windows a block, blocks an SM
+    at once, and steps a tile."""
+    if H not in _HIDDEN or not 1 <= L <= _L_MAX or T < 1:
+        raise ValueError(f"unsupported shape for the fused minGRU kernel: "
+                         f"T={T}, H={H}, L={L}")
+    lib = _library()
+    out = (ctypes.c_int * 7)()
+    raise_on_error(lib, lib.shm_fused_mingru_info(T, H, L, out),
+                   "fused_mingru_gate info")
+    return dict(zip(("registers", "spill_bytes", "threads", "shared_bytes",
+                     "windows_per_block", "blocks_per_sm", "steps_per_tile"),
+                    out))
+
+
+def gate_variant(weights: Dict[str, torch.Tensor], Z: torch.Tensor, *,
+                 num_layers: int, use_layernorm: bool, tc_sum: str = "split",
+                 tc: Optional[int] = None, mt: Optional[int] = None,
+                 ) -> torch.Tensor:
+    """Gate-only mse [N] of an instance of the kernel's body at H=128 on a
+    CUDA tensor: ``tc_sum`` one of :data:`TC_SUMS` ("split" is the shipping
+    sum; "chain" chains every mma into one sum; "one_term" keeps a_b b_b
+    alone, a planted fault), ``tc`` steps and ``mt`` m-tiles of 16 windows a
+    tile (None: the shipping instance's; "split" takes tc in {1, 2, 4} and
+    mt in {1, 2}, the other sums the shipping tile). Adds one to
+    ``gate_variant.launches``, never to ``fused_mingru_gate.launches``."""
+    need, H, Zd = _check(weights, Z, num_layers, use_layernorm)
+    if Z.device.type != "cuda" or H != _VARIANT_H or tc_sum not in TC_SUMS:
+        raise ValueError(f"gate_variant takes H={_VARIANT_H} on a CUDA tensor "
+                         f"and a sum in {sorted(TC_SUMS)}; got H={H} on "
+                         f"{Z.device}, {tc_sum!r}")
+    if tc is None or mt is None:
+        info = kernel_info(Z.shape[1], H, num_layers)
+        tc = info["steps_per_tile"] if tc is None else tc
+        mt = info["windows_per_block"] // 16 if mt is None else mt
+    N, T, D = Z.shape
+    mse = torch.empty(N, device=Z.device, dtype=torch.float32)
+    if N == 0:
+        return mse
+    lib = _library()
+    ptrs = pointer_array(weights, _WEIGHT_ORDER, need)
+    with torch.cuda.device(Z.device):
+        stream = torch.cuda.current_stream(Z.device).cuda_stream
+        err = lib.shm_fused_mingru_variant(
+            Z.data_ptr(), mse.data_ptr(), ptrs, len(_WEIGHT_ORDER), N, T, D,
+            H, Zd, num_layers, int(use_layernorm), TC_SUMS[tc_sum], tc, mt,
+            stream)
+    raise_on_error(lib, err, f"fused_mingru gate_variant({tc_sum!r}, tc={tc}, "
+                             f"mt={mt})")
+    gate_variant.launches += 1
+    return mse
+
+
+gate_variant.launches = 0
 
 
 def _launch(weights, Z, num_layers, use_layernorm, with_residual):
@@ -177,5 +260,5 @@ def fused_mingru_gate(
 fused_mingru_gate.launches = 0
 
 
-__all__ = ["fused_mingru_gate", "fused_mingru_gate_reference",
-           "mingru_params_to_kernel_weights"]
+__all__ = ["fused_mingru_gate", "fused_mingru_gate_reference", "gate_variant",
+           "kernel_info", "mingru_params_to_kernel_weights"]

@@ -316,14 +316,26 @@ def _gate_case(cell, case, device, seed):
                                    with_residual=wr)
 
 
+# minGRU-only cases: three and four layers (the attention kernel takes 1 or
+# 2), and T not a multiple of the steps of the minGRU kernel's tiles
+MINGRU_CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
+    "mingru_L3": (45, 40, 4, 5, 32, 3, True, True),
+    "mingru_T61_L1_H128": (45, 61, 12, 16, 128, 1, True, True),
+    "mingru_T61_L4_H128": (37, 61, 12, 16, 128, 4, True, True),
+    "mingru_T61_L4_H64": (33, 61, 3, 8, 64, 4, False, True),
+    "mingru_T5_L4_H32": (50, 5, 12, 5, 32, 4, True, True),
+    "mingru_T61_L2_H32_gate_only": (20, 61, 12, 16, 32, 2, True, False),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(GATE_CASES) + ["mingru_L3"])
+@pytest.mark.parametrize("name", list(GATE_CASES) + list(MINGRU_CASES))
 @pytest.mark.parametrize("cell", ["min_gru", "attention"])
 def test_fused_cell_gate_kernel_matches_plain_version(cuda_device, cell, name):
-    if name == "mingru_L3":
+    if name in MINGRU_CASES:
         if cell != "min_gru":
-            pytest.skip("the attention kernel takes 1 or 2 layers")
-        case = (45, 40, 4, 5, 32, 3, True, True)
+            pytest.skip("a minGRU-only case")
+        case = MINGRU_CASES[name]
     else:
         case = GATE_CASES[name]
     weights_fn, gate, reference = _gate(cell)
@@ -473,6 +485,106 @@ def test_fused_vae_kernel_fits_the_card(cuda_device, H):
     assert 0 < info["shared_bytes"] <= 232448
     assert info["registers"] * info["threads"] <= 65536
     assert info["spill_bytes"] <= LSTM_SPILL_GUARD
+
+
+# --- the minGRU gate's tensor-core body (ops/fused_mingru.py) --------------
+
+# bytes of local memory (spills) a thread the minGRU gate kernel may use:
+# kernel_info reads 0 B at H=32 and 64 and 32 B at H=128 on an NVIDIA H100
+# (PERF.md §6)
+MINGRU_SPILL_GUARD = 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 64, 128])
+@pytest.mark.parametrize("L", [1, 2, 4])
+def test_fused_mingru_kernel_fits_the_card(cuda_device, H, L):
+    """At every width and depth the shipping instance fits one block an SM
+    at least, with 4H threads and a register file's share, and spills at
+    most MINGRU_SPILL_GUARD bytes."""
+    from shm_tpu_torch.ops.fused_mingru import kernel_info
+
+    info = kernel_info(100, H, L)
+    assert info["threads"] == 4 * H and info["blocks_per_sm"] >= 1
+    assert info["windows_per_block"] in (16, 32) and info["steps_per_tile"] in (1, 2, 4)
+    assert 0 < info["shared_bytes"] <= 232448
+    assert info["registers"] * info["threads"] <= 65536
+    assert info["spill_bytes"] <= MINGRU_SPILL_GUARD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tc, mt", [(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2)])
+def test_fused_mingru_variant_tiles_match_plain_version(cuda_device, tc, mt):
+    """Each tile of the variant entry (TC steps, MT m-tiles) against the
+    plain version, T=61 cut by every TC; the shipping tile is the shipping
+    kernel bit for bit."""
+    from shm_tpu_torch.ops.fused_mingru import gate_variant, kernel_info
+
+    weights_fn, gate, reference = _gate("min_gru")
+    vae, Z, kw = _gate_case("min_gru", (77, 61, 12, 16, 128, 2, True, False),
+                            cuda_device, 10 * tc + mt)
+    w = weights_fn(vae)
+    before, ship_before = gate_variant.launches, gate.launches
+    mse = gate_variant(w, Z, num_layers=2, use_layernorm=True, tc=tc, mt=mt)
+    torch.cuda.synchronize()
+    assert gate_variant.launches == before + 1 and gate.launches == ship_before
+    torch.testing.assert_close(mse, reference(w, Z, **kw)[0], atol=1e-4, rtol=1e-4)
+    info = kernel_info(61, 128, 2)
+    if (tc, mt) == (info["steps_per_tile"], info["windows_per_block"] // 16):
+        assert torch.equal(mse, gate(w, Z, **kw)[0])
+
+
+@pytest.fixture(scope="module")
+def mingru_root_windows():
+    """The minGRU root's kernel weights and the 3,636 committed 4DOF test
+    windows normalized by its statistics, on the card, and their gate-only
+    mse through the plain version."""
+    from pathlib import Path
+
+    from shm_tpu_torch.cli.stage4dof import Paths, build_fraction_windows
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.data.windows import normalize_windows
+    from shm_tpu_torch.device import set_full_f32_precision
+    from shm_tpu_torch.ops import fused_mingru_gate_reference, mingru_params_to_kernel_weights
+    from shm_tpu_torch.serve import HybridScorer
+    from shm_tpu_torch.utils.io import load_json
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    set_full_f32_precision()
+    root = Path(__file__).resolve().parents[1] / "data"
+    cfg = Stage4DofConfig()
+    scorer = HybridScorer.from_artifacts(root / "4dof_mingru")
+    splits = load_json(Paths(str(root / "4dof")).run_splits)
+    W = np.concatenate([build_fraction_windows(splits[g]["files"], cfg.test_frac, cfg)
+                        for g in ("normal", "sensor_fault", "structural_fault")])
+    Z = normalize_windows(torch.from_numpy(W).cuda(), scorer.mean,
+                          scorer.std).contiguous()
+    w = mingru_params_to_kernel_weights(scorer.vae)
+    kw = dict(num_layers=scorer.vae.num_layers,
+              use_layernorm=scorer.vae.use_layernorm)
+    return w, Z, kw, fused_mingru_gate_reference(w, Z, with_residual=False, **kw)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tc_sum", ["split", "chain", "one_term"])
+def test_fused_mingru_variant_sums_on_the_roots_windows(cuda_device, mingru_root_windows, tc_sum):
+    """The variant entry's three sums on the minGRU root's real windows: each
+    within the card's kernel tolerance of the plain version; the shipped sum
+    within MINGRU_MSE_RTOL (relative mse) and the one-term sum, a planted
+    fault, past it."""
+    from chip_smoke import MINGRU_MSE_RTOL
+    from shm_tpu_torch.ops.fused_mingru import gate_variant
+
+    w, Z, kw, plain = mingru_root_windows
+    mse = gate_variant(w, Z, tc_sum=tc_sum, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mse, plain, atol=1e-4, rtol=1e-4)
+    rel = float(((mse - plain).abs() / plain.abs()).max())
+    if tc_sum == "one_term":
+        assert rel > MINGRU_MSE_RTOL
+    elif tc_sum == "split":
+        assert rel <= MINGRU_MSE_RTOL
 
 
 @pytest.mark.cuda

@@ -82,7 +82,8 @@ KERNEL_ENTRIES = {
     "lstm_train.cu": ["shm_lstm2_enc_fwd_f32", "shm_lstm2_enc_bwd_f32",
                       "shm_lstm2_dec_fwd_f32", "shm_lstm2_dec_bwd_f32",
                       "shm_lstm2_fwd_scan_info", "shm_lstm2_bwd_scan_info"],
-    "fused_mingru.cu": ["shm_fused_mingru_gate_f32"],
+    "fused_mingru.cu": ["shm_fused_mingru_gate_f32", "shm_fused_mingru_variant",
+                        "shm_fused_mingru_info"],
     "fused_attention.cu": ["shm_fused_attention_gate_f32"],
     "probe_matmul_loop.cu": ["shm_probe_matmul_loop"],
     "probe_mingru_gate.cu": ["shm_probe_mingru_gate"],

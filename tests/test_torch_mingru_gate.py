@@ -126,7 +126,14 @@ def test_kernel_weights_layout():
     order = fused_mingru_mod._WEIGHT_ORDER
     assert set(w) == {k for k in order
                       if not (k[:3] in ("enc", "dec") and int(k[3]) >= L)}
-    assert len(order) == 4 * 4 + 8              # NUM_W of the C entry
+    assert len(order) == 4 * 4 + 8 + 2 * 4      # NUM_W of the C entry
+    # each w_ih also as its 3xTF32 fragments [2H/8, ceil(K/8), 32, 4], after
+    # the 24 plain pointers
+    assert order[24:] == tuple(f"{p}{l}_wih_frag" for p in ("enc", "dec")
+                               for l in range(4))
+    for k in [f"{p}{l}_wih" for p in ("enc", "dec") for l in range(L)]:
+        K = w[k].shape[0]
+        assert w[f"{k}_frag"].shape == (2 * H // 8, -(-K // 8), 32, 4)
 
 
 def test_kernel_weights_need_a_mingru_model():
