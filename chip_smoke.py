@@ -68,7 +68,21 @@ Phases (any failure exits non-zero before the final line):
    each tolerance must fail; then the probe path: the three probes' tables
    at the TPU probes' sizes (launch counts reset before, read after), and
    each kernel's time against its bound, its plain version and a library
-   yardstick.
+   yardstick;
+10. the 4DOF chain on the card through the port's CLI, figures off
+   (``--no-plots``): per family, on a temporary copy of its root,
+   ``test-pipeline`` with the committed CNN and threshold (gate_stats
+   exact, confusion matrix within the family's limit, AP and AUROC within
+   1e-4 of the committed files, every file written), then ``threshold``
+   through the gate-only kernel (window counts, within 1e-3 of the
+   committed threshold and 1e-5 of the plain path on the card); then, on a
+   fresh copy of ``data/4dof``, ``train-cnn`` at the full recipe twice from
+   one seed (bit-identical losses and variables, the meta's keys,
+   ``cnn.msgpack`` read back, one step timed) and ``test-pipeline`` with
+   that CNN, whose accuracy must reach ``CNN_ACCURACY_FLOOR`` (the last
+   check). Every command runs with the gate counts at 0 just before it and
+   must launch its family's kernel and no other; the kernels line's
+   launches of rows 1, 6 and 7 add these to phase 3's.
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -1163,7 +1177,7 @@ def phase_train_path():
 
         reset_lstm_launch_counts()
         gate0 = fused_vae_gate.launches
-        res = cmd_train_vae(paths, cfg, epochs=TRAIN_EPOCHS)
+        res = cmd_train_vae(paths, cfg, epochs=TRAIN_EPOCHS, plot=False)
         torch.cuda.synchronize()
         counts = lstm_launch_counts()
 
@@ -1820,6 +1834,306 @@ def phase_probe_path(errs, wl):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the 4DOF chain on the card (phase 10)
+# ---------------------------------------------------------------------------
+
+# threshold on the card against the committed file, made by the TPU's bf16
+# gate: THRESHOLD_RTOL_4DOF of tests/test_calibrate_dtype.py (the JAX
+# package's float32 CPU path sits 1.6e-4 / 9.5e-5 / 2.3e-5 from it); and
+# against the plain path on the same card (both float32; row 1's own mse
+# bound is 5e-6)
+THRESHOLD_RTOL = 1e-3
+THRESHOLD_PLAIN_RTOL = 1e-5
+# AP and AUROC of test-pipeline against the committed files
+PIPELINE_ATOL = 1e-4
+# test-pipeline accuracy of a CNN that train-cnn trained on the card (full
+# recipe, seed 42). Set before the card's first run, from the JAX trainer
+# on the CPU (float32, full recipe) over seeds 42, 43, 44: 0.993674,
+# 0.988999, 0.991199; their mean less 3 standard deviations, 0.98427,
+# rounded down (PERF.md §6; tests/cnn_seed_spread.py jax 42 43 44)
+CNN_ACCURACY_FLOOR = 0.984
+CHAIN_FILES = ("figures/pipeline_metrics.json",
+               "figures/vae_gate_binary_metrics.json",
+               "figures/hybrid_struct_vs_rest_metrics.json",
+               "figures/pipeline_classification_report.txt")
+
+
+def chain_root(dest: Path, cell: str) -> Path:
+    """A copy of the family's committed root (processed/, models/); the
+    other families' runs are byte-identical copies of data/4dof/raw that are
+    not committed, so their run_splits.json is rewritten to name it."""
+    import shutil
+
+    src = ROOT / FAMILIES[cell]["root"]
+    for sub in ("processed", "models"):
+        shutil.copytree(src / sub, dest / sub)
+    splits = dest / "processed" / "run_splits.json"
+    splits.write_text(splits.read_text().replace(
+        f"{FAMILIES[cell]['root']}/raw/", "data/4dof/raw/"))
+    return dest
+
+
+def gate_counts(reset: bool = False) -> dict:
+    from shm_tpu_torch.ops import FUSED_GATES
+
+    out = {}
+    for _, g, _ in FUSED_GATES.values():
+        out[g.__name__] = g.launches
+        if reset:
+            g.launches = 0
+    return out
+
+
+def run_command(cell: str, argv, what: str) -> int:
+    """``main(argv)`` of the port's CLI with every gate count at 0 just
+    before (its seconds printed); the family's kernel launches. Fails if
+    another family's kernel launched."""
+    import torch
+
+    from shm_tpu_torch.cli.stage4dof import main as cli_main
+
+    kernel = FAMILIES[cell]["kernel"]
+    gate_counts(reset=True)
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = gate_counts()
+    others = {k: v for k, v in counts.items() if k != kernel}
+    print(f"[chain {cell}] {what}: {secs:.2f} s; {kernel} launches "
+          f"{counts[kernel]}, other gate kernels {others}")
+    check(counts[kernel] > 0, f"{cell} {what} did not launch {kernel}")
+    check(not any(others.values()),
+          f"{cell} {what} launched another family's kernel: {others}")
+    return counts[kernel]
+
+
+def check_pipeline(cell: str, root: Path, committed: Path, tag: str,
+                   committed_cnn: bool = True) -> dict:
+    """test-pipeline's outputs under ``root`` against the committed files:
+    every file written, the split files the metrics' sections, gate_stats
+    exact, each class's window count; with the committed CNN also the
+    confusion matrix within the family's limit and AP and AUROC within
+    PIPELINE_ATOL. Returns the metrics."""
+    from shm_tpu_torch.utils.io import load_json
+
+    for rel in CHAIN_FILES:
+        check((root / rel).is_file(), f"{cell} {tag}: {rel} not written")
+    got = load_json(root / "figures" / "pipeline_metrics.json")
+    want = load_json(committed / "figures" / "pipeline_metrics.json")
+    check(load_json(root / "figures" / "vae_gate_binary_metrics.json") == got["gate"]
+          and load_json(root / "figures" / "hybrid_struct_vs_rest_metrics.json")
+          == got["hybrid_struct_vs_rest"], f"{cell} {tag}: split files differ")
+    check(got["gate"]["gate_stats"] == want["gate"]["gate_stats"],
+          f"{cell} {tag}: gate_stats {got['gate']['gate_stats']} differ from "
+          "the committed file")
+    cm = np.asarray(got["confusion_matrix_counts"])
+    cm_ref = np.asarray(want["confusion_matrix_counts"])
+    check((cm.sum(axis=1) == cm_ref.sum(axis=1)).all(),
+          f"{cell} {tag}: windows by class {cm.sum(axis=1).tolist()}")
+    moved = int(np.abs(cm - cm_ref).sum()) // 2
+    tp = got["throughput"]
+    print(f"[chain {cell}] {tag}: accuracy {got['accuracy']:.6f}, confusion "
+          f"matrix {cm.tolist()} (committed {cm_ref.tolist()}, windows moved "
+          f"{moved}); {tp['n_windows']} windows in {tp['seconds'] * 1e3:.1f} ms "
+          f"= {tp['windows_per_sec']:,.0f} windows/s")
+    if not committed_cnn:
+        return got
+    check(moved <= FAMILIES[cell]["cm_limit"], f"{cell} {tag}: confusion "
+          f"matrix off by {moved} windows (> {FAMILIES[cell]['cm_limit']})")
+    for sec, k in (("gate", "average_precision"), ("gate", "gate_auroc"),
+                   ("gate", "hybrid_auroc"),
+                   ("hybrid_struct_vs_rest", "average_precision")):
+        d = abs(got[sec][k] - want[sec][k])
+        print(f"[chain {cell}]   {sec}.{k} {got[sec][k]:.8f} (committed "
+              f"{want[sec][k]:.8f}, |diff| {d:.2e})")
+        check(d <= PIPELINE_ATOL, f"{cell} {tag}: {sec}.{k} "
+              f"off by {d:.2e} (> {PIPELINE_ATOL:g})")
+    return got
+
+
+def chain_scoring(cell: str, root: Path) -> dict:
+    """``test-pipeline`` (committed CNN and threshold) and then ``threshold``
+    through the port's CLI on the card, on ``root``, a copy of the family's
+    root; the family kernel's launches by command."""
+    import torch
+
+    from shm_tpu_torch.calibrate import percentile_threshold
+    from shm_tpu_torch.cli.stage4dof import (
+        Paths, _load_stats, _load_vae, build_fraction_windows,
+    )
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.data.windows import normalize_windows
+    from shm_tpu_torch.train import reconstruction_mse
+    from shm_tpu_torch.utils.io import load_json
+
+    fam = FAMILIES[cell]
+    committed = ROOT / fam["root"]
+    cfg = Stage4DofConfig()
+    paths = Paths(str(root))
+    argv = ["--root", str(root), "--no-plots"]
+    launches = {}
+
+    launches["test-pipeline"] = run_command(cell, ["test-pipeline"] + argv,
+                                            "test-pipeline")
+    check_pipeline(cell, root, committed, "test-pipeline")
+
+    # threshold through the gate-only kernel, against the committed file
+    # and against the plain path on the same card
+    launches["threshold"] = run_command(cell, ["threshold"] + argv, "threshold")
+    thr = load_json(paths.processed / "vae_threshold.json")
+    want = load_json(committed / "processed" / "vae_threshold.json")
+    groups = ("normal", "sensor", "structural")
+    counts = [thr[f"n_val_windows_{g}"] for g in groups]
+    check(counts == [want[f"n_val_windows_{g}"] for g in groups] == [2010, 804, 804],
+          f"{cell} threshold: window counts {counts}")
+    splits = load_json(paths.run_splits)
+    W = np.concatenate([build_fraction_windows(splits[g]["files"], cfg.val_frac, cfg)
+                        for g in ("normal", "sensor_fault", "structural_fault")])
+    mean, std = (torch.from_numpy(a).cuda() for a in _load_stats(paths))
+    Z = normalize_windows(torch.from_numpy(W).cuda(), mean, std)
+    plain = percentile_threshold(
+        reconstruction_mse(_load_vae(paths, cfg), Z, fused=False)[:counts[0]],
+        cfg.threshold_percentile)
+    rel_c = thr["threshold"] / want["threshold"] - 1
+    rel_p = thr["threshold"] / plain - 1
+    print(f"[chain {cell}] threshold {thr['threshold']:.7f}: committed "
+          f"{want['threshold']:.7f} (rel {rel_c:+.2e}, limit "
+          f"{THRESHOLD_RTOL:g}); plain path on the card {plain:.7f} (rel "
+          f"{rel_p:+.2e}, limit {THRESHOLD_PLAIN_RTOL:g})")
+    check(abs(rel_c) <= THRESHOLD_RTOL, f"{cell}: threshold off the committed one")
+    check(abs(rel_p) <= THRESHOLD_PLAIN_RTOL, f"{cell}: threshold off the plain path's")
+    return launches
+
+
+def chain_training(root: Path) -> dict:
+    """``train-cnn`` at the full recipe on ``root`` (a copy of data/4dof)
+    twice from one seed, one step timed, then ``test-pipeline`` with its CNN
+    (the committed threshold), held to CNN_ACCURACY_FLOOR last; the LSTM
+    kernel's launches by command."""
+    import torch
+
+    from shm_tpu_torch.cli.stage4dof import Paths, _load_cnn, cmd_train_cnn
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.utils.io import load_json
+
+    cell = "lstm"
+    fam = FAMILIES[cell]
+    committed = ROOT / fam["root"]
+    cfg = Stage4DofConfig()
+    paths = Paths(str(root))
+    runs, launches = [], {}
+    for i in range(2):
+        gate_counts(reset=True)
+        res = cmd_train_cnn(paths, cfg, plot=False)
+        torch.cuda.synchronize()
+        n = gate_counts()[fam["kernel"]]
+        launches[f"train-cnn run {i + 1}"] = n
+        runs.append(res)
+        ep = len(res.history["epoch"])
+        print(f"[chain {cell}] train-cnn run {i + 1}: {ep} epochs in "
+              f"{res.seconds:.2f} s ({res.seconds / ep:.3f} s/epoch), best "
+              f"epoch {res.best_epoch}, stopped at {res.stopped_epoch}, val CE "
+              f"{res.best_val:.6f}; {fam['kernel']} launches {n} (the CNN's inputs)")
+        check(n > 0, f"{cell} train-cnn did not launch {fam['kernel']}")
+    h = runs[0].history
+    check(all(np.isfinite(h[k]).all() for k in ("train_loss", "val_loss")),
+          "train-cnn: non-finite loss")
+    check(runs[1].history == h and all(
+        torch.equal(runs[0].variables[k], v) for k, v in runs[1].variables.items()),
+        "train-cnn: two runs from one seed differ")
+    print(f"[chain {cell}] train-cnn: the second run's losses and variables "
+          f"equal the first's bit for bit; train / val loss by epoch "
+          f"{[round(v, 6) for v in h['train_loss']]} / "
+          f"{[round(v, 6) for v in h['val_loss']]}")
+    meta = load_json(paths.processed / "stage2_cnn_train_meta.json")
+    want_meta = load_json(committed / "processed" / "stage2_cnn_train_meta.json")
+    check(meta.keys() == want_meta.keys(),
+          f"train-cnn meta keys {sorted(meta)} != {sorted(want_meta)}")
+    cnn = _load_cnn(paths, cfg)
+    check(all(torch.equal(v, runs[1].variables[k].cpu())
+              for k, v in cnn.state_dict().items()
+              if not k.endswith("num_batches_tracked")),
+          "cnn.msgpack read back differs from the trained variables")
+    cnn_step_ms(cfg, runs[1])
+
+    launches["test-pipeline, trained CNN"] = run_command(
+        cell, ["test-pipeline", "--root", str(root), "--no-plots"],
+        "test-pipeline, trained CNN")
+    got = check_pipeline(cell, root, committed, "test-pipeline, trained CNN",
+                         committed_cnn=False)
+    print(f"[chain {cell}] the trained CNN's accuracy {got['accuracy']:.6f}; "
+          f"floor {CNN_ACCURACY_FLOOR} (set before the first card run)")
+    check(got["accuracy"] >= CNN_ACCURACY_FLOOR,
+          f"{cell}: the trained CNN's accuracy {got['accuracy']:.6f} "
+          f"< the floor {CNN_ACCURACY_FLOOR}")
+    return launches
+
+
+def cnn_step_ms(cfg, res) -> float:
+    """CUDA-event ms of one CNN training step at the recipe's batch (forward,
+    backward, Adam), on the trained variables and random inputs."""
+    import torch
+
+    from shm_tpu_torch.models.cnn import CNN4DOF
+    from shm_tpu_torch.train.cnn import batch_loss, cross_entropy_loss
+    from shm_tpu_torch.train.vae import make_optimizer
+
+    tcfg = cfg.cnn_train
+    bs = tcfg.batch_size
+    model = CNN4DOF().cuda()
+    model.load_state_dict(res.variables)
+    model.train()
+    opt = make_optimizer(model.parameters(), tcfg)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(bs, cfg.seq_len, cfg.num_features, 2))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 2, bs)).cuda()
+    mask = torch.ones(bs, device=x.device)
+    keep = torch.rand(bs, 128, device=x.device) < 0.5
+
+    def step():
+        opt.zero_grad()
+        batch_loss(model, x, y, mask, keep, cross_entropy_loss).backward()
+        opt.step()
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        ms = time_ms(step, reps=21, warm=5)
+    print(f"[chain] one CNN training step (batch {bs}, forward + backward + "
+          f"Adam, cuDNN deterministic): {ms:.3f} ms (CUDA events, median of 21)")
+    return ms
+
+
+def phase_chains() -> dict:
+    """Phase 10: per family, ``test-pipeline`` and ``threshold`` on a copy of
+    its root; then ``train-cnn`` and its CNN's ``test-pipeline`` on a fresh
+    copy of data/4dof, the accuracy floor the last check. Returns each
+    family kernel's launches by command (each count set to 0 just before its
+    command), by kernel name."""
+    import tempfile
+
+    print(f"[chain] {gpu_line()}")
+    print("[chain] figures off (--no-plots / plot=False): a CUDA host "
+          "may lack matplotlib, and no JSON depends on a figure")
+    out = {}
+    for cell, fam in FAMILIES.items():
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_chain_{cell}_") as tmp:
+            launches = chain_scoring(cell, chain_root(Path(tmp), cell))
+        out[fam["kernel"]] = launches
+        print(f"[chain {cell}] {time.perf_counter() - t0:.2f} s; "
+              f"{fam['kernel']} launches by command {launches}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_train_") as tmp:
+        launches = chain_training(chain_root(Path(tmp), "lstm"))
+    out[FAMILIES["lstm"]["kernel"]].update(launches)
+    print(f"[chain lstm] train-cnn phase {time.perf_counter() - t0:.2f} s; "
+          f"fused_vae_gate launches by command {launches}")
+    return out
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[2])
@@ -1876,11 +2190,17 @@ def main(argv) -> int:
                   "are not timed in this run")
         torch.cuda.empty_cache()
         probe_rows = phase_probe_path(phase_probes_vs_plain(), wl)
+        torch.cuda.empty_cache()
+        chain_launches = phase_chains()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # the kernel table's order: rows 1-5, the two other families, the probes
+    # the kernel table's order: rows 1-5, the two other families, the probes;
+    # `launches` is the scoring or training path's count, `chain_launches`
+    # phase 10's by command
     kernels = gate_rows[:1] + lstm_rows + gate_rows[1:] + probe_rows
+    for row in kernels:
+        row["chain_launches"] = chain_launches.get(row["name"], {})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

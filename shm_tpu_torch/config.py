@@ -1,8 +1,9 @@
 """Typed, frozen configuration for the port (counterpart of ``shm_tpu/config.py``).
 
 Only the dataclasses the ported 4DOF paths read are kept: ``VAEConfig``,
-``CNNConfig``, ``TrainConfig`` and the windowing / split / model / VAE-training
-fields of ``Stage4DofConfig``. Defaults are identical to the JAX package's.
+``CNNConfig``, ``TrainConfig`` and the windowing / split / threshold / model /
+training fields of ``Stage4DofConfig``. Defaults are identical to the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -81,6 +82,12 @@ class Stage4DofConfig:
         default_factory=lambda: CNNConfig(
             variant="4dof", input_channels=2, num_classes=2, dropout=0.5,
             seq_len=100, num_features=12,
+        )
+    )
+    cnn_train: TrainConfig = field(
+        default_factory=lambda: TrainConfig(
+            epochs=50, batch_size=100, lr=1e-4, weight_decay=5e-5,
+            grad_clip=0.0, early_stop_patience=15,
         )
     )
 

@@ -16,6 +16,9 @@ Layouts handled here, once, at load:
 - BatchNorm: ``params.{scale,bias}`` + ``batch_stats.{mean,var}``.
 - ``fc1``: the JAX model flattens NHWC (T/4, D/4, 32) while NCHW flattens
   (32, T/4, D/4), so fc1's 2400 input rows are permuted to (c, t, d) order.
+
+Both directions for the VAE (``vae_from_flax`` / ``vae_to_flax``) and the
+CNN (``cnn4dof_from_flax`` / ``cnn4dof_to_flax``), bit for bit.
 """
 
 from __future__ import annotations
@@ -202,6 +205,34 @@ def cnn4dof_from_flax(variables: Mapping, num_classes: int = 2,
     return cnn.eval()
 
 
+def cnn4dof_to_flax(cnn: Union[CNN4DOF, Mapping], seq_len: int = 100,
+                    num_features: int = 12) -> Dict:
+    """flax ``{"params", "batch_stats"}`` (numpy float32) of a :class:`CNN4DOF`
+    or of its state dict: the inverse of :func:`cnn4dof_state_dict` (OIHW
+    back to HWIO, fc1's rows back to the NHWC flatten order (t, d, c)), so
+    a trained CNN is saved in the layout both packages read."""
+    sd = cnn.state_dict() if isinstance(cnn, torch.nn.Module) else cnn
+    a = lambda k: np.ascontiguousarray(
+        sd[k].detach().cpu().numpy().astype(np.float32))
+    params: Dict = {}
+    for conv in ("conv1", "conv2"):
+        params[conv] = {"kernel": np.ascontiguousarray(
+                            a(f"{conv}.weight").transpose(2, 3, 1, 0)),
+                        "bias": a(f"{conv}.bias")}
+    for bn in ("bn1", "bn2"):
+        params[bn] = {"scale": a(f"{bn}.weight"), "bias": a(f"{bn}.bias")}
+    k1 = a("fc1.weight").T                                    # [(c, t, d), 128]
+    t, d = seq_len // 4, num_features // 4
+    c = k1.shape[0] // (t * d)
+    k1 = k1.reshape(c, t, d, -1).transpose(1, 2, 0, 3).reshape(t * d * c, -1)
+    params["fc1"] = {"kernel": np.ascontiguousarray(k1), "bias": a("fc1.bias")}
+    params["fc2"] = {"kernel": np.ascontiguousarray(a("fc2.weight").T),
+                     "bias": a("fc2.bias")}
+    batch_stats = {bn: {"mean": a(f"{bn}.running_mean"),
+                        "var": a(f"{bn}.running_var")} for bn in ("bn1", "bn2")}
+    return {"params": params, "batch_stats": batch_stats}
+
+
 def random_flax_vae_params(rng: np.random.Generator, cfg: VAEConfig) -> Dict:
     """A flax-layout TemporalVAE parameter tree of random numpy values, of
     the ``cfg.cell`` family.
@@ -268,5 +299,5 @@ def random_flax_vae_params(rng: np.random.Generator, cfg: VAEConfig) -> Dict:
 
 
 __all__ = ["vae_state_dict", "vae_from_flax", "vae_to_flax", "tree_cell",
-           "cnn4dof_state_dict",
-           "cnn4dof_from_flax", "random_flax_vae_params"]
+           "cnn4dof_state_dict", "cnn4dof_from_flax", "cnn4dof_to_flax",
+           "random_flax_vae_params"]

@@ -33,17 +33,18 @@ class HybridOutputs(NamedTuple):
     logits: torch.Tensor     # (N, 2) raw CNN logits (diagnostics)
 
 
-def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *,
-                   use_fused_vae: bool = False):
-    """``fn(W, mean, std, threshold) -> HybridOutputs`` for raw (N, T, D) ``W``.
+def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False):
+    """``fn(Z) -> (mse, xin)`` for normalized (N, T, D) ``Z``: one
+    deterministic VAE pass, the gate's MSE (N,) and the CNN's NHWC input
+    [Z, residual^2] (N, T, D, 2).
 
-    ``use_fused_vae=True`` runs the VAE pass through the fused gate of
+    ``use_fused_vae=True`` runs the pass through the fused gate of
     ``vae.cell`` (``fused_vae_gate`` for ``"lstm"``, ``fused_mingru_gate`` for
     ``"min_gru"``, ``fused_attention_gate`` for ``"attention"``: the CUDA
     kernel on a CUDA tensor, its plain version on a CPU tensor) and raises
     ``ValueError`` for a cell with no kernel; ``False`` runs the plain
     :class:`TemporalVAE` modules. The kernel weights are taken from ``vae``
-    once, here.
+    once, here. The caller chooses the grad mode.
     """
     if use_fused_vae:
         from shm_tpu_torch.ops import fused_gate_for
@@ -51,19 +52,28 @@ def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *,
         weights_fn, fused_gate = fused_gate_for(vae)
         weights = weights_fn(vae)
 
-    @torch.inference_mode()
-    def hybrid(W: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
-               threshold: torch.Tensor) -> HybridOutputs:
-        Z = normalize_windows(W, mean, std).contiguous()
+    def vae_pass(Z: torch.Tensor):
+        Z = Z.contiguous()
         if use_fused_vae:
             mse, resid = fused_gate(weights, Z, num_layers=vae.num_layers,
                                     use_layernorm=vae.use_layernorm)
-            xin = torch.stack([Z, resid], dim=-1)
-        else:
-            recon, _, _ = vae(Z)
-            mse = ((Z - recon) ** 2).mean(dim=(1, 2))
-            xin = stack_vae_residual_nhwc(Z, recon)          # (N, T, D, 2)
+            return mse, torch.stack([Z, resid], dim=-1)
+        recon, _, _ = vae(Z)
+        return ((Z - recon) ** 2).mean(dim=(1, 2)), stack_vae_residual_nhwc(Z, recon)
 
+    return vae_pass
+
+
+def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *,
+                   use_fused_vae: bool = False):
+    """``fn(W, mean, std, threshold) -> HybridOutputs`` for raw (N, T, D) ``W``;
+    the VAE pass is :func:`make_vae_pass`'s (``use_fused_vae`` as there)."""
+    vae_pass = make_vae_pass(vae, use_fused_vae=use_fused_vae)
+
+    @torch.inference_mode()
+    def hybrid(W: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
+               threshold: torch.Tensor) -> HybridOutputs:
+        mse, xin = vae_pass(normalize_windows(W, mean, std))
         anom = mse > threshold                                # strict >
         logits = cnn(xin)
         cls01 = torch.argmax(logits, dim=1).to(torch.int32)
@@ -104,5 +114,5 @@ def concat_hybrid_outputs(outs) -> Dict[str, np.ndarray]:
             for k in _KEYS}
 
 
-__all__ = ["HybridOutputs", "make_hybrid_fn", "run_hybrid_batched",
+__all__ = ["HybridOutputs", "make_vae_pass", "make_hybrid_fn", "run_hybrid_batched",
            "concat_hybrid_outputs"]

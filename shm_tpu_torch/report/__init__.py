@@ -1,0 +1,21 @@
+"""Figures of the 4DOF commands (counterpart of ``shm_tpu/report``)."""
+
+from shm_tpu_torch.report.plots import (
+    configure_axis,
+    plot_cm_row_norm,
+    plot_loss_curves,
+    plot_pr_curve,
+    plot_roc,
+    plot_score_hist,
+    save_figure,
+)
+
+__all__ = [
+    "configure_axis",
+    "save_figure",
+    "plot_loss_curves",
+    "plot_cm_row_norm",
+    "plot_roc",
+    "plot_pr_curve",
+    "plot_score_hist",
+]

@@ -127,10 +127,11 @@ def test_main_parses_train_vae_and_refuses_unported_commands(trained, monkeypatc
                         lambda paths, cfg, epochs, **kw: seen.update(
                             root=str(paths.root), epochs=epochs, **kw))
     cli.main(["train-vae", "--root", "somewhere", "--epochs", "3", "--seed", "9",
-              "--no-kernel", "--device", "cpu"])
+              "--no-kernel", "--device", "cpu", "--no-plots"])
     assert seen == {"root": "somewhere", "epochs": 3, "seed": 9,
-                    "kernel": False, "device": "cpu"}
+                    "kernel": False, "device": "cpu", "plot": False}
     cli.main(["train-vae", "--kernel"])
     assert seen["kernel"] is True and seen["device"] is None and seen["root"] == "data/4dof"
+    assert seen["plot"] is True
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["threshold"])
+        cli.main(["gen-normal"])

@@ -7,6 +7,8 @@ orders through a 2*L*T-step recurrence (or, for the attention gate, through
 four transformer blocks), so within atol 1e-4 + rtol 1e-4.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,8 @@ from shm_tpu_torch.convert import random_flax_vae_params, vae_from_flax
 from shm_tpu_torch.ops import (
     fused_vae_gate, fused_vae_gate_reference, vae_params_to_kernel_weights,
 )
+
+ROOT_DIR = Path(__file__).resolve().parents[1]
 
 CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
     "4dof_ragged": (77, 100, 12, 16, 128, 2, True, True),
@@ -786,3 +790,152 @@ def test_probe_kernels_refuse_bad_input(cuda_device):
     big = torch.empty(1_100_000, 100, 12, device=cuda_device)
     with pytest.raises(MemoryError, match="scratch"):
         make_gate(None)(mingru_params_to_kernel_weights(vae), big)
+
+
+# --- the 4DOF commands on the card -------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "min_gru", "attention"])
+def test_threshold_command_runs_the_gate_only_kernel(cuda_device, tmp_path, cell):
+    from chip_smoke import FAMILIES, chain_root, run_command
+    from shm_tpu_torch.utils.io import load_json
+
+    root, fam = chain_root(tmp_path, cell), FAMILIES[cell]
+    # run_command fails on no launch of the family's kernel or any of another's
+    n = run_command(cell, ["threshold", "--root", str(root), "--no-plots"],
+                    "threshold")
+    assert n == 1
+    got = load_json(root / "processed" / "vae_threshold.json")
+    want = load_json(ROOT_DIR / fam["root"] / "processed" / "vae_threshold.json")
+    assert abs(got["threshold"] / want["threshold"] - 1) <= 1e-3
+    assert got["n_val_windows_normal"] == 2010
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "min_gru", "attention"])
+def test_test_pipeline_command_runs_the_residual_kernel(cuda_device, tmp_path, cell):
+    from chip_smoke import FAMILIES, chain_root, check_pipeline, run_command
+
+    root = chain_root(tmp_path, cell)
+    run_command(cell, ["test-pipeline", "--root", str(root), "--no-plots"],
+                "test-pipeline")
+    check_pipeline(cell, root, ROOT_DIR / FAMILIES[cell]["root"], "test-pipeline")
+
+
+@pytest.mark.cuda
+def test_train_cnn_command_is_deterministic_on_the_card(cuda_device, tmp_path):
+    """Two 3-epoch runs from one seed: the same losses and variables bit for
+    bit, the CNN's inputs through the LSTM gate kernel's residual mode."""
+    from shm_tpu_torch.cli.stage4dof import Paths, cmd_train_cnn
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.ops import fused_vae_gate
+
+    from chip_smoke import chain_root
+
+    root = chain_root(tmp_path, "lstm")
+    runs = []
+    for _ in range(2):
+        before = fused_vae_gate.launches
+        runs.append(cmd_train_cnn(Paths(str(root)), Stage4DofConfig(), epochs=3,
+                                  plot=False))
+        assert fused_vae_gate.launches - before == 2       # train and val inputs
+    a, b = runs
+    assert a.history == b.history and len(a.history["epoch"]) == 3
+    assert np.isfinite(a.history["train_loss"]).all()
+    assert all(torch.equal(v, b.variables[k]) for k, v in a.variables.items())
+    assert (root / "models" / "cnn.msgpack").is_file()
+
+
+@pytest.mark.cuda
+def test_train_cnn_draws_the_same_on_the_card_as_on_the_cpu(cuda_device):
+    """The trainer's generator lives on the CPU, so one seed gives the card
+    the CPU's permutations and dropout masks: two epochs of the recipe on
+    the same inputs end with train losses within 1e-4 relative (rounding;
+    another stream's differ by percents) and the same best epoch."""
+    from shm_tpu_torch.config import Stage4DofConfig, replace
+    from shm_tpu_torch.models.cnn import CNN4DOF
+    from shm_tpu_torch.train import train_cnn
+
+    cfg = replace(Stage4DofConfig().cnn_train, epochs=2, seed=3)
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(450, 100, 12, 2)).astype(np.float32)
+    y = rng.integers(0, 2, 450)
+    X[y == 1, ..., 1] += 0.5                     # a signal to learn
+    runs = [train_cnn(CNN4DOF(), X[:300], y[:300], X[300:], y[300:], cfg,
+                      device=dev) for dev in ("cpu", cuda_device)]
+    cpu, card = (r.history for r in runs)
+    np.testing.assert_allclose(card["train_loss"], cpu["train_loss"], rtol=1e-4)
+    assert runs[0].best_epoch == runs[1].best_epoch
+
+
+@pytest.mark.cuda
+def test_cnn_training_steps_on_the_card_match_the_cpu(cuda_device):
+    """One epoch of the 4DOF recipe's steps (29 of batch 100, Adam lr 1e-4,
+    cuDNN deterministic) on the card and on the CPU from the same init,
+    batch order and dropout masks: the losses within 1e-5 relative, the
+    parameters within 1e-5 (cuDNN and the CPU sum in other orders), BatchNorm's
+    running variances within rtol 1e-5. The conv biases' exact gradient is 0
+    (BatchNorm removes them), so their values are rounding noise under Adam:
+    on each device every step's conv-bias gradient stays at rounding level
+    (at most 2e-5 of its weight's largest gradient), and the running means
+    are compared with that noise taken out, each step's bias times its
+    weight in the running average subtracted (rtol 1e-5, atol 1e-5)."""
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.models.cnn import CNN4DOF
+    from shm_tpu_torch.train.cnn import batch_loss, cross_entropy_loss
+    from shm_tpu_torch.train.vae import make_optimizer
+
+    cfg = Stage4DofConfig().cnn_train
+    rng = np.random.default_rng(0)
+    N, steps, bs = 600, 29, cfg.batch_size
+    X = rng.normal(size=(N, 100, 12, 2)).astype(np.float32)
+    X[..., 1] = 30.0 * X[..., 1] ** 2                # a squared residual's scale
+    y = rng.integers(0, 2, N)
+    X[y == 1, ..., 1] *= 1.5
+    order = [rng.permutation(N)[:bs] for _ in range(steps)]
+    masks = [rng.random((bs, 128)) < 0.5 for _ in range(steps)]
+    init = CNN4DOF()
+    init.init_parameters(torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        m = CNN4DOF().to(dev)
+        m.load_state_dict(init.state_dict())
+        m.train()
+        opt = make_optimizer(m.parameters(), cfg)
+        Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+        losses = []
+        # sum_t 0.1 * 0.9^(steps-1-t) * b_t: the biases' share of the running mean
+        bias_share = {c: torch.zeros_like(getattr(m, c).bias, dtype=torch.float64)
+                      for c in ("conv1", "conv2")}
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            for o, mk in zip(order, masks):
+                o = torch.from_numpy(o).to(dev)
+                for c, v in bias_share.items():
+                    v.mul_(0.9).add_(0.1 * getattr(m, c).bias.detach().double())
+                opt.zero_grad()
+                loss = batch_loss(m, Xd[o], yd[o], torch.ones(bs, device=dev),
+                                  torch.from_numpy(mk).to(dev), cross_entropy_loss)
+                loss.backward()
+                for c in bias_share:
+                    conv = getattr(m, c)
+                    assert conv.bias.grad.abs().max() <= \
+                        2e-5 * conv.weight.grad.abs().max(), (str(dev), c)
+                opt.step()
+                losses.append(float(loss.detach()))
+        state = {k: v.detach().cpu().double() for k, v in m.state_dict().items()}
+        for c, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+            state[f"{bn}.running_mean"] -= bias_share[c].cpu()
+        out[str(dev)] = (state, np.array(losses))
+    (cpu, lc), (card, lg) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for k, v in cpu.items():
+        if k in ("conv1.bias", "conv2.bias"):
+            continue
+        if k.endswith("running_mean"):
+            torch.testing.assert_close(card[k], v, rtol=1e-5, atol=1e-5, msg=k)
+        elif k.endswith("running_var"):
+            torch.testing.assert_close(card[k], v, rtol=1e-5, atol=1e-6, msg=k)
+        else:
+            d = float((card[k] - v).abs().max())
+            assert d <= 1e-5, (k, d)
