@@ -53,13 +53,15 @@ Phases (any failure exits non-zero before the final line):
 8. timings of the four kernels and of one training step (kernel path, plain
    autograd path, a cuDNN ``nn.LSTM`` yardstick), their bounds, and where a
    step's time goes; with ``--parent DIR`` (another checkout of the
-   repository, e.g. the parent commit unpacked), also rows 1-7 of that
-   tree on this card (rows 1, 6 and 7 at 5,440 windows and at the 8,192
-   bucket), in turns with this tree's, its gradients against this tree's on
-   the same inputs and its rows 1, 6 and 7 mse against this tree's;
+   repository, e.g. the parent commit unpacked), also rows 1-7 and 10 of
+   that tree on this card (rows 1, 6 and 7 at 5,440 windows and at the
+   8,192 bucket; row 10 in each product mode at 21 tiles and at one), in
+   turns with this tree's, its gradients against this tree's on the same
+   inputs, its rows 1, 6 and 7 mse against this tree's and its row 10
+   outputs against this tree's (bit for bit);
 9. the probes (``shm_tpu_torch/tools``): each of the three probe kernels
-   against its plain version (``matmul_loop`` in every mode at one tile and
-   at 21, bf16x3 also against the float32 loop; ``gate_variant``'s variants
+   against its plain version (``matmul_loop`` in every mode at one tile, at
+   21 and at 34, bf16x3 also against the float32 loop; ``gate_variant``'s variants
    at N=1000 ragged, its float32 FMA instance A against its plain version
    and its shipping tensor-core instance T against ``fused_vae_gate`` bit
    for bit;
@@ -68,7 +70,10 @@ Phases (any failure exits non-zero before the final line):
    each tolerance must fail; then the probe path: the three probes' tables
    at the TPU probes' sizes (launch counts reset before, read after), and
    each kernel's time against its bound, its plain version and a library
-   yardstick;
+   yardstick; row 10 by product mode, with its bound at the grid the C
+   entry reports and a yardstick each (a loop of ``torch.matmul`` in the
+   mode's type; bf16x3: three bf16 calls a step), each loop captured in a
+   CUDA graph and timed by its replay;
 10. the 4DOF chain on the card through the port's CLI, figures off
    (``--no-plots``): per family, on a temporary copy of its root,
    ``test-pipeline`` with the committed CNN and threshold (gate_stats
@@ -1504,23 +1509,56 @@ def child(root: str, out: str) -> int:
         for n, v in by_n.items():
             if n != N_BENCH:
                 ms[f"{name} N={n}"] = v
+    probe_out = probe_row(ms)
     package = str(Path(shm_tpu_torch.__file__).parent)
     print(f"[child] {package}: " + ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
           + " ms")
-    torch.save(dict(package=package, ms=ms, gate_mse=gate_mse,
+    torch.save(dict(package=package, ms=ms, gate_mse=gate_mse, probe=probe_out,
                     enc=[g.cpu() for g in enc], dec=[g.cpu() for g in dec]), out)
     return 0
 
 
-def phase_parent(parent: str, rows) -> None:
-    """Rows 1-7 of the tree at ``parent`` (e.g. the parent commit, unpacked)
-    and of this tree on this card, one child process each, in turns parent,
-    this, this, parent: their kernel ms side by side (rows 1, 6 and 7 also
-    at the 8,192 bucket); the LSTM gradients of the two trees on the same
-    inputs (bit for bit, or within the stated tolerance) and rows 1, 6 and
-    7's MSE (within the kernel tolerance of the parent's; this tree's two
-    runs bit for bit). Adds ``parent_ms`` (median of the parent's two runs)
-    to those rows."""
+# row 10's product modes that --child / --parent run, at the TPU probe's 21
+# tiles, at one and at 34 (more than one wave of blocks), on the inputs of
+# tests/test_torch_cuda.py's case of that size. This tree takes every output
+# sum in the parent's order (operands and order do not depend on the grid),
+# so each output must equal the parent's bit for bit
+PARENT_PROBE_TILES = (21, 1, 34)
+PARENT_PROBE_MODES = ("f32", "bf16", "bf16x3")
+
+
+def probe_row(ms: dict) -> dict:
+    """Row 10 of the importable tree through its public calls:
+    ``matmul_loop`` in each product mode on ``make_inputs(tiles,
+    seed=tiles)``, T=100. Adds each call's kernel ms to ``ms``; returns the
+    outputs, on the CPU."""
+    import torch
+
+    from shm_tpu_torch.tools.probe_f32_cliff import make_inputs, matmul_loop
+
+    outs = {}
+    for tiles in PARENT_PROBE_TILES:
+        w, x = make_inputs(tiles, seed=tiles, device="cuda")
+        for mode in PARENT_PROBE_MODES:
+            name = f"matmul_loop/{mode} {tiles} tile{'s' if tiles > 1 else ''}"
+            outs[name] = matmul_loop(w, x, mode).cpu()
+            ms[name] = time_ms(lambda: matmul_loop(w, x, mode))
+            torch.cuda.synchronize()
+    return outs
+
+
+def phase_parent(parent: str, rows) -> dict:
+    """Rows 1-7 and 10 of the tree at ``parent`` (e.g. the parent commit,
+    unpacked) and of this tree on this card, one child process each, in
+    turns parent, this, this, parent: their kernel ms side by side (rows 1,
+    6 and 7 also at the 8,192 bucket; row 10 in each product mode at 21
+    tiles and at one); the LSTM gradients of the two trees on the same
+    inputs (bit for bit, or within the stated tolerance), rows 1, 6 and 7's
+    MSE (within the kernel tolerance of the parent's) and row 10's outputs
+    (bit for bit, each also against its plain version); this tree's two
+    runs bit for bit. Adds ``parent_ms`` (median
+    of the parent's two runs) to those rows; returns every such median by
+    name."""
     import tempfile
 
     import torch
@@ -1536,14 +1574,16 @@ def phase_parent(parent: str, rows) -> None:
             runs.append(torch.load(out))
             print(f"[parent] run {k}: {runs[-1]['package']}: " + ", ".join(
                 f"{n} {v:.4f}" for n, v in runs[-1]["ms"].items()) + " ms")
+    parent_ms = {}
     for name in runs[0]["ms"]:
         par = [runs[0]["ms"][name], runs[3]["ms"][name]]
         new = [runs[1]["ms"][name], runs[2]["ms"][name]]
         print(f"[parent] {name}: parent {par[0]:.4f} / {par[1]:.4f} ms, this tree "
               f"{new[0]:.4f} / {new[1]:.4f} ms ({min(new) / min(par):.3f}x of the parent)")
+        parent_ms[name] = float(np.median(par))
         for row in rows:
             if row["name"] == name:
-                row["parent_ms"] = float(np.median(par))
+                row["parent_ms"] = parent_ms[name]
     for tag, names in zip(("enc", "dec"), LSTM_GRAD_NAMES):
         same = [bool(torch.equal(a, b)) for a, b in zip(runs[0][tag], runs[1][tag])]
         print(f"[parent] {tag} gradients equal to the parent's bit for bit: "
@@ -1559,6 +1599,33 @@ def phase_parent(parent: str, rows) -> None:
         check(torch.equal(new, runs[2]["gate_mse"][name]),
               f"row {row}: two runs of this tree gave different mse")
         print(f"[parent] row {row} mse of this tree's two runs: equal bit for bit")
+    from shm_tpu_torch.tools.probe_f32_cliff import make_inputs, matmul_loop_reference
+
+    def errs(got, ref):
+        return (", ".join(f"{v:.3e}" for v in rel_errs(got, ref))
+                + f", {over_one_bf16_ulp(got, ref)} of {ref.numel()} over one bf16 ulp")
+
+    for name, par in runs[0]["probe"].items():
+        new = runs[1]["probe"][name]
+        mode, tiles = name.split("/")[1].split()[0], int(name.split()[1])
+        same = bool(torch.equal(new, par))
+        w, x = make_inputs(tiles, seed=tiles, device="cuda")
+        ref = matmul_loop_reference(w, x, mode).cpu()
+        print(f"[parent] row 10 {name}, this tree against the parent's: "
+              f"{'equal bit for bit' if same else 'not bit for bit'}; against "
+              f"the plain version (max_rel, mean_rel, elements): this tree "
+              f"({errs(new, ref)}), parent ({errs(par, ref)})")
+        if mode == "bf16":   # a second witness: the plain version's sums in float64
+            ref64 = matmul_loop_reference(w, x, mode, sum_dtype=torch.float64).cpu()
+            print(f"[parent] row 10 {name} against the plain version with float64 "
+                  f"sums: this tree ({errs(new, ref64)}); the plain version "
+                  f"({errs(ref, ref64)})")
+        check(same, f"row 10 {name}: this tree's output is not the parent's "
+                    "bit for bit, though it keeps every sum's order")
+        check(torch.equal(new, runs[2]["probe"][name]),
+              f"row 10 {name}: two runs of this tree gave different outputs")
+    print("[parent] row 10 outputs of this tree's two runs: equal bit for bit")
+    return parent_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1598,6 +1665,15 @@ def rel_errs(got, ref):
     """(max |got - ref| / max |ref|, mean |got - ref| / mean |ref|)."""
     d, r = (got - ref).abs().double(), ref.abs().double()
     return float(d.max() / r.max()), float(d.mean() / r.mean())
+
+
+def over_one_bf16_ulp(got, ref) -> int:
+    """Elements of ``got`` more than one bf16 ulp (2^(e - 8) for |ref| in
+    [2^(e-1), 2^e)) from ``ref``."""
+    import torch
+
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref)[1] - 8)
+    return int(((got - ref).abs() > ulp).sum())
 
 
 def compare_rel(name: str, got, ref, tol) -> float:
@@ -1644,7 +1720,7 @@ def phase_probes_vs_plain():
 
     errs = dict.fromkeys(PROBES, 0.0)
     tol = PROBE_TOL["matmul_bf16"]
-    for tiles in (1, 21):
+    for tiles in (1, 21, 34):         # 34: more than one wave of blocks
         w, x = make_inputs(tiles, seed=400 + tiles, device="cuda")
         f32_ref = matmul_loop_reference(w, x, "f32")
         for mode in MODES:
@@ -1727,6 +1803,27 @@ def phase_probes_vs_plain():
     return errs
 
 
+def graph_time_ms(fn, reps: int = PROBE_REPS) -> float:
+    """Median device time of ``fn`` captured in a CUDA graph, by its replay:
+    a loop of small launches timed without the host's dispatch between
+    them. ``fn`` runs once on a side stream before the capture, as the
+    capture needs (cuBLAS sets up its workspace there)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, reps=reps, warm=1)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def matmul_loop_library(w, x, dtype, T: int = 100):
     """``matmul_loop``'s function as a T-step loop of ``torch.matmul`` in
     ``dtype``: a yardstick timed here only."""
@@ -1736,6 +1833,25 @@ def matmul_loop_library(w, x, dtype, T: int = 100):
     wd, h = w.to(dtype), x[:H].clone()
     for _ in range(T):
         g = torch.matmul(wd, h.to(dtype)).float()
+        h = torch.tanh(g[:H]) * 0.25 + h * 0.75
+    return h
+
+
+def matmul_loop_library_bf16x3(w, x, T: int = 100):
+    """bf16x3's yardstick: a T-step loop of three bf16 ``torch.matmul``
+    calls a step (W_hi h_hi, W_hi h_lo, W_lo h_hi), timed here only. Each
+    call returns bf16, so it times the products, not bf16x3's accuracy."""
+    import torch
+
+    H = w.shape[1]
+    w_hi = w.bfloat16()
+    w_lo = (w - w_hi.float()).bfloat16()
+    h = x[:H].clone()
+    for _ in range(T):
+        hb = h.bfloat16()
+        hl = (h - hb.float()).bfloat16()
+        g = (torch.matmul(w_hi, hb).float() + torch.matmul(w_hi, hl).float()
+             + torch.matmul(w_lo, hb).float())
         h = torch.tanh(g[:H]) * 0.25 + h * 0.75
     return h
 
@@ -1792,12 +1908,14 @@ def phase_probe_path(errs, wl):
             lambda: probe_f32_cliff.matmul_loop_reference(w, x, "f32"), reps=3, warm=1),
     }
     lib8, lib9 = cudnn_vae_pass(vae8), scan_mingru_pass(vae9)
-    lib_bf16 = time_ms(lambda: matmul_loop_library(w, x, torch.bfloat16), reps=3, warm=1)
+    # row 10's yardsticks: T steps of small calls each, so timed as graphs
+    lib10 = {"f32": graph_time_ms(lambda: matmul_loop_library(w, x, torch.float32)),
+             "bf16": graph_time_ms(lambda: matmul_loop_library(w, x, torch.bfloat16)),
+             "bf16x3": graph_time_ms(lambda: matmul_loop_library_bf16x3(w, x))}
     library = {
         "fused_vae_probe": time_ms(lambda: lib8(Z8), reps=3, warm=1),
         "probe_mingru_gate": time_ms(lambda: lib9(Z9), reps=3, warm=1),
-        "probe_matmul_loop": time_ms(
-            lambda: matmul_loop_library(w, x, torch.float32), reps=3, warm=1),
+        "probe_matmul_loop": lib10["f32"],
     }
     n = Z8.shape[0]
     work = {
@@ -1829,8 +1947,26 @@ def phase_probe_path(errs, wl):
             launches=launches[name], max_abs_err=errs[name], ms=ms[name],
             plain_ms=plain[name], bound_ms=bound, bound_by=bound_by,
             library_ms=library[name], bound_fma_ms=fma_ms))
-    print(f"[probe] matmul_loop library yardstick in bf16 (torch.matmul loop): "
-          f"{lib_bf16:.4f} ms; the kernels row reports the f32 mode")
+    # row 10 by mode: the kernel against its bound with one SM a tile (the
+    # TPU probe's grid) and at the grid the C entry launches, and its
+    # yardstick; the kernels row reports the f32 mode
+    by_mode = {}
+    for r in rows10:
+        if not r["probe"].startswith("matmul_loop/") or r["probe"].endswith("/vpu"):
+            continue
+        mode = r["probe"].split("/")[1]
+        blocks = probe_f32_cliff._library().shm_probe_matmul_loop_blocks(
+            x.shape[1], probe_f32_cliff.MODES.index(mode))
+        check(blocks == r["blocks"], f"matmul_loop/{mode}: the C entry launches "
+                                     f"{blocks} blocks, its Python mirror {r['blocks']}")
+        by_mode[mode] = dict(ms=r["ms"], blocks=blocks,
+                             bound_ms_grid=r["bound_ms_grid"], library_ms=lib10[mode])
+        print(f"[probe] matmul_loop/{mode}: kernel {r['ms']:.4f} ms on {blocks} "
+              f"blocks | bound {r['bound_ms']:.4f} ms card, {r['bound_ms_per_sm']:.4f} "
+              f"one SM a tile, {r['bound_ms_grid']:.4f} at the launched grid (kernel "
+              f"at {r['bound_ms_grid'] / r['ms'] * 100:.1f}% of it) | library "
+              f"{lib10[mode]:.4f} ms (kernel {r['ms'] / lib10[mode]:.3f}x of it)")
+    rows[-1]["by_mode"] = by_mode
     return rows
 
 
@@ -2183,13 +2319,17 @@ def main(argv) -> int:
         errs = phase_lstm_kernels_vs_plain()
         counts, ctx = phase_train_path()
         lstm_rows = phase_lstm_timing(errs, counts, ctx)
+        parent_ms = {}
         if parent is not None:
-            phase_parent(parent, lstm_rows + gate_rows)
+            parent_ms = phase_parent(parent, lstm_rows + gate_rows)
         else:
             print("[parent] no --parent DIR given: the parent tree's rows 1-7 "
-                  "are not timed in this run")
+                  "and 10 are not timed in this run")
         torch.cuda.empty_cache()
         probe_rows = phase_probe_path(phase_probes_vs_plain(), wl)
+        f32_name = f"matmul_loop/f32 {PARENT_PROBE_TILES[0]} tiles"
+        if f32_name in parent_ms:          # row 10's f32 mode, the row's `ms`
+            probe_rows[-1]["parent_ms"] = parent_ms[f32_name]
         torch.cuda.empty_cache()
         chain_launches = phase_chains()
     except SmokeFailure as e:

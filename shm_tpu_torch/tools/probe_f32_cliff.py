@@ -15,8 +15,11 @@ and returns h [H, ncols]:
 
 On a CUDA tensor it launches ``ops/csrc/probe_matmul_loop.cu`` and adds one
 to ``matmul_loop.launches``; on a CPU tensor it runs
-:func:`matmul_loop_reference`. ``main`` also times the port's float32
-``fused_vae_gate`` (the TPU probe's part A; the port has no bf16 gate yet).
+:func:`matmul_loop_reference`. The kernel's grid is not the TPU probe's one
+block a tile: a block owns ``SHIP_CB`` columns, so 21 tiles fill
+the card (``matmul_loop_blocks``, ``matmul_loop_grid_bound_ms``). ``main``
+also times the port's float32 ``fused_vae_gate`` (the TPU probe's part A;
+the port has no bf16 gate yet).
 
     python -m shm_tpu_torch.tools.probe_f32_cliff            # on the card
     python -m shm_tpu_torch.tools.probe_f32_cliff --device cpu --tiles 1 --T 3
@@ -42,11 +45,18 @@ H, BT = 128, 256
 MODES = ("vpu", "f32", "bf16", "bf16x3")
 N_TILES = 21          # the TPU probe's 21 tiles (~5,440 windows / 256)
 T_STEPS = 100
+# columns a block owns on the card in the product modes
+# (ops/csrc/probe_matmul_loop.cu's SHIP_CB), chosen among 32, 48 and 64 by
+# measurement at 21 tiles (PERF.md §6)
+SHIP_CB = 48
 
 
 def matmul_loop_reference(w: torch.Tensor, x: torch.Tensor, mode: str, *,
-                          T: int = T_STEPS) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: h [H, ncols] after T steps."""
+                          T: int = T_STEPS,
+                          sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: h [H, ncols] after T steps.
+    Each product sums in ``sum_dtype`` and is rounded to float32; float64
+    gives a witness whose sums are all but exact."""
     x0 = x[:H]
     h = x0.clone()
     if mode == "vpu":
@@ -55,15 +65,19 @@ def matmul_loop_reference(w: torch.Tensor, x: torch.Tensor, mode: str, *,
         return h
     w_hi = bf16_round(w)
     w_lo = bf16_round(w - w_hi)
+
+    def mm(a, b):
+        return (a.to(sum_dtype) @ b.to(sum_dtype)).float()
+
     for _ in range(T):
         if mode == "f32":
-            g = w @ h
+            g = mm(w, h)
         elif mode == "bf16":
-            g = w_hi @ bf16_round(h)
+            g = mm(w_hi, bf16_round(h))
         else:
             hb = bf16_round(h)
             h_lo = bf16_round(h - hb)
-            g = w_hi @ hb + w_hi @ h_lo + w_lo @ hb
+            g = mm(w_hi, hb) + mm(w_hi, h_lo) + mm(w_lo, hb)
         h = torch.tanh(g[:H]) * 0.25 + h * 0.75
     return h
 
@@ -91,9 +105,11 @@ def _library() -> ctypes.CDLL:
     lib = load_library("probe_matmul_loop")
     lib.shm_probe_matmul_loop.restype = ctypes.c_int
     lib.shm_probe_matmul_loop.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.shm_probe_matmul_loop_scratch_bytes.restype = ctypes.c_longlong
     lib.shm_probe_matmul_loop_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.shm_probe_matmul_loop_blocks.restype = ctypes.c_int
+    lib.shm_probe_matmul_loop_blocks.argtypes = [ctypes.c_int] * 2
     return lib
 
 
@@ -101,16 +117,14 @@ def _launch(w, x, mode, T):
     lib = _library()
     ncols = x.shape[1]
     m = MODES.index(mode)
-    out = torch.empty(H, ncols, device=x.device, dtype=torch.float32)
     nbytes = lib.shm_probe_matmul_loop_scratch_bytes(ncols, m)
+    out = torch.empty(H, ncols, device=x.device, dtype=torch.float32)
     scratch = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
-    sink = torch.empty(ncols // BT * 512, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.shm_probe_matmul_loop(
             w.data_ptr(), x.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if nbytes else None, sink.data_ptr(), ncols, T,
-            m, stream)
+            scratch.data_ptr() if nbytes else None, ncols, T, m, stream)
     raise_on_error(lib, err, "probe_matmul_loop")
     matmul_loop.launches += 1
     return out
@@ -143,9 +157,38 @@ def matmul_loop_bound_ms(ncols: int, mode: str, T: int = T_STEPS):
     mode's operand type (float32 FMA for f32, bf16 tensor cores otherwise)
     or the bytes of x[0:H] and h, whichever is larger, and the same with one
     SM a tile."""
-    peak = PEAK_F32_FLOPS if mode == "f32" else PEAK_BF16_FLOPS
-    card, by = bound_ms(matmul_loop_flops(ncols, mode, T), 2 * 4 * H * ncols, peak)
+    card, by = _card_bound(ncols, mode, T)
     return card, card if by == "bytes" else card * N_SMS / (ncols // BT)
+
+
+def _card_bound(ncols, mode, T):
+    peak = PEAK_F32_FLOPS if mode == "f32" else PEAK_BF16_FLOPS
+    return bound_ms(matmul_loop_flops(ncols, mode, T), 2 * 4 * H * ncols, peak)
+
+
+def block_columns(mode: str) -> int:
+    """Columns one block of the kernel owns in ``mode``: the TPU probe's tile
+    for vpu, else ``SHIP_CB``."""
+    return BT if mode == "vpu" else SHIP_CB
+
+
+def matmul_loop_blocks(ncols: int, mode: str) -> int:
+    """Blocks the kernel launches for ``ncols`` columns in ``mode`` (the C
+    entry's ``shm_probe_matmul_loop_blocks``); a ragged last block computes
+    on zero columns."""
+    return -(-ncols // block_columns(mode))
+
+
+def matmul_loop_grid_bound_ms(ncols: int, mode: str, T: int = T_STEPS) -> float:
+    """The bound at the grid the kernel launches: the busiest SM's columns
+    (a block's columns times its blocks, the blocks spread evenly over the
+    SMs) at one SM's share of the peak; the card's figure where bytes bind."""
+    card, by = _card_bound(ncols, mode, T)
+    if by == "bytes":
+        return card
+    blocks = matmul_loop_blocks(ncols, mode)
+    cols = block_columns(mode) * -(-blocks // N_SMS)
+    return card * N_SMS * cols / ncols
 
 
 def make_inputs(tiles: int = N_TILES, seed: int = 0, device="cpu"):
@@ -177,6 +220,8 @@ def probe_table(tiles: int = N_TILES, T: int = T_STEPS, reps: int = 20,
               if on_card else None)
         rows.append({"probe": f"matmul_loop/{mode}", "ms": ms,
                      "bound_ms": card, "bound_ms_per_sm": per_sm,
+                     "blocks": matmul_loop_blocks(ncols, mode),
+                     "bound_ms_grid": matmul_loop_grid_bound_ms(ncols, mode, T),
                      "tiles": tiles, "T": T,
                      "checksum": float(out.double().sum())})
 

@@ -660,7 +660,8 @@ def _close_rel(got, want, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tiles, T", [(1, 100), (2, 7)])
+# 21 tiles: the TPU probe's, one wave of blocks; 34: more than one wave
+@pytest.mark.parametrize("tiles, T", [(1, 100), (2, 7), (21, 100), (34, 100)])
 @pytest.mark.parametrize("mode", ["vpu", "f32", "bf16", "bf16x3"])
 def test_probe_matmul_loop_kernel_matches_plain_version(cuda_device, mode, tiles, T):
     from shm_tpu_torch.tools.probe_f32_cliff import (
@@ -680,6 +681,19 @@ def test_probe_matmul_loop_kernel_matches_plain_version(cuda_device, mode, tiles
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
     if mode == "bf16x3":              # about float32 accuracy
         _close_rel(out, matmul_loop_reference(w, x, "f32", T=T), BF16X3_F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["vpu", "f32", "bf16", "bf16x3"])
+def test_probe_matmul_loop_grid_is_the_python_mirror(cuda_device, mode):
+    from shm_tpu_torch.tools.probe_f32_cliff import MODES, _library, matmul_loop_blocks
+
+    lib, m = _library(), MODES.index(mode)
+    for ncols in (256, 512, 21 * 256, 25 * 256, 34 * 256):
+        assert lib.shm_probe_matmul_loop_blocks(ncols, m) == \
+            matmul_loop_blocks(ncols, mode)
+    assert lib.shm_probe_matmul_loop_blocks(200, m) == -1
+    assert lib.shm_probe_matmul_loop_blocks(256, 4) == -1
 
 
 def _probe_vae(cell, N, T, device, seed):

@@ -85,7 +85,8 @@ KERNEL_ENTRIES = {
     "fused_mingru.cu": ["shm_fused_mingru_gate_f32", "shm_fused_mingru_variant",
                         "shm_fused_mingru_info"],
     "fused_attention.cu": ["shm_fused_attention_gate_f32"],
-    "probe_matmul_loop.cu": ["shm_probe_matmul_loop"],
+    "probe_matmul_loop.cu": ["shm_probe_matmul_loop",
+                             "shm_probe_matmul_loop_blocks"],
     "probe_mingru_gate.cu": ["shm_probe_mingru_gate"],
 }
 # the module that wraps each source: ops/<source>.py, or the probe's own
