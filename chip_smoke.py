@@ -53,24 +53,29 @@ Phases (any failure exits non-zero before the final line):
 8. timings of the four kernels and of one training step (kernel path, plain
    autograd path, a cuDNN ``nn.LSTM`` yardstick), their bounds, and where a
    step's time goes; with ``--parent DIR`` (another checkout of the
-   repository, e.g. the parent commit unpacked), also rows 1-7 and 10 of
-   that tree on this card (rows 1, 6 and 7 at 5,440 windows and at the
-   8,192 bucket; row 10 in each product mode at 21 tiles and at one), in
-   turns with this tree's, its gradients against this tree's on the same
-   inputs, its rows 1, 6 and 7 mse against this tree's and its row 10
-   outputs against this tree's (bit for bit);
+   repository, e.g. the parent commit unpacked), also rows 1-7, 9 and 10
+   of that tree on this card (rows 1, 6 and 7 at 5,440 windows and at the
+   8,192 bucket; row 9 at 21,760 windows with loop_T 100 and 1; row 10 in
+   each product mode at 21, 1 and 34 tiles), in turns with this tree's,
+   its gradients against this tree's on the same inputs, its rows 1, 6, 7
+   and 9 mse against this tree's, and row 10's outputs: f32 against this
+   tree's bit for bit, bf16 and bf16x3 this tree's against the plain
+   version, each printed against float64 sums;
 9. the probes (``shm_tpu_torch/tools``): each of the three probe kernels
    against its plain version (``matmul_loop`` in every mode at one tile, at
    21 and at 34, bf16x3 also against the float32 loop; ``gate_variant``'s variants
    at N=1000 ragged, its float32 FMA instance A against its plain version
    and its shipping tensor-core instance T against ``fused_vae_gate`` bit
    for bit;
-   the minGRU clone at ``loop_T`` T and 1), with planted faults
+   the minGRU clone at ``loop_T`` T and 1, against its plain version with
+   float64 sums), with planted faults
    (float32 for bf16, another LayerNorm eps, bf16 activations added) that
    each tolerance must fail; then the probe path: the three probes' tables
    at the TPU probes' sizes (launch counts reset before, read after), and
    each kernel's time against its bound, its plain version and a library
-   yardstick; row 10 by product mode, with its bound at the grid the C
+   yardstick; row 9 with its scratch's bytes bound, blocks an SM, waves
+   and its time on whole waves only; row 10 by product mode, with its bound
+   at the grid the C
    entry reports and a yardstick each (a loop of ``torch.matmul`` in the
    mode's type; bf16x3: three bf16 calls a step), each loop captured in a
    CUDA graph and timed by its replay;
@@ -1510,19 +1515,52 @@ def child(root: str, out: str) -> int:
             if n != N_BENCH:
                 ms[f"{name} N={n}"] = v
     probe_out = probe_row(ms)
+    mingru_out = mingru_probe_row(ms)
     package = str(Path(shm_tpu_torch.__file__).parent)
     print(f"[child] {package}: " + ", ".join(f"{n} {v:.4f}" for n, v in ms.items())
           + " ms")
     torch.save(dict(package=package, ms=ms, gate_mse=gate_mse, probe=probe_out,
+                    mingru_probe=mingru_out,
                     enc=[g.cpu() for g in enc], dec=[g.cpu() for g in dec]), out)
     return 0
 
 
+# row 9's calls that --child / --parent time: the TPU probe's workload
+# (probe_inputs: N=21,760 windows of 100 steps) with the loops at full T and
+# cut to one step
+PARENT_MINGRU_LOOPS = (None, 1)
+
+
+def mingru_probe_name(loop_T, n: int) -> str:
+    return f"make_gate({loop_T}) N={n}"
+
+
+def mingru_probe_row(ms: dict) -> dict:
+    """Row 9 of the importable tree through its public calls:
+    ``make_gate(loop_T)`` on ``probe_inputs()`` for each of
+    ``PARENT_MINGRU_LOOPS``. Adds each call's kernel ms to ``ms``; returns
+    the mse, on the CPU."""
+    import torch
+
+    from shm_tpu_torch.tools.probe_mingru_recur import make_gate, probe_inputs
+
+    _, w, Z = probe_inputs()
+    outs = {}
+    for loop_T in PARENT_MINGRU_LOOPS:
+        name = mingru_probe_name(loop_T, Z.shape[0])
+        gate = make_gate(loop_T)
+        outs[name] = gate(w, Z).cpu()
+        ms[name] = time_ms(lambda: gate(w, Z), warm=5)
+    del Z
+    torch.cuda.empty_cache()
+    return outs
+
+
 # row 10's product modes that --child / --parent run, at the TPU probe's 21
 # tiles, at one and at 34 (more than one wave of blocks), on the inputs of
-# tests/test_torch_cuda.py's case of that size. This tree takes every output
-# sum in the parent's order (operands and order do not depend on the grid),
-# so each output must equal the parent's bit for bit
+# tests/test_torch_cuda.py's case of that size. The f32 output keeps the
+# parent's operands and sum order, so it must equal the parent's bit for
+# bit; the tensor-core modes sum each k-step pair apart, in another order
 PARENT_PROBE_TILES = (21, 1, 34)
 PARENT_PROBE_MODES = ("f32", "bf16", "bf16x3")
 
@@ -1548,15 +1586,19 @@ def probe_row(ms: dict) -> dict:
 
 
 def phase_parent(parent: str, rows) -> dict:
-    """Rows 1-7 and 10 of the tree at ``parent`` (e.g. the parent commit,
-    unpacked) and of this tree on this card, one child process each, in
-    turns parent, this, this, parent: their kernel ms side by side (rows 1,
-    6 and 7 also at the 8,192 bucket; row 10 in each product mode at 21
-    tiles and at one); the LSTM gradients of the two trees on the same
-    inputs (bit for bit, or within the stated tolerance), rows 1, 6 and 7's
-    MSE (within the kernel tolerance of the parent's) and row 10's outputs
-    (bit for bit, each also against its plain version); this tree's two
-    runs bit for bit. Adds ``parent_ms`` (median
+    """Rows 1-7, 9 and 10 of the tree at ``parent`` (e.g. the parent
+    commit, unpacked) and of this tree on this card, one child process each,
+    in turns parent, this, this, parent: their kernel ms side by side (rows
+    1, 6 and 7 also at the 8,192 bucket; row 9 at full T and with its loops
+    cut to one step; row 10 in each product mode at 21, 1 and 34 tiles); the
+    LSTM gradients of the two trees on the same inputs (bit for bit, or
+    within the stated tolerance), rows 1, 6 and 7's MSE (within the kernel
+    tolerance of the parent's), row 9's (within ``PROBE_TOL["gate"]`` of the
+    parent's: its sums changed order on purpose); row 10's outputs: f32 the
+    parent's bit for bit, bf16 and bf16x3 each within its mode's tolerance
+    of the plain version (their sums changed on purpose), each printed
+    against float64 sums beside the parent's and this tree's ``tc="chain"``
+    instance; this tree's two runs bit for bit. Adds ``parent_ms`` (median
     of the parent's two runs) to those rows; returns every such median by
     name."""
     import tempfile
@@ -1599,12 +1641,34 @@ def phase_parent(parent: str, rows) -> dict:
         check(torch.equal(new, runs[2]["gate_mse"][name]),
               f"row {row}: two runs of this tree gave different mse")
         print(f"[parent] row {row} mse of this tree's two runs: equal bit for bit")
-    from shm_tpu_torch.tools.probe_f32_cliff import make_inputs, matmul_loop_reference
+    from shm_tpu_torch.tools.probe_mingru_recur import mingru_gate_reference, probe_inputs
+
+    _, w9, Z9 = probe_inputs()
+    for loop_T in PARENT_MINGRU_LOOPS:
+        name = mingru_probe_name(loop_T, Z9.shape[0])
+        new, par = runs[1]["mingru_probe"][name], runs[0]["mingru_probe"][name]
+        ref = mingru_gate_reference(w9, Z9, loop_T, sum_dtype=torch.float64).cpu()
+        print(f"[parent] row 9 {name} against the plain version with float64 sums "
+              "(max_rel, mean_rel): this tree ({:.3e}, {:.3e}), parent ({:.3e}, "
+              "{:.3e}); this tree against the parent's (its sums changed order):"
+              .format(*rel_errs(new, ref), *rel_errs(par, ref)))
+        compare_rel(f"row 9 {name} mse, this tree vs parent", new, par, PROBE_TOL["gate"])
+        check(torch.equal(new, runs[2]["mingru_probe"][name]),
+              f"row 9 {name}: two runs of this tree gave different mse")
+    print("[parent] row 9 mse of this tree's two runs: equal bit for bit")
+    del Z9
+    torch.cuda.empty_cache()
+
+    from shm_tpu_torch.tools.probe_f32_cliff import (
+        make_inputs, matmul_loop, matmul_loop_reference,
+    )
 
     def errs(got, ref):
         return (", ".join(f"{v:.3e}" for v in rel_errs(got, ref))
                 + f", {over_one_bf16_ulp(got, ref)} of {ref.numel()} over one bf16 ulp")
 
+    # every row 10 output is printed before any of its checks fails
+    failures = []
     for name, par in runs[0]["probe"].items():
         new = runs[1]["probe"][name]
         mode, tiles = name.split("/")[1].split()[0], int(name.split()[1])
@@ -1615,15 +1679,35 @@ def phase_parent(parent: str, rows) -> dict:
               f"{'equal bit for bit' if same else 'not bit for bit'}; against "
               f"the plain version (max_rel, mean_rel, elements): this tree "
               f"({errs(new, ref)}), parent ({errs(par, ref)})")
-        if mode == "bf16":   # a second witness: the plain version's sums in float64
+        if mode == "f32":
+            if not same:
+                failures.append(f"row 10 {name}: this tree's output is not the "
+                                "parent's bit for bit, though it keeps every sum's order")
+        else:
+            # witnesses: the plain version's sums in float64, and this tree's
+            # chained-sum instance (the body before the split)
             ref64 = matmul_loop_reference(w, x, mode, sum_dtype=torch.float64).cpu()
+            chain = matmul_loop(w, x, mode, tc="chain").cpu()
             print(f"[parent] row 10 {name} against the plain version with float64 "
-                  f"sums: this tree ({errs(new, ref64)}); the plain version "
-                  f"({errs(ref, ref64)})")
-        check(same, f"row 10 {name}: this tree's output is not the parent's "
-                    "bit for bit, though it keeps every sum's order")
-        check(torch.equal(new, runs[2]["probe"][name]),
-              f"row 10 {name}: two runs of this tree gave different outputs")
+                  f"sums: this tree ({errs(new, ref64)}); parent ({errs(par, ref64)}); "
+                  f"this tree's tc='chain' ({errs(chain, ref64)}, "
+                  f"{'equal' if torch.equal(chain, par) else 'not equal'} to the "
+                  f"parent's bit for bit); the plain version ({errs(ref, ref64)})")
+            max_rel, mean_rel = rel_errs(new, ref)
+            if mode == "bf16":
+                tol = PROBE_TOL["matmul_bf16"]
+                ok, what = max_rel <= tol[0] and mean_rel <= tol[1], f"PROBE_TOL {tol}"
+            else:             # about float32 accuracy: the float32 tolerance
+                ok = float(((new - ref).abs() - RTOL * ref.abs()).max()) <= ATOL
+                what = f"{ATOL:g} + {RTOL:g}*|plain|"
+            print(f"[parent] row 10 {name}, this tree within {what} of the plain "
+                  f"version: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"row 10 {name}: this tree disagrees with the plain "
+                                f"version (max_rel {max_rel:.3e}, mean_rel {mean_rel:.3e})")
+        if not torch.equal(new, runs[2]["probe"][name]):
+            failures.append(f"row 10 {name}: two runs of this tree gave different outputs")
+    check(not failures, "; ".join(failures))
     print("[parent] row 10 outputs of this tree's two runs: equal bit for bit")
     return parent_ms
 
@@ -1649,7 +1733,10 @@ PROBES = {   # name in the kernels line: (source, the TPU kernel it replaces)
 # tolerance fails such a planted fault. Measured on the card (PERF.md §6):
 # gate_variant and make_gate, N=1000, T=100: kernel (1.5e-5, 8.8e-7); with
 # bf16 activations (6 more roundings a cell, so more flips) (2.3e-5, 2.4e-6);
-# the faults move the mean by 7.2e-6 (eps) to 1.4e-4 (float32).
+# the faults move the mean by 7.2e-6 (eps) to 1.4e-4 (float32). make_gate's
+# tensor-core sums against the float64-sum plain version: (3.4e-5, 4.4e-7),
+# and with loop_T=1, where one window's single flip reaches the max, (7.5e-5,
+# 3.5e-7).
 # matmul_loop bf16, T=100: kernel (4.8e-3, 4.3e-4); float32 instead of bf16
 # moves the mean by 7.3e-3.
 PROBE_TOL = {"gate": (1e-4, 2e-6), "gate_act_bf16": (1e-4, 5e-6),
@@ -1785,20 +1872,35 @@ def phase_probes_vs_plain():
                   gate_variant_reference(w, Z, sig_via_tanh=True, act_bf16=True),
                   PROBE_TOL["gate_act_bf16"])
 
+    # make_gate against its plain version with its sums in float64 (all but
+    # exact, rounded to float32): with loop_T=1 one window's mse moves by a
+    # single bf16 flip of step 0 as far as the max tolerance, and a float32
+    # sum's order decides such flips. On these inputs the float32-sum plain
+    # version is itself a flip (1.112e-4) from exact sums at one window,
+    # where the kernel's sums agree with exact sums (PERF.md §6), so
+    # it is printed as a witness beside the check
     vae, rng = random_vae(420, 12, 16, 128, 2, True, cell="min_gru")
     w = mingru_params_to_kernel_weights(vae)
     Z = torch.from_numpy(rng.normal(size=(1000, 100, 12)).astype(np.float32)).cuda()
+    f64 = dict(sum_dtype=torch.float64)
     for loop_T in (100, 1):
         o = make_gate(loop_T)(w, Z)
         torch.cuda.synchronize()
         check(o.shape == (1000,) and bool(torch.isfinite(o).all()),
               f"make_gate({loop_T}): not finite / wrong shape")
         label = f"make_gate(loop_T={loop_T}) N=1000"
-        e = compare_rel(label, o, mingru_gate_reference(w, Z, loop_T), tol)
+        ref, ref32 = (mingru_gate_reference(w, Z, loop_T, **f64),
+                      mingru_gate_reference(w, Z, loop_T))
+        fmt = lambda got, want: "({:.3e}, {:.3e})".format(*rel_errs(got, want))
+        print(f"[probe]   witnesses, {label}, against the plain version with float64 "
+              f"sums (max_rel, mean_rel): kernel {fmt(o, ref)}, the float32-sum plain "
+              f"version {fmt(ref32, ref)}; kernel against the float32-sum plain "
+              f"version {fmt(o, ref32)}")
+        e = compare_rel(f"{label} against its plain version with float64 sums", o, ref, tol)
         planted_fault(f"{label} held against float32 scratch and operands", o,
-                      mingru_gate_reference(w, Z, loop_T, bf16=False), tol)
+                      mingru_gate_reference(w, Z, loop_T, bf16=False, **f64), tol)
         planted_fault(f"{label} held against LayerNorm eps 1e-5", o,
-                      mingru_gate_reference(w, Z, loop_T, ln_eps=MODEL_LN_EPS), tol)
+                      mingru_gate_reference(w, Z, loop_T, ln_eps=MODEL_LN_EPS, **f64), tol)
         errs["probe_mingru_gate"] = max(errs["probe_mingru_gate"], e)
     return errs
 
@@ -1947,6 +2049,31 @@ def phase_probe_path(errs, wl):
             launches=launches[name], max_abs_err=errs[name], ms=ms[name],
             plain_ms=plain[name], bound_ms=bound, bound_by=bound_by,
             library_ms=library[name], bound_fma_ms=fma_ms))
+    # row 9: the project-then-sweep structure moves its scratch through
+    # device memory, a bound of its own beside the function's; how the card
+    # takes the kernel (blocks an SM, waves of its grid)
+    row9, n9 = rows[1], Z9.shape[0]
+    info = probe_mingru_recur.kernel_info()
+    blocks = -(-n9 // info["windows_per_block"])
+    per_wave = info["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
+    waves = blocks / per_wave
+    row9.update(windows=n9, info=info, waves=waves, ms_loop_T_1=next(
+        r["ms"] for r in rows9 if r.get("run") == "loops truncated to 1"))
+    # what the last, partly filled wave costs: the same calls on the first
+    # windows that fill whole waves only
+    Zw = Z9[:int(waves) * per_wave * info["windows_per_block"]]
+    row9["whole_waves"] = {"windows": Zw.shape[0], "waves": int(waves), "ms": time_ms(
+        lambda: probe_mingru_recur.make_gate(None)(w9, Zw), reps=PROBE_REPS), "ms_loop_T_1":
+        time_ms(lambda: probe_mingru_recur.make_gate(1)(w9, Zw), reps=PROBE_REPS)}
+    print(f"[probe] probe_mingru_gate on whole waves only: {row9['whole_waves']}")
+    for loop_T, key in ((None, "bound_scratch_ms"), (1, "bound_scratch_ms_loop_T_1")):
+        row9[key] = probe_mingru_recur.scratch_bytes_moved(n9, loop_T=loop_T) / PEAK_BYTES * 1e3
+    print(f"[probe] probe_mingru_gate: {info}; {blocks} blocks, {waves:.2f} waves | "
+          f"full T {row9['ms']:.4f} ms, scratch bytes bound {row9['bound_scratch_ms']:.4f} "
+          f"ms ({row9['bound_scratch_ms'] / row9['ms'] * 100:.1f}%) | loop_T=1 "
+          f"{row9['ms_loop_T_1']:.4f} ms, scratch bytes bound "
+          f"{row9['bound_scratch_ms_loop_T_1']:.4f} ms "
+          f"({row9['bound_scratch_ms_loop_T_1'] / row9['ms_loop_T_1'] * 100:.1f}%)")
     # row 10 by mode: the kernel against its bound with one SM a tile (the
     # TPU probe's grid) and at the grid the C entry launches, and its
     # yardstick; the kernels row reports the f32 mode
@@ -2323,13 +2450,16 @@ def main(argv) -> int:
         if parent is not None:
             parent_ms = phase_parent(parent, lstm_rows + gate_rows)
         else:
-            print("[parent] no --parent DIR given: the parent tree's rows 1-7 "
-                  "and 10 are not timed in this run")
+            print("[parent] no --parent DIR given: the parent tree's rows 1-7, "
+                  "9 and 10 are not timed in this run")
         torch.cuda.empty_cache()
         probe_rows = phase_probe_path(phase_probes_vs_plain(), wl)
         f32_name = f"matmul_loop/f32 {PARENT_PROBE_TILES[0]} tiles"
         if f32_name in parent_ms:          # row 10's f32 mode, the row's `ms`
             probe_rows[-1]["parent_ms"] = parent_ms[f32_name]
+        row9_name = mingru_probe_name(None, probe_rows[1]["windows"])
+        if row9_name in parent_ms:         # row 9 at full T, the row's `ms`
+            probe_rows[1]["parent_ms"] = parent_ms[row9_name]
         torch.cuda.empty_cache()
         chain_launches = phase_chains()
     except SmokeFailure as e:

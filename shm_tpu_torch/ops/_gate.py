@@ -1,7 +1,8 @@
 """What the fused gate wrappers share: input checks, the pointer array of a
 C entry, the one rule of dispatch (a CUDA tensor launches the kernel, a
-CPU tensor runs the plain version, nothing gives way), and the 3xTF32
-packing of the weights that a kernel multiplies on the tensor cores."""
+CPU tensor runs the plain version, nothing gives way), and the packing of
+the weights that a kernel multiplies on the tensor cores (3xTF32 B
+fragments, bf16 A fragments)."""
 
 from __future__ import annotations
 
@@ -54,6 +55,34 @@ def unpack_fragments(f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     x = f.reshape(NT, KT, 8, 4, 2, 2).permute(4, 1, 5, 3, 0, 2)
     x = x.reshape(2, 8 * KT, 8 * NT)
     return x[0], x[1]
+
+
+def bf16_a_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A weight ``w`` [K, M] (the flax layout [in, out]) as a kernel's bf16 A
+    fragments of ``mma.sync.m16n8k16`` for A = w^T [M, K], row-major:
+    [ceil(M/16), ceil(K/16), 32, 4] int32. For m-tile mt, k-step ks and lane
+    (g = lane // 4, t = lane % 4) the four registers {a0, a1, a2, a3}, each
+    two bf16 with the lower k in the low half: a0 = A[16mt + g][16ks + 2t,
+    +1], a1 the same of row g + 8, a2 and a3 those of columns + 8. A is
+    rounded to bf16 to nearest even; the rows and columns past M and K are
+    zero."""
+    K, M = w.shape
+    a = F.pad(w.detach().t().to(torch.float32), (0, -K % 16, 0, -M % 16))
+    MT, KS = a.shape[0] // 16, a.shape[1] // 16
+    bits = a.to(torch.bfloat16).view(torch.int16)
+    # [mt, rh, g, ks, ch, t, pair] -> [mt, ks, g, t, ch, rh, pair]: A[16mt +
+    # 8rh + g][16ks + 8ch + 2t + pair], register 2ch + rh of lane 4g + t
+    x = bits.reshape(MT, 2, 8, KS, 2, 4, 2).permute(0, 3, 2, 5, 4, 1, 6)
+    return x.contiguous().view(torch.int32).reshape(MT, KS, 32, 4)
+
+
+def unpack_bf16_a_fragments(f: torch.Tensor) -> torch.Tensor:
+    """The weight [16 * ceil(K/16), 16 * ceil(M/16)] in float32 (padding
+    included) from fragments made by :func:`bf16_a_fragments`."""
+    MT, KS = f.shape[:2]
+    bits = f.contiguous().view(torch.int16).reshape(MT, KS, 8, 4, 2, 2, 2)
+    a = bits.permute(0, 5, 2, 1, 4, 3, 6).reshape(16 * MT, 16 * KS)
+    return a.contiguous().view(torch.bfloat16).to(torch.float32).t()
 
 
 def check_fragments(weights: Dict[str, torch.Tensor],

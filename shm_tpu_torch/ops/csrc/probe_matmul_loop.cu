@@ -30,9 +30,10 @@
 // block owns CB columns (SHIP_CB below, chosen among 32, 48 and 64 by
 // measurement at the probe's 5,376 columns: PERF.md §6), so 21 tiles launch
 // ceil(5376 / CB) blocks, the time loop inside each block; a ragged last
-// block computes on zero columns and stores none of them. Each output's sum
-// is the one the 256-column grid took (same operands, same order), so every
-// mode gives the 256-column kernel's output bit for bit.
+// block computes on zero columns and stores none of them. No output's sum
+// depends on the grid (its operands and order are a column's own), so vpu,
+// f32 and the tensor-core modes' TC_CHAIN instance give the 256-column
+// kernel's output bit for bit.
 //   * f32 runs on the FMA pipes: Hopper has no full-float32 tensor-core
 //     path. h lives in shared memory as [H][CB] float32. W (256 KiB in
 //     float32, more than a block's 227 KB) streams from L2 every step: W^T
@@ -69,6 +70,17 @@
 //     n-tiles. h_lo fragments (32 more registers) are built beside h_hi.
 //   * vpu runs the elementwise loop in registers, one block a 256-column
 //     tile as before.
+//   * How the tensor-core sums reach h (mma_loop<MODE, SUM>). The tensor
+//     cores add each mma's products to its accumulator and truncate the sum
+//     toward zero, so a sum chained through every mma of a product drifts
+//     toward zero by up to an ulp an mma (PERF.md §6). The k-steps go in
+//     pairs; TC_SPLIT (shipped) chains each pair's mma from zero, two for
+//     bf16 and six for bf16x3 (small terms first: W_hi h_lo
+//     and W_lo h_hi of k, then of k+1, then W_hi h_hi of k and of k+1, the
+//     order of fused_vae.cu), and adds that partial to the float32 sum with
+//     a round-to-nearest add; TC_CHAIN chains every mma into the one sum in
+//     k order (the body before the split, kept as a probe instance that
+//     the C entry reaches only when asked). No atomics.
 //
 // Accurate tanhf (no --use_fast_math); the h update rounds after each
 // multiply and after the add, as the reference does (no contraction).
@@ -92,6 +104,7 @@ constexpr int NC = 4;             // accumulators a warp carries at once
 constexpr int SHIP_CB = 48;
 
 enum Mode { VPU = 0, F32 = 1, BF16 = 2, BF16X3 = 3 };
+enum TcSum { TC_CHAIN = 0, TC_SPLIT = 1 };
 
 // f32 thread tile: a lane owns 8 rows x F32_TC columns, a warp F32_RL lanes
 // down the rows x 32 / F32_RL across the columns
@@ -119,6 +132,40 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += the k-step pair's products, summed as SUM says: A fragments of
+// h_hi (and h_lo) for k-steps 2kp, 2kp+1 in a0 / a1 (l0 / l1); B fragments
+// of W_hi (and W_lo) for both in bh (bl), {b0, b1} of 2kp then of 2kp+1
+template <int MODE, int SUM>
+__device__ __forceinline__ void mma_pair(float (&acc)[4], const unsigned (&a0)[4],
+                                         const unsigned (&a1)[4], const unsigned (&l0)[4],
+                                         const unsigned (&l1)[4], uint4 bh, uint4 bl) {
+  float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float (&s)[4] = SUM == TC_SPLIT ? part : acc;
+  if constexpr (MODE == BF16X3) {
+    if constexpr (SUM == TC_SPLIT) {
+      mma_bf16(s, l0, bh.x, bh.y);                  // W_hi h_lo, k
+      mma_bf16(s, a0, bl.x, bl.y);                  // W_lo h_hi, k
+      mma_bf16(s, l1, bh.z, bh.w);                  // W_hi h_lo, k+1
+      mma_bf16(s, a1, bl.z, bl.w);                  // W_lo h_hi, k+1
+      mma_bf16(s, a0, bh.x, bh.y);                  // W_hi h_hi, k
+      mma_bf16(s, a1, bh.z, bh.w);                  // W_hi h_hi, k+1
+    } else {                                        // the order before the split
+      mma_bf16(s, a0, bh.x, bh.y);
+      mma_bf16(s, a1, bh.z, bh.w);
+      mma_bf16(s, l0, bh.x, bh.y);
+      mma_bf16(s, l1, bh.z, bh.w);
+      mma_bf16(s, a0, bl.x, bl.y);
+      mma_bf16(s, a1, bl.z, bl.w);
+    }
+  } else {
+    mma_bf16(s, a0, bh.x, bh.y);
+    mma_bf16(s, a1, bh.z, bh.w);
+  }
+  if constexpr (SUM == TC_SPLIT)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[r] = __fadd_rn(acc[r], part[r]);
 }
 
 __device__ __forceinline__ float h_update(float g, float h) {
@@ -260,7 +307,7 @@ f32_loop(const float* __restrict__ wt, const float* __restrict__ x,
   sink[blockIdx.x * NTHR + tid] = chk;
 }
 
-template <int MODE>
+template <int MODE, int SUM>
 __global__ void __launch_bounds__(MMA_NTHR)
 mma_loop(const uint4* __restrict__ wf_hi, const uint4* __restrict__ wf_lo,
          const float* __restrict__ x, float* __restrict__ out,
@@ -307,7 +354,7 @@ mma_loop(const uint4* __restrict__ wf_hi, const uint4* __restrict__ wf_lo,
     }
     // NC n-tiles at a time (NC independent accumulator chains), groups of NC
     // dealt round the m-tile's warps so that each updates NC n-tiles of h
-    // first; each chain sums its k-steps in the order of the 256-column kernel
+    // first; each chain takes its k-step pairs in order, summed as SUM says
 #pragma unroll 1
     for (int nt = wq * NC; nt < NTILES_N; nt += WPM * NC) {
       float acc[NC][4];
@@ -319,15 +366,10 @@ mma_loop(const uint4* __restrict__ wf_hi, const uint4* __restrict__ wf_lo,
         for (int e = 0; e < NC; ++e) {
           const int f = ((nt + e) * KP + kp) * 32 + lane;
           const uint4 bh = wsh[f];
-          mma_bf16(acc[e], ahi[2 * kp], bh.x, bh.y);
-          mma_bf16(acc[e], ahi[2 * kp + 1], bh.z, bh.w);
-          if constexpr (MODE == BF16X3) {
-            const uint4 bl = __ldg(wf_lo + f);
-            mma_bf16(acc[e], alo[2 * kp], bh.x, bh.y);        // W_hi h_lo
-            mma_bf16(acc[e], alo[2 * kp + 1], bh.z, bh.w);
-            mma_bf16(acc[e], ahi[2 * kp], bl.x, bl.y);        // W_lo h_hi
-            mma_bf16(acc[e], ahi[2 * kp + 1], bl.z, bl.w);
-          }
+          const uint4 bl = MODE == BF16X3 ? __ldg(wf_lo + f) : bh;
+          mma_pair<MODE, SUM>(acc[e], ahi[2 * kp], ahi[2 * kp + 1],
+                              alo[MODE == BF16X3 ? 2 * kp : 0],
+                              alo[MODE == BF16X3 ? 2 * kp + 1 : 0], bh, bl);
         }
       }
       if (nt < H / 8) {                            // rows 0:H update h
@@ -373,15 +415,15 @@ cudaError_t launch_f32(const float* wt, const float* x, float* out, float* sink,
   return cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, int SUM>
 cudaError_t launch_mma(const uint4* hi, const uint4* lo, const float* x, float* out,
                        float* sink, int ncols, int T, cudaStream_t s) {
   const size_t smem = (size_t)WF_UINT4 * sizeof(uint4) + 2 * MT * HF_FLOAT4 * sizeof(float4);
-  cudaError_t err = cudaFuncSetAttribute(mma_loop<MODE>,
+  cudaError_t err = cudaFuncSetAttribute(mma_loop<MODE, SUM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  mma_loop<MODE><<<(ncols + SHIP_CB - 1) / SHIP_CB, MMA_NTHR, smem, s>>>(hi, lo, x, out, sink,
-                                                                         ncols, T);
+  mma_loop<MODE, SUM><<<(ncols + SHIP_CB - 1) / SHIP_CB, MMA_NTHR, smem, s>>>(
+      hi, lo, x, out, sink, ncols, T);
   return cudaGetLastError();
 }
 
@@ -409,13 +451,16 @@ extern "C" long long shm_probe_matmul_loop_scratch_bytes(int ncols, int mode) {
 // C entry for ctypes. w [4H, H], x [4H, ncols], out [H, ncols] float32
 // row-major, ncols a positive multiple of 256, H = 128; scratch of
 // shm_probe_matmul_loop_scratch_bytes(ncols, mode) bytes (16-byte aligned;
-// none for vpu). mode: 0 vpu, 1 f32, 2 bf16, 3 bf16x3. Returns the
-// launches' cudaGetLastError().
+// none for vpu). mode: 0 vpu, 1 f32, 2 bf16, 3 bf16x3. tc_sum: how the
+// tensor-core modes sum, 1 TC_SPLIT (the shipped sum) or 0 TC_CHAIN (a
+// probe instance); vpu and f32 take 1 only. Returns the launches'
+// cudaGetLastError().
 extern "C" int shm_probe_matmul_loop(const float* w, const float* x, float* out,
                                      void* scratch, int ncols, int T, int mode,
-                                     void* stream) {
+                                     int tc_sum, void* stream) {
   if (shm_probe_matmul_loop_blocks(ncols, mode) < 0 || T < 0 ||
-      (mode != VPU && scratch == nullptr))
+      (mode != VPU && scratch == nullptr) || (tc_sum != TC_SPLIT && tc_sum != TC_CHAIN) ||
+      (tc_sum == TC_CHAIN && mode != BF16 && mode != BF16X3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (mode == VPU) {
@@ -434,8 +479,11 @@ extern "C" int shm_probe_matmul_loop(const float* w, const float* x, float* out,
   float* sink = reinterpret_cast<float*>(lo + WF_UINT4);
   w_fragments<<<(WF_UINT4 + 255) / 256, 256, 0, s>>>(w, hi, lo);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return (int)(mode == BF16 ? launch_mma<BF16>(hi, lo, x, out, sink, ncols, T, s)
-                            : launch_mma<BF16X3>(hi, lo, x, out, sink, ncols, T, s));
+  if (tc_sum == TC_CHAIN)
+    return (int)(mode == BF16 ? launch_mma<BF16, TC_CHAIN>(hi, lo, x, out, sink, ncols, T, s)
+                              : launch_mma<BF16X3, TC_CHAIN>(hi, lo, x, out, sink, ncols, T, s));
+  return (int)(mode == BF16 ? launch_mma<BF16, TC_SPLIT>(hi, lo, x, out, sink, ncols, T, s)
+                            : launch_mma<BF16X3, TC_SPLIT>(hi, lo, x, out, sink, ncols, T, s));
 }
 
 extern "C" const char* shm_cuda_error_string(int err) {

@@ -13,6 +13,11 @@ and returns h [H, ncols]:
 - ``bf16x3``: the hi/lo bf16 split of both operands, three tensor-core
   products (about float32 accuracy).
 
+The tensor-core modes sum each pair of k-steps from zero and add that
+partial to the float32 sum to nearest (``tc="split"``); ``tc="chain"``, a
+probe option, chains every mma into the one sum, the body before the split,
+whose truncated sums drift (PERF.md §6). Both have the one plain version.
+
 On a CUDA tensor it launches ``ops/csrc/probe_matmul_loop.cu`` and adds one
 to ``matmul_loop.launches``; on a CPU tensor it runs
 :func:`matmul_loop_reference`. The kernel's grid is not the TPU probe's one
@@ -43,6 +48,8 @@ from shm_tpu_torch.tools.workload import (
 
 H, BT = 128, 256
 MODES = ("vpu", "f32", "bf16", "bf16x3")
+# how the tensor-core modes sum, by the C entry's tc_sum (TcSum)
+TC_SUMS = ("chain", "split")
 N_TILES = 21          # the TPU probe's 21 tiles (~5,440 windows / 256)
 T_STEPS = 100
 # columns a block owns on the card in the product modes
@@ -82,9 +89,13 @@ def matmul_loop_reference(w: torch.Tensor, x: torch.Tensor, mode: str, *,
     return h
 
 
-def _check(w, x, mode, T):
+def _check(w, x, mode, T, tc):
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if tc not in TC_SUMS:
+        raise ValueError(f"tc must be one of {TC_SUMS}, got {tc!r}")
+    if tc != "split" and mode not in ("bf16", "bf16x3"):
+        raise ValueError(f"tc={tc!r} takes a tensor-core mode (bf16, bf16x3)")
     for name, t in (("w", w), ("x", x)):
         if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 matrix")
@@ -105,7 +116,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("probe_matmul_loop")
     lib.shm_probe_matmul_loop.restype = ctypes.c_int
     lib.shm_probe_matmul_loop.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.shm_probe_matmul_loop_scratch_bytes.restype = ctypes.c_longlong
     lib.shm_probe_matmul_loop_scratch_bytes.argtypes = [ctypes.c_int] * 2
     lib.shm_probe_matmul_loop_blocks.restype = ctypes.c_int
@@ -113,7 +124,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(w, x, mode, T):
+def _launch(w, x, mode, T, tc):
     lib = _library()
     ncols = x.shape[1]
     m = MODES.index(mode)
@@ -124,18 +135,20 @@ def _launch(w, x, mode, T):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.shm_probe_matmul_loop(
             w.data_ptr(), x.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if nbytes else None, ncols, T, m, stream)
+            scratch.data_ptr() if nbytes else None, ncols, T, m,
+            TC_SUMS.index(tc), stream)
     raise_on_error(lib, err, "probe_matmul_loop")
     matmul_loop.launches += 1
     return out
 
 
 def matmul_loop(w: torch.Tensor, x: torch.Tensor, mode: str, *,
-                T: int = T_STEPS) -> torch.Tensor:
-    """h [H, ncols] after T steps of ``mode`` (see the module docstring)."""
-    _check(w, x, mode, T)
+                T: int = T_STEPS, tc: str = "split") -> torch.Tensor:
+    """h [H, ncols] after T steps of ``mode``, the tensor-core modes summed
+    as ``tc`` says (see the module docstring)."""
+    _check(w, x, mode, T, tc)
     if x.device.type == "cuda":
-        return _launch(w, x, mode, T)
+        return _launch(w, x, mode, T, tc)
     if x.device.type == "cpu":
         return matmul_loop_reference(w, x, mode, T=T)
     raise ValueError(f"matmul_loop: unsupported device {x.device}")

@@ -14,9 +14,12 @@ g / h / y scratch in bf16, LayerNorm eps 1e-6 (that clone's; the model's is
 On a CUDA tensor the gate launches ``ops/csrc/probe_mingru_gate.cu`` with its
 scratch in device memory (sized from N; a request that does not fit raises)
 and adds one to ``make_gate.launches``; on a CPU tensor it runs
-:func:`mingru_gate_reference`. ``main`` times the shipping
-``fused_mingru_gate``, the clone at full T and with loops cut to 1, and
-prints the sweeps' share.
+:func:`mingru_gate_reference`. The kernel runs every product over all T
+steps on the tensor cores in bf16 (``mma.sync`` m16n8k16, each pair of
+k-steps summed from zero and added to the float32 sum), reading those
+weights as the A fragments :func:`kernel_weights` packs once a call.
+``main`` times the shipping ``fused_mingru_gate``, the clone at full T and
+with loops cut to 1, and prints the sweeps' share.
 
     python -m shm_tpu_torch.tools.probe_mingru_recur        # on the card
     python -m shm_tpu_torch.tools.probe_mingru_recur --device cpu --windows 64
@@ -35,7 +38,7 @@ import torch
 
 from shm_tpu_torch.ops._build import load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
-    bf16_round, check_weights, check_windows, pointer_array,
+    bf16_a_fragments, bf16_round, check_weights, check_windows, pointer_array,
 )
 from shm_tpu_torch.tools.workload import timed
 
@@ -48,6 +51,9 @@ _WEIGHT_ORDER = ("enc0_wih", "enc1_wih", "enc0_b", "enc1_b", "ln_scale",
                  "dec1_wih", "dec0_b", "dec1_b", "out_w", "out_b")
 _MATMUL = ("enc0_wih", "enc1_wih", "mu_w", "z2h_w", "dec0_wih", "dec1_wih",
            "out_w")
+# the products over all T steps, on the tensor cores: the kernel reads them
+# as bf16 A fragments; the once-a-window ones (FMA pipes) as bf16 [in, out]
+_FRAGMENTS = ("enc0_wih", "enc1_wih", "dec1_wih", "out_w")
 
 
 def _sig(v: torch.Tensor) -> torch.Tensor:
@@ -56,11 +62,14 @@ def _sig(v: torch.Tensor) -> torch.Tensor:
 
 def mingru_gate_reference(weights: Dict[str, torch.Tensor], Z: torch.Tensor,
                           loop_T: Optional[int] = None, *, bf16: bool = True,
-                          ln_eps: float = LN_EPS) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: mse [N]. ``bf16=False`` (every
-    operand and scratch in float32) or another ``ln_eps`` is not the
-    kernel's function: the checks use them to show that their tolerance
-    fails a kernel that drops the probe's numerics."""
+                          ln_eps: float = LN_EPS,
+                          sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: mse [N]. Each product sums in
+    ``sum_dtype`` and is rounded to float32; float64 gives the function with
+    its sums all but exact, whatever order a float32 sum would take.
+    ``bf16=False`` (every operand and scratch in float32) or another
+    ``ln_eps`` is not the kernel's function: the checks use them to show
+    that their tolerance fails a kernel that drops the probe's numerics."""
     N, T, D = Z.shape
     H = weights["mu_w"].shape[0]
     TL = T if loop_T is None else loop_T
@@ -69,7 +78,7 @@ def mingru_gate_reference(weights: Dict[str, torch.Tensor], Z: torch.Tensor,
     W = {k: r(weights[k]) for k in _MATMUL}
 
     def mm(a, k):
-        return r(a) @ W[k]
+        return (r(a).to(sum_dtype) @ W[k].to(sum_dtype)).to(torch.float32)
 
     def project(seq, name):           # [N, T, in] -> the bf16 scratch [N, T, 2H]
         g = mm(seq, f"{name}_wih") + weights[f"{name}_b"]
@@ -131,7 +140,46 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.shm_probe_mingru_gate_scratch_bytes.restype = ctypes.c_longlong
     lib.shm_probe_mingru_gate_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.shm_probe_mingru_gate_info.restype = ctypes.c_int
+    lib.shm_probe_mingru_gate_info.argtypes = [ctypes.c_void_p]
     return lib
+
+
+def kernel_weights(weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """What the C entry reads, by the names of ``_WEIGHT_ORDER``: the
+    products over all T (``_FRAGMENTS``) as :func:`bf16_a_fragments` of
+    their [in, out] weight, the other matmul weights in bf16 [in, out], the
+    rest as given (float32)."""
+    return {k: (bf16_a_fragments(weights[k]) if k in _FRAGMENTS
+                else weights[k].to(torch.bfloat16) if k in _MATMUL
+                else weights[k]) for k in _WEIGHT_ORDER}
+
+
+def kernel_info() -> dict:
+    """How the card takes the kernel: registers and local-memory (spill)
+    bytes a thread, threads and dynamic shared bytes a block, windows a
+    block, blocks an SM at once."""
+    lib = _library()
+    out = (ctypes.c_int * 6)()
+    raise_on_error(lib, lib.shm_probe_mingru_gate_info(out), "probe_mingru_gate info")
+    return dict(zip(("registers", "spill_bytes", "threads", "shared_bytes",
+                     "windows_per_block", "blocks_per_sm"), out))
+
+
+def scratch_bytes_moved(n: int, T: int = 100, D: int = 12,
+                        loop_T: Optional[int] = None) -> float:
+    """Bytes the project-then-sweep structure moves through device memory
+    for n windows: per window g written by three projections and read by
+    three sweeps (loop_T steps), h written by three sweeps and read by three
+    projections (the output head's among them), the windows read by the
+    first projection and the output loop, y written and read. Its bytes
+    bound, beside the function's own (x once, mse)."""
+    TL = T if loop_T is None else loop_T
+    H, H2 = _H, 2 * _H
+    g = 3 * T * H2 * 2 + 3 * TL * H2 * 2
+    h = 3 * TL * H * 2 + 3 * T * H * 2
+    xy = T * D * 4 + TL * D * 4 + T * D * 2 + TL * D * 2
+    return float(n * (g + h + xy))
 
 
 def _launch(weights, Z, loop_T):
@@ -147,8 +195,7 @@ def _launch(weights, Z, loop_T):
         raise MemoryError(f"the minGRU probe needs {nbytes / 2**30:.2f} GiB of "
                           f"scratch for N={N}, T={T}; {free / 2**30:.2f} GiB free")
     scratch = torch.empty(nbytes, device=Z.device, dtype=torch.uint8)
-    w = {k: (v.to(torch.bfloat16) if k in _MATMUL else v)
-         for k, v in weights.items()}
+    w = kernel_weights(weights)
     ptrs = pointer_array(w, _WEIGHT_ORDER, _WEIGHT_ORDER)
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream

@@ -684,6 +684,33 @@ def test_probe_matmul_loop_kernel_matches_plain_version(cuda_device, mode, tiles
 
 
 @pytest.mark.cuda
+def test_probe_matmul_loop_split_sum_drifts_no_farther_than_chained(cuda_device):
+    """bf16 on the card case's inputs (34 tiles, seed 34, T=100): the
+    shipped sum (each k-step pair from zero, added to nearest) and the
+    chained one (``tc="chain"``, the body before) each launch once; against
+    float64 sums the split sum's mean relative error and its elements more
+    than one bf16 ulp off are no more than the chained sum's, as the CPU
+    model of the tensor cores' sums reads them
+    (tests/test_torch_probe_bf16_sums.py)."""
+    from chip_smoke import over_one_bf16_ulp
+    from shm_tpu_torch.tools.probe_f32_cliff import (
+        make_inputs, matmul_loop, matmul_loop_reference,
+    )
+
+    w, x = make_inputs(34, seed=34, device=cuda_device)
+    f64 = matmul_loop_reference(w, x, "bf16", sum_dtype=torch.float64)
+    before = matmul_loop.launches
+    out = {tc: matmul_loop(w, x, "bf16", tc=tc) for tc in ("split", "chain")}
+    torch.cuda.synchronize()
+    assert matmul_loop.launches == before + 2
+    assert not torch.equal(out["split"], out["chain"])
+    mean = {tc: float((o - f64).abs().double().mean() / f64.abs().double().mean())
+            for tc, o in out.items()}
+    over = {tc: over_one_bf16_ulp(o, f64) for tc, o in out.items()}
+    assert mean["split"] <= mean["chain"] and over["split"] <= over["chain"], (mean, over)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["vpu", "f32", "bf16", "bf16x3"])
 def test_probe_matmul_loop_grid_is_the_python_mirror(cuda_device, mode):
     from shm_tpu_torch.tools.probe_f32_cliff import MODES, _library, matmul_loop_blocks
@@ -768,6 +795,24 @@ def test_probe_mingru_gate_kernel_matches_plain_version(cuda_device, loop_T):
     assert make_gate.launches == before + 1
     assert mse.shape == (77,) and bool(torch.isfinite(mse).all())
     _close_rel(mse, mingru_gate_reference(w, Z, loop_T), GATE_TOL)
+
+
+# bytes of local memory (spills) a thread the minGRU probe kernel may use
+PROBE_SPILL_GUARD = 64
+
+
+@pytest.mark.cuda
+def test_probe_mingru_gate_kernel_fits_the_card(cuda_device):
+    """The tensor-core body fits one block of 512 threads (32 windows) an
+    SM at least, in a register file's share, with its two 40 KiB stage
+    buffers, and spills at most PROBE_SPILL_GUARD bytes."""
+    from shm_tpu_torch.tools.probe_mingru_recur import kernel_info
+
+    info = kernel_info()
+    assert info["threads"] == 512 and info["windows_per_block"] == 32
+    assert info["blocks_per_sm"] >= 1 and info["shared_bytes"] == 81920
+    assert info["registers"] * info["threads"] <= 65536
+    assert info["spill_bytes"] <= PROBE_SPILL_GUARD
 
 
 @pytest.mark.cuda

@@ -87,7 +87,7 @@ KERNEL_ENTRIES = {
     "fused_attention.cu": ["shm_fused_attention_gate_f32"],
     "probe_matmul_loop.cu": ["shm_probe_matmul_loop",
                              "shm_probe_matmul_loop_blocks"],
-    "probe_mingru_gate.cu": ["shm_probe_mingru_gate"],
+    "probe_mingru_gate.cu": ["shm_probe_mingru_gate", "shm_probe_mingru_gate_info"],
 }
 # the module that wraps each source: ops/<source>.py, or the probe's own
 WRAPPERS = {
