@@ -92,7 +92,25 @@ Phases (any failure exits non-zero before the final line):
    that CNN, whose accuracy must reach ``CNN_ACCURACY_FLOOR`` (the last
    check). Every command runs with the gate counts at 0 just before it and
    must launch its family's kernel and no other; the kernels line's
-   launches of rows 1, 6 and 7 add these to phase 3's.
+   launches of rows 1, 6 and 7 add these to phase 3's;
+11. the serving surface on the card (``shm_tpu_torch.serve_http``):
+   ``make_server`` on ``data/4dof`` with ``data/4dof_mingru`` as its shadow,
+   strides 1 and 2, the admin surface behind a token; ``/score`` of the
+   3,636 test windows (npz reply) and of 64 as JSON, and ``/score_series``
+   of a normal and a faulty run at both strides, each against the scorer
+   called directly (mse, gate and ``y_pred`` bit for bit, ``p_struct``
+   within ``P_STRUCT_ATOL``), the gate decisions those of phase 3, stride
+   3 refused, a ``StreamScorer`` in uneven chunks the same, and no kernel
+   built nor device memory reserved by a warmed request; the shadow's
+   counters against the agreement computed directly, nothing dropped; a
+   concurrent server (``DynamicBatcher``): 8 clients of 680 windows at
+   once, each reply against its single-threaded reply, fewer row-1
+   launches than requests; ``/recalibrate`` on the threshold command's
+   healthy windows against ``percentile_threshold`` (1e-6 relative),
+   ``/reload``, 401 without the token, ``/metrics`` counters and drift
+   gauges; a server on ``data/4dof_attention``; request times. Every step
+   starts with the gate counts at 0; the kernels line's
+   ``serve_launches`` of rows 1, 6 and 7 hold them by step.
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -608,6 +626,7 @@ def phase_main_path(W, y, cell: str = "lstm"):
           f"the {cell} main path launched another family's kernel: {others}")
     check(all(np.isfinite(out[k]).all() for k in ("mse", "p_struct"))
           and out["mse"].shape == (len(W),), "non-finite or mis-shaped output")
+    PHASE3_GATE[cell] = out["anomalous"].copy()
 
     tags = {0: "normal/test", 1: "sensor/test", 2: "struct/test"}
     for g, tag in tags.items():
@@ -2098,6 +2117,556 @@ def phase_probe_path(errs, wl):
 
 
 # ---------------------------------------------------------------------------
+# the serving surface on the card (phase 11)
+# ---------------------------------------------------------------------------
+
+# p_struct of one window scored in two batches of other sizes: the gate
+# kernels compute each window alone (mse, decisions exact), but cuDNN picks
+# the CNN's convolution algorithm per batch shape, so p(structural) may move
+# in its last bits between buckets; this bound, and the largest difference
+# the card gives (printed), are in PERF.md §5
+P_STRUCT_ATOL = 1e-6
+SERVE_TOKEN = "chip-smoke-admin"
+SERVE_RUNS = ("data/4dof/raw/normal/normal_seed2025.csv",
+              "data/4dof/raw/faults/structural_fault/stiff_red_20pct/"
+              "stiff_red_20pct.csv")
+CONCURRENT_CLIENTS = 8
+CONCURRENT_WINDOWS = 680            # a client's request; 5,440 in all
+CONCURRENT_ROUNDS = 3               # the first is the dispatcher's first use
+SERVE_REPS = 5
+_SERVE_KEYS = ("mse", "anomalous", "y_pred", "p_struct")
+# phase 3's gate decisions on the 3,636 test windows, by family
+PHASE3_GATE = {}
+
+
+class Client:
+    """Requests to one of phase 11's servers; replies as numpy dicts."""
+
+    def __init__(self, srv):
+        self.base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def request(self, path: str, data=None, headers=None, method=None):
+        """``(status, headers, body)``; an HTTP error is returned, not raised."""
+        import urllib.error
+        import urllib.request
+
+        r = urllib.request.Request(self.base + path, data=data,
+                                   headers=headers or {}, method=method)
+        try:
+            with urllib.request.urlopen(r, timeout=600) as resp:
+                return resp.status, resp.headers, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers, e.read()
+
+    def json(self, path: str, **kw):
+        code, _, body = self.request(path, **kw)
+        return code, json.loads(body)
+
+    def score(self, W, path: str = "/score", stride=None, npz: bool = True):
+        """Post a window stack (or, to /score_series, a series) as
+        octet-stream; the reply, read from its npz."""
+        import io
+
+        hdr = {"Content-Type": "application/octet-stream",
+               "X-Shape": ",".join(map(str, W.shape))}
+        if npz:
+            hdr["Accept"] = "application/octet-stream"
+        if stride is not None:
+            hdr["X-Stride"] = str(stride)
+        code, _, body = self.request(path, data=np.ascontiguousarray(
+            W, np.float32).tobytes(), headers=hdr, method="POST")
+        check(code == 200, f"{path}: HTTP {code}: {body[:300]!r}")
+        if not npz:
+            return json.loads(body)
+        z = np.load(io.BytesIO(body))
+        return {k: z[k] for k in z.files}
+
+
+class DispatchLog:
+    """A scorer as the concurrent server's batcher sees it: every
+    ``score()`` call's start and end on the host clock, and its windows."""
+
+    def __init__(self, scorer):
+        self._scorer = scorer
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._scorer, name)
+
+    def score(self, W):
+        t0 = time.perf_counter()
+        out = self._scorer.score(W)
+        self.calls.append((t0, time.perf_counter(), len(W)))
+        return out
+
+
+def concurrent_round(cc, log, reqs, single, name: str, times: dict) -> float:
+    """Every request of ``reqs`` from its own client thread, all released
+    at once, to the concurrent server of ``cc``; each reply against its
+    single-threaded reply. Records and prints the round's wall time,
+    windows/s, p50 and the batcher's dispatches; returns max |p_struct
+    diff|."""
+    import threading
+
+    replies, errors, secs = {}, {}, {}
+    barrier = threading.Barrier(len(reqs) + 1)
+
+    def client(i):
+        try:
+            barrier.wait(60)
+            t1 = time.perf_counter()
+            replies[i] = cc.score(reqs[i])
+            secs[i] = time.perf_counter() - t1
+        except BaseException as e:                  # noqa: BLE001 - reported
+            errors[i] = repr(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    log.calls.clear()
+    barrier.wait(60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not errors, f"{name}: clients failed: {errors}")
+    worst = max(same_outputs(f"{name}: request {i} vs its single-threaded "
+                             "reply", replies[i], single[i])
+                for i in range(len(reqs)))
+    n = sum(len(W) for W in reqs)
+    p50 = float(np.median(list(secs.values())))
+    times[name] = dict(wall_s=wall, windows_per_s=n / wall, p50_s=p50,
+                       dispatches=[(k, a0 - t0, a1 - a0)
+                                   for a0, a1, k in log.calls])
+    print(f"[serve] {name}: {len(reqs)} clients x {len(reqs[0])} windows in "
+          f"{wall * 1e3:.1f} ms = {n / wall:,.0f} windows/s; p50 per request "
+          f"{p50 * 1e3:.1f} ms; dispatches (windows, start after release ms, "
+          f"score() ms) {[(k, round(s0 * 1e3, 1), round(d * 1e3, 1)) for k, s0, d in times[name]['dispatches']]}; "
+          f"each reply equals its single-threaded reply")
+    return worst
+
+
+def serve_in_thread(srv):
+    import threading
+
+    threading.Thread(target=srv.serve_forever, name="chip-smoke-server",
+                     daemon=True).start()
+    return srv
+
+
+def stop_server(srv) -> None:
+    srv.shutdown()
+    srv.server_close()
+    for part in (srv.batcher, srv.shadow):
+        if part is not None:
+            part.close()
+
+
+def same_outputs(tag: str, got: dict, ref: dict) -> float:
+    """mse, anomalous and y_pred bit for bit; p_struct within P_STRUCT_ATOL.
+    Returns max |p_struct diff|."""
+    for k in ("mse", "anomalous", "y_pred"):
+        g, r = np.asarray(got[k]), np.asarray(ref[k])
+        check(g.shape == r.shape, f"{tag}: {k} shape {g.shape} != {r.shape}")
+        check(np.array_equal(g.astype(r.dtype), r),
+              f"{tag}: {k} differs on {int((g.astype(r.dtype) != r).sum())} "
+              f"windows (max |diff| "
+              f"{float(np.abs(g.astype(np.float64) - r).max()):.3e})")
+    d = float(np.abs(np.asarray(got["p_struct"], np.float64)
+                     - ref["p_struct"]).max()) if len(ref["mse"]) else 0.0
+    check(d <= P_STRUCT_ATOL, f"{tag}: p_struct off by {d:.3e} "
+                              f"(> {P_STRUCT_ATOL:g})")
+    return d
+
+
+def drain(shadow, timeout: float = 300.0) -> None:
+    """Wait until the shadow has scored everything it admitted."""
+    t0 = time.perf_counter()
+    while shadow.snapshot()["pending_windows"]:
+        check(time.perf_counter() - t0 < timeout, "the shadow did not drain")
+        time.sleep(0.01)
+
+
+def shadow_expected(scorer, shadow_scorer, admitted) -> dict:
+    """The agreement counters of the shadow, computed directly: each
+    admitted request scored by the candidate, against the primary's reply."""
+    want = dict(windows=0, gate_agree=0, pred_agree=0, shadow_anomalous=0)
+    for kind, data, stride, ref in admitted:
+        out = (shadow_scorer.score_series(data, stride=stride)
+               if kind == "series" else shadow_scorer.score(data))
+        want["windows"] += len(ref["mse"])
+        want["gate_agree"] += int((out["anomalous"] == ref["anomalous"]).sum())
+        want["pred_agree"] += int((out["y_pred"] == ref["y_pred"]).sum())
+        want["shadow_anomalous"] += int(out["anomalous"].sum())
+    return want
+
+
+def phase_serving(W) -> dict:
+    """Phase 11: the port's HTTP daemon on the card (``make_server`` over
+    ``HybridScorer.from_artifacts``): /score and /score_series against the
+    scorer called directly, a StreamScorer, the concurrent mode's batcher,
+    the shadow's counters, the admin surface and drift, the attention root;
+    then request times. Returns each gate kernel's launches by step (every
+    count at 0 just before its step)."""
+    import threading
+
+    import torch
+
+    from shm_tpu_torch.calibrate import percentile_threshold
+    from shm_tpu_torch.cli.stage4dof import Paths, build_fraction_windows
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.data.windows import normalize_windows
+    from shm_tpu_torch.ops import _build
+    from shm_tpu_torch.serve import HybridScorer, StreamScorer
+    from shm_tpu_torch.serve_http import make_server
+    from shm_tpu_torch.train import reconstruction_mse
+    from shm_tpu_torch.utils.io import load_csv_numeric, load_json
+
+    tag = "[serve]"
+    card = gpu_line()
+    print(f"{tag} {card}")
+    launches, times = {}, {}
+    p_worst = 0.0
+
+    def step(name: str) -> None:
+        launches[name] = gate_counts(reset=True)
+
+    lstm_gate = FAMILIES["lstm"]["kernel"]
+    gate_counts(reset=True)
+    t0 = time.perf_counter()
+    scorer = HybridScorer.from_artifacts(ROOT / "data" / "4dof")
+    shadow_scorer = HybridScorer.from_artifacts(ROOT / "data" / "4dof_mingru")
+    check(scorer.expected_anomaly_rate is not None
+          and abs(scorer.expected_anomaly_rate - 0.01) < 1e-12
+          and scorer.calibration_percentile == 99.0,
+          f"manifest fields {scorer.expected_anomaly_rate} "
+          f"{scorer.calibration_percentile}")
+    srv = serve_in_thread(make_server(
+        scorer, port=0, series_strides=(1, 2), admin=True,
+        admin_token=SERVE_TOKEN, shadow_scorer=shadow_scorer,
+        reload_fn=lambda: HybridScorer.from_artifacts(ROOT / "data" / "4dof")))
+    servers = [srv]
+    try:
+        c = Client(srv)
+        check(srv.warm_event.wait(600), "the server's warmup did not end")
+        err = srv.RequestHandlerClass.warm_error
+        check(err is None, f"warmup failed: {err}")
+        while not srv.shadow.snapshot()["warmed"]:
+            time.sleep(0.01)
+        check(srv.shadow.warm_error is None,
+              f"the shadow's warmup failed: {srv.shadow.warm_error}")
+        code, health = c.json("/healthz")
+        check(code == 200 and health["warm"], f"/healthz {code} {health}")
+        print(f"{tag} the server's scorer and its shadow loaded and warmed "
+              f"(buckets {list(scorer.buckets())}, strides 1 and 2; the "
+              f"shadow after the primary) in {time.perf_counter() - t0:.2f} s")
+        step("warmup")
+        libs = set(_build._LOADED)
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        admitted = []          # what the shadow was given: (kind, data, stride, reply)
+
+        # --- /score: the 3,636 test windows as octet-stream (npz reply),
+        # the first 64 as JSON; against score() called directly
+        t1 = time.perf_counter()
+        out = c.score(W)
+        first_s = time.perf_counter() - t1
+        drain(srv.shadow)
+        admitted.append(("windows", W, None, out))
+        t1 = time.perf_counter()
+        again = c.score(W)
+        times.update(first_score_s=first_s,
+                     second_score_s=time.perf_counter() - t1)
+        drain(srv.shadow)
+        admitted.append(("windows", W, None, again))
+        print(f"{tag} /score of {len(W)} windows: the server thread's first "
+              f"request {first_s * 1e3:.1f} ms, the same again "
+              f"{times['second_score_s'] * 1e3:.1f} ms")
+        direct = scorer.score(W)
+        same_outputs("/score npz vs score()", out, direct)
+        check(np.array_equal(out["anomalous"], PHASE3_GATE["lstm"]),
+              "/score: gate decisions differ from phase 3's")
+        js = c.score(W[:64], npz=False)
+        drain(srv.shadow)
+        js = {k: np.asarray(js[k], np.float32 if k in ("mse", "p_struct")
+                            else None) for k in _SERVE_KEYS}
+        admitted.append(("windows", W[:64], None, js))
+        same_outputs("/score JSON vs score()", js, scorer.score(W[:64]))
+        # the same windows in the 256 and the 4,096 bucket
+        p_worst = max(p_worst, same_outputs(
+            "/score JSON (256 bucket) vs the 4,096 bucket",
+            js, {k: v[:64] for k, v in direct.items()}))
+        print(f"{tag} /score: {len(W)} windows (npz) and 64 (JSON) equal "
+              f"score() called directly; gate decisions those of phase 3 "
+              f"({int(out['anomalous'].sum())} anomalous)")
+        step("/score")
+
+        # --- /score_series at the warmed strides; stride 3 refused; a
+        # StreamScorer in uneven chunks
+        for rel in SERVE_RUNS:
+            x = load_csv_numeric(ROOT / rel, scorer.num_features)
+            for stride in (1, 2):
+                got = c.score(x, path="/score_series", stride=stride)
+                drain(srv.shadow)
+                admitted.append(("series", x, stride, got))
+                ref = scorer.score_series(x, stride=stride)
+                same_outputs(f"/score_series {Path(rel).name} stride "
+                             f"{stride} vs score_series()", got, ref)
+                stream = StreamScorer(scorer, stride=stride)
+                chunks, i, k = [], 0, 0
+                while i < len(x):
+                    n = (37, 250, 1, 400, 99)[k % 5]
+                    chunks.append(stream.push(x[i:i + n]))
+                    i, k = i + n, k + 1
+                st = {key: np.concatenate([o[key] for o in chunks])
+                      for key in chunks[0]}
+                check(np.array_equal(st["window_start"],
+                                     stride * np.arange(len(ref["mse"]))),
+                      "StreamScorer window_start")
+                p_worst = max(p_worst, same_outputs(
+                    f"StreamScorer {Path(rel).name} stride {stride} in "
+                    f"{len(chunks)} chunks vs score_series()", st, ref))
+                print(f"{tag} /score_series {Path(rel).name} stride {stride}: "
+                      f"{len(ref['mse'])} windows equal score_series(); "
+                      f"StreamScorer in {len(chunks)} uneven chunks the same "
+                      f"(drift windows {stream.monitor.snapshot()['windows']})")
+        code, body = c.json("/score_series", data=x.tobytes(), headers={
+            "Content-Type": "application/octet-stream",
+            "X-Shape": f"{x.shape[0]},{x.shape[1]}", "X-Stride": "3"},
+            method="POST")
+        check(code == 422, f"/score_series stride 3: HTTP {code} {body}")
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_reserved() - reserved
+        print(f"{tag} after warmup, /score and /score_series loaded "
+              f"{sorted(set(_build._LOADED) - libs) or 'no'} new kernel "
+              f"library and reserved {grown} more device bytes "
+              f"({reserved} reserved)")
+        check(set(_build._LOADED) == libs and grown == 0,
+              "a warmed request built a kernel or reserved device memory")
+        step("/score_series and StreamScorer")
+
+        # --- the shadow's counters against the agreement computed directly
+        snap = srv.shadow.snapshot()
+        want = shadow_expected(scorer, shadow_scorer, admitted)
+        got = {k: snap[k] for k in want}
+        print(f"{tag} shadow (data/4dof_mingru): {got}; computed directly "
+              f"{want}; dropped {snap['dropped_windows']} windows, errors "
+              f"{snap['errors']}, max |mse diff| {snap['mse_absdiff_max']:.4g}")
+        check(got == want and snap["dropped_windows"] == 0
+              and snap["errors"] == 0 and snap["requests_scored"]
+              == len(admitted), "the shadow's counters are wrong")
+        _, _, text = c.request("/metrics")
+        text = text.decode()
+        for k in ("windows", "gate_agree", "pred_agree"):
+            check(f"shm_shadow_{k}_total {want[k]}\n" in text,
+                  f"shm_shadow_{k}_total is not {want[k]} on /metrics")
+        launches["shadow (direct check)"] = gate_counts(reset=True)
+
+        # --- concurrent mode: 8 clients of 680 windows at once, each reply
+        # against the single-threaded server's reply to the same request
+        reqs = [np.ascontiguousarray(
+            np.resize(W, (N_BENCH,) + W.shape[1:])[i::CONCURRENT_CLIENTS])
+            for i in range(CONCURRENT_CLIENTS)]
+        single, single_s = [], []
+        for Wi in reqs:
+            t1 = time.perf_counter()
+            single.append(c.score(Wi))
+            single_s.append(time.perf_counter() - t1)
+            drain(srv.shadow)
+            admitted.append(("windows", Wi, None, single[-1]))
+        # a fresh host thread's first scoring call against its second and
+        # the main thread's (PyTorch makes its cuBLAS and cuDNN handles per
+        # thread, at the thread's first use)
+        fresh = []
+
+        def twice():
+            for _ in range(2):
+                t1 = time.perf_counter()
+                scorer.score(reqs[0])
+                fresh.append(time.perf_counter() - t1)
+
+        th = threading.Thread(target=twice)
+        th.start()
+        th.join(600)
+        t1 = time.perf_counter()
+        scorer.score(reqs[0])
+        main_s = time.perf_counter() - t1
+        times.update(fresh_thread_first_s=fresh[0], fresh_thread_second_s=fresh[1],
+                     main_thread_s=main_s)
+        print(f"{tag} score() of {CONCURRENT_WINDOWS} windows: a fresh "
+              f"thread's first call {fresh[0] * 1e3:.1f} ms, its second "
+              f"{fresh[1] * 1e3:.1f} ms; the main thread {main_s * 1e3:.1f} ms")
+        log = DispatchLog(scorer)
+        conc = serve_in_thread(make_server(log, port=0, warmup=False,
+                                           concurrent=True))
+        servers.append(conc)
+        cc = Client(conc)
+        step("single-threaded requests")
+        for rnd in range(1, CONCURRENT_ROUNDS + 1):
+            name = f"concurrent round {rnd}"
+            p_worst = max(p_worst, concurrent_round(
+                cc, log, reqs, single, name, times))
+            step(name)
+            n_round = launches[name][lstm_gate]
+            print(f"{tag}   {lstm_gate} launches {n_round} ({card})")
+            check(0 < n_round < CONCURRENT_CLIENTS,
+                  f"{name} launched {lstm_gate} {n_round} times for "
+                  f"{CONCURRENT_CLIENTS} requests: not coalesced")
+        # the same rounds with the listen backlog at socketserver's default
+        # of 5, which the daemon raises (serve_http._Server): a connection
+        # past it is retried by the client's TCP stack after a second
+        conc.socket.listen(5)
+        for rnd in range(1, CONCURRENT_ROUNDS + 1):
+            name = f"concurrent round {rnd}, backlog 5"
+            p_worst = max(p_worst, concurrent_round(
+                cc, log, reqs, single, name, times))
+            step(name)
+        times["single_p50_s"] = float(np.median(single_s))
+        print(f"{tag} single-threaded server, one {CONCURRENT_WINDOWS}-window "
+              f"request at a time: p50 {times['single_p50_s'] * 1e3:.1f} ms")
+
+        # --- request times at bench.py's workload, the shadow drained
+        # between requests so that it never drops
+        Wb = np.ascontiguousarray(np.resize(W, (N_BENCH,) + W.shape[1:]))
+        ts, td, timed = [], [], []
+        for _ in range(SERVE_REPS):
+            t1 = time.perf_counter()
+            timed.append(c.score(Wb))
+            ts.append(time.perf_counter() - t1)
+            drain(srv.shadow)
+            t1 = time.perf_counter()
+            scorer.score(Wb)
+            td.append(time.perf_counter() - t1)
+        times.update(score_http_ms=float(np.median(ts)) * 1e3,
+                     score_direct_ms=float(np.median(td)) * 1e3)
+        print(f"{tag} /score of {N_BENCH} windows through the socket: median "
+              f"of {SERVE_REPS} {times['score_http_ms']:.2f} ms; score() "
+              f"called directly {times['score_direct_ms']:.2f} ms ({card})")
+        step("timing")
+
+        # --- the shadow, once more with the timing's requests
+        snap = srv.shadow.snapshot()
+        times["shadow_dropped_windows"] = snap["dropped_windows"]
+        check(snap["dropped_windows"] == 0 and snap["errors"] == 0,
+              f"the shadow dropped {snap['dropped_windows']} windows")
+
+        # --- admin: /recalibrate on the threshold command's healthy windows
+        # at the manifest's percentile; /reload; a request without the token
+        cfg = Stage4DofConfig()
+        paths = Paths(str(ROOT / "data" / "4dof"))
+        Wn = build_fraction_windows(load_json(paths.run_splits)["normal"]["files"],
+                                    cfg.val_frac, cfg)
+        # (refused before the body is read, as the JAX daemon does: the
+        # request carries none)
+        code, _ = c.json("/recalibrate", data=b"", method="POST")
+        check(code == 401, f"/recalibrate without the token: HTTP {code}")
+        tok = {"X-Admin-Token": SERVE_TOKEN}
+        code, rec = c.json("/recalibrate", data=Wn.tobytes(), headers={
+            **tok, "Content-Type": "application/octet-stream",
+            "X-Shape": ",".join(map(str, Wn.shape))}, method="POST")
+        check(code == 200, f"/recalibrate: HTTP {code} {rec}")
+        Z = normalize_windows(torch.from_numpy(Wn).cuda(), scorer.mean,
+                              scorer.std)
+        want_thr = percentile_threshold(reconstruction_mse(scorer.vae, Z),
+                                        cfg.threshold_percentile)
+        rel = abs(rec["threshold"] / want_thr - 1)
+        committed = load_json(paths.processed / "vae_threshold.json")["threshold"]
+        print(f"{tag} /recalibrate on {len(Wn)} healthy windows at p"
+              f"{rec['percentile']:g}: threshold {rec['threshold']:.7f}; "
+              f"percentile_threshold of reconstruction_mse {want_thr:.7f} "
+              f"(rel {rel:.2e}); the committed file's {committed:.7f}")
+        check(rec["n_windows"] == len(Wn) and rec["percentile"] == 99.0
+              and rel <= 1e-6, "/recalibrate's threshold is off")
+        drain(srv.shadow)
+        code, body = c.json("/reload", data=b"", headers=tok, method="POST")
+        check(code == 202, f"/reload: HTTP {code} {body}")
+        while True:
+            _, state = c.json("/reload", headers=tok)
+            if state["state"] in ("done", "failed"):
+                break
+            time.sleep(0.05)
+        check(state["state"] == "done" and state["generation"] == 1,
+              f"/reload ended {state}")
+        new_scorer = srv.RequestHandlerClass.engine[0]
+        check(new_scorer is not scorer
+              and float(new_scorer.threshold) == float(committed),
+              "/reload did not restore the committed threshold")
+        out2 = c.score(W)
+        drain(srv.shadow)
+        check(np.array_equal(out2["anomalous"], PHASE3_GATE["lstm"]),
+              "after /reload: gate decisions differ from phase 3's")
+        code, m = c.json("/metrics", headers={"Accept": "application/json"})
+        _, _, text = c.request("/metrics")
+        text = text.decode()
+        # every reply this server gave /score and /score_series
+        served = [a[3] for a in admitted] + timed + [out2]
+        n_scored = sum(len(r["mse"]) for r in served)
+        n_flagged = sum(int(np.sum(r["anomalous"])) for r in served)
+        classes = np.bincount(np.concatenate([np.asarray(r["y_pred"], int)
+                                              for r in served]), minlength=3)
+        d = m["drift"]
+        print(f"{tag} /metrics: {m['windows_scored']} windows scored, "
+              f"{m['windows_anomalous']} flagged, classes "
+              f"{m['pred_class_counts']}; drift after /reload: "
+              f"{d['windows']} windows, {d['anomalous']} anomalous, expected "
+              f"rate {d['expected_rate']:g}, EWMA {d['ewma_rate']:.4f}, "
+              f"alert high {d['alert_high']}")
+        check(m["windows_scored"] == n_scored
+              and m["windows_anomalous"] == n_flagged
+              and list(m["pred_class_counts"].values()) == classes.tolist(),
+              f"/metrics counts {m['windows_scored']} / "
+              f"{m['windows_anomalous']} / {m['pred_class_counts']} differ "
+              f"from the replies' {n_scored} / {n_flagged} / "
+              f"{classes.tolist()}")
+        check(d["expected_rate"] == scorer.expected_anomaly_rate
+              and d["windows"] == len(W)
+              and d["anomalous"] == int(PHASE3_GATE["lstm"].sum()),
+              "drift gauges do not follow the traffic after /reload")
+        check("shm_drift_expected_rate 0.01" in text
+              and f"shm_windows_scored_total {n_scored}" in text,
+              "Prometheus text lacks the drift or window counters")
+        step("admin")
+
+        # --- the attention root through its own server
+        att = serve_in_thread(make_server(
+            HybridScorer.from_artifacts(ROOT / "data" / "4dof_attention"),
+            port=0))
+        servers.append(att)
+        check(att.warm_event.wait(600)
+              and att.RequestHandlerClass.warm_error is None,
+              "the attention server did not warm")
+        gate_counts(reset=True)
+        outa = Client(att).score(W)
+        check(np.array_equal(outa["anomalous"], PHASE3_GATE["attention"]),
+              "attention /score: gate decisions differ from phase 3's")
+        step("attention /score")
+        print(f"{tag} attention root /score of {len(W)} windows: gate "
+              f"decisions those of phase 3; "
+              f"{launches['attention /score']}")
+    finally:
+        for s in servers:
+            stop_server(s)
+    times["p_struct_max_abs_diff"] = p_worst
+    print(f"{tag} p_struct, one window in two batches of other sizes: max "
+          f"|diff| {p_worst:.3e} (bound {P_STRUCT_ATOL:g}); mse, gate and "
+          f"y_pred bit for bit")
+    print(f"{tag} launches by step: {launches}")
+    print(f"{tag} times {json.dumps(times)}")
+    for name, want_kernel in (("/score", "fused_vae_gate"),
+                              ("/score", "fused_mingru_gate"),
+                              ("attention /score", "fused_attention_gate")):
+        check(launches[name][want_kernel] > 0,
+              f"phase 11 step {name} did not launch {want_kernel}")
+    out = {}
+    for name, counts in launches.items():
+        for k, n in counts.items():
+            if n:
+                out.setdefault(k, {})[name] = n
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the 4DOF chain on the card (phase 10)
 # ---------------------------------------------------------------------------
 
@@ -2462,15 +3031,18 @@ def main(argv) -> int:
             probe_rows[1]["parent_ms"] = parent_ms[row9_name]
         torch.cuda.empty_cache()
         chain_launches = phase_chains()
+        torch.cuda.empty_cache()
+        serve_launches = phase_serving(W)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # the kernel table's order: rows 1-5, the two other families, the probes;
     # `launches` is the scoring or training path's count, `chain_launches`
-    # phase 10's by command
+    # phase 10's by command, `serve_launches` phase 11's by step
     kernels = gate_rows[:1] + lstm_rows + gate_rows[1:] + probe_rows
     for row in kernels:
         row["chain_launches"] = chain_launches.get(row["name"], {})
+        row["serve_launches"] = serve_launches.get(row["name"], {})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

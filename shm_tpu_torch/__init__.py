@@ -11,7 +11,12 @@ module names so each port module sits beside its counterpart:
     models/{lstm,vae,cnn}.py  plain PyTorch modules (the reference path)
     ops/fused_vae.py        hand-written CUDA kernel of the whole VAE gate
     pipeline.py             make_hybrid_fn: normalize -> gate -> CNN
-    serve.py                HybridScorer (bucketed scoring of window stacks)
+    serve.py                HybridScorer (bucketed scoring of window stacks),
+                            StreamScorer (continuous streams)
+    monitor.py              DriftMonitor (the gate's anomaly rate)
+    serve_batch.py          DynamicBatcher (coalesced concurrent requests)
+    serve_shadow.py         ShadowEngine (a candidate model on live traffic)
+    serve_http.py           the HTTP daemon (python -m shm_tpu_torch.serve_http)
     cli/stage4dof.py        artifact loaders
     evals/metrics.py        accuracy, confusion_matrix
 

@@ -11,12 +11,12 @@ A failed build raises with nvcc's stderr.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
@@ -74,15 +74,32 @@ def build(names: Iterable[str]) -> Dict[str, Tuple[Path, float, str]]:
     return out
 
 
-@functools.cache
+_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it if needed. Every
-    source exports ``shm_cuda_error_string``; it is declared here."""
-    path, _, _ = build([name])[name]
-    lib = ctypes.CDLL(str(path))
-    lib.shm_cuda_error_string.restype = ctypes.c_char_p
-    lib.shm_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+    """The built library of ``csrc/<name>.cu``, building it if needed, once
+    per process: threads that ask at the same time wait for the one build
+    and load. Every source exports ``shm_cuda_error_string``; it is declared
+    here."""
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path, _, _ = build([name])[name]
+            lib = ctypes.CDLL(str(path))
+            lib.shm_cuda_error_string.restype = ctypes.c_char_p
+            lib.shm_cuda_error_string.argtypes = [ctypes.c_int]
+            _LOADED[name] = lib
+        return lib
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to the launch counter ``fn.<attr>``; safe when several host
+    threads launch kernels at once."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -93,5 +110,5 @@ def raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"({msg})")
 
 
-__all__ = ["build", "load_library", "raise_on_error", "library_path",
-           "BUILD_DIR", "CSRC"]
+__all__ = ["build", "count_launch", "load_library", "raise_on_error",
+           "library_path", "BUILD_DIR", "CSRC"]

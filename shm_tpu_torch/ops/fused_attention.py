@@ -40,7 +40,7 @@ from shm_tpu_torch.models.attention import (
     HEAD_DIM, STACK_LN_EPS, flax_layer_norm, sinusoidal_positions,
 )
 from shm_tpu_torch.models.vae import TemporalVAE
-from shm_tpu_torch.ops._build import load_library, raise_on_error
+from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (  # noqa: F401  (the TF32 helpers re-exported)
     check_fragments, check_weights, check_windows, dispatch_gate, f32,
     pointer_array, tf32_round, tf32x3_fragments, unpack_fragments,
@@ -290,7 +290,7 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual):
             len(_WEIGHT_ORDER), N, T, D, H, Zd, num_layers,
             int(use_layernorm), int(with_residual), stream)
     raise_on_error(lib, err, "fused_attention_gate")
-    fused_attention_gate.launches += 1
+    count_launch(fused_attention_gate)
     return mse, resid
 
 

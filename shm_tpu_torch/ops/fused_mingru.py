@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from shm_tpu_torch.models.vae import TemporalVAE
-from shm_tpu_torch.ops._build import load_library, raise_on_error
+from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
     check_fragments, check_weights, check_windows, dispatch_gate, f32,
     pointer_array, tf32x3_fragments,
@@ -214,7 +214,7 @@ def gate_variant(weights: Dict[str, torch.Tensor], Z: torch.Tensor, *,
             stream)
     raise_on_error(lib, err, f"fused_mingru gate_variant({tc_sum!r}, tc={tc}, "
                              f"mt={mt})")
-    gate_variant.launches += 1
+    count_launch(gate_variant)
     return mse
 
 
@@ -237,7 +237,7 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual):
             mse.data_ptr(), ptrs, len(_WEIGHT_ORDER), N, T, D, H, Zd,
             num_layers, int(use_layernorm), int(with_residual), stream)
     raise_on_error(lib, err, "fused_mingru_gate")
-    fused_mingru_gate.launches += 1
+    count_launch(fused_mingru_gate)
     return mse, resid
 
 

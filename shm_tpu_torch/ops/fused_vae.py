@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from shm_tpu_torch.models.vae import TemporalVAE
-from shm_tpu_torch.ops._build import load_library, raise_on_error
+from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
     check_fragments, check_weights, check_windows, dispatch_gate, f32,
     pointer_array, tf32x3_fragments,
@@ -208,7 +208,7 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual):
             mse.data_ptr(), ptrs, len(_WEIGHT_ORDER), N, T, D, H, Zd,
             num_layers, int(use_layernorm), int(with_residual), stream)
     raise_on_error(lib, err, "fused_vae_gate")
-    fused_vae_gate.launches += 1
+    count_launch(fused_vae_gate)
     return mse, resid
 
 

@@ -41,7 +41,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from shm_tpu_torch.models.vae import TemporalVAE
-from shm_tpu_torch.ops._build import load_library, raise_on_error
+from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 
 _HIDDEN = (32, 64, 128)
 _D_MAX, _K_MAX = 32, 128
@@ -297,7 +297,7 @@ def enc_forward_cuda(xs, dm, w0i, w0h, b0, w1i, w1h, b1, keep_stash=True):
             xs.data_ptr(), _ptr(dm), _ptrs(w), _ptr(stash), _ptr(gates),
             h_last.data_ptr(), fin.data_ptr(), T, D, H, B, _stream(xs))
     raise_on_error(_library(), err, "lstm2_enc_last forward")
-    lstm2_enc_last.fwd_launches += 1
+    count_launch(lstm2_enc_last, "fwd_launches")
     return h_last, (xs, dm, w, stash, gates, fin)
 
 
@@ -323,7 +323,7 @@ def enc_backward_cuda(saved, d_hlast, need_dx=True):
             _ptrs(scratch), _ptrs(out),
             T, D, H, B, S, _stream(xs))
     raise_on_error(_library(), err, "lstm2_enc_last backward")
-    lstm2_enc_last.bwd_launches += 1
+    count_launch(lstm2_enc_last, "bwd_launches")
     return tuple(out)
 
 
@@ -352,7 +352,7 @@ def dec_forward_cuda(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1, out_w, out_b,
             _ptr(stash), _ptr(gates), fin.data_ptr(), T, D, H, K, B,
             _stream(dec_in))
     raise_on_error(_library(), err, "lstm2_dec_head forward")
-    lstm2_dec_head.fwd_launches += 1
+    count_launch(lstm2_dec_head, "fwd_launches")
     return recon, (dec_in, dm, w, stash, gates, fin, T, D)
 
 
@@ -378,7 +378,7 @@ def dec_backward_cuda(saved, d_recon):
             gates.data_ptr(), fin.data_ptr(), d_recon.data_ptr(), _ptrs(scratch), _ptrs(out),
             T, D, H, K, B, S, _stream(dec_in))
     raise_on_error(_library(), err, "lstm2_dec_head backward")
-    lstm2_dec_head.bwd_launches += 1
+    count_launch(lstm2_dec_head, "bwd_launches")
     return tuple(out)
 
 

@@ -40,7 +40,7 @@ import json
 import numpy as np
 import torch
 
-from shm_tpu_torch.ops._build import load_library, raise_on_error
+from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import bf16_round
 from shm_tpu_torch.tools.workload import (
     N_SMS, PEAK_BF16_FLOPS, PEAK_F32_FLOPS, bound_ms, timed,
@@ -138,7 +138,7 @@ def _launch(w, x, mode, T, tc):
             scratch.data_ptr() if nbytes else None, ncols, T, m,
             TC_SUMS.index(tc), stream)
     raise_on_error(lib, err, "probe_matmul_loop")
-    matmul_loop.launches += 1
+    count_launch(matmul_loop)
     return out
 
 

@@ -36,7 +36,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from shm_tpu_torch.ops._build import load_library, raise_on_error
+from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
     bf16_a_fragments, bf16_round, check_weights, check_windows, pointer_array,
 )
@@ -204,7 +204,7 @@ def _launch(weights, Z, loop_T):
             scratch.data_ptr(), N, T, D, H, Zd,
             T if loop_T is None else loop_T, stream)
     raise_on_error(lib, err, "probe_mingru_gate")
-    make_gate.launches += 1
+    count_launch(make_gate)
     return mse
 
 

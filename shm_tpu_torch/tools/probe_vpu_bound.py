@@ -46,7 +46,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from shm_tpu_torch.ops._build import raise_on_error
+from shm_tpu_torch.ops._build import count_launch, raise_on_error
 from shm_tpu_torch.ops._gate import (
     bf16_round, check_weights, check_windows, pointer_array, tf32_round,
 )
@@ -206,7 +206,7 @@ def _launch(weights, Z, sig_via_tanh, interleave, act_bf16, bf16, ln_eps, tc):
             H, Zd, 3 + TC_SUMS.index(tc) if tc else BF16.index(bf16),
             int(sig_via_tanh), interleave, int(act_bf16), ln_eps, stream)
     raise_on_error(lib, err, "fused_vae probe")
-    gate_variant.launches += 1
+    count_launch(gate_variant)
     return mse
 
 
