@@ -112,6 +112,26 @@ Phases (any failure exits non-zero before the final line):
    starts with the gate counts at 0; the kernels line's
    ``serve_launches`` of rows 1, 6 and 7 hold them by step.
 
+12. the whole 4DOF stage on the card through the port's CLI, figures off:
+   (a) ``gen-normal``, ``gen-faults`` and ``make-splits`` into a temporary
+   root, each of the 18 CSVs per channel within ``GEN_RTOL`` of the
+   committed ``data/4dof/raw`` run, the 10 spiked samples of ``spikes_x1``
+   the committed ones, ``run_splits.json`` the committed one with the root
+   rewritten; (b) ``test-pipeline`` with ``data/4dof``'s committed models
+   on those runs (gate exact, confusion matrix within 2 windows of the
+   committed one); (c) the two legacy roots generated again with
+   ``--legacy-faults`` (``run_splits.json`` exactly the committed one) and
+   their ``test-pipeline`` held to the JAX package's output on the CPU
+   (``LEGACY_ROOTS``); (d) for ``min_gru`` and ``attention``: ``train-vae
+   --cell`` at the full recipe, a 2-epoch run twice from one seed
+   (bit-identical losses), one training step timed, then ``threshold``,
+   ``train-cnn`` and ``test-pipeline``, the gates at 1.0 on both fault
+   classes and the accuracy at least ``CELL_ACCURACY_FLOOR``. Each command
+   starts with every count at 0: generation launches no kernel, the
+   ``min_gru`` / ``attention`` commands their family's gate kernel and no
+   other (rows 1-5 0); the kernels line's ``chain_launches`` holds these
+   counts beside phase 10's.
+
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
 run from a directory that does not hold the repository. Usage:
@@ -2966,6 +2986,374 @@ def phase_chains() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the whole 4DOF stage on the card (phase 12)
+# ---------------------------------------------------------------------------
+
+# gen-normal / gen-faults on the card against the committed data/4dof/raw
+# CSVs (made on a TPU), per channel: max |diff| / max |committed|. Set before
+# the first card run: the JAX package on the CPU reads <= 1.03e-4, the port
+# on the CPU <= 1.11e-4 (stiff_red_30pct); float32 Newmark runs of 1,001
+# steps whose products and eigenvalues sum in another order on the card
+GEN_RTOL = 5e-4
+# test-pipeline of the legacy roots' committed models on runs regenerated
+# with --legacy-faults: the JAX package's own output on the CPU (the committed
+# pipeline_metrics.json of these roots is not reproduced by the JAX package
+# either; PERF.md §6). Gates exact, confusion matrix within 2 windows
+LEGACY_ROOTS = {
+    "data/4dof_legacy": dict(cell="lstm", accuracy=0.9935643564356436,
+                             cm=[[2020, 0, 0], [0, 782, 26], [0, 0, 1212]]),
+    "data/4dof_legacy_attention": dict(
+        cell="attention", accuracy=0.994059405940594,
+        cm=[[2020, 0, 0], [0, 784, 24], [0, 0, 1212]]),
+}
+LEGACY_ANOM = {"normal/test": (0, 2020), "sensor/test": (808, 808),
+               "struct/test": (1212, 1212)}
+STAGE_CM_LIMIT = 2
+# test-pipeline accuracy of the chain train-vae --cell -> threshold ->
+# train-cnn -> test-pipeline (full recipes, seed 42) on the regenerated runs.
+# Set before the first card run from the JAX package's own chain on the CPU
+# (`python -m shm_tpu.cli.stage4dof all --cell ... --seed S`, float32, full
+# recipes), as phase 10's floor: the seeds' mean less 3 standard deviations,
+# rounded down. min_gru, seeds 42, 43, 44: 0.995050, 0.992299, 0.992024
+# (0.98811); attention, seeds 42, 43: 0.994774, 0.984598 (0.96810). Every
+# seed's gate read 0 / 1 / 1 (PERF.md §6)
+CELL_ACCURACY_FLOOR = {"min_gru": 0.988, "attention": 0.968}
+
+
+def all_kernel_counts(reset: bool = False) -> dict:
+    """Launch counts of the gate kernels (rows 1, 6, 7) and the LSTM
+    training kernels (rows 2-5), by name."""
+    counts = gate_counts(reset)
+    counts.update(lstm_launch_counts())
+    if reset:
+        reset_lstm_launch_counts()
+    return counts
+
+
+def stage_command(argv, what: str, kernel=None) -> dict:
+    """``main(argv)`` of the port's CLI with every count at 0 just before;
+    its seconds printed. ``kernel`` must launch and nothing else may (with
+    None, nothing may). Returns the counts and the seconds."""
+    import torch
+
+    from shm_tpu_torch.cli.stage4dof import main as cli_main
+
+    all_kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    cli_main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = all_kernel_counts()
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    print(f"[stage] {what}: {secs:.2f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} or 'none'}")
+    if kernel is not None:
+        check(counts[kernel] > 0, f"{what} did not launch {kernel}")
+    check(not others, f"{what} launched {others}")
+    return dict(counts, seconds=secs)
+
+
+def compare_runs(root: Path, committed: Path) -> float:
+    """Every CSV under ``root/raw`` against ``committed/raw``, per channel;
+    the worst max |diff| / max |committed|."""
+    rels = sorted(p.relative_to(committed).as_posix()
+                  for p in (committed / "raw").rglob("*.csv"))
+    got_rels = sorted(p.relative_to(root).as_posix()
+                      for p in (root / "raw").rglob("*.csv"))
+    check(got_rels == rels, f"generated runs {got_rels} != committed {rels}")
+    worst, worst_rel = 0.0, ""
+    header = (committed / rels[0]).read_text().splitlines()[0]
+    for rel in rels:
+        check((root / rel).read_text().splitlines()[0] == header,
+              f"{rel}: header differs from the committed one")
+        got = np.loadtxt(root / rel, delimiter=",", skiprows=1)
+        ref = np.loadtxt(committed / rel, delimiter=",", skiprows=1)
+        check(got.shape == ref.shape, f"{rel}: shape {got.shape} != {ref.shape}")
+        r = float((np.abs(got - ref).max(0) / np.abs(ref).max(0)).max())
+        if r > worst:
+            worst, worst_rel = r, rel
+    print(f"[stage] {len(rels)} CSVs against {committed.relative_to(ROOT)}/raw: "
+          f"worst channel max |diff| / max |committed| {worst:.3e} ({worst_rel}); "
+          f"limit {GEN_RTOL:g}")
+    check(worst <= GEN_RTOL, f"generated runs off the committed ones by "
+                             f"{worst:.3e} ({worst_rel})")
+    return worst
+
+
+def spike_positions(root: Path) -> None:
+    """spikes_x1's spiked samples on x1, v1, a1 (where the run leaves the
+    nominal run, simulated here on the card) against the committed run's."""
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.sim import simulate_runs, smoothed_gaussian_force_np
+
+    cfg = Stage4DofConfig()
+    f = cfg.faults
+    force = smoothed_gaussian_force_np(cfg.system.t_total, cfg.system.dt, 4,
+                                       f.force_rms, f.force_seed)
+    nominal = simulate_runs(np.array(cfg.system.mass)[None],
+                            np.array(cfg.system.stiffness)[None],
+                            np.full(1, cfg.system.damping_ratio), force[None],
+                            cfg.system)[0].cpu().numpy().astype(np.float64)
+    rel = "raw/faults/sensor_fault/spikes_x1/spikes_x1.csv"
+    got = np.loadtxt(root / rel, delimiter=",", skiprows=1)
+    ref = np.loadtxt(ROOT / "data/4dof" / rel, delimiter=",", skiprows=1)
+    for c in (0, 4, 8):
+        tol = 1e-3 * np.abs(nominal[:, c]).max()
+        hit = np.nonzero(np.abs(got[:, c] - nominal[:, c]) > tol)[0]
+        hit_c = np.nonzero(np.abs(ref[:, c] - nominal[:, c]) > tol)[0]
+        check(len(hit) == 10 and np.array_equal(hit, hit_c),
+              f"spikes_x1 column {c}: spikes at {hit.tolist()}, committed "
+              f"{hit_c.tolist()}")
+    print(f"[stage] spikes_x1: the 10 spiked samples {hit.tolist()} on x1, v1 "
+          "and a1 are the committed run's")
+
+
+def check_stage_pipeline(root: Path, what: str, want_cm, want_anom,
+                         limit: int = STAGE_CM_LIMIT) -> dict:
+    """test-pipeline's metrics under ``root``: gate counts exact, the
+    confusion matrix within ``limit`` windows of ``want_cm``."""
+    from shm_tpu_torch.utils.io import load_json
+
+    got = load_json(root / "figures" / "pipeline_metrics.json")
+    anom = {tag: (int(s["anom"]), int(s["total"]))
+            for tag, s in got["gate"]["gate_stats"].items()}
+    cm = np.asarray(got["confusion_matrix_counts"])
+    ref = np.asarray(want_cm)
+    moved = int(np.abs(cm - ref).sum()) // 2
+    print(f"[stage] {what}: accuracy {got['accuracy']:.6f}, gate {anom}, "
+          f"confusion matrix {cm.tolist()} (held to {ref.tolist()}: windows "
+          f"moved {moved}, limit {limit})")
+    check(anom == want_anom, f"{what}: gate {anom} != {want_anom}")
+    check((cm.sum(1) == ref.sum(1)).all() and moved <= limit,
+          f"{what}: confusion matrix off by {moved} windows")
+    return got
+
+
+def stage_generate(root: Path, root_arg: str, legacy: bool, tag: str) -> dict:
+    """gen-normal, gen-faults and make-splits into ``root_arg`` on the card;
+    their seconds by command."""
+    secs = {}
+    base = ["--root", root_arg, "--no-plots"]
+    for cmd in ("gen-normal", "gen-faults", "make-splits"):
+        argv = [cmd] + base + (["--legacy-faults"] if legacy and cmd == "gen-faults"
+                               else [])
+        secs[f"{tag} {cmd}"] = stage_command(argv, f"{tag} {cmd}")["seconds"]
+    return secs
+
+
+def vae_step_ms(cell: str, Ztr, scan_impl: str = "sequential",
+                profile: bool = False) -> float:
+    """CUDA-event ms of one training step of the cell's VAE at the recipe's
+    batch (noise drawn, forward, backward, clip, Adam), plain autograd;
+    ``scan_impl`` is the minGRU recurrence's form. ``profile`` also prints
+    where a step's device time goes, and the device's idle share."""
+    import torch
+
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.models.vae import TemporalVAE
+    from shm_tpu_torch.train.vae import batch_loss, draw_batch_noise, make_optimizer
+
+    cfg = Stage4DofConfig()
+    tcfg = cfg.vae_train
+    v = cfg.vae
+    model = TemporalVAE(v.input_dim, v.latent_dim, v.hidden_dim, v.num_layers,
+                        v.use_layernorm, v.dropout, cell, scan_impl).cuda()
+    model.init_parameters(torch.Generator().manual_seed(0))
+    model.train()
+    opt = make_optimizer(model.parameters(), tcfg)
+    bs = tcfg.batch_size
+    xb = Ztr[:bs].contiguous()
+    bmask = torch.ones(bs, device=xb.device)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        eps, dm_e, dm_d = draw_batch_noise(model, bs, xb.shape[1], gen, xb.device)
+        opt.zero_grad()
+        total, _, _ = batch_loss(model, xb, bmask, eps, dm_e, dm_d, 0.5, False,
+                                 generator=gen)
+        total.backward()
+        opt.step()
+
+    ms = time_ms(step, reps=11, warm=3)
+    if profile:
+        profile_device(step, f"{cell} training step ({scan_impl})")
+    return ms
+
+
+def stage_cell_chain(cell: str, runs: Path, tmp: Path) -> dict:
+    """train-vae --cell at the full recipe on the regenerated runs, a
+    2-epoch run twice from one seed, one step timed, then threshold,
+    train-cnn and test-pipeline; the gate kernel's launches by command."""
+    import shutil
+
+    import torch
+
+    from shm_tpu_torch.cli.stage4dof import (
+        Paths, _load_stats, build_fraction_windows_multi,
+    )
+    from shm_tpu_torch.config import Stage4DofConfig, replace
+    from shm_tpu_torch.data.windows import normalize_windows
+    from shm_tpu_torch.models.vae import vae_from_config
+    from shm_tpu_torch.train import train_vae
+    from shm_tpu_torch.utils.io import load_json
+
+    kernel = FAMILIES[cell]["kernel"]
+    root = tmp / f"chain_{cell}"
+    paths = Paths(str(root))
+    paths.processed.mkdir(parents=True)
+    shutil.copy(Paths(str(runs)).run_splits, paths.run_splits)
+    base = ["--root", str(root), "--no-plots"]
+    out = {}
+
+    r = stage_command(["train-vae", "--cell", cell] + base,
+                      f"{cell} train-vae (full recipe)")
+    meta = load_json(paths.processed / "stage1_vae_train_meta.json")
+    cfg = replace(Stage4DofConfig(), vae=replace(Stage4DofConfig().vae, cell=cell))
+    tcfg = cfg.vae_train
+    check(meta["cell"] == cell and meta["epochs"] == tcfg.epochs
+          and meta["batch_size"] == tcfg.batch_size, f"{cell} train-vae meta {meta}")
+    ep = tcfg.epochs
+    print(f"[stage] {cell} train-vae: {ep} epochs in {meta['train_seconds']:.2f} s "
+          f"({meta['train_seconds'] / ep:.3f} s/epoch; command {r['seconds']:.2f} s), "
+          f"best epoch {meta['best_epoch']}, val {meta['best_val_total']:.6f}; "
+          f"{gpu_line()}")
+
+    # the losses of a run from one seed, twice, on the command's windows
+    files = load_json(paths.run_splits)["normal"]["files"]
+    Wtr, Wva = build_fraction_windows_multi(files, (cfg.train_frac, cfg.val_frac), cfg)
+    mean, std = (torch.from_numpy(a).cuda() for a in _load_stats(paths))
+    Ztr = normalize_windows(torch.from_numpy(Wtr).cuda(), mean, std)
+    Zva = normalize_windows(torch.from_numpy(Wva).cuda(), mean, std)
+    runs2 = [train_vae(vae_from_config(cfg.vae), Ztr, Zva, replace(tcfg, epochs=2))
+             for _ in range(2)]
+    h = runs2[0].history
+    print(f"[stage] {cell} 2-epoch runs from seed {tcfg.seed}: train total "
+          f"{h['train_total']} / {runs2[1].history['train_total']}; "
+          f"{runs2[1].seconds / 2:.3f} s/epoch")
+    check(runs2[1].history == h, f"{cell}: two runs from one seed differ")
+    check(all(np.isfinite(v).all() for v in h.values()), f"{cell}: non-finite loss")
+    step = vae_step_ms(cell, Ztr, profile=True)
+    print(f"[stage] {cell} one training step (batch {tcfg.batch_size}, plain "
+          f"autograd, forward + backward + clip + Adam): {step:.3f} ms "
+          f"(CUDA events, median of 11); {gpu_line()}")
+    out.update(train_s_per_epoch=meta["train_seconds"] / ep, step_ms=step,
+               train_vae_seconds=r["seconds"])
+    if cell == "min_gru":
+        # the recurrence's log-depth form, an option of the model (not the
+        # trainer's default), timed beside it
+        out["step_ms_associative"] = vae_step_ms(cell, Ztr, "associative")
+        print(f"[stage] min_gru one training step with the associative "
+              f"recurrence (log2 T doubling passes): "
+              f"{out['step_ms_associative']:.3f} ms")
+
+    launches = {}
+    for cmd in ("threshold", "train-cnn", "test-pipeline"):
+        res = stage_command([cmd] + base, f"{cell} {cmd}", kernel=kernel)
+        launches[f"stage {cell} {cmd}"] = res[kernel]
+        out[f"{cmd}_seconds"] = res["seconds"]
+    got = load_json(paths.figures / "pipeline_metrics.json")
+    rates = {k: v["anom_rate"] for k, v in got["gate"]["gate_stats"].items()}
+    floor = CELL_ACCURACY_FLOOR[cell]
+    print(f"[stage] {cell} chain: accuracy {got['accuracy']:.6f} (floor {floor}, "
+          f"set before the first card run), gate rates {rates}, confusion "
+          f"matrix {got['confusion_matrix_counts']}")
+    check(rates["sensor/test"] == 1.0 and rates["struct/test"] == 1.0,
+          f"{cell} chain: gate rates {rates}")
+    check(got["accuracy"] >= floor, f"{cell} chain: accuracy "
+          f"{got['accuracy']:.6f} < the floor {floor}")
+    out["accuracy"] = got["accuracy"]
+    return launches, out
+
+
+def stage_data(tmp: Path, launches: dict) -> dict:
+    """Phase 12 (a)-(c) under ``tmp``: data/4dof's runs and splits
+    generated again and tested with its committed models, then the two
+    legacy roots. Adds the gate kernels' launches by command to
+    ``launches``; returns the generation seconds by command and (a)'s
+    root."""
+    import os
+    import shutil
+
+    from shm_tpu_torch.utils.io import load_json
+
+    secs = {}
+    # (a) data/4dof's runs and splits, root given absolute
+    a = tmp / "r4dof"
+    secs.update(stage_generate(a, str(a), False, "data/4dof"))
+    compare_runs(a, ROOT / "data/4dof")
+    spike_positions(a)
+    got = load_json(a / "processed" / "run_splits.json")
+    want = (ROOT / "data/4dof/processed/run_splits.json").read_text()
+    check(got == json.loads(want.replace("data/4dof/", a.as_posix() + "/")),
+          "make-splits: run_splits.json differs from the committed one")
+    print("[stage] run_splits.json: the committed one, root prefix rewritten")
+
+    # (b) the committed data/4dof models on those runs
+    for p in (ROOT / "data/4dof/processed").iterdir():
+        if p.name != "run_splits.json":
+            shutil.copy(p, a / "processed" / p.name)
+    shutil.copytree(ROOT / "data/4dof/models", a / "models")
+    want = load_json(ROOT / "data/4dof/figures/pipeline_metrics.json")
+    what = "data/4dof test-pipeline, regenerated runs"
+    r = stage_command(["test-pipeline", "--root", str(a), "--no-plots"], what,
+                      kernel="fused_vae_gate")
+    launches["fused_vae_gate"][f"stage {what}"] = r["fused_vae_gate"]
+    check_stage_pipeline(a, what, want["confusion_matrix_counts"],
+                         {k: (int(v["anom"]), int(v["total"]))
+                          for k, v in want["gate"]["gate_stats"].items()})
+
+    # (c) the legacy roots, generated again with --legacy-faults under a
+    # relative root from a working directory of their own
+    here = os.getcwd()
+    for name, leg in LEGACY_ROOTS.items():
+        wd = tmp / ("wd_" + Path(name).name)
+        for sub in ("processed", "models"):
+            shutil.copytree(ROOT / name / sub, wd / name / sub)
+        os.chdir(wd)
+        try:
+            secs.update(stage_generate(wd / name, name, True, name))
+            check(load_json(wd / name / "processed" / "run_splits.json")
+                  == load_json(ROOT / name / "processed" / "run_splits.json"),
+                  f"{name}: make-splits differs from the committed run_splits.json")
+            print(f"[stage] {name}: run_splits.json equal to the committed one")
+            kernel = FAMILIES[leg["cell"]]["kernel"]
+            r = stage_command(["test-pipeline", "--root", name, "--no-plots"],
+                              f"{name} test-pipeline", kernel=kernel)
+            launches[kernel][f"stage {name} test-pipeline"] = r[kernel]
+            check_stage_pipeline(wd / name, f"{name} test-pipeline",
+                                 leg["cm"], LEGACY_ANOM)
+        finally:
+            os.chdir(here)
+    print(f"[stage] generation seconds by command {secs}")
+    return a
+
+
+def phase_stage() -> dict:
+    """Phase 12: the whole 4DOF stage on the card. (a) the runs and splits
+    of data/4dof generated again; (b) its committed models' test-pipeline on
+    them; (c) the two legacy roots generated again (--legacy-faults) and
+    tested; (d) the min_gru and attention chains trained on (a)'s runs.
+    Returns the gate kernels' launches by command, by kernel name."""
+    import tempfile
+
+    print(f"[stage] {gpu_line()}")
+    t_phase = time.perf_counter()
+    launches = {fam["kernel"]: {} for fam in FAMILIES.values()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stage_") as tmp_s:
+        tmp = Path(tmp_s)
+        a = stage_data(tmp, launches)
+        # (d) the two other families trained on (a)'s runs
+        for cell in ("min_gru", "attention"):
+            t0 = time.perf_counter()
+            got, nums = stage_cell_chain(cell, a, tmp)
+            launches[FAMILIES[cell]["kernel"]].update(got)
+            print(f"[stage] {cell} chain {time.perf_counter() - t0:.2f} s: {nums}")
+    print(f"[stage] phase 12 {time.perf_counter() - t_phase:.2f} s; gate kernel "
+          f"launches by command {launches}")
+    return launches
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[2])
@@ -3033,12 +3421,15 @@ def main(argv) -> int:
         chain_launches = phase_chains()
         torch.cuda.empty_cache()
         serve_launches = phase_serving(W)
+        torch.cuda.empty_cache()
+        for name, got in phase_stage().items():
+            chain_launches.setdefault(name, {}).update(got)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # the kernel table's order: rows 1-5, the two other families, the probes;
     # `launches` is the scoring or training path's count, `chain_launches`
-    # phase 10's by command, `serve_launches` phase 11's by step
+    # phases 10 and 12's by command, `serve_launches` phase 11's by step
     kernels = gate_rows[:1] + lstm_rows + gate_rows[1:] + probe_rows
     for row in kernels:
         row["chain_launches"] = chain_launches.get(row["name"], {})

@@ -1,13 +1,30 @@
 """4DOF stage CLI (counterpart of ``shm_tpu/cli/stage4dof.py``).
 
+    python -m shm_tpu_torch.cli.stage4dof gen-normal    --root data/4dof
+    python -m shm_tpu_torch.cli.stage4dof gen-faults    --root data/4dof
+    python -m shm_tpu_torch.cli.stage4dof make-splits   --root data/4dof
     python -m shm_tpu_torch.cli.stage4dof train-vae     --root data/4dof
     python -m shm_tpu_torch.cli.stage4dof threshold     --root data/4dof
     python -m shm_tpu_torch.cli.stage4dof train-cnn     --root data/4dof
     python -m shm_tpu_torch.cli.stage4dof test-pipeline --root data/4dof
+    python -m shm_tpu_torch.cli.stage4dof all           --root data/4dof
 
 Each command runs on the CUDA card unless given ``--device cpu``, and writes
 the same artifacts under ``--root`` as the JAX CLI:
 
+- ``gen-normal``: ``raw/normal/normal_seed{2025..2034}.csv``, the healthy
+  runs (per-run mass and stiffness jitter and damping ratio from
+  ``default_rng(base_seed)``, forces from numpy's seeded global RNG, all
+  runs integrated at once on the device);
+- ``gen-faults``: ``raw/faults/structural_fault/stiff_red_*pct/*.csv`` (the
+  nominal system with scaled stiffness, 10-40 %, or with
+  ``--legacy-faults`` the committed tree's 8-40 %) and
+  ``raw/faults/sensor_fault/{noise_x4,spikes_x1,drift_x2,bias_x3}/*.csv``
+  (the nominal run with one DOF's channels corrupted, keys
+  ``fold_in(PRNGKey(42), i)`` as ``jax.random`` draws them);
+- ``make-splits``: ``processed/run_splits.json``, every run's windows in
+  contiguous 40/30/30 blocks, the runs named by their paths under
+  ``--root`` as given (see :func:`resolve_run_path`);
 - ``train-vae``: ``processed/{vae_mean,vae_std}.npy``,
   ``processed/normal_stats.npz``, ``models/temporal_vae.msgpack`` (flax
   layout, read by both packages), ``processed/stage1_vae_train_meta.json``;
@@ -20,12 +37,14 @@ the same artifacts under ``--root`` as the JAX CLI:
   ``figures/hybrid_struct_vs_rest_metrics.json`` and
   ``figures/pipeline_classification_report.txt``;
 
-and their figures, which ``--no-plots`` turns off (no JSON depends on them).
-On the card every VAE pass runs the fused kernel of the root's cell: the
-gate-only mode for ``threshold``, the residual mode for ``train-cnn``'s
-inputs and ``test-pipeline``; a preset the kernel does not take raises. Not
-ported yet: data generation and splits (``gen-normal``, ``gen-faults``,
-``make-splits``) and ``all``.
+and their figures, which ``--no-plots`` turns off (no JSON depends on them);
+``all`` runs the seven in that order. The CSVs are the JAX CLI's: header
+``x1..x4,v1..v4,a1..a4``, ``%.10g``. ``--cell`` picks the VAE family that
+``train-vae`` trains (recorded in its meta; the later commands read it
+there). On the card every VAE pass of ``threshold``, ``train-cnn`` and
+``test-pipeline`` runs the fused kernel of the root's cell: the gate-only
+mode for ``threshold``, the residual mode for ``train-cnn``'s inputs and
+``test-pipeline``; a preset the kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -62,8 +81,10 @@ from shm_tpu_torch.utils.io import (
 
 CLASS_NAMES = ["Normal", "Sensor Fault", "Structural Fault"]
 
-# run_splits.json lists CSVs relative to the repository root
+# the committed run_splits.json files list CSVs relative to the repository root
 REPO_ROOT = Path(__file__).resolve().parents[2]
+COLUMNS = ([f"x{j}" for j in range(1, 5)] + [f"v{j}" for j in range(1, 5)]
+           + [f"a{j}" for j in range(1, 5)])
 
 
 class Paths:
@@ -82,9 +103,195 @@ class Paths:
 
 
 def resolve_run_path(p: str) -> Path:
-    """A path from ``run_splits.json``: absolute as given, else repo-relative."""
+    """A run's path from ``run_splits.json``. ``make-splits`` writes them
+    under ``--root`` as given, as the JAX command does: absolute for an
+    absolute root, else relative to the working directory it ran in. An
+    absolute path is taken as it is; a relative one relative to the working
+    directory where the file is there (as the JAX readers take it), else to
+    the repository root, which the committed roots' paths name. So a
+    relative ``--root`` is found from the directory ``make-splits`` ran in
+    and, if that was the repository root, from any directory."""
     path = Path(p)
-    return path if path.is_absolute() else REPO_ROOT / path
+    if path.is_absolute() or path.exists():
+        return path
+    return REPO_ROOT / path
+
+
+def _write_run_csv(arr: np.ndarray, path: Path) -> None:
+    ensure_dir(path.parent)
+    np.savetxt(path, arr, delimiter=",", header=",".join(COLUMNS),
+               comments="", fmt="%.10g")
+
+
+# ---------------------------------------------------------------------------
+# data generation
+# ---------------------------------------------------------------------------
+
+def _stiffness_label(scale: float) -> str:
+    return f"stiff_red_{int(round((1.0 - scale) * 100))}pct"
+
+
+def cmd_gen_normal(paths: Paths, cfg: Stage4DofConfig, plot: bool = True,
+                   device=None) -> None:
+    """The ``n_normal_runs`` healthy runs, seeds ``base_seed + i``: mass and
+    stiffness jittered by U(jitter_lo, jitter_hi) and the damping ratio
+    U(zeta_lo, zeta_hi), drawn from ``default_rng(base_seed)`` (mass, then
+    stiffness, then zeta); each run's force from
+    ``smoothed_gaussian_force_np`` seeded with its seed; all runs integrated
+    in one batch on ``device``. Writes ``raw/normal/normal_seed{s}.csv``."""
+    from shm_tpu_torch.sim import simulate_runs, smoothed_gaussian_force_np
+
+    device = _device(device)
+    R, nd = cfg.n_normal_runs, cfg.system.num_dofs
+    seeds = [cfg.base_seed + i for i in range(R)]
+    rng = np.random.default_rng(cfg.base_seed)
+    mass = np.array(cfg.system.mass) * rng.uniform(cfg.jitter_lo, cfg.jitter_hi, (R, nd))
+    stiff = np.array(cfg.system.stiffness) * rng.uniform(cfg.jitter_lo, cfg.jitter_hi, (R, nd))
+    zeta = rng.uniform(cfg.zeta_lo, cfg.zeta_hi, R)
+    forces = np.stack([
+        smoothed_gaussian_force_np(cfg.system.t_total, cfg.system.dt, nd,
+                                   cfg.normal_force_rms, s) for s in seeds])
+    t0 = time.perf_counter()
+    runs = simulate_runs(mass, stiff, zeta, forces, cfg.system,
+                         device=device).cpu().numpy()
+    print(f"[sim] {R} normal runs in {time.perf_counter() - t0:.2f}s "
+          f"(batched Newmark steps on {device})")
+    for s, run in zip(seeds, runs):
+        _write_run_csv(run, paths.raw_normal / f"normal_seed{s}.csv")
+        print(f"[OK] normal run saved: raw/normal/normal_seed{s}.csv")
+    if plot:
+        from shm_tpu_torch.report import plot_stacked_channels
+
+        t = np.arange(runs.shape[1]) * cfg.system.dt
+        plot_stacked_channels(
+            t, {f"x{j + 1} [m]": runs[0][:, j] for j in range(nd)},
+            paths.figures, f"normal_run_seed{seeds[0]}_displacement_stacked")
+
+
+def _remove_other_regime(paths: Paths, cfg: Stage4DofConfig,
+                         labels: List[str]) -> None:
+    """A root generated again under the other regime would mix the two in
+    ``make-splits``: remove the structural case directories of the other
+    KNOWN regime, and keep (with a warning) any other ``stiff_red_*``
+    directory, which may be a user's own case."""
+    import shutil
+
+    if not paths.raw_struct.exists():
+        return
+    f = cfg.faults
+    known = {_stiffness_label(s) for s in
+             tuple(f.stiffness_scales) + tuple(f.legacy_stiffness_scales)}
+    for d in sorted(paths.raw_struct.iterdir()):
+        if not (d.is_dir() and d.name.startswith("stiff_red_")
+                and d.name not in labels):
+            continue
+        if d.name in known:
+            shutil.rmtree(d)
+            print(f"[OK] removed stale structural case from the other "
+                  f"regime: {d.name}")
+        else:
+            print(f"[WARN] unrecognized structural case dir kept: "
+                  f"{d.name} (not in either known regime; remove it "
+                  f"manually if it should not feed make-splits)")
+
+
+def cmd_gen_faults(paths: Paths, cfg: Stage4DofConfig, plot: bool = True,
+                   legacy: bool = False, device=None) -> None:
+    """The fault runs, all from the nominal system and one force
+    (``force_rms``, ``force_seed``): structural faults simulated again with
+    the stiffness scaled by each of ``stiffness_scales`` (with ``legacy``,
+    ``legacy_stiffness_scales``), in one batch with the nominal run; sensor
+    faults the nominal run with the x, v, a channels of one DOF corrupted
+    (``SENSOR_FAULT_CASES``, key ``fold_in(PRNGKey(force_seed), i)`` for
+    case i), on ``device``. Writes the CSVs."""
+    from shm_tpu_torch.sim import (
+        SENSOR_FAULT_CASES, inject_sensor_fault_triplet, prng, simulate_runs,
+        smoothed_gaussian_force_np,
+    )
+
+    device = _device(device)
+    f, nd = cfg.faults, cfg.system.num_dofs
+    force = smoothed_gaussian_force_np(cfg.system.t_total, cfg.system.dt, nd,
+                                       f.force_rms, f.force_seed)
+    base_m = np.array(cfg.system.mass)
+    base_k = np.array(cfg.system.stiffness)
+    scales = np.array((1.0,) + tuple(f.legacy_stiffness_scales if legacy
+                                     else f.stiffness_scales))
+    S = len(scales)
+    t0 = time.perf_counter()
+    runs_d = simulate_runs(
+        np.tile(base_m, (S, 1)), base_k[None] * scales[:, None],
+        np.full(S, cfg.system.damping_ratio), np.tile(force[None], (S, 1, 1)),
+        cfg.system, device=device)
+    nominal_d = runs_d[0]
+    runs = runs_d.cpu().numpy()
+    print(f"[sim] nominal + {S - 1} structural runs in "
+          f"{time.perf_counter() - t0:.2f}s (batched Newmark steps on {device})")
+
+    labels = [_stiffness_label(s) for s in scales[1:]]
+    _remove_other_regime(paths, cfg, labels)
+    for label, run in zip(labels, runs[1:]):
+        _write_run_csv(run, paths.raw_struct / label / f"{label}.csv")
+        print(f"[OK] structural fault saved: {label}")
+
+    key = prng.PRNGKey(f.force_seed)
+    rel = {"noise": f.noise_rel_mag, "spikes": f.spikes_rel_mag,
+           "drift": f.drift_rel_mag, "bias": f.bias_rel_mag}
+    sensor = {}
+    for i, (name, kind, dof, _) in enumerate(SENSOR_FAULT_CASES):
+        run = inject_sensor_fault_triplet(
+            prng.fold_in(key, i), nominal_d, kind, dof, rel[kind],
+            num_dofs=nd, spikes_freq=f.spikes_freq).cpu().numpy()
+        _write_run_csv(run, paths.raw_sensor / name / f"{name}.csv")
+        sensor[name] = run
+        print(f"[OK] sensor fault saved: {name} (target=x{dof})")
+
+    if plot:
+        from shm_tpu_torch.report import plot_reconstruction_overlay
+
+        nominal = runs[0]
+        t = np.arange(nominal.shape[0]) * cfg.system.dt
+        disp = lambda r: {f"x{j + 1} [m]": r[:, j] for j in range(nd)}
+        for label, run in zip(labels, runs[1:]):
+            plot_reconstruction_overlay(
+                t, disp(nominal), disp(run),
+                paths.figures / "faults" / "structural_fault" / label,
+                f"{label}_normal_vs_structural_fault_displacement_stacked",
+                labels=("Normal", "Structural fault"))
+        for name, run in sensor.items():
+            plot_reconstruction_overlay(
+                t, disp(nominal), disp(run),
+                paths.figures / "faults" / "sensor_fault" / name,
+                f"{name}_normal_vs_sensor_fault_displacement_stacked",
+                labels=("Normal", "Sensor fault"))
+
+
+# ---------------------------------------------------------------------------
+# splits
+# ---------------------------------------------------------------------------
+
+def _count_rows_csv(path: Path) -> int:
+    with open(path, "r", encoding="utf-8", errors="ignore") as fh:
+        return max(sum(1 for _ in fh) - 1, 0)
+
+
+def _scan(dirpath: Path) -> List[Tuple[str, int]]:
+    return [(p.as_posix(), _count_rows_csv(p)) for p in sorted(dirpath.rglob("*.csv"))]
+
+
+def cmd_make_splits(paths: Paths, cfg: Stage4DofConfig) -> Dict:
+    """``processed/run_splits.json`` of every CSV under ``raw/`` (returned).
+    Every ``stiff_red_*`` directory there is a structural run, whatever its
+    name: ``gen-faults`` warns of one it does not know."""
+    from shm_tpu_torch.data.splits import make_run_splits_json
+
+    doc = make_run_splits_json(
+        _scan(paths.raw_normal), _scan(paths.raw_sensor), _scan(paths.raw_struct),
+        seq_len=cfg.seq_len, stride=cfg.stride)
+    save_json(doc, paths.run_splits)
+    print(f"[OK] wrote: {paths.run_splits}")
+    print(f"[OK] totals: {doc['totals']}")
+    return doc
 
 
 def build_fraction_windows_multi(files: List[str], fracs,
@@ -116,11 +323,13 @@ def cmd_train_vae(paths: Paths, cfg: Stage4DofConfig,
                   plot: bool = True):
     """Train the gate VAE on the normal runs' train fraction (statistics from
     that fraction only), select on the validation fraction, write the
-    artifacts (and, with ``plot``, the loss curves). Returns the
-    :class:`VAETrainResult`."""
+    artifacts (and, with ``plot``, the loss curves). The family is
+    ``cfg.vae.cell``, written into the meta; an LSTM trains on the card
+    through the training kernels (``kernel``), the other cells on the plain
+    autograd path. Returns the :class:`VAETrainResult`."""
     from shm_tpu_torch.train import train_vae
 
-    device = resolve_device(device)
+    device = _device(device)
     normal_files = load_json(paths.run_splits)["normal"]["files"]
     Wtr, Wva = build_fraction_windows_multi(
         normal_files, (cfg.train_frac, cfg.val_frac), cfg)
@@ -561,32 +770,54 @@ def main(argv=None) -> None:
                          "posterior mean")
     ap.add_argument("--kernel", dest="kernel", action="store_true", default=None,
                     help="train-vae: force the hand-written LSTM training "
-                         "kernels (default: auto, on for CUDA)")
+                         "kernels (default: auto, on for an LSTM on CUDA)")
     ap.add_argument("--no-kernel", dest="kernel", action="store_false",
                     help="train-vae: force the plain autograd path")
+    ap.add_argument("--cell", choices=["lstm", "min_gru", "attention"],
+                    default="lstm",
+                    help="train-vae: the VAE family (recorded in its meta; "
+                         "threshold, train-cnn and test-pipeline read it "
+                         "there). min_gru and attention are opt-in presets, "
+                         "not the reference-parity model, and train on the "
+                         "plain autograd path")
+    ap.add_argument("--legacy-faults", action="store_true",
+                    help="gen-faults: the committed tree's structural regime "
+                         "(stiff_red_{8,9,18,19,30,40}pct) instead of 10-40%%")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; pass cpu to "
                          "run the plain path on the CPU)")
     args = ap.parse_args(argv)
     paths, cfg, plot = Paths(args.root), Stage4DofConfig(), not args.no_plots
-    if args.command == "train-vae":
-        cmd_train_vae(paths, cfg, args.epochs, seed=args.seed,
-                      kernel=args.kernel, device=args.device, plot=plot)
-    elif args.command == "threshold":
-        cmd_threshold(paths, cfg, args.sample, plot=plot, device=args.device)
-    elif args.command == "train-cnn":
-        cmd_train_cnn(paths, cfg, args.epochs, seed=args.seed, plot=plot,
-                      device=args.device)
-    elif args.command == "test-pipeline":
-        cmd_test_pipeline(paths, cfg, plot=plot, device=args.device)
+    if args.cell != "lstm":
+        cfg = replace(cfg, vae=replace(cfg.vae, cell=args.cell))
+    dev = args.device
+    steps = {
+        "gen-normal": lambda: cmd_gen_normal(paths, cfg, plot, device=dev),
+        "gen-faults": lambda: cmd_gen_faults(paths, cfg, plot,
+                                             legacy=args.legacy_faults,
+                                             device=dev),
+        "make-splits": lambda: cmd_make_splits(paths, cfg),
+        "train-vae": lambda: cmd_train_vae(paths, cfg, args.epochs,
+                                           seed=args.seed, kernel=args.kernel,
+                                           device=dev, plot=plot),
+        "threshold": lambda: cmd_threshold(paths, cfg, args.sample, plot=plot,
+                                           device=dev),
+        "train-cnn": lambda: cmd_train_cnn(paths, cfg, args.epochs,
+                                           seed=args.seed, plot=plot, device=dev),
+        "test-pipeline": lambda: cmd_test_pipeline(paths, cfg, plot=plot,
+                                                   device=dev),
+    }
+    if args.command == "all":
+        for name in _COMMANDS[:-1]:
+            print(f"\n===== {name} =====")
+            steps[name]()
     else:
-        raise NotImplementedError(
-            f"{args.command!r} is not ported yet (train-vae, threshold, "
-            "train-cnn and test-pipeline are)")
+        steps[args.command]()
 
 
 __all__ = ["Paths", "build_fraction_windows", "build_fraction_windows_multi",
-           "build_split_windows", "cnn_train_sets", "resolve_run_path", "cmd_train_vae",
+           "build_split_windows", "cnn_train_sets", "resolve_run_path",
+           "cmd_gen_normal", "cmd_gen_faults", "cmd_make_splits", "cmd_train_vae",
            "cmd_threshold", "cmd_train_cnn", "cmd_test_pipeline", "main",
            "_load_vae", "_load_stats", "_load_cnn", "_cnn_inputs"]
 

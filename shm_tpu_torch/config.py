@@ -1,8 +1,9 @@
 """Typed, frozen configuration for the port (counterpart of ``shm_tpu/config.py``).
 
-Only the dataclasses the ported 4DOF paths read are kept: ``VAEConfig``,
-``CNNConfig``, ``TrainConfig`` and the windowing / split / threshold / model /
-training fields of ``Stage4DofConfig``. Defaults are identical to the JAX
+Only the dataclasses the ported paths read are kept: ``VAEConfig``,
+``CNNConfig``, ``TrainConfig``, ``SDOFParams`` (the 1-DOF oscillator the
+simulator integrates), ``SystemConfig`` and ``FaultGenConfig`` (4DOF data
+generation) and ``Stage4DofConfig``. Defaults are identical to the JAX
 package's.
 """
 
@@ -24,7 +25,7 @@ class VAEConfig:
     dropout: float = 0.3
     use_layernorm: bool = True
     # temporal-stack family: "lstm" (reference parity), "min_gru" or
-    # "attention" (opt-in presets; scoring only, their training is not ported)
+    # "attention" (opt-in presets, not parity models)
     cell: str = "lstm"
 
 
@@ -56,9 +57,73 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
-class Stage4DofConfig:
-    """4DOF stage: windowing, per-run time-fraction splits and models."""
+class SDOFParams:
+    """Single-DOF oscillator of the 1-DOF stage."""
 
+    m: float = 100.0
+    k: float = 1000.0
+    c: float = 0.0
+    x0: float = 0.01
+    v0: float = 0.0
+    t_total: float = 30.0
+    dt: float = 0.01
+
+
+@dataclass(frozen=True)
+class SystemConfig:
+    """N-DOF chain system of the 4DOF stage."""
+
+    mass: Tuple[float, ...] = (60.0, 50.0, 50.0, 40.0)
+    stiffness: Tuple[float, ...] = (300000.0, 240000.0, 200000.0, 160000.0)
+    damping_ratio: float = 0.02
+    beta: float = 0.25
+    gamma: float = 0.5
+    num_dofs: int = 4
+    dt: float = 0.01
+    t_total: float = 10.0
+
+    @property
+    def steps(self) -> int:
+        return int(self.t_total / self.dt) + 1
+
+
+@dataclass(frozen=True)
+class FaultGenConfig:
+    """Fault run generation (``gen-faults``)."""
+
+    force_rms: float = 200.0
+    force_seed: int = 42
+    # structural faults: the stiffness scaled by each factor (10-40 %)
+    stiffness_scales: Tuple[float, ...] = (0.9, 0.8, 0.7, 0.6)
+    # ``--legacy-faults``: the regime of the reference's committed data tree
+    # (stiff_red_{8,9,18,19,30,40}pct), whose mild cases do not saturate
+    # the gate
+    legacy_stiffness_scales: Tuple[float, ...] = (0.92, 0.91, 0.82, 0.81,
+                                                  0.70, 0.60)
+    # sensor faults, each on one DOF triplet, magnitude relative to the
+    # channel's std
+    noise_rel_mag: float = 0.50     # on DOF 4
+    spikes_rel_mag: float = 5.00    # on DOF 1, 1% of samples
+    spikes_freq: float = 0.01
+    drift_rel_mag: float = 10.0     # on DOF 2
+    bias_rel_mag: float = 2.00      # on DOF 3
+
+
+@dataclass(frozen=True)
+class Stage4DofConfig:
+    """4DOF stage: data generation, windowing, per-run time-fraction splits
+    and models."""
+
+    system: SystemConfig = field(default_factory=SystemConfig)
+    faults: FaultGenConfig = field(default_factory=FaultGenConfig)
+    # normal runs (gen-normal): per-run mass/stiffness jitter and damping
+    n_normal_runs: int = 10
+    base_seed: int = 2025
+    normal_force_rms: float = 50.0
+    jitter_lo: float = 0.98
+    jitter_hi: float = 1.02
+    zeta_lo: float = 0.015
+    zeta_hi: float = 0.025
     seq_len: int = 100
     num_features: int = 12
     stride: int = 1
@@ -97,5 +162,5 @@ def replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["VAEConfig", "CNNConfig", "TrainConfig", "Stage4DofConfig",
-           "replace"]
+__all__ = ["VAEConfig", "CNNConfig", "TrainConfig", "SDOFParams",
+           "SystemConfig", "FaultGenConfig", "Stage4DofConfig", "replace"]

@@ -70,7 +70,11 @@ class FlaxLayerNorm(nn.Module):
 class TransformerBlock(nn.Module):
     """Pre-LN transformer encoder block over [B, T, H]. Dropout (training
     mode only) sits on the attention weights and after ``out`` and
-    ``mlp_out``."""
+    ``mlp_out``. As flax's ``MultiHeadDotProductAttention`` draws it
+    (``broadcast_dropout=True``), the attention weights' mask is one
+    [1, 1, T, T] draw a call, shared by every window and head; the two
+    residual masks are drawn at full [B, T, H] shape. The draws come from
+    ``generator`` in that order."""
 
     def __init__(self, hidden_dim: int, num_heads: int, dropout: float = 0.0,
                  mlp_ratio: int = 4):
@@ -89,11 +93,14 @@ class TransformerBlock(nn.Module):
         self.mlp_in = nn.Linear(H, mlp_ratio * H)
         self.mlp_out = nn.Linear(mlp_ratio * H, H)
 
-    def _drop(self, x: torch.Tensor, generator) -> torch.Tensor:
+    def _drop(self, x: torch.Tensor, generator, shape=None) -> torch.Tensor:
+        """Inverted dropout of ``x`` with one mask of ``shape`` (default
+        ``x.shape``), broadcast over the rest."""
         if not self.training or self.dropout <= 0.0:
             return x
         keep = 1.0 - self.dropout
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        mask = torch.rand(x.shape if shape is None else shape,
+                          generator=generator, device=x.device) < keep
         return x * (mask.to(x.dtype) / keep)
 
     def forward(self, x: torch.Tensor,
@@ -106,7 +113,7 @@ class TransformerBlock(nn.Module):
         q = split(self.query(h)) / math.sqrt(hd)
         k, v = split(self.key(h)), split(self.value(h))
         w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)          # [B,h,T,T]
-        w = self._drop(w, generator)
+        w = self._drop(w, generator, (1, 1, T, T))
         h = self.out((w @ v).transpose(1, 2).reshape(B, T, H))
         x = x + self._drop(h, generator)
         h = self.mlp_out(F.gelu(self.mlp_in(self.mlp_norm(x)),

@@ -5,8 +5,10 @@ from shm_tpu_torch.report.plots import (
     plot_cm_row_norm,
     plot_loss_curves,
     plot_pr_curve,
+    plot_reconstruction_overlay,
     plot_roc,
     plot_score_hist,
+    plot_stacked_channels,
     save_figure,
 )
 
@@ -14,6 +16,8 @@ __all__ = [
     "configure_axis",
     "save_figure",
     "plot_loss_curves",
+    "plot_stacked_channels",
+    "plot_reconstruction_overlay",
     "plot_cm_row_norm",
     "plot_roc",
     "plot_pr_curve",

@@ -67,6 +67,41 @@ def plot_loss_curves(hist: Dict[str, list], out_dir, file_stem: str = "training_
     _finish(plt, fig, out_dir, file_stem)
 
 
+def plot_stacked_channels(t: np.ndarray, channels: Dict[str, np.ndarray], out_dir,
+                          file_stem: str, ylabel: str = "") -> None:
+    """Stacked per-channel panels (the displacement figure of ``gen-normal``)."""
+    plt = _pyplot()
+    n = len(channels)
+    fig, axes = plt.subplots(n, 1, figsize=(9, 1.9 * n), sharex=True)
+    axes = np.atleast_1d(axes)
+    for ax, (name, y) in zip(axes, channels.items()):
+        ax.plot(t, y, linewidth=1.0)
+        configure_axis(ax, "", name)
+    axes[-1].set_xlabel("Time [s]", fontsize=16)
+    if ylabel:
+        fig.supylabel(ylabel, fontsize=16)
+    _finish(plt, fig, out_dir, file_stem)
+
+
+def plot_reconstruction_overlay(t: np.ndarray, measured: Dict[str, np.ndarray],
+                                recon: Dict[str, np.ndarray], out_dir,
+                                file_stem: str, labels=("Measured", "Reconstructed")
+                                ) -> None:
+    """Two series overlaid in stacked panels (the normal-against-fault
+    figures of ``gen-faults``)."""
+    plt = _pyplot()
+    n = len(measured)
+    fig, axes = plt.subplots(n, 1, figsize=(9, 1.9 * n), sharex=True)
+    axes = np.atleast_1d(axes)
+    for ax, name in zip(axes, measured):
+        ax.plot(t, measured[name], linewidth=1.0, label=labels[0])
+        ax.plot(t, recon[name], linewidth=1.0, linestyle="--", label=labels[1])
+        configure_axis(ax, "", name)
+    axes[-1].set_xlabel("Time [s]", fontsize=16)
+    axes[0].legend(frameon=False, fontsize=11, ncol=2)
+    _finish(plt, fig, out_dir, file_stem)
+
+
 def plot_cm_row_norm(cm: np.ndarray, labels: Sequence[str], out_dir, file_stem: str,
                      cmap: str = "Blues", title: str = "") -> None:
     """Row-normalized confusion matrix with count and share annotations."""
@@ -141,4 +176,5 @@ def plot_score_hist(groups: Dict[str, np.ndarray], threshold: Optional[float],
 
 
 __all__ = ["configure_axis", "save_figure", "plot_loss_curves",
+           "plot_stacked_channels", "plot_reconstruction_overlay",
            "plot_cm_row_norm", "plot_roc", "plot_pr_curve", "plot_score_hist"]

@@ -13,17 +13,29 @@ compiler with a bit-identical trajectory, not semantics, and have no
 counterpart here. On CUDA the forward and backward of both LSTM stacks run in
 the hand-written kernels of ``shm_tpu_torch.ops.lstm_train`` (``use_kernel``,
 on by default there; they take 2-layer LSTM presets); everything around them is plain
-PyTorch under autograd. Data-parallel training over several cards is not
-ported yet.
+PyTorch under autograd. The ``min_gru`` and ``attention`` cells train on the
+plain autograd path, on the card as on the CPU: the JAX package has no
+training kernel for them either (its ``use_pallas_kernel`` is LSTM-only).
+Data-parallel training over several cards is not ported yet.
 
 Noise. All randomness of a run comes from ONE ``torch.Generator`` on the
 training device, seeded with ``cfg.seed``, drawn in this fixed order:
 
 1. with ``init_params=None``, one integer that seeds the parameter init;
 2. per epoch: the permutation of the training windows; then per batch the
-   reparameterisation noise eps [bs, Z], the encoder's dropout mask and the
-   decoder's [T, H, bs] (one per layer gap); then, per validation batch, eps
-   (with ``val_sample``).
+   reparameterisation noise eps [bs, Z], and the dropout masks:
+   - ``lstm`` and ``min_gru``: the encoder's masks, then the decoder's,
+     [T, H, bs] each, one per layer gap, drawn explicitly;
+   - ``attention``: the stacks draw their own masks from the same generator
+     while the forward runs (``TemporalVAE.forward(generator=...)``): the
+     encoder's blocks, then the decoder's, each block its attention-weight
+     mask [1, 1, T, T] and its two residual masks [bs, T, H] (see
+     ``models/attention.py::TransformerBlock``);
+   then, per validation batch, eps (with ``val_sample``; validation runs in
+   eval mode and draws no mask).
+
+A checkpoint stores the generator's state, so a resumed run stays on the
+trajectory of an uninterrupted one for every cell.
 
 The numbers differ from the JAX package's ``jax.random`` streams by nature;
 :func:`batch_loss` takes the noise as arguments so that a test can feed both
@@ -114,14 +126,16 @@ def batch_loss(model: TemporalVAE, xb: torch.Tensor,
                bmask: Optional[torch.Tensor], eps: Optional[torch.Tensor],
                dm_enc: Optional[Sequence[torch.Tensor]],
                dm_dec: Optional[Sequence[torch.Tensor]], kl_w,
-               use_kernel: bool):
+               use_kernel: bool,
+               generator: Optional[torch.Generator] = None):
     """(total, recon, kl) of one batch with the noise given.
 
     ``eps`` [bs, Z] (None decodes the posterior mean); ``dm_enc`` / ``dm_dec``:
-    one inverted dropout mask [T, H, bs] per layer gap, or None.
-    ``use_kernel`` routes the two LSTM stacks through
-    ``ops.lstm_train.vae_train_forward`` (2-layer presets); otherwise the
-    model's own forward runs under autograd.
+    one inverted dropout mask [T, H, bs] per layer gap, or None (then a
+    model in training mode draws its masks from ``generator``, as the
+    attention stack always does). ``use_kernel`` routes the two LSTM stacks
+    through ``ops.lstm_train.vae_train_forward`` (2-layer presets);
+    otherwise the model's own forward runs under autograd.
     """
     if use_kernel:
         from shm_tpu_torch.ops.lstm_train import vae_train_forward
@@ -132,16 +146,18 @@ def batch_loss(model: TemporalVAE, xb: torch.Tensor,
     else:
         masks = None if dm_enc is None else (_bt(dm_enc), _bt(dm_dec))
         recon, mu, logvar = model(xb, sample=eps is not None, eps=eps,
-                                  dropout_masks=masks)
+                                  dropout_masks=masks, generator=generator)
     return vae_loss(recon, xb, mu, logvar, kl_w, mask=bmask)
 
 
 def draw_batch_noise(model: TemporalVAE, bs: int, T: int,
                      generator: torch.Generator, device):
-    """(eps, dm_enc, dm_dec) of one training batch, in that order of draws."""
+    """(eps, dm_enc, dm_dec) of one training batch, in that order of draws;
+    the masks are None for the attention cell, whose stacks draw their own
+    during the forward."""
     eps = torch.randn(bs, model.latent_dim, generator=generator, device=device)
     gaps = model.num_layers - 1
-    if model.dropout <= 0.0 or gaps == 0:
+    if model.dropout <= 0.0 or gaps == 0 or model.cell == "attention":
         return eps, None, None
     keep = 1.0 - model.dropout
 
@@ -170,11 +186,12 @@ def _clone_state(model) -> Dict[str, torch.Tensor]:
 
 def _resolve_use_kernel(model, use_kernel: Optional[bool], device) -> bool:
     if model.cell != "lstm":
-        raise NotImplementedError(
-            f"training of cell={model.cell!r} is not ported yet (ROADMAP.md "
-            "Queue 1 item 10: plain autograd, the JAX package has no training "
-            "kernel for it); the port scores such a VAE but trains the LSTM "
-            "cell only")
+        if use_kernel:
+            raise ValueError(
+                "use_kernel: the training kernels implement the LSTM "
+                f"recurrence only; cell={model.cell!r} trains on the plain "
+                "autograd path (use_kernel=None or False)")
+        return False
     if use_kernel is None:
         use_kernel = device.type == "cuda"
     if use_kernel and model.num_layers != 2:
@@ -207,12 +224,14 @@ def train_vae(
     mode holding the LAST parameters; ``result.params`` is the state dict of
     the best validation epoch.
 
-    ``use_kernel``: None = on for CUDA, off for the CPU. With it on, a CUDA
-    run launches the LSTM training kernels for every training batch (forward
-    with stash, backward) and for every validation batch (forward only, unit
-    mask, no stash) and never drops to the plain path; a depth other than 2
-    raises ``ValueError``. Only an explicit ``use_kernel=False`` trains a
-    CUDA model on the plain autograd path.
+    ``use_kernel``: None = on for an LSTM model on CUDA, off for the CPU and
+    for the ``min_gru`` and ``attention`` cells (plain autograd; True raises
+    ``ValueError`` for them). With it on, a CUDA run launches the LSTM
+    training kernels for every training batch (forward with stash, backward)
+    and for every validation batch (forward only, unit mask, no stash) and
+    never drops to the plain path; a depth other than 2 raises
+    ``ValueError``. Only an explicit ``use_kernel=False`` trains a CUDA LSTM
+    model on the plain autograd path.
 
     With ``checkpoint_dir`` and ``checkpoint_every=k`` the full training state
     persists every k epochs, and a later call with ``resume=True`` continues
@@ -297,7 +316,7 @@ def train_vae(
             eps, dm_e, dm_d = draw_batch_noise(model, bs, T, gen, device)
             opt.zero_grad()
             total, r, kl = batch_loss(model, xb, bmask, eps, dm_e, dm_d, kl_w,
-                                      use_kernel)
+                                      use_kernel, generator=gen)
             total.backward()
             opt.step()
             n = bmask.sum()

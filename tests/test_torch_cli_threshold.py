@@ -88,9 +88,18 @@ def test_main_dispatches_the_ported_commands(monkeypatch):
         ("cmd_train_cnn", "r", (2,), {"seed": 5, "plot": True, "device": None}),
         ("cmd_test_pipeline", "data/4dof", (), {"plot": False, "device": None}),
     ]
-    for command in ("gen-normal", "gen-faults", "make-splits", "all"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            cli.main([command])
+    seen.clear()
+    for name in ("cmd_gen_normal", "cmd_gen_faults", "cmd_make_splits",
+                 "cmd_train_vae"):
+        monkeypatch.setattr(cli, name, lambda paths, cfg, *a, _n=name, **kw:
+                            seen.append((_n, str(paths.root), a, kw)))
+    cli.main(["all", "--root", "r", "--legacy-faults", "--no-plots",
+              "--device", "cpu", "--epochs", "1"])
+    assert [s[0] for s in seen] == [
+        "cmd_gen_normal", "cmd_gen_faults", "cmd_make_splits", "cmd_train_vae",
+        "cmd_threshold", "cmd_train_cnn", "cmd_test_pipeline"]
+    assert seen[1][3] == {"legacy": True, "device": "cpu"}
+    assert all(s[1] == "r" for s in seen)
 
 
 def test_commands_run_on_the_card_unless_asked_for_the_cpu(tmp_path):

@@ -133,5 +133,9 @@ def test_main_parses_train_vae_and_refuses_unported_commands(trained, monkeypatc
     cli.main(["train-vae", "--kernel"])
     assert seen["kernel"] is True and seen["device"] is None and seen["root"] == "data/4dof"
     assert seen["plot"] is True
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["gen-normal"])
+    # every command of the JAX CLI is ported: none is refused
+    ran = []
+    monkeypatch.setattr(cli, "cmd_gen_normal",
+                        lambda paths, cfg, plot, **kw: ran.append((plot, kw)))
+    cli.main(["gen-normal", "--no-plots"])
+    assert ran == [(False, {"device": None})]

@@ -50,6 +50,10 @@ def test_port_files_exist():
                  "shm_tpu_torch/train/__init__.py", "shm_tpu_torch/train/vae.py",
                  "shm_tpu_torch/train/checkpoint.py",
                  "shm_tpu_torch/cli/stage4dof.py",
+                 "shm_tpu_torch/data/splits.py",
+                 "shm_tpu_torch/sim/__init__.py", "shm_tpu_torch/sim/prng.py",
+                 "shm_tpu_torch/sim/forces.py", "shm_tpu_torch/sim/newmark.py",
+                 "shm_tpu_torch/sim/faults.py",
                  "shm_tpu_torch/tools/workload.py",
                  "shm_tpu_torch/tools/probe_f32_cliff.py",
                  "shm_tpu_torch/tools/probe_vpu_bound.py",

@@ -188,10 +188,16 @@ def test_unsupported_device_raises():
 
 
 def test_training_of_the_cell_is_not_ported():
+    """No training kernel of the cell is ported (the JAX package has none):
+    the cell trains on the plain autograd path, and ``use_kernel=True``
+    raises, naming the cell."""
     N, T, D, Zd, H, L, ln, _ = CASES["L2_H32_ln_ragged"]
     cfg, params, Z = _setup(6, N, T, D, Zd, H, L, ln)
     from shm_tpu_torch.config import TrainConfig
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="cell='min_gru'"):
         train_vae(vae_from_flax(params, cfg), Z, Z[:8],
-                  TrainConfig(epochs=1), device="cpu")
+                  TrainConfig(epochs=1), use_kernel=True, device="cpu")
+    res = train_vae(vae_from_flax(params, cfg), Z, Z[:8],
+                    TrainConfig(epochs=1, batch_size=16), device="cpu")
+    assert np.isfinite(res.history["train_total"]).all()
