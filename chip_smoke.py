@@ -131,6 +131,24 @@ Phases (any failure exits non-zero before the final line):
    ``min_gru`` / ``attention`` commands their family's gate kernel and no
    other (rows 1-5 0); the kernels line's ``chain_launches`` holds these
    counts beside phase 10's.
+13. the 1-DOF stage on the card through the port's CLI, figures off:
+   (a) ``gen-seen`` and ``gen-unseen`` into a temporary root, each channel
+   within ``STAGE1_GEN_RTOL`` of the committed ``data/1dof/raw`` CSV, the
+   time column and the square wave as ``STAGE1_A_SQUARE_RTOL`` says, and
+   the square wave equal to the port's CPU path; (b) ``test-seen``,
+   ``test-unseen`` and ``compare-rmse`` with the committed model, twice
+   (the tables byte for byte), held to the committed tables
+   (``STAGE1_TABLE_ATOL``) and to the port's plain path on the CPU (``ATOL``
+   / ``RTOL``); (c) ``train-vae`` at the full recipe through the LSTM
+   training kernels (rows 2 and 4 2,600 launches, rows 3 and 5 2,300, rows
+   1, 6 and 7 none), falling losses, a 2-epoch run twice from one seed (bit
+   for bit), the checkpoint read back, one step timed on the kernel and
+   plain paths, then the eval commands with that model, its seen mean
+   segment RMSE at most ``STAGE1_SEEN_RMSE_CEILING``; (d) ``train-vae
+   --cell min_gru`` / ``attention`` (``STAGE1_CELL_EPOCHS`` epochs) and the
+   eval commands, which read the cell from ``split.json``. The eval and
+   generation commands and (d) launch no kernel; the kernels line's
+   ``stage1dof_launches`` holds the counts of rows 1-7 by command.
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -3143,20 +3161,22 @@ def stage_generate(root: Path, root_arg: str, legacy: bool, tag: str) -> dict:
 
 
 def vae_step_ms(cell: str, Ztr, scan_impl: str = "sequential",
-                profile: bool = False) -> float:
+                profile: bool = False, vcfg=None, tcfg=None,
+                use_kernel: bool = False) -> float:
     """CUDA-event ms of one training step of the cell's VAE at the recipe's
-    batch (noise drawn, forward, backward, clip, Adam), plain autograd;
-    ``scan_impl`` is the minGRU recurrence's form. ``profile`` also prints
-    where a step's device time goes, and the device's idle share."""
+    batch (noise drawn, forward, backward, clip, Adam): plain autograd, or
+    with ``use_kernel`` the LSTM training kernels; ``scan_impl`` is the
+    minGRU recurrence's form. ``vcfg`` / ``tcfg``: the VAE and the recipe
+    (default the 4DOF stage's). ``profile`` also prints where a step's
+    device time goes, and the device's idle share."""
     import torch
 
     from shm_tpu_torch.config import Stage4DofConfig
     from shm_tpu_torch.models.vae import TemporalVAE
     from shm_tpu_torch.train.vae import batch_loss, draw_batch_noise, make_optimizer
 
-    cfg = Stage4DofConfig()
-    tcfg = cfg.vae_train
-    v = cfg.vae
+    v = vcfg or Stage4DofConfig().vae
+    tcfg = tcfg or Stage4DofConfig().vae_train
     model = TemporalVAE(v.input_dim, v.latent_dim, v.hidden_dim, v.num_layers,
                         v.use_layernorm, v.dropout, cell, scan_impl).cuda()
     model.init_parameters(torch.Generator().manual_seed(0))
@@ -3170,14 +3190,15 @@ def vae_step_ms(cell: str, Ztr, scan_impl: str = "sequential",
     def step():
         eps, dm_e, dm_d = draw_batch_noise(model, bs, xb.shape[1], gen, xb.device)
         opt.zero_grad()
-        total, _, _ = batch_loss(model, xb, bmask, eps, dm_e, dm_d, 0.5, False,
-                                 generator=gen)
+        total, _, _ = batch_loss(model, xb, bmask, eps, dm_e, dm_d, 0.5,
+                                 use_kernel, generator=gen)
         total.backward()
         opt.step()
 
     ms = time_ms(step, reps=11, warm=3)
     if profile:
-        profile_device(step, f"{cell} training step ({scan_impl})")
+        profile_device(step, f"{cell} training step ({scan_impl}"
+                             f"{', kernels' if use_kernel else ''})")
     return ms
 
 
@@ -3354,6 +3375,342 @@ def phase_stage() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the 1-DOF stage on the card (phase 13)
+# ---------------------------------------------------------------------------
+
+STAGE1_ROOT = "data/1dof"
+# gen-seen / gen-unseen on the card against the committed data/1dof/raw CSVs,
+# per channel: max |diff| / max |committed|. Set before the first card run.
+# Seen: the committed series come from a float64 Newmark run, and a float32
+# run of 3,000 steps drifts from it in phase: the JAX package on the CPU
+# reads <= 1.013e-2, the port on the CPU <= 1.016e-2. Unseen: the float32
+# sin / arcsin's last bits, magnified by the two differences: the JAX
+# package on the CPU reads <= 2.13e-4, the port <= 1.86e-4 (a_envelope;
+# both sets: tests/stage1dof_readings.py distances)
+STAGE1_GEN_RTOL = {"seen": 1.5e-2, "unseen": 5e-4}
+# the square wave: x_square and v_square equal the committed values. The
+# committed a_square holds 79 of its +-50 / +-25 samples one float32 ulp
+# further from 0 (its division rounded otherwise); the JAX package and the
+# port on the CPU read the same 79, so a_square is held to 1e-7 relative
+# with its zeros where the committed ones are
+STAGE1_A_SQUARE_RTOL = 1e-7
+# test-seen / test-unseen with the committed model against the committed
+# tables (made on a TPU), max |diff| of (series, segment RMSE). Set before
+# the first card run, about twice what the JAX package on the CPU reads:
+# series 1.84e-4 / 4.29e-4, segment RMSE 7.4e-6 / 2.4e-5 (the port on the
+# CPU reads the same within 1e-6; tests/stage1dof_readings.py distances)
+STAGE1_TABLE_ATOL = {"seen": (4e-4, 2e-5), "unseen": (1e-3, 5e-5)}
+STAGE1_TABLES = ("tables/reconstruction_seen/reconstruction_series.csv",
+                 "tables/reconstruction_seen/segment_rmse.csv",
+                 "tables/reconstruction_unseen/reconstruction_series.csv",
+                 "tables/reconstruction_unseen/segment_rmse.csv",
+                 "figures/rmse_comparison/rmse_summary_stats.csv")
+# the seen mean segment RMSE of the model that train-vae trains on the card
+# (full recipe, seed 42). Set before the first card run from the JAX
+# package's own train-vae -> test-seen on the CPU (float32, full recipe;
+# tests/stage1dof_readings.py seeds jax 42 43 44 45 46 47): 0.0246753,
+# 0.0246618, 0.0237990, 0.0244936, 0.0246799, 0.0249608; their mean plus 3
+# standard deviations, 0.025731, rounded up
+# (seeds 42-44 alone: 0.025885). The committed model reads 0.0251603, the
+# port on the CPU (seeds 42 / 43) 0.0250529 / 0.0198310 (PERF.md §6)
+STAGE1_SEEN_RMSE_CEILING = 0.0258
+# train-vae --cell min_gru / attention: plain autograd, host-bound (PR 16:
+# 1.0 / 0.36 s an epoch of 12 steps at the 4DOF shape), so cut to this many
+# epochs of the recipe's 100
+STAGE1_CELL_EPOCHS = 5
+
+
+def stage1_command(fn, what: str, want=None):
+    """``fn()`` (a command of the port's 1DOF CLI) with every count at 0
+    just before; its seconds printed. The launches of rows 1-7 must be
+    ``want`` (a kernel it does not name: 0). Returns (fn's result, the
+    counts and the seconds)."""
+    import torch
+
+    all_kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = all_kernel_counts()
+    want = {k: (want or {}).get(k, 0) for k in counts}
+    print(f"[1dof] {what}: {secs:.2f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} or 'none'}")
+    check(counts == want, f"1dof {what}: launches {counts}, expected {want}")
+    return out, dict(counts, seconds=secs)
+
+
+def stage1_cli(argv, what: str, want=None) -> dict:
+    """``main(argv)`` of the port's 1DOF CLI through :func:`stage1_command`."""
+    from shm_tpu_torch.cli.stage1dof import main as cli_main
+
+    return stage1_command(lambda: cli_main(argv), what, want)[1]
+
+
+def load_f32_csv(path: Path):
+    """(header names, the rows as float32): the port writes every float32
+    value as the shortest text that reads back to it."""
+    from shm_tpu_torch.utils.io import load_csv_columns
+
+    cols = load_csv_columns(path)
+    return list(cols), np.stack(list(cols.values()), 1).astype(np.float32)
+
+
+def stage1_generation(root: Path, cpu_root: Path) -> dict:
+    """gen-seen / gen-unseen's CSVs under ``root`` against the committed ones
+    (STAGE1_GEN_RTOL per channel, the time column equal, the square wave as
+    STAGE1_A_SQUARE_RTOL says) and against the port's CPU path under
+    ``cpu_root`` (the square wave equal); the worst channel of each set."""
+    out = {}
+    for kind in ("seen", "unseen"):
+        rel = f"raw/1dof_{kind}_variants.csv"
+        names, got = load_f32_csv(root / rel)
+        ref_names, ref = load_f32_csv(ROOT / STAGE1_ROOT / rel)
+        _, cpu = load_f32_csv(cpu_root / rel)
+        check(names == ref_names, f"{rel}: header {names}")
+        check(got.shape == ref.shape == cpu.shape == (3001, 13), f"{rel}: {got.shape}")
+        check(np.array_equal(got[:, 0], ref[:, 0]), f"{rel}: the time column differs")
+        r = np.abs(got[:, 1:] - ref[:, 1:]).max(0) / np.abs(ref[:, 1:]).max(0)
+        r_cpu = np.abs(got[:, 1:] - cpu[:, 1:]).max(0) / np.abs(cpu[:, 1:]).max(0)
+        j = int(r.argmax())
+        print(f"[1dof] {rel}: worst channel max |diff| / max |committed| "
+              f"{r[j]:.3e} ({names[j + 1]}; limit {STAGE1_GEN_RTOL[kind]:g}); "
+              f"against the port on the CPU {r_cpu.max():.3e} "
+              f"({names[int(r_cpu.argmax()) + 1]})")
+        check(r.max() <= STAGE1_GEN_RTOL[kind], f"{rel}: {names[j + 1]} off the "
+              f"committed run by {r[j]:.3e}")
+        out[kind] = float(r.max())
+        if kind == "unseen":
+            for c in ("x_square", "v_square", "a_square"):
+                k = names.index(c)
+                check(np.array_equal(got[:, k], cpu[:, k]),
+                      f"{c} differs from the port's CPU path")
+                if c != "a_square":
+                    check(np.array_equal(got[:, k], ref[:, k]),
+                          f"{c} differs from the committed one")
+            k = names.index("a_square")
+            d = np.abs(got[:, k] - ref[:, k])
+            check(np.array_equal(got[:, k] == 0, ref[:, k] == 0)
+                  and (d <= STAGE1_A_SQUARE_RTOL * np.abs(ref[:, k])).all(),
+                  "a_square off the committed one")
+            print(f"[1dof] square wave: x_square and v_square equal to the "
+                  f"committed ones, all three to the port's CPU path; a_square "
+                  f"{int((d > 0).sum())} samples one ulp from the committed ones "
+                  f"(max rel {float((d / np.maximum(np.abs(ref[:, k]), 1e-30)).max()):.2e})")
+    return out
+
+
+def stage1_tables(root: Path, ref_root: Path, what: str, tol=None) -> None:
+    """The eval tables under ``root`` against ``ref_root``'s: headers and
+    shapes equal; with ``tol`` (STAGE1_TABLE_ATOL) max |diff| within it,
+    else elementwise within ATOL + RTOL * |ref| (the card against the port's
+    plain path on the CPU)."""
+    for rel in STAGE1_TABLES[:4]:
+        names, got = load_f32_csv(root / rel)
+        ref_names, ref = load_f32_csv(ref_root / rel)
+        check(names == ref_names and got.shape == ref.shape,
+              f"{what} {rel}: {names} {got.shape}, expected {ref.shape}")
+        check(np.isfinite(got).all(), f"{what} {rel}: non-finite values")
+        d = np.abs(got[:, 1:] - ref[:, 1:])
+        if tol is None:
+            bad = d > ATOL + RTOL * np.abs(ref[:, 1:])
+            limit = f"ATOL {ATOL:g} + RTOL {RTOL:g} |ref|"
+        else:
+            a = tol["seen" if "_seen" in rel else "unseen"][0 if "series" in rel else 1]
+            bad = d > a
+            limit = f"{a:g}"
+        print(f"[1dof] {what} {rel.split('/', 1)[1]}: max |diff| {d.max():.3e} "
+              f"(limit {limit})")
+        check(not bad.any(), f"{what} {rel}: {int(bad.sum())} values off")
+    got = (root / STAGE1_TABLES[4]).read_text().splitlines()
+    check(got[0] == (ref_root / STAGE1_TABLES[4]).read_text().splitlines()[0]
+          and [l.split(",")[0] for l in got[1:]] == ["Seen", "Unseen"],
+          f"{what}: rmse_summary_stats.csv {got}")
+
+
+def stage1_eval(root: Path, what: str) -> dict:
+    """test-seen, test-unseen and compare-rmse on ``root`` through the CLI,
+    no kernel launched; their counts by command."""
+    base = ["--root", str(root), "--no-plots"]
+    return {f"{c}, {what}": stage1_cli([c] + base, f"{c} ({what})")
+            for c in ("test-seen", "test-unseen", "compare-rmse")}
+
+
+def stage1_mean_rmse(root: Path, tag: str) -> float:
+    return float(np.loadtxt(root / f"tables/reconstruction_{tag}/segment_rmse.csv",
+                            delimiter=",", skiprows=1)[:, 1].mean())
+
+
+def stage1_train(root: Path) -> dict:
+    """(c): train-vae at the full recipe on ``root``'s generated seen series,
+    rows 2-5 at the counts the recipe gives; its losses, a 2-epoch run twice
+    from one seed, the checkpoint read back, one step timed on the kernel
+    and plain paths, then the eval commands with that model held to the
+    ceiling. Returns the counts by command and the readings."""
+    import torch
+
+    from shm_tpu_torch.cli import stage1dof as s1
+    from shm_tpu_torch.config import Stage1DofConfig, replace
+    from shm_tpu_torch.data.windows import num_windows
+    from shm_tpu_torch.models.vae import vae_from_config
+    from shm_tpu_torch.train import train_vae
+
+    cfg = Stage1DofConfig()
+    tcfg = cfg.train
+    paths = s1.Paths(str(root))
+    # the windows of the seen series' first half, the first tenth of them the
+    # validation set, every batch of the recipe's size
+    n = num_windows(int(cfg.train_frac * 3001), cfg.seq_len, cfg.stride)
+    nb, nvb = -(-n // tcfg.batch_size), -(-max(n // 10, 1) // tcfg.batch_size)
+    want = {"lstm2_enc_fwd": tcfg.epochs * (nb + nvb), "lstm2_dec_fwd": tcfg.epochs * (nb + nvb),
+            "lstm2_enc_bwd": tcfg.epochs * nb, "lstm2_dec_bwd": tcfg.epochs * nb}
+    check((n, nb, nvb, want["lstm2_enc_fwd"], want["lstm2_enc_bwd"]) == (1421, 23, 3, 2600, 2300),
+          f"1dof train-vae plan {n} windows, {nb} + {nvb} batches, {want}")
+    res, counts = stage1_command(lambda: s1.cmd_train_vae(paths, cfg, plot=False),
+                                 "train-vae (full recipe)", want)
+    launches = {"train-vae": counts}
+    h = res.history
+    ep = len(h["epoch"])
+    print(f"[1dof] train-vae: {ep} epochs in {res.seconds:.2f} s "
+          f"({res.seconds / ep:.4f} s/epoch; command {counts['seconds']:.2f} s); "
+          f"train total {h['train_total'][0]:.6f} -> {h['train_total'][-1]:.6f}; "
+          f"{gpu_line()}")
+    check(ep == tcfg.epochs and all(np.isfinite(h[k]).all() for k in h),
+          "1dof train-vae: history not finite or cut")
+    check(h["train_total"][-1] < h["train_total"][0]
+          and h["train_recon"][-1] < h["train_recon"][0],
+          "1dof train-vae: the losses did not fall")
+    loaded = s1._load_model(paths, cfg).state_dict()
+    check(loaded.keys() == res.last_params.keys() and all(
+        torch.equal(v, res.last_params[k].cpu()) for k, v in loaded.items()),
+        "1dof temporal_vae.msgpack read back differs from the last parameters")
+    print("[1dof] train-vae: temporal_vae.msgpack reads back the last epoch's "
+          "parameters bit for bit")
+
+    W, _, _, _, _ = s1.train_windows(paths, cfg, "cuda")
+    runs = [train_vae(vae_from_config(cfg.vae), W, W[:max(len(W) // 10, 1)],
+                      replace(tcfg, epochs=2)) for _ in range(2)]
+    h2 = runs[0].history
+    print(f"[1dof] 2-epoch runs from seed {tcfg.seed}: train total "
+          f"{h2['train_total']} / {runs[1].history['train_total']}")
+    check(runs[1].history == h2, "1dof: two runs from one seed differ")
+    steps = {k: vae_step_ms("lstm", W, profile=k, vcfg=cfg.vae, tcfg=tcfg,
+                            use_kernel=k) for k in (True, False)}
+    print(f"[1dof] one training step (batch {tcfg.batch_size}, T={cfg.seq_len}, "
+          f"H={cfg.vae.hidden_dim}; forward + backward + Adam): kernels "
+          f"{steps[True]:.3f} ms, plain autograd {steps[False]:.3f} ms (CUDA "
+          f"events, median of 11); {gpu_line()}")
+
+    launches.update(stage1_eval(root, "trained model"))
+    seen, unseen = stage1_mean_rmse(root, "seen"), stage1_mean_rmse(root, "unseen")
+    print(f"[1dof] trained model: seen mean segment RMSE {seen:.7f} (ceiling "
+          f"{STAGE1_SEEN_RMSE_CEILING}, set before the first card run), unseen "
+          f"{unseen:.7f}")
+    check(seen <= STAGE1_SEEN_RMSE_CEILING, f"1dof: seen mean RMSE {seen:.7f} "
+          f"above the ceiling {STAGE1_SEEN_RMSE_CEILING}")
+    check(unseen > seen, "1dof: the unseen mean RMSE is not above the seen one")
+    return launches, dict(train_s_per_epoch=res.seconds / ep,
+                          step_ms_kernel=steps[True], step_ms_plain=steps[False],
+                          seen_mean_rmse=seen, unseen_mean_rmse=unseen)
+
+
+def stage1_cells(gen: Path, tmp: Path) -> dict:
+    """(d): train-vae --cell min_gru / attention (STAGE1_CELL_EPOCHS epochs)
+    and the eval commands, which read the cell from split.json; no kernel
+    launches. Returns the counts by command."""
+    import shutil
+
+    from shm_tpu_torch.cli import stage1dof as s1
+    from shm_tpu_torch.config import Stage1DofConfig
+    from shm_tpu_torch.utils.io import load_json
+
+    launches = {}
+    for cell in ("min_gru", "attention"):
+        root = tmp / f"cell_{cell}"
+        shutil.copytree(gen / "raw", root / "raw")
+        base = ["--root", str(root), "--no-plots"]
+        r = stage1_cli(["train-vae", "--cell", cell, "--epochs",
+                        str(STAGE1_CELL_EPOCHS)] + base,
+                       f"train-vae --cell {cell} ({STAGE1_CELL_EPOCHS} epochs)")
+        launches[f"train-vae --cell {cell}"] = r
+        paths = s1.Paths(str(root))
+        check(load_json(paths.processed / "split.json")["cell"] == cell
+              and s1._load_model(paths, Stage1DofConfig()).cell == cell,
+              f"1dof {cell}: split.json does not carry the cell")
+        losses = np.loadtxt(paths.tables / "training" / "training_losses.csv",
+                            delimiter=",", skiprows=1)
+        check(losses.shape == (STAGE1_CELL_EPOCHS, 5) and np.isfinite(losses).all(),
+              f"1dof {cell}: training_losses.csv {losses.shape}")
+        launches.update(stage1_eval(root, f"{cell} model"))
+        for rel in STAGE1_TABLES[:4]:
+            check(np.isfinite(load_f32_csv(root / rel)[1]).all(),
+                  f"1dof {cell} {rel}: non-finite values")
+        print(f"[1dof] {cell}: {STAGE1_CELL_EPOCHS} epochs in {r['seconds']:.2f} s "
+              f"({r['seconds'] / STAGE1_CELL_EPOCHS:.3f} s/epoch with the "
+              f"command's loading); train total {losses[0, 1]:.6f} -> "
+              f"{losses[-1, 1]:.6f}; the eval commands read the cell from "
+              f"split.json; seen / unseen mean segment RMSE "
+              f"{stage1_mean_rmse(root, 'seen'):.6f} / {stage1_mean_rmse(root, 'unseen'):.6f}")
+    return launches
+
+
+def phase_stage1dof() -> dict:
+    """Phase 13: the 1-DOF stage on the card through the port's CLI, figures
+    off. (a) gen-seen / gen-unseen against the committed CSVs; (b) the eval
+    commands with the committed model against the committed tables and the
+    port's CPU path, twice (bit for bit); (c) train-vae at the full recipe
+    through the LSTM training kernels and the eval commands with its model;
+    (d) the min_gru and attention cells. Returns the counts of rows 1-7 by
+    command."""
+    import shutil
+    import tempfile
+
+    from shm_tpu_torch.cli import stage1dof as s1
+
+    print(f"[1dof] {gpu_line()}")
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_1dof_") as tmp_s:
+        tmp = Path(tmp_s)
+        # (a) the variants, on the card and on the CPU
+        gen, cpu = tmp / "gen", tmp / "cpu"
+        for c in ("gen-seen", "gen-unseen"):
+            launches[c] = stage1_cli([c, "--root", str(gen), "--no-plots"], c)
+            s1.main([c, "--root", str(cpu), "--no-plots", "--device", "cpu"])
+        stage1_generation(gen, cpu)
+
+        # (b) the committed model, twice on the card and once on the CPU
+        runs = []
+        for name in ("committed_1", "committed_2", "committed_cpu"):
+            r = tmp / name
+            for sub in ("raw", "processed", "models"):
+                shutil.copytree(ROOT / STAGE1_ROOT / sub, r / sub)
+            runs.append(r)
+        for i, r in enumerate(runs[:2]):
+            launches.update(stage1_eval(r, f"committed model, run {i + 1}"))
+        for c in ("test-seen", "test-unseen", "compare-rmse"):
+            s1.main([c, "--root", str(runs[2]), "--no-plots", "--device", "cpu"])
+        stage1_tables(runs[0], ROOT / STAGE1_ROOT, "committed model", STAGE1_TABLE_ATOL)
+        stage1_tables(runs[0], runs[2], "committed model, card against the CPU")
+        check(all((runs[0] / rel).read_bytes() == (runs[1] / rel).read_bytes()
+                  for rel in STAGE1_TABLES), "1dof: two runs' tables differ")
+        print("[1dof] committed model: a second run's five tables equal the "
+              f"first's byte for byte; seen / unseen mean segment RMSE "
+              f"{stage1_mean_rmse(runs[0], 'seen'):.7f} / "
+              f"{stage1_mean_rmse(runs[0], 'unseen'):.7f} (committed "
+              f"{stage1_mean_rmse(ROOT / STAGE1_ROOT, 'seen'):.7f} / "
+              f"{stage1_mean_rmse(ROOT / STAGE1_ROOT, 'unseen'):.7f})")
+
+        # (c) the LSTM trained through rows 2-5, (d) the other two cells
+        got, nums = stage1_train(gen)
+        launches.update(got)
+        launches.update(stage1_cells(gen, tmp))
+    print(f"[1dof] phase 13 {time.perf_counter() - t_phase:.2f} s: {nums}")
+    return {k: {n: v for n, v in c.items() if n != "seconds"}
+            for k, c in launches.items()}
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[2])
@@ -3373,9 +3730,10 @@ def main(argv) -> int:
               "False)", file=sys.stderr)
         return 2
     if not (ROOT / "shm_tpu_torch" / "ops" / "csrc").is_dir() or not all(
-            (ROOT / fam["root"] / "models").is_dir() for fam in FAMILIES.values()):
+            (ROOT / r / "models").is_dir()
+            for r in [fam["root"] for fam in FAMILIES.values()] + [STAGE1_ROOT]):
         print(f"chip_smoke: {ROOT} does not hold the repository "
-              "(shm_tpu_torch/ and data/4dof*/)", file=sys.stderr)
+              "(shm_tpu_torch/, data/4dof*/ and data/1dof/)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from shm_tpu_torch.device import set_full_f32_precision
@@ -3424,16 +3782,22 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         for name, got in phase_stage().items():
             chain_launches.setdefault(name, {}).update(got)
+        torch.cuda.empty_cache()
+        stage1dof_launches = phase_stage1dof()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # the kernel table's order: rows 1-5, the two other families, the probes;
     # `launches` is the scoring or training path's count, `chain_launches`
-    # phases 10 and 12's by command, `serve_launches` phase 11's by step
+    # phases 10 and 12's by command, `serve_launches` phase 11's by step,
+    # `stage1dof_launches` phase 13's by command (rows 1-7)
     kernels = gate_rows[:1] + lstm_rows + gate_rows[1:] + probe_rows
     for row in kernels:
         row["chain_launches"] = chain_launches.get(row["name"], {})
         row["serve_launches"] = serve_launches.get(row["name"], {})
+        row["stage1dof_launches"] = {cmd: c[row["name"]]
+                                     for cmd, c in stage1dof_launches.items()
+                                     if row["name"] in c}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

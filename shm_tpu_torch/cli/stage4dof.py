@@ -66,7 +66,7 @@ from shm_tpu_torch.data.windows import (
     compute_mean_std_from_windows, make_windows_np, normalize_windows,
     slice_frac,
 )
-from shm_tpu_torch.device import resolve_device, set_full_f32_precision
+from shm_tpu_torch.device import command_device
 from shm_tpu_torch.evals import (
     accuracy, auc, average_precision_score, binary_prf,
     classification_report_dict, confusion_matrix, precision_recall_curve,
@@ -141,7 +141,7 @@ def cmd_gen_normal(paths: Paths, cfg: Stage4DofConfig, plot: bool = True,
     in one batch on ``device``. Writes ``raw/normal/normal_seed{s}.csv``."""
     from shm_tpu_torch.sim import simulate_runs, smoothed_gaussian_force_np
 
-    device = _device(device)
+    device = command_device(device)
     R, nd = cfg.n_normal_runs, cfg.system.num_dofs
     seeds = [cfg.base_seed + i for i in range(R)]
     rng = np.random.default_rng(cfg.base_seed)
@@ -209,7 +209,7 @@ def cmd_gen_faults(paths: Paths, cfg: Stage4DofConfig, plot: bool = True,
         smoothed_gaussian_force_np,
     )
 
-    device = _device(device)
+    device = command_device(device)
     f, nd = cfg.faults, cfg.system.num_dofs
     force = smoothed_gaussian_force_np(cfg.system.t_total, cfg.system.dt, nd,
                                        f.force_rms, f.force_seed)
@@ -329,7 +329,7 @@ def cmd_train_vae(paths: Paths, cfg: Stage4DofConfig,
     autograd path. Returns the :class:`VAETrainResult`."""
     from shm_tpu_torch.train import train_vae
 
-    device = _device(device)
+    device = command_device(device)
     normal_files = load_json(paths.run_splits)["normal"]["files"]
     Wtr, Wva = build_fraction_windows_multi(
         normal_files, (cfg.train_frac, cfg.val_frac), cfg)
@@ -406,15 +406,6 @@ def _load_stats(paths: Paths) -> Tuple[np.ndarray, np.ndarray]:
     return mean, std
 
 
-def _device(device) -> torch.device:
-    """The command's device; float32 matmuls and convolutions stay full
-    float32 on the card (no TF32)."""
-    device = resolve_device(device)
-    if device.type == "cuda":
-        set_full_f32_precision()
-    return device
-
-
 # ---------------------------------------------------------------------------
 # threshold
 # ---------------------------------------------------------------------------
@@ -433,7 +424,7 @@ def cmd_threshold(paths: Paths, cfg: Stage4DofConfig, sample: bool = False,
     from shm_tpu_torch.ops import auto_fused_gate
     from shm_tpu_torch.train import reconstruction_mse
 
-    device = _device(device)
+    device = command_device(device)
     splits = load_json(paths.run_splits)
     mean, std = _load_stats(paths)
     vae = _load_vae(paths, cfg)
@@ -562,7 +553,7 @@ def cmd_train_cnn(paths: Paths, cfg: Stage4DofConfig,
     meta. Returns the :class:`CNNTrainResult`."""
     from shm_tpu_torch.train import train_cnn
 
-    device = _device(device)
+    device = command_device(device)
     sets = cnn_train_sets(paths, cfg, device)
 
     tcfg = cfg.cnn_train if epochs is None else replace(cfg.cnn_train, epochs=epochs)
@@ -615,7 +606,7 @@ def cmd_test_pipeline(paths: Paths, cfg: Stage4DofConfig, plot: bool = True,
     from shm_tpu_torch.ops import auto_fused_gate
     from shm_tpu_torch.pipeline import make_hybrid_fn, run_hybrid_batched
 
-    device = _device(device)
+    device = command_device(device)
     splits = load_json(paths.run_splits)
     mean, std = (torch.from_numpy(a).to(device) for a in _load_stats(paths))
     vae = _load_vae(paths, cfg).to(device)

@@ -2,9 +2,9 @@
 
 Only the dataclasses the ported paths read are kept: ``VAEConfig``,
 ``CNNConfig``, ``TrainConfig``, ``SDOFParams`` (the 1-DOF oscillator the
-simulator integrates), ``SystemConfig`` and ``FaultGenConfig`` (4DOF data
-generation) and ``Stage4DofConfig``. Defaults are identical to the JAX
-package's.
+simulator integrates), ``Stage1DofConfig``, ``SystemConfig`` and
+``FaultGenConfig`` (4DOF data generation) and ``Stage4DofConfig``. Defaults
+are identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -67,6 +67,37 @@ class SDOFParams:
     v0: float = 0.0
     t_total: float = 30.0
     dt: float = 0.01
+
+
+@dataclass(frozen=True)
+class Stage1DofConfig:
+    """1-DOF stage: signal variants, windowing, the half-and-half split and
+    the no-LayerNorm VAE preset."""
+
+    sdof: SDOFParams = field(default_factory=SDOFParams)
+    # seen variants: drift, amplitude-scaled, time-stretched (low-frequency)
+    drift_rate: float = 0.001
+    amp_scale: float = 1.5
+    lowfreq_factor: float = 0.6
+    # unseen variants: analytic signals at this amplitude and frequency
+    unseen_amplitude: float = 0.01
+    unseen_base_freq_hz: float = 0.33
+    seq_len: int = 80
+    stride: int = 1
+    train_frac: float = 0.5
+    segment_len: int = 100
+    vae: VAEConfig = field(
+        default_factory=lambda: VAEConfig(
+            input_dim=12, latent_dim=5, hidden_dim=32, num_layers=2,
+            dropout=0.2, use_layernorm=False,
+        )
+    )
+    train: TrainConfig = field(
+        default_factory=lambda: TrainConfig(
+            epochs=100, batch_size=64, lr=1e-3, weight_decay=0.0,
+            grad_clip=0.0, kl_warmup_ratio=0.30,
+        )
+    )
 
 
 @dataclass(frozen=True)
@@ -163,4 +194,5 @@ def replace(cfg, **kw):
 
 
 __all__ = ["VAEConfig", "CNNConfig", "TrainConfig", "SDOFParams",
-           "SystemConfig", "FaultGenConfig", "Stage4DofConfig", "replace"]
+           "Stage1DofConfig", "SystemConfig", "FaultGenConfig",
+           "Stage4DofConfig", "replace"]

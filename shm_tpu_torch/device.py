@@ -32,4 +32,13 @@ def set_full_f32_precision() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-__all__ = ["resolve_device", "set_full_f32_precision"]
+def command_device(device=None) -> torch.device:
+    """A command's device (:func:`resolve_device`); on the card float32
+    matmuls and convolutions are set to stay full float32 (no TF32)."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        set_full_f32_precision()
+    return device
+
+
+__all__ = ["resolve_device", "set_full_f32_precision", "command_device"]

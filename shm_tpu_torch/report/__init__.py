@@ -1,13 +1,16 @@
-"""Figures of the 4DOF commands (counterpart of ``shm_tpu/report``)."""
+"""Figures of the 1DOF and 4DOF commands (counterpart of ``shm_tpu/report``)."""
 
 from shm_tpu_torch.report.plots import (
     configure_axis,
     plot_cm_row_norm,
+    plot_latent_pca,
     plot_loss_curves,
     plot_pr_curve,
     plot_reconstruction_overlay,
+    plot_rmse_box,
     plot_roc,
     plot_score_hist,
+    plot_segment_rmse,
     plot_stacked_channels,
     save_figure,
 )
@@ -22,4 +25,7 @@ __all__ = [
     "plot_roc",
     "plot_pr_curve",
     "plot_score_hist",
+    "plot_latent_pca",
+    "plot_segment_rmse",
+    "plot_rmse_box",
 ]

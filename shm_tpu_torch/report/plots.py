@@ -1,5 +1,6 @@
-"""The 4DOF commands' figures (counterpart of ``shm_tpu/report/plots.py``):
-transparent pdf/png/svg triple-save, no-grid bordered axes.
+"""The 1DOF and 4DOF commands' figures (counterpart of
+``shm_tpu/report/plots.py``): transparent pdf/png/svg triple-save, no-grid
+bordered axes.
 
 matplotlib is imported when a figure is drawn, never when this module is
 imported: a CUDA host may lack it, and no JSON artifact of a command
@@ -175,6 +176,50 @@ def plot_score_hist(groups: Dict[str, np.ndarray], threshold: Optional[float],
     _finish(plt, fig, out_dir, file_stem)
 
 
+def plot_latent_pca(mu: np.ndarray, labels: np.ndarray, label_names: Sequence[str],
+                    out_dir, file_stem: str) -> None:
+    """The latent means' first two principal components (an SVD of the
+    centred means, in float64), coloured by window label."""
+    plt = _pyplot()
+    X = np.asarray(mu, np.float64)
+    Xc = X - X.mean(axis=0)
+    _, _, Vt = np.linalg.svd(Xc, full_matrices=False)
+    P = Xc @ Vt[:2].T
+    fig, ax = plt.subplots(figsize=(6.8, 5.6))
+    for i, name in enumerate(label_names):
+        m = labels == i
+        if m.any():
+            ax.scatter(P[m, 0], P[m, 1], s=9, alpha=0.65, label=name)
+    configure_axis(ax, "PC 1", "PC 2", 14)
+    ax.legend(frameon=False, fontsize=11)
+    _finish(plt, fig, out_dir, file_stem)
+
+
+def plot_segment_rmse(curves: Dict[str, np.ndarray], out_dir, file_stem: str) -> None:
+    """Segment RMSE against segment index, one line per named curve (the
+    second and later dashed); a legend when there is more than one."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(12, 8))
+    for k, (name, r) in enumerate(curves.items()):
+        ax.plot(np.arange(len(r)), r, linewidth=1.5, label=name,
+                linestyle="--" if k else "-")
+    configure_axis(ax, "Segment index", "RMSE")
+    if len(curves) > 1:
+        ax.legend(frameon=False, fontsize=14)
+    _finish(plt, fig, out_dir, file_stem)
+
+
+def plot_rmse_box(groups: Dict[str, np.ndarray], out_dir, file_stem: str) -> None:
+    """Box plot of each group's segment RMSE, outliers hidden."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(10, 8))
+    ax.boxplot(list(groups.values()), tick_labels=list(groups), patch_artist=True,
+               showfliers=False, widths=0.55)
+    configure_axis(ax, "", "RMSE")
+    _finish(plt, fig, out_dir, file_stem)
+
+
 __all__ = ["configure_axis", "save_figure", "plot_loss_curves",
            "plot_stacked_channels", "plot_reconstruction_overlay",
-           "plot_cm_row_norm", "plot_roc", "plot_pr_curve", "plot_score_hist"]
+           "plot_cm_row_norm", "plot_roc", "plot_pr_curve", "plot_score_hist",
+           "plot_latent_pca", "plot_segment_rmse", "plot_rmse_box"]

@@ -1,9 +1,8 @@
 """Structural simulation and fault injection (counterpart of ``shm_tpu/sim``).
 
 ``prng`` mirrors the ``jax.random`` draws the JAX simulators make; the
-Newmark integrators run in plain PyTorch on the device. The 1-DOF signal
-variants (``make_clean_variants``, ``make_unseen_variants``) come with the
-1-DOF stage.
+Newmark integrators and the 1-DOF signal variants (``signals``) run in plain
+PyTorch on the device.
 """
 
 from shm_tpu_torch.sim.faults import (
@@ -24,6 +23,13 @@ from shm_tpu_torch.sim.newmark import (
     simulate_free_vibration_sdof,
     simulate_runs,
 )
+from shm_tpu_torch.sim.signals import (
+    SEEN_COLUMNS,
+    UNSEEN_COLUMNS,
+    make_clean_variants,
+    make_unseen_variants,
+    variants_to_matrix,
+)
 
 __all__ = [
     "simulate_free_vibration_sdof",
@@ -41,4 +47,9 @@ __all__ = [
     "inject_sensor_fault_triplet",
     "SENSOR_FAULT_CASES",
     "FAULT_KINDS",
+    "make_clean_variants",
+    "make_unseen_variants",
+    "variants_to_matrix",
+    "SEEN_COLUMNS",
+    "UNSEEN_COLUMNS",
 ]

@@ -1,14 +1,17 @@
 """JSON / npy / CSV artifact io (counterpart of ``shm_tpu/utils/io.py``).
 
 numpy only: the CSV reader is the ``np.loadtxt`` branch of the JAX package's
-``load_csv_numeric``, with the same shape and finiteness guards.
+``load_csv_numeric``, with the same shape and finiteness guards; the table
+writer prints every value as pandas' ``to_csv`` does (the shortest text that
+reads back to the same float32 or float64), so either package's tables load
+in the other.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 
@@ -57,5 +60,28 @@ def load_csv_numeric(path: str | Path, num_features: int | None = None) -> np.nd
     return X
 
 
+def save_csv_columns(columns: Dict[str, Any], path: str | Path) -> None:
+    """A header of the column names, then one row per index of the equal-
+    length 1-D columns, each value as numpy's ``str`` of its own dtype."""
+    p = Path(path)
+    ensure_dir(p.parent)
+    cols = [np.asarray(c).astype(str) for c in columns.values()]
+    lines = [",".join(columns)] + [",".join(row) for row in zip(*cols)]
+    p.write_text("\n".join(lines) + "\n", encoding="utf-8")
+
+
+def load_csv_columns(path: str | Path) -> Dict[str, np.ndarray]:
+    """A CSV of one header row and numeric rows as float64 columns by name."""
+    p = Path(path)
+    if not p.exists():
+        raise FileNotFoundError(f"Missing CSV: {p}")
+    with p.open("r", encoding="utf-8") as f:
+        names = f.readline().strip().split(",")
+    X = np.loadtxt(str(p), delimiter=",", skiprows=1, ndmin=2)
+    if X.shape[1] != len(names):
+        raise ValueError(f"Bad CSV shape in {p}: {X.shape} for {len(names)} columns")
+    return {n: X[:, j] for j, n in enumerate(names)}
+
+
 __all__ = ["ensure_dir", "save_json", "save_npy", "load_json",
-           "load_csv_numeric"]
+           "load_csv_numeric", "save_csv_columns", "load_csv_columns"]

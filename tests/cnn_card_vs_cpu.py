@@ -50,17 +50,18 @@ def main(argv=None) -> int:
     import torch
 
     from shm_tpu_torch.cli.stage4dof import (
-        Paths, _device, cmd_test_pipeline, cnn_train_sets,
+        Paths, cmd_test_pipeline, cnn_train_sets,
     )
     from shm_tpu_torch.config import Stage4DofConfig
     from shm_tpu_torch.convert import cnn4dof_to_flax
+    from shm_tpu_torch.device import command_device
     from shm_tpu_torch.models.cnn import CNN4DOF
     from shm_tpu_torch.train import train_cnn
     from shm_tpu_torch.utils.checkpoint import save_checkpoint
 
     os.chdir(ROOT)                     # run_splits.json's paths are repo-relative
     cfg = Stage4DofConfig()
-    card = _device(args.device)
+    card = command_device(args.device)
     sets = cnn_train_sets(Paths("data/4dof"), cfg, card)
     (Xtr, ytr), (Xva, yva) = sets["train"], sets["val"]
     inputs = {"cpu": (Xtr.cpu(), Xva.cpu(), "cpu"), "cuda": (Xtr, Xva, card),

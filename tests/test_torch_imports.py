@@ -50,6 +50,8 @@ def test_port_files_exist():
                  "shm_tpu_torch/train/__init__.py", "shm_tpu_torch/train/vae.py",
                  "shm_tpu_torch/train/checkpoint.py",
                  "shm_tpu_torch/cli/stage4dof.py",
+                 "shm_tpu_torch/cli/stage1dof.py",
+                 "shm_tpu_torch/sim/signals.py",
                  "shm_tpu_torch/data/splits.py",
                  "shm_tpu_torch/sim/__init__.py", "shm_tpu_torch/sim/prng.py",
                  "shm_tpu_torch/sim/forces.py", "shm_tpu_torch/sim/newmark.py",
