@@ -3,13 +3,15 @@
 Only the dataclasses the ported paths read are kept: ``VAEConfig``,
 ``CNNConfig``, ``TrainConfig``, ``SDOFParams`` (the 1-DOF oscillator the
 simulator integrates), ``Stage1DofConfig``, ``SystemConfig`` and
-``FaultGenConfig`` (4DOF data generation) and ``Stage4DofConfig``. Defaults
-are identical to the JAX package's.
+``FaultGenConfig`` (4DOF data generation), ``Stage4DofConfig`` and
+``OpenLabConfig`` (the bridge stage). Defaults are identical to the JAX
+package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -188,6 +190,80 @@ class Stage4DofConfig:
     )
 
 
+@dataclass(frozen=True)
+class OpenLabConfig:
+    """openLAB bridge stage: windowing, cleaning and silver-label rules (read
+    by the extraction, which is not ported yet), the run split, the 1-layer
+    VAE gate, the CNN and its focal-loss recipe, and the ST-first threshold
+    tuning."""
+
+    raw_dir: str = ""
+    out_dir: str = ""
+    seq_len: int = 200
+    stride: int = 20
+    # structural-fault threshold (mm)
+    allow_min: float = -1e9
+    allow_max: float = 20.0
+    # cleaning thresholds
+    obstruction_sentinel: float = -1e5
+    clean_max_jump_mm: float = 1.0
+    clean_max_abs_mm: float = 65.0
+    moving_avg_window: int = 5
+    # sensor-fault rules (raw integrity)
+    raw_diff_th_mm: float = 1.0
+    raw_abs_th_mm: float = 65.0
+    raw_invalid_ratio_fault: float = 0.05
+    flat_var_eps: float = 1e-6
+    force_range_for_flatline: float = 5.0
+    seed: int = 42
+    train_frac: float = 0.40
+    val_frac: float = 0.30
+    test_frac: float = 0.30
+    # the gate: LWA_2/3/4 in, latent 8, hidden 64, one layer
+    vae: VAEConfig = field(
+        default_factory=lambda: VAEConfig(
+            input_dim=3, latent_dim=8, hidden_dim=64, num_layers=1,
+            dropout=0.2, use_layernorm=True,
+        )
+    )
+    vae_train: TrainConfig = field(
+        default_factory=lambda: TrainConfig(
+            epochs=100, batch_size=64, lr=5e-4, weight_decay=0.0,
+            grad_clip=2.0, kl_warmup_ratio=0.30,
+        )
+    )
+    standardize_clip: float = 10.0
+    # the gate threshold: P95 of the validation normals' MSE
+    threshold_percentile: float = 95.0
+    cnn: CNNConfig = field(
+        default_factory=lambda: CNNConfig(
+            variant="openlab", input_channels=1, num_classes=2, dropout=0.4,
+            seq_len=200, num_features=4,
+        )
+    )
+    # AdamW 3e-4, weight decay 1e-4, at most 100 epochs, patience 25
+    cnn_train: TrainConfig = field(
+        default_factory=lambda: TrainConfig(
+            epochs=100, batch_size=64, lr=3e-4, weight_decay=1e-4,
+            grad_clip=2.0, early_stop_patience=25, decoupled_wd=True,
+        )
+    )
+    focal_gamma: float = 2.0
+    # ST-first threshold tuning
+    st_precision_floor: float = 0.25
+    threshold_grid_points: int = 99
+    threshold_grid_lo: float = 0.01
+    threshold_grid_hi: float = 0.99
+
+
+def default_openlab_raw_dir() -> str:
+    """Where the raw catman exports (``MD_*.txt``) are:
+    ``$SHM_TPU_OPENLAB_RAW``, else "" (pass ``--raw-dir``). The JAX package
+    also looks in a checkout of the reference project; the port names no
+    directory outside the repository."""
+    return os.environ.get("SHM_TPU_OPENLAB_RAW", "")
+
+
 def replace(cfg, **kw):
     """dataclasses.replace passthrough for config overrides."""
     return dataclasses.replace(cfg, **kw)
@@ -195,4 +271,5 @@ def replace(cfg, **kw):
 
 __all__ = ["VAEConfig", "CNNConfig", "TrainConfig", "SDOFParams",
            "Stage1DofConfig", "SystemConfig", "FaultGenConfig",
-           "Stage4DofConfig", "replace"]
+           "Stage4DofConfig", "OpenLabConfig", "default_openlab_raw_dir",
+           "replace"]

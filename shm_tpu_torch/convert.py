@@ -17,8 +17,13 @@ Layouts handled here, once, at load:
 - ``fc1``: the JAX model flattens NHWC (T/4, D/4, 32) while NCHW flattens
   (32, T/4, D/4), so fc1's 2400 input rows are permuted to (c, t, d) order.
 
+- GroupNorm (``CNNOpenLab``): ``scale`` / ``bias`` -> ``weight`` / ``bias``.
+  ``Im2ColConv`` keeps ``nn.Conv``'s parameter tree, so one converter serves
+  both of the JAX model's ``conv_impl``s.
+
 Both directions for the VAE (``vae_from_flax`` / ``vae_to_flax``) and the
-CNN (``cnn4dof_from_flax`` / ``cnn4dof_to_flax``), bit for bit.
+CNNs (``cnn4dof_from_flax`` / ``cnn4dof_to_flax``,
+``cnn_openlab_from_flax`` / ``cnn_openlab_to_flax``), bit for bit.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from shm_tpu_torch.config import VAEConfig
 from shm_tpu_torch.models.attention import HEAD_DIM
-from shm_tpu_torch.models.cnn import CNN4DOF
+from shm_tpu_torch.models.cnn import CNN4DOF, CNNOpenLab, OPENLAB_BLOCKS
 from shm_tpu_torch.models.vae import TemporalVAE, vae_from_config
 
 
@@ -233,6 +238,53 @@ def cnn4dof_to_flax(cnn: Union[CNN4DOF, Mapping], seq_len: int = 100,
     return {"params": params, "batch_stats": batch_stats}
 
 
+_OPENLAB_BLOCK_NAMES = tuple(f"b{i}" for i in range(1, len(OPENLAB_BLOCKS) + 1))
+
+
+def cnn_openlab_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`CNNOpenLab` from flax ``{"params"}`` (the tree
+    of either ``conv_impl``)."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for b in _OPENLAB_BLOCK_NAMES:
+        conv = p[f"{b}_conv"]
+        sd[f"{b}_conv.weight"] = _t(np.transpose(conv["kernel"], (3, 2, 0, 1)))
+        sd[f"{b}_conv.bias"] = _t(conv["bias"])
+        _norm(sd, f"{b}_gn", p[f"{b}_gn"])
+    for name in ("fc1", "fc2"):
+        _dense(sd, name, p[name])
+    return sd
+
+
+def cnn_openlab_from_flax(variables: Mapping, num_classes: int = 2,
+                          dropout: float = 0.4) -> CNNOpenLab:
+    cnn = CNNOpenLab(num_classes, dropout)
+    cnn.load_state_dict(cnn_openlab_state_dict(variables))
+    return cnn.eval()
+
+
+def cnn_openlab_to_flax(cnn: Union[CNNOpenLab, Mapping]) -> Dict:
+    """flax ``{"params", "batch_stats"}`` (numpy float32; ``batch_stats``
+    empty, as the JAX trainer saves it: GroupNorm keeps none) of a
+    :class:`CNNOpenLab` or of its state dict: the inverse of
+    :func:`cnn_openlab_state_dict` (OIHW back to HWIO), the layout both
+    packages read."""
+    sd = cnn.state_dict() if isinstance(cnn, torch.nn.Module) else cnn
+    a = lambda k: np.ascontiguousarray(
+        sd[k].detach().cpu().numpy().astype(np.float32))
+    params: Dict = {}
+    for b in _OPENLAB_BLOCK_NAMES:
+        params[f"{b}_conv"] = {"kernel": np.ascontiguousarray(
+                                   a(f"{b}_conv.weight").transpose(2, 3, 1, 0)),
+                               "bias": a(f"{b}_conv.bias")}
+        params[f"{b}_gn"] = {"scale": a(f"{b}_gn.weight"),
+                             "bias": a(f"{b}_gn.bias")}
+    for name in ("fc1", "fc2"):
+        params[name] = {"kernel": np.ascontiguousarray(a(f"{name}.weight").T),
+                        "bias": a(f"{name}.bias")}
+    return {"params": params, "batch_stats": {}}
+
+
 def random_flax_vae_params(rng: np.random.Generator, cfg: VAEConfig) -> Dict:
     """A flax-layout TemporalVAE parameter tree of random numpy values, of
     the ``cfg.cell`` family.
@@ -300,4 +352,6 @@ def random_flax_vae_params(rng: np.random.Generator, cfg: VAEConfig) -> Dict:
 
 __all__ = ["vae_state_dict", "vae_from_flax", "vae_to_flax", "tree_cell",
            "cnn4dof_state_dict", "cnn4dof_from_flax", "cnn4dof_to_flax",
+           "cnn_openlab_state_dict", "cnn_openlab_from_flax",
+           "cnn_openlab_to_flax",
            "random_flax_vae_params"]

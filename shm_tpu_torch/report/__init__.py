@@ -1,10 +1,12 @@
-"""Figures of the 1DOF and 4DOF commands (counterpart of ``shm_tpu/report``)."""
+"""Figures of the 1DOF, 4DOF and openLAB commands (counterpart of ``shm_tpu/report``)."""
 
 from shm_tpu_torch.report.plots import (
     configure_axis,
+    plot_cm_grid,
     plot_cm_row_norm,
     plot_latent_pca,
     plot_loss_curves,
+    plot_metrics_bar,
     plot_pr_curve,
     plot_reconstruction_overlay,
     plot_rmse_box,
@@ -28,4 +30,6 @@ __all__ = [
     "plot_latent_pca",
     "plot_segment_rmse",
     "plot_rmse_box",
+    "plot_cm_grid",
+    "plot_metrics_bar",
 ]

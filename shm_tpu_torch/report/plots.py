@@ -1,4 +1,4 @@
-"""The 1DOF and 4DOF commands' figures (counterpart of
+"""The 1DOF, 4DOF and openLAB commands' figures (counterpart of
 ``shm_tpu/report/plots.py``): transparent pdf/png/svg triple-save, no-grid
 bordered axes.
 
@@ -219,7 +219,67 @@ def plot_rmse_box(groups: Dict[str, np.ndarray], out_dir, file_stem: str) -> Non
     _finish(plt, fig, out_dir, file_stem)
 
 
+def plot_cm_grid(cms: Dict[str, np.ndarray], labels: Sequence[str], out_dir,
+                 file_stem: str, cmaps: Optional[Sequence[str]] = None) -> None:
+    """A grid of row-normalized confusion matrices, one colormap per model
+    in the reference's sequence (Greens, Purples, Greys, PuRd, Reds, Blues,
+    ... for CNN, CART, RF, GB, HGB, SVM_RBF)."""
+    plt = _pyplot()
+    names = list(cms)
+    n = len(names)
+    ncols = min(3, n)
+    nrows = -(-n // ncols)
+    default_cmaps = ["Greens", "Purples", "Greys", "PuRd", "Reds", "Blues",
+                     "Oranges", "YlGnBu"]
+    cmaps = list(cmaps or default_cmaps)
+    fig, axes = plt.subplots(nrows, ncols, figsize=(4.6 * ncols, 4.2 * nrows))
+    axes = np.atleast_1d(axes).ravel()
+    for k, name in enumerate(names):
+        ax = axes[k]
+        cm = np.asarray(cms[name], np.float64)
+        row = cm.sum(axis=1, keepdims=True)
+        norm = np.divide(cm, np.where(row > 0, row, 1.0))
+        ax.imshow(norm, cmap=cmaps[k % len(cmaps)], vmin=0, vmax=1)
+        ax.set_title(name, fontsize=13)
+        ax.set_xticks(range(len(labels)), labels, fontsize=9)
+        ax.set_yticks(range(len(labels)), labels, fontsize=9)
+        for i in range(len(labels)):
+            for j in range(len(labels)):
+                color = "white" if norm[i, j] > 0.5 else "black"
+                ax.text(j, i, f"{norm[i, j]:.2f}", ha="center", va="center",
+                        fontsize=9, color=color)
+    for k in range(n, len(axes)):
+        axes[k].axis("off")
+    _finish(plt, fig, out_dir, file_stem)
+
+
+# fixed per-model bar colors, in the reference's order
+MODEL_BAR_COLORS = ["#4C78A8", "#F58518", "#54A24B", "#E45756",
+                    "#72B7B2", "#B279A2"]
+
+
+def plot_metrics_bar(metrics: Dict[str, Dict[str, float]], out_dir, file_stem: str,
+                     metric_names: Optional[Sequence[str]] = None) -> None:
+    """Grouped bars of each model's metrics, in the fixed model colors."""
+    plt = _pyplot()
+    models = list(metrics)
+    metric_names = list(metric_names or next(iter(metrics.values())).keys())
+    x = np.arange(len(metric_names))
+    width = 0.8 / max(len(models), 1)
+    fig, ax = plt.subplots(figsize=(1.8 * len(metric_names) + 3, 5.2))
+    for i, m in enumerate(models):
+        vals = [metrics[m].get(k, 0.0) for k in metric_names]
+        ax.bar(x + i * width, vals, width, label=m,
+               color=MODEL_BAR_COLORS[i % len(MODEL_BAR_COLORS)])
+    ax.set_xticks(x + width * (len(models) - 1) / 2, metric_names, fontsize=12)
+    configure_axis(ax, "", "Score", 14)
+    ax.set_ylim(0, 1.05)
+    ax.legend(frameon=False, fontsize=10, ncol=min(len(models), 3))
+    _finish(plt, fig, out_dir, file_stem)
+
+
 __all__ = ["configure_axis", "save_figure", "plot_loss_curves",
            "plot_stacked_channels", "plot_reconstruction_overlay",
            "plot_cm_row_norm", "plot_roc", "plot_pr_curve", "plot_score_hist",
-           "plot_latent_pca", "plot_segment_rmse", "plot_rmse_box"]
+           "plot_latent_pca", "plot_segment_rmse", "plot_rmse_box",
+           "plot_cm_grid", "plot_metrics_bar"]

@@ -1,5 +1,5 @@
-"""HTTP scoring service around :class:`shm_tpu_torch.serve.HybridScorer`
-(counterpart of ``shm_tpu/serve_http.py``).
+"""HTTP scoring service around :class:`shm_tpu_torch.serve.HybridScorer` or
+the openLAB scorer (counterpart of ``shm_tpu/serve_http.py``).
 
 A dependency-free stdlib HTTP daemon that warms every bucket before it
 accepts traffic (on the card: builds the family's gate kernel and settles
@@ -70,7 +70,11 @@ Example::
          -H 'Content-Type: application/octet-stream' -H 'X-Shape: 64,100,12' \\
          --data-binary @windows.f32 | jq .y_pred
 
-``--device cpu`` serves the plain PyTorch path on the CPU.
+``--device cpu`` serves the plain PyTorch path on the CPU. ``--openlab
+ROOT`` serves :class:`shm_tpu_torch.serve_openlab.OpenLabScorer` instead:
+``/score`` takes (N, T, C, 2) stacked [clean, raw] window pairs (the
+``X-Shape: N,T,C,2`` header), and ``/score_series`` answers 422 (openLAB
+cleaning is a per-run cascade of the extraction).
 """
 
 from __future__ import annotations
@@ -931,7 +935,6 @@ def make_server(scorer, host: str = "127.0.0.1", port: int = 8787,
 # the daemon's flags whose paths the port does not have yet, and the
 # ROADMAP.md item that ports each
 _NOT_PORTED = {
-    "--openlab": "Queue 1 item 7, the openLAB stage",
     "--shmx": "Queue 1 item 8, export.py",
     "--devices": "Queue 1 item 9, parallel/",
 }
@@ -951,7 +954,11 @@ def _parse_args(argv):
                          "card, which must be there; 'cpu' runs the plain "
                          "PyTorch path)")
     ap.add_argument("--openlab", default=None, metavar="ROOT",
-                    help="not ported yet (the openLAB hybrid)")
+                    help="serve the openLAB (bridge) hybrid from this "
+                         "artifact root instead of --root: /score takes "
+                         "(N, T, C, 2) stacked [clean, raw] extracted "
+                         "windows (CNN stage-2; the classical stage-2 modes "
+                         "are library-level: they need per-request features)")
     ap.add_argument("--shmx", default=None, metavar="PATH",
                     help="not ported yet (a standalone .shmx export)")
     ap.add_argument("--host", default="127.0.0.1")
@@ -1004,6 +1011,8 @@ def _parse_args(argv):
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
+    if args.openlab is not None and args.shmx is not None:
+        ap.error("--openlab and --shmx are mutually exclusive")
     for flag, item in _NOT_PORTED.items():
         value = getattr(args, flag[2:])
         if value is not None and not (flag == "--devices" and value <= 1):
@@ -1042,21 +1051,33 @@ def _parse_args(argv):
 
 def _load_scorer(args, root=None):
     """Build the scorer the parsed args describe from ``root`` (default
-    ``--root``): the slow step (artifact loads, device init). Raises
-    without a card unless ``--device cpu``."""
+    ``--openlab`` or ``--root``): the slow step (artifact loads, device
+    init). An openLAB root under ``--openlab``, a 4DOF root otherwise.
+    Raises without a card unless ``--device cpu``."""
+    kw = dict(device=args.device, min_bucket=args.min_bucket,
+              max_batch=args.max_batch)
+    if args.openlab is not None:
+        from shm_tpu_torch.serve_openlab import OpenLabScorer
+
+        root = args.openlab if root is None else root
+        scorer = OpenLabScorer.from_artifacts(root, **kw)
+        print(f"[serve] loaded openLAB artifacts from {root} on "
+              f"{scorer.device}; buckets={list(scorer.buckets())} "
+              f"T={scorer.seq_len} request=(N, {scorer.seq_len}, "
+              f"{scorer.num_features}, 2)")
+        return scorer
     from shm_tpu_torch.serve import HybridScorer
 
     root = args.root if root is None else root
-    scorer = HybridScorer.from_artifacts(
-        root, device=args.device, min_bucket=args.min_bucket,
-        max_batch=args.max_batch)
+    scorer = HybridScorer.from_artifacts(root, **kw)
     print(f"[serve] loaded artifacts from {root} on {scorer.device}; "
           f"buckets={list(scorer.buckets())} T={scorer.seq_len}")
     return scorer
 
 
 def _load_shadow_scorer(args):
-    """The candidate scorer of ``--shadow ROOT``, on the primary's device."""
+    """The candidate scorer of ``--shadow ROOT`` (a root of the primary's
+    stage), on the primary's device."""
     sc = _load_scorer(args, args.shadow)
     print(f"[serve] shadow candidate loaded from {args.shadow}; agreement "
           f"on /metrics (shm_shadow_*)")

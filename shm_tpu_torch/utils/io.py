@@ -1,17 +1,19 @@
 """JSON / npy / CSV artifact io (counterpart of ``shm_tpu/utils/io.py``).
 
-numpy only: the CSV reader is the ``np.loadtxt`` branch of the JAX package's
-``load_csv_numeric``, with the same shape and finiteness guards; the table
-writer prints every value as pandas' ``to_csv`` does (the shortest text that
-reads back to the same float32 or float64), so either package's tables load
-in the other.
+numpy and the ``csv`` module only: the CSV reader is the ``np.loadtxt``
+branch of the JAX package's ``load_csv_numeric``, with the same shape and
+finiteness guards; the table writers print every value as pandas'
+``to_csv`` does (the shortest text that reads back to the same float32 or
+float64), so either package's tables load in the other; ``load_csv_table``
+types a mixed table's columns as ``pandas.read_csv`` does.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
@@ -60,12 +62,21 @@ def load_csv_numeric(path: str | Path, num_features: int | None = None) -> np.nd
     return X
 
 
+def _text(column) -> np.ndarray:
+    c = np.asarray(column)
+    out = c.astype(str)
+    if c.dtype.kind == "f":                      # pandas writes NaN as ""
+        out[np.isnan(c)] = ""
+    return out
+
+
 def save_csv_columns(columns: Dict[str, Any], path: str | Path) -> None:
     """A header of the column names, then one row per index of the equal-
-    length 1-D columns, each value as numpy's ``str`` of its own dtype."""
+    length 1-D columns, each value as numpy's ``str`` of its own dtype (a
+    NaN empty)."""
     p = Path(path)
     ensure_dir(p.parent)
-    cols = [np.asarray(c).astype(str) for c in columns.values()]
+    cols = [_text(c) for c in columns.values()]
     lines = [",".join(columns)] + [",".join(row) for row in zip(*cols)]
     p.write_text("\n".join(lines) + "\n", encoding="utf-8")
 
@@ -83,5 +94,62 @@ def load_csv_columns(path: str | Path) -> Dict[str, np.ndarray]:
     return {n: X[:, j] for j, n in enumerate(names)}
 
 
+def _column(values: List[str]) -> np.ndarray:
+    """One text column typed as ``pandas.read_csv`` types it: int64 if every
+    value is an integer, float64 if every value is a number or empty
+    (NaN), else text."""
+    try:
+        return np.array([int(v) for v in values], np.int64)
+    except ValueError:
+        pass
+    try:
+        return np.array([float(v) if v != "" else np.nan for v in values],
+                        np.float64)
+    except ValueError:
+        return np.array(values, dtype=np.str_)
+
+
+def _cell(v) -> str:
+    """A value as ``DataFrame.to_csv`` writes it: NaN and None empty, floats
+    in their shortest round-trip text, the rest as ``str``."""
+    if v is None:
+        return ""
+    if isinstance(v, (float, np.floating)):
+        return "" if np.isnan(v) else repr(float(v))
+    if isinstance(v, (np.integer, np.bool_)):
+        return str(v.item())
+    return str(v)
+
+
+def load_csv_table(path: str | Path) -> Dict[str, np.ndarray]:
+    """A CSV of one header row, as typed columns by name (see ``_column``):
+    what ``pandas.read_csv`` gives, without pandas."""
+    p = Path(path)
+    if not p.exists():
+        raise FileNotFoundError(f"Missing CSV: {p}")
+    with p.open("r", encoding="utf-8", newline="") as f:
+        rows = list(csv.reader(f))
+    names, body = rows[0], rows[1:]
+    if any(len(r) != len(names) for r in body):
+        raise ValueError(f"Bad CSV row width in {p}")
+    return {n: _column([r[j] for r in body]) for j, n in enumerate(names)}
+
+
+def save_csv_records(rows: Sequence[Dict[str, Any]], path: str | Path,
+                     names: Sequence[str] | None = None) -> None:
+    """Row dicts as ``DataFrame(rows).to_csv(index=False)`` writes them: the
+    columns in the order they first appear, a missing value empty."""
+    if names is None:
+        names = list(dict.fromkeys(k for r in rows for k in r))
+    p = Path(path)
+    ensure_dir(p.parent)
+    with p.open("w", encoding="utf-8", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(names)
+        for r in rows:
+            w.writerow([_cell(r.get(n)) for n in names])
+
+
 __all__ = ["ensure_dir", "save_json", "save_npy", "load_json",
-           "load_csv_numeric", "save_csv_columns", "load_csv_columns"]
+           "load_csv_numeric", "save_csv_columns", "load_csv_columns",
+           "load_csv_table", "save_csv_records"]

@@ -59,7 +59,13 @@ def test_port_files_exist():
                  "shm_tpu_torch/tools/workload.py",
                  "shm_tpu_torch/tools/probe_f32_cliff.py",
                  "shm_tpu_torch/tools/probe_vpu_bound.py",
-                 "shm_tpu_torch/tools/probe_mingru_recur.py"):
+                 "shm_tpu_torch/tools/probe_mingru_recur.py",
+                 "shm_tpu_torch/serve_openlab.py",
+                 "shm_tpu_torch/cli/openlab.py",
+                 "shm_tpu_torch/data/features.py",
+                 "shm_tpu_torch/models/forest.py",
+                 "shm_tpu_torch/models/svm.py",
+                 "shm_tpu_torch/models/ml.py"):
         assert must in names
 
 

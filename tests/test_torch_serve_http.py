@@ -423,14 +423,15 @@ def test_parse_args_bucket_policy_and_early_validation():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--openlab", "data/openlab"], "Queue 1 item 7"),
+    (["--openlab", "data/openlab", "--shmx", "gate.shmx"], "mutually exclusive"),
     (["--shmx", "gate.shmx"], "Queue 1 item 8"),
     (["--devices", "2"], "Queue 1 item 9"),
     (["--shadow", "gate.shmx"], "Queue 1 item 8"),
 ])
 def test_parse_args_refuses_unported_paths(argv, item, capsys):
-    """The JAX daemon's openLAB, .shmx and multi-device paths are parsed and
-    refused with the ROADMAP item that ports them; --devices 1 is one card."""
+    """The JAX daemon's .shmx and multi-device paths are parsed and refused
+    with the ROADMAP item that ports them (``--openlab`` is served, but not
+    beside ``--shmx``, as in the JAX daemon); --devices 1 is one card."""
     from shm_tpu_torch.serve_http import _parse_args
 
     with pytest.raises(SystemExit) as ei:
