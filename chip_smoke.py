@@ -178,6 +178,31 @@ Phases (any failure exits non-zero before the final line):
    ``OPENLAB_CNN_F2_FLOOR``). Every command starts with every count at 0;
    the kernels line's ``openlab_launches`` of rows 1, 6 and 7 holds them by
    command.
+15. the openLAB extraction, the ``.shmx`` export and the profiling hooks,
+   each step timed by ``utils/profiling.py::Timer``: (a) the committed
+   windows written back as catman exports (``write_catman_runs``), then the
+   port's ``extract`` (``X_raw`` 6,432 / 6,432 and labels bit for bit,
+   ``X_clean`` 6,425 / 6,432, the other 7 exactly each run's last window;
+   ``window_labels.csv`` byte for byte but the 6 lines of a last window's
+   ``u_min``), ``make-splits`` and ``featurize`` (the committed split,
+   ``X_feat.npy`` and ``y.npy`` exactly), then ``all --epochs 2 --no-plots``
+   where scikit-learn and joblib import, else ``train-vae --epochs 2``,
+   ``validate-vae``, ``train-cnn --epochs 2`` and ``validate-cnn``, with
+   row 1's launches counted and row 1 held against its plain version on the
+   val windows (``OPENLAB_MSE_RTOL``); (b) ``python -m
+   shm_tpu_torch.export`` of ``data/4dof``, ``data/4dof_mingru``,
+   ``data/4dof_attention`` and ``--openlab data/openlab``, each loaded on
+   the card and scoring the committed test windows: gates and ``y_pred``
+   equal to the plain path's on the card, mse within ``EXPORT_MSE_RTOL``;
+   against the kernel path gates equal and confusion matrices within phase
+   3's 2 / 0 / 0 windows (openLAB: 0); no kernel launched; export seconds,
+   artifact MB and ``score()`` windows/s at 5,440 beside
+   ``HybridScorer.score``'s; (c) the daemon's ``--shmx``: ``/score`` of
+   5,440 windows bit for bit the ``ExportedScorer``'s, both timed, and a
+   ``.shmx`` ``--shadow`` whose ``/metrics`` counters are those computed
+   directly; (d) one ``trace`` of an exported ``score()``, whose Chrome
+   trace file must be there. ``openlab_launches`` carries its counts as
+   ``phase 15 <command>``.
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -4290,6 +4315,369 @@ def phase_openlab() -> dict:
             for k, c in launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# the openLAB extraction, the .shmx export and the profiling hooks (phase 15)
+# ---------------------------------------------------------------------------
+
+# catman exports: 36 header lines, T0 on line 12, a column row, then one
+# tab-separated decimal-comma row a sample; a NaN raw sample is written as
+# this sentinel, which the extraction reads as an obstruction (<= -1e5)
+CATMAN_SENTINEL = -1e6
+CATMAN_HEADER_LINES = 36
+CATMAN_T0_LINE = 12
+CATMAN_NAMES = ("Time_1", "DMS_1", "Time_2", "Force_N", "Force_A", "IWA",
+                "Temp_Bridge", "Temp_Ambient", "Time_3", "LWA_1", "LWA_2",
+                "LWA_3", "Time_4", "LWA_4", "LWA_5", "NMA_5", "F_total",
+                "Comment")
+CATMAN_STRIDE = 20
+CATMAN_SEQ_LEN = 200
+
+
+def _catman_value(v: float) -> str:
+    """A float32 sample as decimal-comma text that reads back to the same
+    float32 through float64 (the float64 repr of its exact value)."""
+    return repr(float(v)).replace(".", ",")
+
+
+def write_catman_runs(src: Path, dest: Path, windows: int | None = None) -> list:
+    """Write each run of ``src``'s committed ``extracted/`` windows as a
+    catman ``MD_<run>.txt`` under ``dest``: the raw windows (stride 20,
+    length 200, overlapping) stitched back into one series a run, NaN as
+    ``CATMAN_SENTINEL``, the other 14 channels filler. ``windows``: only
+    each run's first that many windows. Returns the run ids written. Writing
+    catman files is no feature of the program: this helper makes inputs for
+    its extraction from what the repository commits."""
+    from shm_tpu_torch.utils.io import load_csv_table
+
+    meta = load_csv_table(src / "extracted" / "window_labels.csv")
+    Xr = np.load(src / "extracted" / "X_raw.npy", mmap_mode="r")
+    dest.mkdir(parents=True, exist_ok=True)
+    runs = list(dict.fromkeys(meta["run_id"].astype(str).tolist()))
+    for run in runs:
+        idx = np.flatnonzero(meta["run_id"].astype(str) == run)
+        if windows is not None:
+            idx = idx[:windows]
+        starts = meta["win_start_idx"][idx]
+        n = int(starts[-1]) + CATMAN_SEQ_LEN
+        series = np.full((n, 4), np.nan, np.float32)
+        for i, s in zip(idx, starts):
+            series[s:s + CATMAN_SEQ_LEN] = Xr[i]
+        if np.isnan(series[:, 0]).any():
+            raise ValueError(f"{run}: the stitched series has a gap")
+        series = np.where(np.isnan(series), np.float32(CATMAN_SENTINEL), series)
+        stamp = run[3:].split("_")          # MD_yyyy_mm_dd_HH_MM_SS
+        header = [f"catman export {run}"] * CATMAN_HEADER_LINES
+        header[CATMAN_T0_LINE] = (f"T0 = {stamp[2]}.{stamp[1]}.{stamp[0]} "
+                                  f"{stamp[3]}:{stamp[4]}:{stamp[5]}")
+        cols = {"Time_1": np.arange(n) * 0.02, "DMS_1": series[:, 0],
+                "LWA_2": series[:, 1], "LWA_3": series[:, 2], "LWA_4": series[:, 3]}
+        text = {k: [_catman_value(v) for v in c] for k, c in cols.items()}
+        zero = ["0"] * n
+        rows = zip(*[text.get(c, zero) if c != "Comment" else [""] * n
+                     for c in CATMAN_NAMES])
+        body = "\n".join("\t".join(r) for r in rows)
+        (dest / f"{run}.txt").write_text(
+            "\n".join(header + ["\t".join(CATMAN_NAMES), body]) + "\n",
+            encoding="cp1252")
+    return runs
+
+
+# the exported program (the plain path) against the port's plain path on the
+# card: the same operations in the same order, so expected bit for bit
+EXPORT_MSE_RTOL = 1e-6
+EXPORT_ROOTS = (("data/4dof", "lstm"), ("data/4dof_mingru", "min_gru"),
+                ("data/4dof_attention", "attention"))
+EXPORT_EPOCHS = 2
+
+
+def windows_differing(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Indices of the windows of two stacks that differ in any bit."""
+    return np.flatnonzero([x.tobytes() != y.tobytes() for x, y in zip(a, b)])
+
+
+def extraction_checks(root: Path, src: Path) -> None:
+    """``extract`` under ``root`` against ``src``'s committed files: X_raw
+    and labels bit for bit; X_clean but exactly each run's last window (its
+    centred moving average is zero-padded where the written series ends);
+    window_labels.csv byte for byte but those windows' u_min."""
+    from shm_tpu_torch.utils.io import load_csv_table
+
+    got, want = root / "extracted", src / "extracted"
+    raw = windows_differing(np.load(got / "X_raw.npy"), np.load(want / "X_raw.npy"))
+    clean = windows_differing(np.load(got / "X_clean.npy"), np.load(want / "X_clean.npy"))
+    meta = load_csv_table(want / "window_labels.csv")
+    run = meta["run_id"]
+    last = np.flatnonzero(np.append(run[1:] != run[:-1], True))
+    labels = int((load_csv_table(got / "window_labels.csv")["label"] == meta["label"]).sum())
+    a = (got / "window_labels.csv").read_text().splitlines()
+    b = (want / "window_labels.csv").read_text().splitlines()
+    check(len(a) == len(b), "extract: window_labels.csv has another row count")
+    lines = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    cols = {j for i in lines for j, (u, v) in enumerate(
+        zip(a[i].split(","), b[i].split(","))) if u != v}
+    n = len(run)
+    print(f"[phase15] extract: X_raw {n - len(raw)} / {n} windows bit for bit, "
+          f"X_clean {n - len(clean)} / {n} (differing {clean.tolist()}, the runs' "
+          f"last windows {last.tolist()}), labels {labels} / {n}; window_labels.csv "
+          f"{len(a) - len(lines)} / {len(a)} lines byte for byte, the others "
+          f"differing in columns {sorted(b[0].split(',')[j] for j in cols)}")
+    check(len(raw) == 0 and labels == n and np.array_equal(clean, last),
+          "extract: windows or labels differ from the committed files")
+    check(cols <= {b[0].split(",").index("u_min")}
+          and {i - 1 for i in lines} <= set(last.tolist()),
+          "extract: window_labels.csv differs beyond the last windows' u_min")
+
+
+def phase15_extraction(tmp: Path, launches: dict, nums: dict, timer) -> None:
+    """(a): the committed windows as catman files, then the port's
+    extract, make-splits and featurize against the committed files, then
+    the stage's training and validation (``all`` where sklearn and joblib
+    import), row 1 held against its plain version on the val windows."""
+    import importlib.util
+
+    from shm_tpu_torch.cli import openlab as ol
+    from shm_tpu_torch.config import OpenLabConfig
+    from shm_tpu_torch.ops import fused_vae_gate
+
+    src = ROOT / OPENLAB_ROOT
+    raw, root = tmp / "raw", tmp / "openlab"
+    with timer.span("write catman files"):
+        runs = write_catman_runs(src, raw)
+    mb = sum(p.stat().st_size for p in raw.iterdir()) / 2 ** 20
+    print(f"[phase15] {len(runs)} runs written as catman exports, {mb:.1f} MiB")
+    cli = lambda *a: ol.main([*a, "--root", str(root), "--raw-dir", str(raw),
+                              "--no-plots"])
+    for cmd in ("extract", "make-splits", "featurize"):
+        with timer.span(cmd):
+            _, launches[cmd] = openlab_command(lambda: cli(cmd), cmd)
+    extraction_checks(root, src)
+    check(openlab_json(root, "extracted/run_split.json")
+          == openlab_json(src, "extracted/run_split.json"), "make-splits: split differs")
+    for rel in ("features/X_feat.npy", "features/y.npy"):
+        check(np.load(root / rel).tobytes() == np.load(src / rel).tobytes(),
+              f"featurize: {rel} differs from the committed file")
+    print("[phase15] make-splits: the committed run_split.json; featurize: "
+          "X_feat.npy and y.npy the committed files bit for bit")
+
+    row1 = fused_vae_gate.__name__
+    epochs = str(EXPORT_EPOCHS)
+    have_ml = all(importlib.util.find_spec(m) for m in ("sklearn", "joblib"))
+    nums["phase15_ran"] = "all" if have_ml else "train-vae, validate-vae, train-cnn, validate-cnn"
+    print(f"[phase15] scikit-learn and joblib {'import' if have_ml else 'do not import'} "
+          f"here: running {nums['phase15_ran']}")
+    if have_ml:
+        with timer.span("all"):
+            _, launches["all"] = openlab_command(
+                lambda: cli("all", "--epochs", epochs), f"all --epochs {epochs}",
+                {row1: 2})
+    else:
+        for cmd, want in (("train-vae", None), ("validate-vae", {row1: 1}),
+                          ("train-cnn", None), ("validate-cnn", None)):
+            extra = ("--epochs", epochs) if cmd.startswith("train") else ()
+            with timer.span(cmd):
+                _, launches[cmd] = openlab_command(lambda: cli(cmd, *extra),
+                                                   f"{cmd} {' '.join(extra)}", want)
+    cfg, paths = OpenLabConfig(), ol.Paths(str(root))
+    thr = openlab_json(root, "output/VAE_Validation_and_Thresholding/artifacts/"
+                             "vae_threshold.json")
+    check(np.isfinite(thr["threshold"]) and thr["n_val_normal"] == 256,
+          f"validate-vae after extract: {thr}")
+    vae, mu, sd, man = ol._load_openlab_vae(paths, cfg)
+    Xc, _, meta = ol._load_extracted(paths)
+    vm = ol._in_runs(meta, thr["val_runs"])
+    Zv = ol.standardize_clip(Xc[vm][:, :, man["channels_idx"]], mu, sd,
+                             cfg.standardize_clip)
+    nums["row1_extracted_val"] = openlab_gate_vs_plain(
+        "row 1 (phase 15, val windows of the extracted root)", vae, Zv,
+        thr["threshold"], OPENLAB_MSE_RTOL)
+    summary = openlab_json(root, "output/CNN_Validation/artifacts/cnn_val_summary.json")
+    print(f"[phase15] validate-vae threshold {thr['threshold']:.7f}; validate-cnn "
+          f"val accuracy {summary['accuracy']:.4f}, matrix {summary['confusion_matrix']}")
+
+
+def score_ms(fn, X, reps: int = SERVE_REPS) -> float:
+    """Median host-clock ms of ``fn(X)`` (numpy out, so the device is done)."""
+    fn(X)
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(X)
+        ts.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(ts))
+
+
+def phase15_export(tmp: Path, W, y, nums: dict, timer) -> dict:
+    """(b): each root exported by ``python -m shm_tpu_torch.export``,
+    loaded on the card and held to the plain and the kernel paths on the
+    committed test windows; returns (the artifact's path, its loaded
+    scorer) by root."""
+    from shm_tpu_torch import export as ex
+    from shm_tpu_torch.cli import openlab as ol
+    from shm_tpu_torch.evals import confusion_matrix
+    from shm_tpu_torch.serve import HybridScorer
+    from shm_tpu_torch.serve_openlab import OpenLabScorer
+
+    src = ROOT / OPENLAB_ROOT
+    Xc, Xr, meta = ol._load_extracted(ol.Paths(str(src)))
+    m = ol._in_runs(meta, openlab_json(src, "extracted/run_split.json")["test_runs"])
+    X = np.stack([Xc[m], Xr[m]], axis=-1)
+    lbl = {l: i for i, l in enumerate(ol.LABELS_3)}
+    yo = np.array([lbl[v] for v in ol._labels(meta)[m]])
+    W5 = np.concatenate([W, W])[:N_BENCH]
+    cases = [(root, ["--root", str(ROOT / root)], cell, W, y, FAMILIES[cell]["cm_limit"])
+             for root, cell in EXPORT_ROOTS]
+    cases.append((OPENLAB_ROOT, ["--openlab", str(src)], "openlab", X, yo, 0))
+    paths = {}
+    for root, flag, cell, R, yr, cm_limit in cases:
+        out = tmp / f"{Path(root).name}.shmx"
+        t0 = time.perf_counter()
+        with timer.span(f"export {root}"):
+            ex.main([*flag, "--out", str(out)])
+        secs = time.perf_counter() - t0
+        with timer.span(f"load {root}"):
+            loaded = ex.load_exported_scorer(out)
+        check(loaded.device.type == "cuda", f"{root}: the export did not load on the card")
+        if cell == "openlab":
+            plain = OpenLabScorer.from_artifacts(src, use_fused_gate=False)
+            kernel = OpenLabScorer.from_artifacts(src)
+        else:
+            plain = HybridScorer.from_artifacts(ROOT / root, use_fused_vae=False)
+            kernel = HybridScorer.from_artifacts(ROOT / root)
+        check(kernel.use_fused_vae and not plain.use_fused_vae,
+              f"{root}: the reference scorers' paths")
+        all_kernel_counts(reset=True)
+        with timer.span(f"exported score {root}") as s:
+            got = loaded.score(R)
+            s.result = got["mse"]
+        counts = all_kernel_counts()
+        check(not any(counts.values()), f"{root}: the exported program launched {counts}")
+        ref, kout = plain.score(R), kernel.score(R)
+        rel = float(np.max(np.abs(got["mse"].astype(np.float64) - ref["mse"])
+                           / np.abs(ref["mse"])))
+        check(np.array_equal(got["anomalous"], ref["anomalous"])
+              and np.array_equal(got["y_pred"], ref["y_pred"])
+              and rel <= EXPORT_MSE_RTOL,
+              f"{root}: the exported program differs from the plain path "
+              f"(max relative mse {rel:.3e})")
+        moved = int(np.abs(confusion_matrix(yr, got["y_pred"], 3)
+                           - confusion_matrix(yr, kout["y_pred"], 3)).sum()) // 2
+        check(np.array_equal(got["anomalous"], kout["anomalous"]) and moved <= cm_limit,
+              f"{root}: the exported program against the kernel path: gates or "
+              f"{moved} windows moved (limit {cm_limit})")
+        rate = {}
+        R5 = W5 if cell != "openlab" else R
+        rate["exported"] = len(R5) / score_ms(loaded.score, R5) * 1e3
+        rate["kernel"] = len(R5) / score_ms(kernel.score, R5) * 1e3
+        mb = out.stat().st_size / 2 ** 20
+        nums[f"export {root}"] = dict(
+            export_s=secs, artifact_mb=mb, max_mse_rel_vs_plain=rel,
+            cm_moved_vs_kernel=moved, windows=len(R5),
+            exported_windows_per_s=rate["exported"],
+            kernel_windows_per_s=rate["kernel"],
+            bit_for_bit=bool(rel == 0.0))
+        print(f"[phase15] export {root} ({cell}): {secs:.2f} s, {mb:.2f} MiB; on the "
+              f"card, {len(R)} test windows: gates and y_pred = the plain path's, "
+              f"max relative mse {rel:.3e} (limit {EXPORT_MSE_RTOL:g}); against the "
+              f"kernel path gates equal, {moved} windows moved (limit {cm_limit}); "
+              f"score() at {len(R5)}: exported {rate['exported']:,.0f} windows/s, "
+              f"{'OpenLabScorer' if cell == 'openlab' else 'HybridScorer'} (kernel) "
+              f"{rate['kernel']:,.0f}; no kernel launched; {gpu_line()}")
+        paths[root] = out, loaded
+        del plain, kernel
+    return paths
+
+
+def phase15_daemon(paths: dict, W, nums: dict, timer) -> None:
+    """(c): the daemon's --shmx against ExportedScorer.score, and a .shmx
+    shadow's counters against the two scorers called directly."""
+    from shm_tpu_torch.serve_http import (
+        _load_scorer, _load_shadow_scorer, _parse_args, make_server,
+    )
+
+    W5 = np.concatenate([W, W])[:N_BENCH]
+    art, direct = paths["data/4dof"]
+    args, strides = _parse_args(["--shmx", str(art)])
+    with timer.span("daemon --shmx startup"):
+        srv = serve_in_thread(make_server(_load_scorer(args), port=0,
+                                          series_strides=strides))
+        check(srv.warm_event.wait(600) and srv.RequestHandlerClass.warm_error is None,
+              "--shmx daemon: warmup failed")
+    try:
+        c = Client(srv)
+        code, info = c.json("/info")
+        check(code == 200 and info["exported"] is True and info["device"] == "cuda",
+              f"--shmx /info: {info}")
+        same_outputs("--shmx /score of 5,440 windows vs ExportedScorer.score",
+                     c.score(W5), direct.score(W5))
+        with timer.span("daemon --shmx /score"):
+            sock = score_ms(c.score, W5)
+        dir_ms = score_ms(direct.score, W5)
+        nums["shmx_daemon"] = dict(score_ms=sock, direct_ms=dir_ms)
+        print(f"[phase15] daemon --shmx: /score of {len(W5)} windows {sock:.2f} ms "
+              f"against ExportedScorer.score {dir_ms:.2f} ms; bit for bit")
+    finally:
+        stop_server(srv)
+
+    args, strides = _parse_args(["--root", str(ROOT / "data/4dof"), "--shadow",
+                                 str(paths["data/4dof_mingru"][0])])
+    primary, shadow = _load_scorer(args), _load_shadow_scorer(args)
+    check(shadow.exported, "--shadow F.shmx did not load the export")
+    srv = serve_in_thread(make_server(primary, port=0, series_strides=strides,
+                                      shadow_scorer=shadow))
+    try:
+        check(srv.warm_event.wait(600) and srv.RequestHandlerClass.warm_error is None,
+              ".shmx shadow daemon: warmup failed")
+        c = Client(srv)
+        admitted = []
+        for R in (W[: len(W) // 3], W[len(W) // 3:]):
+            admitted.append(("score", R, None, c.score(R)))
+        drain(srv.shadow)
+        code, snap = c.json("/metrics", headers={"Accept": "application/json"})
+        want = shadow_expected(primary, shadow, admitted)
+        got = {k: snap["shadow"][k] for k in want}
+        print(f"[phase15] .shmx shadow (data/4dof_mingru's export beside data/4dof): "
+              f"/metrics {got}, computed directly {want}")
+        check(code == 200 and got == want and snap["shadow"]["dropped_windows"] == 0,
+              ".shmx shadow: its counters differ from the direct computation")
+    finally:
+        stop_server(srv)
+
+
+def phase_extract_export(W, y) -> dict:
+    """Phase 15: the openLAB extraction and the stage after it, the
+    ``.shmx`` export of every family and the openLAB CNN mode, the daemon's
+    ``--shmx`` and a ``.shmx`` shadow, and a trace, each step timed by
+    ``utils/profiling.py::Timer``. Returns the counts of rows 1-7 by
+    command."""
+    import tempfile
+
+    from shm_tpu_torch.utils.profiling import Timer, trace
+
+    print(f"[phase15] {gpu_line()}")
+    t_phase = time.perf_counter()
+    timer, launches, nums = Timer(), {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p15_") as tmp_s:
+        tmp = Path(tmp_s)
+        phase15_extraction(tmp, launches, nums, timer)
+        paths = phase15_export(tmp, W, y, nums, timer)
+        phase15_daemon(paths, W, nums, timer)
+
+        loaded = paths["data/4dof"][1]
+        with trace(str(tmp / "trace")) as path:
+            loaded.score(W)
+        events = json.loads(path.read_text())["traceEvents"]
+        gpu = [e for e in events if e.get("cat") == "kernel"]
+        print(f"[phase15] trace of one exported score(): {path.name}, "
+              f"{path.stat().st_size} bytes, {len(events)} events, {len(gpu)} "
+              f"device kernels")
+        check(path.is_file() and events, "trace: no trace file written")
+    for name, r in timer.report().items():
+        print(f"[phase15] span {name}: {r['seconds']:.2f} s over {r['calls']} call(s)")
+    print(f"[phase15] phase 15 {time.perf_counter() - t_phase:.2f} s: {nums}")
+    return {k: {n: v for n, v in c.items() if n != "seconds"}
+            for k, c in launches.items()}
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[2])
@@ -4367,6 +4755,9 @@ def main(argv) -> int:
         stage1dof_launches = phase_stage1dof()
         torch.cuda.empty_cache()
         openlab_launches = phase_openlab()
+        torch.cuda.empty_cache()
+        for cmd, c in phase_extract_export(W, y).items():
+            openlab_launches[f"phase 15 {cmd}"] = c
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4374,7 +4765,7 @@ def main(argv) -> int:
     # `launches` is the scoring or training path's count, `chain_launches`
     # phases 10 and 12's by command, `serve_launches` phase 11's by step,
     # `stage1dof_launches` phase 13's by command (rows 1-7),
-    # `openlab_launches` phase 14's by command (rows 1, 6 and 7)
+    # `openlab_launches` phases 14 and 15's by command (rows 1, 6 and 7)
     kernels = gate_rows[:1] + lstm_rows + gate_rows[1:] + probe_rows
     for row in kernels:
         row["chain_launches"] = chain_launches.get(row["name"], {})

@@ -1,6 +1,7 @@
 """openLAB (TU Dresden bridge) stage CLI (counterpart of
 ``shm_tpu/cli/openlab.py``).
 
+    python -m shm_tpu_torch.cli.openlab extract      --root data/openlab --raw-dir DIR
     python -m shm_tpu_torch.cli.openlab make-splits  --root data/openlab
     python -m shm_tpu_torch.cli.openlab featurize    --root data/openlab
     python -m shm_tpu_torch.cli.openlab train-vae    --root data/openlab
@@ -11,8 +12,12 @@
     python -m shm_tpu_torch.cli.openlab validate-ml  --root data/openlab
     python -m shm_tpu_torch.cli.openlab test-hybrid  --root data/openlab [--host-ml]
     python -m shm_tpu_torch.cli.openlab plots        --root data/openlab
+    python -m shm_tpu_torch.cli.openlab all          --root data/openlab --raw-dir DIR
 
-Each command reads and writes the JAX CLI's artifacts under ``--root``:
+``extract`` parses the catman exports ``MD_*.txt`` of ``--raw-dir`` (else
+``$SHM_TPU_OPENLAB_RAW``) on the host, without pandas (``data/openlab.py``);
+``all`` runs every command in the JAX CLI's order. Each command reads and
+writes the JAX CLI's artifacts under ``--root``:
 ``extracted/{X_clean.npy,X_raw.npy,window_labels.csv,run_split.json}``,
 ``features/{X_feat.npy,y.npy,meta_used.csv,feat_names.json}``,
 ``output/<Experiment>/...`` (the same JSON keys; the CSVs as pandas writes
@@ -32,10 +37,9 @@ them, without pandas). Every command runs on the CUDA card unless given
   ``predict_proba`` instead. ``train-ml`` needs sklearn and joblib and
   writes each export beside its joblib.
 
-Not ported: ``extract`` and ``all``, which parse the raw catman exports
-(``MD_*.txt``, not in the repository; ROADMAP.md Queue 1 item 7b), and
-``--devices`` (item 9). ``--no-plots`` draws no figure (no JSON depends on
-one); ``--seed`` overrides the seed of ``train-vae`` / ``train-cnn``.
+Not ported: ``--devices`` (ROADMAP.md Queue 1 item 9). ``--no-plots`` draws
+no figure (no JSON depends on one); ``--seed`` overrides the seed of
+``train-vae`` / ``train-cnn``.
 """
 
 from __future__ import annotations
@@ -55,6 +59,9 @@ from shm_tpu_torch.convert import (
 from shm_tpu_torch.data.features import (
     FEATURE_LABEL_MAP, feature_names, featurize_windows,
 )
+from shm_tpu_torch.data.openlab import (
+    LABEL_NORMAL, LABEL_SENSOR_FAULT, LABEL_STRUCT_FAULT, extract_all,
+)
 from shm_tpu_torch.device import command_device
 from shm_tpu_torch.evals import (
     accuracy, binary_prf, confusion_matrix, roc_auc_score,
@@ -68,12 +75,8 @@ from shm_tpu_torch.utils.io import (
     save_json, save_npy,
 )
 
-LABEL_NORMAL = "Normal"
-LABEL_SENSOR_FAULT = "Sensor Fault"
-LABEL_STRUCT_FAULT = "Structural Fault"
 LABELS_3 = [LABEL_NORMAL, LABEL_SENSOR_FAULT, LABEL_STRUCT_FAULT]
 CHANNELS_IDX = [1, 2, 3]   # LWA_2/3/4; the DMS channel is not gated
-NOT_PORTED = "ROADMAP.md Queue 1 item 7b: the catman parser, cleaning and labels"
 
 
 class Paths:
@@ -119,8 +122,27 @@ def _labels(meta: Dict[str, np.ndarray]) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# splits and features
+# extraction, splits and features
 # ---------------------------------------------------------------------------
+
+def cmd_extract(paths: Paths, cfg: OpenLabConfig) -> None:
+    """``extracted/``: the clean and raw windows of every run in the raw
+    directory (``X_clean.npy``, ``X_raw.npy``), their weak labels
+    (``window_labels.csv``) and one row of diagnostics a run
+    (``run_diagnostics.csv``)."""
+    t0 = time.perf_counter()
+    Xc, Xr, meta, diag = extract_all(paths.raw_dir, cfg)
+    ensure_dir(paths.extracted)
+    save_npy(Xc, paths.extracted / "X_clean.npy")
+    save_npy(Xr, paths.extracted / "X_raw.npy")
+    save_csv_columns(meta, paths.extracted / "window_labels.csv")
+    save_csv_columns(diag, paths.extracted / "run_diagnostics.csv")
+    print(f"X_clean: {Xc.shape}  X_raw: {Xr.shape}  meta: "
+          f"({len(meta['label'])}, {len(meta)}) ({time.perf_counter() - t0:.2f}s)")
+    labels, counts = np.unique(meta["label"].astype(str), return_counts=True)
+    for i in np.argsort(-counts, kind="stable"):
+        print(f"{labels[i]}: {counts[i]}")
+
 
 def cmd_make_splits(paths: Paths, cfg: OpenLabConfig,
                     min_normal_windows: int = 200) -> Dict:
@@ -762,18 +784,15 @@ def cmd_plots(paths: Paths, cfg: OpenLabConfig) -> None:
     print(f"[OK] wrote hybrid plots under {out}")
 
 
-def cmd_not_ported(name: str) -> None:
-    raise NotImplementedError(f"`{name}` is not ported ({NOT_PORTED}); run it "
-                              "with shm_tpu.cli.openlab")
-
-
 # ---------------------------------------------------------------------------
 # entry
 # ---------------------------------------------------------------------------
 
-_COMMANDS = ("extract", "make-splits", "featurize", "train-vae", "validate-vae",
-             "train-cnn", "validate-cnn", "train-ml", "validate-ml",
-             "test-hybrid", "plots", "all")
+# the order of ``all``, as the JAX CLI runs it
+_ORDER = ("extract", "make-splits", "featurize", "train-vae", "validate-vae",
+          "train-cnn", "validate-cnn", "train-ml", "validate-ml",
+          "test-hybrid", "plots")
+_COMMANDS = _ORDER + ("all",)
 
 
 def main(argv=None) -> None:
@@ -782,8 +801,8 @@ def main(argv=None) -> None:
     ap.add_argument("command", choices=_COMMANDS)
     ap.add_argument("--root", default="data/openlab")
     ap.add_argument("--raw-dir", default=None,
-                    help="the raw MD_*.txt exports (read by extract, which is "
-                         "not ported)")
+                    help="the raw catman MD_*.txt exports extract reads "
+                         "(default: $SHM_TPU_OPENLAB_RAW)")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--seed", type=int, default=None,
                     help="train-vae / train-cnn: override the training seed")
@@ -827,7 +846,7 @@ def main(argv=None) -> None:
     paths = Paths(args.root, args.raw_dir or default_openlab_raw_dir())
     dev, plot = args.device, not args.no_plots
     steps = {
-        "extract": lambda: cmd_not_ported("extract"),
+        "extract": lambda: cmd_extract(paths, cfg),
         "make-splits": lambda: cmd_make_splits(paths, cfg),
         "featurize": lambda: cmd_featurize(paths, cfg),
         "train-vae": lambda: cmd_train_vae(paths, cfg, args.epochs,
@@ -846,12 +865,17 @@ def main(argv=None) -> None:
         "test-hybrid": lambda: cmd_test_hybrid(paths, cfg, args.split or "test",
                                                host_ml=args.host_ml, device=dev),
         "plots": lambda: cmd_plots(paths, cfg) if plot else None,
-        "all": lambda: cmd_not_ported("all"),
     }
-    steps[args.command]()
+    if args.command == "all":
+        for name in _ORDER:
+            print(f"\n===== {name} =====")
+            steps[name]()
+    else:
+        steps[args.command]()
 
 
-__all__ = ["Paths", "standardize_clip", "cmd_make_splits", "cmd_featurize",
+__all__ = ["Paths", "standardize_clip", "cmd_extract", "cmd_make_splits",
+           "cmd_featurize",
            "cmd_train_vae", "cmd_validate_vae", "cmd_train_cnn",
            "cmd_validate_cnn", "cmd_train_ml", "cmd_validate_ml",
            "cmd_test_hybrid", "cmd_plots", "main", "_load_openlab_vae",

@@ -64,6 +64,22 @@ def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False):
     return vae_pass
 
 
+def hybrid_outputs(vae_pass, cnn: CNN4DOF, W: torch.Tensor, mean: torch.Tensor,
+                   std: torch.Tensor, threshold: torch.Tensor) -> HybridOutputs:
+    """One hybrid pass of raw (N, T, D) ``W`` through ``vae_pass`` (a
+    :func:`make_vae_pass` function) and ``cnn``; the caller chooses the grad
+    mode."""
+    mse, xin = vae_pass(normalize_windows(W, mean, std))
+    anom = mse > threshold                                # strict >
+    logits = cnn(xin)
+    cls01 = torch.argmax(logits, dim=1).to(torch.int32)
+    probs = torch.softmax(logits, dim=1)
+    y_pred = torch.where(anom, cls01 + 1, torch.zeros_like(cls01))
+    p_struct = torch.where(anom, probs[:, 1], torch.zeros_like(probs[:, 1]))
+    return HybridOutputs(mse=mse, anomalous=anom, y_pred=y_pred,
+                         p_struct=p_struct, logits=logits)
+
+
 def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *,
                    use_fused_vae: bool = False):
     """``fn(W, mean, std, threshold) -> HybridOutputs`` for raw (N, T, D) ``W``;
@@ -73,15 +89,7 @@ def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *,
     @torch.inference_mode()
     def hybrid(W: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                threshold: torch.Tensor) -> HybridOutputs:
-        mse, xin = vae_pass(normalize_windows(W, mean, std))
-        anom = mse > threshold                                # strict >
-        logits = cnn(xin)
-        cls01 = torch.argmax(logits, dim=1).to(torch.int32)
-        probs = torch.softmax(logits, dim=1)
-        y_pred = torch.where(anom, cls01 + 1, torch.zeros_like(cls01))
-        p_struct = torch.where(anom, probs[:, 1], torch.zeros_like(probs[:, 1]))
-        return HybridOutputs(mse=mse, anomalous=anom, y_pred=y_pred,
-                             p_struct=p_struct, logits=logits)
+        return hybrid_outputs(vae_pass, cnn, W, mean, std, threshold)
 
     return hybrid
 
@@ -114,5 +122,5 @@ def concat_hybrid_outputs(outs) -> Dict[str, np.ndarray]:
             for k in _KEYS}
 
 
-__all__ = ["HybridOutputs", "make_vae_pass", "make_hybrid_fn", "run_hybrid_batched",
-           "concat_hybrid_outputs"]
+__all__ = ["HybridOutputs", "make_vae_pass", "hybrid_outputs", "make_hybrid_fn",
+           "run_hybrid_batched", "concat_hybrid_outputs"]

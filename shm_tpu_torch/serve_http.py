@@ -24,7 +24,10 @@ Endpoints:
   on the device (``HybridScorer.score_series``). Optional ``X-Stride: k``
   (default 1); only the strides warmed at startup (``--series-strides``) are
   accepted, others get 422.
-- Shadow mode (``--shadow ROOT``): a candidate scorer scores every served
+- ``--shmx PATH`` serves a standalone export (:mod:`shm_tpu_torch.export`,
+  the plain path): ``/info`` reports ``exported: true``, and
+  ``/recalibrate`` answers 501 (the threshold is part of the program).
+- Shadow mode (``--shadow ROOT`` or a ``.shmx``): a candidate scorer scores every served
   request again, asynchronously; responses always come from the primary,
   and the agreement accumulates as ``shm_shadow_*`` metrics
   (:class:`shm_tpu_torch.serve_shadow.ShadowEngine`). ``POST
@@ -935,7 +938,6 @@ def make_server(scorer, host: str = "127.0.0.1", port: int = 8787,
 # the daemon's flags whose paths the port does not have yet, and the
 # ROADMAP.md item that ports each
 _NOT_PORTED = {
-    "--shmx": "Queue 1 item 8, export.py",
     "--devices": "Queue 1 item 9, parallel/",
 }
 
@@ -960,13 +962,19 @@ def _parse_args(argv):
                          "windows (CNN stage-2; the classical stage-2 modes "
                          "are library-level: they need per-request features)")
     ap.add_argument("--shmx", default=None, metavar="PATH",
-                    help="not ported yet (a standalone .shmx export)")
+                    help="serve a standalone .shmx export "
+                         "(shm_tpu_torch.export) instead of --root: its "
+                         "program, threshold and bucket policy come from the "
+                         "artifact; /recalibrate is refused (the threshold "
+                         "is part of the program)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8787)
-    ap.add_argument("--min-bucket", type=int, default=256,
-                    help="smallest padded batch bucket (default 256)")
-    ap.add_argument("--max-batch", type=int, default=8192,
-                    help="largest device batch (default 8192)")
+    ap.add_argument("--min-bucket", type=int, default=None,
+                    help="smallest padded batch bucket (default 256; for "
+                         "--shmx the artifact's recorded policy)")
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="largest device batch (default 8192; for --shmx "
+                         "the artifact's recorded policy)")
     ap.add_argument("--devices", type=int, default=None,
                     help="not ported yet for N > 1 (one card)")
     ap.add_argument("--no-warmup", action="store_true",
@@ -987,7 +995,8 @@ def _parse_args(argv):
                     "monitor baselines against (default: from the loaded "
                     "threshold manifest)")
     ap.add_argument("--shadow", default=None, metavar="ROOT",
-                    help="shadow (canary) scorer: an artifact root whose "
+                    help="shadow (canary) scorer: an artifact root (or a "
+                         ".shmx export) whose "
                          "model scores every served request again, "
                          "asynchronously; responses always come from the "
                          "primary, and the agreement accumulates as "
@@ -1018,10 +1027,6 @@ def _parse_args(argv):
         if value is not None and not (flag == "--devices" and value <= 1):
             ap.error(f"{flag} is not ported to the PyTorch daemon yet "
                      f"(ROADMAP.md {item}); serve it with shm_tpu.serve_http")
-    if args.shadow is not None and str(args.shadow).endswith(".shmx"):
-        ap.error("a .shmx shadow is not ported to the PyTorch daemon yet "
-                 f"(ROADMAP.md {_NOT_PORTED['--shmx']}); pass an artifact "
-                 "root")
     if args.admin_token is not None:
         if not args.admin:
             ap.error("--admin-token requires --admin (the token guards the "
@@ -1037,6 +1042,13 @@ def _parse_args(argv):
     if (args.expected_anomaly_rate is not None
             and not 0.0 < args.expected_anomaly_rate < 1.0):
         ap.error("--expected-anomaly-rate must be in (0, 1)")
+    if args.shmx is None:
+        # in-process scorers take concrete policy values; --shmx leaves
+        # None so that the artifact's recorded min_bucket / max_batch apply
+        if args.min_bucket is None:
+            args.min_bucket = 256
+        if args.max_batch is None:
+            args.max_batch = 8192
     try:
         strides = tuple(int(s) for s in args.series_strides.split(",")
                         if s.strip())
@@ -1051,11 +1063,24 @@ def _parse_args(argv):
 
 def _load_scorer(args, root=None):
     """Build the scorer the parsed args describe from ``root`` (default
-    ``--openlab`` or ``--root``): the slow step (artifact loads, device
-    init). An openLAB root under ``--openlab``, a 4DOF root otherwise.
-    Raises without a card unless ``--device cpu``."""
+    ``--shmx``, ``--openlab`` or ``--root``): the slow step (artifact loads,
+    device init). A ``.shmx`` export by suffix, else an openLAB root under
+    ``--openlab``, a 4DOF root otherwise. Raises without a card unless
+    ``--device cpu``."""
     kw = dict(device=args.device, min_bucket=args.min_bucket,
               max_batch=args.max_batch)
+    if root is not None:            # a shadow: a concrete policy beside --shmx
+        kw.update(min_bucket=args.min_bucket or 256,
+                  max_batch=args.max_batch or 8192)
+    elif args.shmx is not None:
+        root = args.shmx
+    if root is not None and str(root).endswith(".shmx"):
+        from shm_tpu_torch.export import load_exported_scorer
+
+        scorer = load_exported_scorer(root, **kw)
+        print(f"[serve] loaded exported program {root} on {scorer.device}; "
+              f"buckets={list(scorer.buckets())} T={scorer.seq_len}")
+        return scorer
     if args.openlab is not None:
         from shm_tpu_torch.serve_openlab import OpenLabScorer
 
@@ -1076,8 +1101,8 @@ def _load_scorer(args, root=None):
 
 
 def _load_shadow_scorer(args):
-    """The candidate scorer of ``--shadow ROOT`` (a root of the primary's
-    stage), on the primary's device."""
+    """The candidate scorer of ``--shadow PATH`` (a ``.shmx`` export, or a
+    root of the primary's stage), on the primary's device."""
     sc = _load_scorer(args, args.shadow)
     print(f"[serve] shadow candidate loaded from {args.shadow}; agreement "
           f"on /metrics (shm_shadow_*)")

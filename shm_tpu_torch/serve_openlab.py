@@ -29,12 +29,15 @@ take the feature matrix as ``features=``::
     rf = OpenLabScorer.from_artifacts("data/openlab", stage2="rf")
     out = rf.score_pair(Xc[idx], Xr[idx], features=X_feat[idx])
 
-Labels: 0 = Normal, 1 = Sensor Fault, 2 = Structural Fault. Not ported:
-``export_program`` (ROADMAP.md Queue 1 item 8) and ``mesh`` (item 9).
+Labels: 0 = Normal, 1 = Sensor Fault, 2 = Structural Fault.
+``export_program`` gives the CNN mode's plain path as a module for
+:mod:`shm_tpu_torch.export`. Not ported: ``mesh`` (ROADMAP.md Queue 1 item
+9).
 """
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
@@ -66,6 +69,58 @@ def standardize_clip_device(X: torch.Tensor, mu: torch.Tensor, sd: torch.Tensor,
     so the same bits)."""
     Z = torch.clamp((X - mu) / sd, -clip_z, clip_z)
     return torch.nan_to_num(Z, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def gate_inputs(X: torch.Tensor, ch: torch.Tensor, gate_mu: torch.Tensor,
+                gate_sd: torch.Tensor, clip_z: float) -> torch.Tensor:
+    """The gate's input of an (N, T, C, 2) request: the clean windows' gate
+    channels ``ch``, standardized and clipped, contiguous."""
+    return standardize_clip_device(X[..., 0].index_select(2, ch), gate_mu,
+                                   gate_sd, clip_z).contiguous()
+
+
+def cnn_stage2(X: torch.Tensor, mse: torch.Tensor, threshold: float, cnn,
+               cnn_mu: torch.Tensor, cnn_sd: torch.Tensor, clip_z: float,
+               stage2_threshold: float) -> HybridOutputs:
+    """The outputs of an (N, T, C, 2) request given its gate MSE: anomalous
+    where ``mse > threshold`` (strict); the CNN on the raw windows,
+    standardized and clipped, structural (2) where ``p_st >=
+    stage2_threshold``, else sensor (1), on the anomalous windows."""
+    anom = mse > threshold
+    Za = standardize_clip_device(X[..., 1], cnn_mu, cnn_sd, clip_z)
+    logits = cnn(Za[..., None])
+    p_st = torch.softmax(logits, dim=1)[:, 1]
+    one = torch.ones_like(anom, dtype=torch.int32)
+    y3 = torch.where(anom, torch.where(p_st >= stage2_threshold, one * 2, one),
+                     0 * one)
+    return HybridOutputs(mse=mse, anomalous=anom, y_pred=y3,
+                         p_struct=torch.where(anom, p_st, torch.zeros_like(p_st)),
+                         logits=logits)
+
+
+class _OpenLabProgram(torch.nn.Module):
+    """The CNN-mode openLAB hybrid on the plain path, every weight,
+    statistic and threshold held by the module: ``forward(X)`` of an
+    (N, T, C, 2) request returns ``(mse, anomalous, y_pred, p_struct,
+    logits)``."""
+
+    def __init__(self, scorer: "OpenLabScorer"):
+        super().__init__()
+        cpu = lambda m: copy.deepcopy(m).cpu().eval().requires_grad_(False)
+        self.vae, self.cnn = cpu(scorer.vae), cpu(scorer.cnn)
+        for name in ("gate_mu", "gate_sd", "cnn_mu", "cnn_sd"):
+            self.register_buffer(name, getattr(scorer, name).cpu().clone())
+        self.register_buffer("ch", scorer._ch.cpu().clone())
+        self.clip_z = scorer.clip_z
+        self.threshold = scorer.threshold
+        self.stage2_threshold = scorer.stage2_threshold
+
+    def forward(self, X: torch.Tensor):
+        Zg = gate_inputs(X, self.ch, self.gate_mu, self.gate_sd, self.clip_z)
+        recon, _, _ = self.vae(Zg)
+        mse = ((Zg - recon) ** 2).mean(dim=(1, 2))
+        return tuple(cnn_stage2(X, mse, self.threshold, self.cnn, self.cnn_mu,
+                                self.cnn_sd, self.clip_z, self.stage2_threshold))
 
 
 class OpenLabScorer:
@@ -158,7 +213,6 @@ class OpenLabScorer:
         return self.num_channels
 
     def _gate_mse(self, Zg: torch.Tensor) -> torch.Tensor:
-        Zg = Zg.contiguous()
         if self.use_fused_gate:
             mse, _ = self._gate(self._gate_weights, Zg,
                                 num_layers=self.vae.num_layers,
@@ -171,28 +225,17 @@ class OpenLabScorer:
     @torch.inference_mode()
     def _dispatch(self, Xb: torch.Tensor) -> HybridOutputs:
         X = Xb.to(self.device, non_blocking=True)
-        Xc, Xr = X[..., 0], X[..., 1]
-        Zg = standardize_clip_device(Xc.index_select(2, self._ch), self.gate_mu,
-                                     self.gate_sd, self.clip_z)
-        mse = self._gate_mse(Zg)
-        anom = mse > self.threshold                           # strict >
-        b = X.shape[0]
+        mse = self._gate_mse(gate_inputs(X, self._ch, self.gate_mu, self.gate_sd,
+                                         self.clip_z))
         if self.stage2 != "cnn":
+            b = X.shape[0]
             zeros = torch.zeros(b, device=self.device)
             return HybridOutputs(
-                mse=mse, anomalous=anom,
+                mse=mse, anomalous=mse > self.threshold,
                 y_pred=torch.zeros(b, dtype=torch.int32, device=self.device),
                 p_struct=zeros, logits=torch.zeros(b, 2, device=self.device))
-        Za = standardize_clip_device(Xr, self.cnn_mu, self.cnn_sd, self.clip_z)
-        logits = self.cnn(Za[..., None])
-        p_st = torch.softmax(logits, dim=1)[:, 1]
-        one = torch.ones_like(anom, dtype=torch.int32)
-        y3 = torch.where(anom, torch.where(p_st >= self.stage2_threshold,
-                                           one * 2, one), 0 * one)
-        return HybridOutputs(mse=mse, anomalous=anom, y_pred=y3,
-                             p_struct=torch.where(anom, p_st,
-                                                  torch.zeros_like(p_st)),
-                             logits=logits)
+        return cnn_stage2(X, mse, self.threshold, self.cnn, self.cnn_mu,
+                          self.cnn_sd, self.clip_z, self.stage2_threshold)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -312,10 +355,19 @@ class OpenLabScorer:
         ``X_raw.npy``'s layout)."""
         return self.score(stack_pair(Xc, Xr), features=features)
 
-    def export_program(self):
-        raise NotImplementedError(
-            "the .shmx export is not ported (ROADMAP.md Queue 1 item 8)")
+    def export_program(self) -> torch.nn.Module:
+        """A module ``f(X) -> (mse, anomalous, y_pred, p_struct, logits)``
+        on the CPU holding every weight, statistic and threshold: the
+        :mod:`shm_tpu_torch.export` entry point (CNN stage 2 only: the
+        classical modes need the caller's features). It runs the plain
+        gate whatever ``use_fused_gate`` says: the exported program is the
+        plain path (``export.py``'s docstring)."""
+        if self.stage2 != "cnn":
+            raise ValueError(
+                f"only stage2='cnn' exports (got {self.stage2!r}); a classical "
+                "stage 2 needs the caller's features at request time")
+        return _OpenLabProgram(self)
 
 
 __all__ = ["OpenLabScorer", "ML_STAGE2", "stack_pair",
-           "standardize_clip_device"]
+           "standardize_clip_device", "gate_inputs", "cnn_stage2"]

@@ -9,8 +9,9 @@ window with the committed trained artifacts (``tests/torch_openlab_roots.py``).
   float32 plain passes; measured 0) and the window counts exact;
 - ``validate-cnn`` on ``val`` and ``test``: the same JSON, matrices and
   tuned thresholds exact, AUROC within 1e-6;
-- ``plots`` draws both figures; ``extract``, ``all`` and ``--devices 2`` are
-  refused, naming the ROADMAP item.
+- ``plots`` draws both figures; ``extract`` and ``all`` with no catman
+  exports raise (``tests/test_torch_cli_openlab_extract.py`` runs them);
+  ``--devices 2`` is refused, naming the ROADMAP item.
 """
 
 import json
@@ -127,8 +128,12 @@ def test_plots_draw_both_figures(roots, tmp_path):
 
 @pytest.mark.parametrize("argv", [["extract"], ["all"]])
 def test_extract_and_all_are_not_ported(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        ol.main(argv + ["--root", str(tmp_path), "--device", "cpu"])
+    """Ported since: with no catman export in the raw directory both raise
+    before writing anything, as the JAX commands do."""
+    with pytest.raises(FileNotFoundError, match="No MD_"):
+        ol.main(argv + ["--root", str(tmp_path), "--raw-dir", str(tmp_path),
+                        "--device", "cpu"])
+    assert not (tmp_path / "extracted").exists()
 
 
 def test_devices_refused(tmp_path, capsys):

@@ -65,7 +65,9 @@ def test_port_files_exist():
                  "shm_tpu_torch/data/features.py",
                  "shm_tpu_torch/models/forest.py",
                  "shm_tpu_torch/models/svm.py",
-                 "shm_tpu_torch/models/ml.py"):
+                 "shm_tpu_torch/models/ml.py",
+                 "shm_tpu_torch/data/openlab.py", "shm_tpu_torch/export.py",
+                 "shm_tpu_torch/utils/profiling.py"):
         assert must in names
 
 
@@ -74,6 +76,16 @@ def test_port_files_exist():
 def test_no_jax_or_reference_package_import(path):
     tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
     bad = sorted({m for m in _imported_modules(tree) if _forbidden(m)})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_pandas_import(path):
+    """The card's machine has no pandas: the catman parser, the CSV tables
+    and every other host path of the port are numpy and the stdlib."""
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    bad = sorted({m for m in _imported_modules(tree) if m.split(".")[0] == "pandas"})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 

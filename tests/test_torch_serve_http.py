@@ -424,14 +424,16 @@ def test_parse_args_bucket_policy_and_early_validation():
 
 @pytest.mark.parametrize("argv,item", [
     (["--openlab", "data/openlab", "--shmx", "gate.shmx"], "mutually exclusive"),
-    (["--shmx", "gate.shmx"], "Queue 1 item 8"),
+    (["--shmx", "gate.shmx", "--devices", "2"], "Queue 1 item 9"),
     (["--devices", "2"], "Queue 1 item 9"),
-    (["--shadow", "gate.shmx"], "Queue 1 item 8"),
+    (["--shadow", "gate.shmx", "--devices", "2"], "Queue 1 item 9"),
 ])
 def test_parse_args_refuses_unported_paths(argv, item, capsys):
-    """The JAX daemon's .shmx and multi-device paths are parsed and refused
-    with the ROADMAP item that ports them (``--openlab`` is served, but not
-    beside ``--shmx``, as in the JAX daemon); --devices 1 is one card."""
+    """The JAX daemon's multi-device path is parsed and refused with the
+    ROADMAP item that ports it, beside ``--shmx`` and a ``.shmx`` shadow too
+    (both served; ``tests/test_torch_serve_http_shmx.py``); ``--openlab``
+    is served, but not beside ``--shmx``, as in the JAX daemon; --devices 1
+    is one card."""
     from shm_tpu_torch.serve_http import _parse_args
 
     with pytest.raises(SystemExit) as ei:

@@ -124,8 +124,9 @@ def test_validation_errors_and_paths_not_ported(scorer, subset):
         OpenLabScorer.from_artifacts(OL, stage2="nope", device="cpu")
     out = scorer.score(np.zeros((0, 200, 4, 2), np.float32))
     assert out["mse"].shape == (0,)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        scorer.export_program()
+    assert isinstance(scorer.export_program(), torch.nn.Module)
+    with pytest.raises(ValueError, match="only stage2='cnn'"):
+        ml.export_program()
     with pytest.raises(NotImplementedError, match="item 9"):
         OpenLabScorer.from_artifacts(OL, device="cpu", mesh=object())
 
