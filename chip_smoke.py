@@ -203,6 +203,30 @@ Phases (any failure exits non-zero before the final line):
    directly; (d) one ``trace`` of an exported ``score()``, whose Chrome
    trace file must be there. ``openlab_launches`` carries its counts as
    ``phase 15 <command>``.
+16. data parallelism (``shm_tpu_torch/parallel``). The machine has one
+   card: ``make_mesh()`` must be one device and ``make_mesh(count + 1)``
+   raise with "available", and every mesh path also runs on two shards of
+   the one card (``Mesh((cuda:0, cuda:0))``): (b) ``HybridScorer(mesh=)``
+   of each family at 5,440 windows and the CNN-mode ``OpenLabScorer(mesh=)``
+   at the 2,042 openLAB test windows, with ``make_mesh(1)`` and with the
+   two shards, against the scorer without a mesh (mse, gate and ``y_pred``
+   bit for bit, ``p_struct`` within ``P_STRUCT_ATOL``), the family's kernel
+   launched once per shard of each bucket and nothing else, windows/s by the
+   host clock; (c) ``train_vae`` at the 4DOF preset, full width, 2 epochs on
+   the two shards against one device (plain path both; histories within
+   ``MESH_TRAIN_RTOL``, the best epoch equal, parameters within
+   ``MESH_PARAM_ATOL``: the JAX test's bounds), ``use_kernel=True`` with a
+   mesh raising; (d) ``train_cnn`` of CNN4DOF on the two shards: a
+   500-window full-batch step (loss, BatchNorm statistics over the whole
+   batch) and 2 epochs; (e) a world of 1 over NCCL against the steps
+   without a process group (NCCL starts; a world of 1 runs no collective),
+   and two ``dist_worker`` ranks on the card over gloo with CUDA tensors
+   (NCCL refuses two ranks on one card) against one process with two
+   shards, the losses of two steps each, the second read after the first
+   step's gradients were summed across the ranks; (f) ``train-vae --devices 1`` bit for bit the
+   run without the flag, ``--devices 2`` exiting non-zero with "available",
+   the daemon's ``--devices 2`` refused so. The kernels line's
+   ``mesh_launches`` of rows 1, 6 and 7 holds (b)'s counts.
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -4678,6 +4702,307 @@ def phase_extract_export(W, y) -> dict:
             for k, c in launches.items()}
 
 
+MESH_TRAIN_EPOCHS = 2
+MESH_TRAIN_RTOL, MESH_PARAM_ATOL = 1e-5, 1e-6     # tests/test_parallel.py
+MESH_CNN_STEP_RTOL, MESH_CNN_EPOCHS_RTOL = 1e-5, 1e-2
+MESH_BN_RTOL, MESH_BN_ATOL = 1e-4, 1e-6
+MESH_DIST_RTOL = 1e-6                             # tests/test_distributed.py
+MESH_DIST_TIMEOUT = 180
+MESH_REPS = 3
+
+
+def mesh_scoring(mesh2, W, launches: dict, nums: dict) -> None:
+    """(b) the mesh scorers: every family's HybridScorer and the openLAB
+    CNN-mode OpenLabScorer with ``make_mesh(1)`` and with two shards on the
+    card, against the scorer without a mesh (mse, gate and y_pred bit for
+    bit, p_struct within P_STRUCT_ATOL); the family's kernel launched once
+    a shard of each bucket and nothing else; windows/s by the host clock."""
+    import torch
+
+    from shm_tpu_torch.cli import openlab as ol
+    from shm_tpu_torch.ops import fused_vae_gate
+    from shm_tpu_torch.parallel import make_mesh
+    from shm_tpu_torch.serve import HybridScorer
+    from shm_tpu_torch.serve_openlab import OpenLabScorer
+
+    src = ROOT / OPENLAB_ROOT
+    Xc, Xr, meta = ol._load_extracted(ol.Paths(str(src)))
+    test = ol._in_runs(meta, openlab_json(src, "extracted/run_split.json")
+                       ["test_runs"])
+    cases = [(cell, fam["kernel"], HybridScorer, ROOT / fam["root"],
+              np.resize(W, (N_BENCH,) + W.shape[1:]).astype(np.float32))
+             for cell, fam in FAMILIES.items()]
+    cases.append(("openlab", fused_vae_gate.__name__, OpenLabScorer, src,
+                  np.stack([Xc[test], Xr[test]], axis=-1)))
+    for cell, kernel, cls, root, X in cases:
+        ref = cls.from_artifacts(root).score(X)
+        for tag, mesh in (("make_mesh(1)", make_mesh(1)),
+                          ("2 shards on cuda:0", mesh2)):
+            sc = cls.from_artifacts(root, mesh=mesh)
+            check(sc.mesh is mesh and sc.device.type == "cuda",
+                  f"{cell} {tag}: not a mesh scorer on the card")
+            buckets = -(-len(X) // sc.max_batch)
+            what = f"{cell} {cls.__name__}(mesh={tag}).score of {len(X)}"
+            out, c = openlab_command(lambda: sc.score(X), what,
+                                     {kernel: buckets * len(mesh.devices)})
+            launches[f"{cell} {tag}"] = c
+            d = same_outputs(f"phase16 {what}", out, ref)
+            walls = []
+            for _ in range(MESH_REPS):
+                t0 = time.perf_counter()
+                sc.score(X)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            rate = len(X) / float(np.median(walls))
+            nums[f"{cell} {tag} windows/s"] = rate
+            print(f"[phase16] {what}: the scorer without a mesh's outputs "
+                  f"(max |p_struct diff| {d:.3e}); {kernel} {c[kernel]} "
+                  f"launches ({buckets} bucket(s) x {len(mesh.devices)} "
+                  f"shards); {rate:.1f} windows/s (host clock, median of "
+                  f"{MESH_REPS})")
+            del sc
+        torch.cuda.empty_cache()
+
+
+def mesh_training(mesh2, nums: dict) -> None:
+    """(c) train_vae at the 4DOF preset, full width, on the two shards
+    against one device (plain path both); the kernel refused under a mesh.
+    (d) train_cnn of CNN4DOF on the two shards: one full-batch step (loss,
+    BatchNorm statistics) and two epochs."""
+    import torch
+
+    from shm_tpu_torch.cli.stage4dof import build_fraction_windows_multi
+    from shm_tpu_torch.config import Stage4DofConfig, TrainConfig, replace
+    from shm_tpu_torch.data.windows import (
+        compute_mean_std_from_windows, normalize_windows,
+    )
+    from shm_tpu_torch.models.cnn import CNN4DOF
+    from shm_tpu_torch.models.vae import vae_from_config
+    from shm_tpu_torch.train import train_cnn, train_vae
+    from shm_tpu_torch.utils.io import load_json
+
+    cfg = Stage4DofConfig()
+    files = load_json(ROOT / "data/4dof/processed/run_splits.json")["normal"]["files"]
+    Wtr, Wva = build_fraction_windows_multi(files, (cfg.train_frac, cfg.val_frac), cfg)
+    Wtr_t = torch.from_numpy(Wtr).cuda()
+    mean, std = compute_mean_std_from_windows(Wtr_t)
+    Ztr = normalize_windows(Wtr_t, mean, std)
+    Zva = normalize_windows(torch.from_numpy(Wva).cuda(), mean, std)
+    tcfg = replace(cfg.vae_train, epochs=MESH_TRAIN_EPOCHS)
+    runs = {}
+    for tag, mesh in (("one device", None), ("2 shards", mesh2)):
+        t0 = time.perf_counter()
+        runs[tag] = train_vae(vae_from_config(cfg.vae), Ztr, Zva, tcfg,
+                              use_kernel=False, mesh=mesh)
+        torch.cuda.synchronize()
+        nums[f"train_vae {tag} s"] = time.perf_counter() - t0
+    ref, got = runs["one device"], runs["2 shards"]
+    hist = max(float(np.max(np.abs(np.array(got.history[k])
+                                   / np.array(ref.history[k]) - 1)))
+               for k in ("train_total", "val_total"))
+    par = max(float((got.params[k] - ref.params[k]).abs().max())
+              for k in ref.params)
+    print(f"[phase16] train_vae {len(Wtr)} / {len(Wva)} windows, H="
+          f"{cfg.vae.hidden_dim}, batch {tcfg.batch_size}, {tcfg.epochs} "
+          f"epochs, plain path: one device {nums['train_vae one device s']:.2f} "
+          f"s, 2 shards {nums['train_vae 2 shards s']:.2f} s; histories max "
+          f"rel diff {hist:.3e} (rtol {MESH_TRAIN_RTOL:g}), best epoch "
+          f"{got.best_epoch} / {ref.best_epoch}, params max |diff| {par:.3e} "
+          f"(atol {MESH_PARAM_ATOL:g})")
+    check(hist <= MESH_TRAIN_RTOL and got.best_epoch == ref.best_epoch
+          and par <= MESH_PARAM_ATOL, "train_vae on the mesh is not one device's")
+    try:
+        train_vae(vae_from_config(cfg.vae), Ztr[:256], Zva[:256],
+                  replace(tcfg, epochs=1), use_kernel=True, mesh=mesh2)
+        check(False, "train_vae(use_kernel=True, mesh=) did not raise")
+    except ValueError as e:
+        check("mesh" in str(e), f"train_vae kernel refusal: {e}")
+        print(f"[phase16] train_vae(use_kernel=True, mesh=) raises: {e}")
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(500, cfg.seq_len, cfg.num_features, 2)).astype(np.float32) * 0.3
+    y = rng.integers(0, 2, len(X)).astype(np.int32)
+    X[y == 1, :, :, 1] += 1.5
+    ccfg = replace(cfg.cnn_train, early_stop_patience=0, grad_clip=0.0)
+    for epochs, bs in ((1, len(X)), (2, ccfg.batch_size)):
+        c = replace(ccfg, epochs=epochs, batch_size=bs)
+        r = [train_cnn(CNN4DOF(dropout=cfg.cnn.dropout), X, y, X[:100],
+                       y[:100], c, mesh=m) for m in (None, mesh2)]
+        d = max(float(np.max(np.abs(np.array(r[1].history[k])
+                                    / np.array(r[0].history[k]) - 1)))
+                for k in ("train_loss", "val_loss")
+                if epochs == 2 or k == "train_loss")
+        tol = MESH_CNN_STEP_RTOL if epochs == 1 else MESH_CNN_EPOCHS_RTOL
+        msg = f"{epochs} epoch(s) at batch {bs}: losses max rel diff {d:.3e} (rtol {tol:g})"
+        check(d <= tol, f"train_cnn on the mesh, {msg}")
+        if epochs == 1:
+            bn = max(float(((r[1].variables[k] - r[0].variables[k]).abs()
+                            - MESH_BN_RTOL * r[0].variables[k].abs()).max())
+                     for k in r[0].variables if "running" in k)
+            msg += (f"; BatchNorm statistics within rtol {MESH_BN_RTOL:g} "
+                    f"atol {MESH_BN_ATOL:g} (worst excess {bn:.3e})")
+            check(bn <= MESH_BN_ATOL, f"train_cnn on the mesh, {msg}")
+        print(f"[phase16] train_cnn CNN4DOF on 2 shards, {msg}")
+
+
+def mesh_distributed(tmp: Path, nums: dict) -> None:
+    """(e) a world of 1 over NCCL against the steps without a process
+    group (a world of 1 sums nothing across processes, so this runs no
+    collective: it shows only that NCCL starts on the card); two processes
+    of one shard each on the card, over gloo with CUDA tensors (NCCL takes
+    one rank a card), against one process with two shards. Each run takes
+    two steps: the second step's loss is read on the parameters the first
+    step's gradients, summed across the processes, moved."""
+    import socket
+
+    import torch
+
+    from shm_tpu_torch.parallel import Mesh, make_mesh
+    from shm_tpu_torch.tools.dist_worker import step_losses
+
+    def port() -> int:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    def workers(n: int, *flags: str):
+        p = port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "shm_tpu_torch.tools.dist_worker", str(r),
+             str(n), str(p), *flags], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(n)]
+        outs = []
+        try:
+            for pr in procs:
+                out, err = pr.communicate(timeout=MESH_DIST_TIMEOUT)
+                check(pr.returncode == 0, f"dist_worker {flags} exited "
+                      f"{pr.returncode}: {err[-2000:]}")
+                outs.append(out)
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait(timeout=30)
+        lines = [[l for l in o.splitlines() if l.startswith(("LOSS", "BACKEND"))]
+                 for o in outs]
+        print(f"[phase16] dist_worker x{n} {' '.join(flags)}: {lines}")
+        got = [{l.split()[0]: float(l.split()[1]) for l in ls
+                if l.startswith("LOSS")} for ls in lines]
+        for g in got:
+            check(set(g) == {"LOSS", "LOSS2"},
+                  f"dist_worker printed {sorted(g)}, not LOSS and LOSS2")
+        return [(g["LOSS"], g["LOSS2"]) for g in got]
+
+    t0 = time.perf_counter()
+    single = step_losses(make_mesh(1))
+    two = step_losses(Mesh((torch.device("cuda", 0),) * 2))
+    [nccl] = workers(1)
+    check(nccl == tuple(float(f"{v:.9f}") for v in single),
+          f"a world of 1 over NCCL: {nccl} != {single}")
+    ranks = workers(2, "--backend", "gloo")
+    check(ranks[0] == ranks[1], f"the two ranks disagree: {ranks}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0], two))
+    check(rel <= MESH_DIST_RTOL, f"2 gloo ranks {ranks[0]} vs one process "
+          f"with 2 shards {two}: rel {rel:.3e}")
+    nums["distributed s"] = time.perf_counter() - t0
+    print(f"[phase16] world of 1 over NCCL (no collective runs in a world "
+          f"of 1): {nccl} = the steps without a process group; 2 gloo ranks "
+          f"on the card, losses of steps 1 and 2 {ranks[0]} vs one process "
+          f"with 2 shards {two} (worst rel {rel:.3e}, rtol "
+          f"{MESH_DIST_RTOL:g})")
+
+
+def mesh_commands(tmp: Path) -> None:
+    """(f) ``train-vae --devices 1`` is the run without the flag;
+    ``--devices 2`` on a one-card host exits non-zero with 'available', and
+    the daemon's ``--devices 2`` is refused so too."""
+    import shutil
+
+    from shm_tpu_torch.cli.stage4dof import main as cli_main
+    from shm_tpu_torch.serve_http import main as serve_main
+    from shm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    roots = []
+    for flags in ([], ["--devices", "1"]):
+        root = tmp / f"devices{len(flags)}"
+        (root / "processed").mkdir(parents=True)
+        shutil.copy(ROOT / "data/4dof/processed/run_splits.json",
+                    root / "processed")
+        cli_main(["train-vae", "--root", str(root), "--epochs", "2",
+                  "--no-plots"] + flags)
+        roots.append(root)
+    ck = [load_checkpoint(r / "models/temporal_vae.msgpack") for r in roots]
+    flat = lambda t: {k: v for k, v in _flatten_ckpt(t)}
+    a, b = flat(ck[0]), flat(ck[1])
+    check(a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a),
+          "train-vae --devices 1 differs from the run without the flag")
+    print("[phase16] train-vae --devices 1: the checkpoint of the run "
+          "without the flag, bit for bit")
+    r = subprocess.run(
+        [sys.executable, "-m", "shm_tpu_torch.cli.stage4dof", "train-vae",
+         "--root", str(roots[0]), "--epochs", "1", "--no-plots", "--devices",
+         "2"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(r.returncode != 0 and "available" in r.stderr,
+          f"train-vae --devices 2 on one card: rc {r.returncode}, "
+          f"{r.stderr[-500:]}")
+    print(f"[phase16] train-vae --devices 2 on one card: exit {r.returncode}, "
+          f"{r.stderr.strip().splitlines()[-1]}")
+    try:
+        serve_main(["--root", str(ROOT / "data/4dof"), "--devices", "2",
+                    "--port", "0", "--no-warmup"])
+        check(False, "the daemon with --devices 2 started on one card")
+    except ValueError as e:
+        check("available" in str(e), f"daemon --devices 2: {e}")
+        print(f"[phase16] the daemon with --devices 2 on one card: {e}")
+
+
+def _flatten_ckpt(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten_ckpt(v, f"{prefix}/{k}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def phase_mesh(W) -> dict:
+    """Phase 16: data parallelism (``shm_tpu_torch/parallel``) on the
+    card. The card's machine holds one card, so beside ``make_mesh(1)``
+    every mesh path also runs on two shards of the one card
+    (``Mesh((cuda:0, cuda:0))``): the split, the per-shard launches, the
+    gradient sums and the global BatchNorm on CUDA tensors. Returns the
+    launches of rows 1, 6 and 7 by step."""
+    import tempfile
+
+    import torch
+
+    from shm_tpu_torch.parallel import Mesh, make_mesh
+
+    print(f"[phase16] {gpu_line()}")
+    t_phase = time.perf_counter()
+    mesh1 = make_mesh()
+    check(mesh1.size == torch.cuda.device_count() == 1,
+          f"make_mesh() on the card: {mesh1}")
+    try:
+        make_mesh(torch.cuda.device_count() + 1)
+        check(False, "make_mesh(device_count + 1) did not raise")
+    except ValueError as e:
+        check("available" in str(e), f"make_mesh over-request: {e}")
+        print(f"[phase16] make_mesh() = {mesh1.devices}; make_mesh("
+              f"{torch.cuda.device_count() + 1}) raises: {e}")
+    mesh2 = Mesh((torch.device("cuda", 0),) * 2)
+    print(f"[phase16] the 2-shard mesh, built from the device list: "
+          f"{mesh2.devices} (two shards on the one card)")
+    launches, nums = {}, {}
+    mesh_scoring(mesh2, W, launches, nums)
+    mesh_training(mesh2, nums)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p16_") as tmp_s:
+        mesh_distributed(Path(tmp_s), nums)
+        mesh_commands(Path(tmp_s))
+    print(f"[phase16] phase 16 {time.perf_counter() - t_phase:.2f} s: {nums}")
+    return {k: {n: v for n, v in c.items() if n != "seconds"}
+            for k, c in launches.items()}
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[2])
@@ -4758,6 +5083,8 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         for cmd, c in phase_extract_export(W, y).items():
             openlab_launches[f"phase 15 {cmd}"] = c
+        torch.cuda.empty_cache()
+        mesh_launches = phase_mesh(W)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4765,7 +5092,8 @@ def main(argv) -> int:
     # `launches` is the scoring or training path's count, `chain_launches`
     # phases 10 and 12's by command, `serve_launches` phase 11's by step,
     # `stage1dof_launches` phase 13's by command (rows 1-7),
-    # `openlab_launches` phases 14 and 15's by command (rows 1, 6 and 7)
+    # `openlab_launches` phases 14 and 15's by command (rows 1, 6 and 7),
+    # `mesh_launches` phase 16's by scorer and mesh (rows 1, 6 and 7)
     kernels = gate_rows[:1] + lstm_rows + gate_rows[1:] + probe_rows
     for row in kernels:
         row["chain_launches"] = chain_launches.get(row["name"], {})
@@ -4776,6 +5104,8 @@ def main(argv) -> int:
         if row["name"] in OPENLAB_ROWS:
             row["openlab_launches"] = {cmd: c[row["name"]]
                                        for cmd, c in openlab_launches.items()}
+            row["mesh_launches"] = {step: c[row["name"]]
+                                    for step, c in mesh_launches.items()}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,10 @@ module names so each port module sits beside its counterpart:
     serve_http.py           the HTTP daemon (python -m shm_tpu_torch.serve_http)
     cli/stage4dof.py        artifact loaders
     evals/metrics.py        accuracy, confusion_matrix
+    parallel/               data parallelism: make_mesh (the devices of one
+                            process; a CPU mesh of n shards), the scorers'
+                            and trainers' mesh=, distributed.py (processes
+                            joined by torch.distributed), every --devices
 
 Entry points run on ``cuda`` unless the caller passes ``device=``; without a
 card and without ``device=`` they raise (see :func:`device.resolve_device`).

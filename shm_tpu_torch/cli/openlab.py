@@ -37,9 +37,10 @@ them, without pandas). Every command runs on the CUDA card unless given
   ``predict_proba`` instead. ``train-ml`` needs sklearn and joblib and
   writes each export beside its joblib.
 
-Not ported: ``--devices`` (ROADMAP.md Queue 1 item 9). ``--no-plots`` draws
-no figure (no JSON depends on one); ``--seed`` overrides the seed of
-``train-vae`` / ``train-cnn``.
+``--devices N`` trains ``train-vae`` / ``train-cnn`` data-parallel over the
+first N devices (``parallel.make_mesh_opt``). ``--no-plots`` draws no figure
+(no JSON depends on one); ``--seed`` overrides the seed of ``train-vae`` /
+``train-cnn``.
 """
 
 from __future__ import annotations
@@ -211,13 +212,16 @@ def cmd_featurize(paths: Paths, cfg: OpenLabConfig, include_freq: bool = True,
 # ---------------------------------------------------------------------------
 
 def cmd_train_vae(paths: Paths, cfg: OpenLabConfig, epochs: Optional[int] = None,
-                  seed: Optional[int] = None, device=None, plot: bool = True):
+                  seed: Optional[int] = None, device=None, plot: bool = True,
+                  devices: Optional[int] = None):
     """Train the gate VAE on the training runs' normal windows (gate
     channels, standardized by their own nan-aware statistics, clipped) and
     save the LAST parameters, as the reference does (it has no validation
     split). The curves' second series is the first tenth of the training
     set itself, so its keys are ``train_subset_*``. Plain autograd on every
-    device (the JAX command trains on XLA). Returns the result."""
+    device (the JAX command trains on XLA); ``devices`` > 1 data-parallel.
+    Returns the result."""
+    from shm_tpu_torch.parallel import make_mesh_opt
     from shm_tpu_torch.train import train_vae
 
     device = command_device(device)
@@ -240,8 +244,11 @@ def cmd_train_vae(paths: Paths, cfg: OpenLabConfig, epochs: Optional[int] = None
     if seed is not None:
         tcfg = replace(tcfg, seed=seed)
     model = vae_from_config(cfg.vae)
+    mesh = make_mesh_opt(devices, device=device)
+    if mesh is not None:
+        print(f"[INFO] data-parallel training over {mesh.size} devices")
     res = train_vae(model, Z, Z[: max(len(Z) // 10, 1)], tcfg, log_every=10,
-                    use_kernel=False, device=device)
+                    use_kernel=False, device=device, mesh=mesh)
     for k in ("total", "recon", "kl"):
         res.history[f"train_subset_{k}"] = res.history.pop(f"val_{k}")
     save_checkpoint({"params": vae_to_flax(res.last_params)},
@@ -379,11 +386,14 @@ def _tune_st_first(cfg: OpenLabConfig, p_st: np.ndarray, y: np.ndarray) -> Dict:
 
 def cmd_train_cnn(paths: Paths, cfg: OpenLabConfig, epochs: Optional[int] = None,
                   quality: bool = False, n_seeds: int = 3,
-                  seed: Optional[int] = None, device=None, plot: bool = True):
+                  seed: Optional[int] = None, device=None, plot: bool = True,
+                  devices: Optional[int] = None):
     """Train the SF-vs-ST CNN on the training runs' fault windows: focal
     loss with inverse-frequency alpha, weighted sampling, AdamW at batch
     128, the epoch chosen by the tuned VAL ST-F2. ``quality``: ``n_seeds``
-    seeds with patience 40, the best kept. Returns the result."""
+    seeds with patience 40, the best kept. ``devices`` > 1 trains
+    data-parallel. Returns the result."""
+    from shm_tpu_torch.parallel import make_mesh_opt
     from shm_tpu_torch.train import train_cnn
     from shm_tpu_torch.train.cnn import predict_probs
 
@@ -426,8 +436,12 @@ def cmd_train_cnn(paths: Paths, cfg: OpenLabConfig, epochs: Optional[int] = None
     tcfg = replace(tcfg, batch_size=128)
     if seed is not None:
         tcfg = replace(tcfg, seed=seed)
+    mesh = make_mesh_opt(devices, device=device)
+    if mesh is not None:
+        print(f"[INFO] data-parallel training over {mesh.size} devices")
     fit = dict(loss="focal", focal_gamma=cfg.focal_gamma, class_alpha=alpha,
-               sample_weights=weights, val_metric_fn=st_f2_metric, device=device)
+               sample_weights=weights, val_metric_fn=st_f2_metric, device=device,
+               mesh=mesh)
     if quality:
         tcfg = replace(tcfg, early_stop_patience=40)
         results = []
@@ -823,7 +837,9 @@ def main(argv=None) -> None:
                          "ensemble=False); 'svc' = the reference's "
                          "SVC(probability=True)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="not ported for N > 1 (one card)")
+                    help="train-vae / train-cnn: data-parallel training over "
+                         "the first N devices (a CPU mesh of N shards with "
+                         "--device cpu)")
     ap.add_argument("--cell", choices=["lstm", "min_gru", "attention"],
                     default="lstm",
                     help="train-vae: the VAE family (recorded in the "
@@ -836,9 +852,6 @@ def main(argv=None) -> None:
                     help="torch device (default: the CUDA card; pass cpu to "
                          "run the plain path on the CPU)")
     args = ap.parse_args(argv)
-    if args.devices is not None and args.devices > 1:
-        ap.error("--devices is not ported (ROADMAP.md Queue 1 item 9): the "
-                 "port trains on one card")
 
     cfg = OpenLabConfig()
     if args.cell != "lstm":
@@ -850,12 +863,14 @@ def main(argv=None) -> None:
         "make-splits": lambda: cmd_make_splits(paths, cfg),
         "featurize": lambda: cmd_featurize(paths, cfg),
         "train-vae": lambda: cmd_train_vae(paths, cfg, args.epochs,
-                                           seed=args.seed, device=dev, plot=plot),
+                                           seed=args.seed, device=dev, plot=plot,
+                                           devices=args.devices),
         "validate-vae": lambda: cmd_validate_vae(paths, cfg, device=dev, plot=plot),
         "train-cnn": lambda: cmd_train_cnn(paths, cfg, args.epochs,
                                            quality=args.quality,
                                            n_seeds=args.seeds, seed=args.seed,
-                                           device=dev, plot=plot),
+                                           device=dev, plot=plot,
+                                           devices=args.devices),
         "validate-cnn": lambda: cmd_validate_cnn(paths, cfg, args.split or "val",
                                                  device=dev, plot=plot),
         "train-ml": lambda: cmd_train_ml(paths, cfg, args.svm_probability),

@@ -161,10 +161,14 @@ def train_windows(paths: Paths, cfg: Stage1DofConfig, device):
 
 
 def cmd_train_vae(paths: Paths, cfg: Stage1DofConfig,
-                  epochs: Optional[int] = None, plot: bool = True, device=None):
+                  epochs: Optional[int] = None, plot: bool = True, device=None,
+                  devices: Optional[int] = None):
     """Train the VAE on the windows of the seen series' first half, with the
     first tenth of them as the validation set of the history, and save the
-    last epoch's parameters. Returns the :class:`VAETrainResult`."""
+    last epoch's parameters. ``devices`` > 1 trains data-parallel
+    (``parallel.make_mesh_opt``) on the plain autograd path. Returns the
+    :class:`VAETrainResult`."""
+    from shm_tpu_torch.parallel import make_mesh_opt
     from shm_tpu_torch.train import train_vae
 
     device = command_device(device)
@@ -178,8 +182,11 @@ def cmd_train_vae(paths: Paths, cfg: Stage1DofConfig,
 
     tcfg = cfg.train if epochs is None else replace(cfg.train, epochs=epochs)
     model = vae_from_config(cfg.vae)
+    mesh = make_mesh_opt(devices, device=device)
+    if mesh is not None:
+        print(f"[INFO] data-parallel training over {mesh.size} devices")
     res = train_vae(model, W, W[: max(len(W) // 10, 1)], tcfg, log_every=10,
-                    use_kernel=None, device=device)
+                    use_kernel=None, device=device, mesh=mesh)
     save_checkpoint({"params": vae_to_flax(res.last_params)},
                     paths.models / "temporal_vae.msgpack")
     h = res.history
@@ -336,6 +343,9 @@ def main(argv=None) -> None:
                          "attention are opt-in presets, not the "
                          "reference-parity model, and train on the plain "
                          "autograd path")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="train-vae: data-parallel training over the first N "
+                         "devices (a CPU mesh of N shards with --device cpu)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; pass cpu to "
                          "run the plain path on the CPU)")
@@ -349,7 +359,7 @@ def main(argv=None) -> None:
         "gen-seen": lambda: cmd_gen_seen(paths, cfg, plot, device=dev),
         "gen-unseen": lambda: cmd_gen_unseen(paths, cfg, plot, device=dev),
         "train-vae": lambda: cmd_train_vae(paths, cfg, args.epochs, plot,
-                                           device=dev),
+                                           device=dev, devices=args.devices),
         "test-seen": lambda: cmd_test_seen(paths, cfg, plot, device=dev),
         "test-unseen": lambda: cmd_test_unseen(paths, cfg, plot, device=dev),
         "compare-rmse": lambda: cmd_compare_rmse(paths, cfg, plot),

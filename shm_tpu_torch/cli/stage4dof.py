@@ -320,13 +320,16 @@ def build_fraction_windows(files: List[str], frac,
 def cmd_train_vae(paths: Paths, cfg: Stage4DofConfig,
                   epochs: Optional[int] = None, seed: Optional[int] = None,
                   kernel: Optional[bool] = None, device=None,
-                  plot: bool = True):
+                  plot: bool = True, devices: Optional[int] = None):
     """Train the gate VAE on the normal runs' train fraction (statistics from
     that fraction only), select on the validation fraction, write the
     artifacts (and, with ``plot``, the loss curves). The family is
     ``cfg.vae.cell``, written into the meta; an LSTM trains on the card
     through the training kernels (``kernel``), the other cells on the plain
-    autograd path. Returns the :class:`VAETrainResult`."""
+    autograd path. ``devices`` > 1 trains data-parallel over that many
+    devices of ``device``'s type (``parallel.make_mesh_opt``), on the plain
+    path. Returns the :class:`VAETrainResult`."""
+    from shm_tpu_torch.parallel import make_mesh_opt
     from shm_tpu_torch.train import train_vae
 
     device = command_device(device)
@@ -352,8 +355,11 @@ def cmd_train_vae(paths: Paths, cfg: Stage4DofConfig,
     if seed is not None:
         tcfg = replace(tcfg, seed=seed)
     vae = vae_from_config(cfg.vae)
+    mesh = make_mesh_opt(devices, device=device)
+    if mesh is not None:
+        print(f"[INFO] data-parallel training over {mesh.size} devices")
     res = train_vae(vae, Ztr, Zva, tcfg, log_every=1, use_kernel=kernel,
-                    device=device)
+                    device=device, mesh=mesh)
 
     save_checkpoint({"params": vae_to_flax(res.params)},
                     paths.models / "temporal_vae.msgpack")
@@ -546,11 +552,14 @@ def cnn_train_sets(paths: Paths, cfg: Stage4DofConfig, device) -> Dict:
 
 def cmd_train_cnn(paths: Paths, cfg: Stage4DofConfig,
                   epochs: Optional[int] = None, seed: Optional[int] = None,
-                  plot: bool = True, device=None):
+                  plot: bool = True, device=None,
+                  devices: Optional[int] = None):
     """Train the attribution CNN (sensor 0 / structural 1) on the fault
     runs' train windows, select on their val windows, with the frozen VAE's
     residual as the second channel; write ``models/cnn.msgpack`` and the
-    meta. Returns the :class:`CNNTrainResult`."""
+    meta. ``devices`` > 1 trains data-parallel (BatchNorm over the whole
+    batch). Returns the :class:`CNNTrainResult`."""
+    from shm_tpu_torch.parallel import make_mesh_opt
     from shm_tpu_torch.train import train_cnn
 
     device = command_device(device)
@@ -561,8 +570,11 @@ def cmd_train_cnn(paths: Paths, cfg: Stage4DofConfig,
         tcfg = replace(tcfg, seed=seed)
     cnn = CNN4DOF(num_classes=cfg.cnn.num_classes, seq_len=cfg.seq_len,
                   num_features=cfg.num_features, dropout=cfg.cnn.dropout)
+    mesh = make_mesh_opt(devices, device=device)
+    if mesh is not None:
+        print(f"[INFO] data-parallel training over {mesh.size} devices")
     res = train_cnn(cnn, *sets["train"], *sets["val"], tcfg, log_every=1,
-                    device=device)
+                    device=device, mesh=mesh)
 
     save_checkpoint(cnn4dof_to_flax(res.variables, cfg.seq_len, cfg.num_features),
                     paths.models / "cnn.msgpack")
@@ -764,6 +776,13 @@ def main(argv=None) -> None:
                          "kernels (default: auto, on for an LSTM on CUDA)")
     ap.add_argument("--no-kernel", dest="kernel", action="store_false",
                     help="train-vae: force the plain autograd path")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="train-vae / train-cnn: data-parallel training over "
+                         "the first N devices (a CPU mesh of N shards with "
+                         "--device cpu); the batch is split, the gradients "
+                         "summed, the trajectory one device's up to the "
+                         "order of float sums; train-vae then runs the plain "
+                         "autograd path")
     ap.add_argument("--cell", choices=["lstm", "min_gru", "attention"],
                     default="lstm",
                     help="train-vae: the VAE family (recorded in its meta; "
@@ -790,11 +809,13 @@ def main(argv=None) -> None:
         "make-splits": lambda: cmd_make_splits(paths, cfg),
         "train-vae": lambda: cmd_train_vae(paths, cfg, args.epochs,
                                            seed=args.seed, kernel=args.kernel,
-                                           device=dev, plot=plot),
+                                           device=dev, plot=plot,
+                                           devices=args.devices),
         "threshold": lambda: cmd_threshold(paths, cfg, args.sample, plot=plot,
                                            device=dev),
         "train-cnn": lambda: cmd_train_cnn(paths, cfg, args.epochs,
-                                           seed=args.seed, plot=plot, device=dev),
+                                           seed=args.seed, plot=plot, device=dev,
+                                           devices=args.devices),
         "test-pipeline": lambda: cmd_test_pipeline(paths, cfg, plot=plot,
                                                    device=dev),
     }

@@ -26,8 +26,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from shm_tpu_torch.models.lstm import MaskArg
-
 HEAD_DIM = 32       # head size at every preset width (128 -> 4 heads, 32 -> 1)
 STACK_LN_EPS = 1e-6  # flax LayerNorm default: the stack's internal norms
 
@@ -74,7 +72,8 @@ class TransformerBlock(nn.Module):
     (``broadcast_dropout=True``), the attention weights' mask is one
     [1, 1, T, T] draw a call, shared by every window and head; the two
     residual masks are drawn at full [B, T, H] shape. The draws come from
-    ``generator`` in that order."""
+    ``generator`` in that order, or are given (``masks``, as
+    :meth:`draw_dropout_masks` draws them)."""
 
     def __init__(self, hidden_dim: int, num_heads: int, dropout: float = 0.0,
                  mlp_ratio: int = 4):
@@ -93,18 +92,33 @@ class TransformerBlock(nn.Module):
         self.mlp_in = nn.Linear(H, mlp_ratio * H)
         self.mlp_out = nn.Linear(mlp_ratio * H, H)
 
-    def _drop(self, x: torch.Tensor, generator, shape=None) -> torch.Tensor:
-        """Inverted dropout of ``x`` with one mask of ``shape`` (default
-        ``x.shape``), broadcast over the rest."""
+    def draw_dropout_masks(self, B: int, T: int, generator, device):
+        """This block's keep masks for a [B, T, H] input, drawn as its
+        forward draws them: the attention weights' [1, 1, T, T], then the
+        two residual masks [B, T, H] (boolean)."""
+        keep = 1.0 - self.dropout
+        H = self.out.out_features
+        return tuple(torch.rand(shape, generator=generator, device=device)
+                     < keep for shape in ((1, 1, T, T), (B, T, H), (B, T, H)))
+
+    def _drop(self, x: torch.Tensor, generator, shape=None,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Inverted dropout of ``x`` with one keep mask of ``shape`` (default
+        ``x.shape``; drawn from ``generator`` unless given), broadcast over
+        the rest."""
         if not self.training or self.dropout <= 0.0:
             return x
         keep = 1.0 - self.dropout
-        mask = torch.rand(x.shape if shape is None else shape,
-                          generator=generator, device=x.device) < keep
+        if mask is None:
+            mask = torch.rand(x.shape if shape is None else shape,
+                              generator=generator, device=x.device) < keep
         return x * (mask.to(x.dtype) / keep)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[Tuple[torch.Tensor, ...]] = None
+                ) -> torch.Tensor:
+        m_w, m_a, m_m = masks if masks is not None else (None, None, None)
         B, T, H = x.shape
         heads = self.num_heads
         hd = H // heads
@@ -113,12 +127,12 @@ class TransformerBlock(nn.Module):
         q = split(self.query(h)) / math.sqrt(hd)
         k, v = split(self.key(h)), split(self.value(h))
         w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)          # [B,h,T,T]
-        w = self._drop(w, generator, (1, 1, T, T))
+        w = self._drop(w, generator, (1, 1, T, T), m_w)
         h = self.out((w @ v).transpose(1, 2).reshape(B, T, H))
-        x = x + self._drop(h, generator)
+        x = x + self._drop(h, generator, mask=m_a)
         h = self.mlp_out(F.gelu(self.mlp_in(self.mlp_norm(x)),
                                 approximate="tanh"))
-        return x + self._drop(h, generator)
+        return x + self._drop(h, generator, mask=m_m)
 
 
 class AttentionStack(nn.Module):
@@ -161,20 +175,37 @@ class AttentionStack(nn.Module):
                     m.weight.fill_(1.0)
                     m.bias.zero_()
 
+    def draw_dropout_masks(self, B: int, T: int, generator, device) -> list:
+        """The stack's keep masks for a batch of B windows of T steps, one
+        (attention weights, residual, residual) triple a block
+        (:meth:`TransformerBlock.draw_dropout_masks`), drawn in the order
+        its training forward draws them from ``generator``: passed back as
+        ``dropout_masks``, the forward runs with the same masks (a
+        data-parallel trainer slices the residual ones by shard)."""
+        return [block.draw_dropout_masks(B, T, generator, device)
+                for block in self.layers]
+
     def forward(self, x: torch.Tensor, broadcast_steps: Optional[int] = None,
-                dropout_masks: MaskArg = None,
+                dropout_masks: Optional[list] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if dropout_masks is not None:
-            raise ValueError("the attention stack draws its own dropout "
-                             "masks; explicit masks are for recurrent stacks")
+        """(out, summary). ``dropout_masks``: one keep-mask triple a block
+        (:meth:`draw_dropout_masks`), else training mode draws them from
+        ``generator``."""
+        if dropout_masks is not None and (
+                not isinstance(dropout_masks, (list, tuple))
+                or len(dropout_masks) != len(self.layers)):
+            raise ValueError(f"the attention stack takes one keep-mask "
+                             f"triple a block ({len(self.layers)}, as "
+                             "draw_dropout_masks draws them)")
         tok = self.in_proj(x)
         T = x.shape[1] if broadcast_steps is None else broadcast_steps
         if broadcast_steps is not None:
             tok = tok[:, None, :].expand(-1, T, -1)
         out = tok + sinusoidal_positions(T, self.hidden_dim, x.device)[None]
-        for block in self.layers:
-            out = block(out, generator)
+        for i, block in enumerate(self.layers):
+            out = block(out, generator,
+                        None if dropout_masks is None else dropout_masks[i])
         out = self.final_norm(out)
         return out, out.mean(dim=1)
 

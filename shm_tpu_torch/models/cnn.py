@@ -50,6 +50,10 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
 
 
 class CNN4DOF(nn.Module):
+    #: the (conv, BatchNorm) stages, each then ReLU and a 2x2 max pool:
+    #: (B,16,50,6), then (B,32,25,3); :func:`forward_shards` walks them too
+    STAGES = (("conv1", "bn1"), ("conv2", "bn2"))
+
     def __init__(self, num_classes: int = 2, seq_len: int = 100,
                  num_features: int = 12, dropout: float = 0.5):
         super().__init__()
@@ -87,8 +91,15 @@ class CNN4DOF(nn.Module):
         generator); ignored in eval mode.
         """
         x = x.permute(0, 3, 1, 2)                                  # NCHW
-        x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 2)       # (B,16,50,6)
-        x = F.max_pool2d(F.relu(self.bn2(self.conv2(x))), 2)       # (B,32,25,3)
+        for conv, bn in self.STAGES:
+            x = F.max_pool2d(F.relu(getattr(self, bn)(getattr(self, conv)(x))),
+                             2)
+        return self.head(x, dropout_mask)
+
+    def head(self, x: torch.Tensor,
+             dropout_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """fc1 -> ReLU -> dropout -> fc2 on the pooled (B, 32, 25, 3)
+        features."""
         x = F.relu(self.fc1(x.flatten(1)))
         if self.training and self.dropout > 0.0:
             keep = 1.0 - self.dropout
@@ -96,6 +107,48 @@ class CNN4DOF(nn.Module):
                 dropout_mask = torch.rand_like(x) < keep
             x = torch.where(dropout_mask, x / keep, torch.zeros_like(x))
         return self.fc2(x)
+
+
+def batch_norm_shards(bns, hs):
+    """Training-mode BatchNorm of one batch split into shards ``hs`` (NCHW,
+    in order, one :class:`FlaxBatchNorm2d` replica each): the mean and the
+    biased variance over the WHOLE batch, summed on the first shard's
+    device and sent back to each shard (autograd carries the gradient back
+    the same way), and the running statistics of ``bns[0]`` moved once."""
+    dev0 = hs[0].device
+    n = sum(h.numel() // h.shape[1] for h in hs)
+    mean = torch.stack([h.sum(dim=(0, 2, 3)).to(dev0) for h in hs]).sum(0) / n
+    cs = [h - mean.to(h.device)[None, :, None, None] for h in hs]
+    var = torch.stack([(c * c).sum(dim=(0, 2, 3)).to(dev0)
+                       for c in cs]).sum(0) / n
+    bn = bns[0]
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * var)
+        bn.num_batches_tracked.add_(1)
+    col = lambda t: t[None, :, None, None]
+    return [c * col(torch.rsqrt(var.to(c.device) + b.eps) * b.weight)
+            + col(b.bias) for c, b in zip(cs, bns)]
+
+
+def forward_shards(models, xs, dropout_masks=None):
+    """The forward of one batch split over model replicas (shard ``i`` of
+    ``xs`` through ``models[i]``, on its device), as one model would run the
+    whole batch. For ``CNN4DOF`` in training mode the shards meet at each
+    BatchNorm in lock step (:func:`batch_norm_shards`: the whole batch's
+    statistics); otherwise each shard runs alone (GroupNorm and eval mode
+    need nothing from the others). ``dropout_masks``: fc1's keep mask of
+    each shard. Returns each shard's logits."""
+    masks = dropout_masks or [None] * len(xs)
+    if not (isinstance(models[0], CNN4DOF) and models[0].training):
+        return [m(x, dropout_mask=k) for m, x, k in zip(models, xs, masks)]
+    hs = [x.permute(0, 3, 1, 2) for x in xs]
+    for conv, bn in CNN4DOF.STAGES:
+        hs = batch_norm_shards([getattr(m, bn) for m in models],
+                               [getattr(m, conv)(h) for m, h in zip(models, hs)])
+        hs = [F.max_pool2d(F.relu(h), 2) for h in hs]
+    return [m.head(h, k) for m, h, k in zip(models, hs, masks)]
 
 
 def stack_vae_residual_nhwc(Z: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:
@@ -183,4 +236,5 @@ class CNNOpenLab(nn.Module):
         return self.fc2(x)
 
 
-__all__ = ["CNN4DOF", "CNNOpenLab", "FlaxBatchNorm2d", "stack_vae_residual_nhwc"]
+__all__ = ["CNN4DOF", "CNNOpenLab", "FlaxBatchNorm2d", "batch_norm_shards",
+           "forward_shards", "stack_vae_residual_nhwc"]

@@ -125,19 +125,23 @@ def vae_from_config(cfg: VAEConfig) -> TemporalVAE:
 
 def vae_loss(recon: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,
              logvar: torch.Tensor, kl_weight,
-             mask: Optional[torch.Tensor] = None
+             mask: Optional[torch.Tensor] = None,
+             count: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(total, recon_loss, kl): total = MSE(recon, x) + w * KL, mean-reduced.
 
     ``mask``: per-window validity [B] of a padded batch; the masked means
-    equal the unpadded reduction.
+    equal the unpadded reduction. ``count`` (with ``mask``): the number of
+    valid windows the means divide by instead of ``mask.sum()``; a shard of
+    a data-parallel batch passes the whole batch's, so that the shards'
+    losses sum to the batch's.
     """
     if mask is None:
         recon_loss = torch.mean((recon - x) ** 2)
         kl = -0.5 * torch.mean(1.0 + logvar - mu ** 2 - torch.exp(logvar))
     else:
         m = mask.to(recon.dtype)
-        n = m.sum()
+        n = m.sum() if count is None else count
         denom_r = torch.clamp(n * (x.shape[1] * x.shape[2]), min=1.0)
         recon_loss = torch.sum(((recon - x) ** 2) * m[:, None, None]) / denom_r
         denom_k = torch.clamp(n * mu.shape[1], min=1.0)

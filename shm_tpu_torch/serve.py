@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from shm_tpu_torch.data.windows import make_windows
-from shm_tpu_torch.device import resolve_device, set_full_f32_precision
+from shm_tpu_torch.device import set_full_f32_precision
 from shm_tpu_torch.pipeline import _KEYS, concat_hybrid_outputs, make_hybrid_fn
 
 
@@ -81,6 +81,19 @@ def score_bucketed(fn, W: np.ndarray, min_bucket: int, max_batch: int,
     return concat_hybrid_outputs(outs)
 
 
+def mesh_scorer_device(mesh, device, min_bucket: int = 0,
+                       max_batch: int = 0) -> torch.device:
+    """A scorer's device (:func:`shm_tpu_torch.parallel.mesh.mesh_device`);
+    with a mesh, the buckets given must be multiples of its size."""
+    from shm_tpu_torch.parallel.mesh import mesh_device
+
+    if mesh is not None and (min_bucket % mesh.size or max_batch % mesh.size):
+        raise ValueError(
+            f"min_bucket/max_batch must be multiples of the mesh size "
+            f"({mesh.size}); got {min_bucket}/{max_batch}")
+    return mesh_device(mesh, device)
+
+
 class HybridScorer:
     """Artifact-loaded, bucket-batched scorer for the hybrid pipeline.
 
@@ -89,6 +102,12 @@ class HybridScorer:
     :func:`shm_tpu_torch.ops.auto_fused_gate`: on CUDA the fused kernel of
     the VAE's cell, which raises for a cell or a shape it does not take; on
     the CPU the plain modules.
+
+    ``mesh``: a :class:`shm_tpu_torch.parallel.Mesh` (one process) splits
+    every bucket over its devices, each scoring its shard with its own
+    replica of the models (``parallel.make_dp_hybrid_shardmap``: on the card
+    the gate kernel once a shard); ``min_bucket`` and ``max_batch`` must be
+    multiples of its size. The scorer's ``device`` is then the mesh's first.
 
     The scorer may be called from several host threads at once (the HTTP
     daemon's handlers, its batcher and its shadow worker): every call
@@ -103,17 +122,14 @@ class HybridScorer:
     # against the rate, and POST /recalibrate defaults to the percentile
     expected_anomaly_rate: Optional[float] = None
     calibration_percentile: Optional[float] = None
-    # one device: the port has no multi-device scorer (ROADMAP Queue 1 item
-    # 9); the attribute is the surface the daemon reads
-    mesh = None
 
     def __init__(self, vae, cnn, mean, std, threshold: float, *,
                  use_fused_vae: Optional[bool] = None,
                  min_bucket: int = 256, max_batch: int = 8192,
-                 seq_len: Optional[int] = None, device=None):
+                 seq_len: Optional[int] = None, device=None, mesh=None):
         if min_bucket < 1 or max_batch < min_bucket:
             raise ValueError("need 1 <= min_bucket <= max_batch")
-        self.device = resolve_device(device)
+        self.device = mesh_scorer_device(mesh, device, min_bucket, max_batch)
         if self.device.type == "cuda":
             set_full_f32_precision()
         if use_fused_vae is None:
@@ -121,10 +137,17 @@ class HybridScorer:
 
             use_fused_vae = auto_fused_gate(self.device)
         self.use_fused_vae = bool(use_fused_vae)
+        self.mesh = mesh
         self.vae = vae.to(self.device).eval()
         self.cnn = cnn.to(self.device).eval()
-        self._fn = make_hybrid_fn(self.vae, self.cnn,
-                                  use_fused_vae=self.use_fused_vae)
+        if mesh is None:
+            self._fn = make_hybrid_fn(self.vae, self.cnn,
+                                      use_fused_vae=self.use_fused_vae)
+        else:
+            from shm_tpu_torch.parallel.mesh import make_dp_hybrid_shardmap
+
+            self._fn = make_dp_hybrid_shardmap(
+                self.vae, self.cnn, mesh, use_fused_vae=self.use_fused_vae)
         as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                            device=self.device)
         self.mean = as_dev(mean)
@@ -152,7 +175,7 @@ class HybridScorer:
         from shm_tpu_torch.utils.checkpoint import load_checkpoint
         from shm_tpu_torch.utils.io import load_json
 
-        device = resolve_device(device)
+        device = mesh_scorer_device(kw.get("mesh"), device)
         cfg = cfg or Stage4DofConfig()
         paths = Paths(str(root))
         mean, std = _load_stats(paths)
@@ -203,7 +226,14 @@ class HybridScorer:
         """Run :meth:`score_series`'s path once for every bucket at
         ``stride`` (a zero series of exactly that many windows), so a first
         request at that stride builds no kernel and allocates no new
-        device memory."""
+        device memory. A mesh scorer has no series path to warm
+        (:meth:`score_series` windows on the host and calls :meth:`score`):
+        it raises; call :meth:`warmup`."""
+        if self.mesh is not None:
+            raise ValueError(
+                "mesh scorers window on the host and dispatch through the "
+                "windows path (score_series goes through score()); there is "
+                "no series path to warm: call warmup() instead")
         if self.seq_len is None:
             raise ValueError("series scoring needs seq_len (see warmup())")
         for b in (batch_sizes or self.buckets()):
@@ -220,7 +250,8 @@ class HybridScorer:
     def score_series(self, x: np.ndarray, stride: int = 1) -> Dict[str, np.ndarray]:
         """Score every sliding window of a raw (T_total, D) series; the same
         outputs as ``score(make_windows(x))``, window for window. Windows are
-        cut on the device from the uploaded series."""
+        cut on the device from the uploaded series; with a mesh they are cut
+        on the host and scored by :meth:`score`."""
         x = np.asarray(x, np.float32)
         if x.ndim != 2:
             raise ValueError(f"expected a (T_total, D) series, got {x.shape}")
@@ -233,6 +264,8 @@ class HybridScorer:
         n = (x.shape[0] - T) // stride + 1 if x.shape[0] >= T else 0
         if n <= 0:
             return {k: np.zeros((0,), np.float32) for k in _KEYS}
+        if self.mesh is not None:
+            return self.score(make_windows(host_tensor(x), T, stride).numpy())
         xs = host_tensor(x).to(self.device)
         outs, i = [], 0
         while i < n:
@@ -353,4 +386,4 @@ class StreamScorer:
 
 
 __all__ = ["HybridScorer", "StreamScorer", "bucket_size", "bucket_series",
-           "host_tensor", "score_bucketed"]
+           "host_tensor", "mesh_scorer_device", "score_bucketed"]

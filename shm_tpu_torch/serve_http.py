@@ -27,6 +27,10 @@ Endpoints:
 - ``--shmx PATH`` serves a standalone export (:mod:`shm_tpu_torch.export`,
   the plain path): ``/info`` reports ``exported: true``, and
   ``/recalibrate`` answers 501 (the threshold is part of the program).
+- ``--devices N`` (N > 1) splits every request's buckets over the first N
+  devices of ``--device``'s type (``parallel.make_mesh``; a CPU mesh of N
+  shards with ``--device cpu``); ``/info`` reports ``mesh_devices: N``.
+  Refused beside ``--shmx`` (an export is one device's program).
 - Shadow mode (``--shadow ROOT`` or a ``.shmx``): a candidate scorer scores every served
   request again, asynchronously; responses always come from the primary,
   and the agreement accumulates as ``shm_shadow_*`` metrics
@@ -360,7 +364,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "threshold": float(s.threshold),
                 "use_fused_vae": bool(getattr(s, "use_fused_vae", False)),
                 "exported": bool(getattr(s, "exported", False)),
-                "mesh_devices": None,
+                "mesh_devices": (None if getattr(s, "mesh", None) is None
+                                 else int(s.mesh.size)),
                 "device": str(getattr(s, "device", None)),
                 "labels": {str(i): lbl for i, lbl in enumerate(_CLASS_LABELS)},
                 "admin": bool(self.admin),
@@ -935,13 +940,6 @@ def make_server(scorer, host: str = "127.0.0.1", port: int = 8787,
     return srv
 
 
-# the daemon's flags whose paths the port does not have yet, and the
-# ROADMAP.md item that ports each
-_NOT_PORTED = {
-    "--devices": "Queue 1 item 9, parallel/",
-}
-
-
 def _parse_args(argv):
     """Parse and check every flag before any artifact or device work, so a
     mistyped flag fails at once. Returns ``(args, series_strides)``."""
@@ -976,7 +974,7 @@ def _parse_args(argv):
                     help="largest device batch (default 8192; for --shmx "
                          "the artifact's recorded policy)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="not ported yet for N > 1 (one card)")
+                    help="shard each request over the first N local devices")
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the bucket warmup (the first requests build "
                          "the kernel and allocate)")
@@ -1022,11 +1020,6 @@ def _parse_args(argv):
 
     if args.openlab is not None and args.shmx is not None:
         ap.error("--openlab and --shmx are mutually exclusive")
-    for flag, item in _NOT_PORTED.items():
-        value = getattr(args, flag[2:])
-        if value is not None and not (flag == "--devices" and value <= 1):
-            ap.error(f"{flag} is not ported to the PyTorch daemon yet "
-                     f"(ROADMAP.md {item}); serve it with shm_tpu.serve_http")
     if args.admin_token is not None:
         if not args.admin:
             ap.error("--admin-token requires --admin (the token guards the "
@@ -1042,7 +1035,11 @@ def _parse_args(argv):
     if (args.expected_anomaly_rate is not None
             and not 0.0 < args.expected_anomaly_rate < 1.0):
         ap.error("--expected-anomaly-rate must be in (0, 1)")
-    if args.shmx is None:
+    if args.shmx is not None:
+        if args.devices and args.devices > 1:
+            ap.error("--devices does not apply to --shmx: exported programs "
+                     "are single-device (shard upstream of the daemon)")
+    else:
         # in-process scorers take concrete policy values; --shmx leaves
         # None so that the artifact's recorded min_bucket / max_batch apply
         if args.min_bucket is None:
@@ -1074,6 +1071,11 @@ def _load_scorer(args, root=None):
                   max_batch=args.max_batch or 8192)
     elif args.shmx is not None:
         root = args.shmx
+    elif args.devices and args.devices > 1:
+        # the primary only: the shadow is one device's statistics sample
+        from shm_tpu_torch.parallel import make_mesh
+
+        kw["mesh"] = make_mesh(args.devices, device=args.device)
     if root is not None and str(root).endswith(".shmx"):
         from shm_tpu_torch.export import load_exported_scorer
 

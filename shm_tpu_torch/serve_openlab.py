@@ -31,22 +31,26 @@ take the feature matrix as ``features=``::
 
 Labels: 0 = Normal, 1 = Sensor Fault, 2 = Structural Fault.
 ``export_program`` gives the CNN mode's plain path as a module for
-:mod:`shm_tpu_torch.export`. Not ported: ``mesh`` (ROADMAP.md Queue 1 item
-9).
+:mod:`shm_tpu_torch.export`. ``mesh=`` splits every bucket over the devices
+of a :class:`shm_tpu_torch.parallel.Mesh`, each shard scored by its own
+replica of the models (on the card the gate kernel once a shard).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from shm_tpu_torch.device import resolve_device, set_full_f32_precision
+from shm_tpu_torch.device import set_full_f32_precision
 from shm_tpu_torch.pipeline import HybridOutputs
-from shm_tpu_torch.serve import bucket_series, score_bucketed
+from shm_tpu_torch.serve import (bucket_series, mesh_scorer_device,
+                                 score_bucketed)
 
 #: the classical stage-2 models scorable on the device
 ML_STAGE2 = ("cart", "rf", "gb", "hgb", "svm_rbf")
@@ -133,7 +137,10 @@ class OpenLabScorer:
     card (raises without one); tests pass ``"cpu"``. ``use_fused_gate``:
     ``None`` asks :func:`shm_tpu_torch.ops.auto_fused_gate` (the fused
     kernel on CUDA, which raises for a cell or shape it does not take; the
-    plain model on the CPU).
+    plain model on the CPU). ``mesh``: a
+    :class:`shm_tpu_torch.parallel.Mesh` (one process, buckets multiples of
+    its size) over whose devices every bucket is split
+    (``parallel.make_dp_hybrid_fn``); ``device`` is then its first.
     """
 
     # the calibrated healthy anomaly rate (the threshold manifest's measured
@@ -141,8 +148,6 @@ class OpenLabScorer:
     # from_artifacts; the daemon's drift monitor and /recalibrate read them
     expected_anomaly_rate: Optional[float] = None
     calibration_percentile: Optional[float] = None
-    # one device (ROADMAP.md Queue 1 item 9)
-    mesh = None
     #: the rank of a request: the daemon takes (N, T, C, 2) bodies
     request_rank = 4
 
@@ -157,10 +162,6 @@ class OpenLabScorer:
                  device=None):
         if min_bucket < 1 or max_batch < min_bucket:
             raise ValueError("need 1 <= min_bucket <= max_batch")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving is not ported (ROADMAP.md Queue 1 "
-                "item 9)")
         if stage2 != "cnn" and stage2 not in ML_STAGE2:
             raise ValueError(f"unknown stage2 {stage2!r}; "
                              f"expected 'cnn' or one of {ML_STAGE2}")
@@ -172,7 +173,8 @@ class OpenLabScorer:
         if stage2_threshold is None:
             raise ValueError("stage2_threshold is required (cnn_best_threshold"
                              ".npy / <ml>_threshold.npy)")
-        self.device = resolve_device(device)
+        self.device = mesh_scorer_device(mesh, device, min_bucket, max_batch)
+        self.mesh = mesh
         if self.device.type == "cuda":
             set_full_f32_precision()
         if use_fused_gate is None:
@@ -204,6 +206,34 @@ class OpenLabScorer:
         self.seq_len = int(seq_len) if seq_len is not None else None
         self.num_channels = (int(num_channels) if num_channels is not None
                              else None)
+        self._mesh_fn = None
+        if mesh is not None:
+            from shm_tpu_torch.parallel.mesh import (make_dp_hybrid_fn,
+                                                     replicas_of)
+
+            vaes = replicas_of(self.vae, mesh)
+            cnns = (replicas_of(self.cnn, mesh) if self.cnn is not None
+                    else [None] * len(vaes))
+            reps = [self] + [self._replica(*r) for r in
+                             zip(mesh.devices[1:], vaes[1:], cnns[1:])]
+            self._mesh_fn = make_dp_hybrid_fn(
+                [functools.partial(self._dispatch_on, s=s) for s in reps],
+                mesh)
+
+    def _replica(self, device, vae, cnn) -> SimpleNamespace:
+        """What a dispatch on ``device`` reads (the attributes of
+        :meth:`_dispatch_on`'s ``s``): the replicas ``vae`` / ``cnn`` there
+        (``parallel.replicas_of``) and a copy of the statistics."""
+        s = SimpleNamespace(device=device, vae=vae, cnn=cnn)
+        for name in ("gate_mu", "gate_sd", "cnn_mu", "cnn_sd", "_ch"):
+            t = getattr(self, name)
+            setattr(s, name, None if t is None else t.to(device, copy=True))
+        if self.use_fused_gate:
+            from shm_tpu_torch.ops import fused_gate_for
+
+            weights_fn, _ = fused_gate_for(vae)
+            s._gate_weights = weights_fn(vae)
+        return s
 
     @property
     def num_features(self) -> int:
@@ -212,30 +242,38 @@ class OpenLabScorer:
             raise ValueError("scorer was built without num_channels")
         return self.num_channels
 
-    def _gate_mse(self, Zg: torch.Tensor) -> torch.Tensor:
+    def _gate_mse(self, Zg: torch.Tensor, s) -> torch.Tensor:
         if self.use_fused_gate:
-            mse, _ = self._gate(self._gate_weights, Zg,
-                                num_layers=self.vae.num_layers,
-                                use_layernorm=self.vae.use_layernorm,
+            mse, _ = self._gate(s._gate_weights, Zg,
+                                num_layers=s.vae.num_layers,
+                                use_layernorm=s.vae.use_layernorm,
                                 with_residual=False)
             return mse
-        recon, _, _ = self.vae(Zg)
+        recon, _, _ = s.vae(Zg)
         return ((Zg - recon) ** 2).mean(dim=(1, 2))
 
-    @torch.inference_mode()
     def _dispatch(self, Xb: torch.Tensor) -> HybridOutputs:
-        X = Xb.to(self.device, non_blocking=True)
-        mse = self._gate_mse(gate_inputs(X, self._ch, self.gate_mu, self.gate_sd,
-                                         self.clip_z))
+        if self._mesh_fn is not None:
+            return self._mesh_fn(Xb)
+        return self._dispatch_on(Xb, self)
+
+    @torch.inference_mode()
+    def _dispatch_on(self, Xb: torch.Tensor, s) -> HybridOutputs:
+        """One bucket (or one mesh shard) scored with the models and
+        statistics of ``s`` (the scorer itself, or a :meth:`_replica`) on
+        its device."""
+        X = Xb.to(s.device, non_blocking=True)
+        mse = self._gate_mse(gate_inputs(X, s._ch, s.gate_mu, s.gate_sd,
+                                         self.clip_z), s)
         if self.stage2 != "cnn":
             b = X.shape[0]
-            zeros = torch.zeros(b, device=self.device)
+            zeros = torch.zeros(b, device=s.device)
             return HybridOutputs(
                 mse=mse, anomalous=mse > self.threshold,
-                y_pred=torch.zeros(b, dtype=torch.int32, device=self.device),
-                p_struct=zeros, logits=torch.zeros(b, 2, device=self.device))
-        return cnn_stage2(X, mse, self.threshold, self.cnn, self.cnn_mu,
-                          self.cnn_sd, self.clip_z, self.stage2_threshold)
+                y_pred=torch.zeros(b, dtype=torch.int32, device=s.device),
+                p_struct=zeros, logits=torch.zeros(b, 2, device=s.device))
+        return cnn_stage2(X, mse, self.threshold, s.cnn, s.cnn_mu,
+                          s.cnn_sd, self.clip_z, self.stage2_threshold)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -260,7 +298,7 @@ class OpenLabScorer:
         if stage2 != "cnn" and stage2 not in ML_STAGE2:
             raise ValueError(f"unknown stage2 {stage2!r}; "
                              f"expected 'cnn' or one of {ML_STAGE2}")
-        device = resolve_device(device)
+        device = mesh_scorer_device(kw.get("mesh"), device)
         cfg = cfg or OpenLabConfig()
         paths = Paths(str(root))
         vae, mu, sd, manifest = _load_openlab_vae(paths, cfg)

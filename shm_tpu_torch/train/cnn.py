@@ -17,9 +17,19 @@ weights, window 0). They enter BatchNorm's batch statistics and its running
 statistics, and the loss masks them out. The optimizer is
 :func:`shm_tpu_torch.train.vae.make_optimizer`, as in the JAX package.
 
-Not ported: the JAX trainer's ``mesh`` (data-parallel training, ROADMAP
-Queue 1 item 9) and ``fused_epoch``, a dispatch option of its compiler with
-the same math.
+Not ported: the JAX trainer's ``fused_epoch``, a dispatch option of its
+compiler with the same math.
+
+``mesh=`` (a :class:`shm_tpu_torch.parallel.Mesh` of one process) trains
+data-parallel, the same math as one device, as the JAX trainer does: each
+batch and its dropout mask are split into contiguous shards, each shard
+runs on its own replica, ``CNN4DOF``'s BatchNorm normalizes by the
+statistics of the WHOLE batch (the shards meet at each BatchNorm in lock
+step, ``models/cnn.py::forward_shards``, and its running statistics move
+once), each shard's loss divides by the whole batch's window count, one
+backward runs through every shard, the gradients are summed on the first
+device in shard order, then one optimizer step, and the replicas are
+refreshed. ``CNNOpenLab``'s GroupNorm is per window and needs nothing.
 
 Noise. All randomness of a run comes from ONE ``torch.Generator`` on the
 CPU, seeded with ``cfg.seed``, whatever the training device: one seed draws
@@ -28,9 +38,10 @@ does on any device), and each is copied to the device. Drawn in this order: with
 ``init_params=None``, one integer that seeds the parameter init; then per
 epoch the permutation of the training windows (or the N weighted draws),
 then per batch fc1's dropout mask [bs, 128]. The numbers differ from the
-JAX package's ``jax.random`` streams by nature; :func:`batch_loss` takes the
-batch and the mask as arguments, so that a test can feed both frameworks the
-same.
+JAX package's ``jax.random`` streams by nature; :func:`batch_loss`, the
+loss of one batch as the trainer computes it without a mesh, takes the
+batch and the mask as arguments, so that a test can feed both frameworks
+the same.
 
 On CUDA the convolutions run under cuDNN's deterministic algorithms (and
 without TF32), and nothing in a step sums with atomics, so two runs from one
@@ -50,7 +61,8 @@ import torch.nn.functional as F
 
 from shm_tpu_torch.config import TrainConfig
 from shm_tpu_torch.device import resolve_device
-from shm_tpu_torch.models.cnn import CNN4DOF
+from shm_tpu_torch.models.cnn import CNN4DOF, forward_shards
+from shm_tpu_torch.parallel.mesh import mesh_device
 from shm_tpu_torch.train.vae import _batch_plan, _clone_state, make_optimizer
 
 _HIST_KEYS = ("epoch", "train_loss", "val_loss", "val_metric")
@@ -146,6 +158,7 @@ def train_cnn(
     checkpoint_every: int = 0,
     resume: bool = True,
     device=None,
+    mesh=None,
 ) -> CNNTrainResult:
     """Train ``model`` on NHWC inputs ``Xtr`` (N, T, D, C) with integer
     labels ``ytr`` (numpy or tensors); select the epoch by validation loss (default) or by
@@ -161,8 +174,12 @@ def train_cnn(
     improvement (0: never). ``checkpoint_dir`` / ``checkpoint_every=k``
     persist the full training state every k epochs; a later call with
     ``resume=True`` continues the run on the same trajectory.
+
+    ``mesh``: data-parallel training over its devices (the module
+    docstring); the model, the data and the selection live on its first
+    device (``device`` must be of its type, or None).
     """
-    device = resolve_device(device)
+    device = mesh_device(mesh, device)
     Xtr, Xva = (torch.as_tensor(a, dtype=torch.float32).to(device)
                 for a in (Xtr, Xva))
     ytr, yva = (torch.as_tensor(a, dtype=torch.long).to(device)
@@ -234,9 +251,33 @@ def train_cnn(
     val_mask = torch.cat([torch.ones(Nva, device=device),
                           torch.zeros(vpad, device=device)]).reshape(nvb, bs)
     units = model.fc1.out_features
+    replicas, loss_fns = [model], [loss_fn]
+    if mesh is not None:
+        from shm_tpu_torch.parallel.mesh import (replicas_of, shard_slices,
+                                                 sum_grads, sync_replicas)
+
+        replicas = replicas_of(model, mesh)
+        loss_fns = [_loss_fn(loss, focal_gamma, alpha.to(d))
+                    for d in mesh.devices]
+
+    def shard_sums(xb, yb, bmask, keep):
+        """The masked loss sum of each shard of one batch (one shard without
+        a mesh), on the first device, and the batch's logits by shard."""
+        if mesh is None:
+            outs = [model(xb, dropout_mask=keep)]
+            return [(loss_fn(outs[0], yb) * bmask).sum()], outs
+        sls = shard_slices(xb.shape[0], len(mesh.devices))
+        outs = forward_shards(
+            replicas, [xb[sl].to(d) for sl, d in zip(sls, mesh.devices)],
+            None if keep is None else [keep[sl].to(d)
+                                       for sl, d in zip(sls, mesh.devices)])
+        return [(fn(o, yb[sl].to(o.device)) * bmask[sl].to(o.device))
+                .sum().to(device)
+                for fn, o, sl in zip(loss_fns, outs, sls)], outs
 
     def train_epoch() -> torch.Tensor:
-        model.train()
+        for m in replicas:
+            m.train()
         idx = epoch_order(gen, N, bs, weights).to(device)
         ls, ns = [], []
         for b in range(nb):
@@ -244,9 +285,14 @@ def train_cnn(
             keep = (torch.rand(bs, units, generator=gen)
                     < 1.0 - model.dropout).to(device)
             opt.zero_grad()
-            l = batch_loss(model, Xtr[idx[b]], ytr[idx[b]], bmask, keep, loss_fn)
+            sums, _ = shard_sums(Xtr[idx[b]], ytr[idx[b]], bmask, keep)
+            l = torch.stack(sums).sum() / bmask.sum().clamp(min=1.0)
             l.backward()
+            if mesh is not None:
+                sum_grads(replicas, mesh)
             opt.step()
+            if mesh is not None:
+                sync_replicas(replicas)
             n = bmask.sum()
             ls.append(l.detach() * n)
             ns.append(n)
@@ -254,14 +300,17 @@ def train_cnn(
 
     @torch.no_grad()
     def val_epoch():
-        model.eval()
+        for m in replicas:
+            m.eval()
         ls, ns, probs = [], [], []
         for b in range(nvb):
-            out = model(Xva[val_idx[b]])
             bmask = val_mask[b]
-            ls.append((loss_fn(out, yva[val_idx[b]]) * bmask).sum())
+            sums, outs = shard_sums(Xva[val_idx[b]], yva[val_idx[b]], bmask,
+                                    None)
+            ls.append(torch.stack(sums).sum())
             ns.append(bmask.sum())
-            probs.append(torch.softmax(out, dim=-1))
+            probs.append(torch.cat([torch.softmax(o, dim=-1).to(device)
+                                    for o in outs]))
         vloss = torch.stack(ls).sum() / torch.stack(ns).sum().clamp(min=1.0)
         return vloss, torch.cat(probs)[:Nva]
 

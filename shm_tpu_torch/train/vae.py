@@ -16,7 +16,8 @@ on by default there; they take 2-layer LSTM presets); everything around them is 
 PyTorch under autograd. The ``min_gru`` and ``attention`` cells train on the
 plain autograd path, on the card as on the CPU: the JAX package has no
 training kernel for them either (its ``use_pallas_kernel`` is LSTM-only).
-Data-parallel training over several cards is not ported yet.
+``mesh=`` trains data-parallel over the devices of a
+:class:`shm_tpu_torch.parallel.Mesh` on that plain path (below).
 
 Noise. All randomness of a run comes from ONE ``torch.Generator`` on the
 training device, seeded with ``cfg.seed``, drawn in this fixed order:
@@ -37,6 +38,22 @@ training device, seeded with ``cfg.seed``, drawn in this fixed order:
 A checkpoint stores the generator's state, so a resumed run stays on the
 trajectory of an uninterrupted one for every cell.
 
+Data parallelism (``mesh=``) is the same math as one device, as in the JAX
+package: one generator drawn in the order above, each minibatch split into
+contiguous shards (:func:`shm_tpu_torch.parallel.mesh.shard_slices`), each
+shard's forward and backward on its device with its own replica of the
+model. eps [bs, Z] and the masks [T, H, bs] are drawn for the whole
+minibatch and sliced by shard; the attention cell's masks are drawn ahead of
+the forward in its order (``AttentionStack.draw_dropout_masks``), each
+block's [1, 1, T, T] weight mask shared by every shard and its residual
+masks sliced. A shard's loss divides its sums by the whole batch's window
+count (``vae_loss(count=)``), so the shards' losses sum to the batch's; the
+gradients are summed on the first device in shard order
+(:func:`~shm_tpu_torch.parallel.mesh.sum_grads`), then one optimizer step,
+and the replicas are refreshed. The trajectory is one device's up to the
+order of float sums; a checkpoint holds the first replica's state, so a
+mesh run resumes with or without the mesh.
+
 The numbers differ from the JAX package's ``jax.random`` streams by nature;
 :func:`batch_loss` takes the noise as arguments so that a test can feed both
 frameworks the same.
@@ -55,6 +72,7 @@ import torch
 from shm_tpu_torch.config import TrainConfig
 from shm_tpu_torch.device import resolve_device
 from shm_tpu_torch.models.vae import TemporalVAE, vae_loss
+from shm_tpu_torch.parallel.mesh import mesh_device
 
 _HIST_KEYS = ("epoch", "kl_w", "train_total", "train_recon", "train_kl",
               "val_total", "val_recon", "val_kl")
@@ -170,6 +188,60 @@ def draw_batch_noise(model: TemporalVAE, bs: int, T: int,
     return eps, dm_enc, masks()
 
 
+def _mesh_masks(model: TemporalVAE, dm_enc, dm_dec, bs: int, T: int,
+                generator: torch.Generator, device):
+    """The (encoder, decoder) dropout masks of one data-parallel training
+    batch in the model's layout, or None: the recurrent cells' drawn masks
+    [T, H, bs] as [bs, T, H]; for the attention cell the masks its forward
+    would draw next from ``generator``, drawn here in that order."""
+    if model.cell == "attention":
+        if model.dropout <= 0.0:
+            return None
+        return tuple(stack.draw_dropout_masks(bs, T, generator, device)
+                     for stack in (model.encoder_lstm, model.decoder_lstm))
+    return None if dm_enc is None else (_bt(dm_enc), _bt(dm_dec))
+
+
+def _shard_masks(masks, sl: slice, device):
+    """One shard's rows of a stack's masks: [B, T, H] tensors, or the
+    attention blocks' (weights, residual, residual) triples, whose weight
+    mask every shard shares."""
+    return [tuple(t.to(device) for t in (m[0], m[1][sl], m[2][sl]))
+            if isinstance(m, tuple) else m[sl].to(device) for m in masks]
+
+
+def mesh_batch_loss(replicas, mesh, xb: torch.Tensor, bmask: torch.Tensor,
+                    eps: Optional[torch.Tensor], masks, kl_w,
+                    backward: bool):
+    """(total, recon, kl) of one batch split over ``mesh``: each shard runs
+    on its replica with its rows of the noise (``masks``: an (encoder,
+    decoder) pair as :func:`_mesh_masks` gives, or None), its loss divided
+    by the whole batch's window count; with ``backward`` each shard's loss
+    is back-propagated and the gradients summed into the first replica
+    (:func:`shm_tpu_torch.parallel.mesh.sum_grads`). The three sums are on
+    the first device."""
+    from shm_tpu_torch.parallel.mesh import shard_slices, sum_grads
+
+    n = bmask.sum()
+    parts = []
+    for rep, d, sl in zip(replicas, mesh.devices,
+                          shard_slices(xb.shape[0], len(mesh.devices))):
+        xs = xb[sl].to(d)
+        es = None if eps is None else eps[sl].to(d)
+        dm = None if masks is None else tuple(_shard_masks(m, sl, d)
+                                              for m in masks)
+        recon, mu, logvar = rep(xs, sample=es is not None, eps=es,
+                                dropout_masks=dm)
+        total, r, kl = vae_loss(recon, xs, mu, logvar, kl_w,
+                                mask=bmask[sl].to(d), count=n.to(d))
+        if backward:
+            total.backward()
+        parts.append(torch.stack([total, r, kl]).detach().to(mesh.devices[0]))
+    if backward:
+        sum_grads(replicas, mesh)
+    return tuple(torch.stack(parts).sum(0))
+
+
 @dataclass
 class VAETrainResult:
     params: Any                      # best-val state dict
@@ -184,7 +256,16 @@ def _clone_state(model) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def _resolve_use_kernel(model, use_kernel: Optional[bool], device) -> bool:
+def _resolve_use_kernel(model, use_kernel: Optional[bool], device,
+                        mesh=None) -> bool:
+    if mesh is not None:
+        if use_kernel:
+            raise ValueError(
+                "mesh= data-parallel training runs the plain autograd path "
+                "(as the JAX trainer refuses its Pallas kernels under a "
+                "mesh); pass use_kernel=None or False with mesh=, or train "
+                "on one device")
+        return False
     if model.cell != "lstm":
         if use_kernel:
             raise ValueError(
@@ -214,6 +295,7 @@ def train_vae(
     resume: bool = True,
     use_kernel: Optional[bool] = None,
     device=None,
+    mesh=None,
 ) -> VAETrainResult:
     """Train ``model`` on normalized windows; returns best-val params + history.
 
@@ -237,9 +319,15 @@ def train_vae(
     persists every k epochs, and a later call with ``resume=True`` continues
     the interrupted run on the same trajectory (bit for bit on the CPU, and on
     the card, whose kernels use no atomics).
+
+    ``mesh``: a :class:`shm_tpu_torch.parallel.Mesh` of one process trains
+    data-parallel over its devices (the module docstring), on the first of
+    which the model, the data and the generator live (``device`` must be of
+    its type, or None). ``use_kernel=True`` with a mesh raises
+    ``ValueError``; None resolves to the plain path.
     """
-    device = resolve_device(device)
-    use_kernel = _resolve_use_kernel(model, use_kernel, device)
+    device = mesh_device(mesh, device)
+    use_kernel = _resolve_use_kernel(model, use_kernel, device, mesh)
     Ztr = torch.as_tensor(Ztr, dtype=torch.float32).to(device)
     Zva = torch.as_tensor(Zva, dtype=torch.float32).to(device)
     N, T, _ = Ztr.shape
@@ -300,6 +388,11 @@ def train_vae(
                         ).reshape(nvb, bs)
     val_mask = torch.cat([torch.ones(Nva, device=device),
                           torch.zeros(vpad, device=device)]).reshape(nvb, bs)
+    replicas = None
+    if mesh is not None:
+        from shm_tpu_torch.parallel.mesh import replicas_of, sync_replicas
+
+        replicas = replicas_of(model, mesh)
 
     def reduce(stats: List[Tuple[torch.Tensor, ...]]):
         tl, rl, kl, ns = (torch.stack(c) for c in zip(*stats))
@@ -307,7 +400,8 @@ def train_vae(
         return tl.sum() / denom, rl.sum() / denom, kl.sum() / denom
 
     def train_epoch(kl_w: float):
-        model.train()
+        for m in replicas or [model]:
+            m.train()
         perm = torch.randperm(N, generator=gen, device=device)
         idx = (torch.cat([perm, perm[:pad]]) if pad else perm).reshape(nb, bs)
         stats = []
@@ -315,10 +409,17 @@ def train_vae(
             xb, bmask = Ztr[idx[b]], train_mask[b]
             eps, dm_e, dm_d = draw_batch_noise(model, bs, T, gen, device)
             opt.zero_grad()
-            total, r, kl = batch_loss(model, xb, bmask, eps, dm_e, dm_d, kl_w,
-                                      use_kernel, generator=gen)
-            total.backward()
+            if replicas is None:
+                total, r, kl = batch_loss(model, xb, bmask, eps, dm_e, dm_d,
+                                          kl_w, use_kernel, generator=gen)
+                total.backward()
+            else:
+                masks = _mesh_masks(model, dm_e, dm_d, bs, T, gen, device)
+                total, r, kl = mesh_batch_loss(replicas, mesh, xb, bmask, eps,
+                                               masks, kl_w, backward=True)
             opt.step()
+            if replicas is not None:
+                sync_replicas(replicas)
             n = bmask.sum()
             stats.append((total.detach() * n, r.detach() * n,
                           kl.detach() * n, n))
@@ -326,14 +427,19 @@ def train_vae(
 
     @torch.no_grad()
     def val_epoch(kl_w: float):
-        model.eval()
+        for m in replicas or [model]:
+            m.eval()
         stats = []
         for b in range(nvb):
             xb, bmask = Zva[val_idx[b]], val_mask[b]
             eps = (torch.randn(bs, model.latent_dim, generator=gen,
                                device=device) if val_sample else None)
-            total, r, kl = batch_loss(model, xb, bmask, eps, None, None, kl_w,
-                                      use_kernel)
+            if replicas is None:
+                total, r, kl = batch_loss(model, xb, bmask, eps, None, None,
+                                          kl_w, use_kernel)
+            else:
+                total, r, kl = mesh_batch_loss(replicas, mesh, xb, bmask, eps,
+                                               None, kl_w, backward=False)
             n = bmask.sum()
             stats.append((total * n, r * n, kl * n, n))
         return reduce(stats)

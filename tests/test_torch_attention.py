@@ -146,7 +146,12 @@ def test_dropout_in_training_mode_only():
         c, _ = stack(x, generator=torch.Generator().manual_seed(0))
         d, _ = stack(x, generator=torch.Generator().manual_seed(0))
         assert not torch.equal(a, c) and torch.equal(c, d)
-    with pytest.raises(ValueError, match="draws its own dropout"):
+        # the masks drawn ahead of the forward, in its order, are its masks
+        masks = stack.draw_dropout_masks(2, 8, torch.Generator().manual_seed(0),
+                                         x.device)
+        e, _ = stack(x, dropout_masks=masks)
+        assert torch.equal(c, e)
+    with pytest.raises(ValueError, match="keep-mask triple"):
         stack(x, dropout_masks=torch.ones(2, 8, 32))
 
 

@@ -136,7 +136,20 @@ def test_extract_and_all_are_not_ported(argv, tmp_path):
     assert not (tmp_path / "extracted").exists()
 
 
-def test_devices_refused(tmp_path, capsys):
-    with pytest.raises(SystemExit):
-        ol.main(["make-splits", "--devices", "2", "--root", str(tmp_path)])
-    assert "item 9" in capsys.readouterr().err
+def test_devices_refused(tmp_path, monkeypatch):
+    """``--devices`` is the JAX CLI's: a command that does not train takes
+    it and ignores it (``make-splits`` writes the split it writes without
+    it), and a training command asked for more devices than the host has
+    is refused before it trains (a one-card host, as the card's machine)."""
+    splits = []
+    for flags in ([], ["--devices", "2"]):
+        root = small_root(tmp_path / f"r{len(flags)}", step=4, outputs=())
+        (root / "extracted/run_split.json").unlink()
+        ol.main(["make-splits", "--root", str(root)] + flags)
+        splits.append((root / "extracted/run_split.json").read_text())
+    assert splits[0] == splits[1]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="only 1 cuda device.*available"):
+        ol.main(["train-vae", "--devices", "2", "--no-plots", "--root",
+                 str(tmp_path / "r2"), "--epochs", "1"])

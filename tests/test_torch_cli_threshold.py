@@ -85,7 +85,8 @@ def test_main_dispatches_the_ported_commands(monkeypatch):
     cli.main(["test-pipeline", "--no-plots"])
     assert seen == [
         ("cmd_threshold", "r", (True,), {"plot": False, "device": "cpu"}),
-        ("cmd_train_cnn", "r", (2,), {"seed": 5, "plot": True, "device": None}),
+        ("cmd_train_cnn", "r", (2,), {"seed": 5, "plot": True, "device": None,
+                                      "devices": None}),
         ("cmd_test_pipeline", "data/4dof", (), {"plot": False, "device": None}),
     ]
     seen.clear()

@@ -127,12 +127,13 @@ def test_main_parses_train_vae_and_refuses_unported_commands(trained, monkeypatc
                         lambda paths, cfg, epochs, **kw: seen.update(
                             root=str(paths.root), epochs=epochs, **kw))
     cli.main(["train-vae", "--root", "somewhere", "--epochs", "3", "--seed", "9",
-              "--no-kernel", "--device", "cpu", "--no-plots"])
+              "--no-kernel", "--device", "cpu", "--no-plots", "--devices", "2"])
     assert seen == {"root": "somewhere", "epochs": 3, "seed": 9,
-                    "kernel": False, "device": "cpu", "plot": False}
+                    "kernel": False, "device": "cpu", "plot": False,
+                    "devices": 2}
     cli.main(["train-vae", "--kernel"])
     assert seen["kernel"] is True and seen["device"] is None and seen["root"] == "data/4dof"
-    assert seen["plot"] is True
+    assert seen["plot"] is True and seen["devices"] is None
     # every command of the JAX CLI is ported: none is refused
     ran = []
     monkeypatch.setattr(cli, "cmd_gen_normal",

@@ -424,22 +424,27 @@ def test_parse_args_bucket_policy_and_early_validation():
 
 @pytest.mark.parametrize("argv,item", [
     (["--openlab", "data/openlab", "--shmx", "gate.shmx"], "mutually exclusive"),
-    (["--shmx", "gate.shmx", "--devices", "2"], "Queue 1 item 9"),
-    (["--devices", "2"], "Queue 1 item 9"),
-    (["--shadow", "gate.shmx", "--devices", "2"], "Queue 1 item 9"),
+    (["--shmx", "gate.shmx", "--devices", "2"], "does not apply to --shmx"),
+    (["--devices", "2"], None),
+    (["--shadow", "gate.shmx", "--devices", "2"], None),
 ])
 def test_parse_args_refuses_unported_paths(argv, item, capsys):
-    """The JAX daemon's multi-device path is parsed and refused with the
-    ROADMAP item that ports it, beside ``--shmx`` and a ``.shmx`` shadow too
-    (both served; ``tests/test_torch_serve_http_shmx.py``); ``--openlab``
-    is served, but not beside ``--shmx``, as in the JAX daemon; --devices 1
-    is one card."""
+    """The JAX daemon's refusals, with its messages: ``--openlab`` beside
+    ``--shmx``, and ``--devices`` beside ``--shmx`` (an export is one
+    device's program); ``--devices 2`` is parsed, alone and beside a
+    ``.shmx`` shadow (the shadow stays on one device;
+    ``tests/test_torch_parallel_cli.py`` serves a mesh); --devices 1 is one
+    device."""
     from shm_tpu_torch.serve_http import _parse_args
 
-    with pytest.raises(SystemExit) as ei:
-        _parse_args(argv)
-    assert ei.value.code == 2
-    assert item in capsys.readouterr().err
+    if item is None:
+        args, _ = _parse_args(argv)
+        assert args.devices == 2
+    else:
+        with pytest.raises(SystemExit) as ei:
+            _parse_args(argv)
+        assert ei.value.code == 2
+        assert item in capsys.readouterr().err
     args, _ = _parse_args(["--devices", "1"])
     assert args.devices == 1
 

@@ -54,7 +54,7 @@ def test_parse_args_shmx_bucket_policy():
 
 @pytest.mark.parametrize("argv, msg", [
     (["--shmx", "a.shmx", "--openlab", "data/openlab"], "mutually exclusive"),
-    (["--shmx", "a.shmx", "--devices", "2"], "Queue 1 item 9"),
+    (["--shmx", "a.shmx", "--devices", "2"], "does not apply to --shmx"),
     (["--shmx", "a.shmx", "--series-strides", "0"], "series-strides"),
 ])
 def test_parse_args_shmx_refusals(argv, msg, capsys):

@@ -127,8 +127,12 @@ def test_validation_errors_and_paths_not_ported(scorer, subset):
     assert isinstance(scorer.export_program(), torch.nn.Module)
     with pytest.raises(ValueError, match="only stage2='cnn'"):
         ml.export_program()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        OpenLabScorer.from_artifacts(OL, device="cpu", mesh=object())
+    # a mesh scorer's buckets must split evenly over the mesh, as in JAX
+    from shm_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="multiples of the mesh size"):
+        OpenLabScorer.from_artifacts(OL, device="cpu",
+                                     mesh=make_mesh(3, device="cpu"))
 
 
 def test_warmup_buckets_and_manifest_fields(scorer):
