@@ -227,6 +227,31 @@ Phases (any failure exits non-zero before the final line):
    run without the flag, ``--devices 2`` exiting non-zero with "available",
    the daemon's ``--devices 2`` refused so. The kernels line's
    ``mesh_launches`` of rows 1, 6 and 7 holds (b)'s counts.
+17. bf16 serving, ``sample=True`` and the int8 CNN: (a) each gate kernel's
+   bf16 instance against its plain bf16 version at phase 2's shapes (the
+   openLAB shape among them), with float32 and with bf16 io, and on the
+   3,636 committed windows through each family's root at the io it serves
+   (every gate decision equal), held to ``BF16_GATE_TOL`` and, on the
+   committed windows, ``BF16_COMMITTED_TOL``, whose mean bars must lie
+   below each case's float32 gap (the plain float32 version against the
+   plain bf16 one); (b)
+   ``HybridScorer.from_artifacts(fused_dtype=bf16, cnn_dtype=bf16)`` of each
+   family on the 3,636 windows against the float32 scorer: the bf16
+   instance launched and no other gate instance, every gate decision equal
+   (a flip prints its margin and the JAX reading of ``BF16_READINGS``),
+   y_pred agreement printed, mse within twice the JAX package's own bf16
+   against float32 reading and its mean at least ``BF16_SCORER_FLOOR`` of
+   it, the confusion matrix within ``BF16_CM_LIMIT``
+   of ``pipeline_metrics.json``; (c) ``OpenLabScorer(gate_io_dtype=bf16)``
+   on the 2,042 openLAB pairs: gate and y_pred equal to the float32
+   scorer's; (d) ``make_hybrid_fn(sample=True)``: one seed twice equal, a
+   second seed another; (e) the int8 CNN of the committed ``data/4dof`` CNN
+   on phase 3's inputs, 3-class agreement with the folded float network at
+   least ``INT8_AGREE_FLOOR``; (f) times at 5,440 windows: each bf16
+   instance against the float32 instance, the plain bf16 version and the
+   bf16 library composition, score() windows/s in both precisions, and
+   the int8 CNN against the float32 and bf16 CNNs. The kernels line ends
+   with the three bf16 instances (``launches``: (b)'s).
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -444,11 +469,17 @@ def phase_lstm_kernel(w, Z, mse_k, mse_p, T: int, D: int, H: int, L: int) -> dic
     counts = sass_counts("fused_vae", "fused_vae_")
     for fn, (hmma, ffma) in sorted(counts.items()):
         print(f"{tag} SASS {fn}: {hmma} HMMA, {ffma} FFMA")
-    # the shipping instances: fused_vae_tc_kernel<H, 2, TC_SPLIT = 1>
+    # the shipping instances: fused_vae_tc_kernel<H, 2, TC_SPLIT = 1, float>;
+    # the bf16 instances: <H, 2, TC_BF16 = 3, float | bf16 bits (t)>
     ship = [fn for fn in counts if any(
-        f"fused_vae_tc_kernelILi{h_}ELi2ELi1EE" in fn for h_ in (32, 64, 128))]
+        f"fused_vae_tc_kernelILi{h_}ELi2ELi1EfEE" in fn for h_ in (32, 64, 128))]
     check(len(ship) == 3 and all(counts[fn][0] > 0 for fn in ship),
           f"the shipping instances run no HMMA: {ship}")
+    bf16 = [fn for fn in counts if any(
+        f"fused_vae_tc_kernelILi{h_}ELi2ELi3E{io}EE" in fn
+        for h_ in (32, 64, 128) for io in "ft")]
+    check(len(bf16) == 6 and all(counts[fn][0] > 0 for fn in bf16),
+          f"the bf16 instances run no HMMA: {bf16}")
     dense = lstm_gate_flops(N, T, D, H, L)
     tc_ms = 3 * dense / PEAK_TF32_FLOPS * 1e3
     print(f"{tag} gate products at N={N}: {dense / 1e9:.2f} GFLOP -> 3xTF32 "
@@ -508,12 +539,18 @@ def phase_mingru_kernel(w, Z, mse_k, mse_p, T: int, D: int, H: int, L: int,
     counts = sass_counts("fused_mingru", "fused_mingru_tc_kernel")
     for fn, (hmma, ffma) in sorted(counts.items()):
         print(f"{tag} SASS {fn}: {hmma} HMMA, {ffma} FFMA")
-    # the shipping instances: fused_mingru_tc_kernel<H, MT, TC, TC_SPLIT = 1>
+    # the shipping instances: fused_mingru_tc_kernel<H, MT, TC, TC_SPLIT = 1,
+    # float>; the bf16 instances: <H, MT, TC, TC_BF16 = 3, float | bf16 bits>
     ship = [fn for fn in counts if any(
-        f"fused_mingru_tc_kernelILi{h_}ELi{mt}ELi{tc}ELi1EE" in fn
+        f"fused_mingru_tc_kernelILi{h_}ELi{mt}ELi{tc}ELi1EfEE" in fn
         for h_ in (32, 64, 128))]
     check(len(ship) == 3 and all(counts[fn][0] > 0 for fn in ship),
           f"the shipping instances run no HMMA: {ship}")
+    bf16 = [fn for fn in counts if any(
+        f"fused_mingru_tc_kernelILi{h_}ELi{mt}ELi{tc}ELi3E{io}EE" in fn
+        for h_ in (32, 64, 128) for io in "ft")]
+    check(len(bf16) == 6 and all(counts[fn][0] > 0 for fn in bf16),
+          f"the bf16 instances run no HMMA: {bf16}")
     dense = mingru_gate_flops(N, T, D, H, L)
     tc_ms = 3 * dense / PEAK_TF32_FLOPS * 1e3
     dense8 = mingru_gate_flops(8192, T, D, H, L)
@@ -813,9 +850,9 @@ def phase_main_path(W, y, cell: str = "lstm"):
     return scorer, launches
 
 
-def cudnn_vae_pass(vae):
-    """The same VAE pass composed from ``torch.nn.LSTM`` (cuDNN): a yardstick
-    timed here only; the port never calls it."""
+def cudnn_vae_pass(vae, dtype=None):
+    """The same VAE pass composed from ``torch.nn.LSTM`` (cuDNN), in float32
+    or ``dtype``: a yardstick timed here only; the port never calls it."""
     import torch
     import torch.nn.functional as F
     from torch import nn
@@ -824,6 +861,8 @@ def cudnn_vae_pass(vae):
 
     def lstm_from(stack, in_dim):
         m = nn.LSTM(in_dim, H, L, batch_first=True).cuda()
+        if dtype is not None:
+            m = m.to(dtype)
         with torch.no_grad():
             for l, layer in enumerate(stack.layers):
                 getattr(m, f"weight_ih_l{l}").copy_(layer.weight_ih)
@@ -906,7 +945,7 @@ def sdpa_attention_pass(vae):
     def stack(st, tok):
         N, T, _ = tok.shape
         heads = st.num_heads
-        s = tok + sinusoidal_positions(T, H, tok.device)
+        s = tok + sinusoidal_positions(T, H, tok.device).to(tok.dtype)
         split = lambda t: t.view(N, T, heads, H // heads).transpose(1, 2)
         for b in st.layers:
             h = ln(s, b.attn_norm)
@@ -5003,6 +5042,442 @@ def phase_mesh(W) -> dict:
             for k, c in launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: bf16 serving, make_hybrid_fn(sample=True) and the int8 CNN
+# ---------------------------------------------------------------------------
+
+# The bf16 instance of each gate kernel against its plain bf16 version on
+# the same card: (largest, mean) relative mse difference and the largest
+# difference of the reconstructions |x - y| (the residuals' square roots).
+# ``tests/bf16_readings.py model`` models each instance's sums in its own
+# order (rows 1 and 6 chain the bias, then the products, through the mma's
+# truncating sum; row 7 chains its products from zero) and prints the gap
+# a float32 instance would show, the plain float32 version against the
+# plain bf16 one (PERF.md §6). The mean bars sit between the two, and
+# bf16_kernel_vs_plain checks that the mean bar is below the float32 gap of
+# every case it holds, so that an instance that skipped the bf16 rounding
+# fails. The largest difference cannot separate them (a few windows follow
+# any change of sum order by up to half the whole bf16 gap, PERF.md §7):
+# its bars catch a gross fault. At phase 2's shapes, worst case of the
+# model / of the least float32 gap, (max, mean): row 1 1.9e-5 / 2.2e-5,
+# 2.4e-6 / 5.1e-6; row 6 1.7e-5 / 8.2e-5, 2.6e-7 / 1.9e-5; row 7 4.3e-4 /
+# 6.7e-4, 1.0e-4 / 1.8e-4.
+BF16_GATE_TOL = {"lstm": (1e-4, 3.5e-6, 3e-2), "min_gru": (1e-4, 2e-6, 3e-2),
+                 "attention": (1.5e-3, 1.5e-4, 5e-2)}
+# The same on the 3,636 committed windows, model / float32 gap: row 1
+# 4.97e-4 / 9.52e-4, 7.47e-6 / 5.75e-5, |x - y| 3.8e-3; row 6 1.14e-4 /
+# 6.43e-4, 6.37e-7 / 6.37e-5, 7.8e-3; row 7 5.71e-4 / 7.39e-4, 4.77e-5 /
+# 8.32e-5, 0.124.
+BF16_COMMITTED_TOL = {"lstm": (2e-3, 1.5e-5, 1.5e-2),
+                      "min_gru": (3e-4, 1.5e-6, 2e-2),
+                      "attention": (1.5e-3, 6.5e-5, 0.25)}
+# the JAX package's bf16-against-float32 gate readings on the 3,636 test
+# windows (tests/bf16_readings.py jax); the bf16 scorer's mse is held to
+# twice them against the float32 scorer's, and its mean to at least
+# BF16_SCORER_FLOOR of the JAX mean, so that a float32 gate fails
+BF16_READINGS = "tests/bf16_readings.npz"
+BF16_SCORER_FLOOR = 0.5
+BF16_CM_LIMIT = 2               # windows of pipeline_metrics.json's matrix
+INT8_AGREE_FLOOR = 0.999        # the JAX package's int8 bar (BENCHMARKS.md)
+P17_REPS = 7
+
+
+def bf16_kernel_vs_plain(tag: str, cell: str, w, Z, kw: dict, io,
+                         tol=None) -> float:
+    """The bf16 instance of ``cell``'s gate against its plain bf16 version on
+    ``Z``, held to ``tol`` (default ``BF16_GATE_TOL[cell]``), whose mean
+    bar must be below the float32 gap on ``Z`` (the plain float32 version
+    on the window as read against the plain bf16 one); ``w`` packed for
+    bf16. Returns the largest |mse diff|."""
+    import torch
+
+    from shm_tpu_torch.ops import FUSED_GATES
+
+    _, gate, reference = FUSED_GATES[cell]
+    kw = dict(kw, dtype=torch.bfloat16, io_dtype=io)
+    mse_k, r_k = gate(w, Z, **kw)
+    torch.cuda.synchronize()
+    mse_p, r_p = reference(w, Z, **kw)
+    mse_32, _ = reference(w, Z.to(io or torch.float32).float(),
+                          **dict(kw, dtype=torch.float32, io_dtype=None))
+    check(bool(torch.isfinite(mse_k).all()) and mse_k.shape == mse_p.shape,
+          f"{tag}: mse not finite / wrong shape")
+    rel = (mse_k.double() - mse_p.double()).abs() / mse_p.double().abs()
+    gap = (mse_32.double() - mse_p.double()).abs() / mse_p.double().abs()
+    dy = 0.0
+    if kw.get("with_residual", True):
+        want = io or torch.float32
+        check(r_k.dtype == r_p.dtype == want and r_k.shape == Z.shape,
+              f"{tag}: residual {r_k.dtype} {tuple(r_k.shape)}, want {want}")
+        dy = float((r_k.double().sqrt() - r_p.double().sqrt()).abs().max())
+    else:
+        check(r_k is None, f"{tag}: a residual with with_residual=False")
+    tmax, tmean, tdy = tol or BF16_GATE_TOL[cell]
+    ok = float(rel.max()) <= tmax and float(rel.mean()) <= tmean and dy <= tdy
+    print(f"[bf16]   {tag}: mse rel max {float(rel.max()):.3e} mean "
+          f"{float(rel.mean()):.3e} (tolerance {tmax:g} / {tmean:g}); |x - y| "
+          f"max diff {dy:.3e} (tolerance {tdy:g}) {'ok' if ok else 'FAIL'}; "
+          f"float32 gap max {float(gap.max()):.3e} mean "
+          f"{float(gap.mean()):.3e}")
+    check(ok, f"{tag}: bf16 kernel disagrees with its plain bf16 version")
+    check(tmean < float(gap.mean()), f"{tag}: the mean bar {tmean:g} does not "
+                                     f"separate bf16 from float32 here")
+    return float((mse_k - mse_p).abs().max())
+
+
+def bf16_counts(reset: bool = False) -> dict:
+    """{name: launches} of every instance of the three gate kernels."""
+    from shm_tpu_torch.ops import FUSED_GATES
+
+    out = {}
+    for _, g, _ in FUSED_GATES.values():
+        for attr in ("launches", "bf16_launches"):
+            if reset:
+                setattr(g, attr, 0)
+            out[f"{g.__name__}{'/bf16' if attr[0] == 'b' else ''}"] = getattr(g, attr)
+    return out
+
+
+def phase17_kernels(W) -> dict:
+    """(1) each bf16 instance against its plain bf16 version: random weights
+    at phase 2's shapes (the openLAB shape among them), float32 and bf16 io;
+    then the 3,636 committed windows through each family's root at the io
+    it serves, every gate decision equal. Returns {cell: max |mse diff|}."""
+    import torch
+
+    from shm_tpu_torch.data.windows import normalize_windows
+    from shm_tpu_torch.ops import FUSED_GATES
+    from shm_tpu_torch.serve import HybridScorer
+    from shm_tpu_torch.utils.io import load_json
+
+    cases = [  # name, N, T, D, Z, H, L, LN, with_residual (phase 2's)
+        ("4dof N=1000 (ragged tile)", 1000, 100, 12, 16, 128, 2, True, True),
+        ("openLAB 1-layer H=64 T=200 D=3", 300, 200, 3, 8, 64, 1, True, True),
+        ("1dof 2-layer H=32 T=80 no LN", 300, 80, 12, 5, 32, 2, False, True),
+        ("4dof with_residual=False", 333, 100, 12, 16, 128, 2, True, False),
+    ]
+    errs = {}
+    for cell in FAMILIES:
+        weights_fn = FUSED_GATES[cell][0]
+        cs = cases + ([("3-layer H=64 T=60", 200, 60, 12, 16, 64, 3, True,
+                        True)] if cell == "min_gru" else [])
+        worst = 0.0
+        for i, (name, N, T, D, Zd, H, L, ln, wr) in enumerate(cs):
+            vae, rng = random_vae(100 + i, D, Zd, H, L, ln, cell)
+            w = weights_fn(vae, torch.bfloat16)
+            Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(
+                np.float32)).cuda()
+            for io in (None, torch.bfloat16):
+                worst = max(worst, bf16_kernel_vs_plain(
+                    f"{cell} {name} io={'bf16' if io else 'f32'}", cell, w, Z,
+                    dict(num_layers=L, use_layernorm=ln, with_residual=wr), io))
+        root = ROOT / FAMILIES[cell]["root"]
+        sc = HybridScorer.from_artifacts(root)
+        Z = normalize_windows(torch.from_numpy(W).cuda(), sc.mean,
+                              sc.std).contiguous()
+        w = weights_fn(sc.vae, torch.bfloat16)
+        io = torch.bfloat16 if cell == "attention" else None
+        kw = dict(num_layers=sc.vae.num_layers,
+                  use_layernorm=sc.vae.use_layernorm)
+        worst = max(worst, bf16_kernel_vs_plain(
+            f"{cell} committed {len(W)} windows", cell, w, Z, kw, io,
+            BF16_COMMITTED_TOL[cell]))
+        thr = float(load_json(root / "processed" / "vae_threshold.json")
+                    ["threshold"])
+        gate = FUSED_GATES[cell][1]
+        mk, _ = gate(w, Z, dtype=torch.bfloat16, io_dtype=io, **kw)
+        mp, _ = FUSED_GATES[cell][2](w, Z, dtype=torch.bfloat16, io_dtype=io,
+                                     **kw)
+        flips = int(((mk > thr) != (mp > thr)).sum())
+        print(f"[bf16]   {cell} committed windows: gate decisions of the bf16 "
+              f"instance against its plain version differing: {flips}")
+        check(flips == 0, f"{cell}: bf16 kernel flips {flips} gate decisions")
+        errs[cell] = worst
+        del sc
+    return errs
+
+
+def phase17_scoring(W, y, cell: str) -> tuple:
+    """(2) ``HybridScorer.from_artifacts(fused_dtype=bf16, cnn_dtype=bf16)``
+    of a family on the 3,636 windows against the float32 scorer; returns
+    (the bf16 instance's launches, the two scorers)."""
+    import torch
+
+    from shm_tpu_torch.evals import confusion_matrix
+    from shm_tpu_torch.serve import HybridScorer
+    from shm_tpu_torch.utils.io import load_json
+
+    fam = FAMILIES[cell]
+    root = ROOT / fam["root"]
+    tag = f"[bf16 {cell}]"
+    f32 = HybridScorer.from_artifacts(root)
+    ref = f32.score(W)
+    sc = HybridScorer.from_artifacts(root, fused_dtype=torch.bfloat16,
+                                     cnn_dtype=torch.bfloat16)
+    check(sc.use_fused_vae and sc.cnn.dtype == torch.bfloat16,
+          f"{cell}: the bf16 scorer is not on the kernel with a bf16 CNN")
+    bf16_counts(reset=True)
+    out = sc.score(W)
+    counts = bf16_counts()
+    name = f"{fam['kernel']}/bf16"
+    launches = counts.pop(name)
+    print(f"{tag} score() of {len(W)} windows: {name} launches {launches}; "
+          f"every other gate instance: {counts}")
+    check(launches > 0 and not any(counts.values()),
+          f"{cell}: the bf16 scorer did not run the bf16 instance alone")
+    check(all(np.isfinite(out[k]).all() for k in ("mse", "p_struct")),
+          f"{cell}: non-finite bf16 outputs")
+    thr = float(sc.threshold)
+    gate_diff = np.flatnonzero(out["anomalous"] != ref["anomalous"])
+    y_diff = np.flatnonzero(out["y_pred"] != ref["y_pred"])
+    print(f"{tag} against the float32 scorer: gate agreement "
+          f"{1 - len(gate_diff) / len(W):.6f}, y_pred agreement "
+          f"{1 - len(y_diff) / len(W):.6f} (parity standard 1.000000)")
+    jx = np.load(ROOT / BF16_READINGS)
+    for i in gate_diff:
+        print(f"{tag}   gate flip: window {i} bf16 mse {out['mse'][i]:.6f} "
+              f"float32 {ref['mse'][i]:.6f} threshold {thr:.6f} (margin "
+              f"{(ref['mse'][i] - thr) / thr:+.3e}); JAX bf16 "
+              f"{jx[f'{cell}_bf16'][i]:.6f} float32 {jx[f'{cell}_f32'][i]:.6f}")
+    if len(y_diff):
+        logits = f32._dispatch(torch.from_numpy(W[y_diff])).logits.cpu().numpy()
+        for i, lg in zip(y_diff, logits):
+            print(f"{tag}   y_pred flip: window {i} {ref['y_pred'][i]} -> "
+                  f"{out['y_pred'][i]}, float32 logit margin "
+                  f"{abs(lg[1] - lg[0]):.5f}")
+    check(len(gate_diff) == 0, f"{cell}: {len(gate_diff)} gate decisions flip "
+                               f"in bf16")
+    rel = np.abs(out["mse"].astype(np.float64) - ref["mse"]) / ref["mse"]
+    jrel = np.abs(jx[f"{cell}_bf16"] - jx[f"{cell}_f32"]) / jx[f"{cell}_f32"]
+    print(f"{tag} mse against the float32 kernel: rel max {rel.max():.3e} "
+          f"mean {rel.mean():.3e}; the JAX package's bf16 against float32 "
+          f"on the same windows: max {jrel.max():.3e} mean {jrel.mean():.3e} "
+          f"(bar: twice these, and a mean of at least {BF16_SCORER_FLOOR} "
+          f"of it)")
+    check(rel.max() <= 2 * jrel.max() and rel.mean() <= 2 * jrel.mean(),
+          f"{cell}: bf16 mse farther from float32 than twice the JAX reading")
+    check(rel.mean() >= BF16_SCORER_FLOOR * jrel.mean(),
+          f"{cell}: bf16 mse nearer float32 than {BF16_SCORER_FLOOR} of the "
+          f"JAX reading: the gate does not run in bf16")
+    cm = confusion_matrix(y, out["y_pred"], 3)
+    cm_ref = np.asarray(load_json(root / "figures" / "pipeline_metrics.json")
+                        ["confusion_matrix_counts"])
+    moved = int(np.abs(cm - cm_ref).sum()) // 2
+    print(f"{tag} confusion matrix {cm.tolist()} (pipeline_metrics.json "
+          f"{cm_ref.tolist()}); windows moved {moved} (limit {BF16_CM_LIMIT})")
+    check(moved <= BF16_CM_LIMIT, f"{cell}: bf16 confusion matrix off by "
+                                  f"{moved} windows")
+    return launches, sc, f32
+
+
+def phase17_openlab() -> None:
+    """(3) OpenLabScorer(gate_io_dtype=bf16) on the 2,042 test pairs: gate
+    and y_pred equal to the float32 scorer's, row 1's bf16 instance
+    launched and nothing else."""
+    import torch
+
+    from shm_tpu_torch.cli import openlab as ol
+    from shm_tpu_torch.serve_openlab import OpenLabScorer
+
+    src = ROOT / OPENLAB_ROOT
+    Xc, Xr, meta = ol._load_extracted(ol.Paths(str(src)))
+    test = ol._in_runs(meta, openlab_json(src, "extracted/run_split.json")
+                       ["test_runs"])
+    X = np.stack([Xc[test], Xr[test]], axis=-1)
+    ref = OpenLabScorer.from_artifacts(src).score(X)
+    sc = OpenLabScorer.from_artifacts(src, gate_io_dtype=torch.bfloat16)
+    bf16_counts(reset=True)
+    out = sc.score(X)
+    counts = bf16_counts()
+    n = counts.pop("fused_vae_gate/bf16")
+    gate_diff = int((out["anomalous"] != ref["anomalous"]).sum())
+    y_diff = int((out["y_pred"] != ref["y_pred"]).sum())
+    rel = np.abs(out["mse"].astype(np.float64) - ref["mse"]) / ref["mse"]
+    print(f"[bf16 openlab] OpenLabScorer(gate_io_dtype=bf16) on {len(X)} "
+          f"pairs: fused_vae_gate/bf16 launches {n}, others {counts}; gate "
+          f"decisions differing {gate_diff}, y_pred differing {y_diff}; mse "
+          f"rel to float32 max {rel.max():.3e} mean {rel.mean():.3e}")
+    check(n > 0 and not any(counts.values()),
+          "openLAB: the bf16 scorer did not run row 1's bf16 instance alone")
+    check(gate_diff == 0 and y_diff == 0,
+          "openLAB: bf16 gate or y_pred differ from the float32 scorer")
+
+
+def phase17_sample(sc, W) -> None:
+    """(4) make_hybrid_fn(sample=True) on a scorer's models and windows
+    ``W``: one seed twice gives the same output, a second seed another; the
+    fused kernel refuses sample=True."""
+    import torch
+
+    from shm_tpu_torch.pipeline import make_hybrid_fn
+
+    fn = make_hybrid_fn(sc.vae, sc.cnn, sample=True)
+    Wb = torch.from_numpy(W).cuda()
+    run = lambda seed: fn(Wb, sc.mean, sc.std, sc.threshold, generator=
+                          torch.Generator(device="cuda").manual_seed(seed))
+    a, b, c = run(0), run(0), run(1)
+    same = all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("mse", "y_pred", "p_struct", "logits"))
+    differ = not torch.equal(a.mse, c.mse)
+    det = make_hybrid_fn(sc.vae, sc.cnn)(Wb, sc.mean, sc.std, sc.threshold)
+    print(f"[sample] make_hybrid_fn(sample=True) on {len(Wb)} windows: seed 0 "
+          f"twice equal {same}; seed 1 differs {differ} (mse max diff "
+          f"{float((a.mse - c.mse).abs().max()):.3e}); deterministic pass "
+          f"mse max diff from seed 0 {float((a.mse - det.mse).abs().max()):.3e}")
+    check(same and differ, "sample=True is not reproducible by its seed")
+    try:
+        make_hybrid_fn(sc.vae, sc.cnn, sample=True, use_fused_vae=True)
+        check(False, "sample=True with use_fused_vae=True did not raise")
+    except ValueError as e:
+        print(f"[sample] sample=True with use_fused_vae=True raises: {e}")
+
+
+def phase17_int8(sc, W, y) -> dict:
+    """(5) the int8 CNN of the committed data/4dof CNN on phase 3's inputs
+    (the float32 kernel's [Z, residual] of the 3,636 windows, its gate):
+    3-class y_pred agreement with the folded float network at least
+    INT8_AGREE_FLOOR. Returns its times against the float32 and bf16 CNNs."""
+    import copy
+
+    import torch
+
+    from shm_tpu_torch.data.windows import normalize_windows
+    from shm_tpu_torch.models import cnn_int8
+    from shm_tpu_torch.pipeline import make_vae_pass
+
+    Z = normalize_windows(torch.from_numpy(W).cuda(), sc.mean, sc.std)
+    with torch.inference_mode():
+        mse, xin = make_vae_pass(sc.vae, use_fused_vae=True)(Z)
+    anom = (mse > sc.threshold).cpu().numpy()
+    q = cnn_int8.quantize_cnn4dof(sc.cnn).to("cuda")
+    got = cnn_int8.cnn4dof_int8_apply(q, xin)
+    ref = cnn_int8.cnn4dof_folded_apply(sc.cnn, xin)
+    y3 = lambda lg: np.where(anom, lg.argmax(1).cpu().numpy() + 1, 0)
+    agree = float((y3(got) == y3(ref)).mean())
+    acc = float((y3(got) == y).mean())
+    print(f"[int8] int8 CNN (conv1 bf16; conv2, fc1, fc2 through "
+          f"torch._int_mm) on {len(W)} phase-3 inputs: 3-class agreement "
+          f"with the folded float network {agree:.6f} (floor "
+          f"{INT8_AGREE_FLOOR}); accuracy {acc:.6f}")
+    check(agree >= INT8_AGREE_FLOOR, f"int8 agreement {agree} < "
+                                     f"{INT8_AGREE_FLOOR}")
+    X = np.resize(xin.cpu().numpy(), (N_BENCH,) + tuple(xin.shape[1:]))
+    X = torch.from_numpy(X).cuda()
+    bf = copy.deepcopy(sc.cnn)
+    bf.dtype = torch.bfloat16
+    with torch.inference_mode():
+        ms = {"int8": time_ms(lambda: cnn_int8.cnn4dof_int8_apply(q, X),
+                              P17_REPS),
+              "f32": time_ms(lambda: sc.cnn(X), P17_REPS),
+              "bf16": time_ms(lambda: bf(X), P17_REPS)}
+    print(f"[int8] CNN at N={N_BENCH}: int8 {ms['int8']:.4f} ms | float32 "
+          f"{ms['f32']:.4f} ms | bf16 {ms['bf16']:.4f} ms")
+    return ms
+
+
+def bf16_library_pass(cell: str, vae):
+    """The family's library yardstick (``LIBRARY_PASS``) on a bf16 copy of
+    the VAE, fed bf16 windows: timed here only."""
+    import copy
+
+    import torch
+
+    v = copy.deepcopy(vae).to(torch.bfloat16)
+    if cell == "lstm":
+        return cudnn_vae_pass(v, torch.bfloat16)
+    return LIBRARY_PASS[cell](v)
+
+
+def phase17_timing(W, cell: str, sc, f32) -> dict:
+    """(6) at N=5,440: the bf16 instance against the float32 instance, the
+    plain bf16 version and the bf16 library composition; score() windows/s
+    of the bf16 and the float32 scorers. Returns the kernels-line numbers."""
+    import torch
+
+    from shm_tpu_torch.data.windows import normalize_windows
+    from shm_tpu_torch.ops import FUSED_GATES
+    from shm_tpu_torch.tools.workload import (
+        PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_TF32_FLOPS, bound_ms,
+    )
+
+    fam = FAMILIES[cell]
+    weights_fn, gate, reference = FUSED_GATES[cell]
+    tag = f"[bf16 time {cell}]"
+    Wb = np.resize(W, (N_BENCH,) + W.shape[1:]).astype(np.float32)
+    vae = sc.vae
+    N, T, D = Wb.shape
+    Z = normalize_windows(torch.from_numpy(Wb).cuda(), sc.mean,
+                          sc.std).contiguous()
+    w, wb = weights_fn(vae), weights_fn(vae, torch.bfloat16)
+    io = torch.bfloat16 if cell == "attention" else None
+    kw = dict(num_layers=vae.num_layers, use_layernorm=vae.use_layernorm)
+    bkw = dict(kw, dtype=torch.bfloat16, io_dtype=io)
+    lib = bf16_library_pass(cell, vae)
+    Zb = Z.to(torch.bfloat16)
+    mse_l, _ = lib(Zb)
+    mse_k, _ = gate(wb, Z, **bkw)
+    print(f"{tag} bf16 {fam['library']} yardstick vs the bf16 instance: mse "
+          f"rel max {float(((mse_l.float() - mse_k) / mse_k).abs().max()):.3e}")
+    ms = time_ms(lambda: gate(wb, Z, **bkw), P17_REPS)
+    ms32 = time_ms(lambda: gate(w, Z, **kw), P17_REPS)
+    plain_ms = time_ms(lambda: reference(wb, Z, **bkw), reps=3)
+    library_ms = time_ms(lambda: lib(Zb), P17_REPS)
+    flops, nbytes = fam["work"](N, T, D, vae.hidden_dim, vae.latent_dim,
+                                vae.num_layers)
+    if io is not None:                   # x and resid in 2 bytes, not 4
+        nbytes -= 2 * N * T * D * 2
+    bound, bound_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"{tag} {gate.__name__}/bf16 N={N}: kernel {ms:.4f} ms | float32 "
+          f"instance {ms32:.4f} ms | plain bf16 {plain_ms:.4f} ms | bf16 "
+          f"{fam['library']} {library_ms:.4f} ms")
+    print(f"{tag} work {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB -> "
+          f"bound {bound:.4f} ms ({bound_by}; bf16 tensor cores "
+          f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms, one TF32 term "
+          f"{flops / PEAK_TF32_FLOPS * 1e3:.4f} ms, bytes "
+          f"{nbytes / PEAK_BYTES * 1e3:.4f} ms); kernel at "
+          f"{bound / ms * 100:.1f}% of the bf16 bound")
+    rates = {}
+    for name, s in (("bf16", sc), ("float32", f32)):
+        s.score(Wb)                                    # warm the bucket
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            s.score(Wb)
+            walls.append(time.perf_counter() - t0)
+        rates[name] = N / float(np.median(walls))
+    print(f"{tag} score() of {N} windows: bf16 {rates['bf16']:.1f} windows/s, "
+          f"float32 {rates['float32']:.1f} windows/s (median of 5)")
+    return {"ms": ms, "f32_ms": ms32, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
+            "score_windows_per_s": rates}
+
+
+def phase_bf16(W, y) -> list:
+    """Phase 17: bf16 serving (the bf16 instances of rows 1, 6 and 7, the
+    bf16 CNN, fused_dtype / cnn_dtype / gate_io_dtype), sample=True and the
+    int8 CNN. Returns the bf16 instances' rows of the kernels line."""
+    import torch
+
+    print(f"[phase17] {gpu_line()}")
+    t_phase = time.perf_counter()
+    errs = phase17_kernels(W)
+    rows = []
+    for cell, fam in FAMILIES.items():
+        launches, sc, f32 = phase17_scoring(W, y, cell)
+        nums = phase17_timing(W, cell, sc, f32)
+        if cell == "lstm":
+            phase17_sample(f32, W[np.linspace(0, len(W) - 1, 64).astype(int)])
+            nums["int8_cnn_ms"] = phase17_int8(f32, W, y)
+        rows.append(dict(name=f"{fam['kernel']}/bf16", route="cuda",
+                         source=fam["source"], replaces=fam["replaces"],
+                         launches=launches, max_abs_err=errs[cell], **nums))
+        del sc, f32
+        torch.cuda.empty_cache()
+    phase17_openlab()
+    print(f"[phase17] phase 17 {time.perf_counter() - t_phase:.2f} s")
+    return rows
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[2])
@@ -5085,6 +5560,8 @@ def main(argv) -> int:
             openlab_launches[f"phase 15 {cmd}"] = c
         torch.cuda.empty_cache()
         mesh_launches = phase_mesh(W)
+        torch.cuda.empty_cache()
+        bf16_rows = phase_bf16(W, y)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5106,6 +5583,9 @@ def main(argv) -> int:
                                        for cmd, c in openlab_launches.items()}
             row["mesh_launches"] = {step: c[row["name"]]
                                     for step, c in mesh_launches.items()}
+    # the bf16 instances of rows 1, 6 and 7 (phase 17): `launches` is the
+    # bf16 scorer's main path
+    kernels += bf16_rows
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

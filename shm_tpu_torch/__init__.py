@@ -8,8 +8,11 @@ module names so each port module sits beside its counterpart:
     utils/checkpoint.py     pure-Python reader of flax msgpack checkpoints
     convert.py              flax parameter trees -> the port's state dicts
     data/windows.py         make_windows / normalize_windows / slice_frac
-    models/{lstm,vae,cnn}.py  plain PyTorch modules (the reference path)
-    ops/fused_vae.py        hand-written CUDA kernel of the whole VAE gate
+    models/{lstm,vae,cnn}.py  plain PyTorch modules (the reference path;
+                            CNN4DOF also in bf16)
+    models/cnn_int8.py      the int8 attribution CNN (not wired in)
+    ops/fused_vae.py        hand-written CUDA kernel of the whole VAE gate,
+                            float32 and bf16 instances
     pipeline.py             make_hybrid_fn: normalize -> gate -> CNN
     serve.py                HybridScorer (bucketed scoring of window stacks),
                             StreamScorer (continuous streams)

@@ -193,9 +193,9 @@ class Stage4DofConfig:
 @dataclass(frozen=True)
 class OpenLabConfig:
     """openLAB bridge stage: windowing, cleaning and silver-label rules (read
-    by the extraction, which is not ported yet), the run split, the 1-layer
-    VAE gate, the CNN and its focal-loss recipe, and the ST-first threshold
-    tuning."""
+    by the extraction, ``shm_tpu_torch/data/openlab.py``), the run split,
+    the 1-layer VAE gate, the CNN and its focal-loss recipe, and the
+    ST-first threshold tuning."""
 
     raw_dir: str = ""
     out_dir: str = ""

@@ -204,8 +204,10 @@ def cnn4dof_state_dict(variables: Mapping, seq_len: int = 100,
 
 
 def cnn4dof_from_flax(variables: Mapping, num_classes: int = 2,
-                      seq_len: int = 100, num_features: int = 12) -> CNN4DOF:
-    cnn = CNN4DOF(num_classes, seq_len, num_features)
+                      seq_len: int = 100, num_features: int = 12,
+                      dtype: torch.dtype = torch.float32) -> CNN4DOF:
+    """A :class:`CNN4DOF` (computing in ``dtype``) of flax variables."""
+    cnn = CNN4DOF(num_classes, seq_len, num_features, dtype=dtype)
     cnn.load_state_dict(cnn4dof_state_dict(variables, seq_len, num_features))
     return cnn.eval()
 

@@ -9,6 +9,14 @@ package leaves them to XLA too). Topology: 2x [Conv3x3 SAME -> BatchNorm
 flatten order (c, t, d); :mod:`shm_tpu_torch.convert` permutes the JAX
 (t, d, c) rows once.
 
+``CNN4DOF(dtype=torch.bfloat16)`` is the JAX model's ``dtype=bf16``
+(``shm_tpu/models/cnn.py:85-120``), an inference model: the input, kernels
+and biases cast to bf16, each convolution and dense layer giving bf16 with
+its bias added in bf16, BatchNorm computed in float32 from the bf16 input
+and cast back, the logits returned as float32. Its convolutions and
+products are PyTorch's own (cuDNN on the card), as the JAX package leaves
+the CNN to XLA; the parameters stay float32.
+
 Training mode follows flax's ``nn.BatchNorm`` and ``nn.Dropout``: BatchNorm
 normalizes by the batch's statistics and moves its running statistics with
 flax's momentum 0.9 (torch's ``momentum=0.1``), the running variance from
@@ -55,10 +63,15 @@ class CNN4DOF(nn.Module):
     STAGES = (("conv1", "bn1"), ("conv2", "bn2"))
 
     def __init__(self, num_classes: int = 2, seq_len: int = 100,
-                 num_features: int = 12, dropout: float = 0.5):
+                 num_features: int = 12, dropout: float = 0.5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"CNN4DOF computes in float32 or bfloat16, "
+                             f"got {dtype}")
         self.num_classes = num_classes
         self.dropout = dropout
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(2, 16, 3, padding=1)
         self.bn1 = FlaxBatchNorm2d(16, eps=1e-5)
         self.conv2 = nn.Conv2d(16, 32, 3, padding=1)
@@ -90,11 +103,33 @@ class CNN4DOF(nn.Module):
         (B, 128) boolean tensor (None draws one from torch's global
         generator); ignored in eval mode.
         """
+        if self.dtype != torch.float32:
+            return self._forward_cast(x)
         x = x.permute(0, 3, 1, 2)                                  # NCHW
         for conv, bn in self.STAGES:
             x = F.max_pool2d(F.relu(getattr(self, bn)(getattr(self, conv)(x))),
                              2)
         return self.head(x, dropout_mask)
+
+    def _forward_cast(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward in ``self.dtype`` with flax's semantics (module
+        docstring); eval mode only."""
+        if self.training:
+            raise ValueError("a CNN4DOF of dtype bfloat16 is an inference "
+                             "model: call .eval() first")
+        dt = self.dtype
+        cast = lambda t: t.to(dt)
+        x = cast(x.permute(0, 3, 1, 2))                            # NCHW
+        for conv, bn in self.STAGES:
+            c, b = getattr(self, conv), getattr(self, bn)
+            x = F.conv2d(x, cast(c.weight), None, padding=1) + cast(
+                c.bias)[:, None, None]
+            x = cast(F.batch_norm(x.float(), b.running_mean, b.running_var,
+                                  b.weight, b.bias, False, 0.0, b.eps))
+            x = F.max_pool2d(F.relu(x), 2)
+        x = F.relu(F.linear(x.flatten(1), cast(self.fc1.weight))
+                   + cast(self.fc1.bias))
+        return (F.linear(x, cast(self.fc2.weight)) + cast(self.fc2.bias)).float()
 
     def head(self, x: torch.Tensor,
              dropout_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """What the fused gate wrappers share: input checks, the pointer array of a
 C entry, the one rule of dispatch (a CUDA tensor launches the kernel, a
-CPU tensor runs the plain version, nothing gives way), and the packing of
-the weights that a kernel multiplies on the tensor cores (3xTF32 B
-fragments, bf16 A fragments)."""
+CPU tensor runs the plain version, nothing gives way), the two precisions
+a gate runs at, and the packing of the weights that a kernel multiplies on
+the tensor cores (3xTF32 B fragments, the same of bf16-rounded weights,
+bf16 A fragments)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,70 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to bf16 (nearest even), kept in float32: the plain
     versions' stand-in for a kernel's bf16 operand or stored value."""
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+# the suffix of a weight's fragments in a kernel weight dict: 3xTF32 of the
+# weight as given (the float32 instances), and of the weight rounded to bf16
+# (the bf16 instances; their TF32 small parts are zero)
+FRAG, FRAG_BF16 = "_frag", "_frag_bf16"
+
+
+def gate_dtypes(Z: torch.Tensor, dtype, io_dtype) -> Tuple[bool, torch.dtype]:
+    """``(bf16, io)`` of a gate call, the JAX kernels' ``dtype`` and
+    ``io_dtype``: ``dtype`` float32 (the port's default) or bfloat16 (every
+    product's two operands rounded to bf16 and summed in float32, and the
+    kernel's stores rounded where the TPU kernel stores bf16); ``io_dtype``
+    the type the kernel reads the windows in and writes the residual in,
+    ``None`` for ``Z``'s own. A bf16 io takes bf16 products; anything else
+    raises ``ValueError``."""
+    io = Z.dtype if io_dtype is None else io_dtype
+    ok = (torch.float32, torch.bfloat16)
+    if dtype not in ok or io not in ok or (io == torch.bfloat16
+                                           and dtype != torch.bfloat16):
+        raise ValueError(f"a gate runs float32 or bfloat16 products with "
+                         f"float32 io, or bfloat16 with bfloat16 io; got "
+                         f"dtype={dtype}, io_dtype={io}")
+    return dtype == torch.bfloat16, io
+
+
+def bf16_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` of the plain versions' bf16 mode, ``w`` already rounded:
+    ``a`` rounded to bf16, the exact products summed in float32."""
+    return bf16_round(a) @ w
+
+
+def plain_products(weights: Dict[str, torch.Tensor], names: Iterable[str],
+                   bf16: bool):
+    """``mm(a, name)``: ``a @ weights[name]`` as a gate's plain version
+    multiplies, in float32, or in bf16 (:func:`bf16_product`, the weights
+    rounded once here)."""
+    wr = {k: bf16_round(weights[k]) if bf16 else weights[k] for k in names}
+    if bf16:
+        return lambda a, k: bf16_product(a, wr[k])
+    return lambda a, k: a @ wr[k]
+
+
+def add_fragments(weights: Dict[str, torch.Tensor], name: str,
+                  dtype: torch.dtype) -> None:
+    """The fragments of ``weights[name]`` for the one precision a kernel
+    will run at: ``<name>_frag`` (:func:`tf32x3_fragments`) for float32,
+    ``<name>_frag_bf16`` (:func:`bf16_fragments`) for bfloat16; anything
+    else raises ``ValueError``. A dict packed for one precision lacks the
+    other's fragments, so a gate launched at the other raises."""
+    if dtype == torch.float32:
+        weights[name + FRAG] = tf32x3_fragments(weights[name])
+    elif dtype == torch.bfloat16:
+        weights[name + FRAG_BF16] = bf16_fragments(weights[name])
+    else:
+        raise ValueError(f"kernel weights are packed for float32 or bfloat16 "
+                         f"products, got {dtype}")
+
+
+def bf16_fragments(w: torch.Tensor) -> torch.Tensor:
+    """:func:`tf32x3_fragments` of ``w`` rounded to bf16: a bf16 value is
+    exact in TF32, so the small parts are zero and a one-term TF32 product
+    of bf16-rounded operands is the exact bf16 product."""
+    return tf32x3_fragments(bf16_round(w))
 
 
 def tf32_round(w: torch.Tensor) -> torch.Tensor:
@@ -87,19 +152,29 @@ def unpack_bf16_a_fragments(f: torch.Tensor) -> torch.Tensor:
 
 def check_fragments(weights: Dict[str, torch.Tensor],
                     need: Iterable[str]) -> None:
-    """Each ``<name>_frag`` in ``need`` has the shape of
-    :func:`tf32x3_fragments` of ``weights[<name>]``."""
+    """Each ``<name>_frag`` or ``<name>_frag_bf16`` in ``need`` has the shape
+    of :func:`tf32x3_fragments` of ``weights[<name>]``."""
     for k in need:
-        if k.endswith("_frag"):
-            K, N = weights[k[:-len("_frag")]].shape
+        for suffix in (FRAG, FRAG_BF16):
+            if not k.endswith(suffix):
+                continue
+            K, N = weights[k[:-len(suffix)]].shape
             if weights[k].shape != (N // 8, -(-K // 8), 32, 4):
                 raise ValueError(f"weight {k} {tuple(weights[k].shape)} is not "
                                  f"the fragments of a [{K}, {N}] weight")
 
 
-def check_windows(Z: torch.Tensor) -> None:
-    if Z.dtype != torch.float32 or Z.dim() != 3 or not Z.is_contiguous():
-        raise ValueError(f"Z must be a contiguous float32 [N, T, D] tensor, "
+def fragment_names(order: Sequence[str], bf16: bool) -> Tuple[str, ...]:
+    """A C entry's pointer order with each fragment named for the
+    precision: the bf16 entries read ``*_frag_bf16`` where the float32 ones
+    read ``*_frag``."""
+    return tuple(k[:-len(FRAG)] + FRAG_BF16 if bf16 and k.endswith(FRAG)
+                 else k for k in order)
+
+
+def check_windows(Z: torch.Tensor, dtype=torch.float32) -> None:
+    if Z.dtype != dtype or Z.dim() != 3 or not Z.is_contiguous():
+        raise ValueError(f"Z must be a contiguous {dtype} [N, T, D] tensor, "
                          f"got {Z.dtype} {tuple(Z.shape)}")
 
 

@@ -1,4 +1,5 @@
-// Fused deterministic attention-VAE gate for Hopper (sm_90a), float32.
+// Fused deterministic attention-VAE gate for Hopper (sm_90a), float32 and
+// bf16.
 //
 // Replaces the Pallas TPU kernel shm_tpu/ops/fused_attention.py::_kernel
 // (:157), launched by fused_attention_gate (:401, pallas_call at :524). Same
@@ -80,6 +81,25 @@
 // Scores, softmax and P.V stay on the FMA pipes; several windows a block,
 // bf16 wgmma and keys streamed beyond a block's shared memory are later work.
 //
+// The bf16 instance (C entry shm_fused_attention_gate_bf16, template BF) is
+// the TPU kernel with dtype=bf16 (fused_attention.py:206-212, :252-353):
+// every product's two operands rounded to bf16 and summed in float32. In
+// mma_rows each A element is rounded to bf16 in place of the TF32 split and
+// the B fragments are the wrapper's packing of the bf16-rounded weights (the
+// query's scale folded in first), so a_b b_b alone, one mma a k-step, is the
+// exact bf16 product. On the FMA pipes the scores multiply the stored bf16
+// q and k, P.V the probabilities rounded after the softmax's division (the
+// TPU kernel's packed softmax; its streaming form past 128 steps rounds
+// them before) and the stored bf16 v, and the token, latent and output heads
+// round both operands. The residual stream s is rounded as the TPU kernel
+// stores it: after the tokens, after the output projection (its last head)
+// and after the MLP (its last chunk); q | k | v and the attention output o
+// as they are stored. LayerNorm, softmax and the pooled summary stay
+// float32. Its io is float32 or bf16 (template IOT): with bf16 the window is
+// read as bf16 (in the residual's x - y too) and the residual stored bf16.
+// Its bound at N=5,440 (4DOF preset) is the 970.6 GFLOP at the 989 TFLOP/s
+// bf16 rate, 0.98 ms; what binds the float32 body (not its mma) binds it.
+//
 // Accurate expf/tanhf (no --use_fast_math).
 
 #include <cuda_runtime.h>
@@ -101,6 +121,29 @@ constexpr int SMALL = 512;      // floats for the per-window vectors
 constexpr int NUM_W = 2 * (4 + 16 * LMAX) + 8;
 constexpr float STACK_EPS = 1e-6f;
 constexpr float MODEL_EPS = 1e-5f;
+
+typedef unsigned short bf16_t;  // raw bf16 bits
+
+// float32 -> nearest bf16 (ties to even), as a float32; identity unless R
+template <bool R>
+__device__ __forceinline__ float rd(float x) {
+  if constexpr (R) {
+    unsigned r;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %1;" : "=r"(r) : "f"(x));
+    return __uint_as_float(r << 16);
+  }
+  return x;
+}
+
+// the window and the residual in their io type: float32, or bf16 bits
+__device__ __forceinline__ float ld_io(const float* p) { return *p; }
+__device__ __forceinline__ float ld_io(const bf16_t* p) {
+  return __uint_as_float((unsigned)*p << 16);
+}
+__device__ __forceinline__ void st_io(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_io(bf16_t* p, float v) {
+  *p = (bf16_t)(__float_as_uint(rd<true>(v)) >> 16);
+}
 
 // the four products' weights as TF32 fragments (mma_rows), the rest as given
 struct BlockW {
@@ -194,8 +237,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
 // One k-step of mma_rows: the MW row tiles at A + ro (this lane's two rows
 // of each, as offsets) times the NW n-tiles' fragments b. Each A element is
 // split once for the NW n-tiles; each k-step adds a_s b_b, a_b b_s, then
-// a_b b_b into one float32 accumulator.
-template <int NW, int MW>
+// a_b b_b into one float32 accumulator. Under BF each A element is rounded
+// to bf16 and the k-step adds a_b b_b alone (b holds bf16-rounded weights).
+template <int NW, int MW, bool BF>
 __device__ __forceinline__ void mma_kstep(float (&acc)[MW][NW][4], const float* A,
                                           const int (&ro)[MW][2],
                                           const float4 (&b)[NW]) {
@@ -205,14 +249,21 @@ __device__ __forceinline__ void mma_kstep(float (&acc)[MW][NW][4], const float* 
     unsigned big[4], sml[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      big[q] = tf32_round(x[q]);
-      sml[q] = tf32_round(x[q] - __uint_as_float(big[q]));
+      if constexpr (BF) {
+        big[q] = __float_as_uint(rd<true>(x[q]));
+        sml[q] = 0u;
+      } else {
+        big[q] = tf32_round(x[q]);
+        sml[q] = tf32_round(x[q] - __uint_as_float(big[q]));
+      }
     }
 #pragma unroll
     for (int j = 0; j < NW; ++j) {
-      mma_tf32(acc[i][j], sml, b[j].x, b[j].y);   // a_s b_b
-      mma_tf32(acc[i][j], big, b[j].z, b[j].w);   // a_b b_s
-      mma_tf32(acc[i][j], big, b[j].x, b[j].y);   // a_b b_b
+      if constexpr (!BF) {
+        mma_tf32(acc[i][j], sml, b[j].x, b[j].y);   // a_s b_b
+        mma_tf32(acc[i][j], big, b[j].z, b[j].w);   // a_b b_s
+      }
+      mma_tf32(acc[i][j], big, b[j].x, b[j].y);     // a_b b_b
     }
   }
 }
@@ -236,7 +287,7 @@ __device__ __forceinline__ void mma_kstep(float (&acc)[MW][NW][4], const float* 
 // m-group's) reads row M-1 instead, which stays inside A, and is never
 // passed to epi (a row of the product depends only on its own row of A).
 // k runs in order (no atomics).
-template <int NW, int MW, class Epi>
+template <int NW, int MW, bool BF, class Epi>
 __device__ __forceinline__ void mma_rows(const float* A, int lda, int M,
                                          const float4* __restrict__ Bf, int KT,
                                          int KS, int NTL, Epi epi) {
@@ -266,7 +317,7 @@ __device__ __forceinline__ void mma_rows(const float* A, int lda, int M,
       float4 b[NW];
 #pragma unroll
       for (int j = 0; j < NW; ++j) b[j] = __ldg(bw + ((size_t)j * KT + ks) * 32);
-      mma_kstep(acc, A + ks * 8, ro, b);
+      mma_kstep<NW, MW, BF>(acc, A + ks * 8, ro, b);
     }
 #pragma unroll
     for (int i = 0; i < MW; ++i) {
@@ -290,6 +341,7 @@ struct Smem {
 };
 
 // One pre-LN transformer block on the window's stream, in place.
+template <bool BF>
 __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
                                   int H) {
   const int ld = H + 4, Tld = (T + 3) & ~3, heads = H / HD;
@@ -307,12 +359,13 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
   for (int h = 0; h < heads; ++h) {
     // q | k | v of head h, all rows: nrm [Tp,H] x wqkv[:, h*96 .. h*96+95]
     const float* bq = w.bqkv + h * 3 * HD;
-    mma_rows<3, 2>(m.nrm, ld, Tp, w.wqkv_f + (size_t)h * 12 * KT * 32, KT, KT,
-                   12, [&](int row, int col, float v0, float v1) {
-                     float* dst = qh + (col / HD) * Tp * HDP + row * HDP + col % HD;
-                     *reinterpret_cast<float2*>(dst) =
-                         make_float2(v0 + __ldg(bq + col), v1 + __ldg(bq + col + 1));
-                   });
+    mma_rows<3, 2, BF>(m.nrm, ld, Tp, w.wqkv_f + (size_t)h * 12 * KT * 32, KT,
+                       KT, 12, [&](int row, int col, float v0, float v1) {
+                         float* dst = qh + (col / HD) * Tp * HDP + row * HDP + col % HD;
+                         *reinterpret_cast<float2*>(dst) =
+                             make_float2(rd<BF>(v0 + __ldg(bq + col)),
+                                         rd<BF>(v1 + __ldg(bq + col + 1)));
+                       });
     __syncthreads();
 
     for (int r0 = 0; r0 < Tp; r0 += QC) {
@@ -352,7 +405,7 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
           sum += e;
         }
         sum = warp_sum(sum);
-        for (int j = lane; j < T; j += 32) row[j] = row[j] / sum;
+        for (int j = lane; j < T; j += 32) row[j] = rd<BF>(row[j] / sum);
       }
       __syncthreads();
       // o[r0+i] = sum_j P[i][j] v[j], written over the dead q rows
@@ -369,21 +422,24 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
           o.z = fmaf(pj, vv.z, o.z);
           o.w = fmaf(pj, vv.w, o.w);
         }
-        *reinterpret_cast<float4*>(qh + (r0 + i) * HDP + c4 * 4) = o;
+        *reinterpret_cast<float4*>(qh + (r0 + i) * HDP + c4 * 4) =
+            make_float4(rd<BF>(o.x), rd<BF>(o.y), rd<BF>(o.z), rd<BF>(o.w));
       }
       __syncthreads();
     }
-    // s += o_h [Tp,32] x wo[h*32 .. h*32+31, :] (+ bo with the first head)
+    // s += o_h [Tp,32] x wo[h*32 .. h*32+31, :] (+ bo with the first head;
+    // under BF s rounded after the last)
     const float* bo = w.bo;
-    const bool first = h == 0;
-    mma_rows<4, 2>(qh, HDP, Tp, w.wo_f + (size_t)h * (HD / 8) * 32, KT, HD / 8,
-                   KT, [&](int row, int col, float v0, float v1) {
-                     float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
-                     float2 v = *dst;
-                     v.x += first ? v0 + __ldg(bo + col) : v0;
-                     v.y += first ? v1 + __ldg(bo + col + 1) : v1;
-                     *dst = v;
-                   });
+    const bool first = h == 0, last = h == heads - 1;
+    mma_rows<4, 2, BF>(qh, HDP, Tp, w.wo_f + (size_t)h * (HD / 8) * 32, KT,
+                       HD / 8, KT, [&](int row, int col, float v0, float v1) {
+                         float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
+                         float2 v = *dst;
+                         v.x += first ? v0 + __ldg(bo + col) : v0;
+                         v.y += first ? v1 + __ldg(bo + col + 1) : v1;
+                         if (BF && last) v = make_float2(rd<BF>(v.x), rd<BF>(v.y));
+                         *dst = v;
+                       });
     __syncthreads();
   }
 
@@ -394,31 +450,35 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
   constexpr int ldh = CC + 4;
   for (int c0 = 0; c0 < 4 * H; c0 += CC) {
     const float* b1 = w.b1 + c0;
-    mma_rows<4, 2>(m.nrm, ld, Tp, w.w1_f + (size_t)(c0 / 8) * KT * 32, KT, KT,
-                   CC / 8, [&](int row, int col, float v0, float v1) {
-                     *reinterpret_cast<float2*>(h1 + row * ldh + col) =
-                         make_float2(gelu_tanh(v0 + __ldg(b1 + col)),
-                                     gelu_tanh(v1 + __ldg(b1 + col + 1)));
-                   });
+    mma_rows<4, 2, BF>(m.nrm, ld, Tp, w.w1_f + (size_t)(c0 / 8) * KT * 32, KT,
+                       KT, CC / 8, [&](int row, int col, float v0, float v1) {
+                         *reinterpret_cast<float2*>(h1 + row * ldh + col) =
+                             make_float2(gelu_tanh(v0 + __ldg(b1 + col)),
+                                         gelu_tanh(v1 + __ldg(b1 + col + 1)));
+                       });
     __syncthreads();
+    // s += the chunk's h1 W2 (+ b2 with the first; under BF s rounded after
+    // the last)
     const float* b2 = w.b2;
-    const bool first = c0 == 0;
-    mma_rows<4, 2>(h1, ldh, Tp, w.w2_f + (size_t)(c0 / 8) * 32, 4 * KT, CC / 8,
-                   KT, [&](int row, int col, float v0, float v1) {
-                     float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
-                     float2 v = *dst;
-                     v.x += first ? v0 + __ldg(b2 + col) : v0;
-                     v.y += first ? v1 + __ldg(b2 + col + 1) : v1;
-                     *dst = v;
-                   });
+    const bool first = c0 == 0, last = c0 + CC >= 4 * H;
+    mma_rows<4, 2, BF>(h1, ldh, Tp, w.w2_f + (size_t)(c0 / 8) * 32, 4 * KT,
+                       CC / 8, KT, [&](int row, int col, float v0, float v1) {
+                         float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
+                         float2 v = *dst;
+                         v.x += first ? v0 + __ldg(b2 + col) : v0;
+                         v.y += first ? v1 + __ldg(b2 + col + 1) : v1;
+                         if (BF && last) v = make_float2(rd<BF>(v.x), rd<BF>(v.y));
+                         *dst = v;
+                       });
     __syncthreads();
   }
 }
 
+template <bool BF, typename IOT>
 __global__ void __launch_bounds__(NT)
-fused_attention_gate_kernel(const float* __restrict__ x,
+fused_attention_gate_kernel(const IOT* __restrict__ x,
                             const float* __restrict__ pos,   // [T, H]
-                            float* __restrict__ resid, float* __restrict__ mse,
+                            IOT* __restrict__ resid, float* __restrict__ mse,
                             const AttnW W, int T, int Tp, int D, int H, int Z,
                             int L, int use_ln, int with_resid) {
   extern __shared__ __align__(16) float smem[];
@@ -436,7 +496,7 @@ fused_attention_gate_kernel(const float* __restrict__ x,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t n = blockIdx.x;
-  const float* xw = x + n * T * D;
+  const IOT* xw = x + n * T * D;
 
   // ---------------- encoder tokens: x in_proj + positions (pad rows 0)
   for (int i = tid; i < Tp * H; i += NT) {
@@ -444,13 +504,13 @@ fused_attention_gate_kernel(const float* __restrict__ x,
     float v = 0.0f;
     if (t < T) {
       for (int d = 0; d < D; ++d)
-        v = fmaf(__ldg(xw + t * D + d), __ldg(W.enc.in_w + d * H + c), v);
-      v = v + __ldg(W.enc.in_b + c) + __ldg(pos + t * H + c);
+        v = fmaf(rd<BF>(ld_io(xw + t * D + d)), rd<BF>(__ldg(W.enc.in_w + d * H + c)), v);
+      v = rd<BF>(v + __ldg(W.enc.in_b + c) + __ldg(pos + t * H + c));
     }
     m.s[t * ld + c] = v;
   }
   __syncthreads();
-  for (int l = 0; l < L; ++l) transformer_block(W.enc.layer[l], m, T, Tp, H);
+  for (int l = 0; l < L; ++l) transformer_block<BF>(W.enc.layer[l], m, T, Tp, H);
 
   // ---------------- final norm, mean over the T real rows
   ln_rows(m.s, m.nrm, ld, T, W.enc.fs, W.enc.fb, H);
@@ -468,28 +528,28 @@ fused_attention_gate_kernel(const float* __restrict__ x,
   // ---------------- latent head (z = mu), decoder token
   for (int z = tid; z < Z; z += NT) {
     float a = 0.0f;
-    for (int k = 0; k < H; ++k) a = fmaf(pooled[k], __ldg(W.mu_w + k * Z + z), a);
+    for (int k = 0; k < H; ++k) a = fmaf(rd<BF>(pooled[k]), rd<BF>(__ldg(W.mu_w + k * Z + z)), a);
     mu[z] = a + __ldg(W.mu_b + z);
   }
   __syncthreads();
   for (int c = tid; c < H; c += NT) {
     float a = 0.0f;
-    for (int z = 0; z < Z; ++z) a = fmaf(mu[z], __ldg(W.z2h_w + z * H + c), a);
+    for (int z = 0; z < Z; ++z) a = fmaf(rd<BF>(mu[z]), rd<BF>(__ldg(W.z2h_w + z * H + c)), a);
     h0[c] = tanhf(a + __ldg(W.z2h_b + c));
   }
   __syncthreads();
   for (int c = tid; c < H; c += NT) {
     float a = 0.0f;
-    for (int k = 0; k < H; ++k) a = fmaf(h0[k], __ldg(W.dec.in_w + k * H + c), a);
+    for (int k = 0; k < H; ++k) a = fmaf(rd<BF>(h0[k]), rd<BF>(__ldg(W.dec.in_w + k * H + c)), a);
     tok0[c] = a + __ldg(W.dec.in_b + c);
   }
   __syncthreads();
   for (int i = tid; i < Tp * H; i += NT) {
     const int t = i / H, c = i % H;
-    m.s[t * ld + c] = t < T ? tok0[c] + __ldg(pos + t * H + c) : 0.0f;
+    m.s[t * ld + c] = t < T ? rd<BF>(tok0[c] + __ldg(pos + t * H + c)) : 0.0f;
   }
   __syncthreads();
-  for (int l = 0; l < L; ++l) transformer_block(W.dec.layer[l], m, T, Tp, H);
+  for (int l = 0; l < L; ++l) transformer_block<BF>(W.dec.layer[l], m, T, Tp, H);
 
   // ---------------- final norm, output head, residual, MSE
   ln_rows(m.s, m.nrm, ld, T, W.dec.fs, W.dec.fb, H);
@@ -499,11 +559,11 @@ fused_attention_gate_kernel(const float* __restrict__ x,
     const int t = i / D, d = i % D;
     const float* r = m.nrm + t * ld;
     float y = 0.0f;
-    for (int k = 0; k < H; ++k) y = fmaf(r[k], __ldg(W.out_w + k * D + d), y);
+    for (int k = 0; k < H; ++k) y = fmaf(rd<BF>(r[k]), rd<BF>(__ldg(W.out_w + k * D + d)), y);
     y += __ldg(W.out_b + d);
-    const float e = __ldg(xw + i) - y;
+    const float e = ld_io(xw + i) - y;
     const float e2 = e * e;
-    if (with_resid) resid[n * T * D + i] = e2;
+    if (with_resid) st_io(resid + n * T * D + i, e2);
     part += e2;
   }
   part = warp_sum(part);
@@ -543,19 +603,13 @@ extern "C" long long shm_fused_attention_smem_bytes(int T, int H) {
          (2 * Tp * (H + 4) + SMALL + (attn > mlp ? attn : mlp));
 }
 
-// C entry for ctypes. `w` holds NUM_W = 80 device pointers: the encoder stack
-// (in_w in_b, then per layer ln1s ln1b wqkv bqkv wo bo ln2s ln2b w1 b1 w2 b2
-// and the fragments of wqkv wo w1 w2 (mma_rows; 16-byte aligned) for LMAX = 2
-// layers, then final-norm scale and bias), ln_scale ln_bias mu_w
-// mu_b z2h_w z2h_b, the decoder stack in the same order, out_w out_b
-// (pointers of an absent layer or LayerNorm may be null). `pos` is the
-// [T, H] position table. Returns cudaErrorInvalidValue for a shape the kernel
-// does not take, the error of cudaFuncSetAttribute for a window too long for
-// a block's shared memory, else the launch's cudaGetLastError(), 0 on success.
-extern "C" int shm_fused_attention_gate_f32(
-    const float* x, const float* pos, float* resid, float* mse,
-    const void* const* w, int n_w, int N, int T, int D, int H, int Z, int L,
-    int use_ln, int with_resid, void* stream) {
+namespace {
+
+// the kernel instance at (BF, IOT) on the `w` pointers of the C entries
+template <bool BF, typename IOT>
+int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
+                const void* const* w, int n_w, int N, int T, int D, int H,
+                int Z, int L, int use_ln, int with_resid, void* stream) {
   if (n_w != NUM_W || N <= 0 || T <= 0 || D <= 0 || D > DMAX || Z <= 0 ||
       Z > ZMAX || L < 1 || L > LMAX || H % HD || H < HD || H > HMAX ||
       (with_resid && resid == nullptr))
@@ -585,30 +639,66 @@ extern "C" int shm_fused_attention_gate_f32(
   W.z2h_w = *p++; W.z2h_b = *p++;
   stack(W.dec);
   W.out_w = *p++; W.out_b = *p++;
+  auto kern = fused_attention_gate_kernel<BF, IOT>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_attention_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  fused_attention_gate_kernel<<<N, NT, smem_bytes,
-                                reinterpret_cast<cudaStream_t>(stream)>>>(
+  kern<<<N, NT, smem_bytes, reinterpret_cast<cudaStream_t>(stream)>>>(
       x, pos, resid, mse, W, T, Tp, D, H, Z, L, use_ln, with_resid);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry for ctypes. `w` holds NUM_W = 80 device pointers: the encoder stack
+// (in_w in_b, then per layer ln1s ln1b wqkv bqkv wo bo ln2s ln2b w1 b1 w2 b2
+// and the fragments of wqkv wo w1 w2 (mma_rows; 16-byte aligned) for LMAX = 2
+// layers, then final-norm scale and bias), ln_scale ln_bias mu_w
+// mu_b z2h_w z2h_b, the decoder stack in the same order, out_w out_b
+// (pointers of an absent layer or LayerNorm may be null). `pos` is the
+// [T, H] position table. Returns cudaErrorInvalidValue for a shape the kernel
+// does not take, the error of cudaFuncSetAttribute for a window too long for
+// a block's shared memory, else the launch's cudaGetLastError(), 0 on success.
+extern "C" int shm_fused_attention_gate_f32(
+    const float* x, const float* pos, float* resid, float* mse,
+    const void* const* w, int n_w, int N, int T, int D, int H, int Z, int L,
+    int use_ln, int with_resid, void* stream) {
+  return launch_gate<false, float>(x, pos, resid, mse, w, n_w, N, T, D, H, Z,
+                                   L, use_ln, with_resid, stream);
+}
+
+// The C entry of the bf16 instance: the arguments of
+// shm_fused_attention_gate_f32 with `w`'s fragments those of the
+// bf16-rounded weights, x and resid bf16 when io_bf16 is 1 and float32 when
+// it is 0. Returns as shm_fused_attention_gate_f32 does.
+extern "C" int shm_fused_attention_gate_bf16(
+    const void* x, const float* pos, void* resid, float* mse,
+    const void* const* w, int n_w, int N, int T, int D, int H, int Z, int L,
+    int use_ln, int with_resid, int io_bf16, void* stream) {
+  if (io_bf16 == 1)
+    return launch_gate<true, bf16_t>(
+        static_cast<const bf16_t*>(x), pos, static_cast<bf16_t*>(resid), mse,
+        w, n_w, N, T, D, H, Z, L, use_ln, with_resid, stream);
+  if (io_bf16 != 0) return (int)cudaErrorInvalidValue;
+  return launch_gate<true, float>(
+      static_cast<const float*>(x), pos, static_cast<float*>(resid), mse, w,
+      n_w, N, T, D, H, Z, L, use_ln, with_resid, stream);
 }
 
 // out = registers a thread, local memory (spill) bytes a thread, threads a
 // block, dynamic shared bytes a block at (T, H), blocks an SM at once.
 extern "C" int shm_fused_attention_info(int T, int H, int* out) {
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, fused_attention_gate_kernel);
+  auto kern = fused_attention_gate_kernel<false, float>;
+  cudaError_t err = cudaFuncGetAttributes(&a, kern);
   if (err != cudaSuccess) return (int)err;
   const int smem_bytes = (int)shm_fused_attention_smem_bytes(T, H);
-  err = cudaFuncSetAttribute(fused_attention_gate_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fused_attention_gate_kernel, NT, smem_bytes);
+      &blocks, kern, NT, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;

@@ -1,5 +1,5 @@
-// Fused deterministic minGRU-VAE gate for Hopper (sm_90a), float32, every
-// gate product on the tensor cores in 3xTF32.
+// Fused deterministic minGRU-VAE gate for Hopper (sm_90a), float32 with
+// every gate product on the tensor cores in 3xTF32, and bf16.
 //
 // Replaces the Pallas TPU kernel shm_tpu/ops/fused_mingru.py::_kernel (:69),
 // launched by fused_mingru_gate (:207, pallas_call at :293). Same function:
@@ -72,6 +72,20 @@
 //     (1.7 GFLOP at N=5,440), as do the sigmoids; the head for a chunk runs
 //     TC*BT*D slots.
 //
+// The bf16 instance (C entry shm_fused_mingru_gate_bf16) is the TPU kernel
+// with dtype=bf16 (fused_mingru.py:92-188): every product's two operands
+// rounded to bf16 and summed in float32, the sum TC_BF16 of fused_vae.cu
+// (A rounded to bf16 in place of the TF32 split, B fragments of the
+// bf16-rounded weights, a_b b_b alone chained into the sum); the gate
+// scratch z (after its sigmoid) and h~ rounded to bf16 as the TPU kernel
+// stores them, but for the decoder's layer 0, whose constant gates stay
+// float32; every stored h_t rounded (store_chunk); the output head's y
+// rounded before the residual. The sweep's running h, the encoder's last h,
+// LayerNorm and the mse stay float32. Its io is float32 or bf16 (template
+// IOT), as fused_vae.cu's bf16 instance. Its bound at N=5,440 (4DOF preset)
+// is the 76.7 GFLOP at the 989 TFLOP/s bf16 rate, 0.08 ms; one TF32 mma a
+// product on m16n8k8 reaches the 495 TFLOP/s TF32 rate at best.
+//
 // Accurate expf/tanhf (no --use_fast_math); sigmoid(x) = 1/(1+exp(-x)).
 
 #include <cuda_runtime.h>
@@ -83,6 +97,8 @@ constexpr int ZMAX = 32;
 constexpr int LMAX = 4;
 constexpr int NUM_W = 4 * LMAX + 8 + 2 * LMAX;   // 24 as given, 8 fragments
 constexpr int XP = DMAX + 4;    // padded row of the shared x tile [R][XP]
+
+typedef unsigned short bf16_t;  // raw bf16 bits
 
 struct MinGruWeights {
   const float4* enc_f[LMAX];    // w_ih fragments
@@ -101,6 +117,27 @@ struct MinGruWeights {
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// float32 -> nearest bf16 (ties to even), as a float32; identity unless R
+template <bool R>
+__device__ __forceinline__ float rd(float x) {
+  if constexpr (R) {
+    unsigned r;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %1;" : "=r"(r) : "f"(x));
+    return __uint_as_float(r << 16);
+  }
+  return x;
+}
+
+// the window tile and the residual in their io type: float32, or bf16 bits
+__device__ __forceinline__ float ld_io(const float* p) { return *p; }
+__device__ __forceinline__ float ld_io(const bf16_t* p) {
+  return __uint_as_float((unsigned)*p << 16);
+}
+__device__ __forceinline__ void st_io(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_io(bf16_t* p, float v) {
+  *p = (bf16_t)(__float_as_uint(rd<true>(v)) >> 16);
 }
 
 // entry l of a pointer array of the kernel's parameters, read with constant
@@ -144,18 +181,27 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
 //   TC_SPLIT:  a pair's six mma chained from zero and that partial added to
 //              the sum with a float32 add (round to nearest): the shipping sum;
 //   TC_CHAIN:  every mma chained into the one sum;
-//   TC_ONE_TERM: a_b b_b alone into the one sum (a planted fault).
-enum TcSum { TC_CHAIN = 0, TC_SPLIT = 1, TC_ONE_TERM = 2 };
+//   TC_ONE_TERM: a_b b_b alone into the one sum (a planted fault);
+//   TC_BF16:   the bf16 instance's sum: A rounded to bf16 (small part zero),
+//              B of bf16-rounded weights, a_b b_b alone as TC_ONE_TERM.
+enum TcSum { TC_CHAIN = 0, TC_SPLIT = 1, TC_ONE_TERM = 2, TC_BF16 = 3 };
 
-// the TF32 parts of this lane's A fragment at p (row stride lda), or zeros
+// the TF32 parts of this lane's A fragment at p (row stride lda), or zeros;
+// under BF the bf16 rounding of each element as its big part
+template <bool BF>
 __device__ __forceinline__ void split_a(const float* p, int lda, bool load,
                                         unsigned (&big)[4], unsigned (&sml)[4]) {
   const float x[4] = {load ? p[0] : 0.0f, load ? p[8 * lda] : 0.0f,
                       load ? p[4] : 0.0f, load ? p[8 * lda + 4] : 0.0f};
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    big[r] = tf32_round(x[r]);
-    sml[r] = tf32_round(x[r] - __uint_as_float(big[r]));
+    if constexpr (BF) {
+      big[r] = __float_as_uint(rd<true>(x[r]));
+      sml[r] = 0u;
+    } else {
+      big[r] = tf32_round(x[r]);
+      sml[r] = tf32_round(x[r] - __uint_as_float(big[r]));
+    }
   }
 }
 
@@ -166,7 +212,7 @@ __device__ __forceinline__ void mma_pair(float (&acc)[4], const unsigned (&big0)
                                          const unsigned (&big1)[4],
                                          const unsigned (&sml1)[4], float4 b0,
                                          float4 b1) {
-  if constexpr (SUM == TC_ONE_TERM) {
+  if constexpr (SUM == TC_ONE_TERM || SUM == TC_BF16) {
     mma_tf32(acc, big0, b0.x, b0.y);
     mma_tf32(acc, big1, b1.x, b1.y);
   } else {
@@ -213,8 +259,8 @@ __device__ __forceinline__ void gate_mma(float (&acc)[NM][2][4],
     for (int m = 0; m < NM; ++m) {
       const float* p = a0 + m * 16 * lda + ks * 8;
       unsigned big0[4], sml0[4], big1[4], sml1[4];
-      split_a(p, lda, true, big0, sml0);
-      split_a(p + 8, lda, two, big1, sml1);
+      split_a<SUM == TC_BF16>(p, lda, true, big0, sml0);
+      split_a<SUM == TC_BF16>(p + 8, lda, two, big1, sml1);
 #pragma unroll
       for (int q = 0; q < 2; ++q)
         mma_pair<SUM>(acc[m][q], big0, sml0, big1, sml1, b0[q], b1[q]);
@@ -240,8 +286,9 @@ __device__ __forceinline__ void tc_bias(float (&acc)[NM][2][4], const float* b) 
 // the h this thread carried out of the last chunk (hc[m * NT], one float4
 // of its four cells of m-tile m), h <- h + sigmoid(g_z) (g_h - h) at each
 // step, h of step s into acc[s*MT + m][0], and the last back into hc. Steps
-// past T leave h as it is.
-template <int MT, int TC, int NT>
+// past T leave h as it is. Under BF z and h~ are rounded to bf16 first, as
+// the TPU kernel stores its gate scratch.
+template <int MT, int TC, int NT, bool BF>
 __device__ __forceinline__ void sweep(float (&acc)[TC * MT][2][4], float4* hc,
                                       int nv) {
 #pragma unroll
@@ -252,19 +299,20 @@ __device__ __forceinline__ void sweep(float (&acc)[TC * MT][2][4], float4* hc,
     for (int s = 0; s < TC; ++s)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const float z = sigmoid_f(acc[s * MT + m][0][r]);
-        if (s < nv) h[r] = h[r] + z * (acc[s * MT + m][1][r] - h[r]);
+        const float z = rd<BF>(sigmoid_f(acc[s * MT + m][0][r]));
+        const float hb = rd<BF>(acc[s * MT + m][1][r]);
+        if (s < nv) h[r] = h[r] + z * (hb - h[r]);
         acc[s * MT + m][0][r] = h[r];
       }
     hc[m * NT] = make_float4(h[0], h[1], h[2], h[3]);
   }
 }
 
-// h of every row of the chunk (acc[.][0]) into the shared [R][H+4] buffer,
-// between two barriers: the first ends the reads of what the buffer held
-// (the next layer's product, or the output head of the last chunk), the
-// second makes the chunk visible
-template <int H, int NM>
+// h of every row of the chunk (acc[.][0]) into the shared [R][H+4] buffer
+// (rounded to bf16 under BF), between two barriers: the first ends the
+// reads of what the buffer held (the next layer's product, or the output
+// head of the last chunk), the second makes the chunk visible
+template <int H, int NM, bool BF>
 __device__ __forceinline__ void store_chunk(const float (&acc)[NM][2][4],
                                             float* buf) {
   constexpr int HP = H + 4;
@@ -273,8 +321,10 @@ __device__ __forceinline__ void store_chunk(const float (&acc)[NM][2][4],
   __syncthreads();
 #pragma unroll
   for (int m = 0; m < NM; ++m) {
-    *reinterpret_cast<float2*>(row + m * 16 * HP) = make_float2(acc[m][0][0], acc[m][0][1]);
-    *reinterpret_cast<float2*>(row + (m * 16 + 8) * HP) = make_float2(acc[m][0][2], acc[m][0][3]);
+    *reinterpret_cast<float2*>(row + m * 16 * HP) =
+        make_float2(rd<BF>(acc[m][0][0]), rd<BF>(acc[m][0][1]));
+    *reinterpret_cast<float2*>(row + (m * 16 + 8) * HP) =
+        make_float2(rd<BF>(acc[m][0][2]), rd<BF>(acc[m][0][3]));
   }
   __syncthreads();
 }
@@ -287,11 +337,12 @@ constexpr size_t tc_smem_floats(int L) {
   return (size_t)L * MT * 4 * H * 4 + 2 * R * (H + 4) + R * XP + ZMAX * BT;
 }
 
-template <int H, int MT, int TC, int SUM>
+template <int H, int MT, int TC, int SUM, typename IOT>
 __global__ void __launch_bounds__(4 * H, 1)
-fused_mingru_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
+fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
                        float* __restrict__ mse, const MinGruWeights Wt, int N,
                        int T, int D, int Z, int L, int use_ln, int with_resid) {
+  constexpr bool BF = SUM == TC_BF16;   // stores and heads rounded too
   constexpr int NT = 4 * H;
   constexpr int BT = 16 * MT;
   constexpr int R = TC * BT;          // rows of a chunk tile
@@ -323,7 +374,7 @@ fused_mingru_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
       const int d = i % DP, s = (i / DP) % TC, b = i / (DP * TC);
       const int n = n0 + b;
       xs[(s * BT + b) * XP + d] = (n < N && d < D && s < nv)
-          ? x[((size_t)n * T + t0 + s) * D + d] : 0.0f;
+          ? ld_io(x + ((size_t)n * T + t0 + s) * D + d) : 0.0f;
     }
     __syncthreads();
 #pragma unroll 1
@@ -332,8 +383,8 @@ fused_mingru_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
       tc_bias<H, NM>(acc, layer_ptr(Wt.enc_b, l));
       gate_mma<H, NM, SUM>(acc, layer_ptr(Wt.enc_f, l), l == 0 ? DP / 8 : KH,
                            l == 0 ? xs : buf(l - 1), l == 0 ? XP : HP);
-      sweep<MT, TC, NT>(acc, hcar + l * MT * NT + tid, nv);
-      if (l + 1 < L) store_chunk<H, NM>(acc, buf(l));
+      sweep<MT, TC, NT, BF>(acc, hcar + l * MT * NT + tid, nv);
+      if (l + 1 < L) store_chunk<H, NM, BF>(acc, buf(l));
     }
     __syncthreads();      // the last layer's product has read its input
   }
@@ -372,7 +423,8 @@ fused_mingru_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
   for (int i = tid; i < Z * BT; i += NT) {
     const int z = i % Z, b = i / Z;
     float s = __ldg(Wt.mu_b + z);
-    for (int k = 0; k < H; ++k) s = fmaf(__ldg(Wt.mu_w + k * Z + z), hl[b * HP + k], s);
+    for (int k = 0; k < H; ++k)
+      s = fmaf(rd<BF>(__ldg(Wt.mu_w + k * Z + z)), rd<BF>(hl[b * HP + k]), s);
     mus[z * BT + b] = s;
   }
   __syncthreads();
@@ -381,7 +433,8 @@ fused_mingru_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
   for (int i = tid; i < H * BT; i += NT) {
     const int k = i % H, b = i / H;
     float s = __ldg(Wt.z2h_b + k);
-    for (int z = 0; z < Z; ++z) s = fmaf(__ldg(Wt.z2h_w + z * H + k), mus[z * BT + b], s);
+    for (int z = 0; z < Z; ++z)
+      s = fmaf(rd<BF>(__ldg(Wt.z2h_w + z * H + k)), rd<BF>(mus[z * BT + b]), s);
     dec_in[b * HP + k] = tanhf(s);
   }
   __syncthreads();
@@ -426,15 +479,15 @@ fused_mingru_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
           }
         hcar[m * NT + tid] = make_float4(h[0], h[1], h[2], h[3]);
       }
-      store_chunk<H, NM>(acc, buf(0));
+      store_chunk<H, NM, BF>(acc, buf(0));
     }
 #pragma unroll 1
     for (int l = 1; l < L; ++l) {
       float acc[NM][2][4];
       tc_bias<H, NM>(acc, layer_ptr(Wt.dec_b, l));
       gate_mma<H, NM, SUM>(acc, layer_ptr(Wt.dec_f, l), KH, buf(l - 1), HP);
-      sweep<MT, TC, NT>(acc, hcar + l * MT * NT + tid, nv);
-      store_chunk<H, NM>(acc, buf(l));
+      sweep<MT, TC, NT, BF>(acc, hcar + l * MT * NT + tid, nv);
+      store_chunk<H, NM, BF>(acc, buf(l));
     }
     // output head for the chunk: slot i runs d, then b, then s (rows of one
     // step are apart by HP floats: conflict-free); it reads hout before the
@@ -448,11 +501,12 @@ fused_mingru_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
         if (s < nv && n < N) {
           const float* hr = hout + (s * BT + b) * HP;
           float y = __ldg(Wt.out_b + d);
-          for (int k = 0; k < H; ++k) y = fmaf(__ldg(Wt.out_w + k * D + d), hr[k], y);
+          for (int k = 0; k < H; ++k)
+            y = fmaf(rd<BF>(__ldg(Wt.out_w + k * D + d)), rd<BF>(hr[k]), y);
           const size_t off = ((size_t)n * T + t0 + s) * D + d;
-          const float e = x[off] - y;
+          const float e = ld_io(x + off) - rd<BF>(y);
           const float e2 = e * e;
-          if (with_resid) resid[off] = e2;
+          if (with_resid) st_io(resid + off, e2);
           acc_mse[r] += e2;
         }
       }
@@ -482,12 +536,12 @@ fused_mingru_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
   }
 }
 
-template <int H, int MT, int TC, int SUM>
-cudaError_t launch_tc(const float* x, float* resid, float* mse,
+template <int H, int MT, int TC, int SUM, typename IOT = float>
+cudaError_t launch_tc(const IOT* x, IOT* resid, float* mse,
                       const MinGruWeights& W, int N, int T, int D, int Z, int L,
                       int use_ln, int with_resid, cudaStream_t stream) {
   const size_t smem = sizeof(float) * tc_smem_floats<H, MT, TC>(L);
-  auto kern = fused_mingru_tc_kernel<H, MT, TC, SUM>;
+  auto kern = fused_mingru_tc_kernel<H, MT, TC, SUM, IOT>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -516,9 +570,24 @@ cudaError_t launch_ship(const float* x, float* resid, float* mse,
                                                   L, use_ln, with_resid, s);
 }
 
+// the bf16 instance, at the shipping tile, with float32 or bf16 io
+template <int H>
+cudaError_t launch_bf16(const void* x, void* resid, float* mse,
+                        const MinGruWeights& W, int N, int T, int D, int Z,
+                        int L, int use_ln, int with_resid, int io_bf16,
+                        cudaStream_t s) {
+  if (io_bf16)
+    return launch_tc<H, SHIP_MT, SHIP_TC, TC_BF16, bf16_t>(
+        static_cast<const bf16_t*>(x), static_cast<bf16_t*>(resid), mse, W, N,
+        T, D, Z, L, use_ln, with_resid, s);
+  return launch_tc<H, SHIP_MT, SHIP_TC, TC_BF16, float>(
+      static_cast<const float*>(x), static_cast<float*>(resid), mse, W, N, T,
+      D, Z, L, use_ln, with_resid, s);
+}
+
 template <int H, int MT, int TC>
 cudaError_t tc_info(int L, int* out) {
-  auto kern = fused_mingru_tc_kernel<H, MT, TC, SHIP_SUM>;
+  auto kern = fused_mingru_tc_kernel<H, MT, TC, SHIP_SUM, float>;
   const size_t smem = sizeof(float) * tc_smem_floats<H, MT, TC>(L);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kern);
@@ -593,6 +662,29 @@ extern "C" int shm_fused_mingru_gate_f32(const float* x, float* resid,
   }
 }
 
+// The C entry of the bf16 instance: the arguments of
+// shm_fused_mingru_gate_f32 with `w`'s fragments those of the bf16-rounded
+// weights, x and resid bf16 when io_bf16 is 1 and float32 when it is 0.
+// Returns the launch's cudaGetLastError(), 0 on success.
+extern "C" int shm_fused_mingru_gate_bf16(const void* x, void* resid,
+                                          float* mse, const void* const* w,
+                                          int n_w, int N, int T, int D, int H,
+                                          int Z, int L, int use_ln,
+                                          int with_resid, int io_bf16,
+                                          void* stream) {
+  MinGruWeights W;
+  if (!valid_shape(N, T, D, Z, L) || (with_resid && resid == nullptr) ||
+      (io_bf16 != 0 && io_bf16 != 1) || !unpack_weights(w, n_w, W))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  switch (H) {
+    case 32: return (int)launch_bf16<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, s);
+    case 64: return (int)launch_bf16<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, s);
+    case 128: return (int)launch_bf16<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // The variants of the same body, gate-only (mse), at H = VARIANT_H, `w` as
 // above: `sum` TC_CHAIN, TC_SPLIT or TC_ONE_TERM (0, 1, 2); `tc` steps and
 // `mt` m-tiles a tile. TC_SPLIT takes tc in {1, 2, 4} and mt in {1, 2}; the
@@ -611,15 +703,15 @@ extern "C" int shm_fused_mingru_variant(const float* x, float* mse,
   if (sum != TC_SPLIT) {
     if (tc != SHIP_TC || mt != SHIP_MT) return (int)cudaErrorInvalidValue;
     if (sum == TC_CHAIN)
-      return (int)launch_tc<V, SHIP_MT, SHIP_TC, TC_CHAIN>(x, nullptr, mse, W, N, T, D, Z, L, use_ln, 0, s);
+      return (int)launch_tc<V, SHIP_MT, SHIP_TC, TC_CHAIN, float>(x, nullptr, mse, W, N, T, D, Z, L, use_ln, 0, s);
     if (sum == TC_ONE_TERM)
-      return (int)launch_tc<V, SHIP_MT, SHIP_TC, TC_ONE_TERM>(x, nullptr, mse, W, N, T, D, Z, L, use_ln, 0, s);
+      return (int)launch_tc<V, SHIP_MT, SHIP_TC, TC_ONE_TERM, float>(x, nullptr, mse, W, N, T, D, Z, L, use_ln, 0, s);
     return (int)cudaErrorInvalidValue;
   }
 #define SHM_MINGRU_SPLIT(TC_, MT_)                                            \
   if (tc == TC_ && mt == MT_)                                                 \
-    return (int)launch_tc<V, MT_, TC_, TC_SPLIT>(x, nullptr, mse, W, N, T, D, \
-                                                 Z, L, use_ln, 0, s);
+    return (int)launch_tc<V, MT_, TC_, TC_SPLIT, float>(x, nullptr, mse, W, N, \
+                                                        T, D, Z, L, use_ln, 0, s);
   SHM_MINGRU_SPLIT(1, 1) SHM_MINGRU_SPLIT(1, 2)
   SHM_MINGRU_SPLIT(2, 1) SHM_MINGRU_SPLIT(2, 2)
   SHM_MINGRU_SPLIT(4, 1) SHM_MINGRU_SPLIT(4, 2)

@@ -1,5 +1,5 @@
-// Fused deterministic LSTM-VAE gate for Hopper (sm_90a), float32, and the
-// numerics variants that attribute its time.
+// Fused deterministic LSTM-VAE gate for Hopper (sm_90a), float32 and bf16,
+// and the numerics variants that attribute its time.
 //
 // Replaces the Pallas TPU kernel shm_tpu/ops/fused_vae.py::_kernel (:125),
 // launched by fused_vae_gate (:292, pallas_call at :402). Same function:
@@ -101,6 +101,22 @@
 // are read from global memory through L1/L2 (thread j reads column q*H+j of
 // row k). It cannot pass the ~6.5 ms f32 FMA bound.
 //
+// The bf16 instance (C entry shm_fused_vae_gate_bf16) is the TPU kernel with
+// dtype=bf16 (fused_vae.py:153-163, :225-230): every product's two operands
+// rounded to bf16, the products summed in float32; h, c, LayerNorm and the
+// mse stay float32. It is the tensor-core body with the sum TC_BF16: each A
+// element rounded to bf16 (cvt.rn.bf16x2.f32) in place of the TF32 split,
+// the B fragments packed by the wrapper from bf16-rounded weights (their
+// small parts zero), a_b b_b alone chained into the sum as TC_ONE_TERM does.
+// A bf16 value is exact in TF32 and a product of two is exact in float32,
+// so each mma adds the TPU's own products. The heads on the FMA pipes (mu,
+// z2h, output) round both operands. Its io is float32 or bf16 (template IOT):
+// with bf16 the window tile is read as bf16 wherever it is read (the
+// residual's x - y too) and the residual is stored as bf16; the mse sums the
+// float32 squares. Its bound at N=5,440 (4DOF preset) is the gate products'
+// FLOPs at the 989 TFLOP/s bf16 rate; this instance, at one TF32 mma a
+// product on m16n8k8, runs them at the 495 TFLOP/s TF32 rate at best.
+//
 // Accurate expf/tanhf (no --use_fast_math); sigmoid(x) = 1/(1+exp(-x)).
 
 #include <cuda_runtime.h>
@@ -166,6 +182,16 @@ template <bool R>
 __device__ __forceinline__ float rd(float x) {
   if constexpr (R) return bfr(x);
   return x;
+}
+
+// the window tile and the residual in their io type: float32, or bf16 bits
+__device__ __forceinline__ float ld_io(const float* p) { return *p; }
+__device__ __forceinline__ float ld_io(const bf16_t* p) {
+  return __uint_as_float((unsigned)*p << 16);
+}
+__device__ __forceinline__ void st_io(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_io(bf16_t* p, float v) {
+  *p = (bf16_t)(__float_as_uint(bfr(v)) >> 16);
 }
 
 template <class V>
@@ -465,18 +491,27 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
 //              the sum with a float32 add (round to nearest): the truncation
 //              acts on the partial only (the shipping sum);
 //   TC_CHAIN:  every mma chained into the one sum;
-//   TC_ONE_TERM: a_b b_b alone into the one sum (the probe's planted fault).
-enum TcSum { TC_CHAIN = 0, TC_SPLIT = 1, TC_ONE_TERM = 2 };
+//   TC_ONE_TERM: a_b b_b alone into the one sum (the probe's planted fault);
+//   TC_BF16:   the bf16 instance's sum: A rounded to bf16 (small part zero),
+//              B of bf16-rounded weights, a_b b_b alone as TC_ONE_TERM.
+enum TcSum { TC_CHAIN = 0, TC_SPLIT = 1, TC_ONE_TERM = 2, TC_BF16 = 3 };
 
-// the TF32 parts of this lane's A fragment at p (row stride lda), or zeros
+// the TF32 parts of this lane's A fragment at p (row stride lda), or zeros;
+// under BF the bf16 rounding of each element as its big part
+template <bool BF>
 __device__ __forceinline__ void split_a(const float* p, int lda, bool load,
                                         unsigned (&big)[4], unsigned (&sml)[4]) {
   const float x[4] = {load ? p[0] : 0.0f, load ? p[8 * lda] : 0.0f,
                       load ? p[4] : 0.0f, load ? p[8 * lda + 4] : 0.0f};
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    big[r] = tf32_round(x[r]);
-    sml[r] = tf32_round(x[r] - __uint_as_float(big[r]));
+    if constexpr (BF) {
+      big[r] = __float_as_uint(bfr(x[r]));
+      sml[r] = 0u;
+    } else {
+      big[r] = tf32_round(x[r]);
+      sml[r] = tf32_round(x[r] - __uint_as_float(big[r]));
+    }
   }
 }
 
@@ -487,7 +522,7 @@ __device__ __forceinline__ void mma_pair(float (&acc)[4], const unsigned (&big0)
                                          const unsigned (&big1)[4],
                                          const unsigned (&sml1)[4], float4 b0,
                                          float4 b1) {
-  if constexpr (SUM == TC_ONE_TERM) {
+  if constexpr (SUM == TC_ONE_TERM || SUM == TC_BF16) {
     mma_tf32(acc, big0, b0.x, b0.y);
     mma_tf32(acc, big1, b1.x, b1.y);
   } else {
@@ -534,8 +569,8 @@ __device__ __forceinline__ void gate_mma(float (&acc)[MT][4][4],
     for (int m = 0; m < MT; ++m) {
       const float* p = a0 + m * 16 * lda + ks * 8;
       unsigned big0[4], sml0[4], big1[4], sml1[4];
-      split_a(p, lda, true, big0, sml0);
-      split_a(p + 8, lda, two, big1, sml1);
+      split_a<SUM == TC_BF16>(p, lda, true, big0, sml0);
+      split_a<SUM == TC_BF16>(p + 8, lda, two, big1, sml1);
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         mma_pair<SUM>(acc[m][q], big0, sml0, big1, sml1, b0[q], b1[q]);
@@ -592,12 +627,13 @@ constexpr size_t tc_smem_bytes() {
   return sizeof(float) * (2 * BT * (H + 4) + BT * 4 * H + BT * XP + ZMAX * BT);
 }
 
-template <int H, int MT, int SUM>
+template <int H, int MT, int SUM, typename IOT>
 __global__ void __launch_bounds__(4 * H, 1)
-fused_vae_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
+fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
                     float* __restrict__ mse, const VaeWeights<float> Wt, int N,
                     int T, int D, int Z, int L, int use_ln, int with_resid,
                     float ln_eps) {
+  constexpr bool BF = SUM == TC_BF16;   // the heads' operands rounded too
   constexpr int NT = 4 * H;
   constexpr int BT = 16 * MT;
   constexpr int HP = H + 4;       // padded row of the shared h buffers
@@ -629,7 +665,7 @@ fused_vae_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
     for (int i = tid; i < BT * DP; i += NT) {       // x_t tile -> xs[b][d]
       const int d = i % DP, b = i / DP;
       const int n = n0 + b;
-      xs[b * XP + d] = (n < N && d < D) ? x[((size_t)n * T + t) * D + d] : 0.0f;
+      xs[b * XP + d] = (n < N && d < D) ? ld_io(x + ((size_t)n * T + t) * D + d) : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -669,7 +705,8 @@ fused_vae_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
   for (int i = tid; i < Z * BT; i += NT) {
     const int z = i % Z, b = i / Z;
     float s = __ldg(Wt.mu_b + z);
-    for (int k = 0; k < H; ++k) s = fmaf(__ldg(Wt.mu_w + k * Z + z), hl[b * HP + k], s);
+    for (int k = 0; k < H; ++k)
+      s = fmaf(rd<BF>(__ldg(Wt.mu_w + k * Z + z)), rd<BF>(hl[b * HP + k]), s);
     mus[z * BT + b] = s;
   }
   __syncthreads();
@@ -677,7 +714,8 @@ fused_vae_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
   for (int i = tid; i < H * BT; i += NT) {
     const int k = i % H, b = i / H;
     float s = __ldg(Wt.z2h_b + k);
-    for (int z = 0; z < Z; ++z) s = fmaf(__ldg(Wt.z2h_w + z * H + k), mus[z * BT + b], s);
+    for (int z = 0; z < Z; ++z)
+      s = fmaf(rd<BF>(__ldg(Wt.z2h_w + z * H + k)), rd<BF>(mus[z * BT + b]), s);
     hs[0][b * HP + k] = tanhf(s);
   }
   __syncthreads();
@@ -741,12 +779,13 @@ fused_vae_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
         const int d = i % D, b = i / D;
         const int n = n0 + b;
         float y = __ldg(Wt.out_b + d);
-        for (int k = 0; k < H; ++k) y = fmaf(__ldg(Wt.out_w + k * D + d), hout[b * HP + k], y);
+        for (int k = 0; k < H; ++k)
+          y = fmaf(rd<BF>(__ldg(Wt.out_w + k * D + d)), rd<BF>(hout[b * HP + k]), y);
         if (n < N) {
           const size_t off = ((size_t)n * T + t) * D + d;
-          const float e = x[off] - y;
+          const float e = ld_io(x + off) - y;
           const float e2 = e * e;
-          if (with_resid) resid[off] = e2;
+          if (with_resid) st_io(resid + off, e2);
           acc_mse[r] += e2;
         }
       }
@@ -768,13 +807,13 @@ fused_vae_tc_kernel(const float* __restrict__ x, float* __restrict__ resid,
   }
 }
 
-template <int H, int MT, int SUM>
-cudaError_t launch_tc(const float* x, float* resid, float* mse,
+template <int H, int MT, int SUM, typename IOT = float>
+cudaError_t launch_tc(const IOT* x, IOT* resid, float* mse,
                       const VaeWeights<float>& W, int N, int T, int D, int Z,
                       int L, int use_ln, int with_resid, float ln_eps,
                       cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<H, MT>();
-  auto kern = fused_vae_tc_kernel<H, MT, SUM>;
+  auto kern = fused_vae_tc_kernel<H, MT, SUM, IOT>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -856,9 +895,24 @@ cudaError_t launch_ship(const float* x, float* resid, float* mse,
                                          use_ln, with_resid, ln_eps, s);
 }
 
+// the bf16 instance, at the shipping tile, with float32 or bf16 io
+template <int H>
+cudaError_t launch_bf16(const void* x, void* resid, float* mse,
+                        const VaeWeights<float>& W, int N, int T, int D, int Z,
+                        int L, int use_ln, int with_resid, int io_bf16,
+                        float ln_eps, cudaStream_t s) {
+  if (io_bf16)
+    return launch_tc<H, SHIP_MT, TC_BF16, bf16_t>(
+        static_cast<const bf16_t*>(x), static_cast<bf16_t*>(resid), mse, W, N,
+        T, D, Z, L, use_ln, with_resid, ln_eps, s);
+  return launch_tc<H, SHIP_MT, TC_BF16, float>(
+      static_cast<const float*>(x), static_cast<float*>(resid), mse, W, N, T,
+      D, Z, L, use_ln, with_resid, ln_eps, s);
+}
+
 template <int H, int MT>
 cudaError_t tc_info(int* out) {
-  auto kern = fused_vae_tc_kernel<H, MT, SHIP_SUM>;
+  auto kern = fused_vae_tc_kernel<H, MT, SHIP_SUM, float>;
   constexpr size_t smem = tc_smem_bytes<H, MT>();
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kern);
@@ -908,6 +962,30 @@ extern "C" int shm_fused_vae_gate_f32(const float* x, float* resid, float* mse,
   }
 }
 
+// The C entry of the bf16 instance: the arguments of shm_fused_vae_gate_f32
+// with `w`'s fragments those of the bf16-rounded weights, x and resid bf16
+// when io_bf16 is 1 and float32 when it is 0. Returns the launch's
+// cudaGetLastError(), 0 on success.
+extern "C" int shm_fused_vae_gate_bf16(const void* x, void* resid, float* mse,
+                                       const void* const* w, int n_w, int N,
+                                       int T, int D, int H, int Z, int L,
+                                       int use_ln, int with_resid, int io_bf16,
+                                       void* stream) {
+  if (n_w != NUM_W || N <= 0 || T <= 0 || D <= 0 || D > DMAX || Z <= 0 ||
+      Z > ZMAX || L < 1 || L > 2 || (with_resid && resid == nullptr) ||
+      (io_bf16 != 0 && io_bf16 != 1))
+    return (int)cudaErrorInvalidValue;
+  const VaeWeights<float> W = unpack_weights<float>(w);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  constexpr float eps = 1e-5f;                        // the model's LayerNorm
+  switch (H) {
+    case 32: return (int)launch_bf16<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, s);
+    case 64: return (int)launch_bf16<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, s);
+    case 128: return (int)launch_bf16<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // out = registers a thread, local memory (spill) bytes a thread, threads a
 // block, dynamic shared bytes a block, windows a block and blocks an SM at
 // once of the shipping instance for windows of T steps at width H with L
@@ -943,11 +1021,11 @@ extern "C" int shm_fused_vae_probe(const float* x, float* mse, const void* const
     const VaeWeights<float> W = unpack_weights<float>(w);
     switch (numerics - 3) {
       case TC_CHAIN:
-        return (int)launch_tc<PROBE_H, SHIP_MT, TC_CHAIN>(x, nullptr, mse, W, N, T, D, Z, 2, 1, 0, ln_eps, s);
+        return (int)launch_tc<PROBE_H, SHIP_MT, TC_CHAIN, float>(x, nullptr, mse, W, N, T, D, Z, 2, 1, 0, ln_eps, s);
       case TC_SPLIT:
-        return (int)launch_tc<PROBE_H, SHIP_MT, TC_SPLIT>(x, nullptr, mse, W, N, T, D, Z, 2, 1, 0, ln_eps, s);
+        return (int)launch_tc<PROBE_H, SHIP_MT, TC_SPLIT, float>(x, nullptr, mse, W, N, T, D, Z, 2, 1, 0, ln_eps, s);
       default:
-        return (int)launch_tc<PROBE_H, SHIP_MT, TC_ONE_TERM>(x, nullptr, mse, W, N, T, D, Z, 2, 1, 0, ln_eps, s);
+        return (int)launch_tc<PROBE_H, SHIP_MT, TC_ONE_TERM, float>(x, nullptr, mse, W, N, T, D, Z, 2, 1, 0, ln_eps, s);
     }
   }
   if (numerics == 2)

@@ -42,8 +42,10 @@ from shm_tpu_torch.models.attention import (
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (  # noqa: F401  (the TF32 helpers re-exported)
-    check_fragments, check_weights, check_windows, dispatch_gate, f32,
-    pointer_array, tf32_round, tf32x3_fragments, unpack_fragments,
+    add_fragments, bf16_round, check_fragments, check_weights,
+    check_windows, dispatch_gate, f32, fragment_names, gate_dtypes,
+    plain_products, pointer_array, tf32_round, tf32x3_fragments,
+    unpack_fragments,
 )
 
 _H_MAX, _D_MAX, _Z_MAX, _L_MAX = 128, 128, 32, 2
@@ -74,7 +76,9 @@ _WEIGHT_ORDER = tuple(
     + _stack_order("dec") + ["out_w", "out_b"])
 
 
-def attention_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
+def attention_params_to_kernel_weights(
+        vae: TemporalVAE, dtype: torch.dtype = torch.float32,
+) -> Dict[str, torch.Tensor]:
     """The kernel's weight dict from a ``cell="attention"``
     :class:`TemporalVAE`, on its device. Matmul weights are [in, out], biases
     and norm scales 1-D, every tensor contiguous float32. ``*_wqkv`` [H, 3H]
@@ -82,8 +86,12 @@ def attention_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tens
     q | k | v of head h), with the query's ``1/sqrt(head_dim)`` folded into
     its weight AND its bias: the model scales the biased projection, so the
     folding is exact. Each of the four products' weights (``*_wqkv``,
-    ``*_wo``, ``*_w1``, ``*_w2``) also comes as ``*_frag``, its
-    :func:`tf32x3_fragments`, which is what the kernel reads."""
+    ``*_wo``, ``*_w1``, ``*_w2``) also comes as the fragments of the
+    precision ``dtype``: ``*_frag``, its :func:`tf32x3_fragments`, which the
+    float32 kernel reads, or for ``torch.bfloat16`` ``*_frag_bf16``, the
+    same of the weight rounded to bf16 (the query's scale folded in first,
+    as the TPU kernel folds it before its bf16 cast), which the bf16 kernel
+    reads."""
     if vae.cell != "attention":
         raise ValueError(f"expected a cell='attention' VAE, got {vae.cell!r}")
     w = {}
@@ -115,7 +123,7 @@ def attention_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tens
             w[f"{p}{l}_w2"] = f32(blk.mlp_out.weight.t())
             w[f"{p}{l}_b2"] = f32(blk.mlp_out.bias)
             for k in _PRODUCTS:
-                w[f"{p}{l}_{k}_frag"] = tf32x3_fragments(w[f"{p}{l}_{k}"])
+                add_fragments(w, f"{p}{l}_{k}", dtype)
         w[f"{p}_fn_s"] = f32(stack.final_norm.weight)
         w[f"{p}_fn_b"] = f32(stack.final_norm.bias)
     if vae.layer_norm is not None:
@@ -131,43 +139,61 @@ def attention_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tens
 def fused_attention_gate_reference(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
+    dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of the kernel: (mse [N], resid [N, T, D] | None)."""
+    """Plain PyTorch version of the kernel: (mse [N], resid [N, T, D] | None).
+
+    ``dtype=torch.bfloat16`` rounds where the JAX kernel with ``dtype=bf16``
+    rounds (``shm_tpu/ops/fused_attention.py:206-212``, ``:252-353``):
+    both operands of every product, summed in float32 (the weight products,
+    the scores, the probabilities and V of P.V); the residual stream s, the
+    packed q | k | v and the attention output o as they are stored.
+    LayerNorm, softmax and the pooled summary stay float32. The
+    probabilities are rounded after the softmax's division, as the TPU
+    kernel's packed softmax does (its streaming form, which it takes past
+    128 steps, rounds them before). ``io_dtype`` as in
+    ``fused_vae_gate_reference``."""
     N, T, D = Z.shape
     H = weights["mu_w"].shape[0]
     heads = H // HEAD_DIM
-    Z = Z.to(torch.float32)
+    bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    x = Z.to(io).to(torch.float32)          # the window tile as read
+    rnd = bf16_round if bf16 else (lambda t: t)
     pos = sinusoidal_positions(T, H, Z.device)
     w = weights
+    mm = plain_products(w, [k for k in w if k.endswith(
+        ("_wqkv", "_wo", "_w1", "_w2", "_in_w")) or k in (
+        "mu_w", "z2h_w", "out_w")], bf16)
 
     def block(s, p):
         nrm = flax_layer_norm(s, w[f"{p}_ln1_s"], w[f"{p}_ln1_b"], STACK_LN_EPS)
-        qkv = (nrm @ w[f"{p}_wqkv"] + w[f"{p}_bqkv"]).view(N, T, heads, 3, HEAD_DIM)
+        qkv = rnd(mm(nrm, f"{p}_wqkv") + w[f"{p}_bqkv"]).view(
+            N, T, heads, 3, HEAD_DIM)
         q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))  # [N,h,T,hd]
         prob = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-        o = (prob @ v).transpose(1, 2).reshape(N, T, H)
-        s = s + (o @ w[f"{p}_wo"] + w[f"{p}_bo"])
+        o = rnd((rnd(prob) @ v).transpose(1, 2).reshape(N, T, H))
+        s = rnd(s + (mm(o, f"{p}_wo") + w[f"{p}_bo"]))
         nrm = flax_layer_norm(s, w[f"{p}_ln2_s"], w[f"{p}_ln2_b"], STACK_LN_EPS)
-        h1 = F.gelu(nrm @ w[f"{p}_w1"] + w[f"{p}_b1"], approximate="tanh")
-        return s + (h1 @ w[f"{p}_w2"] + w[f"{p}_b2"])
+        h1 = F.gelu(mm(nrm, f"{p}_w1") + w[f"{p}_b1"], approximate="tanh")
+        return rnd(s + (mm(h1, f"{p}_w2") + w[f"{p}_b2"]))
 
     def stack(tok, p):
-        s = tok + pos
+        s = rnd(tok + pos)
         for l in range(num_layers):
             s = block(s, f"{p}{l}")
         return flax_layer_norm(s, w[f"{p}_fn_s"], w[f"{p}_fn_b"], STACK_LN_EPS)
 
-    pooled = stack(Z @ w["enc_in_w"] + w["enc_in_b"], "enc").mean(dim=1)
+    pooled = stack(mm(x, "enc_in_w") + w["enc_in_b"], "enc").mean(dim=1)
     if use_layernorm:
         pooled = flax_layer_norm(pooled, w["ln_scale"], w["ln_bias"],
                                  _MODEL_LN_EPS)
-    mu = pooled @ w["mu_w"] + w["mu_b"]
-    h0 = torch.tanh(mu @ w["z2h_w"] + w["z2h_b"])
-    tok0 = h0 @ w["dec_in_w"] + w["dec_in_b"]                   # [N, H], once
+    mu = mm(pooled, "mu_w") + w["mu_b"]
+    h0 = torch.tanh(mm(mu, "z2h_w") + w["z2h_b"])
+    tok0 = mm(h0, "dec_in_w") + w["dec_in_b"]                   # [N, H], once
     out = stack(tok0[:, None, :], "dec")
-    resid = (Z - (out @ w["out_w"] + w["out_b"])) ** 2
+    resid = (x - (mm(out, "out_w") + w["out_b"])) ** 2
     mse = resid.sum(dim=(1, 2)) / (T * D)
-    return mse, (resid if with_residual else None)
+    return mse, (resid.to(io) if with_residual else None)
 
 
 def shared_memory_bytes(T: int, H: int) -> int:
@@ -190,8 +216,9 @@ def shared_memory_bytes(T: int, H: int) -> int:
     return nbytes
 
 
-def _check(weights, Z, num_layers, use_layernorm):
-    check_windows(Z)
+def _check(weights, Z, num_layers, use_layernorm, bf16=False,
+           io=torch.float32):
+    check_windows(Z, io)
     if num_layers not in (1, 2):
         raise ValueError("the fused attention kernel supports 1- or 2-layer "
                          "presets")
@@ -209,7 +236,7 @@ def _check(weights, Z, num_layers, use_layernorm):
         raise ValueError("the fused attention kernel assumes heads of "
                          f"{HEAD_DIM} columns and an MLP of width 4H")
     shared_memory_bytes(T, H)
-    need = [k for k in _WEIGHT_ORDER
+    need = [k for k in fragment_names(_WEIGHT_ORDER, bf16)
             if not (k[3:4].isdigit() and int(k[3]) >= num_layers)
             and (use_layernorm or not k.startswith("ln_"))]
     check_weights(weights, need, Z.device)
@@ -225,6 +252,10 @@ def _library() -> ctypes.CDLL:
     fn = lib.shm_fused_attention_gate_f32
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn = lib.shm_fused_attention_gate_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     lib.shm_fused_attention_smem_bytes.restype = ctypes.c_longlong
     lib.shm_fused_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
@@ -272,45 +303,60 @@ def _positions(T: int, H: int, device: torch.device) -> torch.Tensor:
     return sinusoidal_positions(T, H, device).contiguous()
 
 
-def _launch(weights, Z, num_layers, use_layernorm, with_residual):
-    need, H, Zd = _check(weights, Z, num_layers, use_layernorm)
+def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
+            io_dtype):
+    bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    Z = Z.to(io)                        # a bf16 io: the card rounds once
+    need, H, Zd = _check(weights, Z, num_layers, use_layernorm, bf16, io)
     N, T, D = Z.shape
     mse = torch.empty(N, device=Z.device, dtype=torch.float32)
     resid = torch.empty_like(Z) if with_residual else None
     if N == 0:
         return mse, resid
     lib = _library()
-    ptrs = pointer_array(weights, _WEIGHT_ORDER, need)
+    order = fragment_names(_WEIGHT_ORDER, bf16)
+    ptrs = pointer_array(weights, order, need)
     pos = _positions(T, H, Z.device)
+    args = (Z.data_ptr(), pos.data_ptr(),
+            resid.data_ptr() if with_residual else None, mse.data_ptr(), ptrs,
+            len(order), N, T, D, H, Zd, num_layers, int(use_layernorm),
+            int(with_residual))
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
-        err = lib.shm_fused_attention_gate_f32(
-            Z.data_ptr(), pos.data_ptr(),
-            resid.data_ptr() if with_residual else None, mse.data_ptr(), ptrs,
-            len(_WEIGHT_ORDER), N, T, D, H, Zd, num_layers,
-            int(use_layernorm), int(with_residual), stream)
+        if bf16:
+            err = lib.shm_fused_attention_gate_bf16(
+                *args, int(io == torch.bfloat16), stream)
+        else:
+            err = lib.shm_fused_attention_gate_f32(*args, stream)
     raise_on_error(lib, err, "fused_attention_gate")
-    count_launch(fused_attention_gate)
+    count_launch(fused_attention_gate, "bf16_launches" if bf16 else "launches")
     return mse, resid
 
 
 def fused_attention_gate(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
+    dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused deterministic attention-VAE pass: (mse [N], resid [N, T, D] | None).
 
     ``weights`` comes from :func:`attention_params_to_kernel_weights`. A CUDA
     tensor runs the kernel; a CPU tensor runs the plain version.
+    ``dtype`` / ``io_dtype`` as the JAX kernel's (the plain version says
+    where bf16 rounds): ``dtype=torch.bfloat16`` launches the kernel's bf16
+    instance, counted in ``fused_attention_gate.bf16_launches``.
     """
     return dispatch_gate("fused_attention_gate", Z, _launch,
                          fused_attention_gate_reference, weights,
                          num_layers=num_layers, use_layernorm=use_layernorm,
-                         with_residual=with_residual)
+                         with_residual=with_residual, dtype=dtype,
+                         io_dtype=io_dtype)
 
 
-# kernel launches so far; callers reset it to 0 to count one run's launches
+# kernel launches so far, of the float32 and of the bf16 instance; callers
+# reset them to 0 to count one run's launches
 fused_attention_gate.launches = 0
+fused_attention_gate.bf16_launches = 0
 
 
 __all__ = ["fused_attention_gate", "fused_attention_gate_reference",

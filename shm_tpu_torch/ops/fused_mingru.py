@@ -38,8 +38,9 @@ import torch.nn.functional as F
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
-    check_fragments, check_weights, check_windows, dispatch_gate, f32,
-    pointer_array, tf32x3_fragments,
+    add_fragments, bf16_round, check_fragments, check_weights,
+    check_windows, dispatch_gate, f32, fragment_names, gate_dtypes,
+    plain_products, pointer_array,
 )
 
 _HIDDEN = (32, 64, 128)
@@ -56,13 +57,17 @@ TC_SUMS = {"chain": 0, "split": 1, "one_term": 2}
 _VARIANT_H = 128
 
 
-def mingru_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
+def mingru_params_to_kernel_weights(
+        vae: TemporalVAE, dtype: torch.dtype = torch.float32,
+) -> Dict[str, torch.Tensor]:
     """The kernel's weight dict from a ``cell="min_gru"`` :class:`TemporalVAE`,
     on its device: ``*_wih`` [in, 2H] (the z half first), matmul weights
     [in, out], biases 1-D; every tensor contiguous float32. Each ``*_wih``
-    also comes as ``*_wih_frag``, its ``tf32x3_fragments`` (the input rows
-    padded with zeros to a multiple of 8: D=12 to 16, D=3 to 8), which is
-    what the kernel reads."""
+    also comes as the fragments of the precision ``dtype``: ``*_wih_frag``,
+    its ``tf32x3_fragments`` (the input rows padded with zeros to a multiple
+    of 8: D=12 to 16, D=3 to 8), which the float32 kernel reads, or for
+    ``torch.bfloat16`` ``*_wih_frag_bf16``, the same of the weight rounded
+    to bf16, which the bf16 kernel reads."""
     if vae.cell != "min_gru":
         raise ValueError(f"expected a cell='min_gru' VAE, got {vae.cell!r}")
     w = {}
@@ -70,7 +75,7 @@ def mingru_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]
         for l, layer in enumerate(stack.layers):
             w[f"{prefix}{l}_wih"] = f32(layer.weight_ih.t())
             w[f"{prefix}{l}_b"] = f32(layer.bias_ih)
-            w[f"{prefix}{l}_wih_frag"] = tf32x3_fragments(w[f"{prefix}{l}_wih"])
+            add_fragments(w, f"{prefix}{l}_wih", dtype)
     if vae.layer_norm is not None:
         w["ln_scale"] = f32(vae.layer_norm.weight)
         w["ln_bias"] = f32(vae.layer_norm.bias)
@@ -97,34 +102,52 @@ def _sweep(z: torch.Tensor, hc: torch.Tensor, T: int) -> torch.Tensor:
 def fused_mingru_gate_reference(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
+    dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of the kernel: (mse [N], resid [N, T, D] | None)."""
+    """Plain PyTorch version of the kernel: (mse [N], resid [N, T, D] | None).
+
+    ``dtype=torch.bfloat16`` rounds where the JAX kernel with ``dtype=bf16``
+    rounds (``shm_tpu/ops/fused_mingru.py:92-188``): both operands of every
+    product, summed in float32; the gate scratch (z after its sigmoid, and
+    h~) of every layer but the decoder's first, whose constant gates stay
+    float32; every stored h_t (the input of the next product, rounded there
+    anyway); and the output head's y before the residual. The sweep's
+    running h, the encoder's last h (LayerNorm's input), LayerNorm and the
+    mse stay float32. ``io_dtype`` as in ``fused_vae_gate_reference``."""
     N, T, D = Z.shape
     H = weights["mu_w"].shape[0]
-    Z = Z.to(torch.float32)
+    bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    x = Z.to(io).to(torch.float32)          # the window tile as read
+    rnd = bf16_round if bf16 else (lambda t: t)
+    mm = plain_products(weights, [k for k in weights if k.endswith("_wih")]
+                        + ["mu_w", "z2h_w", "out_w"], bf16)
 
     def layer(prefix, l, inp):
-        g = inp @ weights[f"{prefix}{l}_wih"] + weights[f"{prefix}{l}_b"]
-        return _sweep(torch.sigmoid(g[..., :H]), g[..., H:], T)
+        g = mm(inp, f"{prefix}{l}_wih") + weights[f"{prefix}{l}_b"]
+        z, hc = torch.sigmoid(g[..., :H]), g[..., H:]
+        if prefix == "enc" or l > 0:         # stored in the gate scratch
+            z, hc = rnd(z), rnd(hc)
+        return _sweep(z, hc, T)
 
-    seq = Z
+    seq = x
     for l in range(num_layers):
         seq = layer("enc", l, seq)
     h_last = seq[:, -1]
     if use_layernorm:
         h_last = F.layer_norm(h_last, (H,), weights["ln_scale"],
                               weights["ln_bias"], eps=1e-5)
-    mu = h_last @ weights["mu_w"] + weights["mu_b"]
-    seq = torch.tanh(mu @ weights["z2h_w"] + weights["z2h_b"])  # constant input
+    mu = mm(h_last, "mu_w") + weights["mu_b"]
+    seq = torch.tanh(mm(mu, "z2h_w") + weights["z2h_b"])  # constant input
     for l in range(num_layers):
         seq = layer("dec", l, seq)
-    resid = (Z - (seq @ weights["out_w"] + weights["out_b"])) ** 2
+    resid = (x - rnd(mm(seq, "out_w") + weights["out_b"])) ** 2
     mse = resid.sum(dim=(1, 2)) / (T * D)
-    return mse, (resid if with_residual else None)
+    return mse, (resid.to(io) if with_residual else None)
 
 
-def _check(weights, Z, num_layers, use_layernorm):
-    check_windows(Z)
+def _check(weights, Z, num_layers, use_layernorm, bf16=False,
+           io=torch.float32):
+    check_windows(Z, io)
     if not 1 <= num_layers <= _L_MAX:
         raise ValueError(f"the fused minGRU kernel takes 1 to {_L_MAX} layers, "
                          f"got {num_layers}")
@@ -137,7 +160,7 @@ def _check(weights, Z, num_layers, use_layernorm):
     if weights["enc0_wih"].shape != (D, 2 * H):
         raise ValueError(f"enc0_wih {tuple(weights['enc0_wih'].shape)} does "
                          f"not match D={D}, H={H}")
-    need = [k for k in _WEIGHT_ORDER
+    need = [k for k in fragment_names(_WEIGHT_ORDER, bf16)
             if not (k[:3] in ("enc", "dec") and int(k[3]) >= num_layers)
             and (use_layernorm or not k.startswith("ln_"))]
     check_weights(weights, need, Z.device)
@@ -153,6 +176,10 @@ def _library() -> ctypes.CDLL:
     fn = lib.shm_fused_mingru_gate_f32
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn = lib.shm_fused_mingru_gate_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn = lib.shm_fused_mingru_variant
     fn.restype = ctypes.c_int
@@ -221,43 +248,58 @@ def gate_variant(weights: Dict[str, torch.Tensor], Z: torch.Tensor, *,
 gate_variant.launches = 0
 
 
-def _launch(weights, Z, num_layers, use_layernorm, with_residual):
-    need, H, Zd = _check(weights, Z, num_layers, use_layernorm)
+def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
+            io_dtype):
+    bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    Z = Z.to(io)                        # a bf16 io: the card rounds once
+    need, H, Zd = _check(weights, Z, num_layers, use_layernorm, bf16, io)
     N, T, D = Z.shape
     mse = torch.empty(N, device=Z.device, dtype=torch.float32)
     resid = torch.empty_like(Z) if with_residual else None
     if N == 0:
         return mse, resid
     lib = _library()
-    ptrs = pointer_array(weights, _WEIGHT_ORDER, need)
+    order = fragment_names(_WEIGHT_ORDER, bf16)
+    ptrs = pointer_array(weights, order, need)
+    args = (Z.data_ptr(), resid.data_ptr() if with_residual else None,
+            mse.data_ptr(), ptrs, len(order), N, T, D, H, Zd, num_layers,
+            int(use_layernorm), int(with_residual))
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
-        err = lib.shm_fused_mingru_gate_f32(
-            Z.data_ptr(), resid.data_ptr() if with_residual else None,
-            mse.data_ptr(), ptrs, len(_WEIGHT_ORDER), N, T, D, H, Zd,
-            num_layers, int(use_layernorm), int(with_residual), stream)
+        if bf16:
+            err = lib.shm_fused_mingru_gate_bf16(
+                *args, int(io == torch.bfloat16), stream)
+        else:
+            err = lib.shm_fused_mingru_gate_f32(*args, stream)
     raise_on_error(lib, err, "fused_mingru_gate")
-    count_launch(fused_mingru_gate)
+    count_launch(fused_mingru_gate, "bf16_launches" if bf16 else "launches")
     return mse, resid
 
 
 def fused_mingru_gate(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
+    dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused deterministic minGRU-VAE pass: (mse [N], resid [N, T, D] | None).
 
     ``weights`` comes from :func:`mingru_params_to_kernel_weights`. A CUDA
     tensor runs the kernel; a CPU tensor runs the plain version.
+    ``dtype`` / ``io_dtype`` as the JAX kernel's (the plain version says
+    where bf16 rounds): ``dtype=torch.bfloat16`` launches the kernel's bf16
+    instance, counted in ``fused_mingru_gate.bf16_launches``.
     """
     return dispatch_gate("fused_mingru_gate", Z, _launch,
                          fused_mingru_gate_reference, weights,
                          num_layers=num_layers, use_layernorm=use_layernorm,
-                         with_residual=with_residual)
+                         with_residual=with_residual, dtype=dtype,
+                         io_dtype=io_dtype)
 
 
-# kernel launches so far; callers reset it to 0 to count one run's launches
+# kernel launches so far, of the float32 and of the bf16 instance; callers
+# reset them to 0 to count one run's launches
 fused_mingru_gate.launches = 0
+fused_mingru_gate.bf16_launches = 0
 
 
 __all__ = ["fused_mingru_gate", "fused_mingru_gate_reference", "gate_variant",

@@ -36,8 +36,9 @@ import torch.nn.functional as F
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
-    check_fragments, check_weights, check_windows, dispatch_gate, f32,
-    pointer_array, tf32x3_fragments,
+    add_fragments, check_fragments, check_weights, check_windows,
+    dispatch_gate, f32, fragment_names, gate_dtypes, plain_products,
+    pointer_array,
 )
 
 # the kernel's tensor-core products: every LSTM weight of both stacks
@@ -52,17 +53,25 @@ _WEIGHT_ORDER = (
 ) + tuple(f"{k}_frag" for k in _PRODUCTS)
 _HIDDEN = (32, 64, 128)
 _D_MAX, _Z_MAX = 16, 32
+# every weight the kernel multiplies by (rounded to bf16 in the bf16 mode)
+_PRODUCT_WEIGHTS = tuple(k for p in ("enc", "dec") for l in range(2)
+                         for k in (f"{p}{l}_wih", f"{p}{l}_whh")) + (
+    "mu_w", "z2h_w", "out_w")
 
 
-def vae_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
+def vae_params_to_kernel_weights(
+        vae: TemporalVAE, dtype: torch.dtype = torch.float32,
+) -> Dict[str, torch.Tensor]:
     """The kernel's weight dict from a :class:`TemporalVAE`, on its device.
 
     Matmul weights are [in, out] (LSTM ``*_wih`` [in, 4H], ``*_whh`` [H, 4H],
     gates i|f|g|o), biases 1-D (the cell's ``bias_ih + bias_hh``); every
-    tensor is contiguous float32. Each LSTM weight also comes as
-    ``*_frag``, its ``tf32x3_fragments`` (the input rows padded with zeros
-    to a multiple of 8: D=12 to 16, D=3 to 8), which is what the kernel
-    reads.
+    tensor is contiguous float32. Each LSTM weight also comes as the
+    fragments of the precision ``dtype`` the gate will run at: ``*_frag``,
+    its ``tf32x3_fragments`` (the input rows padded with zeros to a multiple
+    of 8: D=12 to 16, D=3 to 8), which the float32 kernel reads, or for
+    ``torch.bfloat16`` ``*_frag_bf16``, the same of the weight rounded to
+    bf16, which the bf16 kernel reads (``_gate.add_fragments``).
     """
     w = {}
     for stack, prefix in ((vae.encoder_lstm, "enc"), (vae.decoder_lstm, "dec")):
@@ -72,7 +81,7 @@ def vae_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
             w[f"{p}_whh"] = f32(layer.weight_hh.t())
             w[f"{p}_b"] = f32(layer.bias_ih + layer.bias_hh)
             for k in ("wih", "whh"):
-                w[f"{p}_{k}_frag"] = tf32x3_fragments(w[f"{p}_{k}"])
+                add_fragments(w, f"{p}_{k}", dtype)
     if vae.layer_norm is not None:
         w["ln_scale"] = f32(vae.layer_norm.weight)
         w["ln_bias"] = f32(vae.layer_norm.bias)
@@ -88,23 +97,35 @@ def vae_params_to_kernel_weights(vae: TemporalVAE) -> Dict[str, torch.Tensor]:
 def fused_vae_gate_reference(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
+    dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of the kernel: (mse [N], resid [N, T, D] | None)."""
+    """Plain PyTorch version of the kernel: (mse [N], resid [N, T, D] | None).
+
+    ``dtype=torch.bfloat16`` rounds where the JAX kernel with ``dtype=bf16``
+    rounds (``shm_tpu/ops/fused_vae.py:153-163``, ``:225-230``): both
+    operands of every product (the gate products on x and h, the mu head,
+    ``z2h``, the decoder's constant projection, the output head), the
+    products summed in float32; h, c, LayerNorm and the mse stay float32.
+    ``io_dtype`` bf16 reads the windows as bf16 (in the residual's ``x - y``
+    too) and returns the residual as bf16."""
     N, T, D = Z.shape
     H = weights["enc0_whh"].shape[0]
-    Z = Z.to(torch.float32)
+    bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    x = Z.to(io).to(torch.float32)          # the window tile as read
+    mm = plain_products(weights, [k for k in _PRODUCT_WEIGHTS
+                                  if k in weights], bf16)
 
     def step(h, c, gates):
         i, f, g, o = gates.split(H, dim=1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return torch.sigmoid(o) * torch.tanh(c), c
 
-    zeros = Z.new_zeros(N, H)
+    zeros = x.new_zeros(N, H)
     hs, cs = [zeros] * num_layers, [zeros] * num_layers
     for t in range(T):
-        inp = Z[:, t]
+        inp = x[:, t]
         for l in range(num_layers):
-            g = (inp @ weights[f"enc{l}_wih"] + hs[l] @ weights[f"enc{l}_whh"]
+            g = (mm(inp, f"enc{l}_wih") + mm(hs[l], f"enc{l}_whh")
                  + weights[f"enc{l}_b"])
             hs[l], cs[l] = step(hs[l], cs[l], g)
             inp = hs[l]
@@ -112,31 +133,32 @@ def fused_vae_gate_reference(
     if use_layernorm:
         h_last = F.layer_norm(h_last, (H,), weights["ln_scale"],
                               weights["ln_bias"], eps=1e-5)
-    mu = h_last @ weights["mu_w"] + weights["mu_b"]
-    dec_in = torch.tanh(mu @ weights["z2h_w"] + weights["z2h_b"])
-    xp_const = dec_in @ weights["dec0_wih"] + weights["dec0_b"]   # once
+    mu = mm(h_last, "mu_w") + weights["mu_b"]
+    dec_in = torch.tanh(mm(mu, "z2h_w") + weights["z2h_b"])
+    xp_const = mm(dec_in, "dec0_wih") + weights["dec0_b"]   # once
 
     hs, cs = [zeros] * num_layers, [zeros] * num_layers
-    acc = Z.new_zeros(N)
+    acc = x.new_zeros(N)
     resid = [] if with_residual else None
     for t in range(T):
-        g = xp_const + hs[0] @ weights["dec0_whh"]
+        g = xp_const + mm(hs[0], "dec0_whh")
         hs[0], cs[0] = step(hs[0], cs[0], g)
         for l in range(1, num_layers):
-            g = (hs[l - 1] @ weights[f"dec{l}_wih"]
-                 + hs[l] @ weights[f"dec{l}_whh"] + weights[f"dec{l}_b"])
+            g = (mm(hs[l - 1], f"dec{l}_wih")
+                 + mm(hs[l], f"dec{l}_whh") + weights[f"dec{l}_b"])
             hs[l], cs[l] = step(hs[l], cs[l], g)
-        y_t = hs[-1] @ weights["out_w"] + weights["out_b"]
-        r_t = (Z[:, t] - y_t) ** 2
+        y_t = mm(hs[-1], "out_w") + weights["out_b"]
+        r_t = (x[:, t] - y_t) ** 2
         if with_residual:
             resid.append(r_t)
         acc = acc + r_t.sum(dim=1)
     mse = acc / (T * D)
-    return mse, (torch.stack(resid, dim=1) if with_residual else None)
+    return mse, (torch.stack(resid, dim=1).to(io) if with_residual else None)
 
 
-def _check(weights, Z, num_layers, use_layernorm):
-    check_windows(Z)
+def _check(weights, Z, num_layers, use_layernorm, bf16=False,
+           io=torch.float32):
+    check_windows(Z, io)
     if num_layers not in (1, 2):
         raise ValueError("the fused kernel supports 1- or 2-layer presets")
     H = weights["enc0_whh"].shape[0]
@@ -149,7 +171,7 @@ def _check(weights, Z, num_layers, use_layernorm):
     if weights["enc0_wih"].shape != (D, 4 * H):
         raise ValueError(f"enc0_wih {tuple(weights['enc0_wih'].shape)} does "
                          f"not match D={D}, H={H}")
-    need = [k for k in _WEIGHT_ORDER
+    need = [k for k in fragment_names(_WEIGHT_ORDER, bf16)
             if (num_layers == 2 or "1_" not in k)
             and (use_layernorm or not k.startswith("ln_"))]
     check_weights(weights, need, Z.device)
@@ -165,6 +187,10 @@ def _library() -> ctypes.CDLL:
     fn = lib.shm_fused_vae_gate_f32
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn = lib.shm_fused_vae_gate_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     # the probe variants of the same kernel (tools/probe_vpu_bound.py)
     fn = lib.shm_fused_vae_probe
@@ -192,43 +218,60 @@ def kernel_info(T: int, H: int, L: int) -> dict:
                      "windows_per_block", "blocks_per_sm"), out))
 
 
-def _launch(weights, Z, num_layers, use_layernorm, with_residual):
-    need, H, Zd = _check(weights, Z, num_layers, use_layernorm)
+def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
+            io_dtype):
+    bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    Z = Z.to(io)                        # a bf16 io: the card rounds once
+    need, H, Zd = _check(weights, Z, num_layers, use_layernorm, bf16, io)
     N, T, D = Z.shape
     mse = torch.empty(N, device=Z.device, dtype=torch.float32)
     resid = torch.empty_like(Z) if with_residual else None
     if N == 0:
         return mse, resid
     lib = _library()
-    ptrs = pointer_array(weights, _WEIGHT_ORDER, need)
+    order = fragment_names(_WEIGHT_ORDER, bf16)
+    ptrs = pointer_array(weights, order, need)
+    args = (Z.data_ptr(), resid.data_ptr() if with_residual else None,
+            mse.data_ptr(), ptrs, len(order), N, T, D, H, Zd, num_layers,
+            int(use_layernorm), int(with_residual))
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
-        err = lib.shm_fused_vae_gate_f32(
-            Z.data_ptr(), resid.data_ptr() if with_residual else None,
-            mse.data_ptr(), ptrs, len(_WEIGHT_ORDER), N, T, D, H, Zd,
-            num_layers, int(use_layernorm), int(with_residual), stream)
+        if bf16:
+            err = lib.shm_fused_vae_gate_bf16(
+                *args, int(io == torch.bfloat16), stream)
+        else:
+            err = lib.shm_fused_vae_gate_f32(*args, stream)
     raise_on_error(lib, err, "fused_vae_gate")
-    count_launch(fused_vae_gate)
+    count_launch(fused_vae_gate, "bf16_launches" if bf16 else "launches")
     return mse, resid
 
 
 def fused_vae_gate(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
+    dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused deterministic VAE pass: (mse [N], resid [N, T, D] | None).
 
     ``weights`` comes from :func:`vae_params_to_kernel_weights`. A CUDA
     tensor runs the kernel; a CPU tensor runs the plain version.
+    ``dtype`` / ``io_dtype`` as the JAX kernel's (the plain version says
+    where bf16 rounds): ``dtype=torch.bfloat16`` launches the kernel's bf16
+    instance, counted in ``fused_vae_gate.bf16_launches``; ``io_dtype``
+    bf16 (bf16 products only) passes the windows to it as bf16 and returns
+    a bf16 residual.
     """
     return dispatch_gate("fused_vae_gate", Z, _launch,
                          fused_vae_gate_reference, weights,
                          num_layers=num_layers, use_layernorm=use_layernorm,
-                         with_residual=with_residual)
+                         with_residual=with_residual, dtype=dtype,
+                         io_dtype=io_dtype)
 
 
-# kernel launches so far; callers reset it to 0 to count one run's launches
+# kernel launches so far, of the float32 and of the bf16 instance; callers
+# reset them to 0 to count one run's launches
 fused_vae_gate.launches = 0
+fused_vae_gate.bf16_launches = 0
 
 
 __all__ = ["fused_vae_gate", "fused_vae_gate_reference", "kernel_info",

@@ -1,8 +1,9 @@
 """Hybrid gate -> attribution inference (counterpart of ``shm_tpu/pipeline.py``).
 
-One pass per batch: normalize -> deterministic VAE (mse, residual) -> strict
-``mse > threshold`` gate -> CNN4DOF on [Z, residual] for every window ->
-``y_pred`` / ``p_struct`` selected by the gate.
+One pass per batch: normalize -> VAE (mse, residual; deterministic unless
+``sample=True``) -> strict ``mse > threshold`` gate -> CNN4DOF on [Z,
+residual] for every window -> ``y_pred`` / ``p_struct`` selected by the
+gate.
 
 Label convention: 0 = Normal, 1 = Sensor Fault, 2 = Structural Fault (CNN
 argmax {0, 1} -> {1, 2}). ``p_struct`` = p(structural) on anomalous windows,
@@ -11,7 +12,7 @@ argmax {0, 1} -> {1, 2}). ``p_struct`` = p(structural) on anomalous windows,
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -33,9 +34,11 @@ class HybridOutputs(NamedTuple):
     logits: torch.Tensor     # (N, 2) raw CNN logits (diagnostics)
 
 
-def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False):
-    """``fn(Z) -> (mse, xin)`` for normalized (N, T, D) ``Z``: one
-    deterministic VAE pass, the gate's MSE (N,) and the CNN's NHWC input
+def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False,
+                  fused_dtype: torch.dtype = torch.float32,
+                  sample: bool = False):
+    """``fn(Z, generator=None) -> (mse, xin)`` for normalized (N, T, D)
+    ``Z``: one VAE pass, the gate's MSE (N,) and the CNN's NHWC input
     [Z, residual^2] (N, T, D, 2).
 
     ``use_fused_vae=True`` runs the pass through the fused gate of
@@ -44,32 +47,46 @@ def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False):
     kernel on a CUDA tensor, its plain version on a CPU tensor) and raises
     ``ValueError`` for a cell with no kernel; ``False`` runs the plain
     :class:`TemporalVAE` modules. The kernel weights are taken from ``vae``
-    once, here. The caller chooses the grad mode.
+    once, here. ``fused_dtype`` is the fused gate's ``dtype`` (float32, the
+    port's default, or ``torch.bfloat16``: the kernel's bf16 instance, as
+    the JAX package serves). The attention gate then also reads the windows
+    and writes the residual in that type, and the residual is cast back to
+    float32 for the CNN; the LSTM and minGRU gates keep float32 io, as in
+    ``shm_tpu/pipeline.py``. The plain path ignores ``fused_dtype``.
+    ``sample=True`` (plain path only) decodes ``mu + eps * exp(0.5 *
+    logvar)`` with eps drawn from ``generator``. The caller chooses the grad
+    mode.
     """
+    if use_fused_vae and sample:
+        raise ValueError("fused VAE kernel is deterministic (sample=False only)")
     if use_fused_vae:
         from shm_tpu_torch.ops import fused_gate_for
 
         weights_fn, fused_gate = fused_gate_for(vae)
-        weights = weights_fn(vae)
+        weights = weights_fn(vae, fused_dtype)
+        io_dtype = (fused_dtype if getattr(vae, "cell", "lstm") == "attention"
+                    else None)
 
-    def vae_pass(Z: torch.Tensor):
+    def vae_pass(Z: torch.Tensor, generator: Optional[torch.Generator] = None):
         Z = Z.contiguous()
         if use_fused_vae:
             mse, resid = fused_gate(weights, Z, num_layers=vae.num_layers,
-                                    use_layernorm=vae.use_layernorm)
-            return mse, torch.stack([Z, resid], dim=-1)
-        recon, _, _ = vae(Z)
+                                    use_layernorm=vae.use_layernorm,
+                                    dtype=fused_dtype, io_dtype=io_dtype)
+            return mse, torch.stack([Z, resid.to(Z.dtype)], dim=-1)
+        recon, _, _ = vae(Z, sample=sample, generator=generator)
         return ((Z - recon) ** 2).mean(dim=(1, 2)), stack_vae_residual_nhwc(Z, recon)
 
     return vae_pass
 
 
 def hybrid_outputs(vae_pass, cnn: CNN4DOF, W: torch.Tensor, mean: torch.Tensor,
-                   std: torch.Tensor, threshold: torch.Tensor) -> HybridOutputs:
+                   std: torch.Tensor, threshold: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> HybridOutputs:
     """One hybrid pass of raw (N, T, D) ``W`` through ``vae_pass`` (a
     :func:`make_vae_pass` function) and ``cnn``; the caller chooses the grad
     mode."""
-    mse, xin = vae_pass(normalize_windows(W, mean, std))
+    mse, xin = vae_pass(normalize_windows(W, mean, std), generator=generator)
     anom = mse > threshold                                # strict >
     logits = cnn(xin)
     cls01 = torch.argmax(logits, dim=1).to(torch.int32)
@@ -80,25 +97,37 @@ def hybrid_outputs(vae_pass, cnn: CNN4DOF, W: torch.Tensor, mean: torch.Tensor,
                          p_struct=p_struct, logits=logits)
 
 
-def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *,
-                   use_fused_vae: bool = False):
-    """``fn(W, mean, std, threshold) -> HybridOutputs`` for raw (N, T, D) ``W``;
-    the VAE pass is :func:`make_vae_pass`'s (``use_fused_vae`` as there)."""
-    vae_pass = make_vae_pass(vae, use_fused_vae=use_fused_vae)
+def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *, sample: bool = False,
+                   use_fused_vae: bool = False,
+                   fused_dtype: torch.dtype = torch.float32):
+    """``fn(W, mean, std, threshold, generator=None) -> HybridOutputs`` for
+    raw (N, T, D) ``W``; the VAE pass is :func:`make_vae_pass`'s
+    (``use_fused_vae``, ``fused_dtype`` and ``sample`` as there).
+    ``sample=True`` draws the VAE's eps from the ``generator`` given to
+    ``fn`` (on the models' device), as the JAX function draws it from its
+    ``key``; it raises ``ValueError`` with ``use_fused_vae=True``, as in
+    ``shm_tpu/pipeline.py``."""
+    vae_pass = make_vae_pass(vae, use_fused_vae=use_fused_vae,
+                             fused_dtype=fused_dtype, sample=sample)
 
     @torch.inference_mode()
     def hybrid(W: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
-               threshold: torch.Tensor) -> HybridOutputs:
-        return hybrid_outputs(vae_pass, cnn, W, mean, std, threshold)
+               threshold: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> HybridOutputs:
+        return hybrid_outputs(vae_pass, cnn, W, mean, std, threshold,
+                              generator)
 
     return hybrid
 
 
 def run_hybrid_batched(hybrid_fn, W: np.ndarray, mean: torch.Tensor,
                        std: torch.Tensor, threshold: torch.Tensor, *,
-                       batch_size: int = 8192) -> Dict[str, np.ndarray]:
+                       batch_size: int = 8192,
+                       generator: Optional[torch.Generator] = None,
+                       ) -> Dict[str, np.ndarray]:
     """Run ``hybrid_fn`` over a window stack in zero-padded fixed-size batches
-    on the device of ``mean`` and return numpy arrays."""
+    on the device of ``mean`` and return numpy arrays; ``generator`` (for a
+    ``sample=True`` function) is passed to every batch in turn."""
     N = W.shape[0]
     if N == 0:
         return {k: np.zeros((0,), np.float32) for k in _KEYS}
@@ -107,10 +136,11 @@ def run_hybrid_batched(hybrid_fn, W: np.ndarray, mean: torch.Tensor,
     pad = nb * bs - N
     W = np.asarray(W, np.float32)
     Wp = np.concatenate([W, np.zeros((pad,) + W.shape[1:], np.float32)]) if pad else W
+    kw = {} if generator is None else {"generator": generator}
     outs = []
     for i in range(nb):
         Wb = torch.from_numpy(np.ascontiguousarray(Wp[i * bs:(i + 1) * bs]))
-        o = hybrid_fn(Wb.to(mean.device), mean, std, threshold)
+        o = hybrid_fn(Wb.to(mean.device), mean, std, threshold, **kw)
         outs.append((o, bs if i < nb - 1 else bs - pad))
     return concat_hybrid_outputs(outs)
 

@@ -103,6 +103,13 @@ class HybridScorer:
     the VAE's cell, which raises for a cell or a shape it does not take; on
     the CPU the plain modules.
 
+    ``fused_dtype``: the fused gate's precision, float32 (the port's
+    default) or ``torch.bfloat16`` (the kernel's bf16 instance, the JAX
+    scorer's serving precision; :func:`shm_tpu_torch.pipeline.make_vae_pass`
+    says what it changes); the plain path ignores it.
+    ``from_artifacts(cnn_dtype=)`` builds the CNN in float32 or bf16
+    (:class:`shm_tpu_torch.models.cnn.CNN4DOF`).
+
     ``mesh``: a :class:`shm_tpu_torch.parallel.Mesh` (one process) splits
     every bucket over its devices, each scoring its shard with its own
     replica of the models (``parallel.make_dp_hybrid_shardmap``: on the card
@@ -125,6 +132,7 @@ class HybridScorer:
 
     def __init__(self, vae, cnn, mean, std, threshold: float, *,
                  use_fused_vae: Optional[bool] = None,
+                 fused_dtype: torch.dtype = torch.float32,
                  min_bucket: int = 256, max_batch: int = 8192,
                  seq_len: Optional[int] = None, device=None, mesh=None):
         if min_bucket < 1 or max_batch < min_bucket:
@@ -137,17 +145,20 @@ class HybridScorer:
 
             use_fused_vae = auto_fused_gate(self.device)
         self.use_fused_vae = bool(use_fused_vae)
+        self.fused_dtype = fused_dtype
         self.mesh = mesh
         self.vae = vae.to(self.device).eval()
         self.cnn = cnn.to(self.device).eval()
         if mesh is None:
             self._fn = make_hybrid_fn(self.vae, self.cnn,
-                                      use_fused_vae=self.use_fused_vae)
+                                      use_fused_vae=self.use_fused_vae,
+                                      fused_dtype=fused_dtype)
         else:
             from shm_tpu_torch.parallel.mesh import make_dp_hybrid_shardmap
 
             self._fn = make_dp_hybrid_shardmap(
-                self.vae, self.cnn, mesh, use_fused_vae=self.use_fused_vae)
+                self.vae, self.cnn, mesh, use_fused_vae=self.use_fused_vae,
+                fused_dtype=fused_dtype)
         as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                            device=self.device)
         self.mean = as_dev(mean)
@@ -163,11 +174,14 @@ class HybridScorer:
 
     @classmethod
     def from_artifacts(cls, root: str | Path, cfg=None, *, device=None,
+                       cnn_dtype: torch.dtype = torch.float32,
                        **kw) -> "HybridScorer":
         """Load the 4DOF artifact layout (``models/*.msgpack``,
         ``processed/normal_stats.npz``, ``processed/vae_threshold.json``);
         the VAE's cell family comes from
-        ``processed/stage1_vae_train_meta.json``."""
+        ``processed/stage1_vae_train_meta.json``. ``cnn_dtype``: the CNN's
+        compute precision (the JAX scorer serves bf16; the port's default is
+        float32)."""
         from shm_tpu_torch.cli.stage4dof import Paths, _load_stats, _load_vae
         from shm_tpu_torch.config import Stage4DofConfig
         from shm_tpu_torch.convert import cnn4dof_from_flax
@@ -182,7 +196,7 @@ class HybridScorer:
         vae = _load_vae(paths, cfg)
         cnn = cnn4dof_from_flax(load_checkpoint(paths.models / "cnn.msgpack"),
                                 cfg.cnn.num_classes, cfg.seq_len,
-                                cfg.num_features)
+                                cfg.num_features, dtype=cnn_dtype)
         thr_meta = load_json(paths.processed / "vae_threshold.json")
         kw.setdefault("seq_len", cfg.seq_len)
         scorer = cls(vae, cnn, mean, std, float(thr_meta["threshold"]),

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from shm_tpu_torch.device import set_full_f32_precision
+from shm_tpu_torch.ops._gate import gate_dtypes
 from shm_tpu_torch.pipeline import HybridOutputs
 from shm_tpu_torch.serve import (bucket_series, mesh_scorer_device,
                                  score_bucketed)
@@ -137,10 +138,12 @@ class OpenLabScorer:
     card (raises without one); tests pass ``"cpu"``. ``use_fused_gate``:
     ``None`` asks :func:`shm_tpu_torch.ops.auto_fused_gate` (the fused
     kernel on CUDA, which raises for a cell or shape it does not take; the
-    plain model on the CPU). ``mesh``: a
-    :class:`shm_tpu_torch.parallel.Mesh` (one process, buckets multiples of
-    its size) over whose devices every bucket is split
-    (``parallel.make_dp_hybrid_fn``); ``device`` is then its first.
+    plain model on the CPU). ``gate_io_dtype``: float32 (the port's
+    default), or ``torch.bfloat16``, what the JAX scorer runs on its chip:
+    the fused gate's bf16 instance with a bf16 window tile; the plain model
+    ignores it. ``mesh``: a :class:`shm_tpu_torch.parallel.Mesh` (one
+    process, buckets multiples of its size) over whose devices every bucket
+    is split (``parallel.make_dp_hybrid_fn``); ``device`` is then its first.
     """
 
     # the calibrated healthy anomaly rate (the threshold manifest's measured
@@ -158,7 +161,8 @@ class OpenLabScorer:
                  min_bucket: int = 256, max_batch: int = 8192,
                  seq_len: Optional[int] = None,
                  num_channels: Optional[int] = None,
-                 use_fused_gate: Optional[bool] = None, mesh=None,
+                 use_fused_gate: Optional[bool] = None,
+                 gate_io_dtype: torch.dtype = torch.float32, mesh=None,
                  device=None):
         if min_bucket < 1 or max_batch < min_bucket:
             raise ValueError("need 1 <= min_bucket <= max_batch")
@@ -183,13 +187,15 @@ class OpenLabScorer:
             use_fused_gate = auto_fused_gate(self.device)
         self.use_fused_gate = bool(use_fused_gate)
         self.use_fused_vae = self.use_fused_gate
+        gate_dtypes(torch.empty(0), gate_io_dtype, gate_io_dtype)  # or raise
+        self.gate_io_dtype = gate_io_dtype
         self.stage2 = stage2
         self.vae = vae.to(self.device).eval()
         if self.use_fused_gate:
             from shm_tpu_torch.ops import fused_gate_for
 
             weights_fn, self._gate = fused_gate_for(self.vae)
-            self._gate_weights = weights_fn(self.vae)
+            self._gate_weights = weights_fn(self.vae, gate_io_dtype)
         self.cnn = None if cnn is None else cnn.to(self.device).eval()
         as_dev = lambda a: (None if a is None else torch.as_tensor(
             np.asarray(a, np.float32), device=self.device))
@@ -232,7 +238,7 @@ class OpenLabScorer:
             from shm_tpu_torch.ops import fused_gate_for
 
             weights_fn, _ = fused_gate_for(vae)
-            s._gate_weights = weights_fn(vae)
+            s._gate_weights = weights_fn(vae, self.gate_io_dtype)
         return s
 
     @property
@@ -247,7 +253,8 @@ class OpenLabScorer:
             mse, _ = self._gate(s._gate_weights, Zg,
                                 num_layers=s.vae.num_layers,
                                 use_layernorm=s.vae.use_layernorm,
-                                with_residual=False)
+                                with_residual=False, dtype=self.gate_io_dtype,
+                                io_dtype=self.gate_io_dtype)
             return mse
         recon, _, _ = s.vae(Zg)
         return ((Zg - recon) ** 2).mean(dim=(1, 2))

@@ -23,8 +23,8 @@ to ``matmul_loop.launches``; on a CPU tensor it runs
 :func:`matmul_loop_reference`. The kernel's grid is not the TPU probe's one
 block a tile: a block owns ``SHIP_CB`` columns, so 21 tiles fill
 the card (``matmul_loop_blocks``, ``matmul_loop_grid_bound_ms``). ``main``
-also times the port's float32 ``fused_vae_gate`` (the TPU probe's part A;
-the port has no bf16 gate yet).
+also times the port's ``fused_vae_gate`` in bf16 (its bf16 instance) and
+in float32, the TPU probe's part A.
 
     python -m shm_tpu_torch.tools.probe_f32_cliff            # on the card
     python -m shm_tpu_torch.tools.probe_f32_cliff --device cpu --tiles 1 --T 3
@@ -215,8 +215,9 @@ def make_inputs(tiles: int = N_TILES, seed: int = 0, device="cpu"):
 def probe_table(tiles: int = N_TILES, T: int = T_STEPS, reps: int = 20,
                 device="cuda"):
     """The probe's rows: ``matmul_loop`` in every mode on the TPU probe's
-    inputs, then the port's float32 ``fused_vae_gate`` (gate-only, random
-    init, N=5,440 random windows; 8 on the CPU). ``ms`` is None off the card."""
+    inputs, then the port's ``fused_vae_gate`` in bf16 and in float32
+    (gate-only, random init, N=5,440 random windows; 8 on the CPU), as the
+    TPU probe's part A. ``ms`` is None off the card."""
     from shm_tpu_torch.config import Stage4DofConfig
     from shm_tpu_torch.models.vae import vae_from_config
     from shm_tpu_torch.ops import fused_vae_gate, vae_params_to_kernel_weights
@@ -241,20 +242,20 @@ def probe_table(tiles: int = N_TILES, T: int = T_STEPS, reps: int = 20,
     cfg = Stage4DofConfig()
     vae = vae_from_config(cfg.vae)
     vae.init_parameters(torch.Generator().manual_seed(0))
-    wts = vae_params_to_kernel_weights(vae.to(device))
+    vae = vae.to(device)
     n = 5440 if on_card else 8
     rng = np.random.default_rng(0)
     Z = torch.from_numpy(rng.normal(size=(n, cfg.seq_len, cfg.vae.input_dim))
                          .astype(np.float32)).to(device)
-    gate = lambda: fused_vae_gate(wts, Z, num_layers=2, use_layernorm=True,
-                                  with_residual=False)
-    mse = gate()[0]
-    rows.append({"probe": "fused_gate/f32", "windows": n,
-                 "ms": timed(gate, reps=reps) if on_card else None,
-                 "mse_mean": float(mse.mean())})
-    rows.append({"probe": "fused_gate/bf16", "ms": None,
-                 "note": "waits for the bf16 gate path (ROADMAP.md Queue 2 "
-                         "item 1)"})
+    # the TPU probe's part A: the fused gate in bf16, then in float32
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        wts = vae_params_to_kernel_weights(vae, dtype)
+        gate = lambda: fused_vae_gate(wts, Z, num_layers=2, use_layernorm=True,
+                                      with_residual=False, dtype=dtype)
+        mse = gate()[0]
+        rows.append({"probe": f"fused_gate/{name}", "windows": n,
+                     "ms": timed(gate, reps=reps) if on_card else None,
+                     "mse_mean": float(mse.mean())})
     return rows
 
 

@@ -101,14 +101,15 @@ def test_every_port_module_imports_without_a_card_or_compiler():
 
 
 KERNEL_ENTRIES = {
-    "fused_vae.cu": ["shm_fused_vae_gate_f32", "shm_fused_vae_probe",
-                     "shm_fused_vae_info"],
+    "fused_vae.cu": ["shm_fused_vae_gate_f32", "shm_fused_vae_gate_bf16",
+                     "shm_fused_vae_probe", "shm_fused_vae_info"],
     "lstm_train.cu": ["shm_lstm2_enc_fwd_f32", "shm_lstm2_enc_bwd_f32",
                       "shm_lstm2_dec_fwd_f32", "shm_lstm2_dec_bwd_f32",
                       "shm_lstm2_fwd_scan_info", "shm_lstm2_bwd_scan_info"],
-    "fused_mingru.cu": ["shm_fused_mingru_gate_f32", "shm_fused_mingru_variant",
-                        "shm_fused_mingru_info"],
-    "fused_attention.cu": ["shm_fused_attention_gate_f32"],
+    "fused_mingru.cu": ["shm_fused_mingru_gate_f32", "shm_fused_mingru_gate_bf16",
+                        "shm_fused_mingru_variant", "shm_fused_mingru_info"],
+    "fused_attention.cu": ["shm_fused_attention_gate_f32",
+                           "shm_fused_attention_gate_bf16"],
     "probe_matmul_loop.cu": ["shm_probe_matmul_loop",
                              "shm_probe_matmul_loop_blocks"],
     "probe_mingru_gate.cu": ["shm_probe_mingru_gate", "shm_probe_mingru_gate_info"],

@@ -11,6 +11,7 @@ agreement counters reach ``/metrics``. The models are
 
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -121,11 +122,32 @@ def test_recalibrate_is_refused_for_an_exported_program(server):
     assert code == 501
 
 
+def settled_shadow(base: str, pause: float = 0.1) -> dict:
+    """The shadow's counters once it has scored every window posted so far:
+    nothing pending and the window count unchanged across two reads
+    ``pause`` apart (a reply precedes its shadow copy's enqueue, so one read
+    of an empty queue is not enough)."""
+    last = [None]
+
+    def settled() -> bool:
+        snap = metrics(base)["shadow"]
+        ok = (snap["pending_windows"] == 0 and last[0] is not None
+              and snap["windows"] == last[0]["windows"])
+        last[0] = snap
+        if not ok:
+            time.sleep(pause)
+        return ok
+
+    wait_for(settled, msg="the shadow to score the earlier requests")
+    return last[0]
+
+
 def test_shmx_shadow_counts_agreement_on_metrics(server, artifacts):
     """Every /score request is scored again by the .shmx shadow; its
-    counters are what the two exported scorers give directly."""
+    counters are what the two exported scorers give directly. ``before`` is
+    read once the shadow has scored the earlier tests' requests."""
     srv, base = server
-    before = metrics(base)["shadow"]
+    before = settled_shadow(base)
     W = windows(24, seed=13)
     req(base + "/score", data=W.tobytes(), headers=octet(W))
     wait_for(lambda: metrics(base)["shadow"]["windows"] >= before["windows"] + 24,
