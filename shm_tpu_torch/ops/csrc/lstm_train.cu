@@ -1,12 +1,12 @@
-// Two-layer LSTM training scans for Hopper (sm_90a), float32: forward and
-// hand-written backward of the VAE's encoder and decoder stacks.
+// Two-layer LSTM training scans for Hopper (sm_90a), float32 and bf16:
+// forward and hand-written backward of the VAE's encoder and decoder stacks.
 //
 // Replaces the four Pallas TPU kernels of shm_tpu/ops/lstm_train.py:
-//   _enc_fwd_kernel (:153, pallas_call :299)  -> lstm2_fwd_scan_kernel<H, false>
-//   _enc_bwd_kernel (:191, pallas_call :331)  -> lstm2_bwd_scan_kernel<H, false>
+//   _enc_fwd_kernel (:153, pallas_call :299)  -> lstm2_fwd_scan_kernel<H, false, BF16>
+//   _enc_bwd_kernel (:191, pallas_call :331)  -> lstm2_bwd_scan_kernel<H, false, BF16>
 //                                                + the parallel gradient pass
-//   _dec_fwd_kernel (:359, pallas_call :507)  -> lstm2_fwd_scan_kernel<H, true>
-//   _dec_bwd_kernel (:399, pallas_call :543)  -> lstm2_bwd_scan_kernel<H, true>
+//   _dec_fwd_kernel (:359, pallas_call :507)  -> lstm2_fwd_scan_kernel<H, true, BF16>
+//   _dec_bwd_kernel (:399, pallas_call :543)  -> lstm2_bwd_scan_kernel<H, true, BF16>
 //                                                + the parallel gradient pass
 // Same functions, same public layouts (batch last): xs [T,D,B], dropout mask
 // dm [T,H,B] (inverted, constant; multiplies layer 0's output before layer 1),
@@ -41,8 +41,27 @@
 // B=256 needs 13 clusters and the card places 15 at once. The backward's
 // weight gradients are a second, parallel pass. There are no float atomics
 // anywhere: the same inputs give the same bits every run.
-// Against the bound: float32 FMA pipes, no tensor cores; the bf16/wgmma path
-// is later work.
+// Against the bound: float32 FMA pipes, no tensor cores.
+//
+// The bf16 instances (template flag BF16, C entries shm_lstm2_*_bf16) are
+// the TPU kernels at dtype=bf16: their _mm / _mmT (lstm_train.py:132-145)
+// round both operands of every product to bf16 and sum in float32. Each
+// instance rounds the same operands where they enter a product and changes
+// nothing else: the forward scan rounds the weights as it loads them into
+// shared memory and x, h0, h0 * m and h1 as it writes them into the tiles
+// and gather buffers the products read (the decoder's dec_in, head weights
+// and h1 too); the reverse scan rounds its weight slices, the head and
+// d(recon) as it loads them and dg as it enters the gather buffer, while
+// the dg written to device memory stays float32 (the bias sums read it so);
+// the gradient pass rounds both streams of every contraction after the
+// mask multiply, W and dg in W^T dg, and sums the decoder's layer-0 dg over
+// T in float32 before its two products round that sum once (the TPU kernel
+// rounds the sum of each of its VMEM chunks of steps: all T at small shapes,
+// 20 chunks of 5 at the 4DOF training shape). A bf16 product is exact in
+// float32, so an instance differs from the TPU kernel in the order of its
+// float32 sums and there only. The products still run on the float32
+// FMA pipes (bf16 mma.sync / wgmma is later work); BF16 = false is the
+// float32 code unchanged.
 //
 // Accurate expf/tanhf (no --use_fast_math); sigmoid(x) = 1/(1+exp(-x)).
 
@@ -57,6 +76,20 @@ constexpr int NW = 20;       // windows a cluster
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// float32 -> nearest bf16 (ties to even), as a float32
+__device__ __forceinline__ float bfr(float x) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r << 16);
+}
+
+// a product operand of the instance: rounded to bf16 under BF16
+template <bool BF16>
+__device__ __forceinline__ float rd(float x) {
+  if constexpr (BF16) return bfr(x);
+  return x;
 }
 
 struct LstmW {           // one 2-layer stack, every matrix as given, [4H,in]
@@ -145,13 +178,13 @@ struct Fwd {
 };
 
 // rows {q*H + rk*UB + u} of W [4H,K] -> shared [UB][K][4]
-template <int H>
+template <int H, bool BF16>
 __device__ __forceinline__ void load_gate_rows(float* dst, const float* __restrict__ W,
                                                int K, unsigned rk, int tid, int nt) {
   constexpr int UB = H / CL;
   for (int i = tid; i < 4 * UB * K; i += nt) {
     const int k = i % K, u = (i / K) % UB, q = i / (K * UB);
-    dst[(u * K + k) * 4 + q] = W[(size_t)(q * H + rk * UB + u) * K + k];
+    dst[(u * K + k) * 4 + q] = rd<BF16>(W[(size_t)(q * H + rk * UB + u) * K + k]);
   }
 }
 
@@ -234,7 +267,7 @@ __device__ __forceinline__ void push_rows(float* b0, float* b1, float* b2, int t
 
 // x: xs [T,D,B] (encoder) or dec_in [K,B] (decoder); out: h_last [H,B]
 // (encoder) or recon [T,D,B] (decoder, with ow [D,H], ob [D])
-template <int H, bool DEC>
+template <int H, bool DEC, bool BF16>
 __global__ void __launch_bounds__(Fwd<H, DEC>::NT, 1)
 lstm2_fwd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dm,
                       const LstmW W, const float* __restrict__ ow,
@@ -254,9 +287,9 @@ lstm2_fwd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dm,
   // the lanes of this thread's warp (the last warp is partial at H=32)
   const unsigned lanes = (tid | 31) < NT ? 0xffffffffu : (1u << (NT % 32)) - 1u;
 
-  load_gate_rows<H>(sm + F::W0H, W.w0h, H, rk, tid, NT);
-  load_gate_rows<H>(sm + F::W1I, W.w1i, H, rk, tid, NT);
-  load_gate_rows<H>(sm + F::W1H, W.w1h, H, rk, tid, NT);
+  load_gate_rows<H, BF16>(sm + F::W0H, W.w0h, H, rk, tid, NT);
+  load_gate_rows<H, BF16>(sm + F::W1I, W.w1i, H, rk, tid, NT);
+  load_gate_rows<H, BF16>(sm + F::W1H, W.w1h, H, rk, tid, NT);
   // layer 0's constant part of the pre-activations (encoder: b0; decoder:
   // b0 + W0i dec_in) and layer 1's bias, the slot's four gates each
   float pre0c[4], bias1[4];
@@ -267,14 +300,14 @@ lstm2_fwd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dm,
   }
   if (DEC) {
     for (int k = 0; k < K; ++k) {
-      const float xv = live ? x[(size_t)k * B + b] : 0.0f;
+      const float xv = live ? rd<BF16>(x[(size_t)k * B + b]) : 0.0f;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        pre0c[q] = fmaf(W.w0i[(size_t)(q * H + unit) * K + k], xv, pre0c[q]);
+        pre0c[q] = fmaf(rd<BF16>(W.w0i[(size_t)(q * H + unit) * K + k]), xv, pre0c[q]);
     }
-    for (int i = tid; i < D * H; i += NT) sm[F::OW + (i % H) * D + i / H] = ow[i];
+    for (int i = tid; i < D * H; i += NT) sm[F::OW + (i % H) * D + i / H] = rd<BF16>(ow[i]);
   } else {
-    load_gate_rows<H>(sm + F::W0I, W.w0i, D, rk, tid, NT);
+    load_gate_rows<H, BF16>(sm + F::W0I, W.w0i, D, rk, tid, NT);
   }
   // the decoder head's output of this thread: recon[.][hd][b0 + hw]
   const int per = (D * NW + CL - 1) / CL, e = rk * per + tid;
@@ -296,7 +329,8 @@ lstm2_fwd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dm,
   // the encoder's x_t tile [D][NW], zero past the batch edge
   auto x_at = [&](int t, int i) {
     const int ww = i % NW;
-    return (i < D * NW && b0 + ww < B) ? x[((size_t)t * D + i / NW) * B + b0 + ww] : 0.0f;
+    return (i < D * NW && b0 + ww < B) ? rd<BF16>(x[((size_t)t * D + i / NW) * B + b0 + ww])
+                                       : 0.0f;
   };
   for (int i = tid; i < 6 * HW; i += NT) sm[F::H0 + i] = 0.0f;   // h_{-1} = 0
   if (!DEC)
@@ -338,8 +372,8 @@ lstm2_fwd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dm,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pre[i] += pre0c[i];
       h0 = cell_fwd(pre, c0, keep ? gates + (size_t)2 * s * 4 * hb + at : nullptr, hb);
-      bufs[0][rk * NT + tid] = h0;
-      bufs[1][rk * NT + tid] = h0 * m;
+      bufs[0][rk * NT + tid] = rd<BF16>(h0);
+      bufs[1][rk * NT + tid] = rd<BF16>(h0 * m);
     }
     if (s > 0) {
       if (keep) {
@@ -351,7 +385,7 @@ lstm2_fwd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dm,
       for (int i = 0; i < 4; ++i) pre1[i] += bias1[i];
       h1 = cell_fwd(pre1, c1,
                     keep ? gates + (size_t)(2 * (s - 1) + 1) * 4 * hb + at : nullptr, hb);
-      bufs[2][rk * NT + tid] = h1;
+      bufs[2][rk * NT + tid] = rd<BF16>(h1);
     }
     __syncthreads();                       // the block's own rows complete
     push_rows<NT>(bufs[0], bufs[1], bufs[2], tid, rk);
@@ -471,17 +505,18 @@ __device__ __forceinline__ void cell_bwd(const float (&a)[4], float dh, float& d
 }
 
 // The slot's four gate gradients to rows q*H + unit of device memory dgo
-// [4H,B] and of the gather buffer buf [G][NW] of every block of the cluster:
+// [4H,B] (as they are) and of the gather buffer buf [G][NW] of every block of
+// the cluster (rounded to bf16 under BF16: the buffer feeds W^T dg only):
 // first into this block's own buffer, then the block's 4 runs of UB rows
 // (NT floats each) as one float4 a thread to each of the 7 peers.
-template <int H>
+template <int H, bool BF16>
 __device__ __forceinline__ void gather_rows(float* buf, const float (&dg)[4], int tid,
                                             unsigned k, float* __restrict__ dgo,
                                             size_t at, int B, bool live) {
   using R = Rev<H>;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    buf[(q * H + k * R::UB) * NW + tid] = dg[q];
+    buf[(q * H + k * R::UB) * NW + tid] = rd<BF16>(dg[q]);
     if (live) dgo[(size_t)q * H * B + at] = dg[q];
   }
   __syncthreads();                         // the block's own rows complete
@@ -542,7 +577,7 @@ __device__ __forceinline__ float part_sum(const float* part, int p, int slot) {
 }
 
 // seed: d h_last [H,B] (encoder) or d recon [T,D,B] (decoder, with ow [D,H])
-template <int H, bool DEC>
+template <int H, bool DEC, bool BF16>
 __global__ void __launch_bounds__(Rev<H>::NT, 1)
 lstm2_bwd_scan_kernel(const float* __restrict__ dm, const LstmW W,
                       const float* __restrict__ ow,
@@ -564,18 +599,19 @@ lstm2_bwd_scan_kernel(const float* __restrict__ dm, const LstmW W,
 
   for (int i = tid; i < R::G * R::UB; i += R::NT) {
     const size_t src = (size_t)(i / R::UB) * H + k * R::UB + i % R::UB;
-    Ws[i] = W.w1i[src];
-    Ws[R::G * R::UB + i] = W.w1h[src];
-    Ws[2 * R::G * R::UB + i] = W.w0h[src];
+    Ws[i] = rd<BF16>(W.w1i[src]);
+    Ws[R::G * R::UB + i] = rd<BF16>(W.w1h[src]);
+    Ws[2 * R::G * R::UB + i] = rd<BF16>(W.w0h[src]);
   }
   // d(recon_t) of the cluster's windows, tile [D][NW]
   auto dr_at = [&](int t, int e) {
     const int w = e % NW;
-    return (e < D * NW && b0 + w < B) ? seed[((size_t)t * D + e / NW) * B + b0 + w] : 0.0f;
+    return (e < D * NW && b0 + w < B) ? rd<BF16>(seed[((size_t)t * D + e / NW) * B + b0 + w])
+                                      : 0.0f;
   };
   if (DEC) {
     for (int i = tid; i < D * R::UB; i += R::NT)
-      ows[i] = ow[(size_t)(i / R::UB) * H + k * R::UB + i % R::UB];
+      ows[i] = rd<BF16>(ow[(size_t)(i / R::UB) * H + k * R::UB + i % R::UB]);
     for (int e = tid; e < D * NW; e += R::NT)
       drs[((T - 1) & 1) * DMAX * NW + e] = dr_at(T - 1, e);
   }
@@ -602,7 +638,7 @@ lstm2_bwd_scan_kernel(const float* __restrict__ dm, const LstmW W,
     }
     float dg[4];
     cell_bwd(cur.g1, dh1, dc1, c1a, cur.c1p, dg);
-    gather_rows<H>(ga, dg, tid, k, dg1o + (size_t)t * 4 * hb, at, B, live);
+    gather_rows<H, BF16>(ga, dg, tid, k, dg1o + (size_t)t * 4 * hb, at, B, live);
     if (DEC && t > 0) {
       float* next = drs + ((t - 1) & 1) * DMAX * NW;
 #pragma unroll
@@ -615,7 +651,7 @@ lstm2_bwd_scan_kernel(const float* __restrict__ dm, const LstmW W,
     dh0 = dh0 + part_sum<H>(part, 0, tid) * cur.m;
     dh1 = part_sum<H>(part, 1, tid);
     cell_bwd(cur.g0, dh0, dc0, c0a, cur.c0p, dg);
-    gather_rows<H>(gb, dg, tid, k, dg0o + (size_t)t * 4 * hb, at, B, live);
+    gather_rows<H, BF16>(gb, dg, tid, k, dg0o + (size_t)t * 4 * hb, at, B, live);
     cluster_sync();                        // dg0 gathered, reads of part done
     tr_products<H, 1>(Ws, 2, gb, part, tid);
     __syncthreads();                       // partials visible
@@ -677,19 +713,20 @@ cudaError_t cluster_info(Kernel kern, size_t bytes, int nt, int* info) {
   return cudaSuccess;
 }
 
-template <int H, bool DEC>
+template <int H, bool DEC, bool BF16>
 cudaError_t fwd_scan_info(int* out) {
   static int info[5] = {-1, 0, 0, 0, 0};
-  SHM_TRY(cluster_info(lstm2_fwd_scan_kernel<H, DEC>, Fwd<H, DEC>::BYTES,
+  SHM_TRY(cluster_info(lstm2_fwd_scan_kernel<H, DEC, BF16>, Fwd<H, DEC>::BYTES,
                        Fwd<H, DEC>::NT, info));
   for (int i = 0; i < 5; ++i) out[i] = info[i];
   return cudaSuccess;
 }
 
-template <int H, bool DEC>
+template <int H, bool DEC, bool BF16>
 cudaError_t bwd_scan_info(int* out) {
   static int info[5] = {-1, 0, 0, 0, 0};
-  SHM_TRY(cluster_info(lstm2_bwd_scan_kernel<H, DEC>, Rev<H>::BYTES, Rev<H>::NT, info));
+  SHM_TRY(cluster_info(lstm2_bwd_scan_kernel<H, DEC, BF16>, Rev<H>::BYTES, Rev<H>::NT,
+                       info));
   for (int i = 0; i < 5; ++i) out[i] = info[i];
   return cudaSuccess;
 }
@@ -710,26 +747,26 @@ LstmW stack_weights(const float* const* w) {
 
 // The forward scan. w: w0i w0h b0 w1i w1h b1, and the decoder's ow ob;
 // out: h_last (encoder) or recon (decoder)
-template <int H, bool DEC>
+template <int H, bool DEC, bool BF16>
 cudaError_t fwd_scan(const float* x, const float* dm, const float* const* w,
                      float* stash, float* gates, float* out, float* fin, int T,
                      int D, int K, int B, cudaStream_t s) {
   int info[5];
-  SHM_TRY((fwd_scan_info<H, DEC>(info)));
-  return cluster_launch(lstm2_fwd_scan_kernel<H, DEC>, info, B, s, x, dm,
+  SHM_TRY((fwd_scan_info<H, DEC, BF16>(info)));
+  return cluster_launch(lstm2_fwd_scan_kernel<H, DEC, BF16>, info, B, s, x, dm,
                         stack_weights(w), DEC ? w[6] : nullptr,
                         DEC ? w[7] : nullptr, stash, gates, out, fin, T, D, K, B);
 }
 
 // the reverse scan over B windows
-template <int H, bool DEC>
+template <int H, bool DEC, bool BF16>
 cudaError_t bwd_scan(const float* dm, const LstmW& W, const float* ow,
                      const float* stash, const float* gates, const float* fin,
                      const float* seed, float* dg0, float* dg1, int T, int D,
                      int B, cudaStream_t s) {
   int info[5];
-  SHM_TRY((bwd_scan_info<H, DEC>(info)));
-  return cluster_launch(lstm2_bwd_scan_kernel<H, DEC>, info, B, s, dm, W, ow, stash,
+  SHM_TRY((bwd_scan_info<H, DEC, BF16>(info)));
+  return cluster_launch(lstm2_bwd_scan_kernel<H, DEC, BF16>, info, B, s, dm, W, ow, stash,
                         gates, fin, seed, dg0, dg1, T, D, B);
 }
 
@@ -763,7 +800,9 @@ __device__ __forceinline__ float stream_at(const Stream& s, int t, int T, int ro
 constexpr int TILE = 64;     // output tile (rows of a x rows of c)
 constexpr int KC = 32;       // batch entries per shared-memory chunk
 
-// partial[s][r][c] = sum over t in split s, all b, of a(t,r,b) * c(t,c,b)
+// partial[s][r][c] = sum over t in split s, all b, of a(t,r,b) * c(t,c,b),
+// each stream value rounded to bf16 under BF16 (after its mask multiply)
+template <bool BF16>
 __global__ void __launch_bounds__(256)
 contract_partial_kernel(const Stream a, const Stream c, int T, int B, int tper,
                         float* __restrict__ partial) {
@@ -783,8 +822,10 @@ contract_partial_kernel(const Stream a, const Stream c, int T, int B, int tper,
       for (int i = threadIdx.x; i < TILE * KC; i += 256) {
         const int row = i / KC, kk = i % KC;
         const int b = bb + kk;
-        As[row][kk] = (r0 + row < a.rows && b < B) ? stream_at(a, t, T, r0 + row, b, B) : 0.0f;
-        Cs[row][kk] = (c0 + row < c.rows && b < B) ? stream_at(c, t, T, c0 + row, b, B) : 0.0f;
+        As[row][kk] =
+            (r0 + row < a.rows && b < B) ? rd<BF16>(stream_at(a, t, T, r0 + row, b, B)) : 0.0f;
+        Cs[row][kk] =
+            (c0 + row < c.rows && b < B) ? rd<BF16>(stream_at(c, t, T, c0 + row, b, B)) : 0.0f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -846,7 +887,9 @@ sum_t_rowsum_kernel(const float* __restrict__ dg, int T, int R, int B,
   if (threadIdx.x == 0) rowsum[r] = red[0];
 }
 
-// out[t][c][b] = sum_r W[r][c] * dg[t][r][b]   (W row-major [R,C])
+// out[t][c][b] = sum_r W[r][c] * dg[t][r][b]   (W row-major [R,C]), both
+// operands rounded to bf16 under BF16
+template <bool BF16>
 __global__ void wt_dg_kernel(const float* __restrict__ W,
                              const float* __restrict__ dg, int T, int R, int C,
                              int B, float* __restrict__ out) {
@@ -858,7 +901,7 @@ __global__ void wt_dg_kernel(const float* __restrict__ W,
   const float* g = dg + (size_t)t * R * B + b;
   float s = 0.0f;
   for (int r = 0; r < R; ++r)
-    s = fmaf(__ldg(W + (size_t)r * C + c), g[(size_t)r * B], s);
+    s = fmaf(rd<BF16>(__ldg(W + (size_t)r * C + c)), rd<BF16>(g[(size_t)r * B]), s);
   out[i] = s;
 }
 
@@ -867,11 +910,12 @@ Stream plain_stream(const float* p, long long stride, int rows) {
 }
 
 // out [a.rows, c.rows] = sum_{t,b} a * c, through `partial` ([S, rows, rows])
+template <bool BF16>
 cudaError_t contract(const Stream& a, const Stream& c, int T, int B, int S,
                      float* partial, float* out, cudaStream_t stream) {
   const int tper = (T + S - 1) / S;
   const dim3 grid((c.rows + TILE - 1) / TILE, (a.rows + TILE - 1) / TILE, S);
-  contract_partial_kernel<<<grid, 256, 0, stream>>>(a, c, T, B, tper, partial);
+  contract_partial_kernel<BF16><<<grid, 256, 0, stream>>>(a, c, T, B, tper, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = a.rows * c.rows;
@@ -885,60 +929,67 @@ cudaError_t sum_t_rowsum(const float* dg, int T, int R, int B, float* sumT,
   return cudaGetLastError();
 }
 
+template <bool BF16>
 cudaError_t wt_dg(const float* W, const float* dg, int T, int R, int C, int B,
                   float* out, cudaStream_t stream) {
   const size_t n = (size_t)T * C * B;
-  wt_dg_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(W, dg, T, R, C, B, out);
+  wt_dg_kernel<BF16><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(W, dg, T, R, C, B, out);
   return cudaGetLastError();
 }
 
 // w: w0i w0h b0 w1i w1h b1
 // scratch: dg0 dg1 partial;  out: dx gw0i gw0h gb0 gw1i gw1h gb1
-template <int H>
+template <int H, bool BF16>
 cudaError_t enc_bwd(const float* xs, const float* dm, const float* const* w,
                     const float* stash, const float* gates, const float* fin,
                     const float* dhl, float* const* scratch, float* const* out,
                     int T, int D, int B, int S, cudaStream_t s) {
   float *dg0 = scratch[0], *dg1 = scratch[1], *partial = scratch[2];
-  SHM_TRY((bwd_scan<H, false>(dm, stack_weights(w), nullptr, stash, gates,
-                              fin, dhl, dg0, dg1, T, D, B, s)));
+  SHM_TRY((bwd_scan<H, false, BF16>(dm, stack_weights(w), nullptr, stash, gates,
+                                    fin, dhl, dg0, dg1, T, D, B, s)));
   const long long st = 4LL * H * B;
   const Stream g0 = plain_stream(dg0, st, 4 * H), g1 = plain_stream(dg1, st, 4 * H);
   const Stream h0d{stash, st, fin, dm, (long long)H * B, H};
-  SHM_TRY(contract(g0, plain_stream(xs, (long long)D * B, D), T, B, S, partial, out[1], s));
-  SHM_TRY(contract(g0, plain_stream(stash, st, H), T, B, S, partial, out[2], s));
+  SHM_TRY(contract<BF16>(g0, plain_stream(xs, (long long)D * B, D), T, B, S, partial, out[1],
+                         s));
+  SHM_TRY(contract<BF16>(g0, plain_stream(stash, st, H), T, B, S, partial, out[2], s));
   SHM_TRY(sum_t_rowsum(dg0, T, 4 * H, B, nullptr, out[3], s));
-  SHM_TRY(contract(g1, h0d, T, B, S, partial, out[4], s));
-  SHM_TRY(contract(g1, plain_stream(stash + 2LL * H * B, st, H), T, B, S, partial, out[5], s));
+  SHM_TRY(contract<BF16>(g1, h0d, T, B, S, partial, out[4], s));
+  SHM_TRY(contract<BF16>(g1, plain_stream(stash + 2LL * H * B, st, H), T, B, S, partial,
+                         out[5], s));
   SHM_TRY(sum_t_rowsum(dg1, T, 4 * H, B, nullptr, out[6], s));
-  if (out[0] != nullptr) SHM_TRY(wt_dg(w[0], dg0, T, 4 * H, D, B, out[0], s));
+  if (out[0] != nullptr) SHM_TRY(wt_dg<BF16>(w[0], dg0, T, 4 * H, D, B, out[0], s));
   return cudaSuccess;
 }
 
 // w: w0i w0h b0 w1i w1h b1 ow ob
 // scratch: dg0 dg1 partial sum_t(dg0);  out: ddin gw0i gw0h gb0 gw1i gw1h gb1 gow gob
-template <int H>
+template <int H, bool BF16>
 cudaError_t dec_bwd(const float* din, const float* dm, const float* const* w,
                     const float* stash, const float* gates, const float* fin,
                     const float* dr, float* const* scratch, float* const* out,
                     int T, int D, int K, int B, int S, cudaStream_t s) {
   float *dg0 = scratch[0], *dg1 = scratch[1], *partial = scratch[2],
         *adg0 = scratch[3];
-  SHM_TRY((bwd_scan<H, true>(dm, stack_weights(w), w[6], stash, gates,
-                             fin, dr, dg0, dg1, T, D, B, s)));
+  SHM_TRY((bwd_scan<H, true, BF16>(dm, stack_weights(w), w[6], stash, gates,
+                                   fin, dr, dg0, dg1, T, D, B, s)));
   const long long st = 4LL * H * B;
   const Stream g0 = plain_stream(dg0, st, 4 * H), g1 = plain_stream(dg1, st, 4 * H);
   const Stream h0d{stash, st, fin, dm, (long long)H * B, H};
   const Stream h1a{stash + 2LL * H * B, st, fin + 2LL * H * B, nullptr, 0, H};
-  // layer 0's input is constant over T: sum dg0 over T first, then fold once
+  // layer 0's input is constant over T: sum dg0 over T first (float32),
+  // then fold once (under BF16 the sum is rounded as the two products read it)
   SHM_TRY(sum_t_rowsum(dg0, T, 4 * H, B, adg0, out[3], s));
-  SHM_TRY(contract(plain_stream(adg0, 0, 4 * H), plain_stream(din, 0, K), 1, B, 1, partial, out[1], s));
-  SHM_TRY(wt_dg(w[0], adg0, 1, 4 * H, K, B, out[0], s));
-  SHM_TRY(contract(g0, plain_stream(stash, st, H), T, B, S, partial, out[2], s));
-  SHM_TRY(contract(g1, h0d, T, B, S, partial, out[4], s));
-  SHM_TRY(contract(g1, plain_stream(stash + 2LL * H * B, st, H), T, B, S, partial, out[5], s));
+  SHM_TRY(contract<BF16>(plain_stream(adg0, 0, 4 * H), plain_stream(din, 0, K), 1, B, 1,
+                         partial, out[1], s));
+  SHM_TRY(wt_dg<BF16>(w[0], adg0, 1, 4 * H, K, B, out[0], s));
+  SHM_TRY(contract<BF16>(g0, plain_stream(stash, st, H), T, B, S, partial, out[2], s));
+  SHM_TRY(contract<BF16>(g1, h0d, T, B, S, partial, out[4], s));
+  SHM_TRY(contract<BF16>(g1, plain_stream(stash + 2LL * H * B, st, H), T, B, S, partial,
+                         out[5], s));
   SHM_TRY(sum_t_rowsum(dg1, T, 4 * H, B, nullptr, out[6], s));
-  SHM_TRY(contract(plain_stream(dr, (long long)D * B, D), h1a, T, B, S, partial, out[7], s));
+  SHM_TRY(contract<BF16>(plain_stream(dr, (long long)D * B, D), h1a, T, B, S, partial,
+                         out[7], s));
   SHM_TRY(sum_t_rowsum(dr, T, D, B, nullptr, out[8], s));
   return cudaSuccess;
 }
@@ -946,6 +997,104 @@ cudaError_t dec_bwd(const float* din, const float* dm, const float* const* w,
 bool bad_dims(int T, int D, int H, int B, int S) {
   return T <= 0 || D <= 0 || D > DMAX || B <= 0 || S <= 0 || S > T ||
          (H != 32 && H != 64 && H != 128);
+}
+
+// The four entries' bodies, for the float32 (BF16 = false) and the bf16
+// instances.
+template <bool BF16>
+int enc_fwd_entry(const float* xs, const float* dm, const void* const* w, float* stash,
+                  float* gates, float* hlast, float* fin, int T, int D, int H, int B,
+                  void* stream) {
+  if (bad_dims(T, D, H, B, 1)) return (int)cudaErrorInvalidValue;
+  const float* const* wp = reinterpret_cast<const float* const*>(w);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (H) {
+    case 32: err = fwd_scan<32, false, BF16>(xs, dm, wp, stash, gates, hlast, fin, T, D, 0, B, s); break;
+    case 64: err = fwd_scan<64, false, BF16>(xs, dm, wp, stash, gates, hlast, fin, T, D, 0, B, s); break;
+    default: err = fwd_scan<128, false, BF16>(xs, dm, wp, stash, gates, hlast, fin, T, D, 0, B, s); break;
+  }
+  return (int)err;
+}
+
+template <bool BF16>
+int enc_bwd_entry(const float* xs, const float* dm, const void* const* w, const float* stash,
+                  const float* gates, const float* fin, const float* dhl,
+                  void* const* scratch, void* const* out, int T, int D, int H, int B, int S,
+                  void* stream) {
+  if (bad_dims(T, D, H, B, S)) return (int)cudaErrorInvalidValue;
+  const float* const* wp = reinterpret_cast<const float* const*>(w);
+  float* const* sp = reinterpret_cast<float* const*>(scratch);
+  float* const* op = reinterpret_cast<float* const*>(out);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (H) {
+    case 32: err = enc_bwd<32, BF16>(xs, dm, wp, stash, gates, fin, dhl, sp, op, T, D, B, S, s); break;
+    case 64: err = enc_bwd<64, BF16>(xs, dm, wp, stash, gates, fin, dhl, sp, op, T, D, B, S, s); break;
+    default: err = enc_bwd<128, BF16>(xs, dm, wp, stash, gates, fin, dhl, sp, op, T, D, B, S, s); break;
+  }
+  return (int)err;
+}
+
+template <bool BF16>
+int dec_fwd_entry(const float* din, const float* dm, const void* const* w, float* recon,
+                  float* stash, float* gates, float* fin, int T, int D, int H, int K, int B,
+                  void* stream) {
+  if (bad_dims(T, D, H, B, 1) || K <= 0 || K > KMAX)
+    return (int)cudaErrorInvalidValue;
+  const float* const* wp = reinterpret_cast<const float* const*>(w);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (H) {
+    case 32: err = fwd_scan<32, true, BF16>(din, dm, wp, stash, gates, recon, fin, T, D, K, B, s); break;
+    case 64: err = fwd_scan<64, true, BF16>(din, dm, wp, stash, gates, recon, fin, T, D, K, B, s); break;
+    default: err = fwd_scan<128, true, BF16>(din, dm, wp, stash, gates, recon, fin, T, D, K, B, s); break;
+  }
+  return (int)err;
+}
+
+template <bool BF16>
+int dec_bwd_entry(const float* din, const float* dm, const void* const* w, const float* stash,
+                  const float* gates, const float* fin, const float* dr,
+                  void* const* scratch, void* const* out, int T, int D, int H, int K, int B,
+                  int S, void* stream) {
+  if (bad_dims(T, D, H, B, S) || K <= 0 || K > KMAX)
+    return (int)cudaErrorInvalidValue;
+  const float* const* wp = reinterpret_cast<const float* const*>(w);
+  float* const* sp = reinterpret_cast<float* const*>(scratch);
+  float* const* op = reinterpret_cast<float* const*>(out);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (H) {
+    case 32: err = dec_bwd<32, BF16>(din, dm, wp, stash, gates, fin, dr, sp, op, T, D, K, B, S, s); break;
+    case 64: err = dec_bwd<64, BF16>(din, dm, wp, stash, gates, fin, dr, sp, op, T, D, K, B, S, s); break;
+    default: err = dec_bwd<128, BF16>(din, dm, wp, stash, gates, fin, dr, sp, op, T, D, K, B, S, s); break;
+  }
+  return (int)err;
+}
+
+template <bool BF16>
+int fwd_scan_info_entry(int H, int dec, int* out) {
+  switch (H * 2 + (dec != 0)) {
+    case 64: return (int)fwd_scan_info<32, false, BF16>(out);
+    case 65: return (int)fwd_scan_info<32, true, BF16>(out);
+    case 128: return (int)fwd_scan_info<64, false, BF16>(out);
+    case 129: return (int)fwd_scan_info<64, true, BF16>(out);
+    case 256: return (int)fwd_scan_info<128, false, BF16>(out);
+    default: return (int)fwd_scan_info<128, true, BF16>(out);
+  }
+}
+
+template <bool BF16>
+int bwd_scan_info_entry(int H, int dec, int* out) {
+  switch (H * 2 + (dec != 0)) {
+    case 64: return (int)bwd_scan_info<32, false, BF16>(out);
+    case 65: return (int)bwd_scan_info<32, true, BF16>(out);
+    case 128: return (int)bwd_scan_info<64, false, BF16>(out);
+    case 129: return (int)bwd_scan_info<64, true, BF16>(out);
+    case 256: return (int)bwd_scan_info<128, false, BF16>(out);
+    default: return (int)bwd_scan_info<128, true, BF16>(out);
+  }
 }
 
 }  // namespace
@@ -959,22 +1108,21 @@ bool bad_dims(int T, int D, int H, int B, int S) {
 // the gate stash [T,2,4H,B] only with a stash) and out[0] null in the
 // encoder backward (no dx wanted). Each returns the first cudaGetLastError()
 // that is not 0, else 0. S is the number of splits over T of the contraction
-// (partial holds S * 4H * max(H, K, D) floats).
+// (partial holds S * 4H * max(H, K, D) floats). The _bf16 entries take the
+// same arguments as the _f32 ones and launch the bf16 instances.
 
 extern "C" int shm_lstm2_enc_fwd_f32(const float* xs, const float* dm,
                                      const void* const* w, float* stash,
                                      float* gates, float* hlast, float* fin,
                                      int T, int D, int H, int B, void* stream) {
-  if (bad_dims(T, D, H, B, 1)) return (int)cudaErrorInvalidValue;
-  const float* const* wp = reinterpret_cast<const float* const*>(w);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (H) {
-    case 32: err = fwd_scan<32, false>(xs, dm, wp, stash, gates, hlast, fin, T, D, 0, B, s); break;
-    case 64: err = fwd_scan<64, false>(xs, dm, wp, stash, gates, hlast, fin, T, D, 0, B, s); break;
-    default: err = fwd_scan<128, false>(xs, dm, wp, stash, gates, hlast, fin, T, D, 0, B, s); break;
-  }
-  return (int)err;
+  return enc_fwd_entry<false>(xs, dm, w, stash, gates, hlast, fin, T, D, H, B, stream);
+}
+
+extern "C" int shm_lstm2_enc_fwd_bf16(const float* xs, const float* dm,
+                                      const void* const* w, float* stash,
+                                      float* gates, float* hlast, float* fin,
+                                      int T, int D, int H, int B, void* stream) {
+  return enc_fwd_entry<true>(xs, dm, w, stash, gates, hlast, fin, T, D, H, B, stream);
 }
 
 extern "C" int shm_lstm2_enc_bwd_f32(const float* xs, const float* dm,
@@ -984,18 +1132,19 @@ extern "C" int shm_lstm2_enc_bwd_f32(const float* xs, const float* dm,
                                      void* const* scratch, void* const* out,
                                      int T, int D, int H, int B, int S,
                                      void* stream) {
-  if (bad_dims(T, D, H, B, S)) return (int)cudaErrorInvalidValue;
-  const float* const* wp = reinterpret_cast<const float* const*>(w);
-  float* const* sp = reinterpret_cast<float* const*>(scratch);
-  float* const* op = reinterpret_cast<float* const*>(out);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (H) {
-    case 32: err = enc_bwd<32>(xs, dm, wp, stash, gates, fin, dhl, sp, op, T, D, B, S, s); break;
-    case 64: err = enc_bwd<64>(xs, dm, wp, stash, gates, fin, dhl, sp, op, T, D, B, S, s); break;
-    default: err = enc_bwd<128>(xs, dm, wp, stash, gates, fin, dhl, sp, op, T, D, B, S, s); break;
-  }
-  return (int)err;
+  return enc_bwd_entry<false>(xs, dm, w, stash, gates, fin, dhl, scratch, out, T, D, H, B,
+                              S, stream);
+}
+
+extern "C" int shm_lstm2_enc_bwd_bf16(const float* xs, const float* dm,
+                                      const void* const* w, const float* stash,
+                                      const float* gates, const float* fin,
+                                      const float* dhl,
+                                      void* const* scratch, void* const* out,
+                                      int T, int D, int H, int B, int S,
+                                      void* stream) {
+  return enc_bwd_entry<true>(xs, dm, w, stash, gates, fin, dhl, scratch, out, T, D, H, B,
+                             S, stream);
 }
 
 extern "C" int shm_lstm2_dec_fwd_f32(const float* din, const float* dm,
@@ -1003,17 +1152,15 @@ extern "C" int shm_lstm2_dec_fwd_f32(const float* din, const float* dm,
                                      float* stash, float* gates, float* fin,
                                      int T, int D, int H, int K, int B,
                                      void* stream) {
-  if (bad_dims(T, D, H, B, 1) || K <= 0 || K > KMAX)
-    return (int)cudaErrorInvalidValue;
-  const float* const* wp = reinterpret_cast<const float* const*>(w);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (H) {
-    case 32: err = fwd_scan<32, true>(din, dm, wp, stash, gates, recon, fin, T, D, K, B, s); break;
-    case 64: err = fwd_scan<64, true>(din, dm, wp, stash, gates, recon, fin, T, D, K, B, s); break;
-    default: err = fwd_scan<128, true>(din, dm, wp, stash, gates, recon, fin, T, D, K, B, s); break;
-  }
-  return (int)err;
+  return dec_fwd_entry<false>(din, dm, w, recon, stash, gates, fin, T, D, H, K, B, stream);
+}
+
+extern "C" int shm_lstm2_dec_fwd_bf16(const float* din, const float* dm,
+                                      const void* const* w, float* recon,
+                                      float* stash, float* gates, float* fin,
+                                      int T, int D, int H, int K, int B,
+                                      void* stream) {
+  return dec_fwd_entry<true>(din, dm, w, recon, stash, gates, fin, T, D, H, K, B, stream);
 }
 
 extern "C" int shm_lstm2_dec_bwd_f32(const float* din, const float* dm,
@@ -1023,51 +1170,34 @@ extern "C" int shm_lstm2_dec_bwd_f32(const float* din, const float* dm,
                                      void* const* scratch, void* const* out,
                                      int T, int D, int H, int K, int B, int S,
                                      void* stream) {
-  if (bad_dims(T, D, H, B, S) || K <= 0 || K > KMAX)
-    return (int)cudaErrorInvalidValue;
-  const float* const* wp = reinterpret_cast<const float* const*>(w);
-  float* const* sp = reinterpret_cast<float* const*>(scratch);
-  float* const* op = reinterpret_cast<float* const*>(out);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (H) {
-    case 32: err = dec_bwd<32>(din, dm, wp, stash, gates, fin, dr, sp, op, T, D, K, B, S, s); break;
-    case 64: err = dec_bwd<64>(din, dm, wp, stash, gates, fin, dr, sp, op, T, D, K, B, S, s); break;
-    default: err = dec_bwd<128>(din, dm, wp, stash, gates, fin, dr, sp, op, T, D, K, B, S, s); break;
-  }
-  return (int)err;
+  return dec_bwd_entry<false>(din, dm, w, stash, gates, fin, dr, scratch, out, T, D, H, K,
+                              B, S, stream);
+}
+
+extern "C" int shm_lstm2_dec_bwd_bf16(const float* din, const float* dm,
+                                      const void* const* w, const float* stash,
+                                      const float* gates, const float* fin,
+                                      const float* dr,
+                                      void* const* scratch, void* const* out,
+                                      int T, int D, int H, int K, int B, int S,
+                                      void* stream) {
+  return dec_bwd_entry<true>(din, dm, w, stash, gates, fin, dr, scratch, out, T, D, H, K,
+                             B, S, stream);
 }
 
 // {clusters that fit at once, shared bytes a block, registers a thread,
 // local bytes a thread, threads a block} of the forward-scan instance of H
-// for the encoder (dec = 0) or the decoder (dec = 1), set up at the first call
-extern "C" int shm_lstm2_fwd_scan_info(int H, int dec, int* out) {
+// for the encoder (dec = 0) or the decoder (dec = 1), float32 (bf16 = 0) or
+// bf16 (bf16 = 1), set up at the first call
+extern "C" int shm_lstm2_fwd_scan_info(int H, int dec, int bf16, int* out) {
   if (H != 32 && H != 64 && H != 128) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  switch (H * 2 + (dec != 0)) {
-    case 64: err = fwd_scan_info<32, false>(out); break;
-    case 65: err = fwd_scan_info<32, true>(out); break;
-    case 128: err = fwd_scan_info<64, false>(out); break;
-    case 129: err = fwd_scan_info<64, true>(out); break;
-    case 256: err = fwd_scan_info<128, false>(out); break;
-    default: err = fwd_scan_info<128, true>(out); break;
-  }
-  return (int)err;
+  return bf16 ? fwd_scan_info_entry<true>(H, dec, out) : fwd_scan_info_entry<false>(H, dec, out);
 }
 
 // the same of the reverse-scan instance
-extern "C" int shm_lstm2_bwd_scan_info(int H, int dec, int* out) {
+extern "C" int shm_lstm2_bwd_scan_info(int H, int dec, int bf16, int* out) {
   if (H != 32 && H != 64 && H != 128) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  switch (H * 2 + (dec != 0)) {
-    case 64: err = bwd_scan_info<32, false>(out); break;
-    case 65: err = bwd_scan_info<32, true>(out); break;
-    case 128: err = bwd_scan_info<64, false>(out); break;
-    case 129: err = bwd_scan_info<64, true>(out); break;
-    case 256: err = bwd_scan_info<128, false>(out); break;
-    default: err = bwd_scan_info<128, true>(out); break;
-  }
-  return (int)err;
+  return bf16 ? bwd_scan_info_entry<true>(H, dec, out) : bwd_scan_info_entry<false>(H, dec, out);
 }
 
 extern "C" const char* shm_cuda_error_string(int err) {

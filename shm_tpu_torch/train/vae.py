@@ -145,22 +145,24 @@ def batch_loss(model: TemporalVAE, xb: torch.Tensor,
                dm_enc: Optional[Sequence[torch.Tensor]],
                dm_dec: Optional[Sequence[torch.Tensor]], kl_w,
                use_kernel: bool,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               kernel_dtype=torch.float32):
     """(total, recon, kl) of one batch with the noise given.
 
     ``eps`` [bs, Z] (None decodes the posterior mean); ``dm_enc`` / ``dm_dec``:
     one inverted dropout mask [T, H, bs] per layer gap, or None (then a
     model in training mode draws its masks from ``generator``, as the
     attention stack always does). ``use_kernel`` routes the two LSTM stacks
-    through ``ops.lstm_train.vae_train_forward`` (2-layer presets);
-    otherwise the model's own forward runs under autograd.
+    through ``ops.lstm_train.vae_train_forward`` (2-layer presets) at
+    ``kernel_dtype`` (its ``dtype``); otherwise the model's own forward runs
+    under autograd and ``kernel_dtype`` is not read.
     """
     if use_kernel:
         from shm_tpu_torch.ops.lstm_train import vae_train_forward
 
         recon, mu, logvar = vae_train_forward(
             model, xb, eps, dm_enc[0] if dm_enc else None,
-            dm_dec[0] if dm_dec else None)
+            dm_dec[0] if dm_dec else None, dtype=kernel_dtype)
     else:
         masks = None if dm_enc is None else (_bt(dm_enc), _bt(dm_dec))
         recon, mu, logvar = model(xb, sample=eps is not None, eps=eps,
@@ -294,6 +296,7 @@ def train_vae(
     checkpoint_every: int = 0,
     resume: bool = True,
     use_kernel: Optional[bool] = None,
+    kernel_dtype=torch.float32,
     device=None,
     mesh=None,
 ) -> VAETrainResult:
@@ -315,6 +318,14 @@ def train_vae(
     ``ValueError``. Only an explicit ``use_kernel=False`` trains a CUDA LSTM
     model on the plain autograd path.
 
+    ``kernel_dtype``: the product type of the training kernels (the JAX
+    trainer's name; float32 by default here, bf16 there): ``torch.bfloat16``
+    runs every training batch through their bf16 instances on the card (the
+    plain bf16 versions on the CPU), and never through the float32 ones.
+    Validation stays float32 whatever it says, as the JAX trainer validates
+    at the model's precision. The plain path (``use_kernel`` off) does not
+    read it. A type other than float32 or bfloat16 raises ``ValueError``.
+
     With ``checkpoint_dir`` and ``checkpoint_every=k`` the full training state
     persists every k epochs, and a later call with ``resume=True`` continues
     the interrupted run on the same trajectory (bit for bit on the CPU, and on
@@ -326,6 +337,9 @@ def train_vae(
     its type, or None). ``use_kernel=True`` with a mesh raises
     ``ValueError``; None resolves to the plain path.
     """
+    if kernel_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel_dtype must be torch.float32 or "
+                         f"torch.bfloat16, got {kernel_dtype}")
     device = mesh_device(mesh, device)
     use_kernel = _resolve_use_kernel(model, use_kernel, device, mesh)
     Ztr = torch.as_tensor(Ztr, dtype=torch.float32).to(device)
@@ -411,7 +425,8 @@ def train_vae(
             opt.zero_grad()
             if replicas is None:
                 total, r, kl = batch_loss(model, xb, bmask, eps, dm_e, dm_d,
-                                          kl_w, use_kernel, generator=gen)
+                                          kl_w, use_kernel, generator=gen,
+                                          kernel_dtype=kernel_dtype)
                 total.backward()
             else:
                 masks = _mesh_masks(model, dm_e, dm_d, bs, T, gen, device)

@@ -105,6 +105,8 @@ KERNEL_ENTRIES = {
                      "shm_fused_vae_probe", "shm_fused_vae_info"],
     "lstm_train.cu": ["shm_lstm2_enc_fwd_f32", "shm_lstm2_enc_bwd_f32",
                       "shm_lstm2_dec_fwd_f32", "shm_lstm2_dec_bwd_f32",
+                      "shm_lstm2_enc_fwd_bf16", "shm_lstm2_enc_bwd_bf16",
+                      "shm_lstm2_dec_fwd_bf16", "shm_lstm2_dec_bwd_bf16",
                       "shm_lstm2_fwd_scan_info", "shm_lstm2_bwd_scan_info"],
     "fused_mingru.cu": ["shm_fused_mingru_gate_f32", "shm_fused_mingru_gate_bf16",
                         "shm_fused_mingru_variant", "shm_fused_mingru_info"],
