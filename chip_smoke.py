@@ -271,16 +271,39 @@ Phases (any failure exits non-zero before the final line):
    ``nn.LSTM`` in bf16, its bounds at the float32 FMA rate and at 989
    TFLOP/s bf16, one bf16 training step against a float32 one, profiled.
    The kernels line ends with the four bf16 instances (``launches``: (b)'s).
+19. row 7's two softmax forms and two bodies: (a) the long body's
+   registers, spills, shared bytes and blocks an SM, then each body and
+   form against its plain version at ``P19_CASES`` (the 4DOF and openLAB
+   shapes in the resident body, windows past each width's resident limit
+   in the long body), float32 under phase 2's bar and bf16 with float32
+   and bf16 io under phase 17's, every launch moving the counters of its
+   instance, form and body alone; at the two resident shapes the long
+   body's streaming form against the resident body's bit for bit (float32
+   and bf16) and its packed form within phase 2's bar; (b)
+   ``OpenLabScorer`` of ``data/openlab_attention`` on the 2,042 test pairs
+   in float32 and bf16 io: the streaming form launched and nothing else,
+   gates and ``y_pred`` those of the packed form, the CNN row's matrix the
+   committed ``cm3_all.npz``'s; (c) ``data/4dof_attention``'s scorer on the
+   3,636 windows: the resident packed form alone, its mse bit for bit the
+   tree's before the forms existed (``ATTENTION_4DOF_MSE``); (d)
+   CUDA-event times of both forms at the openLAB shape and of the long body
+   at ``P19_LONG``, each beside its plain version, the SDPA +
+   ``torch.matmul`` composition and its float32 bound, then
+   ``reconstruction_mse`` at ``P19_LONG`` through the long body. The
+   kernels line ends with ``fused_attention_gate/stream`` and
+   ``fused_attention_gate/long``.
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
 run from a directory that does not hold the repository. Usage:
 ``python3 chip_smoke.py [--parent DIR]``; ``--child DIR OUT`` is the child
-mode ``--parent`` runs (``child``).
+mode ``--parent`` runs (``child``); ``--attention-mse DIR OUT`` writes the
+4DOF attention root's mse through the package at DIR (``attention_mse``).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -5894,14 +5917,448 @@ def phase_bf16_training() -> list:
     return rows
 
 
+# ---------------------------------------------------------------- phase 19
+# Row 7's two softmax forms (the streaming form, `stream=True`, the JAX
+# kernel's default past 128 steps) and its two bodies (the long body takes a
+# window whose buffers pass a block's shared memory).
+
+P19_CASES = (  # name, N, T, D, Z, H, L, LN, with_residual
+    ("4dof T=100 H=128 L=2", 256, 100, 12, 16, 128, 2, True, True),
+    ("openLAB T=200 H=64 L=1", 256, 200, 3, 8, 64, 1, True, True),
+    # N past the long body's grid (one block an SM): blocks run two windows
+    ("long T=137 H=128 L=2", 300, 137, 12, 16, 128, 2, True, True),
+    ("long T=200 H=128 L=2 gate-only", 128, 200, 12, 16, 128, 2, True, False),
+    ("long T=512 H=128 L=2", 160, 512, 12, 16, 128, 2, True, True),
+    ("long T=209 H=64 L=1", 128, 209, 3, 8, 64, 1, True, True),
+    ("long T=400 H=64 L=1", 128, 400, 3, 8, 64, 1, True, True),
+    ("long T=269 H=32 L=2 no LN", 128, 269, 12, 5, 32, 2, False, True),
+)
+# phase 17's bf16 bars (max rel mse 1.5e-3, |x - y| 5e-2) with a mean bar
+# for each case between the card's reading of either form against its plain
+# version (first) and the form gap, the mean relative mse of the plain
+# packed form against the plain streaming form on the case's inputs (second;
+# set from the CPU's gaps, then read on the card, NVIDIA H100 80GB HBM3):
+# (1.303e-4, 1.468e-4), (1.757e-5, 1.397e-4), (1.266e-4, 1.449e-4),
+# (1.047e-4, 1.238e-4), (6.516e-5, 7.636e-5), (1.698e-5, 1.156e-4),
+# (2.183e-5, 7.695e-5), (1.345e-5, 6.802e-5). At H=128 a kernel running the
+# other form reads as close as 0.93 of the gap (1.371e-4 at T=100), inside
+# the bar: ``p19_form_control``'s nearer-form check is what catches it.
+P19_BF16_MEAN = (1.42e-4, 5e-5, 1.33e-4, 1.12e-4, 6.9e-5, 4.5e-5, 4.2e-5, 3e-5)
+P19_BF16_TOL = {c[0]: (1.5e-3, m, 5e-2) for c, m in zip(P19_CASES, P19_BF16_MEAN)}
+P19_LONG = (1024, 512, 12, 128, 16, 2)     # (d)'s long body: N, T, D, H, Z, L
+P19_REPS = 5
+# the float32 mse of the 3,636 committed 4DOF test windows through
+# data/4dof_attention's HybridScorer on the card (NVIDIA H100 80GB HBM3),
+# made by the tree before the softmax forms and the long body existed
+# (commit 0c39835; its resident kernel at T=100, which the packed form
+# keeps): ``git archive 0c39835 shm_tpu_torch | tar -x -C DIR``, then
+# ``python3 chip_smoke.py --attention-mse DIR OUT``. The kernel sums in a
+# fixed order, so the same source gives the same bits on the same card.
+ATTENTION_4DOF_MSE = "tests/attention_4dof_packed_mse.npy"
+
+
+def attention_counts(reset: bool = False) -> dict:
+    """Row 7's launch counters: by instance (float32, bf16), and of those
+    the streaming form's and the long body's."""
+    from shm_tpu_torch.ops import fused_attention_gate as g
+
+    names = ("launches", "bf16_launches", "stream_launches", "long_launches")
+    out = {n: getattr(g, n) for n in names}
+    if reset:
+        for n in names:
+            setattr(g, n, 0)
+    return out
+
+
+def p19_launch(call, bf16: bool, stream: bool, long: bool):
+    """``call()``, which launches row 7 once: the counters must move for that
+    instance, form and body alone."""
+    before = attention_counts()
+    out = call()
+    got = {k: v - before[k] for k, v in attention_counts().items()}
+    want = dict(launches=int(not bf16), bf16_launches=int(bf16),
+                stream_launches=int(stream), long_launches=int(long))
+    check(got == want, f"row 7's counters moved {got}, want {want}")
+    return out
+
+
+def p19_form_control(tag: str, w, Z, kw: dict, io, tmean: float,
+                     long: bool) -> None:
+    """(a)'s control of the form a bf16 launch ran (the counters follow the
+    wrapper's flag, not the kernel): the form gap, the mean relative mse of
+    the plain other form from the plain form asked for, must lie above the
+    mean bar ``tmean``; and the kernel run in each form must be nearer, in
+    the mean, to that form's plain version than to the other's, so that a
+    kernel running the other form fails."""
+    import torch
+
+    from shm_tpu_torch.ops import fused_attention_gate, fused_attention_gate_reference
+
+    stream = kw["stream"]
+    kw = dict(kw, dtype=torch.bfloat16, io_dtype=io)
+    mean = lambda a, b: float(((a.double() - b.double()).abs() / b.double().abs()).mean())
+    k, plain = {}, {}
+    for form in (stream, not stream):
+        f = dict(kw, stream=form)
+        k[form] = p19_launch(lambda: fused_attention_gate(w, Z, **f)[0], True, form, long)
+        torch.cuda.synchronize()
+        plain[form] = fused_attention_gate_reference(w, Z, **f)[0]
+    gap = mean(plain[not stream], plain[stream])
+    d = {(a, b): mean(k[a], plain[b]) for a in k for b in plain}
+    print(f"[phase19]   {tag}: form gap {gap:.3e} (mean bar {tmean:g}); the "
+          f"kernel {d[stream, stream]:.3e} from the form asked for, "
+          f"{d[stream, not stream]:.3e} from the other; run in the other form "
+          f"{d[not stream, stream]:.3e} from the form asked for, "
+          f"{d[not stream, not stream]:.3e} from its own")
+    check(tmean < gap, f"{tag}: the mean bar {tmean:g} does not lie below the "
+                       f"form gap {gap:.3e}")
+    for a in (stream, not stream):
+        check(d[a, a] < d[a, not a], f"{tag}: the kernel run in the "
+              f"{'streaming' if a else 'packed'} form is nearer the other form")
+
+
+def phase19_kernels() -> dict:
+    """(a) each body and form against its plain version at P19_CASES,
+    float32 (phase 2's bar) and bf16 with float32 and bf16 io (phase 17's,
+    with the mean bar of P19_BF16_TOL and ``p19_form_control``); at the two
+    resident shapes the long body's streaming form against the resident
+    body's bit for bit, its packed form within phase 2's bar. Returns the
+    largest |mse diff| of the streaming form and of the long body, by
+    precision."""
+    import torch
+
+    from shm_tpu_torch.ops import (
+        attention_params_to_kernel_weights, fused_attention_gate,
+        fused_attention_gate_reference,
+    )
+    from shm_tpu_torch.ops.fused_attention import _launch, kernel_info, plan
+
+    for T, H in ((512, 128), (400, 64), (269, 32)):
+        info = kernel_info(T, H)
+        print(f"[phase19] the long body at H={H}: {info['registers']} registers "
+              f"and {info['spill_bytes']} B of local memory (spills) a thread, "
+              f"{info['threads']} threads and {info['shared_bytes']} B of shared "
+              f"memory a block, {info['blocks_per_sm']} block(s) an SM; "
+              f"{plan(T, H).slot_floats * 4} B of device memory a block at T={T}")
+        check(info["blocks_per_sm"] >= 1, f"the long body does not fit an SM at H={H}")
+    errs = {(k, p): 0.0 for k in ("stream", "long") for p in ("f32", "bf16")}
+    for i, (name, N, T, D, Zd, H, L, ln, wr) in enumerate(P19_CASES):
+        vae, rng = random_vae(1900 + i, D, Zd, H, L, ln, "attention")
+        ws = {False: attention_params_to_kernel_weights(vae),
+              True: attention_params_to_kernel_weights(vae, torch.bfloat16)}
+        Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(np.float32)).cuda()
+        long = plan(T, H).body == "long"
+        print(f"[phase19] {name}: N={N} T={T} D={D} H={H} Z={Zd} L={L} LN={ln} "
+              f"with_residual={wr}: the {'long' if long else 'resident'} body")
+        for stream in (False, True):
+            form = "streaming" if stream else "packed"
+            kw = dict(num_layers=L, use_layernorm=ln, with_residual=wr,
+                      stream=stream)
+            mse, resid = p19_launch(lambda: fused_attention_gate(ws[False], Z, **kw),
+                                    False, stream, long)
+            torch.cuda.synchronize()
+            mse_p, resid_p = fused_attention_gate_reference(ws[False], Z, **kw)
+            err = {"f32": compare(f"{form} float32 mse", mse, mse_p)}
+            if wr:
+                err["f32"] = max(err["f32"], compare(f"{form} float32 resid",
+                                                     resid, resid_p))
+            err["bf16"] = 0.0
+            for io in (None, torch.bfloat16):
+                tag = f"attention {name} {form} io={'bf16' if io else 'f32'}"
+                err["bf16"] = max(err["bf16"], p19_launch(
+                    lambda: bf16_kernel_vs_plain(tag, "attention", ws[True], Z,
+                                                 kw, io, P19_BF16_TOL[name]),
+                    True, stream, long))
+                p19_form_control(tag, ws[True], Z, kw, io, P19_BF16_TOL[name][1],
+                                 long)
+            for key, on in (("stream", stream and not long), ("long", long)):
+                for prec in ("f32", "bf16"):
+                    if on:
+                        errs[key, prec] = max(errs[key, prec], err[prec])
+        if long:
+            continue
+        kw = dict(num_layers=L, use_layernorm=ln, with_residual=wr)
+        for bf16 in (False, True):
+            dt = torch.bfloat16 if bf16 else torch.float32
+            a, b = (p19_launch(lambda: _launch(
+                ws[bf16], Z, stream=True, dtype=dt, io_dtype=None, body=body,
+                **kw), bf16, True, body == "long") for body in ("resident", "long"))
+            same = torch.equal(a[0], b[0]) and (not wr or torch.equal(a[1], b[1]))
+            print(f"[phase19]   the long body's streaming form ({dt}) against the "
+                  f"resident body's: {'bit for bit' if same else 'DIFFERENT'} "
+                  f"(max |mse diff| {float((a[0] - b[0]).abs().max()):.3e})")
+            check(same, f"{name}: the two bodies' streaming forms differ ({dt})")
+        a, b = (p19_launch(lambda: _launch(
+            ws[False], Z, stream=False, dtype=torch.float32, io_dtype=None,
+            body=body, **kw), False, False, body == "long")
+            for body in ("resident", "long"))
+        err = compare("the long body's packed form against the resident body's, mse",
+                      b[0], a[0])
+        if wr:
+            err = max(err, compare("... resid", b[1], a[1]))
+        errs["long", "f32"] = max(errs["long", "f32"], err)
+    return errs
+
+
+def phase19_openlab() -> dict:
+    """(b) OpenLabScorer of data/openlab_attention on the 2,042 test pairs,
+    float32 and bf16 io: the streaming form launched and nothing else, gate
+    and y_pred equal to the packed form's (the scorer's gate swapped for
+    stream=False) and the CNN row's confusion matrix the committed
+    cm3_all.npz's. Returns {scorer: row 7's launches}."""
+    import functools
+
+    import torch
+
+    from shm_tpu_torch.cli import openlab as ol
+    from shm_tpu_torch.evals import confusion_matrix
+    from shm_tpu_torch.ops import fused_attention_gate
+    from shm_tpu_torch.serve_openlab import OpenLabScorer
+
+    src, base = ROOT / OPENLAB_ATTENTION_ROOT, ROOT / OPENLAB_ROOT
+    Xc, Xr, meta = ol._load_extracted(ol.Paths(str(base)))
+    test = ol._in_runs(meta, openlab_json(base, "extracted/run_split.json")
+                       ["test_runs"])
+    X = np.stack([Xc[test], Xr[test]], axis=-1)
+    idx = {label: i for i, label in enumerate(ol.LABELS_3)}
+    y = np.array([idx[v] for v in ol._labels(meta)[test]])
+    with np.load(src / "output/Hybrid_Pipeline/reports/cm3_all.npz") as z:
+        want = z["VAE + CNN"]
+    launches = {}
+    for io in (torch.float32, torch.bfloat16):
+        bf16 = io == torch.bfloat16
+        tag = f"OpenLabScorer(gate_io_dtype={'bf16' if bf16 else 'float32'})"
+        sc = OpenLabScorer.from_artifacts(src, gate_io_dtype=io)
+        bf16_counts(reset=True)
+        reset_lstm_launch_counts()
+        attention_counts(reset=True)
+        out = sc.score(X)
+        a = attention_counts()
+        others = {k: v for k, v in bf16_counts().items()
+                  if not k.startswith("fused_attention_gate")}
+        others.update({f"{k} ({p})": v for p in (False, True)
+                       for k, v in lstm_launch_counts(p).items()})
+        n = a["bf16_launches" if bf16 else "launches"]
+        launches[tag] = a
+        check(n > 0 and a["stream_launches"] == n and a["long_launches"] == 0
+              and a["launches" if bf16 else "bf16_launches"] == 0
+              and not any(others.values()),
+              f"{tag}: row 7's streaming form did not run alone: {a}, {others}")
+        cm = confusion_matrix(y, out["y_pred"], 3)
+        sc._gate = functools.partial(fused_attention_gate, stream=False)
+        packed = sc.score(X)
+        gates = int((out["anomalous"] != packed["anomalous"]).sum())
+        ys = int((out["y_pred"] != packed["y_pred"]).sum())
+        m, mp = out["mse"].astype(np.float64), packed["mse"].astype(np.float64)
+        margin = float(np.min(np.abs(m - sc.threshold)) / sc.threshold)
+        print(f"[phase19] {tag} on {len(X)} pairs: row 7 {a}; against the "
+              f"packed form: gates differing {gates}, y_pred differing {ys}, "
+              f"mse rel max {np.max(np.abs(m - mp) / mp):.3e} mean "
+              f"{np.mean(np.abs(m - mp) / mp):.3e}; nearest mse to the "
+              f"threshold {margin:.3e} relative; the CNN row's matrix "
+              f"{cm.tolist()} (committed {want.tolist()})")
+        check(gates == 0 and ys == 0, f"{tag}: the two forms' gates or y_pred differ")
+        check(np.array_equal(cm, want), f"{tag}: the matrix differs from the "
+                                        f"committed cm3_all.npz")
+    return launches
+
+
+def attention_4dof_mse(W) -> np.ndarray:
+    """The float32 mse of ``W`` through data/4dof_attention's HybridScorer
+    of the importable package."""
+    from shm_tpu_torch.serve import HybridScorer
+
+    sc = HybridScorer.from_artifacts(ROOT / "data/4dof_attention")
+    return np.ascontiguousarray(sc.score(W)["mse"], np.float32)
+
+
+def attention_mse(tree: str, out: str) -> int:
+    """``--attention-mse TREE OUT``: the 3,636 committed 4DOF test windows
+    (this checkout's data) through data/4dof_attention's HybridScorer of
+    the package at TREE, on the card; the mse saved to OUT with
+    ``np.save``. How ``ATTENTION_4DOF_MSE`` was made."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import shm_tpu_torch
+    from shm_tpu_torch.device import set_full_f32_precision
+    from shm_tpu_torch.tools.workload import load_trained_workload
+
+    set_full_f32_precision()
+    mse = attention_4dof_mse(load_trained_workload(ROOT / "data" / "4dof").W)
+    np.save(out, mse)
+    print(f"[attention-mse] {Path(shm_tpu_torch.__file__).parent}: {len(mse)} "
+          f"windows, sha256 {hashlib.sha256(mse.tobytes()).hexdigest()}; "
+          f"{gpu_line()}")
+    return 0
+
+
+def phase19_4dof(W) -> None:
+    """(c) data/4dof_attention's scorer on the 3,636 committed windows at
+    T=100: the resident body's packed form alone, its mse bit for bit the
+    one the tree before the softmax forms gave (ATTENTION_4DOF_MSE)."""
+    attention_counts(reset=True)
+    mse = attention_4dof_mse(W)
+    a = attention_counts()
+    want = np.load(ROOT / ATTENTION_4DOF_MSE)
+    same = mse.shape == want.shape and mse.tobytes() == want.tobytes()
+    print(f"[phase19] data/4dof_attention HybridScorer on {len(W)} windows: "
+          f"row 7 {a}; mse sha256 {hashlib.sha256(mse.tobytes()).hexdigest()}, "
+          f"{ATTENTION_4DOF_MSE} {hashlib.sha256(want.tobytes()).hexdigest()}: "
+          f"{'bit for bit' if same else 'DIFFERENT'}")
+    check(a["launches"] > 0 and a["bf16_launches"] == a["stream_launches"]
+          == a["long_launches"] == 0, f"4DOF attention root: row 7 ran {a}")
+    check(same, f"4DOF attention root: the mse differs from {ATTENTION_4DOF_MSE}")
+
+
+def phase19_timing() -> tuple:
+    """(d) CUDA-event times: both forms at the 2,042 openLAB test windows
+    (the root's VAE, gate-only), at 3,636 windows of T=100 (the 4DOF
+    attention root's VAE) and the long body at P19_LONG (a random VAE
+    at the 4DOF widths, gate-only), each beside its plain version, the SDPA
+    + torch.matmul composition and its bounds (float32 FMA rate; weight
+    products in 3xTF32), and at the two resident shapes the long body's
+    streaming form beside the resident body's; then
+    ``reconstruction_mse`` at P19_LONG with the counts at 0 just before.
+    Returns (the numbers, the long body's launches)."""
+    import torch
+
+    from shm_tpu_torch.cli import openlab as ol
+    from shm_tpu_torch.ops import (
+        attention_params_to_kernel_weights, fused_attention_gate,
+        fused_attention_gate_reference,
+    )
+    from shm_tpu_torch.ops.fused_attention import _launch, plan
+    from shm_tpu_torch.serve import HybridScorer
+    from shm_tpu_torch.serve_openlab import OpenLabScorer
+    from shm_tpu_torch.tools.workload import (
+        PEAK_BYTES, PEAK_F32_FLOPS, PEAK_TF32_FLOPS, bound_ms,
+    )
+    from shm_tpu_torch.train import reconstruction_mse
+
+    base = ROOT / OPENLAB_ROOT
+    sc = OpenLabScorer.from_artifacts(ROOT / OPENLAB_ATTENTION_ROOT)
+    Xc, _, meta = ol._load_extracted(ol.Paths(str(base)))
+    test = ol._in_runs(meta, openlab_json(base, "extracted/run_split.json")
+                       ["test_runs"])
+    Zg = ol.standardize_clip(Xc[test][:, :, list(sc.ch_idx)],
+                             sc.gate_mu.cpu().numpy(), sc.gate_sd.cpu().numpy(),
+                             sc.clip_z)
+    N, D, Zd = len(Zg), Zg.shape[2], sc.vae.latent_dim
+    NL, TL, DL, HL, ZL, LL = P19_LONG
+    long_vae, rng = random_vae(1999, DL, ZL, HL, LL, True, "attention")
+    vae4 = HybridScorer.from_artifacts(ROOT / "data/4dof_attention").vae
+    shapes = {
+        "openlab": (sc.vae, torch.from_numpy(np.ascontiguousarray(Zg)).cuda(),
+                    attention_work(N, 200, D, 64, Zd, 1, with_residual=False)),
+        # the 4DOF attention root's VAE on 3,636 random windows of T=100
+        "4dof": (vae4, torch.from_numpy(rng.normal(size=(3636, 100, 12)).astype(
+            np.float32)).cuda(), attention_work(3636, 100, 12, 128, 16, 2,
+                                                with_residual=False)),
+        "long": (long_vae, torch.from_numpy(rng.normal(size=(NL, TL, DL)).astype(
+            np.float32)).cuda(), attention_work(*P19_LONG, with_residual=False)),
+    }
+    nums = {}
+    for key, (vae, Z, (flops, nbytes)) in shapes.items():
+        w = attention_params_to_kernel_weights(vae)
+        kw = dict(num_layers=vae.num_layers, use_layernorm=vae.use_layernorm,
+                  with_residual=False)
+        lib = sdpa_attention_pass(vae)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        # the weight products in 3xTF32 on the tensor cores, the rest
+        # (scores, P.V, the heads) at the float32 rate
+        dense = attention_dense_flops(Z.shape[0], Z.shape[1], vae.hidden_dim,
+                                      vae.num_layers)
+        tf32_ms = max(nbytes / PEAK_BYTES, 3 * dense / PEAK_TF32_FLOPS
+                      + (flops - dense) / PEAK_F32_FLOPS) * 1e3
+        row = dict(windows=Z.shape[0], T=Z.shape[1], H=vae.hidden_dim,
+                   L=vae.num_layers, bound_ms=b_ms, bound_by=b_by,
+                   bound_tf32_ms=tf32_ms,
+                   library_ms=time_ms(lambda: lib(Z), P19_REPS))
+        for stream in (True, False):
+            pre = "" if stream else "packed_"
+            row[f"{pre}ms"] = time_ms(lambda: fused_attention_gate(
+                w, Z, stream=stream, **kw), P19_REPS)
+            row[f"{pre}plain_ms"] = time_ms(lambda: fused_attention_gate_reference(
+                w, Z, stream=stream, **kw), P19_REPS)
+        if plan(Z.shape[1], vae.hidden_dim).body == "resident":
+            # the long body's streaming form where the resident body's runs:
+            # what keeping the resident body's STREAM instance saves
+            row["long_body_ms"] = time_ms(lambda: _launch(
+                w, Z, stream=True, body="long", dtype=torch.float32,
+                io_dtype=None, **kw), P19_REPS)
+        nums[key] = row
+        print(f"[phase19] times at N={Z.shape[0]} T={Z.shape[1]} H={vae.hidden_dim} "
+              f"L={vae.num_layers} gate-only (CUDA events, median of {P19_REPS}): "
+              f"streaming form {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}), "
+              f"packed form {row['packed_ms']:.3f} ms (plain "
+              f"{row['packed_plain_ms']:.3f}), "
+              + (f"the long body's streaming form {row['long_body_ms']:.3f} ms, "
+                 if "long_body_ms" in row else "") +
+              f"SDPA + torch.matmul "
+              f"{row['library_ms']:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
+              f"{flops / 1e9:.2f} GFLOP at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s "
+              f"float32), {tf32_ms:.3f} ms with its {dense / 1e9:.2f} GFLOP of "
+              f"weight products at 3 x {PEAK_TF32_FLOPS / 1e12:g} TFLOP/s TF32; "
+              f"{gpu_line()}")
+        del Z
+        torch.cuda.empty_cache()
+    Zl = rng.normal(size=(NL, TL, DL)).astype(np.float32)
+    attention_counts(reset=True)
+    mse = reconstruction_mse(long_vae, Zl, device="cuda")
+    a = attention_counts()
+    print(f"[phase19] reconstruction_mse of {NL} windows of T={TL} at H={HL}, "
+          f"L={LL}: row 7 {a}")
+    check(a["long_launches"] > 0 and a["launches"] == a["long_launches"]
+          == a["stream_launches"] and bool(np.isfinite(mse).all()),
+          f"reconstruction_mse at T={TL} did not run the long body's "
+          f"streaming form alone: {a}")
+    return nums, a["long_launches"]
+
+
+def phase_attention_stream(W) -> list:
+    """Phase 19: row 7's streaming form and long body. Returns their rows
+    of the kernels line."""
+    import torch
+
+    print(f"[phase19] {gpu_line()}")
+    t_phase = time.perf_counter()
+    errs = phase19_kernels()
+    torch.cuda.empty_cache()
+    ol_launches = phase19_openlab()
+    phase19_4dof(W)
+    nums, long_launches = phase19_timing()
+    src = "shm_tpu_torch/ops/csrc/fused_attention.cu"
+    stream_n = ol_launches["OpenLabScorer(gate_io_dtype=float32)"]["launches"]
+    rows = [
+        dict(name="fused_attention_gate/stream", route="cuda", source=src,
+             replaces="shm_tpu/ops/fused_attention.py:292",
+             launches=stream_n, max_abs_err=errs["stream", "f32"],
+             max_abs_err_bf16=errs["stream", "bf16"], **nums["openlab"],
+             openlab_launches=ol_launches),
+        dict(name="fused_attention_gate/long", route="cuda", source=src,
+             replaces="shm_tpu/ops/fused_attention.py:157",
+             launches=long_launches, max_abs_err=errs["long", "f32"],
+             max_abs_err_bf16=errs["long", "bf16"], **nums["long"]),
+    ]
+    print(f"[phase19] phase 19 {time.perf_counter() - t_phase:.2f} s")
+    return rows
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[2])
+    if argv[:1] == ["--attention-mse"] and len(argv) == 3:
+        return attention_mse(argv[1], argv[2])
     parent = None
     if argv[:1] == ["--parent"]:
         parent = str(Path(argv[1]).resolve())
     elif argv:
-        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--parent DIR | --attention-mse DIR OUT]",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -5980,6 +6437,8 @@ def main(argv) -> int:
         bf16_rows = phase_bf16(W, y)
         torch.cuda.empty_cache()
         bf16_rows += phase_bf16_training()
+        torch.cuda.empty_cache()
+        stream_rows = phase_attention_stream(W)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6004,6 +6463,10 @@ def main(argv) -> int:
     # the bf16 instances of rows 1, 6 and 7 (phase 17): `launches` is the
     # bf16 scorer's main path; of rows 2-5 (phase 18): the bf16 training run's
     kernels += bf16_rows
+    # row 7's streaming form (phase 19: `launches` the openLAB attention
+    # root's float32 scorer's) and its long body (`reconstruction_mse` at
+    # T=512's)
+    kernels += stream_rows
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,13 +17,24 @@
 // softmax(q k^T) v over the T keys, max-subtracted -> output projection ->
 // residual -> LayerNorm -> MLP with tanh-GELU -> residual.
 //
+// The softmax has the TPU kernel's two forms (C argument `streaming`). The
+// packed form (fused_attention.py:245-249) divides each row by its sum,
+// then P.V. The streaming form (:292-330) walks the keys in blocks of KB =
+// 128, the TPU kernel's width, whose edges set where the running max
+// rescales: per row, m from -1e30 and l from 0; a block's m_new = max(m,
+// rowmax(s)), alpha = exp(m - m_new), p = exp(s - m_new), l = l alpha +
+// sum p, o = o alpha + p.V (p rounded to bf16 under BF, l summing it
+// unrounded); o / l after the last block.
+//
 // H in {32,64,128}, heads = H/32 of 32 columns, MLP width 4H, L in {1,2},
-// D <= 128, Z <= 32, any T whose buffers fit a block's shared memory (the
-// wrapper works that out and refuses the rest). Weights come in [in, out]
-// layout, the four products' as TF32 fragments (below); wqkv is packed per
-// head: columns h*96 .. h*96+95 hold q|k|v of head h. The TPU kernel's
-// paddings (T to 128, H to 128 lanes) and its key mask exist only for its
-// tiling and are not carried over: this kernel attends over exactly T keys.
+// D <= 128, Z <= 32, any T >= 1: a window whose buffers fit a block's shared
+// memory runs in the resident body, a longer one in the long body (below;
+// the wrapper's plan() picks, from the same byte counts). Weights come in
+// [in, out] layout, the four products' as TF32 fragments (below); wqkv is
+// packed per head: columns h*96 .. h*96+95 hold q|k|v of head h. The TPU
+// kernel's paddings (T to 128, H to 128 lanes) and its key mask exist only
+// for its tiling and are not carried over: this kernel attends over exactly
+// T keys, so the last key block holds T - 128 floor((T-1)/128) of them.
 //
 // Bound on this card. Per window and block: QKV 2*T*H*3H, scores and PV
 // 2*2*T*T*H, output projection 2*T*H*H, MLP 2*2*T*H*4H; for the 4DOF preset
@@ -34,8 +45,9 @@
 // products are ~89% of them (~862 GFLOP at N=5,440): in 3xTF32 on the
 // tensor cores (three products each, 495 TFLOP/s TF32) ~5.2 ms.
 //
-// Design. One block of 512 threads owns one window and keeps its whole pass
-// in shared memory; only x, the weights, resid and mse touch device memory.
+// Design of the resident body. One block of 512 threads owns one window and
+// keeps its whole pass in shared memory; only x, the weights, resid and mse
+// touch device memory.
 //   * The residual stream s [T,H] and its normalised copy nrm [T,H] stay
 //     resident (rows padded to a multiple of 8, row stride H+4 floats). One
 //     window's QKV for all heads (154 KB at 4DOF) would not fit beside them,
@@ -78,8 +90,47 @@
 //     saved a third of the products' time (PERF.md §6).
 //   * LayerNorm and softmax rows are one warp each with shuffle reductions;
 //     sums over k and the window's MSE run in a fixed order (no atomics).
-// Scores, softmax and P.V stay on the FMA pipes; several windows a block,
-// bf16 wgmma and keys streamed beyond a block's shared memory are later work.
+//   * The streaming form (template STREAM) keeps the score chunk [32, T] of
+//     the packed form: one warp a row walks its key blocks, stores p and
+//     keeps each block's alpha and the row's l in the per-window vectors
+//     (free while the blocks run); P.V then sums each block apart and
+//     rescales. The packed instance's arithmetic is the one it had before
+//     the form existed (the 4DOF attention root's mse, the same bits on the
+//     card). The window fits only up to T = 268 (H = 32), so a row has at
+//     most NKB_RES key blocks. The long body's streaming form gives these
+//     bits too but takes 1.14-1.23x the time at T = 100 and 200 (PERF.md
+//     §6), so the resident body keeps its own.
+// Scores, softmax and P.V stay on the FMA pipes; several windows a block and
+// bf16 wgmma are later work.
+//
+// Design of the long body (fused_attention_long_kernel), for a window whose
+// buffers pass a block's shared memory (at H = 128 past T = 136, at 64 past
+// 208, at 32 past 268), for any T. A persistent grid: as many blocks as the
+// card runs at once (one an SM: 145-205 KB of shared memory and 512 threads),
+// block b running windows b, b + grid, ...; each block owns a slot of device
+// memory (the wrapper allocates grid slots; 4 Tp H floats each, 1 MB at T =
+// 512, H = 128) that holds the window's stream s [Tp, H] and every head's
+// q | k | v [heads][3][Tp][32]. Shared memory holds a tile of QL = 128 rows
+// of s and, in turn, a head's 128 query rows, one key block of k and v
+// [128, 36] each and its scores [128, 132], or the tile's normalised rows and
+// one MLP column chunk. A layer runs in two passes over the row tiles:
+// (A) LayerNorm and q | k | v of every head (one mma_rows over 3H columns)
+// into the slot; (B) per tile of query rows, each head's attention over the
+// key blocks, streamed from the slot, its output projection added to the
+// tile, then the tile's LayerNorm and MLP, and the tile written back. Every
+// row-local step (LayerNorm, the products, the MLP, the pool, the head) is
+// the resident body's arithmetic on fewer rows, and each softmax row and
+// P.V element sums in the resident body's order, so the streaming form gives
+// the resident body's bits. Its packed form takes two passes over the key
+// blocks: the first finds each row's max and (online) denominator, the
+// second forms p = exp(s - m) / l, rounds it under BF and sums P.V in the
+// packed order; its denominator rounds in another order than the resident
+// body's one sum. Bound: the work is the resident body's (below), as many
+// operations a window; the slot's traffic (~8 passes over 4 Tp H floats a
+// layer, from L2 mostly) adds bytes the bound does not count. At T = 512,
+// H = 128, L = 2+2, N = 1,024, gate-only: 1,377.65 GFLOP, 20.56 ms at the
+// 67 TFLOP/s float32 rate; the scores and P.V, 40% of them, and the packed
+// form's second pass of scores run on the FMA pipes (PERF.md §6).
 //
 // The bf16 instance (C entry shm_fused_attention_gate_bf16, template BF) is
 // the TPU kernel with dtype=bf16 (fused_attention.py:206-212, :252-353):
@@ -88,15 +139,16 @@
 // the B fragments are the wrapper's packing of the bf16-rounded weights (the
 // query's scale folded in first), so a_b b_b alone, one mma a k-step, is the
 // exact bf16 product. On the FMA pipes the scores multiply the stored bf16
-// q and k, P.V the probabilities rounded after the softmax's division (the
-// TPU kernel's packed softmax; its streaming form past 128 steps rounds
-// them before) and the stored bf16 v, and the token, latent and output heads
-// round both operands. The residual stream s is rounded as the TPU kernel
+// q and k, P.V the rounded probabilities (the packed form rounds them after
+// the softmax's division, the streaming form before) and the stored bf16 v,
+// and the token, latent and output heads round both operands. The residual stream s is rounded as the TPU kernel
 // stores it: after the tokens, after the output projection (its last head)
 // and after the MLP (its last chunk); q | k | v and the attention output o
 // as they are stored. LayerNorm, softmax and the pooled summary stay
 // float32. Its io is float32 or bf16 (template IOT): with bf16 the window is
 // read as bf16 (in the residual's x - y too) and the residual stored bf16.
+// The streaming form rounds p before P.V, as the TPU kernel's streaming form
+// (its mm casts p to bf16), and divides o by the float32 l after.
 // Its bound at N=5,440 (4DOF preset) is the 970.6 GFLOP at the 989 TFLOP/s
 // bf16 rate, 0.98 ms; what binds the float32 body (not its mma) binds it.
 //
@@ -118,6 +170,10 @@ constexpr int HMAX = 128;
 constexpr int ZMAX = 32;
 constexpr int DMAX = 128;
 constexpr int SMALL = 512;      // floats for the per-window vectors
+constexpr int KB = 128;         // keys a block of the streaming softmax
+constexpr int NKB_RES = 4;      // key blocks a resident window may have
+constexpr int QL = 128;         // rows a tile (and query rows a chunk) of the
+                                // long body
 constexpr int NUM_W = 2 * (4 + 16 * LMAX) + 8;
 constexpr float STACK_EPS = 1e-6f;
 constexpr float MODEL_EPS = 1e-5f;
@@ -333,15 +389,63 @@ __device__ __forceinline__ void mma_rows(const float* A, int lda, int M,
   }
 }
 
+// One key block [j0, j1) of one row of the streaming softmax, by one warp:
+// the row's running max m and denominator l move to the block's, the row's
+// scores become p = exp(s - m_new) (rounded under BF; l sums them
+// unrounded), and alpha = exp(m_old - m_new) is returned in `alpha` (lane 0
+// writes it). The packed form's max starts from -FLT_MAX, the streaming
+// form's running max from -1e30, as the TPU kernel's do.
+template <bool BF>
+__device__ __forceinline__ void stream_block(float* row, int j0, int j1,
+                                             int lane, float& m, float& l,
+                                             float& alpha) {
+  float mx = -3.402823466e+38f;
+  for (int j = j0 + lane; j < j1; j += 32) mx = fmaxf(mx, row[j]);
+  const float m_new = fmaxf(m, warp_max(mx));
+  const float a = expf(m - m_new);
+  float sum = 0.0f;
+  for (int j = j0 + lane; j < j1; j += 32) {
+    const float e = expf(row[j] - m_new);
+    row[j] = rd<BF>(e);
+    sum += e;
+  }
+  l = l * a + warp_sum(sum);
+  m = m_new;
+  if (lane == 0) alpha = a;
+}
+
+// o + sum_{j0 <= j < j1} p[j] v[j] for 4 columns of v (row stride HDP), j in
+// order
+__device__ __forceinline__ float4 pv_sum(float4 o, const float* p,
+                                         const float* v, int j0, int j1) {
+  for (int j = j0; j < j1; ++j) {
+    const float pj = p[j];
+    const float4 vv = *reinterpret_cast<const float4*>(v + j * HDP);
+    o.x = fmaf(pj, vv.x, o.x);
+    o.y = fmaf(pj, vv.y, o.y);
+    o.z = fmaf(pj, vv.z, o.z);
+    o.w = fmaf(pj, vv.w, o.w);
+  }
+  return o;
+}
+
+// o alpha + blk, the streaming form's step of P.V
+__device__ __forceinline__ float4 rescale_add(float4 o, float a, float4 blk) {
+  return make_float4(fmaf(o.x, a, blk.x), fmaf(o.y, a, blk.y),
+                     fmaf(o.z, a, blk.z), fmaf(o.w, a, blk.w));
+}
+
 struct Smem {
   float* s;      // [Tp][ld] residual stream
   float* nrm;    // [Tp][ld] normalised stream
-  float* small;  // [SMALL] pooled | mu | h0 | tok0 | reduction slots
+  float* small;  // [SMALL] pooled | mu | h0 | tok0 | reduction slots; in a
+                 // block of the streaming form, alpha [QC][NKB_RES] | l [QC]
   float* area;   // q|k|v [3][Tp][HDP] + scores [QC][Tld], or the MLP chunk
 };
 
-// One pre-LN transformer block on the window's stream, in place.
-template <bool BF>
+// One pre-LN transformer block on the window's stream, in place; STREAM: the
+// streaming softmax.
+template <bool BF, bool STREAM>
 __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
                                   int H) {
   const int ld = H + 4, Tld = (T + 3) & ~3, heads = H / HD;
@@ -392,40 +496,67 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
         for (int i = 0; i < 4; ++i) S[(qg * 4 + i) * Tld + j] = acc[i];
       }
       __syncthreads();
-      // softmax over the T keys of each row, one warp a row
-      for (int i = warp; i < rows; i += NWARP) {
-        float* row = S + i * Tld;
-        float mx = -3.402823466e+38f;
-        for (int j = lane; j < T; j += 32) mx = fmaxf(mx, row[j]);
-        mx = warp_max(mx);
-        float sum = 0.0f;
-        for (int j = lane; j < T; j += 32) {
-          const float e = expf(row[j] - mx);
-          row[j] = e;
-          sum += e;
+      if constexpr (STREAM) {
+        // each row's key blocks: p stored, alpha a block and l kept
+        for (int i = warp; i < rows; i += NWARP) {
+          float mrun = -1e30f, l = 0.0f;
+          for (int b = 0, j0 = 0; j0 < T; ++b, j0 += KB)
+            stream_block<BF>(S + i * Tld, j0, min(T, j0 + KB), lane, mrun, l,
+                             m.small[i * NKB_RES + b]);
+          if (lane == 0) m.small[QC * NKB_RES + i] = l;
         }
-        sum = warp_sum(sum);
-        for (int j = lane; j < T; j += 32) row[j] = rd<BF>(row[j] / sum);
-      }
-      __syncthreads();
-      // o[r0+i] = sum_j P[i][j] v[j], written over the dead q rows
-      for (int tile = tid; tile < rows * (HD / 4); tile += NT) {
-        const int c4 = tile % (HD / 4), i = tile / (HD / 4);
-        const float* p = S + i * Tld;
-        const float* v = vh + c4 * 4;
-        float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        for (int j = 0; j < T; ++j) {
-          const float pj = p[j];
-          const float4 vv = *reinterpret_cast<const float4*>(v + j * HDP);
-          o.x = fmaf(pj, vv.x, o.x);
-          o.y = fmaf(pj, vv.y, o.y);
-          o.z = fmaf(pj, vv.z, o.z);
-          o.w = fmaf(pj, vv.w, o.w);
+        __syncthreads();
+        // o[r0+i] = (sum over blocks, rescaled, of P_b v_b) / l, written over
+        // the dead q rows
+        for (int tile = tid; tile < rows * (HD / 4); tile += NT) {
+          const int c4 = tile % (HD / 4), i = tile / (HD / 4);
+          float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int b = 0, j0 = 0; j0 < T; ++b, j0 += KB)
+            o = rescale_add(o, m.small[i * NKB_RES + b],
+                            pv_sum(make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                                   S + i * Tld, vh + c4 * 4, j0, min(T, j0 + KB)));
+          const float l = m.small[QC * NKB_RES + i];
+          *reinterpret_cast<float4*>(qh + (r0 + i) * HDP + c4 * 4) =
+              make_float4(rd<BF>(o.x / l), rd<BF>(o.y / l), rd<BF>(o.z / l),
+                          rd<BF>(o.w / l));
         }
-        *reinterpret_cast<float4*>(qh + (r0 + i) * HDP + c4 * 4) =
-            make_float4(rd<BF>(o.x), rd<BF>(o.y), rd<BF>(o.z), rd<BF>(o.w));
+        __syncthreads();
+      } else {
+        // softmax over the T keys of each row, one warp a row
+        for (int i = warp; i < rows; i += NWARP) {
+          float* row = S + i * Tld;
+          float mx = -3.402823466e+38f;
+          for (int j = lane; j < T; j += 32) mx = fmaxf(mx, row[j]);
+          mx = warp_max(mx);
+          float sum = 0.0f;
+          for (int j = lane; j < T; j += 32) {
+            const float e = expf(row[j] - mx);
+            row[j] = e;
+            sum += e;
+          }
+          sum = warp_sum(sum);
+          for (int j = lane; j < T; j += 32) row[j] = rd<BF>(row[j] / sum);
+        }
+        __syncthreads();
+        // o[r0+i] = sum_j P[i][j] v[j], written over the dead q rows
+        for (int tile = tid; tile < rows * (HD / 4); tile += NT) {
+          const int c4 = tile % (HD / 4), i = tile / (HD / 4);
+          const float* p = S + i * Tld;
+          const float* v = vh + c4 * 4;
+          float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int j = 0; j < T; ++j) {
+            const float pj = p[j];
+            const float4 vv = *reinterpret_cast<const float4*>(v + j * HDP);
+            o.x = fmaf(pj, vv.x, o.x);
+            o.y = fmaf(pj, vv.y, o.y);
+            o.z = fmaf(pj, vv.z, o.z);
+            o.w = fmaf(pj, vv.w, o.w);
+          }
+          *reinterpret_cast<float4*>(qh + (r0 + i) * HDP + c4 * 4) =
+              make_float4(rd<BF>(o.x), rd<BF>(o.y), rd<BF>(o.z), rd<BF>(o.w));
+        }
+        __syncthreads();
       }
-      __syncthreads();
     }
     // s += o_h [Tp,32] x wo[h*32 .. h*32+31, :] (+ bo with the first head;
     // under BF s rounded after the last)
@@ -474,58 +605,47 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
   }
 }
 
+// the encoder's token at step t < T, column c: x in_proj + positions
 template <bool BF, typename IOT>
-__global__ void __launch_bounds__(NT)
-fused_attention_gate_kernel(const IOT* __restrict__ x,
-                            const float* __restrict__ pos,   // [T, H]
-                            IOT* __restrict__ resid, float* __restrict__ mse,
-                            const AttnW W, int T, int Tp, int D, int H, int Z,
-                            int L, int use_ln, int with_resid) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = H + 4;
-  Smem m;
-  m.s = smem;
-  m.nrm = m.s + Tp * ld;
-  m.small = m.nrm + Tp * ld;
-  m.area = m.small + SMALL;
-  float* pooled = m.small;             // [H]
-  float* mu = pooled + HMAX;           // [Z]
-  float* h0 = mu + ZMAX;               // [H]
-  float* tok0 = h0 + HMAX;             // [H]
-  float* red = tok0 + HMAX;            // [NWARP]
+__device__ __forceinline__ float enc_token(const IOT* xw, const StackW& enc,
+                                           const float* pos, int t, int c,
+                                           int D, int H) {
+  float v = 0.0f;
+  for (int d = 0; d < D; ++d)
+    v = fmaf(rd<BF>(ld_io(xw + t * D + d)), rd<BF>(__ldg(enc.in_w + d * H + c)), v);
+  return rd<BF>(v + __ldg(enc.in_b + c) + __ldg(pos + t * H + c));
+}
 
+// the output head's column d from a row r of the decoder's final norm
+template <bool BF>
+__device__ __forceinline__ float out_head(const float* r, const AttnW& W,
+                                          int d, int H, int D) {
+  float y = 0.0f;
+  for (int k = 0; k < H; ++k) y = fmaf(rd<BF>(r[k]), rd<BF>(__ldg(W.out_w + k * D + d)), y);
+  return y + __ldg(W.out_b + d);
+}
+
+// the per-window vectors in `small`: pooled [H] | mu [Z] | h0 [H] | tok0 [H] |
+// the MSE's warp sums [NWARP]
+__device__ __forceinline__ float* small_mu(float* small) { return small + HMAX; }
+__device__ __forceinline__ float* small_h0(float* small) { return small + HMAX + ZMAX; }
+__device__ __forceinline__ float* small_tok0(float* small) { return small + 2 * HMAX + ZMAX; }
+__device__ __forceinline__ float* small_red(float* small) { return small + 3 * HMAX + ZMAX; }
+
+// the pooled summary (in small) -> [LayerNorm eps 1e-5] -> mu (z = mu) ->
+// h0 = tanh(fc_latent_to_hidden(mu)) -> the decoder's token tok0 (in small)
+template <bool BF>
+__device__ void latent_head(const AttnW& W, float* small, int H, int Z,
+                            int use_ln) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t n = blockIdx.x;
-  const IOT* xw = x + n * T * D;
-
-  // ---------------- encoder tokens: x in_proj + positions (pad rows 0)
-  for (int i = tid; i < Tp * H; i += NT) {
-    const int t = i / H, c = i % H;
-    float v = 0.0f;
-    if (t < T) {
-      for (int d = 0; d < D; ++d)
-        v = fmaf(rd<BF>(ld_io(xw + t * D + d)), rd<BF>(__ldg(W.enc.in_w + d * H + c)), v);
-      v = rd<BF>(v + __ldg(W.enc.in_b + c) + __ldg(pos + t * H + c));
-    }
-    m.s[t * ld + c] = v;
-  }
-  __syncthreads();
-  for (int l = 0; l < L; ++l) transformer_block<BF>(W.enc.layer[l], m, T, Tp, H);
-
-  // ---------------- final norm, mean over the T real rows
-  ln_rows(m.s, m.nrm, ld, T, W.enc.fs, W.enc.fb, H);
-  __syncthreads();
-  for (int c = tid; c < H; c += NT) {
-    float a = 0.0f;
-    for (int t = 0; t < T; ++t) a += m.nrm[t * ld + c];
-    pooled[c] = a / T;
-  }
-  __syncthreads();
+  float* pooled = small;
+  float* mu = small_mu(small);
+  float* h0 = small_h0(small);
+  float* tok0 = small_tok0(small);
   if (use_ln) {
     if (warp == 0) ln_row(pooled, pooled, W.ln_s, W.ln_b, H, MODEL_EPS, lane);
     __syncthreads();
   }
-  // ---------------- latent head (z = mu), decoder token
   for (int z = tid; z < Z; z += NT) {
     float a = 0.0f;
     for (int k = 0; k < H; ++k) a = fmaf(rd<BF>(pooled[k]), rd<BF>(__ldg(W.mu_w + k * Z + z)), a);
@@ -544,12 +664,71 @@ fused_attention_gate_kernel(const IOT* __restrict__ x,
     tok0[c] = a + __ldg(W.dec.in_b + c);
   }
   __syncthreads();
+}
+
+// the window's MSE from each thread's part: warp sums, then thread 0 in
+// warp order
+__device__ __forceinline__ void store_mse(float part, float* red, float* mse,
+                                          int T, int D) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  part = warp_sum(part);
+  if (lane == 0) red[warp] = part;
+  __syncthreads();
+  if (tid == 0) {
+    float a = 0.0f;
+    for (int k = 0; k < NWARP; ++k) a += red[k];
+    *mse = a / (float)(T * D);
+  }
+}
+
+template <bool BF, typename IOT, bool STREAM>
+__global__ void __launch_bounds__(NT)
+fused_attention_gate_kernel(const IOT* __restrict__ x,
+                            const float* __restrict__ pos,   // [T, H]
+                            IOT* __restrict__ resid, float* __restrict__ mse,
+                            const AttnW W, int T, int Tp, int D, int H, int Z,
+                            int L, int use_ln, int with_resid) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = H + 4;
+  Smem m;
+  m.s = smem;
+  m.nrm = m.s + Tp * ld;
+  m.small = m.nrm + Tp * ld;
+  m.area = m.small + SMALL;
+  float* pooled = m.small;             // [H]
+  float* tok0 = small_tok0(m.small);   // [H]
+
+  const int tid = threadIdx.x;
+  const size_t n = blockIdx.x;
+  const IOT* xw = x + n * T * D;
+
+  // ---------------- encoder tokens: x in_proj + positions (pad rows 0)
+  for (int i = tid; i < Tp * H; i += NT) {
+    const int t = i / H, c = i % H;
+    m.s[t * ld + c] = t < T ? enc_token<BF>(xw, W.enc, pos, t, c, D, H) : 0.0f;
+  }
+  __syncthreads();
+  for (int l = 0; l < L; ++l)
+    transformer_block<BF, STREAM>(W.enc.layer[l], m, T, Tp, H);
+
+  // ---------------- final norm, mean over the T real rows
+  ln_rows(m.s, m.nrm, ld, T, W.enc.fs, W.enc.fb, H);
+  __syncthreads();
+  for (int c = tid; c < H; c += NT) {
+    float a = 0.0f;
+    for (int t = 0; t < T; ++t) a += m.nrm[t * ld + c];
+    pooled[c] = a / T;
+  }
+  __syncthreads();
+  // ---------------- latent head (z = mu), decoder token
+  latent_head<BF>(W, m.small, H, Z, use_ln);
   for (int i = tid; i < Tp * H; i += NT) {
     const int t = i / H, c = i % H;
     m.s[t * ld + c] = t < T ? rd<BF>(tok0[c] + __ldg(pos + t * H + c)) : 0.0f;
   }
   __syncthreads();
-  for (int l = 0; l < L; ++l) transformer_block<BF>(W.dec.layer[l], m, T, Tp, H);
+  for (int l = 0; l < L; ++l)
+    transformer_block<BF, STREAM>(W.dec.layer[l], m, T, Tp, H);
 
   // ---------------- final norm, output head, residual, MSE
   ln_rows(m.s, m.nrm, ld, T, W.dec.fs, W.dec.fb, H);
@@ -557,22 +736,319 @@ fused_attention_gate_kernel(const IOT* __restrict__ x,
   float part = 0.0f;
   for (int i = tid; i < T * D; i += NT) {
     const int t = i / D, d = i % D;
-    const float* r = m.nrm + t * ld;
-    float y = 0.0f;
-    for (int k = 0; k < H; ++k) y = fmaf(rd<BF>(r[k]), rd<BF>(__ldg(W.out_w + k * D + d)), y);
-    y += __ldg(W.out_b + d);
-    const float e = ld_io(xw + i) - y;
+    const float e = ld_io(xw + i) - out_head<BF>(m.nrm + t * ld, W, d, H, D);
     const float e2 = e * e;
     if (with_resid) st_io(resid + n * T * D + i, e2);
     part += e2;
   }
-  part = warp_sum(part);
-  if (lane == 0) red[warp] = part;
-  __syncthreads();
-  if (tid == 0) {
+  store_mse(part, small_red(m.small), mse + n, T, D);
+}
+
+// ---------------------------------------------------------------- long body
+
+// floats of the long body's shared area after its row tile: the larger of
+// the attention buffers (a head's query rows, a key block of k and of v, its
+// scores, three row vectors) and the MLP's (normalised rows, a hidden chunk)
+__host__ __device__ constexpr int long_union_floats(int H) {
+  return QL * HDP + 2 * KB * HDP + QL * (KB + 4) + 3 * QL >
+                 QL * (H + 4) + QL * (CC + 4)
+             ? QL * HDP + 2 * KB * HDP + QL * (KB + 4) + 3 * QL
+             : QL * (H + 4) + QL * (CC + 4);
+}
+
+// rows [r0, r0 + rows) of a [*, H] matrix in device memory to and from a
+// shared tile of row stride ld, 16 bytes a thread at a time
+__device__ __forceinline__ void load_rows(float* tile, int ld, const float* g,
+                                          int H, int r0, int rows) {
+  const int q = H / 4;
+  for (int i = threadIdx.x; i < rows * q; i += NT) {
+    const int r = i / q, c = i % q;
+    *reinterpret_cast<float4*>(tile + r * ld + 4 * c) =
+        reinterpret_cast<const float4*>(g + (size_t)(r0 + r) * H)[c];
+  }
+}
+__device__ __forceinline__ void store_rows(float* g, const float* tile, int ld,
+                                           int H, int r0, int rows) {
+  const int q = H / 4;
+  for (int i = threadIdx.x; i < rows * q; i += NT) {
+    const int r = i / q, c = i % q;
+    reinterpret_cast<float4*>(g + (size_t)(r0 + r) * H)[c] =
+        *reinterpret_cast<const float4*>(tile + r * ld + 4 * c);
+  }
+}
+
+// One pre-LN transformer block of the long body on the window's stream gs
+// [Tp, H] in its slot; gqkv [heads][3][Tp][HD] the slot's q | k | v.
+template <bool BF>
+__device__ void long_block(const BlockW& w, float* sm, float* gs, float* gqkv,
+                           int T, int Tp, int H, bool streaming) {
+  const int ld = H + 4, heads = H / HD, KT = H / 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int SLD = KB + 4;          // row stride of a key block's scores
+  float* tile = sm;                    // [QL][ld] rows of s
+  float* U = tile + QL * ld;
+  float* qs = U;                       // [QL][HDP] a head's query rows, then o
+  float* ks = qs + QL * HDP;           // [KB][HDP] a key block of k
+  float* vs = ks + KB * HDP;           // [KB][HDP] and of v
+  float* S = vs + KB * HDP;            // [QL][SLD] its scores
+  float* rm = S + QL * SLD;            // [QL] running max
+  float* rl = rm + QL;                 // [QL] denominator
+  float* ra = rl + QL;                 // [QL] the block's alpha
+  float* nrm = U;                      // [QL][ld] (MLP)
+  float* h1 = nrm + QL * ld;           // [QL][CC+4]
+
+  // (A) LayerNorm and q | k | v of every head, a tile of rows at a time
+  for (int r0 = 0; r0 < Tp; r0 += QL) {
+    const int rows = min(QL, Tp - r0);
+    load_rows(tile, ld, gs, H, r0, rows);
+    __syncthreads();
+    ln_rows(tile, tile, ld, rows, w.ln1s, w.ln1b, H);
+    __syncthreads();
+    mma_rows<3, 2, BF>(tile, ld, rows, w.wqkv_f, KT, KT, 12 * heads,
+                       [&](int row, int col, float v0, float v1) {
+                         const int h = col / (3 * HD), part = col % (3 * HD) / HD;
+                         float* dst = gqkv + ((size_t)(h * 3 + part) * Tp + r0 + row) * HD
+                                      + col % HD;
+                         *reinterpret_cast<float2*>(dst) =
+                             make_float2(rd<BF>(v0 + __ldg(w.bqkv + col)),
+                                         rd<BF>(v1 + __ldg(w.bqkv + col + 1)));
+                       });
+    __syncthreads();
+  }
+
+  // (B) a tile of query rows at a time: attention head by head, then the MLP
+  for (int r0 = 0; r0 < Tp; r0 += QL) {
+    const int rows = min(QL, Tp - r0);           // a multiple of TM
+    load_rows(tile, ld, gs, H, r0, rows);
+    for (int h = 0; h < heads; ++h) {
+      const float* gq = gqkv + (size_t)h * 3 * Tp * HD;
+      const float* gk = gq + (size_t)Tp * HD;
+      const float* gv = gk + (size_t)Tp * HD;
+      for (int i = tid; i < rows * (HD / 4); i += NT)
+        *reinterpret_cast<float4*>(qs + (i / (HD / 4)) * HDP + 4 * (i % (HD / 4))) =
+            reinterpret_cast<const float4*>(gq + (size_t)(r0 + i / (HD / 4)) * HD)[i % (HD / 4)];
+      for (int i = tid; i < rows; i += NT) {
+        rm[i] = -1e30f;
+        rl[i] = 0.0f;
+      }
+      // a thread's o: P.V elements (row, 4 columns) tid and tid + NT
+      float4 o[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                     make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+      // the packed form: pass 0 finds each row's max and denominator, pass
+      // 1 forms P and P.V; the streaming form runs pass 1 alone
+      for (int pass = streaming ? 1 : 0; pass < 2; ++pass) {
+        for (int j0 = 0; j0 < T; j0 += KB) {
+          const int kn = min(KB, T - j0);
+          __syncthreads();                       // the last block is read
+          for (int i = tid; i < kn * (HD / 4); i += NT) {
+            const int r = i / (HD / 4), c = i % (HD / 4);
+            *reinterpret_cast<float4*>(ks + r * HDP + 4 * c) =
+                reinterpret_cast<const float4*>(gk + (size_t)(j0 + r) * HD)[c];
+            if (pass == 1)
+              *reinterpret_cast<float4*>(vs + r * HDP + 4 * c) =
+                  reinterpret_cast<const float4*>(gv + (size_t)(j0 + r) * HD)[c];
+          }
+          __syncthreads();
+          // scores S[i][j] = q[i] . k[j0+j]: a thread owns a key for 4 rows
+          for (int t4 = tid; t4 < (rows / 4) * kn; t4 += NT) {
+            const int j = t4 % kn, qg = t4 / kn;
+            const float* kr = ks + j * HDP;
+            const float* qr = qs + qg * 4 * HDP;
+            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int c = 0; c < HD; c += 4) {
+              const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float4 qv = *reinterpret_cast<const float4*>(qr + i * HDP + c);
+                acc[i] = fmaf(qv.x, kv.x, acc[i]);
+                acc[i] = fmaf(qv.y, kv.y, acc[i]);
+                acc[i] = fmaf(qv.z, kv.z, acc[i]);
+                acc[i] = fmaf(qv.w, kv.w, acc[i]);
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) S[(qg * 4 + i) * SLD + j] = acc[i];
+          }
+          __syncthreads();
+          // one warp a row
+          for (int i = warp; i < rows; i += NWARP) {
+            float* row = S + i * SLD;
+            float m = rm[i], l = rl[i];
+            if (streaming) {
+              stream_block<BF>(row, 0, kn, lane, m, l, ra[i]);
+            } else if (pass == 0) {
+              float mx = -3.402823466e+38f;
+              for (int j = lane; j < kn; j += 32) mx = fmaxf(mx, row[j]);
+              const float m_new = fmaxf(m, warp_max(mx));
+              float sum = 0.0f;
+              for (int j = lane; j < kn; j += 32) sum += expf(row[j] - m_new);
+              l = l * expf(m - m_new) + warp_sum(sum);
+              m = m_new;
+            } else {
+              for (int j = lane; j < kn; j += 32)
+                row[j] = rd<BF>(expf(row[j] - m) / l);
+            }
+            __syncwarp();
+            if (lane == 0) {
+              rm[i] = m;
+              rl[i] = l;
+            }
+          }
+          if (pass == 0) continue;
+          __syncthreads();
+          // P.V of the block: the streaming form sums it apart and rescales,
+          // the packed form sums on in key order
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t4 = tid + e * NT;
+            if (t4 >= rows * (HD / 4)) break;
+            const int c4 = t4 % (HD / 4), i = t4 / (HD / 4);
+            const float* p = S + i * SLD;
+            if (streaming)
+              o[e] = rescale_add(o[e], ra[i], pv_sum(make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                                                     p, vs + c4 * 4, 0, kn));
+            else
+              o[e] = pv_sum(o[e], p, vs + c4 * 4, 0, kn);
+          }
+        }
+      }
+      __syncthreads();                           // q is read for the last time
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t4 = tid + e * NT;
+        if (t4 >= rows * (HD / 4)) break;
+        const int c4 = t4 % (HD / 4), i = t4 / (HD / 4);
+        const float l = streaming ? rl[i] : 1.0f;
+        float4 r = o[e];
+        if (streaming) r = make_float4(r.x / l, r.y / l, r.z / l, r.w / l);
+        *reinterpret_cast<float4*>(qs + i * HDP + c4 * 4) =
+            make_float4(rd<BF>(r.x), rd<BF>(r.y), rd<BF>(r.z), rd<BF>(r.w));
+      }
+      __syncthreads();
+      // tile += o_h [rows,32] x wo[h*32 .. h*32+31, :] (+ bo with the first
+      // head; under BF s rounded after the last)
+      const float* bo = w.bo;
+      const bool first = h == 0, last = h == heads - 1;
+      mma_rows<4, 2, BF>(qs, HDP, rows, w.wo_f + (size_t)h * (HD / 8) * 32, KT,
+                         HD / 8, KT, [&](int row, int col, float v0, float v1) {
+                           float2* dst = reinterpret_cast<float2*>(tile + row * ld + col);
+                           float2 v = *dst;
+                           v.x += first ? v0 + __ldg(bo + col) : v0;
+                           v.y += first ? v1 + __ldg(bo + col + 1) : v1;
+                           if (BF && last) v = make_float2(rd<BF>(v.x), rd<BF>(v.y));
+                           *dst = v;
+                         });
+      __syncthreads();
+    }
+
+    ln_rows(tile, nrm, ld, rows, w.ln2s, w.ln2b, H);
+    __syncthreads();
+    // MLP, the hidden layer in column chunks of CC
+    constexpr int ldh = CC + 4;
+    for (int c0 = 0; c0 < 4 * H; c0 += CC) {
+      const float* b1 = w.b1 + c0;
+      mma_rows<4, 2, BF>(nrm, ld, rows, w.w1_f + (size_t)(c0 / 8) * KT * 32, KT,
+                         KT, CC / 8, [&](int row, int col, float v0, float v1) {
+                           *reinterpret_cast<float2*>(h1 + row * ldh + col) =
+                               make_float2(gelu_tanh(v0 + __ldg(b1 + col)),
+                                           gelu_tanh(v1 + __ldg(b1 + col + 1)));
+                         });
+      __syncthreads();
+      const float* b2 = w.b2;
+      const bool first = c0 == 0, last = c0 + CC >= 4 * H;
+      mma_rows<4, 2, BF>(h1, ldh, rows, w.w2_f + (size_t)(c0 / 8) * 32, 4 * KT,
+                         CC / 8, KT, [&](int row, int col, float v0, float v1) {
+                           float2* dst = reinterpret_cast<float2*>(tile + row * ld + col);
+                           float2 v = *dst;
+                           v.x += first ? v0 + __ldg(b2 + col) : v0;
+                           v.y += first ? v1 + __ldg(b2 + col + 1) : v1;
+                           if (BF && last) v = make_float2(rd<BF>(v.x), rd<BF>(v.y));
+                           *dst = v;
+                         });
+      __syncthreads();
+    }
+    store_rows(gs, tile, ld, H, r0, rows);
+    __syncthreads();
+  }
+}
+
+// The long body: a persistent grid, block b running windows b, b + grid, ...
+// with `scratch + b * slot` its slot (the stream, then q | k | v).
+template <bool BF, typename IOT>
+__global__ void __launch_bounds__(NT)
+fused_attention_long_kernel(const IOT* __restrict__ x,
+                            const float* __restrict__ pos,   // [T, H]
+                            IOT* __restrict__ resid, float* __restrict__ mse,
+                            const AttnW W, int N, int T, int Tp, int D, int H,
+                            int Z, int L, int use_ln, int with_resid,
+                            int streaming, float* __restrict__ scratch,
+                            size_t slot) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = H + 4;
+  float* tile = smem;                              // [QL][ld]
+  float* small = smem + QL * ld + long_union_floats(H);
+  float* pooled = small;
+  float* tok0 = small_tok0(small);
+  float* gs = scratch + blockIdx.x * slot;         // [Tp][H]
+  float* gqkv = gs + (size_t)Tp * H;               // [heads][3][Tp][HD]
+  const int tid = threadIdx.x;
+
+  for (size_t n = blockIdx.x; n < (size_t)N; n += gridDim.x) {
+    const IOT* xw = x + n * T * D;
+    __syncthreads();                               // the last window is done
+    for (int i = tid; i < Tp * H; i += NT) {
+      const int t = i / H, c = i % H;
+      gs[i] = t < T ? enc_token<BF>(xw, W.enc, pos, t, c, D, H) : 0.0f;
+    }
+    __syncthreads();
+    for (int l = 0; l < L; ++l)
+      long_block<BF>(W.enc.layer[l], smem, gs, gqkv, T, Tp, H, streaming);
+
+    // final norm and mean over the T real rows, a tile at a time; thread c
+    // sums column c in step order
     float a = 0.0f;
-    for (int k = 0; k < NWARP; ++k) a += red[k];
-    mse[n] = a / (float)(T * D);
+    for (int r0 = 0; r0 < T; r0 += QL) {
+      const int rows = min(QL, T - r0);
+      load_rows(tile, ld, gs, H, r0, rows);
+      __syncthreads();
+      ln_rows(tile, tile, ld, rows, W.enc.fs, W.enc.fb, H);
+      __syncthreads();
+      if (tid < H)
+        for (int t = 0; t < rows; ++t) a += tile[t * ld + tid];
+      __syncthreads();
+    }
+    if (tid < H) pooled[tid] = a / T;
+    __syncthreads();
+    latent_head<BF>(W, small, H, Z, use_ln);
+    for (int i = tid; i < Tp * H; i += NT) {
+      const int t = i / H, c = i % H;
+      gs[i] = t < T ? rd<BF>(tok0[c] + __ldg(pos + t * H + c)) : 0.0f;
+    }
+    __syncthreads();
+    for (int l = 0; l < L; ++l)
+      long_block<BF>(W.dec.layer[l], smem, gs, gqkv, T, Tp, H, streaming);
+
+    // final norm, output head, residual; thread tid takes the elements
+    // i = tid mod NT, in order, as the resident body does
+    float part = 0.0f;
+    for (int r0 = 0; r0 < T; r0 += QL) {
+      const int rows = min(QL, T - r0);
+      load_rows(tile, ld, gs, H, r0, rows);
+      __syncthreads();
+      ln_rows(tile, tile, ld, rows, W.dec.fs, W.dec.fb, H);
+      __syncthreads();
+      const int i0 = r0 * D, i1 = (r0 + rows) * D;
+      for (int i = i0 + (tid - i0 % NT + NT) % NT; i < i1; i += NT) {
+        const int t = i / D, d = i % D;
+        const float e = ld_io(xw + i) - out_head<BF>(tile + (t - r0) * ld, W, d, H, D);
+        const float e2 = e * e;
+        if (with_resid) st_io(resid + n * T * D + i, e2);
+        part += e2;
+      }
+      __syncthreads();
+    }
+    store_mse(part, small_red(small), mse + n, T, D);
   }
 }
 
@@ -590,11 +1066,11 @@ __global__ void tf32_round_kernel(const float* __restrict__ x,
 
 static int padded_rows(int T) { return (T + TM - 1) / TM * TM; }
 
-// Bytes of dynamic shared memory one window of T steps at width H needs: the
-// stream and its normalised copy, the per-window vectors, and the larger of
-// one head's q | k | v with a score chunk and one chunk of the MLP's hidden
-// layer. The wrapper refuses, before any launch, a shape for which this
-// passes what a block may use.
+// Bytes of dynamic shared memory one window of T steps at width H needs in
+// the resident body: the stream and its normalised copy, the per-window
+// vectors, and the larger of one head's q | k | v with a score chunk and one
+// chunk of the MLP's hidden layer. Past what a block may use, the wrapper's
+// plan takes the long body.
 extern "C" long long shm_fused_attention_smem_bytes(int T, int H) {
   const size_t Tp = padded_rows(T), Tld = (T + 3) & ~3;
   const size_t attn = 3 * Tp * HDP + QC * Tld;
@@ -603,19 +1079,34 @@ extern "C" long long shm_fused_attention_smem_bytes(int T, int H) {
          (2 * Tp * (H + 4) + SMALL + (attn > mlp ? attn : mlp));
 }
 
+// Bytes of dynamic shared memory a block of the long body needs at width H,
+// whatever T: a row tile, the larger of the attention and MLP buffers, the
+// per-window vectors.
+extern "C" long long shm_fused_attention_long_smem_bytes(int H) {
+  return sizeof(float) * ((long long)QL * (H + 4) + long_union_floats(H) + SMALL);
+}
+
+// Floats of device memory a block of the long body keeps for its window:
+// the stream [Tp, H] and every head's q | k | v [heads][3][Tp][32].
+extern "C" long long shm_fused_attention_slot_floats(int T, int H) {
+  return 4LL * padded_rows(T) * H;
+}
+
 namespace {
 
-// the kernel instance at (BF, IOT) on the `w` pointers of the C entries
+// the kernel instance at (BF, IOT) on the `w` pointers of the C entries:
+// body 0 the resident body (STREAM from `streaming`), 1 the long body on
+// `slots` blocks, each with its slot of `scratch`
 template <bool BF, typename IOT>
 int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
                 const void* const* w, int n_w, int N, int T, int D, int H,
-                int Z, int L, int use_ln, int with_resid, void* stream) {
+                int Z, int L, int use_ln, int with_resid, int streaming,
+                int body, float* scratch, int slots, void* stream) {
   if (n_w != NUM_W || N <= 0 || T <= 0 || D <= 0 || D > DMAX || Z <= 0 ||
       Z > ZMAX || L < 1 || L > LMAX || H % HD || H < HD || H > HMAX ||
-      (with_resid && resid == nullptr))
+      (with_resid && resid == nullptr) || (streaming != 0 && streaming != 1))
     return (int)cudaErrorInvalidValue;
   const int Tp = padded_rows(T);
-  const int smem_bytes = (int)shm_fused_attention_smem_bytes(T, H);
   AttnW W;
   const float* const* p = reinterpret_cast<const float* const*>(w);
   auto stack = [&](StackW& s) {
@@ -639,12 +1130,28 @@ int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
   W.z2h_w = *p++; W.z2h_b = *p++;
   stack(W.dec);
   W.out_w = *p++; W.out_b = *p++;
-  auto kern = fused_attention_gate_kernel<BF, IOT>;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (body == 0) {
+    if (streaming && (T + KB - 1) / KB > NKB_RES) return (int)cudaErrorInvalidValue;
+    const int smem_bytes = (int)shm_fused_attention_smem_bytes(T, H);
+    auto kern = streaming ? fused_attention_gate_kernel<BF, IOT, true>
+                          : fused_attention_gate_kernel<BF, IOT, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<N, NT, smem_bytes, st>>>(x, pos, resid, mse, W, T, Tp, D, H, Z, L,
+                                    use_ln, with_resid);
+    return (int)cudaGetLastError();
+  }
+  if (body != 1 || scratch == nullptr || slots < 1) return (int)cudaErrorInvalidValue;
+  const int smem_bytes = (int)shm_fused_attention_long_smem_bytes(H);
+  auto kern = fused_attention_long_kernel<BF, IOT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  kern<<<N, NT, smem_bytes, reinterpret_cast<cudaStream_t>(stream)>>>(
-      x, pos, resid, mse, W, T, Tp, D, H, Z, L, use_ln, with_resid);
+  kern<<<slots < N ? slots : N, NT, smem_bytes, st>>>(
+      x, pos, resid, mse, W, N, T, Tp, D, H, Z, L, use_ln, with_resid,
+      streaming, scratch, (size_t)shm_fused_attention_slot_floats(T, H));
   return (int)cudaGetLastError();
 }
 
@@ -656,15 +1163,21 @@ int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
 // layers, then final-norm scale and bias), ln_scale ln_bias mu_w
 // mu_b z2h_w z2h_b, the decoder stack in the same order, out_w out_b
 // (pointers of an absent layer or LayerNorm may be null). `pos` is the
-// [T, H] position table. Returns cudaErrorInvalidValue for a shape the kernel
-// does not take, the error of cudaFuncSetAttribute for a window too long for
-// a block's shared memory, else the launch's cudaGetLastError(), 0 on success.
+// [T, H] position table. `streaming` 1 runs the streaming softmax, 0 the
+// packed one. `body` 0 runs the resident body; 1 the long body on
+// min(N, slots) blocks, `scratch` holding `slots` slots of
+// shm_fused_attention_slot_floats(T, H) floats (16-byte aligned). Returns
+// cudaErrorInvalidValue for a shape or argument the kernel does not take,
+// the error of cudaFuncSetAttribute for a window too long for the resident
+// body's shared memory, else the launch's cudaGetLastError(), 0 on success.
 extern "C" int shm_fused_attention_gate_f32(
     const float* x, const float* pos, float* resid, float* mse,
     const void* const* w, int n_w, int N, int T, int D, int H, int Z, int L,
-    int use_ln, int with_resid, void* stream) {
+    int use_ln, int with_resid, int streaming, int body, float* scratch,
+    int slots, void* stream) {
   return launch_gate<false, float>(x, pos, resid, mse, w, n_w, N, T, D, H, Z,
-                                   L, use_ln, with_resid, stream);
+                                   L, use_ln, with_resid, streaming, body,
+                                   scratch, slots, stream);
 }
 
 // The C entry of the bf16 instance: the arguments of
@@ -674,25 +1187,33 @@ extern "C" int shm_fused_attention_gate_f32(
 extern "C" int shm_fused_attention_gate_bf16(
     const void* x, const float* pos, void* resid, float* mse,
     const void* const* w, int n_w, int N, int T, int D, int H, int Z, int L,
-    int use_ln, int with_resid, int io_bf16, void* stream) {
+    int use_ln, int with_resid, int streaming, int body, float* scratch,
+    int slots, int io_bf16, void* stream) {
   if (io_bf16 == 1)
     return launch_gate<true, bf16_t>(
         static_cast<const bf16_t*>(x), pos, static_cast<bf16_t*>(resid), mse,
-        w, n_w, N, T, D, H, Z, L, use_ln, with_resid, stream);
+        w, n_w, N, T, D, H, Z, L, use_ln, with_resid, streaming, body, scratch,
+        slots, stream);
   if (io_bf16 != 0) return (int)cudaErrorInvalidValue;
   return launch_gate<true, float>(
       static_cast<const float*>(x), pos, static_cast<float*>(resid), mse, w,
-      n_w, N, T, D, H, Z, L, use_ln, with_resid, stream);
+      n_w, N, T, D, H, Z, L, use_ln, with_resid, streaming, body, scratch,
+      slots, stream);
 }
 
 // out = registers a thread, local memory (spill) bytes a thread, threads a
-// block, dynamic shared bytes a block at (T, H), blocks an SM at once.
-extern "C" int shm_fused_attention_info(int T, int H, int* out) {
+// block, dynamic shared bytes a block, blocks an SM at once, of the float32
+// instance of `body` (0 resident at (T, H), packed; 1 long at H).
+extern "C" int shm_fused_attention_info(int T, int H, int body, int* out) {
+  if (body != 0 && body != 1) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  auto kern = fused_attention_gate_kernel<false, float>;
+  const void* kern = body == 0
+      ? reinterpret_cast<const void*>(fused_attention_gate_kernel<false, float, false>)
+      : reinterpret_cast<const void*>(fused_attention_long_kernel<false, float>);
   cudaError_t err = cudaFuncGetAttributes(&a, kern);
   if (err != cudaSuccess) return (int)err;
-  const int smem_bytes = (int)shm_fused_attention_smem_bytes(T, H);
+  const int smem_bytes = (int)(body == 0 ? shm_fused_attention_smem_bytes(T, H)
+                                         : shm_fused_attention_long_smem_bytes(H));
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -18,20 +18,30 @@ MLP's two) on the tensor cores in 3xTF32. It reads those weights as TF32
 fragments that :func:`attention_params_to_kernel_weights` packs once
 (:func:`tf32x3_fragments`); the plain version reads them as given.
 
-The kernel keeps one window's whole pass in a block's shared memory, so the
-window length it takes depends on the width: :func:`shared_memory_bytes` adds
-the buffers up from (T, H) and the wrapper raises ``ValueError``, before any
-launch, for a shape that does not fit. The kernel source states its bound on
-the card and what its design does about it. Computation is float32 with
-float32 accumulation; softmax runs over exactly the T keys; the MSE divides
-by the real ``T * D``.
+The softmax takes one of the JAX kernel's two forms (``stream``): the
+packed form divides each row by its sum before P.V; the streaming form walks
+the keys in blocks of 128 with a running max and denominator and divides
+P.V by the denominator at the end. ``stream=None`` picks as the JAX kernel's
+``auto_stream`` does (:func:`auto_stream`: streaming past 128 steps). The
+two agree to float rounding in float32; in bf16 they round the
+probabilities at other points.
+
+The kernel has two bodies (:func:`plan`). The resident body keeps one
+window's whole pass in a block's shared memory and takes a window whose
+buffers fit there (:func:`shared_memory_bytes`: at H=128 up to 136 steps, at
+H=64 up to 208, at H=32 up to 268). The long body takes any longer window:
+the stream and every head's q | k | v live in a device-memory slot of the
+block, and shared memory holds a row tile and one key block. The kernel
+source states its bound on the card and what its design does about it.
+Computation is float32 with float32 accumulation; softmax runs over exactly
+the T keys; the MSE divides by the real ``T * D``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,10 +62,14 @@ _H_MAX, _D_MAX, _Z_MAX, _L_MAX = 128, 128, 32, 2
 _MODEL_LN_EPS = 1e-5         # the model-level norm on the pooled summary
 # the kernel's tiling (csrc/fused_attention.cu): rows padded to _TM, q/k/v
 # rows to HEAD_DIM + 4, _QC query rows a score chunk, _SMALL scratch floats,
-# _MLP_CHUNK columns of the MLP's hidden layer at once
-_TM, _QC, _SMALL = 8, 32, 512
+# _MLP_CHUNK columns of the MLP's hidden layer at once; the long body's row
+# tiles and query chunks of _QL rows
+_TM, _QC, _SMALL, _QL = 8, 32, 512, 128
 _MLP_CHUNK = 128             # divides 4H for every H the kernel takes
 SMEM_LIMIT = 232_448         # bytes of shared memory one block may use (H100)
+KEY_BLOCK = 128              # keys a block of the streaming softmax (the JAX
+                             # kernel's lane width; its block edges set where
+                             # the running max rescales)
 
 _PRODUCTS = ("wqkv", "wo", "w1", "w2")      # the kernel's tensor-core products
 _BLOCK_KEYS = (("ln1_s", "ln1_b", "wqkv", "bqkv", "wo", "bo", "ln2_s", "ln2_b",
@@ -136,27 +150,73 @@ def attention_params_to_kernel_weights(
     return w
 
 
+def auto_stream(T: int) -> bool:
+    """The softmax form ``stream=None`` selects for a window of T steps, as
+    the JAX kernel's ``auto_stream(round_up(T, 128))`` does: the streaming
+    form when the keys span more than one block of :data:`KEY_BLOCK`, the
+    packed form otherwise."""
+    return T > KEY_BLOCK
+
+
+def softmax_form(stream: Optional[bool], T: int) -> bool:
+    """``stream`` resolved for a window of T steps (``True``: the streaming
+    form); anything but ``None``, ``True`` or ``False`` raises."""
+    if stream is None:
+        return auto_stream(T)
+    if not isinstance(stream, bool):
+        raise ValueError(f"stream must be None, True or False, got {stream!r}")
+    return stream
+
+
+def attend(q, k, v, stream: bool, rnd):
+    """Each head's attention output [..., T, hd] over the T keys: the packed
+    softmax (the row divided by its sum, then P.V) or the streaming one (the
+    keys in blocks of :data:`KEY_BLOCK`, a running max m from -1e30 and
+    denominator l: ``m_new = max(m, rowmax(s))``, ``alpha = exp(m - m_new)``,
+    ``p = exp(s - m_new)``, ``l = l alpha + sum p``, ``o = o alpha + p V``,
+    and ``o / l`` at the end). ``rnd`` rounds the probabilities where they
+    enter P.V; l sums them unrounded."""
+    if not stream:
+        return rnd(torch.softmax(q @ k.transpose(-1, -2), dim=-1)) @ v
+    m = q.new_full(q.shape[:-1] + (1,), -1e30)
+    l = q.new_zeros(q.shape[:-1] + (1,))
+    o = torch.zeros_like(q)
+    for j0 in range(0, k.shape[-2], KEY_BLOCK):
+        s = q @ k[..., j0:j0 + KEY_BLOCK, :].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + rnd(p) @ v[..., j0:j0 + KEY_BLOCK, :]
+        m = m_new
+    return o / l
+
+
 def fused_attention_gate_reference(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
     dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
+    stream: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of the kernel: (mse [N], resid [N, T, D] | None).
 
-    ``dtype=torch.bfloat16`` rounds where the JAX kernel with ``dtype=bf16``
-    rounds (``shm_tpu/ops/fused_attention.py:206-212``, ``:252-353``):
-    both operands of every product, summed in float32 (the weight products,
-    the scores, the probabilities and V of P.V); the residual stream s, the
+    ``stream`` picks the softmax's form as the JAX kernel's does (``None``:
+    :func:`auto_stream`; see :func:`attend`). ``dtype=torch.bfloat16``
+    rounds where the JAX kernel with ``dtype=bf16`` rounds
+    (``shm_tpu/ops/fused_attention.py:206-212``, ``:252-353``): both
+    operands of every product, summed in float32 (the weight products, the
+    scores, the probabilities and V of P.V); the residual stream s, the
     packed q | k | v and the attention output o as they are stored.
-    LayerNorm, softmax and the pooled summary stay float32. The
-    probabilities are rounded after the softmax's division, as the TPU
-    kernel's packed softmax does (its streaming form, which it takes past
-    128 steps, rounds them before). ``io_dtype`` as in
+    LayerNorm, softmax and the pooled summary stay float32. The packed form
+    rounds the probabilities after the softmax's division, the streaming
+    form before it (its p, whose float32 sum is the denominator), as the two
+    forms of the JAX kernel do. ``io_dtype`` as in
     ``fused_vae_gate_reference``."""
     N, T, D = Z.shape
     H = weights["mu_w"].shape[0]
     heads = H // HEAD_DIM
     bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    streaming = softmax_form(stream, T)
     x = Z.to(io).to(torch.float32)          # the window tile as read
     rnd = bf16_round if bf16 else (lambda t: t)
     pos = sinusoidal_positions(T, H, Z.device)
@@ -170,8 +230,7 @@ def fused_attention_gate_reference(
         qkv = rnd(mm(nrm, f"{p}_wqkv") + w[f"{p}_bqkv"]).view(
             N, T, heads, 3, HEAD_DIM)
         q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))  # [N,h,T,hd]
-        prob = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-        o = rnd((rnd(prob) @ v).transpose(1, 2).reshape(N, T, H))
+        o = rnd(attend(q, k, v, streaming, rnd).transpose(1, 2).reshape(N, T, H))
         s = rnd(s + (mm(o, f"{p}_wo") + w[f"{p}_bo"]))
         nrm = flax_layer_norm(s, w[f"{p}_ln2_s"], w[f"{p}_ln2_b"], STACK_LN_EPS)
         h1 = F.gelu(mm(nrm, f"{p}_w1") + w[f"{p}_b1"], approximate="tanh")
@@ -197,23 +256,55 @@ def fused_attention_gate_reference(
 
 
 def shared_memory_bytes(T: int, H: int) -> int:
-    """Shared memory one window needs in its block (the layout is the
-    kernel's own, ``shm_fused_attention_smem_bytes`` in the source): the
-    stream and its normalised copy [rows, H+4] each, scratch vectors, and
-    one area that holds a head's q | k | v [rows, 36] each plus a [32, T]
-    score chunk, or a column chunk of the MLP's hidden layer. Raises
-    ``ValueError`` when they pass the card's limit: at H=128 a window may
-    have up to 136 steps, at H=64 up to 208, at H=32 up to 268."""
+    """Shared memory the resident body needs for one window of T steps at
+    width H (the layout is the kernel's own, ``shm_fused_attention_smem_bytes``
+    in the source): the stream and its normalised copy [rows, H+4] each,
+    scratch vectors, and one area that holds a head's q | k | v [rows, 36]
+    each plus a [32, T] score chunk, or a column chunk of the MLP's hidden
+    layer. :func:`plan` holds it against the card's limit."""
     rows = -(-T // _TM) * _TM
     attn = 3 * rows * (HEAD_DIM + 4) + _QC * (-(-T // 4) * 4)
-    nbytes = 4 * (2 * rows * (H + 4) + _SMALL
-                  + max(attn, rows * (_MLP_CHUNK + 4)))
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(
-            f"unsupported shape for the fused attention kernel: one window of "
-            f"T={T} at H={H} needs more than the {SMEM_LIMIT} bytes of shared "
-            f"memory a block can use")
-    return nbytes
+    return 4 * (2 * rows * (H + 4) + _SMALL
+                + max(attn, rows * (_MLP_CHUNK + 4)))
+
+
+def long_shared_memory_bytes(H: int) -> int:
+    """Shared memory a block of the long body needs at width H, whatever T
+    (``shm_fused_attention_long_smem_bytes`` in the source): a tile of 128
+    rows of the stream [128, H+4], then either a head's query chunk [128,
+    36], one key block of k and of v [128, 36] each, its scores [128, 132]
+    and three [128] row vectors, or the chunk's normalised rows and a column
+    chunk of the MLP's hidden layer [128, H+4] and [128, 132]; the scratch
+    vectors."""
+    hdp = HEAD_DIM + 4
+    attn = (_QL * hdp + 2 * KEY_BLOCK * hdp + _QL * (KEY_BLOCK + 4)
+            + 3 * _QL)
+    mlp = _QL * (H + 4) + _QL * (_MLP_CHUNK + 4)
+    return 4 * (_QL * (H + 4) + max(attn, mlp) + _SMALL)
+
+
+def slot_floats(T: int, H: int) -> int:
+    """Floats of device memory one block of the long body keeps for the
+    window it runs (``shm_fused_attention_slot_floats`` in the source): the
+    stream [Tp, H] and every head's q | k | v [heads, 3, Tp, 32], Tp = T
+    padded to 8 rows."""
+    return 4 * (-(-T // _TM) * _TM) * H
+
+
+class Plan(NamedTuple):
+    body: str             # "resident" or "long"
+    shared_bytes: int     # dynamic shared memory a block
+    slot_floats: int      # device memory a block keeps (floats; 0: resident)
+
+
+def plan(T: int, H: int) -> Plan:
+    """Which body of the kernel runs a window of T steps at width H: the
+    resident body while the window's buffers fit a block's shared memory
+    (:func:`shared_memory_bytes`), the long body past that, whatever T."""
+    nbytes = shared_memory_bytes(T, H)
+    if nbytes <= SMEM_LIMIT:
+        return Plan("resident", nbytes, 0)
+    return Plan("long", long_shared_memory_bytes(H), slot_floats(T, H))
 
 
 def _check(weights, Z, num_layers, use_layernorm, bf16=False,
@@ -224,6 +315,9 @@ def _check(weights, Z, num_layers, use_layernorm, bf16=False,
                          "presets")
     H, Zd = weights["mu_w"].shape
     T, D = Z.shape[1:]
+    if T < 1:
+        raise ValueError("the fused attention kernel needs windows of T >= 1 "
+                         "steps")
     if H % HEAD_DIM or H > _H_MAX or D > _D_MAX or Zd > _Z_MAX:
         raise ValueError(f"unsupported shape for the fused attention kernel: "
                          f"H={H} (a multiple of {HEAD_DIM} up to {_H_MAX}), "
@@ -235,7 +329,6 @@ def _check(weights, Z, num_layers, use_layernorm, bf16=False,
             or weights["enc0_w1"].shape != (H, 4 * H):
         raise ValueError("the fused attention kernel assumes heads of "
                          f"{HEAD_DIM} columns and an MLP of width 4H")
-    shared_memory_bytes(T, H)
     need = [k for k in fragment_names(_WEIGHT_ORDER, bf16)
             if not (k[3:4].isdigit() and int(k[3]) >= num_layers)
             and (use_layernorm or not k.startswith("ln_"))]
@@ -249,35 +342,52 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C entry declared (built at first
     use, never at import)."""
     lib = load_library("fused_attention")
-    fn = lib.shm_fused_attention_gate_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
-    fn = lib.shm_fused_attention_gate_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
-    lib.shm_fused_attention_smem_bytes.restype = ctypes.c_longlong
-    lib.shm_fused_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+    # x pos resid mse w, n_w N T D H Z L use_ln with_resid streaming body,
+    # scratch, slots, [io_bf16,] cuda stream
+    head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p,
+                                                          ctypes.c_int]
+    for name, extra in (("f32", []), ("bf16", [ctypes.c_int])):
+        fn = getattr(lib, f"shm_fused_attention_gate_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = head + extra + [ctypes.c_void_p]
+    for name, n in (("smem_bytes", 2), ("long_smem_bytes", 1),
+                    ("slot_floats", 2)):
+        fn = getattr(lib, f"shm_fused_attention_{name}")
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] * n
     lib.shm_fused_attention_info.restype = ctypes.c_int
-    lib.shm_fused_attention_info.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.shm_fused_attention_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.shm_tf32_round.restype = ctypes.c_int
     lib.shm_tf32_round.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     return lib
 
 
-def kernel_info(T: int, H: int) -> dict:
-    """How the card takes the kernel for a window of T steps at width H:
-    registers and local-memory (spill) bytes a thread, threads and dynamic
-    shared bytes a block, blocks an SM at once."""
-    shared_memory_bytes(T, H)
+_BODIES = ("resident", "long")
+
+
+def kernel_info(T: int, H: int, body: Optional[str] = None) -> dict:
+    """How the card takes the kernel for a window of T steps at width H, in
+    the body :func:`plan` picks (or ``body``): registers and local-memory
+    (spill) bytes a thread, threads and dynamic shared bytes a block,
+    blocks an SM at once."""
+    body = body or plan(T, H).body
     lib = _library()
     out = (ctypes.c_int * 5)()
-    raise_on_error(lib, lib.shm_fused_attention_info(T, H, out),
+    raise_on_error(lib, lib.shm_fused_attention_info(T, H, _BODIES.index(body),
+                                                     out),
                    "fused_attention_gate info")
     return dict(zip(("registers", "spill_bytes", "threads", "shared_bytes",
                      "blocks_per_sm"), out))
+
+
+@functools.lru_cache(maxsize=8)
+def _long_slots(H: int, device: torch.device) -> int:
+    """Blocks of the long body the card runs at once (each keeps one
+    window's slot of device memory): its blocks an SM times the SMs."""
+    with torch.cuda.device(device):
+        per_sm = kernel_info(0, H, "long")["blocks_per_sm"]
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def tf32_round_on_card(x: torch.Tensor, exact: bool = True) -> torch.Tensor:
@@ -304,11 +414,27 @@ def _positions(T: int, H: int, device: torch.device) -> torch.Tensor:
 
 
 def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
-            io_dtype):
+            io_dtype, stream=None, body=None):
+    """Launch the kernel on CUDA tensors, in the body :func:`plan` picks or
+    in ``body`` (``"resident"`` or ``"long"``: the long body at a window the
+    resident one takes, so that the two can be held against each other; the
+    resident body past its shared memory raises ``ValueError``)."""
     bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    streaming = softmax_form(stream, Z.shape[1])
+    if Z.device.type != "cuda":
+        raise ValueError(f"the fused attention kernel launches on CUDA "
+                         f"tensors, got one on {Z.device}")
     Z = Z.to(io)                        # a bf16 io: the card rounds once
     need, H, Zd = _check(weights, Z, num_layers, use_layernorm, bf16, io)
     N, T, D = Z.shape
+    pl = plan(T, H)
+    body = body or pl.body
+    if body not in _BODIES:
+        raise ValueError(f"body must be one of {_BODIES}, got {body!r}")
+    if body == "resident" and pl.body != "resident":
+        raise ValueError(f"the resident body does not take T={T} at H={H}: "
+                         f"its buffers pass the {SMEM_LIMIT} bytes of shared "
+                         f"memory a block can use")
     mse = torch.empty(N, device=Z.device, dtype=torch.float32)
     resid = torch.empty_like(Z) if with_residual else None
     if N == 0:
@@ -317,19 +443,29 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
     order = fragment_names(_WEIGHT_ORDER, bf16)
     ptrs = pointer_array(weights, order, need)
     pos = _positions(T, H, Z.device)
+    slots, scratch = 0, None
+    if body == "long":
+        slots = min(N, _long_slots(H, Z.device))
+        scratch = torch.empty(slots * slot_floats(T, H), device=Z.device,
+                              dtype=torch.float32)
     args = (Z.data_ptr(), pos.data_ptr(),
             resid.data_ptr() if with_residual else None, mse.data_ptr(), ptrs,
             len(order), N, T, D, H, Zd, num_layers, int(use_layernorm),
-            int(with_residual))
+            int(with_residual), int(streaming), _BODIES.index(body),
+            scratch.data_ptr() if scratch is not None else None, slots)
     with torch.cuda.device(Z.device):
-        stream = torch.cuda.current_stream(Z.device).cuda_stream
+        cuda_stream = torch.cuda.current_stream(Z.device).cuda_stream
         if bf16:
             err = lib.shm_fused_attention_gate_bf16(
-                *args, int(io == torch.bfloat16), stream)
+                *args, int(io == torch.bfloat16), cuda_stream)
         else:
-            err = lib.shm_fused_attention_gate_f32(*args, stream)
+            err = lib.shm_fused_attention_gate_f32(*args, cuda_stream)
     raise_on_error(lib, err, "fused_attention_gate")
     count_launch(fused_attention_gate, "bf16_launches" if bf16 else "launches")
+    if streaming:
+        count_launch(fused_attention_gate, "stream_launches")
+    if body == "long":
+        count_launch(fused_attention_gate, "long_launches")
     return mse, resid
 
 
@@ -337,29 +473,37 @@ def fused_attention_gate(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
     dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
+    stream: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused deterministic attention-VAE pass: (mse [N], resid [N, T, D] | None).
 
     ``weights`` comes from :func:`attention_params_to_kernel_weights`. A CUDA
-    tensor runs the kernel; a CPU tensor runs the plain version.
-    ``dtype`` / ``io_dtype`` as the JAX kernel's (the plain version says
-    where bf16 rounds): ``dtype=torch.bfloat16`` launches the kernel's bf16
-    instance, counted in ``fused_attention_gate.bf16_launches``.
+    tensor runs the kernel, in the body :func:`plan` picks for its shape; a
+    CPU tensor runs the plain version. ``stream`` is the JAX kernel's
+    softmax form (``None``: :func:`auto_stream`); ``dtype`` / ``io_dtype``
+    as the JAX kernel's (the plain version says where bf16 rounds):
+    ``dtype=torch.bfloat16`` launches the kernel's bf16 instance, counted in
+    ``fused_attention_gate.bf16_launches``.
     """
     return dispatch_gate("fused_attention_gate", Z, _launch,
                          fused_attention_gate_reference, weights,
                          num_layers=num_layers, use_layernorm=use_layernorm,
                          with_residual=with_residual, dtype=dtype,
-                         io_dtype=io_dtype)
+                         io_dtype=io_dtype, stream=stream)
 
 
-# kernel launches so far, of the float32 and of the bf16 instance; callers
-# reset them to 0 to count one run's launches
+# kernel launches so far: of the float32 and of the bf16 instance (every
+# body and form), and of those, the streaming form's and the long body's;
+# callers reset them to 0 to count one run's launches
 fused_attention_gate.launches = 0
 fused_attention_gate.bf16_launches = 0
+fused_attention_gate.stream_launches = 0
+fused_attention_gate.long_launches = 0
 
 
 __all__ = ["fused_attention_gate", "fused_attention_gate_reference",
-           "attention_params_to_kernel_weights", "shared_memory_bytes",
+           "attention_params_to_kernel_weights",
+           "auto_stream", "softmax_form", "attend", "plan", "Plan", "KEY_BLOCK",
+           "shared_memory_bytes", "long_shared_memory_bytes", "slot_floats",
            "kernel_info", "tf32_round", "tf32_round_on_card",
            "tf32x3_fragments", "unpack_fragments"]

@@ -20,7 +20,10 @@ from shm_tpu_torch.ops import (
     fused_attention_gate_reference,
 )
 from shm_tpu_torch.ops import fused_attention as fused_attention_mod
-from shm_tpu_torch.ops.fused_attention import SMEM_LIMIT, shared_memory_bytes
+from shm_tpu_torch.ops.fused_attention import (
+    SMEM_LIMIT, long_shared_memory_bytes, plan, shared_memory_bytes,
+    slot_floats,
+)
 from shm_tpu_torch.train import reconstruction_mse, train_vae
 
 MSE_ATOL, RESID_ATOL = 2e-6, 1e-5
@@ -173,11 +176,19 @@ def test_shared_memory_bytes(T, H, rows, chunk):
 
 @pytest.mark.parametrize("H, longest", [(128, 136), (64, 208), (32, 268)])
 def test_shared_memory_plan_refuses_a_window_too_long_for_a_block(H, longest):
+    """The resident body takes a window up to ``longest`` steps; one step
+    more passes a block's shared memory, and the plan sends it, and any
+    longer window, to the long body, whose shared memory does not grow with
+    T and fits a block. Nothing is refused for its length."""
+    assert plan(longest, H) == ("resident", shared_memory_bytes(longest, H), 0)
     assert shared_memory_bytes(longest, H) <= SMEM_LIMIT
-    with pytest.raises(ValueError, match=f"T={longest + 1} at H={H}"):
-        shared_memory_bytes(longest + 1, H)
-    with pytest.raises(ValueError, match="shared memory"):
-        shared_memory_bytes(2000, H)
+    assert shared_memory_bytes(longest + 1, H) > SMEM_LIMIT
+    for T in (longest + 1, 2000, 100_000):
+        got = plan(T, H)
+        assert got.body == "long"
+        assert got.shared_bytes == long_shared_memory_bytes(H) <= SMEM_LIMIT
+        # the stream and every head's q | k | v, rows padded to 8
+        assert got.slot_floats == slot_floats(T, H) == 4 * (-(-T // 8) * 8) * H
 
 
 @pytest.mark.parametrize("bad, match", [
@@ -187,7 +198,7 @@ def test_shared_memory_plan_refuses_a_window_too_long_for_a_block(H, longest):
     (dict(dtype=torch.float64), "float32"),
     (dict(transpose=True), "contiguous"),
     (dict(Z_D=7), "does not match"),
-    (dict(T=400), "shared memory"),
+    (dict(T=0), "T >= 1"),
 ])
 def test_kernel_argument_checks(bad, match):
     """The checks the CUDA wrapper makes before a launch (run on the CPU)."""

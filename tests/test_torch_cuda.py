@@ -382,9 +382,9 @@ def test_fused_cell_gate_kernel_refuses_bad_input(cuda_device, cell):
     vae, Z, kw = _gate_case(cell, GATE_CASES["1dof_H32_noln"], cuda_device, 4)
     w = weights_fn(vae)
     before = gate.launches
-    with pytest.raises(ValueError, match="contiguous float32"):
+    with pytest.raises(ValueError, match="contiguous torch.float32"):
         gate(w, Z.transpose(0, 1), **kw)
-    with pytest.raises(ValueError, match="contiguous float32"):
+    with pytest.raises(ValueError, match="float32 or bfloat16 products"):
         gate(w, Z.double(), **kw)
     with pytest.raises(ValueError, match="must be contiguous float32 on"):
         gate({k: v.cpu() for k, v in w.items()}, Z, **kw)
@@ -399,16 +399,79 @@ def test_fused_cell_gate_kernel_refuses_bad_input(cuda_device, cell):
 
 @pytest.mark.cuda
 def test_fused_attention_kernel_refuses_a_window_too_long_for_a_block(cuda_device):
+    """The resident body refuses a window too long for a block's shared
+    memory (T=400 at H=128); the wrapper runs it in the long body, which
+    agrees with the plain version."""
     from shm_tpu_torch.ops import (
         attention_params_to_kernel_weights, fused_attention_gate,
+        fused_attention_gate_reference,
     )
+    from shm_tpu_torch.ops.fused_attention import _launch
 
     vae, Z, kw = _gate_case("attention", (2, 400, 12, 16, 128, 2, True, True),
                             cuda_device, 5)
+    w = attention_params_to_kernel_weights(vae)
     before = fused_attention_gate.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_attention_gate(attention_params_to_kernel_weights(vae), Z, **kw)
+    with pytest.raises(ValueError, match="resident body does not take"):
+        _launch(w, Z, dtype=torch.float32, io_dtype=None, body="resident", **kw)
     assert fused_attention_gate.launches == before
+    long_before = fused_attention_gate.long_launches
+    mse, resid = fused_attention_gate(w, Z, **kw)
+    torch.cuda.synchronize()
+    assert fused_attention_gate.launches == before + 1
+    assert fused_attention_gate.long_launches == long_before + 1
+    mse_p, resid_p = fused_attention_gate_reference(w, Z, **kw)
+    torch.testing.assert_close(mse, mse_p, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(resid, resid_p, atol=1e-4, rtol=1e-4)
+
+
+# windows past each width's resident limit, and the openLAB shape in the
+# long body; both softmax forms
+LONG_CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
+    "T137_H128_L2": (5, 137, 12, 16, 128, 2, True, True),
+    "T209_H64_L1": (7, 209, 3, 8, 64, 1, True, True),
+    "T269_H32_noln_gate_only": (6, 269, 12, 5, 32, 2, False, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [True, False])
+@pytest.mark.parametrize("name", list(LONG_CASES))
+def test_fused_attention_long_body_matches_plain_version(cuda_device, name, stream):
+    from shm_tpu_torch.ops.fused_attention import plan
+
+    weights_fn, gate, reference = _gate("attention")
+    vae, Z, kw = _gate_case("attention", LONG_CASES[name], cuda_device, len(name))
+    assert plan(Z.shape[1], vae.hidden_dim).body == "long"
+    w = weights_fn(vae)
+    before = (gate.launches, gate.long_launches, gate.stream_launches)
+    mse, resid = gate(w, Z, stream=stream, **kw)
+    torch.cuda.synchronize()
+    assert (gate.launches, gate.long_launches, gate.stream_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(stream))
+    mse_p, resid_p = reference(w, Z, stream=stream, **kw)
+    torch.testing.assert_close(mse, mse_p, atol=1e-4, rtol=1e-4)
+    if kw["with_residual"]:
+        torch.testing.assert_close(resid, resid_p, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T, H, L", [(100, 128, 2), (200, 64, 1)])
+def test_fused_attention_streaming_form_is_the_same_in_both_bodies(cuda_device, T, H, L, dtype):
+    """At a window the resident body takes, the long body's streaming form
+    gives its bits: each row-local step and each softmax row and P.V
+    element sums in the same order in both."""
+    from shm_tpu_torch.ops.fused_attention import _launch
+
+    weights_fn, gate, _ = _gate("attention")
+    vae, Z, kw = _gate_case("attention", (9, T, 5, 8, H, L, True, True),
+                            cuda_device, T)
+    w = weights_fn(vae, dtype)
+    kw = dict(kw, stream=True, dtype=dtype, io_dtype=None)
+    a = _launch(w, Z, body="resident", **kw)
+    b = _launch(w, Z, body="long", **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.cuda
@@ -420,6 +483,22 @@ def test_fused_attention_wrapper_counts_the_kernels_shared_memory(cuda_device, T
 
     assert (fused_attention._library().shm_fused_attention_smem_bytes(T, H)
             == fused_attention.shared_memory_bytes(T, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, H", [(137, 128), (512, 128), (209, 64), (269, 32)])
+def test_fused_attention_long_body_bytes_are_the_wrappers(cuda_device, T, H):
+    """The shared and device-memory bytes the wrapper plans for the long
+    body are those the built source computes for its launch."""
+    from shm_tpu_torch.ops import fused_attention
+
+    lib = fused_attention._library()
+    got = fused_attention.plan(T, H)
+    assert got.body == "long"
+    assert lib.shm_fused_attention_long_smem_bytes(H) == got.shared_bytes
+    assert lib.shm_fused_attention_slot_floats(T, H) == got.slot_floats
+    info = fused_attention.kernel_info(T, H)
+    assert info["shared_bytes"] == got.shared_bytes and info["blocks_per_sm"] >= 1
 
 
 # bytes of local memory (spills) a thread the attention kernel may use:

@@ -46,6 +46,7 @@ from shm_tpu_torch.ops import (
     mingru_params_to_kernel_weights, vae_params_to_kernel_weights,
 )
 from shm_tpu_torch.ops._gate import tf32_round
+from shm_tpu_torch.ops.fused_attention import attend, softmax_form
 from test_torch_mingru_gate_tf32 import emulated_gate as emulated_mingru_gate
 from test_torch_vae_gate_tf32 import _k_blocks, _truncate, emulated_gate
 
@@ -109,8 +110,9 @@ def emulated_attention_gate(weights, Z, *, num_layers, use_layernorm,
     after the product, the output projection head by head into the stream
     (its bias with the first head), the MLP's hidden layer in chunks of 128
     columns, each chunk's second product into the stream (its bias with the
-    first chunk). Scores, softmax, P.V, the norms and the heads stay in
-    float32, as in the kernel."""
+    first chunk). Scores, softmax (in the form the kernel takes by default:
+    streaming at T=200), P.V, the norms and the heads stay in float32, as in
+    the kernel."""
     N, T, D = Z.shape
     H = weights["mu_w"].shape[0]
     heads = H // HEAD_DIM
@@ -128,7 +130,7 @@ def emulated_attention_gate(weights, Z, *, num_layers, use_layernorm,
         nrm = flax_layer_norm(s, w[f"{p}_ln1_s"], w[f"{p}_ln1_b"], STACK_LN_EPS)
         qkv = (mm(nrm, f"{p}_wqkv") + w[f"{p}_bqkv"]).view(N, T, heads, 3, HEAD_DIM)
         q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
-        o = torch.softmax(q @ k.transpose(-1, -2), dim=-1) @ v  # [N, h, T, hd]
+        o = attend(q, k, v, softmax_form(None, T), lambda t: t)  # [N, h, T, hd]
         for h in range(heads):
             d = mm(o[:, h], f"{p}_wo", rows=slice(h * HEAD_DIM, (h + 1) * HEAD_DIM))
             s = s + (d + w[f"{p}_bo"] if h == 0 else d)
