@@ -292,13 +292,33 @@ Phases (any failure exits non-zero before the final line):
    ``reconstruction_mse`` at ``P19_LONG`` through the long body. The
    kernels line ends with ``fused_attention_gate/stream`` and
    ``fused_attention_gate/long``.
+20. rows 1 and 6's activation forms and row 1's transposed residual: each
+   instance's registers and spills; (a) each form of rows 1 and 6
+   (``sigmoid_impl`` / ``tanh_impl``) against its plain version at phase
+   2's shapes, float32 under phase 2's bar and bf16 with float32 and bf16
+   io under phase 17's, every launch moving its row's instance and form
+   counters alone, and where a form gap (plain against plain) passes the
+   bar, the kernel nearer its own plain form; (b) row 1's transposed
+   residual against its NHWC one permuted, and the mse, bit for bit at the
+   4DOF and openLAB shapes in every precision; (c) ``make_hybrid_fn(
+   fused_layout="transposed")`` on the LSTM root's 3,636 committed windows
+   in float32 and bf16: row 1 once in its transposed layout and nothing
+   else, gates those of the NHWC path, the confusion matrix within 2
+   windows of ``pipeline_metrics.json``; (d) the default forms' float32 mse
+   of the LSTM and minGRU roots bit for bit ``GATE_4DOF_MSE`` (made by the
+   tree before, ``--root-mse``); (e) CUDA-event times at 5,440 windows: the
+   hybrid in each layout, the CNN alone (cuDNN against the transposed
+   form, beside its bounds), row 1 in each layout, rows 1 and 6 in each
+   form. The kernels line ends with ``fused_vae_gate/forms``,
+   ``fused_vae_gate/transposed`` and ``fused_mingru_gate/forms``.
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
 run from a directory that does not hold the repository. Usage:
 ``python3 chip_smoke.py [--parent DIR]``; ``--child DIR OUT`` is the child
 mode ``--parent`` runs (``child``); ``--attention-mse DIR OUT`` writes the
-4DOF attention root's mse through the package at DIR (``attention_mse``).
+4DOF attention root's mse through the package at DIR, ``--root-mse DIR
+ROOT OUT`` that of another root (``root_mse``).
 """
 
 from __future__ import annotations
@@ -511,16 +531,18 @@ def phase_lstm_kernel(w, Z, mse_k, mse_p, T: int, D: int, H: int, L: int) -> dic
     counts = sass_counts("fused_vae", "fused_vae_")
     for fn, (hmma, ffma) in sorted(counts.items()):
         print(f"{tag} SASS {fn}: {hmma} HMMA, {ffma} FFMA")
-    # the shipping instances: fused_vae_tc_kernel<H, 2, TC_SPLIT = 1, float>;
-    # the bf16 instances: <H, 2, TC_BF16 = 3, float | bf16 bits (t)>
+    # the shipping instances: fused_vae_tc_kernel<H, 2, TC_SPLIT = 1, float,
+    # FORMS = false | true>; the bf16 instances: <H, 2, TC_BF16 = 3, float |
+    # bf16 bits (t), FORMS>
     ship = [fn for fn in counts if any(
-        f"fused_vae_tc_kernelILi{h_}ELi2ELi1EfEE" in fn for h_ in (32, 64, 128))]
-    check(len(ship) == 3 and all(counts[fn][0] > 0 for fn in ship),
+        f"fused_vae_tc_kernelILi{h_}ELi2ELi1EfLb{f}EE" in fn
+        for h_ in (32, 64, 128) for f in "01")]
+    check(len(ship) == 6 and all(counts[fn][0] > 0 for fn in ship),
           f"the shipping instances run no HMMA: {ship}")
     bf16 = [fn for fn in counts if any(
-        f"fused_vae_tc_kernelILi{h_}ELi2ELi3E{io}EE" in fn
-        for h_ in (32, 64, 128) for io in "ft")]
-    check(len(bf16) == 6 and all(counts[fn][0] > 0 for fn in bf16),
+        f"fused_vae_tc_kernelILi{h_}ELi2ELi3E{io}Lb{f}EE" in fn
+        for h_ in (32, 64, 128) for io in "ft" for f in "01")]
+    check(len(bf16) == 12 and all(counts[fn][0] > 0 for fn in bf16),
           f"the bf16 instances run no HMMA: {bf16}")
     dense = lstm_gate_flops(N, T, D, H, L)
     tc_ms = 3 * dense / PEAK_TF32_FLOPS * 1e3
@@ -582,16 +604,17 @@ def phase_mingru_kernel(w, Z, mse_k, mse_p, T: int, D: int, H: int, L: int,
     for fn, (hmma, ffma) in sorted(counts.items()):
         print(f"{tag} SASS {fn}: {hmma} HMMA, {ffma} FFMA")
     # the shipping instances: fused_mingru_tc_kernel<H, MT, TC, TC_SPLIT = 1,
-    # float>; the bf16 instances: <H, MT, TC, TC_BF16 = 3, float | bf16 bits>
+    # float, SIG_TANH = false | true>; the bf16 instances: <H, MT, TC,
+    # TC_BF16 = 3, float | bf16 bits, SIG_TANH>
     ship = [fn for fn in counts if any(
-        f"fused_mingru_tc_kernelILi{h_}ELi{mt}ELi{tc}ELi1EfEE" in fn
-        for h_ in (32, 64, 128))]
-    check(len(ship) == 3 and all(counts[fn][0] > 0 for fn in ship),
+        f"fused_mingru_tc_kernelILi{h_}ELi{mt}ELi{tc}ELi1EfLb{f}EE" in fn
+        for h_ in (32, 64, 128) for f in "01")]
+    check(len(ship) == 6 and all(counts[fn][0] > 0 for fn in ship),
           f"the shipping instances run no HMMA: {ship}")
     bf16 = [fn for fn in counts if any(
-        f"fused_mingru_tc_kernelILi{h_}ELi{mt}ELi{tc}ELi3E{io}EE" in fn
-        for h_ in (32, 64, 128) for io in "ft")]
-    check(len(bf16) == 6 and all(counts[fn][0] > 0 for fn in bf16),
+        f"fused_mingru_tc_kernelILi{h_}ELi{mt}ELi{tc}ELi3E{io}Lb{f}EE" in fn
+        for h_ in (32, 64, 128) for io in "ft" for f in "01")]
+    check(len(bf16) == 12 and all(counts[fn][0] > 0 for fn in bf16),
           f"the bf16 instances run no HMMA: {bf16}")
     dense = mingru_gate_flops(N, T, D, H, L)
     tc_ms = 3 * dense / PEAK_TF32_FLOPS * 1e3
@@ -5160,7 +5183,8 @@ def bf16_kernel_vs_plain(tag: str, cell: str, w, Z, kw: dict, io,
     dy = 0.0
     if kw.get("with_residual", True):
         want = io or torch.float32
-        check(r_k.dtype == r_p.dtype == want and r_k.shape == Z.shape,
+        shape = r_p.shape if kw.get("residual_layout") == "transposed" else Z.shape
+        check(r_k.dtype == r_p.dtype == want and r_k.shape == shape,
               f"{tag}: residual {r_k.dtype} {tuple(r_k.shape)}, want {want}")
         dy = float((r_k.double().sqrt() - r_p.double().sqrt()).abs().max())
     else:
@@ -6163,20 +6187,23 @@ def phase19_openlab() -> dict:
     return launches
 
 
-def attention_4dof_mse(W) -> np.ndarray:
-    """The float32 mse of ``W`` through data/4dof_attention's HybridScorer
-    of the importable package."""
+def root_4dof_mse(W, root: str) -> np.ndarray:
+    """The float32 mse of ``W`` through ``root``'s HybridScorer of the
+    importable package (its defaults: the root's gate kernel in float32,
+    the default forms)."""
     from shm_tpu_torch.serve import HybridScorer
 
-    sc = HybridScorer.from_artifacts(ROOT / "data/4dof_attention")
+    sc = HybridScorer.from_artifacts(ROOT / root)
     return np.ascontiguousarray(sc.score(W)["mse"], np.float32)
 
 
-def attention_mse(tree: str, out: str) -> int:
-    """``--attention-mse TREE OUT``: the 3,636 committed 4DOF test windows
-    (this checkout's data) through data/4dof_attention's HybridScorer of
-    the package at TREE, on the card; the mse saved to OUT with
-    ``np.save``. How ``ATTENTION_4DOF_MSE`` was made."""
+def root_mse(tree: str, root: str, out: str) -> int:
+    """``--root-mse TREE ROOT OUT``: the 3,636 committed 4DOF test windows
+    (this checkout's data) through ROOT's HybridScorer (a root of this
+    checkout) of the package at TREE, on the card; the mse saved to OUT
+    with ``np.save``. How ``GATE_4DOF_MSE`` was made; ``--attention-mse
+    TREE OUT`` is ROOT data/4dof_attention, how ``ATTENTION_4DOF_MSE`` was
+    made."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6188,11 +6215,11 @@ def attention_mse(tree: str, out: str) -> int:
     from shm_tpu_torch.tools.workload import load_trained_workload
 
     set_full_f32_precision()
-    mse = attention_4dof_mse(load_trained_workload(ROOT / "data" / "4dof").W)
+    mse = root_4dof_mse(load_trained_workload(ROOT / "data" / "4dof").W, root)
     np.save(out, mse)
-    print(f"[attention-mse] {Path(shm_tpu_torch.__file__).parent}: {len(mse)} "
-          f"windows, sha256 {hashlib.sha256(mse.tobytes()).hexdigest()}; "
-          f"{gpu_line()}")
+    print(f"[root-mse] {root} through {Path(shm_tpu_torch.__file__).parent}: "
+          f"{len(mse)} windows, sha256 "
+          f"{hashlib.sha256(mse.tobytes()).hexdigest()}; {gpu_line()}")
     return 0
 
 
@@ -6201,7 +6228,7 @@ def phase19_4dof(W) -> None:
     T=100: the resident body's packed form alone, its mse bit for bit the
     one the tree before the softmax forms gave (ATTENTION_4DOF_MSE)."""
     attention_counts(reset=True)
-    mse = attention_4dof_mse(W)
+    mse = root_4dof_mse(W, "data/4dof_attention")
     a = attention_counts()
     want = np.load(ROOT / ATTENTION_4DOF_MSE)
     same = mse.shape == want.shape and mse.tobytes() == want.tobytes()
@@ -6348,17 +6375,581 @@ def phase_attention_stream(W) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the activation forms of rows 1 and 6 (sigmoid_impl / tanh_impl)
+# and row 1's transposed residual with the batch-in-columns CNN
+# ---------------------------------------------------------------------------
+
+P20_FORMS = {  # cell: the forms, (sigmoid_impl, tanh_impl); the first the default
+    "lstm": (("exact", "exact"), ("tanh", "exact"), ("exact", "rational"),
+             ("tanh", "rational")),
+    "min_gru": (("exact", "exact"), ("tanh", "exact")),
+}
+P20_PRECISIONS = ("f32", "bf16", "bf16_io")
+# (b)'s shapes: name, N, T, D, Z, H, L, LN (the 4DOF and openLAB presets)
+P20_TRANSPOSED = (("4DOF", 1000, 100, 12, 16, 128, 2, True),
+                  ("openLAB", 300, 200, 3, 8, 64, 1, True))
+# (d): the 3,636 committed test windows' float32 mse through each root's
+# HybridScorer, made on the card by the tree before the forms and the
+# transposed residual existed: `git archive add5d7e shm_tpu_torch | tar -x
+# -C build/p23`, then `python3 chip_smoke.py --root-mse build/p23 ROOT OUT`
+GATE_4DOF_MSE = {"lstm": ("data/4dof", "tests/lstm_4dof_mse.npy"),
+                 "min_gru": ("data/4dof_mingru", "tests/mingru_4dof_mse.npy")}
+P20_COUNTERS = ("launches", "bf16_launches", "sigmoid_tanh_launches",
+                "tanh_rational_launches", "transposed_launches")
+P20_REPS = 7
+# launches of rows 1 and 6 in (a), by (row, form): p20_launch counts them
+P20_FORM_LAUNCHES: dict = {}
+
+
+def p20_precision(prec: str):
+    import torch
+
+    return {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
+            "bf16_io": (torch.bfloat16, torch.bfloat16)}[prec]
+
+
+def form_counts(reset: bool = False) -> dict:
+    """{"<row> <counter>": launches} of rows 1 and 6, every instance, form
+    and layout counter."""
+    from shm_tpu_torch.ops import fused_mingru_gate, fused_vae_gate
+
+    out = {}
+    for g in (fused_vae_gate, fused_mingru_gate):
+        for k in P20_COUNTERS:
+            if hasattr(g, k):
+                out[f"{g.__name__} {k}"] = getattr(g, k)
+                if reset:
+                    setattr(g, k, 0)
+    return out
+
+
+def p20_launch(call, cell: str, bf16: bool, form, transposed: bool = False):
+    """``call()``, which launches ``cell``'s gate once: the counters of
+    rows 1 and 6 must move for that row, instance, form and layout alone."""
+    from shm_tpu_torch.ops import FUSED_GATES
+
+    name = FUSED_GATES[cell][1].__name__
+    before = form_counts()
+    out = call()
+    got = {k: v - before[k] for k, v in form_counts().items()}
+    want = {k: 0 for k in got}
+    want[f"{name} {'bf16_launches' if bf16 else 'launches'}"] = 1
+    if form[0] == "tanh":
+        want[f"{name} sigmoid_tanh_launches"] = 1
+    if form[1] == "rational":
+        want[f"{name} tanh_rational_launches"] = 1
+    if transposed:
+        want[f"{name} transposed_launches"] = 1
+    check(got == want, f"the counters moved {got}, want {want}")
+    key = (name, "/".join(form))
+    P20_FORM_LAUNCHES[key] = P20_FORM_LAUNCHES.get(key, 0) + 1
+    return out
+
+
+def form_kw(cell: str, form) -> dict:
+    kw = dict(sigmoid_impl=form[0])
+    if cell == "lstm":
+        kw["tanh_impl"] = form[1]
+    return kw
+
+
+def mean_rel(a, b) -> float:
+    return float(((a.double() - b.double()).abs() / b.double().abs()).mean())
+
+
+def p20_forms() -> dict:
+    """(a) each form of rows 1 and 6 against its plain version at phase 2's
+    shapes (the minGRU's 3-layer case too), float32 under phase 2's bar and
+    bf16 with float32 and bf16 io under phase 17's (``bf16_kernel_vs_plain``),
+    every launch moving its form's counters alone; where a case's form gap
+    (one plain form against another) passes the bar, the kernel run in a
+    form must be nearer, in mean relative mse, to its own plain form than to
+    the other. Below the bar the counters and the bits carry the check:
+    wherever a non-default plain form gives other mse bits than the default
+    one on some window, so must the kernel in that form (in bf16 the
+    rounding of h and y often hides the form on the plain version too).
+    Returns {cell: {precision: max |mse diff|}} and the launches by
+    counter."""
+    import torch
+
+    from shm_tpu_torch.ops import FUSED_GATES
+
+    cases = [  # phase 2's: name, N, T, D, Z, H, L, LN, with_residual
+        ("4dof N=1000 (ragged tile)", 1000, 100, 12, 16, 128, 2, True, True),
+        ("openLAB 1-layer H=64 T=200 D=3", 300, 200, 3, 8, 64, 1, True, True),
+        ("1dof 2-layer H=32 T=80 no LN", 300, 80, 12, 5, 32, 2, False, True),
+        ("4dof with_residual=False", 333, 100, 12, 16, 128, 2, True, False),
+    ]
+    form_counts(reset=True)
+    P20_FORM_LAUNCHES.clear()
+    errs = {}
+    for cell, forms in P20_FORMS.items():
+        weights_fn, gate, reference = FUSED_GATES[cell]
+        errs[cell] = {p: 0.0 for p in P20_PRECISIONS}
+        extra = ([("3-layer H=64 T=60", 200, 60, 12, 16, 64, 3, True, True)]
+                 if cell == "min_gru" else [])
+        for i, (name, N, T, D, Zd, H, L, ln, wr) in enumerate(cases + extra):
+            vae, rng = random_vae(2000 + i, D, Zd, H, L, ln, cell)
+            ws = {False: weights_fn(vae), True: weights_fn(vae, torch.bfloat16)}
+            Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(np.float32)).cuda()
+            base = dict(num_layers=L, use_layernorm=ln, with_residual=wr)
+            for prec in P20_PRECISIONS:
+                dt, io = p20_precision(prec)
+                bf16 = dt == torch.bfloat16
+                kern, plain = {}, {}
+                for form in forms:
+                    kw = dict(base, dtype=dt, io_dtype=io, **form_kw(cell, form))
+                    tag = f"{cell} {name} {prec} {'/'.join(form)}"
+                    if bf16:
+                        errs[cell][prec] = max(errs[cell][prec], p20_launch(
+                            lambda: bf16_kernel_vs_plain(tag, cell, ws[True], Z,
+                                                         kw, io),
+                            cell, True, form))
+                    kern[form] = p20_launch(lambda: gate(ws[bf16], Z, **kw),
+                                            cell, bf16, form)
+                    torch.cuda.synchronize()
+                    plain[form] = reference(ws[bf16], Z, **kw)
+                    if not bf16:
+                        print(f"[phase20] {tag}: N={N} T={T} D={D} H={H} L={L}")
+                        err = compare("mse", kern[form][0], plain[form][0])
+                        if wr:
+                            err = max(err, compare("resid", kern[form][1],
+                                                   plain[form][1]))
+                        errs[cell][prec] = max(errs[cell][prec], err)
+                # a launch that ignored its form gives the default's bits
+                for form in forms[1:]:
+                    n_k, n_p = (int((d[form][0] != d[forms[0]][0]).sum())
+                                for d in (kern, plain))
+                    print(f"[phase20]   {cell} {name} {prec}: windows whose mse "
+                          f"in {'/'.join(form)} has other bits than in "
+                          f"{'/'.join(forms[0])}: kernel {n_k}, plain {n_p} "
+                          f"of {N}")
+                    check(n_k > 0 or n_p == 0, f"{cell} {name} {prec}: the "
+                          f"kernel in {form} gives the default form's mse bit "
+                          f"for bit, where the plain forms differ")
+                # the form control, where a form gap passes the bar
+                tmean = BF16_GATE_TOL[cell][1]
+                for a in forms:
+                    for b in forms:
+                        if a == b:
+                            continue
+                        pa, pb = plain[a][0], plain[b][0]
+                        if bf16:
+                            gap, bar = mean_rel(pb, pa), tmean
+                        else:
+                            gap = float(((pb - pa).abs() - RTOL * pa.abs()).max())
+                            bar = ATOL
+                        near = (mean_rel(kern[a][0], pa), mean_rel(kern[a][0], pb))
+                        line = (f"[phase20]   {cell} {name} {prec}: form gap "
+                                f"{'/'.join(b)} from {'/'.join(a)} {gap:.3e} "
+                                f"(bar {bar:g})")
+                        if gap <= bar:
+                            print(line + ": under the bar, the counters and "
+                                         "the bits above carry the check")
+                            continue
+                        print(line + f"; the kernel in {'/'.join(a)} {near[0]:.3e} "
+                                     f"from its plain form, {near[1]:.3e} from "
+                                     f"{'/'.join(b)}'s")
+                        check(near[0] < near[1], f"{cell} {name} {prec}: the "
+                              f"kernel in {a} is nearer the plain form {b}")
+            del Z
+    counts = dict(P20_FORM_LAUNCHES)
+    print(f"[phase20] (a) launches by row and form: {counts}; counters "
+          f"{form_counts()}")
+    return errs, counts
+
+
+def p20_transposed() -> dict:
+    """(b) row 1's transposed residual against its NHWC one, bit for bit (the
+    mse too), and against the plain transposed version on the same inputs
+    (float32 under phase 2's bar, bf16 under phase 17's), at the 4DOF and
+    openLAB shapes, in every precision, in the default forms and in the
+    tanh-form sigmoid with the rational tanh. Returns {precision: max |diff|
+    against the plain version}: mse and residual in float32, mse in bf16."""
+    import torch
+
+    from shm_tpu_torch.ops import (fused_vae_gate, fused_vae_gate_reference,
+                                   vae_params_to_kernel_weights)
+    from shm_tpu_torch.ops.fused_vae import padded_features
+
+    errs = {p: 0.0 for p in P20_PRECISIONS}
+    for i, (name, N, T, D, Zd, H, L, ln) in enumerate(P20_TRANSPOSED):
+        vae, rng = random_vae(2100 + i, D, Zd, H, L, ln)
+        Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(np.float32)).cuda()
+        for prec in P20_PRECISIONS:
+            dt, io = p20_precision(prec)
+            bf16 = dt == torch.bfloat16
+            w = vae_params_to_kernel_weights(vae, dt)
+            for form in (("exact", "exact"), ("tanh", "rational")):
+                kw = dict(num_layers=L, use_layernorm=ln, dtype=dt, io_dtype=io,
+                          sigmoid_impl=form[0], tanh_impl=form[1])
+                tkw = dict(kw, residual_layout="transposed")
+                tag = f"{name} {prec} {'/'.join(form)} transposed"
+                mse, r = p20_launch(lambda: fused_vae_gate(w, Z, **kw), "lstm",
+                                    bf16, form)
+                mse_t, r_t = p20_launch(lambda: fused_vae_gate(w, Z, **tkw),
+                                        "lstm", bf16, form, True)
+                same = (torch.equal(mse_t, mse) and r_t.shape == (T, padded_features(D), N)
+                        and torch.equal(r_t[:, :D], r.permute(1, 2, 0))
+                        and not bool(r_t[:, D:].any()))
+                print(f"[phase20] (b) {name} N={N} T={T} D={D} H={H} L={L} {prec} "
+                      f"{'/'.join(form)}: transposed residual {tuple(r_t.shape)} "
+                      f"{r_t.dtype} against the NHWC one permuted and the mse: "
+                      f"{'bit for bit' if same else 'DIFFERENT'}")
+                check(same, f"{name} {prec} {form}: the transposed residual or "
+                            f"its mse differs from the NHWC call's")
+                if bf16:
+                    err = p20_launch(lambda: bf16_kernel_vs_plain(
+                        tag, "lstm", w, Z, tkw, io), "lstm", True, form, True)
+                else:
+                    torch.cuda.synchronize()
+                    mse_p, r_p = fused_vae_gate_reference(w, Z, **tkw)
+                    err = max(compare(f"{tag} mse", mse_t, mse_p),
+                              compare(f"{tag} resid", r_t, r_p))
+                errs[prec] = max(errs[prec], err)
+        del Z
+        torch.cuda.empty_cache()
+    return errs
+
+
+def p20_hybrid(wl) -> dict:
+    """(c) the LSTM root's 3,636 committed test windows through
+    ``make_hybrid_fn(use_fused_vae=True, fused_layout="transposed")`` in
+    float32 and with ``fused_dtype=bf16``, every count at 0 just before each
+    run: row 1 launched once in its transposed layout and nothing else; the
+    gates those of the NHWC path of the same ``fused_dtype`` (whose CNN runs
+    in the same precision), ``y_pred`` agreement printed, the confusion
+    matrix within ``FAMILIES["lstm"]["cm_limit"]`` windows of
+    ``pipeline_metrics.json``. Returns the launches by precision."""
+    import copy
+
+    import torch
+
+    from shm_tpu_torch.evals import confusion_matrix
+    from shm_tpu_torch.pipeline import make_hybrid_fn
+    from shm_tpu_torch.utils.io import load_json
+
+    ref = load_json(ROOT / "data/4dof/figures/pipeline_metrics.json")
+    cm_ref = np.asarray(ref["confusion_matrix_counts"])
+    vae, W = wl.vae.cuda(), torch.from_numpy(wl.W).cuda()
+    mean, std = (torch.as_tensor(a).cuda() for a in (wl.mean, wl.std))
+    thr = torch.tensor(wl.threshold, dtype=torch.float32).cuda()
+    launches = {}
+    for prec in ("f32", "bf16"):
+        dt = p20_precision(prec)[0]
+        cnn = copy.deepcopy(wl.cnn).cuda()
+        cnn.dtype = dt                      # the NHWC path's CNN in dt too
+        nhwc = make_hybrid_fn(vae, cnn, use_fused_vae=True, fused_dtype=dt)(
+            W, mean, std, thr)
+        fn = make_hybrid_fn(vae, cnn, use_fused_vae=True, fused_dtype=dt,
+                            fused_layout="transposed")
+        form_counts(reset=True)
+        bf16_counts(reset=True)
+        reset_lstm_launch_counts()
+        out = fn(W, mean, std, thr)
+        torch.cuda.synchronize()
+        counts = form_counts()
+        others = {k: v for k, v in bf16_counts().items()
+                  if not k.startswith("fused_vae_gate")}
+        others.update({f"{k} ({p})": v for p in (False, True)
+                       for k, v in lstm_launch_counts(p).items()})
+        launches[prec] = counts
+        row1 = f"fused_vae_gate {'bf16_launches' if prec == 'bf16' else 'launches'}"
+        want = {k: int(k in (row1, "fused_vae_gate transposed_launches"))
+                for k in counts}
+        y_pred = out.y_pred.cpu().numpy()
+        gates = int((out.anomalous != nhwc.anomalous).sum())
+        agree = float((out.y_pred == nhwc.y_pred).float().mean())
+        cm = confusion_matrix(wl.y, y_pred, 3)
+        moved = int(np.abs(cm - cm_ref).sum()) // 2
+        ok_out = (bool(torch.isfinite(out.mse).all()) and bool(torch.isfinite(
+            out.logits).all()) and out.logits.shape == (len(W), 2))
+        print(f"[phase20] (c) make_hybrid_fn(fused_layout='transposed', "
+              f"fused_dtype={dt}) on {len(W)} windows: counters {counts}; "
+              f"other kernels {others}; gates differing from the NHWC path "
+              f"{gates}; y_pred agreement {agree:.6f}; confusion matrix "
+              f"{cm.tolist()} (committed {cm_ref.tolist()}), {moved} windows "
+              f"moved (limit {FAMILIES['lstm']['cm_limit']})")
+        check(counts == want and not any(others.values()),
+              f"{prec}: the transposed hybrid launched {counts}, {others}")
+        check(ok_out and gates == 0, f"{prec}: the transposed hybrid's gates "
+                                     f"differ from the NHWC path's")
+        check(moved <= FAMILIES["lstm"]["cm_limit"],
+              f"{prec}: the transposed hybrid's confusion matrix is off by {moved}")
+    return launches
+
+
+def p20_default_bits(W) -> None:
+    """(d) the default forms' float32 mse of the LSTM and minGRU roots on the
+    3,636 committed windows, bit for bit ``GATE_4DOF_MSE``."""
+    for cell, (root, ref) in GATE_4DOF_MSE.items():
+        mse = root_4dof_mse(W, root)
+        want = np.load(ROOT / ref)
+        same = mse.shape == want.shape and mse.tobytes() == want.tobytes()
+        print(f"[phase20] (d) {root} HybridScorer on {len(W)} windows: mse sha256 "
+              f"{hashlib.sha256(mse.tobytes()).hexdigest()}, {ref} "
+              f"{hashlib.sha256(want.tobytes()).hexdigest()}: "
+              f"{'bit for bit' if same else 'DIFFERENT'}")
+        check(same, f"{root}: the default float32 mse differs from {ref}")
+
+
+def cnn4dof_work(N: int, T: int = 100, D: int = 12):
+    """(FLOPs, patch bytes) of ``cnn4dof_apply_transposed`` on N windows:
+    the two convolutions' and two dense layers' products, and its float32
+    patch buffers written once and read once."""
+    t2, d2 = T // 2, D // 2
+    flops = 2 * (16 * 18 * T * D + 32 * 144 * t2 * d2
+                 + 128 * 32 * (T // 4) * (D // 4) + 2 * 128)
+    patches = 4 * (18 * T * D + 144 * t2 * d2)
+    return float(N * flops), float(2 * N * patches)
+
+
+def p20_timing(wl) -> dict:
+    """(e) CUDA-event times at N_BENCH windows (the committed test windows
+    tiled): the hybrid in each layout, float32 and bf16; the CNN alone,
+    CNN4DOF on cuDNN against ``cnn4dof_apply_transposed``, beside its bounds;
+    row 1 with its residual in each layout; rows 1 and 6 in each form,
+    float32 and bf16, each beside its plain version and a library
+    composition. Returns the numbers."""
+    import copy
+
+    import torch
+
+    from shm_tpu_torch.data.windows import normalize_windows
+    from shm_tpu_torch.models.cnn import cnn4dof_apply_transposed
+    from shm_tpu_torch.ops import FUSED_GATES
+    from shm_tpu_torch.ops.fused_vae import padded_features, transposed_residual
+    from shm_tpu_torch.pipeline import make_hybrid_fn
+    from shm_tpu_torch.serve import HybridScorer
+    from shm_tpu_torch.tools.workload import (
+        PEAK_BYTES, PEAK_F32_FLOPS, PEAK_TF32_FLOPS, bound_ms,
+    )
+
+    N = N_BENCH
+    Wn = np.resize(wl.W, (N,) + wl.W.shape[1:]).astype(np.float32)
+    W = torch.from_numpy(Wn).cuda()
+    vae = wl.vae.cuda()
+    mean, std = (torch.as_tensor(a).cuda() for a in (wl.mean, wl.std))
+    thr = torch.tensor(wl.threshold, dtype=torch.float32).cuda()
+    Z = normalize_windows(W, mean, std).contiguous()
+    _, T, D = Z.shape
+    nums = {"windows": N}
+    ms = lambda fn: time_ms(fn, P20_REPS)
+    for prec in ("f32", "bf16"):
+        dt = p20_precision(prec)[0]
+        cnn = copy.deepcopy(wl.cnn).cuda()
+        cnn.dtype = dt
+        for layout in ("nhwc", "transposed"):
+            fn = make_hybrid_fn(vae, cnn, use_fused_vae=True, fused_dtype=dt,
+                                fused_layout=layout)
+            nums[f"hybrid {layout} {prec}"] = ms(lambda: fn(W, mean, std, thr))
+        # the CNN alone on the gate's own residual
+        w = FUSED_GATES["lstm"][0](vae, dt)
+        _, r = FUSED_GATES["lstm"][1](w, Z, num_layers=vae.num_layers,
+                                      use_layernorm=vae.use_layernorm, dtype=dt)
+        xin = torch.stack([Z, r], dim=-1)
+        Zt = torch.nn.functional.pad(Z, (0, padded_features(D) - D)).permute(1, 2, 0)
+        Rt = transposed_residual(r)
+        with torch.inference_mode():
+            nums[f"cnn cudnn {prec}"] = ms(lambda: cnn(xin))
+            nums[f"cnn transposed {prec}"] = ms(
+                lambda: cnn4dof_apply_transposed(cnn, Zt, Rt, d_real=D, dtype=dt))
+    flops, patch_bytes = cnn4dof_work(N, T, D)
+    nums["cnn flops"], nums["cnn patch bytes"] = flops, patch_bytes
+    nums["cnn bound_ms"] = flops / PEAK_F32_FLOPS * 1e3
+    nums["cnn patch_ms"] = patch_bytes / PEAK_BYTES * 1e3
+    print(f"[phase20] (e) at {N} windows (CUDA events, median of {P20_REPS}): "
+          f"hybrid NHWC {nums['hybrid nhwc f32']:.3f} / transposed "
+          f"{nums['hybrid transposed f32']:.3f} ms float32, NHWC "
+          f"{nums['hybrid nhwc bf16']:.3f} / transposed "
+          f"{nums['hybrid transposed bf16']:.3f} ms bf16; the CNN alone: "
+          f"cuDNN {nums['cnn cudnn f32']:.3f} / transposed "
+          f"{nums['cnn transposed f32']:.3f} ms float32, cuDNN "
+          f"{nums['cnn cudnn bf16']:.3f} / transposed "
+          f"{nums['cnn transposed bf16']:.3f} ms bf16; bounds {flops / 1e9:.2f} "
+          f"GFLOP at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s {nums['cnn bound_ms']:.3f} "
+          f"ms, the transposed form's {patch_bytes / 1e9:.2f} GB of float32 "
+          f"patches at {PEAK_BYTES / 1e12:g} TB/s {nums['cnn patch_ms']:.3f} ms; "
+          f"{gpu_line()}")
+
+    rows = {}
+    roots = {"lstm": "data/4dof", "min_gru": "data/4dof_mingru"}
+    for cell, root in roots.items():
+        weights_fn, gate, reference = FUSED_GATES[cell]
+        v = HybridScorer.from_artifacts(ROOT / root).vae if cell != "lstm" else vae
+        kw = dict(num_layers=v.num_layers, use_layernorm=v.use_layernorm)
+        lib = LIBRARY_PASS[cell](v)
+        H, Zd, L = v.hidden_dim, v.latent_dim, v.num_layers
+        work = (vae_work if cell == "lstm" else mingru_work)(N, T, D, H, Zd, L)
+        row = dict(library_ms=ms(lambda: lib(Z)), form_ms={}, form_plain_ms={})
+        row["bound_ms"], row["bound_by"] = bound_ms(*work, PEAK_F32_FLOPS)
+        # the gate products run in 3xTF32 on the tensor cores, as phase 2's
+        dense = (lstm_gate_flops if cell == "lstm" else mingru_gate_flops)(
+            N, T, D, H, L)
+        row["bound_3xtf32_ms"] = 3 * dense / PEAK_TF32_FLOPS * 1e3
+        for prec in ("f32", "bf16"):
+            dt = p20_precision(prec)[0]
+            w = weights_fn(v, dt)
+            mse = {}
+            for form in P20_FORMS[cell]:
+                fk = dict(kw, dtype=dt, **form_kw(cell, form))
+                key = f"{prec} {'/'.join(form)}"
+                row["form_ms"][key] = ms(lambda: gate(w, Z, **fk))
+                row["form_plain_ms"][key] = ms(lambda: reference(w, Z, **fk))
+                mse[form] = (gate(w, Z, **fk)[0], reference(w, Z, **fk)[0])
+            # the kernel's bits move with its form where the plain version's do
+            d0 = P20_FORMS[cell][0]
+            for form in P20_FORMS[cell][1:]:
+                n_k, n_p = (int((mse[form][i] != mse[d0][i]).sum()) for i in (0, 1))
+                print(f"[phase20] (e) {gate.__name__} {prec} at {N} windows: "
+                      f"windows whose mse in {'/'.join(form)} has other bits "
+                      f"than in {'/'.join(d0)}: kernel {n_k}, plain {n_p}")
+                check(n_k > 0 or n_p == 0, f"{gate.__name__} {prec} {form} at "
+                      f"{N}: the default form's mse bit for bit")
+        rows[cell] = row
+        print(f"[phase20] (e) {gate.__name__} ({root}) at {N} windows by form "
+              f"(sigmoid/tanh): " + ", ".join(
+                  f"{k} {t:.3f} ms (plain {row['form_plain_ms'][k]:.3f})"
+                  for k, t in row["form_ms"].items())
+              + f"; {FAMILIES[cell]['library']} {row['library_ms']:.3f} ms; "
+                f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}), 3xTF32 "
+                f"tensor-core bound {row['bound_3xtf32_ms']:.3f} ms; {gpu_line()}")
+    # row 1 with its residual in each layout, float32, and its library
+    # composition with the residual transposed
+    weights_fn, gate, reference = FUSED_GATES["lstm"]
+    w = weights_fn(vae)
+    kw = dict(num_layers=vae.num_layers, use_layernorm=vae.use_layernorm)
+    cudnn = LIBRARY_PASS["lstm"](vae)
+    tr = dict(layout_ms={}, layout_plain_ms={})
+    for layout in ("nhwc", "transposed"):
+        tr["layout_ms"][layout] = ms(lambda: gate(w, Z, residual_layout=layout, **kw))
+        tr["layout_plain_ms"][layout] = ms(lambda: reference(
+            w, Z, residual_layout=layout, **kw))
+    tr["library_ms"] = ms(lambda: transposed_residual(cudnn(Z)[1]))
+    flops, nbytes = vae_work(N, T, D, vae.hidden_dim, vae.latent_dim,
+                             vae.num_layers)
+    nbytes += 4.0 * N * T * (padded_features(D) - D)     # the zero rows
+    tr["bound_ms"], tr["bound_by"] = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+    tr["bound_3xtf32_ms"] = rows["lstm"]["bound_3xtf32_ms"]
+    rows["transposed"] = tr
+    print(f"[phase20] (e) fused_vae_gate with its residual at {N} windows, "
+          f"float32: NHWC {tr['layout_ms']['nhwc']:.3f} ms (plain "
+          f"{tr['layout_plain_ms']['nhwc']:.3f}), transposed "
+          f"{tr['layout_ms']['transposed']:.3f} ms (plain "
+          f"{tr['layout_plain_ms']['transposed']:.3f}); cuDNN nn.LSTM with the "
+          f"residual transposed {tr['library_ms']:.3f} ms; bound "
+          f"{tr['bound_ms']:.3f} ms ({tr['bound_by']}), 3xTF32 tensor-core "
+          f"bound {tr['bound_3xtf32_ms']:.3f} ms; {gpu_line()}")
+    nums["rows"] = rows
+    return nums
+
+
+def phase_forms_transposed(wl) -> list:
+    """Phase 20: rows 1 and 6's activation forms and row 1's transposed
+    residual with the batch-in-columns CNN. Returns their rows of the
+    kernels line."""
+    import torch
+
+    from shm_tpu_torch.ops.fused_mingru import kernel_info as mingru_info
+    from shm_tpu_torch.ops.fused_vae import kernel_info as vae_info
+
+    print(f"[phase20] {gpu_line()}")
+    t_phase = time.perf_counter()
+    for H in (32, 64, 128):
+        for prec in P20_PRECISIONS:
+            dt, io = p20_precision(prec)
+            for form in P20_FORMS["lstm"][::3]:
+                i = vae_info(100, H, 2, dtype=dt, io_dtype=io,
+                             sigmoid_impl=form[0], tanh_impl=form[1])
+                print(f"[phase20] fused_vae_gate H={H} {prec} "
+                      f"{'default' if form[0] == 'exact' else 'forms'} instance: "
+                      f"{i['registers']} registers, {i['spill_bytes']} B of "
+                      f"spills a thread, {i['blocks_per_sm']} block(s) an SM")
+            for form in P20_FORMS["min_gru"]:
+                i = mingru_info(100, H, 2, dtype=dt, io_dtype=io,
+                                sigmoid_impl=form[0])
+                print(f"[phase20] fused_mingru_gate H={H} {prec} sigmoid "
+                      f"{form[0]} instance: {i['registers']} registers, "
+                      f"{i['spill_bytes']} B of spills a thread, "
+                      f"{i['blocks_per_sm']} block(s) an SM")
+    errs, a_counts = p20_forms()
+    torch.cuda.empty_cache()
+    t_errs = p20_transposed()
+    hybrid_launches = p20_hybrid(wl)
+    torch.cuda.empty_cache()
+    p20_default_bits(wl.W)
+    nums = p20_timing(wl)
+    rows = nums.pop("rows")
+    torch.cuda.empty_cache()
+    sel = lambda d, k: {n.split(" ", 1)[1]: v for n, v in d.items()
+                        if n.startswith(k + " ")}
+    # (a)'s launches of a row by form, and of its non-default forms in all
+    by_form = lambda k: {f: n for (g, f), n in a_counts.items() if g == k}
+    others = lambda k: sum(n for f, n in by_form(k).items() if f != "exact/exact")
+    lstm, mingru, tr = rows["lstm"], rows["min_gru"], rows["transposed"]
+    out = [
+        dict(name="fused_vae_gate/forms", route="cuda",
+             source="shm_tpu_torch/ops/csrc/fused_vae.cu",
+             replaces="shm_tpu/ops/fused_vae.py:125",
+             launches=others("fused_vae_gate"), max_abs_err=errs["lstm"]["f32"],
+             max_abs_err_bf16=max(errs["lstm"]["bf16"], errs["lstm"]["bf16_io"]),
+             ms=lstm["form_ms"]["f32 tanh/exact"],
+             plain_ms=lstm["form_plain_ms"]["f32 tanh/exact"],
+             bound_ms=lstm["bound_ms"], bound_by=lstm["bound_by"],
+             bound_3xtf32_ms=lstm["bound_3xtf32_ms"],
+             library_ms=lstm["library_ms"], form_ms=lstm["form_ms"],
+             form_plain_ms=lstm["form_plain_ms"],
+             form_launches=by_form("fused_vae_gate")),
+        dict(name="fused_vae_gate/transposed", route="cuda",
+             source="shm_tpu_torch/ops/csrc/fused_vae.cu",
+             replaces="shm_tpu/ops/fused_vae.py:402",
+             launches=hybrid_launches["f32"]["fused_vae_gate transposed_launches"],
+             max_abs_err=t_errs["f32"],
+             max_abs_err_bf16=max(t_errs["bf16"], t_errs["bf16_io"]),
+             ms=tr["layout_ms"]["transposed"],
+             plain_ms=tr["layout_plain_ms"]["transposed"],
+             bound_ms=tr["bound_ms"], bound_by=tr["bound_by"],
+             bound_3xtf32_ms=tr["bound_3xtf32_ms"],
+             library_ms=tr["library_ms"], nhwc_ms=tr["layout_ms"]["nhwc"],
+             hybrid_launches={p: sel(c, "fused_vae_gate")
+                              for p, c in hybrid_launches.items()},
+             hybrid_ms={k[7:]: v for k, v in nums.items()
+                        if k.startswith("hybrid ")},
+             cnn_ms={k[4:]: v for k, v in nums.items()
+                     if k.startswith("cnn ") and k.endswith(("f32", "bf16"))},
+             cnn_bound_ms=nums["cnn bound_ms"], cnn_patch_ms=nums["cnn patch_ms"]),
+        dict(name="fused_mingru_gate/forms", route="cuda",
+             source="shm_tpu_torch/ops/csrc/fused_mingru.cu",
+             replaces="shm_tpu/ops/fused_mingru.py:69",
+             launches=others("fused_mingru_gate"),
+             max_abs_err=errs["min_gru"]["f32"],
+             max_abs_err_bf16=max(errs["min_gru"]["bf16"], errs["min_gru"]["bf16_io"]),
+             ms=mingru["form_ms"]["f32 tanh/exact"],
+             plain_ms=mingru["form_plain_ms"]["f32 tanh/exact"],
+             bound_ms=mingru["bound_ms"], bound_by=mingru["bound_by"],
+             bound_3xtf32_ms=mingru["bound_3xtf32_ms"],
+             library_ms=mingru["library_ms"], form_ms=mingru["form_ms"],
+             form_plain_ms=mingru["form_plain_ms"],
+             form_launches=by_form("fused_mingru_gate")),
+    ]
+    print(f"[phase20] phase 20 {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[2])
     if argv[:1] == ["--attention-mse"] and len(argv) == 3:
-        return attention_mse(argv[1], argv[2])
+        return root_mse(argv[1], "data/4dof_attention", argv[2])
+    if argv[:1] == ["--root-mse"] and len(argv) == 4:
+        return root_mse(*argv[1:])
     parent = None
     if argv[:1] == ["--parent"]:
         parent = str(Path(argv[1]).resolve())
     elif argv:
-        print("usage: chip_smoke.py [--parent DIR | --attention-mse DIR OUT]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--parent DIR | --attention-mse DIR OUT | "
+              "--root-mse DIR ROOT OUT]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -6439,6 +7030,8 @@ def main(argv) -> int:
         bf16_rows += phase_bf16_training()
         torch.cuda.empty_cache()
         stream_rows = phase_attention_stream(W)
+        torch.cuda.empty_cache()
+        form_rows = phase_forms_transposed(wl)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6467,6 +7060,10 @@ def main(argv) -> int:
     # root's float32 scorer's) and its long body (`reconstruction_mse` at
     # T=512's)
     kernels += stream_rows
+    # rows 1 and 6's activation forms (phase 20: `launches` (a)'s launches
+    # of the non-default forms, by form in `form_launches`) and row 1's
+    # transposed residual (`launches` the float32 transposed hybrid's)
+    kernels += form_rows
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -186,6 +186,66 @@ def forward_shards(models, xs, dropout_masks=None):
     return [m.head(h, k) for m, h, k in zip(models, hs, masks)]
 
 
+def cnn4dof_apply_transposed(cnn: CNN4DOF, Zt: torch.Tensor, Rt: torch.Tensor,
+                             *, d_real: int = 12,
+                             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """CNN4DOF inference in the LSTM gate's transposed layout, the arithmetic
+    of ``shm_tpu/models/cnn.py::cnn4dof_apply_transposed`` (:205-298) on
+    ``cnn``'s parameters and running statistics (eval mode).
+
+    ``Zt`` and ``Rt`` are [T, Dp, N] (the windows and
+    ``fused_vae_gate(..., residual_layout="transposed")``'s residual); the
+    first ``d_real`` rows are read. Every activation is [c, t, d, N], the
+    batch last. Each convolution stacks the shifted slices of its padded
+    input (i, j)-major and cin-minor and runs one product [cout, 9 cin] x
+    [9 cin, t d N] in ``dtype`` with its bias added in ``dtype``;
+    BatchNorm is ``x * scale + shift`` in float32 from the running
+    statistics, cast back to ``dtype``; then ReLU and the 2x2 max pool. fc1
+    reads the (c, t, d) flatten, which is already the order of this port's
+    fc1 columns (no permutation, where JAX permutes its (t, d, c) rows), then
+    ReLU and fc2, each in ``dtype``. Returns float32 logits [N, ncls]. The
+    products are ``torch.matmul``: the JAX package leaves this CNN to XLA.
+    ``cnn.dtype`` is not read; ``dtype`` is the whole computation's."""
+    if cnn.training:
+        raise ValueError("cnn4dof_apply_transposed is inference: call "
+                         "cnn.eval() first")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"cnn4dof_apply_transposed computes in float32 or "
+                         f"bfloat16, got {dtype}")
+    cast = lambda t: t.detach().to(dtype)
+
+    def conv(x, layer):
+        """[cin, t, d, N] -> [cout, t, d, N]: the shifted-slice product."""
+        cin, t, d, n = x.shape
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1))               # SAME for 3x3
+        patches = torch.stack([xp[:, i:i + t, j:j + d]
+                               for i in range(3) for j in range(3)])
+        w = cast(layer.weight).permute(0, 2, 3, 1).reshape(layer.out_channels, -1)
+        out = w @ patches.reshape(9 * cin, t * d * n)
+        return out.reshape(-1, t, d, n) + cast(layer.bias)[:, None, None, None]
+
+    def bn(x, b):
+        s, m = b.weight.detach().float(), b.running_mean.float()
+        rs = torch.rsqrt(b.running_var.float() + b.eps)
+        scale = (s * rs)[:, None, None, None]
+        shift = (b.bias.detach().float() - m * s * rs)[:, None, None, None]
+        return (x.float() * scale + shift).to(dtype)
+
+    def pool(x):
+        c, t, d, n = x.shape
+        return x.reshape(c, t // 2, 2, d // 2, 2, n).amax(dim=(2, 4))
+
+    x = torch.stack([Zt[:, :d_real].to(dtype), Rt[:, :d_real].to(dtype)])
+    for conv_name, bn_name in CNN4DOF.STAGES:
+        x = pool(F.relu(bn(conv(x, getattr(cnn, conv_name)),
+                           getattr(cnn, bn_name))))
+    c, t, d, n = x.shape
+    h = F.relu(cast(cnn.fc1.weight) @ x.reshape(c * t * d, n)
+               + cast(cnn.fc1.bias)[:, None])
+    logits = cast(cnn.fc2.weight) @ h + cast(cnn.fc2.bias)[:, None]
+    return logits.t().float()
+
+
 def stack_vae_residual_nhwc(Z: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:
     """2-channel CNN input [Z, (Z - Z_hat)^2] as NHWC (B, T, D, 2)."""
     return torch.stack([Z, (Z - recon) ** 2], dim=-1)
@@ -272,4 +332,5 @@ class CNNOpenLab(nn.Module):
 
 
 __all__ = ["CNN4DOF", "CNNOpenLab", "FlaxBatchNorm2d", "batch_norm_shards",
-           "forward_shards", "stack_vae_residual_nhwc"]
+           "cnn4dof_apply_transposed", "forward_shards",
+           "stack_vae_residual_nhwc"]

@@ -49,6 +49,43 @@ def gate_dtypes(Z: torch.Tensor, dtype, io_dtype) -> Tuple[bool, torch.dtype]:
     return dtype == torch.bfloat16, io
 
 
+SIGMOID_IMPLS = ("tanh", "exact")
+TANH_IMPLS = ("exact", "rational")
+# the R(7,6) rational fit of tanh on [-7, 7] of shm_tpu/ops/fused_vae.py:97-98
+# (odd numerator, even denominator; max |err| 9.7e-7 with the input clamp)
+TANH_P = (0.999996935, 0.123091227, 2.28254070e-3, 3.95225241e-6)
+TANH_Q = (0.456412385, 2.10997819e-2, 1.42908691e-4)
+
+
+def tanh_rational(x: torch.Tensor) -> torch.Tensor:
+    """tanh as the clamped R(7,6) rational, the JAX kernels' ``tanh_impl=
+    "rational"``: x clamped to +-7, both polynomials by Horner in that
+    order, one division."""
+    x = x.clamp(-7.0, 7.0)
+    x2 = x * x
+    p = x * (TANH_P[0] + x2 * (TANH_P[1] + x2 * (TANH_P[2] + x2 * TANH_P[3])))
+    q = 1.0 + x2 * (TANH_Q[0] + x2 * (TANH_Q[1] + x2 * TANH_Q[2]))
+    return p / q
+
+
+def activations(sigmoid_impl: str = "exact", tanh_impl: str = "exact"):
+    """``(sigmoid, tanh)`` of a gate's forms, the JAX kernels' names:
+    ``sigmoid_impl`` "exact" is the logistic ``1 / (1 + exp(-x))``, "tanh"
+    is ``0.5 * (tanh(0.5 x) + 1)`` through the chosen tanh; ``tanh_impl``
+    "exact" is ``torch.tanh``, "rational" :func:`tanh_rational`. Anything
+    else raises ``ValueError``."""
+    if sigmoid_impl not in SIGMOID_IMPLS:
+        raise ValueError(f"unknown sigmoid_impl {sigmoid_impl!r} "
+                         "(expected 'tanh' or 'exact')")
+    if tanh_impl not in TANH_IMPLS:
+        raise ValueError(f"unknown tanh_impl {tanh_impl!r} "
+                         "(expected 'exact' or 'rational')")
+    tanh = tanh_rational if tanh_impl == "rational" else torch.tanh
+    if sigmoid_impl == "tanh":
+        return (lambda x: 0.5 * (tanh(0.5 * x) + 1.0)), tanh
+    return torch.sigmoid, tanh
+
+
 def bf16_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` of the plain versions' bf16 mode, ``w`` already rounded:
     ``a`` rounded to bf16, the exact products summed in float32."""

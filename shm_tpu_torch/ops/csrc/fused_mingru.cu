@@ -86,7 +86,15 @@
 // is the 76.7 GFLOP at the 989 TFLOP/s bf16 rate, 0.08 ms; one TF32 mma a
 // product on m16n8k8 reaches the 495 TFLOP/s TF32 rate at best.
 //
-// Accurate expf/tanhf (no --use_fast_math); sigmoid(x) = 1/(1+exp(-x)).
+// The sigmoid's two forms (the JAX kernel's sigmoid_impl, fused_mingru.py:90,
+// :265-266): the logistic 1/(1+exp(-x)), the default instances' unchanged,
+// and the JAX default 0.5 * (tanh(0.5x) + 1), in a second instance of each
+// precision and io type (template flag SIG_TANH, at the z sigmoid's two call
+// sites: the sweep and the decoder's constant layer 0). A template keeps the
+// default instances' code and bits; one option adds 9 instances. The
+// decoder input stays tanhf, as in JAX.
+//
+// Accurate expf/tanhf (no --use_fast_math).
 
 #include <cuda_runtime.h>
 
@@ -115,7 +123,11 @@ struct MinGruWeights {
   const float* out_b;   // [D]
 };
 
+// sigmoid in the logistic form, or under TANH_FORM in the JAX kernel's
+// default sigmoid_impl="tanh" form 0.5 * (tanh(0.5x) + 1)
+template <bool TANH_FORM>
 __device__ __forceinline__ float sigmoid_f(float x) {
+  if constexpr (TANH_FORM) return 0.5f * (tanhf(0.5f * x) + 1.0f);
   return 1.0f / (1.0f + expf(-x));
 }
 
@@ -288,7 +300,7 @@ __device__ __forceinline__ void tc_bias(float (&acc)[NM][2][4], const float* b) 
 // step, h of step s into acc[s*MT + m][0], and the last back into hc. Steps
 // past T leave h as it is. Under BF z and h~ are rounded to bf16 first, as
 // the TPU kernel stores its gate scratch.
-template <int MT, int TC, int NT, bool BF>
+template <int MT, int TC, int NT, bool BF, bool SIG_TANH>
 __device__ __forceinline__ void sweep(float (&acc)[TC * MT][2][4], float4* hc,
                                       int nv) {
 #pragma unroll
@@ -299,7 +311,7 @@ __device__ __forceinline__ void sweep(float (&acc)[TC * MT][2][4], float4* hc,
     for (int s = 0; s < TC; ++s)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const float z = rd<BF>(sigmoid_f(acc[s * MT + m][0][r]));
+        const float z = rd<BF>(sigmoid_f<SIG_TANH>(acc[s * MT + m][0][r]));
         const float hb = rd<BF>(acc[s * MT + m][1][r]);
         if (s < nv) h[r] = h[r] + z * (hb - h[r]);
         acc[s * MT + m][0][r] = h[r];
@@ -337,7 +349,7 @@ constexpr size_t tc_smem_floats(int L) {
   return (size_t)L * MT * 4 * H * 4 + 2 * R * (H + 4) + R * XP + ZMAX * BT;
 }
 
-template <int H, int MT, int TC, int SUM, typename IOT>
+template <int H, int MT, int TC, int SUM, typename IOT, bool SIG_TANH>
 __global__ void __launch_bounds__(4 * H, 1)
 fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
                        float* __restrict__ mse, const MinGruWeights Wt, int N,
@@ -383,7 +395,7 @@ fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
       tc_bias<H, NM>(acc, layer_ptr(Wt.enc_b, l));
       gate_mma<H, NM, SUM>(acc, layer_ptr(Wt.enc_f, l), l == 0 ? DP / 8 : KH,
                            l == 0 ? xs : buf(l - 1), l == 0 ? XP : HP);
-      sweep<MT, TC, NT, BF>(acc, hcar + l * MT * NT + tid, nv);
+      sweep<MT, TC, NT, BF, SIG_TANH>(acc, hcar + l * MT * NT + tid, nv);
       if (l + 1 < L) store_chunk<H, NM, BF>(acc, buf(l));
     }
     __syncthreads();      // the last layer's product has read its input
@@ -448,7 +460,7 @@ fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
     for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        z1[m][r] = sigmoid_f(acc[m][0][r]);
+        z1[m][r] = sigmoid_f<SIG_TANH>(acc[m][0][r]);
         hb1[m][r] = acc[m][1][r];
       }
   }
@@ -486,7 +498,7 @@ fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
       float acc[NM][2][4];
       tc_bias<H, NM>(acc, layer_ptr(Wt.dec_b, l));
       gate_mma<H, NM, SUM>(acc, layer_ptr(Wt.dec_f, l), KH, buf(l - 1), HP);
-      sweep<MT, TC, NT, BF>(acc, hcar + l * MT * NT + tid, nv);
+      sweep<MT, TC, NT, BF, SIG_TANH>(acc, hcar + l * MT * NT + tid, nv);
       store_chunk<H, NM, BF>(acc, buf(l));
     }
     // output head for the chunk: slot i runs d, then b, then s (rows of one
@@ -536,12 +548,13 @@ fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
   }
 }
 
-template <int H, int MT, int TC, int SUM, typename IOT = float>
+template <int H, int MT, int TC, int SUM, typename IOT = float,
+          bool SIG_TANH = false>
 cudaError_t launch_tc(const IOT* x, IOT* resid, float* mse,
                       const MinGruWeights& W, int N, int T, int D, int Z, int L,
                       int use_ln, int with_resid, cudaStream_t stream) {
   const size_t smem = sizeof(float) * tc_smem_floats<H, MT, TC>(L);
-  auto kern = fused_mingru_tc_kernel<H, MT, TC, SUM, IOT>;
+  auto kern = fused_mingru_tc_kernel<H, MT, TC, SUM, IOT, SIG_TANH>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -562,32 +575,49 @@ constexpr int SHIP_MT = 2;
 constexpr int SHIP_SUM = TC_SPLIT;
 constexpr int VARIANT_H = 128;    // the variant entry's width (the 4DOF preset)
 
+// the shipping tile of a sum and io type: the logistic instance, or with
+// sig_tanh the tanh-form one (template SIG_TANH: 9 instances beside the 9
+// logistic ones, which keep their code and bits)
+template <int H, int SUM, typename IOT>
+cudaError_t launch_sig(const IOT* x, IOT* resid, float* mse,
+                       const MinGruWeights& W, int N, int T, int D, int Z,
+                       int L, int use_ln, int with_resid, int sig_tanh,
+                       cudaStream_t s) {
+  if (sig_tanh)
+    return launch_tc<H, SHIP_MT, SHIP_TC, SUM, IOT, true>(x, resid, mse, W, N, T, D, Z,
+                                                          L, use_ln, with_resid, s);
+  return launch_tc<H, SHIP_MT, SHIP_TC, SUM, IOT, false>(x, resid, mse, W, N, T, D, Z,
+                                                         L, use_ln, with_resid, s);
+}
+
 template <int H>
 cudaError_t launch_ship(const float* x, float* resid, float* mse,
                         const MinGruWeights& W, int N, int T, int D, int Z,
-                        int L, int use_ln, int with_resid, cudaStream_t s) {
-  return launch_tc<H, SHIP_MT, SHIP_TC, SHIP_SUM>(x, resid, mse, W, N, T, D, Z,
-                                                  L, use_ln, with_resid, s);
+                        int L, int use_ln, int with_resid, int sig_tanh,
+                        cudaStream_t s) {
+  return launch_sig<H, SHIP_SUM, float>(x, resid, mse, W, N, T, D, Z, L,
+                                        use_ln, with_resid, sig_tanh, s);
 }
 
 // the bf16 instance, at the shipping tile, with float32 or bf16 io
 template <int H>
 cudaError_t launch_bf16(const void* x, void* resid, float* mse,
                         const MinGruWeights& W, int N, int T, int D, int Z,
-                        int L, int use_ln, int with_resid, int io_bf16,
-                        cudaStream_t s) {
+                        int L, int use_ln, int with_resid, int sig_tanh,
+                        int io_bf16, cudaStream_t s) {
   if (io_bf16)
-    return launch_tc<H, SHIP_MT, SHIP_TC, TC_BF16, bf16_t>(
+    return launch_sig<H, TC_BF16, bf16_t>(
         static_cast<const bf16_t*>(x), static_cast<bf16_t*>(resid), mse, W, N,
-        T, D, Z, L, use_ln, with_resid, s);
-  return launch_tc<H, SHIP_MT, SHIP_TC, TC_BF16, float>(
+        T, D, Z, L, use_ln, with_resid, sig_tanh, s);
+  return launch_sig<H, TC_BF16, float>(
       static_cast<const float*>(x), static_cast<float*>(resid), mse, W, N, T,
-      D, Z, L, use_ln, with_resid, s);
+      D, Z, L, use_ln, with_resid, sig_tanh, s);
 }
 
-template <int H, int MT, int TC>
+template <int H, int MT, int TC, int SUM = SHIP_SUM, typename IOT = float,
+          bool SIG_TANH = false>
 cudaError_t tc_info(int L, int* out) {
-  auto kern = fused_mingru_tc_kernel<H, MT, TC, SHIP_SUM, float>;
+  auto kern = fused_mingru_tc_kernel<H, MT, TC, SUM, IOT, SIG_TANH>;
   const size_t smem = sizeof(float) * tc_smem_floats<H, MT, TC>(L);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kern);
@@ -648,16 +678,17 @@ extern "C" int shm_fused_mingru_gate_f32(const float* x, float* resid,
                                          float* mse, const void* const* w,
                                          int n_w, int N, int T, int D, int H,
                                          int Z, int L, int use_ln,
-                                         int with_resid, void* stream) {
+                                         int with_resid, int sig_tanh,
+                                         void* stream) {
   MinGruWeights W;
   if (!valid_shape(N, T, D, Z, L) || (with_resid && resid == nullptr) ||
-      !unpack_weights(w, n_w, W))
+      (sig_tanh != 0 && sig_tanh != 1) || !unpack_weights(w, n_w, W))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (H) {
-    case 32: return (int)launch_ship<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, s);
-    case 64: return (int)launch_ship<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, s);
-    case 128: return (int)launch_ship<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, s);
+    case 32: return (int)launch_ship<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, s);
+    case 64: return (int)launch_ship<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, s);
+    case 128: return (int)launch_ship<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -670,17 +701,18 @@ extern "C" int shm_fused_mingru_gate_bf16(const void* x, void* resid,
                                           float* mse, const void* const* w,
                                           int n_w, int N, int T, int D, int H,
                                           int Z, int L, int use_ln,
-                                          int with_resid, int io_bf16,
-                                          void* stream) {
+                                          int with_resid, int sig_tanh,
+                                          int io_bf16, void* stream) {
   MinGruWeights W;
   if (!valid_shape(N, T, D, Z, L) || (with_resid && resid == nullptr) ||
-      (io_bf16 != 0 && io_bf16 != 1) || !unpack_weights(w, n_w, W))
+      (sig_tanh != 0 && sig_tanh != 1) || (io_bf16 != 0 && io_bf16 != 1) ||
+      !unpack_weights(w, n_w, W))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (H) {
-    case 32: return (int)launch_bf16<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, s);
-    case 64: return (int)launch_bf16<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, s);
-    case 128: return (int)launch_bf16<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, s);
+    case 32: return (int)launch_bf16<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, io_bf16, s);
+    case 64: return (int)launch_bf16<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, io_bf16, s);
+    case 128: return (int)launch_bf16<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, io_bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -719,16 +751,35 @@ extern "C" int shm_fused_mingru_variant(const float* x, float* mse,
   return (int)cudaErrorInvalidValue;
 }
 
+template <int H, bool SIG_TANH>
+cudaError_t ship_info_of(int L, int bf16, int io_bf16, int* out) {
+  if (!bf16) return tc_info<H, SHIP_MT, SHIP_TC, SHIP_SUM, float, SIG_TANH>(L, out);
+  if (io_bf16) return tc_info<H, SHIP_MT, SHIP_TC, TC_BF16, bf16_t, SIG_TANH>(L, out);
+  return tc_info<H, SHIP_MT, SHIP_TC, TC_BF16, float, SIG_TANH>(L, out);
+}
+
+template <int H>
+cudaError_t ship_info(int L, int bf16, int io_bf16, int sig_tanh, int* out) {
+  return sig_tanh ? ship_info_of<H, true>(L, bf16, io_bf16, out)
+                  : ship_info_of<H, false>(L, bf16, io_bf16, out);
+}
+
 // out = registers a thread, local memory (spill) bytes a thread, threads a
 // block, dynamic shared bytes a block, windows a block, blocks an SM at
-// once, and steps a tile of the shipping instance for windows of T steps at
-// width H with L layers (its shared memory depends on H and L).
-extern "C" int shm_fused_mingru_info(int T, int H, int L, int* out) {
-  if (T < 1 || L < 1 || L > LMAX) return (int)cudaErrorInvalidValue;
+// once, and steps a tile of a shipping instance for windows of T steps at
+// width H with L layers (its shared memory depends on H and L): the float32
+// one (bf16 = 0) or the bf16 one with float32 or bf16 io, with the logistic
+// (sig_tanh = 0) or the tanh-form sigmoid (1).
+extern "C" int shm_fused_mingru_info(int T, int H, int L, int bf16, int io_bf16,
+                                     int sig_tanh, int* out) {
+  if (T < 1 || L < 1 || L > LMAX || (bf16 != 0 && bf16 != 1) ||
+      (io_bf16 != 0 && io_bf16 != 1) || (io_bf16 && !bf16) ||
+      (sig_tanh != 0 && sig_tanh != 1))
+    return (int)cudaErrorInvalidValue;
   switch (H) {
-    case 32: return (int)tc_info<32, SHIP_MT, SHIP_TC>(L, out);
-    case 64: return (int)tc_info<64, SHIP_MT, SHIP_TC>(L, out);
-    case 128: return (int)tc_info<128, SHIP_MT, SHIP_TC>(L, out);
+    case 32: return (int)ship_info<32>(L, bf16, io_bf16, sig_tanh, out);
+    case 64: return (int)ship_info<64>(L, bf16, io_bf16, sig_tanh, out);
+    case 128: return (int)ship_info<128>(L, bf16, io_bf16, sig_tanh, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -117,7 +117,25 @@
 // FLOPs at the 989 TFLOP/s bf16 rate; this instance, at one TF32 mma a
 // product on m16n8k8, runs them at the 495 TFLOP/s TF32 rate at best.
 //
-// Accurate expf/tanhf (no --use_fast_math); sigmoid(x) = 1/(1+exp(-x)).
+// The activation forms (the JAX kernel's sigmoid_impl / tanh_impl,
+// fused_vae.py:299-307). The default forms, sigmoid(x) = 1/(1+exp(-x)) and
+// tanhf, are what the default instances compute, unchanged. The JAX kernel's
+// others, the tanh-form sigmoid 0.5 * (tanh(0.5x) + 1) and the clamped R(7,6)
+// rational tanh (JAX's constants and Horner order, one IEEE division), run
+// in a second instance of each precision and io type (template flag FORMS:
+// 9 instances beside the 9 default ones, not 27), which reads the forms from
+// the kernel argument `act` at run time: one value for the whole grid, so
+// the switch costs a uniform branch in the cell update and never diverges.
+// The choice keeps the default instances' code, registers and bits as they
+// were, and the build at 9 more instances rather than 27.
+//
+// The residual layout (the JAX kernel's residual_layout, fused_vae.py:350,
+// :411-417): "transposed" is [T][Dp][N], Dp = D rounded up to 16 with the
+// rows past D zero; the kernel argument `tr` remaps the output head's slots
+// so that stores run along n (TrSlot, below), in every instance, and the mse
+// keeps its bits.
+//
+// Accurate expf/tanhf (no --use_fast_math).
 
 #include <cuda_runtime.h>
 
@@ -592,23 +610,61 @@ __device__ __forceinline__ void tc_bias(float (&acc)[MT][4][4], const float* b) 
   }
 }
 
+// The activation forms of the JAX kernel (fused_vae.py:77-121, :146-151),
+// chosen by the kernel argument `act`, the same for every thread: bit 0 the
+// tanh-form sigmoid 0.5 * (tanh(0.5x) + 1), bit 1 the rational tanh (x
+// clamped to +-7, R(7,6) by Horner in JAX's order, one IEEE division) in
+// every tanh: the cell's g and c, the tanh-form sigmoid's, and the decoder
+// input's. act = 0 is the logistic and tanhf, which the default instances
+// (FORMS = false) compute with no switch at all.
+constexpr int ACT_SIG_TANH = 1, ACT_TANH_RATIONAL = 2;
+
+__device__ __forceinline__ float tanh_rational(float x) {
+  x = fminf(fmaxf(x, -7.0f), 7.0f);
+  const float x2 = x * x;
+  const float p = x * (0.999996935f + x2 * (0.123091227f + x2 * (2.28254070e-3f
+                                                                 + x2 * 3.95225241e-6f)));
+  const float q = 1.0f + x2 * (0.456412385f + x2 * (2.10997819e-2f + x2 * 1.42908691e-4f));
+  return p / q;
+}
+
+__device__ __forceinline__ float form_tanh(float x, int act) {
+  return (act & ACT_TANH_RATIONAL) ? tanh_rational(x) : tanhf(x);
+}
+
+__device__ __forceinline__ float form_sig(float x, int act) {
+  if (act & ACT_SIG_TANH) return 0.5f * (form_tanh(0.5f * x, act) + 1.0f);
+  return 1.0f / (1.0f + expf(-x));
+}
+
 // the cell update of this thread's 4*MT cells, then h into the shared
-// [BT][H+4] buffer hs (after the barrier that ends the reads of h(t-1))
-template <int H, int MT>
+// [BT][H+4] buffer hs (after the barrier that ends the reads of h(t-1));
+// FORMS: in the forms of `act`, else the logistic and tanhf
+template <int H, int MT, bool FORMS>
 __device__ __forceinline__ void tc_cell_store(const float (&acc)[MT][4][4],
-                                              float (&c)[MT][4], float* hs) {
+                                              float (&c)[MT][4], float* hs,
+                                              int act) {
   constexpr int HP = H + 4;
   float h[MT][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float i = 1.0f / (1.0f + expf(-acc[m][0][r]));
-      const float f = 1.0f / (1.0f + expf(-acc[m][1][r]));
-      const float gg = tanhf(acc[m][2][r]);
-      const float o = 1.0f / (1.0f + expf(-acc[m][3][r]));
-      c[m][r] = f * c[m][r] + i * gg;
-      h[m][r] = o * tanhf(c[m][r]);
+      if constexpr (FORMS) {
+        const float i = form_sig(acc[m][0][r], act);
+        const float f = form_sig(acc[m][1][r], act);
+        const float gg = form_tanh(acc[m][2][r], act);
+        const float o = form_sig(acc[m][3][r], act);
+        c[m][r] = f * c[m][r] + i * gg;
+        h[m][r] = o * form_tanh(c[m][r], act);
+      } else {
+        const float i = 1.0f / (1.0f + expf(-acc[m][0][r]));
+        const float f = 1.0f / (1.0f + expf(-acc[m][1][r]));
+        const float gg = tanhf(acc[m][2][r]);
+        const float o = 1.0f / (1.0f + expf(-acc[m][3][r]));
+        c[m][r] = f * c[m][r] + i * gg;
+        h[m][r] = o * tanhf(c[m][r]);
+      }
     }
   __syncthreads();                                  // reads of h(t-1) done
   const int lane = threadIdx.x & 31;
@@ -627,12 +683,29 @@ constexpr size_t tc_smem_bytes() {
   return sizeof(float) * (2 * BT * (H + 4) + BT * 4 * H + BT * XP + ZMAX * BT);
 }
 
-template <int H, int MT, int SUM, typename IOT>
+// The residual's two layouts: [N][T][D] (tr = 0), or (tr = 1) [T][DPT][N]
+// with DPT = D rounded up to 16 (the rows past D written as zeros), as the
+// JAX kernel's residual_layout="transposed" returns its tile. Only the output
+// head's slots change: with tr = 0 slot i is (b = i / D, d = i % D); with
+// tr = 1 a warp's 32 slots are 8 windows x 4 rows d (TrSlot), so each of its
+// stores is 8 consecutive n of one (t, d) and the lanes of one window read
+// the same h row (a broadcast). Each slot sums its e^2 over t in order and
+// the mse sums a window's slots over d in order either way, so the mse is
+// the same bit for bit.
+template <int BT>
+struct TrSlot {
+  int b, d;
+  __device__ __forceinline__ explicit TrSlot(int i)
+      : b((i & 7) + 8 * ((i >> 5) % (BT / 8))),
+        d(((i >> 3) & 3) + 4 * ((i >> 5) / (BT / 8))) {}
+};
+
+template <int H, int MT, int SUM, typename IOT, bool FORMS>
 __global__ void __launch_bounds__(4 * H, 1)
 fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
                     float* __restrict__ mse, const VaeWeights<float> Wt, int N,
                     int T, int D, int Z, int L, int use_ln, int with_resid,
-                    float ln_eps) {
+                    float ln_eps, int act, int tr) {
   constexpr bool BF = SUM == TC_BF16;   // the heads' operands rounded too
   constexpr int NT = 4 * H;
   constexpr int BT = 16 * MT;
@@ -649,6 +722,8 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * BT;
   const int DP = (D + 7) & ~7;                      // x's k, zero-padded
+  const int DPT = (D + 15) & ~15;                   // rows of a transposed residual
+  const int slots = (tr ? DPT : D) * BT;            // the output head's slots
 
   for (int i = tid; i < 2 * BT * HP; i += NT) smem[i] = 0.0f;
   float c[2][MT][4];
@@ -678,7 +753,7 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
       else
         gate_mma<H, MT, SUM>(acc, Wt.enc_wih_f[1], KH, hs[0], HP);
       gate_mma<H, MT, SUM>(acc, Wt.enc_whh_f[l], KH, hs[l], HP);
-      tc_cell_store<H, MT>(acc, c[l], hs[l]);
+      tc_cell_store<H, MT, FORMS>(acc, c[l], hs[l], act);
     }
   }
 
@@ -716,7 +791,10 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
     float s = __ldg(Wt.z2h_b + k);
     for (int z = 0; z < Z; ++z)
       s = fmaf(rd<BF>(__ldg(Wt.z2h_w + z * H + k)), rd<BF>(mus[z * BT + b]), s);
-    hs[0][b * HP + k] = tanhf(s);
+    if constexpr (FORMS)
+      hs[0][b * HP + k] = form_tanh(s, act);
+    else
+      hs[0][b * HP + k] = tanhf(s);
   }
   __syncthreads();
   // decoder layer-0 input projection, once: xpc = dec_in @ W_ih0 + b0, kept
@@ -768,16 +846,22 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
         gate_mma<H, MT, SUM>(acc, Wt.dec_wih_f[1], KH, hs[0], HP);
       }
       gate_mma<H, MT, SUM>(acc, Wt.dec_whh_f[l], KH, hs[l], HP);
-      tc_cell_store<H, MT>(acc, c[l], hs[l]);
+      tc_cell_store<H, MT, FORMS>(acc, c[l], hs[l], act);
     }
-    // output head for step t: thread slot (b, d), d fastest; reads hout
-    // before the next step's first barrier, after which it may be overwritten
+    // output head for step t: thread slot (b, d), d fastest (tr: TrSlot);
+    // reads hout before the next step's first barrier, after which it may
+    // be overwritten
 #pragma unroll
     for (int r = 0; r < IO_SLOTS; ++r) {
       const int i = tid + r * NT;
-      if (i < D * BT) {
-        const int d = i % D, b = i / D;
+      if (i < slots) {
+        const TrSlot<BT> ts(i);
+        const int d = tr ? ts.d : i % D, b = tr ? ts.b : i / D;
         const int n = n0 + b;
+        if (d >= D) {                               // a transposed pad row
+          if (with_resid && n < N) st_io(resid + ((size_t)t * DPT + d) * N + n, 0.0f);
+          continue;
+        }
         float y = __ldg(Wt.out_b + d);
         for (int k = 0; k < H; ++k)
           y = fmaf(rd<BF>(__ldg(Wt.out_w + k * D + d)), rd<BF>(hout[b * HP + k]), y);
@@ -785,7 +869,8 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
           const size_t off = ((size_t)n * T + t) * D + d;
           const float e = ld_io(x + off) - y;
           const float e2 = e * e;
-          if (with_resid) st_io(resid + off, e2);
+          if (with_resid)
+            st_io(resid + (tr ? ((size_t)t * DPT + d) * N + n : off), e2);
           acc_mse[r] += e2;
         }
       }
@@ -797,7 +882,11 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
 #pragma unroll
   for (int r = 0; r < IO_SLOTS; ++r) {
     const int i = tid + r * NT;
-    if (i < D * BT) xs[(i % D) * BT + i / D] = acc_mse[r];
+    if (i < slots) {
+      const TrSlot<BT> ts(i);
+      const int d = tr ? ts.d : i % D, b = tr ? ts.b : i / D;
+      if (d < D) xs[d * BT + b] = acc_mse[r];
+    }
   }
   __syncthreads();
   if (tid < BT && n0 + tid < N) {
@@ -807,19 +896,19 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
   }
 }
 
-template <int H, int MT, int SUM, typename IOT = float>
+template <int H, int MT, int SUM, typename IOT = float, bool FORMS = false>
 cudaError_t launch_tc(const IOT* x, IOT* resid, float* mse,
                       const VaeWeights<float>& W, int N, int T, int D, int Z,
                       int L, int use_ln, int with_resid, float ln_eps,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, int act = 0, int tr = 0) {
   constexpr size_t smem = tc_smem_bytes<H, MT>();
-  auto kern = fused_vae_tc_kernel<H, MT, SUM, IOT>;
+  auto kern = fused_vae_tc_kernel<H, MT, SUM, IOT, FORMS>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   constexpr int BT = 16 * MT;
   kern<<<(N + BT - 1) / BT, 4 * H, smem, stream>>>(
-      x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, ln_eps);
+      x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, ln_eps, act, tr);
   return cudaGetLastError();
 }
 
@@ -886,13 +975,27 @@ cudaError_t launch_probe_rnd(const float* x, float* mse, const void* const* w,
 constexpr int SHIP_MT = 2;
 constexpr int SHIP_SUM = TC_SPLIT;
 
+// the shipping instance of a sum and io type at width H: the default one
+// for act = 0, the forms' one (FORMS, act read at run time) for any other
+template <int H, int SUM, typename IOT>
+cudaError_t launch_act(const IOT* x, IOT* resid, float* mse,
+                       const VaeWeights<float>& W, int N, int T, int D, int Z,
+                       int L, int use_ln, int with_resid, float ln_eps,
+                       int act, int tr, cudaStream_t s) {
+  if (act == 0)
+    return launch_tc<H, SHIP_MT, SUM, IOT, false>(x, resid, mse, W, N, T, D, Z, L, use_ln,
+                                                  with_resid, ln_eps, s, 0, tr);
+  return launch_tc<H, SHIP_MT, SUM, IOT, true>(x, resid, mse, W, N, T, D, Z, L, use_ln,
+                                               with_resid, ln_eps, s, act, tr);
+}
+
 template <int H>
 cudaError_t launch_ship(const float* x, float* resid, float* mse,
                         const VaeWeights<float>& W, int N, int T, int D, int Z,
                         int L, int use_ln, int with_resid, float ln_eps,
-                        cudaStream_t s) {
-  return launch_tc<H, SHIP_MT, SHIP_SUM>(x, resid, mse, W, N, T, D, Z, L,
-                                         use_ln, with_resid, ln_eps, s);
+                        int act, int tr, cudaStream_t s) {
+  return launch_act<H, SHIP_SUM, float>(x, resid, mse, W, N, T, D, Z, L, use_ln,
+                                        with_resid, ln_eps, act, tr, s);
 }
 
 // the bf16 instance, at the shipping tile, with float32 or bf16 io
@@ -900,19 +1003,19 @@ template <int H>
 cudaError_t launch_bf16(const void* x, void* resid, float* mse,
                         const VaeWeights<float>& W, int N, int T, int D, int Z,
                         int L, int use_ln, int with_resid, int io_bf16,
-                        float ln_eps, cudaStream_t s) {
+                        float ln_eps, int act, int tr, cudaStream_t s) {
   if (io_bf16)
-    return launch_tc<H, SHIP_MT, TC_BF16, bf16_t>(
+    return launch_act<H, TC_BF16, bf16_t>(
         static_cast<const bf16_t*>(x), static_cast<bf16_t*>(resid), mse, W, N,
-        T, D, Z, L, use_ln, with_resid, ln_eps, s);
-  return launch_tc<H, SHIP_MT, TC_BF16, float>(
+        T, D, Z, L, use_ln, with_resid, ln_eps, act, tr, s);
+  return launch_act<H, TC_BF16, float>(
       static_cast<const float*>(x), static_cast<float*>(resid), mse, W, N, T,
-      D, Z, L, use_ln, with_resid, ln_eps, s);
+      D, Z, L, use_ln, with_resid, ln_eps, act, tr, s);
 }
 
-template <int H, int MT>
+template <int H, int MT, int SUM, typename IOT, bool FORMS>
 cudaError_t tc_info(int* out) {
-  auto kern = fused_vae_tc_kernel<H, MT, SHIP_SUM, float>;
+  auto kern = fused_vae_tc_kernel<H, MT, SUM, IOT, FORMS>;
   constexpr size_t smem = tc_smem_bytes<H, MT>();
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kern);
@@ -941,23 +1044,26 @@ cudaError_t tc_info(int* out) {
 //   enc_wih1 enc_whh1 dec_wih0 dec_whh0 dec_wih1 dec_whh1
 // (layer-1 and LayerNorm pointers may be null when unused; the LSTM
 // matrices as given are the plain version's, the kernel reads their
-// fragments). Launches the tensor-core body; returns the launch's
-// cudaGetLastError(), 0 on success.
+// fragments). `act` is the activation forms (0 to 3: ACT_SIG_TANH |
+// ACT_TANH_RATIONAL), `layout` the residual's (0: [N][T][D]; 1:
+// [T][DPT][N], DPT = D rounded up to 16). Launches the tensor-core body;
+// returns the launch's cudaGetLastError(), 0 on success.
 extern "C" int shm_fused_vae_gate_f32(const float* x, float* resid, float* mse,
                                       const void* const* w, int n_w, int N,
                                       int T, int D, int H, int Z, int L,
-                                      int use_ln, int with_resid,
-                                      void* stream) {
+                                      int use_ln, int with_resid, int act,
+                                      int layout, void* stream) {
   if (n_w != NUM_W || N <= 0 || T <= 0 || D <= 0 || D > DMAX || Z <= 0 ||
-      Z > ZMAX || L < 1 || L > 2 || (with_resid && resid == nullptr))
+      Z > ZMAX || L < 1 || L > 2 || (with_resid && resid == nullptr) ||
+      act < 0 || act > 3 || (layout != 0 && layout != 1))
     return (int)cudaErrorInvalidValue;
   const VaeWeights<float> W = unpack_weights<float>(w);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   constexpr float eps = 1e-5f;                        // the model's LayerNorm
   switch (H) {
-    case 32: return (int)launch_ship<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, s);
-    case 64: return (int)launch_ship<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, s);
-    case 128: return (int)launch_ship<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, s);
+    case 32: return (int)launch_ship<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, act, layout, s);
+    case 64: return (int)launch_ship<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, act, layout, s);
+    case 128: return (int)launch_ship<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, act, layout, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -969,33 +1075,53 @@ extern "C" int shm_fused_vae_gate_f32(const float* x, float* resid, float* mse,
 extern "C" int shm_fused_vae_gate_bf16(const void* x, void* resid, float* mse,
                                        const void* const* w, int n_w, int N,
                                        int T, int D, int H, int Z, int L,
-                                       int use_ln, int with_resid, int io_bf16,
-                                       void* stream) {
+                                       int use_ln, int with_resid, int act,
+                                       int layout, int io_bf16, void* stream) {
   if (n_w != NUM_W || N <= 0 || T <= 0 || D <= 0 || D > DMAX || Z <= 0 ||
       Z > ZMAX || L < 1 || L > 2 || (with_resid && resid == nullptr) ||
+      act < 0 || act > 3 || (layout != 0 && layout != 1) ||
       (io_bf16 != 0 && io_bf16 != 1))
     return (int)cudaErrorInvalidValue;
   const VaeWeights<float> W = unpack_weights<float>(w);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   constexpr float eps = 1e-5f;                        // the model's LayerNorm
   switch (H) {
-    case 32: return (int)launch_bf16<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, s);
-    case 64: return (int)launch_bf16<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, s);
-    case 128: return (int)launch_bf16<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, s);
+    case 32: return (int)launch_bf16<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, act, layout, s);
+    case 64: return (int)launch_bf16<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, act, layout, s);
+    case 128: return (int)launch_bf16<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, act, layout, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <int H, bool FORMS>
+cudaError_t ship_info_of(int bf16, int io_bf16, int* out) {
+  if (!bf16) return tc_info<H, SHIP_MT, SHIP_SUM, float, FORMS>(out);
+  if (io_bf16) return tc_info<H, SHIP_MT, TC_BF16, bf16_t, FORMS>(out);
+  return tc_info<H, SHIP_MT, TC_BF16, float, FORMS>(out);
+}
+
+template <int H>
+cudaError_t ship_info(int bf16, int io_bf16, int forms, int* out) {
+  return forms ? ship_info_of<H, true>(bf16, io_bf16, out)
+               : ship_info_of<H, false>(bf16, io_bf16, out);
+}
+
 // out = registers a thread, local memory (spill) bytes a thread, threads a
 // block, dynamic shared bytes a block, windows a block and blocks an SM at
-// once of the shipping instance for windows of T steps at width H with L
-// layers (its registers and shared memory depend on H alone).
-extern "C" int shm_fused_vae_info(int T, int H, int L, int* out) {
-  if (T < 1 || L < 1 || L > 2) return (int)cudaErrorInvalidValue;
+// once of a shipping instance for windows of T steps at width H with L
+// layers (its registers and shared memory depend on H alone): the float32
+// one (bf16 = 0) or the bf16 one with float32 or bf16 io, of the default
+// forms (forms = 0) or of the others (forms = 1).
+extern "C" int shm_fused_vae_info(int T, int H, int L, int bf16, int io_bf16,
+                                  int forms, int* out) {
+  if (T < 1 || L < 1 || L > 2 || (bf16 != 0 && bf16 != 1) ||
+      (io_bf16 != 0 && io_bf16 != 1) || (io_bf16 && !bf16) ||
+      (forms != 0 && forms != 1))
+    return (int)cudaErrorInvalidValue;
   switch (H) {
-    case 32: return (int)tc_info<32, SHIP_MT>(out);
-    case 64: return (int)tc_info<64, SHIP_MT>(out);
-    case 128: return (int)tc_info<128, SHIP_MT>(out);
+    case 32: return (int)ship_info<32>(bf16, io_bf16, forms, out);
+    case 64: return (int)ship_info<64>(bf16, io_bf16, forms, out);
+    case 128: return (int)ship_info<128>(bf16, io_bf16, forms, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -23,7 +23,8 @@ truncate their sums, so each pair of k-steps is summed apart and added to
 the float32 sum to nearest); the MSE divides by the real ``T * D``.
 :func:`gate_variant` reaches the same body with its other sums and tiles,
 and :func:`kernel_info` says how the card takes it; neither is on a main
-path.
+path. ``sigmoid_impl`` is the JAX kernel's (the port defaults to "exact",
+JAX to "tanh"); "tanh" launches the tanh-form instance of its precision.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
-    add_fragments, bf16_round, check_fragments, check_weights,
+    activations, add_fragments, bf16_round, check_fragments, check_weights,
     check_windows, dispatch_gate, f32, fragment_names, gate_dtypes,
     plain_products, pointer_array,
 )
@@ -103,8 +104,14 @@ def fused_mingru_gate_reference(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
     dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
+    sigmoid_impl: str = "exact",
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of the kernel: (mse [N], resid [N, T, D] | None).
+
+    ``sigmoid_impl`` is the form of every z's sigmoid, as the JAX kernel's
+    (``shm_tpu/ops/fused_mingru.py:90``, ``_gate.activations``): "exact"
+    the logistic, "tanh" ``0.5 * (tanh(0.5 x) + 1)``; the decoder input
+    stays ``tanh``, as in JAX.
 
     ``dtype=torch.bfloat16`` rounds where the JAX kernel with ``dtype=bf16``
     rounds (``shm_tpu/ops/fused_mingru.py:92-188``): both operands of every
@@ -117,6 +124,7 @@ def fused_mingru_gate_reference(
     N, T, D = Z.shape
     H = weights["mu_w"].shape[0]
     bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    sig, _ = activations(sigmoid_impl)
     x = Z.to(io).to(torch.float32)          # the window tile as read
     rnd = bf16_round if bf16 else (lambda t: t)
     mm = plain_products(weights, [k for k in weights if k.endswith("_wih")]
@@ -124,7 +132,7 @@ def fused_mingru_gate_reference(
 
     def layer(prefix, l, inp):
         g = mm(inp, f"{prefix}{l}_wih") + weights[f"{prefix}{l}_b"]
-        z, hc = torch.sigmoid(g[..., :H]), g[..., H:]
+        z, hc = sig(g[..., :H]), g[..., H:]
         if prefix == "enc" or l > 0:         # stored in the gate scratch
             z, hc = rnd(z), rnd(hc)
         return _sweep(z, hc, T)
@@ -175,33 +183,40 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_mingru")
     fn = lib.shm_fused_mingru_gate_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn = lib.shm_fused_mingru_gate_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn = lib.shm_fused_mingru_variant
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     lib.shm_fused_mingru_info.restype = ctypes.c_int
-    lib.shm_fused_mingru_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.shm_fused_mingru_info.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
-def kernel_info(T: int, H: int, L: int) -> dict:
-    """How the card takes the shipping kernel for windows of T steps at width
-    H with L layers: registers and local-memory (spill) bytes a thread,
-    threads and dynamic shared bytes a block, windows a block, blocks an SM
-    at once, and steps a tile."""
+def kernel_info(T: int, H: int, L: int, *, dtype: torch.dtype = torch.float32,
+                io_dtype: Optional[torch.dtype] = None,
+                sigmoid_impl: str = "exact") -> dict:
+    """How the card takes the kernel instance a call of
+    ``fused_mingru_gate`` with these ``dtype``, ``io_dtype`` and
+    ``sigmoid_impl`` launches, for windows of T steps at width H with L
+    layers: registers and local-memory (spill) bytes a thread, threads and
+    dynamic shared bytes a block, windows a block, blocks an SM at once, and
+    steps a tile. The defaults are the shipping float32 instance."""
     if H not in _HIDDEN or not 1 <= L <= _L_MAX or T < 1:
         raise ValueError(f"unsupported shape for the fused minGRU kernel: "
                          f"T={T}, H={H}, L={L}")
+    bf16, io = gate_dtypes(torch.empty(0), dtype, io_dtype)
+    activations(sigmoid_impl)                       # raises for an unknown form
     lib = _library()
     out = (ctypes.c_int * 7)()
-    raise_on_error(lib, lib.shm_fused_mingru_info(T, H, L, out),
-                   "fused_mingru_gate info")
+    raise_on_error(lib, lib.shm_fused_mingru_info(
+        T, H, L, int(bf16), int(io == torch.bfloat16),
+        int(sigmoid_impl == "tanh"), out), "fused_mingru_gate info")
     return dict(zip(("registers", "spill_bytes", "threads", "shared_bytes",
                      "windows_per_block", "blocks_per_sm", "steps_per_tile"),
                     out))
@@ -249,8 +264,10 @@ gate_variant.launches = 0
 
 
 def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
-            io_dtype):
+            io_dtype, sigmoid_impl):
     bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    activations(sigmoid_impl)                       # raises for an unknown form
+    sig_tanh = int(sigmoid_impl == "tanh")
     Z = Z.to(io)                        # a bf16 io: the card rounds once
     need, H, Zd = _check(weights, Z, num_layers, use_layernorm, bf16, io)
     N, T, D = Z.shape
@@ -263,7 +280,7 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
     ptrs = pointer_array(weights, order, need)
     args = (Z.data_ptr(), resid.data_ptr() if with_residual else None,
             mse.data_ptr(), ptrs, len(order), N, T, D, H, Zd, num_layers,
-            int(use_layernorm), int(with_residual))
+            int(use_layernorm), int(with_residual), sig_tanh)
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         if bf16:
@@ -273,6 +290,8 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
             err = lib.shm_fused_mingru_gate_f32(*args, stream)
     raise_on_error(lib, err, "fused_mingru_gate")
     count_launch(fused_mingru_gate, "bf16_launches" if bf16 else "launches")
+    if sig_tanh:
+        count_launch(fused_mingru_gate, "sigmoid_tanh_launches")
     return mse, resid
 
 
@@ -280,6 +299,7 @@ def fused_mingru_gate(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
     dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
+    sigmoid_impl: str = "exact",
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused deterministic minGRU-VAE pass: (mse [N], resid [N, T, D] | None).
 
@@ -288,18 +308,23 @@ def fused_mingru_gate(
     ``dtype`` / ``io_dtype`` as the JAX kernel's (the plain version says
     where bf16 rounds): ``dtype=torch.bfloat16`` launches the kernel's bf16
     instance, counted in ``fused_mingru_gate.bf16_launches``.
+    ``sigmoid_impl`` "exact" (the port's default) or "tanh" (the JAX
+    kernel's default): "tanh" launches the tanh-form instance of the same
+    precision, counted also in ``sigmoid_tanh_launches``.
     """
     return dispatch_gate("fused_mingru_gate", Z, _launch,
                          fused_mingru_gate_reference, weights,
                          num_layers=num_layers, use_layernorm=use_layernorm,
                          with_residual=with_residual, dtype=dtype,
-                         io_dtype=io_dtype)
+                         io_dtype=io_dtype, sigmoid_impl=sigmoid_impl)
 
 
-# kernel launches so far, of the float32 and of the bf16 instance; callers
-# reset them to 0 to count one run's launches
+# kernel launches so far, of the float32 and of the bf16 instance, and of
+# those the launches with the tanh-form sigmoid; callers reset them to 0 to
+# count one run's launches
 fused_mingru_gate.launches = 0
 fused_mingru_gate.bf16_launches = 0
+fused_mingru_gate.sigmoid_tanh_launches = 0
 
 
 __all__ = ["fused_mingru_gate", "fused_mingru_gate_reference", "gate_variant",

@@ -22,6 +22,12 @@ the float32 sum to nearest); the MSE divides by the real ``T * D`` (no
 feature padding). The same source also holds the float32
 FMA body that the probe variants of ``shm_tpu_torch/tools/probe_vpu_bound.py``
 time (C entry ``shm_fused_vae_probe``), which reaches the shipping body too.
+
+The JAX kernel's options ``sigmoid_impl`` / ``tanh_impl`` (activation
+forms) and ``residual_layout`` ("transposed": [T, Dp, N]) are taken under
+the same names; the port's forms default to "exact" / "exact" (the JAX
+kernel defaults to the tanh-form sigmoid). Another form launches the forms
+instance of its precision, which never runs another form.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import torch.nn.functional as F
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
-    add_fragments, check_fragments, check_weights, check_windows,
+    activations, add_fragments, check_fragments, check_weights, check_windows,
     dispatch_gate, f32, fragment_names, gate_dtypes, plain_products,
     pointer_array,
 )
@@ -57,6 +63,7 @@ _D_MAX, _Z_MAX = 16, 32
 _PRODUCT_WEIGHTS = tuple(k for p in ("enc", "dec") for l in range(2)
                          for k in (f"{p}{l}_wih", f"{p}{l}_whh")) + (
     "mu_w", "z2h_w", "out_w")
+RESIDUAL_LAYOUTS = ("nhwc", "transposed")
 
 
 def vae_params_to_kernel_weights(
@@ -98,8 +105,17 @@ def fused_vae_gate_reference(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
     dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
+    sigmoid_impl: str = "exact", tanh_impl: str = "exact",
+    residual_layout: str = "nhwc",
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of the kernel: (mse [N], resid [N, T, D] | None).
+    """Plain PyTorch version of the kernel: (mse [N], resid | None), the
+    residual [N, T, D] or, with ``residual_layout="transposed"``,
+    :func:`transposed_residual` of it.
+
+    ``sigmoid_impl`` / ``tanh_impl`` are the forms of
+    ``shm_tpu/ops/fused_vae.py:146-151`` (``_gate.activations``): the tanh
+    form applies to the cell's g and c and to the decoder input
+    ``tanh(z2h)``, the sigmoid form to the cell's i, f and o.
 
     ``dtype=torch.bfloat16`` rounds where the JAX kernel with ``dtype=bf16``
     rounds (``shm_tpu/ops/fused_vae.py:153-163``, ``:225-230``): both
@@ -111,14 +127,16 @@ def fused_vae_gate_reference(
     N, T, D = Z.shape
     H = weights["enc0_whh"].shape[0]
     bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    sig, tanh = activations(sigmoid_impl, tanh_impl)
+    _check_layout(residual_layout)
     x = Z.to(io).to(torch.float32)          # the window tile as read
     mm = plain_products(weights, [k for k in _PRODUCT_WEIGHTS
                                   if k in weights], bf16)
 
     def step(h, c, gates):
         i, f, g, o = gates.split(H, dim=1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        return torch.sigmoid(o) * torch.tanh(c), c
+        c = sig(f) * c + sig(i) * tanh(g)
+        return sig(o) * tanh(c), c
 
     zeros = x.new_zeros(N, H)
     hs, cs = [zeros] * num_layers, [zeros] * num_layers
@@ -134,7 +152,7 @@ def fused_vae_gate_reference(
         h_last = F.layer_norm(h_last, (H,), weights["ln_scale"],
                               weights["ln_bias"], eps=1e-5)
     mu = mm(h_last, "mu_w") + weights["mu_b"]
-    dec_in = torch.tanh(mm(mu, "z2h_w") + weights["z2h_b"])
+    dec_in = tanh(mm(mu, "z2h_w") + weights["z2h_b"])
     xp_const = mm(dec_in, "dec0_wih") + weights["dec0_b"]   # once
 
     hs, cs = [zeros] * num_layers, [zeros] * num_layers
@@ -153,7 +171,33 @@ def fused_vae_gate_reference(
             resid.append(r_t)
         acc = acc + r_t.sum(dim=1)
     mse = acc / (T * D)
-    return mse, (torch.stack(resid, dim=1).to(io) if with_residual else None)
+    if not with_residual:
+        return mse, None
+    resid = torch.stack(resid, dim=1).to(io)
+    if residual_layout == "transposed":
+        resid = transposed_residual(resid)
+    return mse, resid
+
+
+def padded_features(D: int) -> int:
+    """Dp, the feature rows of a transposed residual: D rounded up to 16,
+    as the JAX kernel pads its feature tile (``fused_vae.py:350``)."""
+    return -(-D // 16) * 16
+
+
+def transposed_residual(resid: torch.Tensor) -> torch.Tensor:
+    """A residual [N, T, D] in the layout ``residual_layout="transposed"``
+    returns: [T, Dp, N] contiguous, the rows past D exact zeros. N is not
+    padded (the JAX kernel pads it to its batch tile, a TPU tile)."""
+    N, T, D = resid.shape
+    return F.pad(resid.permute(1, 2, 0), (0, 0, 0, padded_features(D) - D)
+                 ).contiguous()
+
+
+def _check_layout(residual_layout: str) -> None:
+    if residual_layout not in RESIDUAL_LAYOUTS:
+        raise ValueError(f"unknown residual_layout {residual_layout!r} "
+                         "(expected 'nhwc' or 'transposed')")
 
 
 def _check(weights, Z, num_layers, use_layernorm, bf16=False,
@@ -186,11 +230,11 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_vae")
     fn = lib.shm_fused_vae_gate_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn = lib.shm_fused_vae_gate_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
     # the probe variants of the same kernel (tools/probe_vpu_bound.py)
     fn = lib.shm_fused_vae_probe
@@ -198,34 +242,55 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
     lib.shm_fused_vae_info.restype = ctypes.c_int
-    lib.shm_fused_vae_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.shm_fused_vae_info.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
-def kernel_info(T: int, H: int, L: int) -> dict:
-    """How the card takes the shipping kernel for windows of T steps at width
-    H with L layers: registers and local-memory (spill) bytes a thread,
-    threads and dynamic shared bytes a block, windows a block, blocks an SM
-    at once."""
+def _act(sigmoid_impl: str, tanh_impl: str) -> int:
+    """The C entries' ``act``: bit 0 the tanh-form sigmoid, bit 1 the
+    rational tanh (0, the forms "exact" / "exact", runs the default
+    instances; any other value the forms' instances)."""
+    activations(sigmoid_impl, tanh_impl)            # raises for an unknown form
+    return int(sigmoid_impl == "tanh") | 2 * int(tanh_impl == "rational")
+
+
+def kernel_info(T: int, H: int, L: int, *, dtype: torch.dtype = torch.float32,
+                io_dtype: Optional[torch.dtype] = None,
+                sigmoid_impl: str = "exact", tanh_impl: str = "exact") -> dict:
+    """How the card takes the kernel instance a call of ``fused_vae_gate``
+    with these ``dtype``, ``io_dtype`` and forms launches, for windows of T
+    steps at width H with L layers: registers and local-memory (spill)
+    bytes a thread, threads and dynamic shared bytes a block, windows a
+    block, blocks an SM at once. The defaults are the float32 instance of
+    the default forms."""
     if H not in _HIDDEN or L not in (1, 2) or T < 1:
         raise ValueError(f"unsupported shape for the fused kernel: T={T}, "
                          f"H={H}, L={L}")
+    bf16, io = gate_dtypes(torch.empty(0), dtype, io_dtype)
+    forms = int(_act(sigmoid_impl, tanh_impl) != 0)
     lib = _library()
     out = (ctypes.c_int * 6)()
-    raise_on_error(lib, lib.shm_fused_vae_info(T, H, L, out),
-                   "fused_vae_gate info")
+    raise_on_error(lib, lib.shm_fused_vae_info(
+        T, H, L, int(bf16), int(io == torch.bfloat16), forms, out),
+        "fused_vae_gate info")
     return dict(zip(("registers", "spill_bytes", "threads", "shared_bytes",
                      "windows_per_block", "blocks_per_sm"), out))
 
 
 def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
-            io_dtype):
+            io_dtype, sigmoid_impl, tanh_impl, residual_layout):
     bf16, io = gate_dtypes(Z, dtype, io_dtype)
+    act = _act(sigmoid_impl, tanh_impl)
+    _check_layout(residual_layout)
+    transposed = residual_layout == "transposed"
     Z = Z.to(io)                        # a bf16 io: the card rounds once
     need, H, Zd = _check(weights, Z, num_layers, use_layernorm, bf16, io)
     N, T, D = Z.shape
     mse = torch.empty(N, device=Z.device, dtype=torch.float32)
-    resid = torch.empty_like(Z) if with_residual else None
+    resid = None
+    if with_residual:
+        resid = (Z.new_empty(T, padded_features(D), N) if transposed
+                 else torch.empty_like(Z))
     if N == 0:
         return mse, resid
     lib = _library()
@@ -233,7 +298,7 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
     ptrs = pointer_array(weights, order, need)
     args = (Z.data_ptr(), resid.data_ptr() if with_residual else None,
             mse.data_ptr(), ptrs, len(order), N, T, D, H, Zd, num_layers,
-            int(use_layernorm), int(with_residual))
+            int(use_layernorm), int(with_residual), act, int(transposed))
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         if bf16:
@@ -243,6 +308,12 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
             err = lib.shm_fused_vae_gate_f32(*args, stream)
     raise_on_error(lib, err, "fused_vae_gate")
     count_launch(fused_vae_gate, "bf16_launches" if bf16 else "launches")
+    if act & 1:
+        count_launch(fused_vae_gate, "sigmoid_tanh_launches")
+    if act & 2:
+        count_launch(fused_vae_gate, "tanh_rational_launches")
+    if with_residual and transposed:
+        count_launch(fused_vae_gate, "transposed_launches")
     return mse, resid
 
 
@@ -250,6 +321,8 @@ def fused_vae_gate(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
     dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
+    sigmoid_impl: str = "exact", tanh_impl: str = "exact",
+    residual_layout: str = "nhwc",
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused deterministic VAE pass: (mse [N], resid [N, T, D] | None).
 
@@ -260,19 +333,35 @@ def fused_vae_gate(
     instance, counted in ``fused_vae_gate.bf16_launches``; ``io_dtype``
     bf16 (bf16 products only) passes the windows to it as bf16 and returns
     a bf16 residual.
+
+    ``sigmoid_impl`` ("exact" or "tanh") and ``tanh_impl`` ("exact" or
+    "rational") are the JAX kernel's forms; the port defaults to "exact" /
+    "exact" where JAX defaults to the tanh-form sigmoid. Any other form
+    launches the kernel's forms instance of the same precision, counted
+    also in ``sigmoid_tanh_launches`` / ``tanh_rational_launches``.
+    ``residual_layout="transposed"`` returns the residual as [T, Dp, N]
+    (:func:`transposed_residual`; Dp = D rounded up to 16, those rows zero)
+    with the same mse bit for bit, counted also in ``transposed_launches``.
     """
     return dispatch_gate("fused_vae_gate", Z, _launch,
                          fused_vae_gate_reference, weights,
                          num_layers=num_layers, use_layernorm=use_layernorm,
                          with_residual=with_residual, dtype=dtype,
-                         io_dtype=io_dtype)
+                         io_dtype=io_dtype, sigmoid_impl=sigmoid_impl,
+                         tanh_impl=tanh_impl, residual_layout=residual_layout)
 
 
-# kernel launches so far, of the float32 and of the bf16 instance; callers
-# reset them to 0 to count one run's launches
+# kernel launches so far, of the float32 and of the bf16 instance, and of
+# those the launches with the tanh-form sigmoid, with the rational tanh and
+# with a transposed residual; callers reset them to 0 to count one run's
+# launches
 fused_vae_gate.launches = 0
 fused_vae_gate.bf16_launches = 0
+fused_vae_gate.sigmoid_tanh_launches = 0
+fused_vae_gate.tanh_rational_launches = 0
+fused_vae_gate.transposed_launches = 0
 
 
 __all__ = ["fused_vae_gate", "fused_vae_gate_reference", "kernel_info",
+           "padded_features", "transposed_residual",
            "vae_params_to_kernel_weights"]

@@ -16,9 +16,11 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from shm_tpu_torch.data.windows import normalize_windows
-from shm_tpu_torch.models.cnn import CNN4DOF, stack_vae_residual_nhwc
+from shm_tpu_torch.models.cnn import (CNN4DOF, cnn4dof_apply_transposed,
+                                      stack_vae_residual_nhwc)
 from shm_tpu_torch.models.vae import TemporalVAE
 
 _KEYS = ("mse", "anomalous", "y_pred", "p_struct")
@@ -36,7 +38,7 @@ class HybridOutputs(NamedTuple):
 
 def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False,
                   fused_dtype: torch.dtype = torch.float32,
-                  sample: bool = False):
+                  sample: bool = False, fused_layout: str = "nhwc"):
     """``fn(Z, generator=None) -> (mse, xin)`` for normalized (N, T, D)
     ``Z``: one VAE pass, the gate's MSE (N,) and the CNN's NHWC input
     [Z, residual^2] (N, T, D, 2).
@@ -56,9 +58,31 @@ def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False,
     ``sample=True`` (plain path only) decodes ``mu + eps * exp(0.5 *
     logvar)`` with eps drawn from ``generator``. The caller chooses the grad
     mode.
+
+    ``fused_layout="transposed"`` (with ``use_fused_vae=True`` and an
+    ``"lstm"`` VAE) is the JAX function's other layout
+    (``shm_tpu/pipeline.py:86-103``): ``xin`` is then ``(Zt, resid_t)``, both
+    [T, Dp, N], the LSTM gate's residual in ``residual_layout="transposed"``
+    and Zt built from Z the same way (D padded to Dp; N is not padded, as
+    the port has no batch tile), the input of
+    :func:`cnn4dof_apply_transposed`. It never runs the NHWC path; a cell
+    other than ``"lstm"``, the plain VAE or an unknown layout raises
+    ``ValueError``, as in JAX.
     """
     if use_fused_vae and sample:
         raise ValueError("fused VAE kernel is deterministic (sample=False only)")
+    transposed = fused_layout == "transposed"
+    if transposed and getattr(vae, "cell", "lstm") != "lstm":
+        raise ValueError("fused_layout='transposed' is LSTM-kernel only")
+    if fused_layout not in ("nhwc", "transposed"):
+        raise ValueError(f"unknown fused_layout {fused_layout!r}")
+    if transposed and not use_fused_vae:
+        raise ValueError("fused_layout='transposed' requires use_fused_vae=True")
+    layout = {}
+    if transposed:
+        from shm_tpu_torch.ops.fused_vae import padded_features
+
+        layout = {"residual_layout": "transposed"}
     if use_fused_vae:
         from shm_tpu_torch.ops import fused_gate_for
 
@@ -72,7 +96,12 @@ def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False,
         if use_fused_vae:
             mse, resid = fused_gate(weights, Z, num_layers=vae.num_layers,
                                     use_layernorm=vae.use_layernorm,
-                                    dtype=fused_dtype, io_dtype=io_dtype)
+                                    dtype=fused_dtype, io_dtype=io_dtype,
+                                    **layout)
+            if transposed:
+                # Zt as the kernel reads the windows (shm_tpu/pipeline.py:100-103)
+                Zt = F.pad(Z, (0, padded_features(Z.shape[2]) - Z.shape[2]))
+                return mse, (Zt.permute(1, 2, 0).to(resid.dtype), resid)
             return mse, torch.stack([Z, resid.to(Z.dtype)], dim=-1)
         recon, _, _ = vae(Z, sample=sample, generator=generator)
         return ((Z - recon) ** 2).mean(dim=(1, 2)), stack_vae_residual_nhwc(Z, recon)
@@ -99,22 +128,36 @@ def hybrid_outputs(vae_pass, cnn: CNN4DOF, W: torch.Tensor, mean: torch.Tensor,
 
 def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *, sample: bool = False,
                    use_fused_vae: bool = False,
-                   fused_dtype: torch.dtype = torch.float32):
+                   fused_dtype: torch.dtype = torch.float32,
+                   fused_layout: str = "nhwc"):
     """``fn(W, mean, std, threshold, generator=None) -> HybridOutputs`` for
     raw (N, T, D) ``W``; the VAE pass is :func:`make_vae_pass`'s
     (``use_fused_vae``, ``fused_dtype`` and ``sample`` as there).
     ``sample=True`` draws the VAE's eps from the ``generator`` given to
     ``fn`` (on the models' device), as the JAX function draws it from its
     ``key``; it raises ``ValueError`` with ``use_fused_vae=True``, as in
-    ``shm_tpu/pipeline.py``."""
+    ``shm_tpu/pipeline.py``.
+
+    ``fused_layout="transposed"`` (see :func:`make_vae_pass`) runs the
+    CNN4DOF-shaped ``cnn`` through :func:`cnn4dof_apply_transposed` on the
+    gate's transposed residual, in ``fused_dtype`` (JAX: ``fused_dtype or
+    bf16``; the port's ``fused_dtype`` is never None); ``cnn.dtype`` is not
+    read there.
+    """
     vae_pass = make_vae_pass(vae, use_fused_vae=use_fused_vae,
-                             fused_dtype=fused_dtype, sample=sample)
+                             fused_dtype=fused_dtype, sample=sample,
+                             fused_layout=fused_layout)
+    if fused_layout == "transposed":
+        apply_cnn = lambda xin: cnn4dof_apply_transposed(
+            cnn, *xin, d_real=vae.input_dim, dtype=fused_dtype)
+    else:
+        apply_cnn = cnn
 
     @torch.inference_mode()
     def hybrid(W: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                threshold: torch.Tensor,
                generator: Optional[torch.Generator] = None) -> HybridOutputs:
-        return hybrid_outputs(vae_pass, cnn, W, mean, std, threshold,
+        return hybrid_outputs(vae_pass, apply_cnn, W, mean, std, threshold,
                               generator)
 
     return hybrid

@@ -1077,3 +1077,186 @@ def test_cnn_training_steps_on_the_card_match_the_cpu(cuda_device):
         else:
             d = float((card[k] - v).abs().max())
             assert d <= 1e-5, (k, d)
+
+
+# --- the gate kernels' activation forms and row 1's transposed residual ------
+# Each non-default form launches the forms instance of its precision; it is
+# held to its own plain form as the default instance is (float32: atol 1e-4 +
+# rtol 1e-4; bf16: the relative mse bars of chip_smoke.py's BF16_GATE_TOL),
+# moves its form's launch counter, and gives other mse bits than the default
+# form wherever the plain forms' bits differ (the form gap is far inside the
+# bar). The transposed residual is the NHWC
+# one permuted, bit for bit, the mse the same bits.
+
+LSTM_FORMS = [("exact", "exact"), ("tanh", "exact"), ("exact", "rational"),
+              ("tanh", "rational")]
+FORM_CASES = ["4dof_ragged", "openlab_L1_H64", "1dof_H32_noln", "gate_only"]
+PRECISIONS = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
+              "bf16_io": (torch.bfloat16, torch.bfloat16)}
+FORM_COUNTERS = ("launches", "bf16_launches", "sigmoid_tanh_launches",
+                 "tanh_rational_launches", "transposed_launches")
+
+
+def _counts(gate):
+    return {k: getattr(gate, k) for k in FORM_COUNTERS if hasattr(gate, k)}
+
+
+def _moved(gate, before):
+    return {k: v - before[k] for k, v in _counts(gate).items()}
+
+
+def _want(gate, bf16, sigmoid_impl, tanh_impl="exact", transposed=False):
+    want = dict(launches=int(not bf16), bf16_launches=int(bf16),
+                sigmoid_tanh_launches=int(sigmoid_impl == "tanh"),
+                tanh_rational_launches=int(tanh_impl == "rational"),
+                transposed_launches=int(transposed))
+    return {k: v for k, v in want.items() if hasattr(gate, k)}
+
+
+def _other_bits_where_the_plain_forms_differ(gate, reference, w, Z, mse, mse_p,
+                                             kw_default):
+    """A launch that ignored its form would give the default form's bits:
+    where the plain version's mse moves with the form, the kernel's must
+    (in bf16 the rounding of h and y often hides the form on few windows,
+    in the plain version too)."""
+    if not torch.equal(mse_p, reference(w, Z, **kw_default)[0]):
+        assert not torch.equal(mse, gate(w, Z, **kw_default)[0])
+
+
+def _close_bf16(cell, mse, mse_p):
+    from chip_smoke import BF16_GATE_TOL
+
+    rel = (mse.double() - mse_p.double()).abs() / mse_p.double().abs()
+    tmax, tmean, _ = BF16_GATE_TOL[cell]
+    assert float(rel.max()) <= tmax and float(rel.mean()) <= tmean, (
+        float(rel.max()), float(rel.mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigmoid_impl, tanh_impl", LSTM_FORMS[1:])
+@pytest.mark.parametrize("name", FORM_CASES)
+def test_fused_vae_kernel_forms_match_plain_version(cuda_device, name, sigmoid_impl, tanh_impl):
+    vae, Z, kw = _gate_case("lstm", CASES[name], cuda_device, len(name))
+    w = vae_params_to_kernel_weights(vae)
+    kw = dict(kw, sigmoid_impl=sigmoid_impl, tanh_impl=tanh_impl)
+    before = _counts(fused_vae_gate)
+    mse, resid = fused_vae_gate(w, Z, **kw)
+    torch.cuda.synchronize()
+    assert _moved(fused_vae_gate, before) == _want(fused_vae_gate, False,
+                                                   sigmoid_impl, tanh_impl)
+    mse_p, resid_p = fused_vae_gate_reference(w, Z, **kw)
+    torch.testing.assert_close(mse, mse_p, atol=1e-4, rtol=1e-4)
+    if kw["with_residual"]:
+        torch.testing.assert_close(resid, resid_p, atol=1e-4, rtol=1e-4)
+    _other_bits_where_the_plain_forms_differ(
+        fused_vae_gate, fused_vae_gate_reference, w, Z, mse, mse_p,
+        dict(kw, sigmoid_impl="exact", tanh_impl="exact"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigmoid_impl, tanh_impl", LSTM_FORMS)
+@pytest.mark.parametrize("prec", ["bf16", "bf16_io"])
+def test_fused_vae_bf16_kernel_forms_match_plain_version(cuda_device, prec, sigmoid_impl, tanh_impl):
+    dtype, io = PRECISIONS[prec]
+    vae, Z, kw = _gate_case("lstm", CASES["4dof_ragged"], cuda_device, 11)
+    w = vae_params_to_kernel_weights(vae, torch.bfloat16)
+    kw = dict(kw, sigmoid_impl=sigmoid_impl, tanh_impl=tanh_impl, dtype=dtype,
+              io_dtype=io)
+    before = _counts(fused_vae_gate)
+    mse, _ = fused_vae_gate(w, Z, **kw)
+    torch.cuda.synchronize()
+    assert _moved(fused_vae_gate, before) == _want(fused_vae_gate, True,
+                                                   sigmoid_impl, tanh_impl)
+    mse_p = fused_vae_gate_reference(w, Z, **kw)[0]
+    _close_bf16("lstm", mse, mse_p)
+    if (sigmoid_impl, tanh_impl) != LSTM_FORMS[0]:
+        _other_bits_where_the_plain_forms_differ(
+            fused_vae_gate, fused_vae_gate_reference, w, Z, mse, mse_p,
+            dict(kw, sigmoid_impl="exact", tanh_impl="exact"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(PRECISIONS))
+@pytest.mark.parametrize("name", ["4dof_ragged", "openlab_L1_H64", "mingru_L3",
+                                  "mingru_T61_L4_H64"])
+def test_fused_mingru_tanh_form_matches_plain_version(cuda_device, name, prec):
+    dtype, io = PRECISIONS[prec]
+    weights_fn, gate, reference = _gate("min_gru")
+    case = {**GATE_CASES, **CASES, **MINGRU_CASES}[name]
+    vae, Z, kw = _gate_case("min_gru", case, cuda_device, len(name))
+    w = weights_fn(vae, dtype)
+    kw = dict(kw, sigmoid_impl="tanh", dtype=dtype, io_dtype=io)
+    before = _counts(gate)
+    mse, resid = gate(w, Z, **kw)
+    torch.cuda.synchronize()
+    assert _moved(gate, before) == _want(gate, dtype == torch.bfloat16, "tanh")
+    mse_p, resid_p = reference(w, Z, **kw)
+    if dtype == torch.bfloat16:
+        _close_bf16("min_gru", mse, mse_p)
+    else:
+        torch.testing.assert_close(mse, mse_p, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(resid, resid_p, atol=1e-4, rtol=1e-4)
+    _other_bits_where_the_plain_forms_differ(gate, reference, w, Z, mse, mse_p,
+                                             dict(kw, sigmoid_impl="exact"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forms", [("exact", "exact"), ("tanh", "rational")])
+@pytest.mark.parametrize("prec", list(PRECISIONS))
+@pytest.mark.parametrize("name", ["4dof_ragged", "openlab_L1_H64", "4dof_N97",
+                                  "gate_only"])
+def test_fused_vae_transposed_residual_is_the_nhwc_one(cuda_device, name, prec, forms):
+    from shm_tpu_torch.ops.fused_vae import padded_features
+
+    dtype, io = PRECISIONS[prec]
+    vae, Z, kw = _gate_case("lstm", CASES[name], cuda_device, len(name))
+    w = vae_params_to_kernel_weights(vae, dtype)
+    kw = dict(kw, dtype=dtype, io_dtype=io, sigmoid_impl=forms[0],
+              tanh_impl=forms[1])
+    mse, resid = fused_vae_gate(w, Z, **kw)
+    before = _counts(fused_vae_gate)
+    mse_t, resid_t = fused_vae_gate(w, Z, residual_layout="transposed", **kw)
+    torch.cuda.synchronize()
+    wr = kw["with_residual"]
+    assert _moved(fused_vae_gate, before) == _want(
+        fused_vae_gate, dtype == torch.bfloat16, *forms, transposed=wr)
+    assert torch.equal(mse_t, mse)
+    if not wr:
+        assert resid is None and resid_t is None
+        return
+    N, T, D = Z.shape
+    assert resid_t.shape == (T, padded_features(D), N)
+    assert resid_t.dtype == resid.dtype == (io or torch.float32)
+    assert torch.equal(resid_t[:, :D], resid.permute(1, 2, 0))
+    assert not resid_t[:, D:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 64, 128])
+def test_fused_vae_form_instances_fit_the_card(cuda_device, H):
+    """Every instance (float32, bf16 with float32 and bf16 io; default and
+    other forms) fits one block an SM and spills at most LSTM_SPILL_GUARD
+    bytes; the default forms' float32 instance is the one kernel_info
+    reports by default."""
+    from shm_tpu_torch.ops.fused_vae import kernel_info
+
+    assert kernel_info(100, H, 2) == kernel_info(100, H, 2, sigmoid_impl="exact")
+    for dtype, io in PRECISIONS.values():
+        for s, t in (("exact", "exact"), ("tanh", "rational")):
+            info = kernel_info(100, H, 2, dtype=dtype, io_dtype=io,
+                               sigmoid_impl=s, tanh_impl=t)
+            assert info["threads"] == 4 * H and info["blocks_per_sm"] >= 1
+            assert info["spill_bytes"] <= LSTM_SPILL_GUARD, (dtype, io, s, t, info)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 64, 128])
+def test_fused_mingru_form_instances_fit_the_card(cuda_device, H):
+    from shm_tpu_torch.ops.fused_mingru import kernel_info
+
+    assert kernel_info(100, H, 2) == kernel_info(100, H, 2, sigmoid_impl="exact")
+    for dtype, io in PRECISIONS.values():
+        for s in ("exact", "tanh"):
+            info = kernel_info(100, H, 2, dtype=dtype, io_dtype=io, sigmoid_impl=s)
+            assert info["threads"] == 4 * H and info["blocks_per_sm"] >= 1
+            assert info["spill_bytes"] <= MINGRU_SPILL_GUARD, (dtype, io, s, info)
