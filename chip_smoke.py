@@ -311,6 +311,24 @@ Phases (any failure exits non-zero before the final line):
    form, beside its bounds), row 1 in each layout, rows 1 and 6 in each
    form. The kernels line ends with ``fused_vae_gate/forms``,
    ``fused_vae_gate/transposed`` and ``fused_mingru_gate/forms``.
+21. row 7's MLP width (``mlp_ratio``) and the plain modules' bf16: (a) row
+   7 at M = 256 (H=32), 128 (H=64), 256, 768 and 512 = 4H (H=128), each in
+   the resident body (T=100) and the long body (T=512) and each softmax
+   form, against its plain version, float32 under phase 2's bar and bf16
+   with float32 and bf16 io under phase 17's (the mean bars
+   ``P21_BF16_MEAN``, read on the card by ``p21_readings``), every launch
+   moving its counters alone (``mlp_launches`` where M is not 4H); (b) the
+   4DOF attention root's default float32 mse bit for bit
+   ``ATTENTION_4DOF_MSE``; (c) each 4DOF root's VAE at bf16 through
+   ``reconstruction_mse(fused=False)`` on the 3,636 windows against its
+   float32 plain path, and ``CNNOpenLab(dtype=bf16)`` on the openLAB test
+   fault windows, within twice the JAX package's bf16 readings
+   (``PLAIN_BF16_READINGS``), gate and label agreement printed; (d)
+   CUDA-event times at 5,440 windows of each width beside its plain
+   version, the SDPA + ``torch.matmul`` composition and its bounds; (e) a
+   ``HybridScorer`` whose attention VAE has a 6H MLP on the 3,636 windows,
+   every launch at that width. The kernels line ends with
+   ``fused_attention_gate/mlp``.
 
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -427,15 +445,17 @@ def mingru_work(N: int, T: int, D: int, H: int, Z: int, L: int,
 
 
 def attention_work(N: int, T: int, D: int, H: int, Z: int, L: int,
-                   with_residual: bool = True):
+                   with_residual: bool = True, M: int = None):
     """(FLOPs, bytes) one fused attention gate call must do. A block: QKV
     2*T*H*3H, scores and PV 2*2*T*T*H, output projection 2*T*H*H, MLP
-    2*2*T*H*4H; the decoder's in_proj once a window. Bytes: x, resid, mse,
-    every weight and the [T, H] position table once."""
-    block = 2 * T * H * 3 * H + 2 * 2 * T * T * H + 2 * T * H * H + 2 * 2 * T * H * 4 * H
+    2*2*T*H*M (M the MLP's width, 4H unless given); the decoder's in_proj
+    once a window. Bytes: x, resid, mse, every weight and the [T, H]
+    position table once."""
+    M = 4 * H if M is None else M
+    block = 2 * T * H * 3 * H + 2 * 2 * T * T * H + 2 * T * H * H + 2 * 2 * T * H * M
     flops = N * (2 * T * D * H + 2 * L * block + 2 * H * Z + 2 * Z * H
                  + 2 * H * H + 2 * T * H * D)
-    block_w = 4 * H + (3 * H + 1) * H + 3 * H + (H + 1) * H + (4 * H + 1) * H + 4 * H + 4 * H * H
+    block_w = 4 * H + (3 * H + 1) * H + 3 * H + (H + 1) * H + (M + 1) * H + M + M * H
     stack_w = lambda i: (i + 1) * H + L * block_w + 2 * H
     n_w = (stack_w(D) + stack_w(H) + 2 * H + (H + 1) * Z + (Z + 1) * H
            + (H + 1) * D + T * H)
@@ -443,12 +463,13 @@ def attention_work(N: int, T: int, D: int, H: int, Z: int, L: int,
     return float(flops), float(nbytes)
 
 
-def attention_dense_flops(N: int, T: int, H: int, L: int) -> float:
+def attention_dense_flops(N: int, T: int, H: int, L: int, M: int = None) -> float:
     """The part of ``attention_work`` in the kernel's four weight products
-    (QKV, output projection, the MLP's two), which run in 3xTF32 on the
-    tensor cores."""
+    (QKV, output projection, the MLP's two, M wide: 4H unless given), which
+    run in 3xTF32 on the tensor cores."""
+    M = 4 * H if M is None else M
     return float(N * 2 * L * (2 * T * H * 3 * H + 2 * T * H * H
-                              + 2 * 2 * T * H * 4 * H))
+                              + 2 * 2 * T * H * M))
 
 
 def lstm_gate_flops(N: int, T: int, D: int, H: int, L: int) -> float:
@@ -6937,6 +6958,382 @@ def phase_forms_transposed(wl) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: row 7's MLP width (mlp_ratio) in both bodies and both softmax
+# forms, and the plain modules' bf16 (dtype=) on the card
+# ---------------------------------------------------------------------------
+
+P21_WIDTHS = (  # name, H, mlp_ratio, D, Z, L: M = 256, 128, 256, 768, 512 (4H)
+    ("H=32 r=8", 32, 8, 12, 5, 2),
+    ("H=64 r=2", 64, 2, 3, 8, 1),
+    ("H=128 r=2", 128, 2, 12, 16, 2),
+    ("H=128 r=6", 128, 6, 12, 16, 2),
+    ("H=128 r=4", 128, 4, 12, 16, 2),
+)
+P21_BODIES = ((100, 40), (512, 12))   # (T, N): the resident body, the long body
+# (a)'s bf16 mean bar, by (width, T, form): the midpoint of the card's
+# reading of the kernel against its plain version (the larger of the two
+# io's) and the float32 gap (the plain float32 version against the plain
+# bf16 one on the same inputs; the smaller of the two), both read on the
+# card by `p21_readings()` (NVIDIA H100 80GB HBM3, 700 W; reading / gap in
+# the comments); the max and |x - y| bars are phase 17's attention bars
+P21_BF16_MEAN = {
+    ('H=32 r=8', 100, 'packed'): 0.00015,      # 1.129e-05 / 2.906e-04
+    ('H=32 r=8', 100, 'streaming'): 0.00016,   # 2.901e-05 / 2.895e-04
+    ('H=32 r=8', 512, 'packed'): 5.3e-05,      # 4.044e-06 / 1.014e-04
+    ('H=32 r=8', 512, 'streaming'): 5e-05,     # 1.396e-05 / 8.529e-05
+    ('H=64 r=2', 100, 'packed'): 0.00024,      # 5.327e-05 / 4.343e-04
+    ('H=64 r=2', 100, 'streaming'): 0.00024,   # 3.801e-05 / 4.482e-04
+    ('H=64 r=2', 512, 'packed'): 0.00013,      # 3.468e-05 / 2.238e-04
+    ('H=64 r=2', 512, 'streaming'): 0.00011,   # 1.308e-05 / 2.108e-04
+    ('H=128 r=2', 100, 'packed'): 0.00024,     # 1.278e-04 / 3.490e-04
+    ('H=128 r=2', 100, 'streaming'): 0.00024,  # 1.536e-04 / 3.230e-04
+    ('H=128 r=2', 512, 'packed'): 6.2e-05,     # 4.979e-05 / 7.490e-05
+    ('H=128 r=2', 512, 'streaming'): 5.4e-05,  # 2.398e-05 / 8.393e-05
+    ('H=128 r=6', 100, 'packed'): 0.00024,     # 1.460e-04 / 3.334e-04
+    ('H=128 r=6', 100, 'streaming'): 0.00021,  # 1.088e-04 / 3.168e-04
+    ('H=128 r=6', 512, 'packed'): 6.6e-05,     # 5.230e-05 / 7.874e-05
+    ('H=128 r=6', 512, 'streaming'): 9.1e-05,  # 5.374e-05 / 1.278e-04
+    ('H=128 r=4', 100, 'packed'): 0.00028,     # 1.189e-04 / 4.468e-04
+    ('H=128 r=4', 100, 'streaming'): 0.00027,  # 8.264e-05 / 4.560e-04
+    ('H=128 r=4', 512, 'packed'): 0.00032,     # 5.808e-05 / 5.895e-04
+    ('H=128 r=4', 512, 'streaming'): 0.00034,  # 7.212e-05 / 6.042e-04
+}
+P21_TIME_N = 5440
+P21_REPS = 5
+# (c): the JAX package's flax modules at bf16 against float32 on the CPU
+# (tests/plain_dtype_readings.py jax; jitted with XLA's excess precision
+# off): relative mse max / mean on the 3,636 committed 4DOF test windows
+# through each root, p(ST) |diff| max / mean of CNNOpenLab on the 1,437
+# openLAB test fault windows; no gate or label flipped. The port's bf16
+# plain path on the card is held to twice these against its float32 plain
+# path, its mean to at least PLAIN_BF16_FLOOR of JAX's (a float32 module
+# fails), at most PLAIN_BF16_FLIPS decisions apart
+PLAIN_BF16_READINGS = {"lstm": (3.2748e-03, 2.7519e-04),
+                       "min_gru": (6.3261e-03, 6.4595e-04),
+                       "attention": (1.4711e-03, 1.1111e-04),
+                       "cnn_openlab": (2.2374e-03, 3.0506e-04)}
+PLAIN_BF16_TOL = {k: (2 * a, 2 * b) for k, (a, b) in PLAIN_BF16_READINGS.items()}
+PLAIN_BF16_FLOOR = 0.5
+PLAIN_BF16_FLIPS = 2
+
+
+def p21_vae(seed: int, H: int, r: int, D: int, Zd: int, L: int):
+    """A random attention VAE (every MLP r*H wide) on the card, and its rng."""
+    from shm_tpu_torch.config import VAEConfig
+    from shm_tpu_torch.convert import random_flax_vae_params, vae_from_flax
+
+    cfg = VAEConfig(input_dim=D, latent_dim=Zd, hidden_dim=H, num_layers=L,
+                    use_layernorm=True, cell="attention")
+    rng = np.random.default_rng(seed)
+    vae = vae_from_flax(random_flax_vae_params(rng, cfg, mlp_ratio=r), cfg)
+    check(vae.mlp_ratio == r, f"the VAE's MLP is {vae.mlp_ratio}H, not {r}H")
+    return vae.cuda(), rng
+
+
+def p21_launch(call, bf16: bool, stream: bool, long: bool, mlp: bool):
+    """``call()``, which launches row 7 once: its instance, form, body and
+    MLP-width counters move for that launch alone."""
+    from shm_tpu_torch.ops import fused_attention_gate as g
+
+    before = dict(attention_counts(), mlp_launches=g.mlp_launches)
+    out = call()
+    now = dict(attention_counts(), mlp_launches=g.mlp_launches)
+    got = {k: v - before[k] for k, v in now.items()}
+    want = dict(launches=int(not bf16), bf16_launches=int(bf16),
+                stream_launches=int(stream), long_launches=int(long),
+                mlp_launches=int(mlp))
+    check(got == want, f"row 7's counters moved {got}, want {want}")
+    return out
+
+
+def p21_bf16(tag: str, w, Z, kw: dict, io, tmean) -> float:
+    """The bf16 instance at ``kw`` against its plain bf16 version: the
+    relative mse (max, mean), the largest |x - y| difference and the float32
+    gap's mean printed; held to phase 17's attention max and |x - y| bars
+    and, unless ``tmean`` is None (``p21_readings``), to the mean bar
+    ``tmean`` below the gap. Returns the largest |mse diff|."""
+    import torch
+
+    from shm_tpu_torch.ops import fused_attention_gate, fused_attention_gate_reference
+
+    kw = dict(kw, dtype=torch.bfloat16, io_dtype=io)
+    mse_k, r_k = fused_attention_gate(w, Z, **kw)
+    torch.cuda.synchronize()
+    mse_p, r_p = fused_attention_gate_reference(w, Z, **kw)
+    mse_32, _ = fused_attention_gate_reference(
+        w, Z.to(io or torch.float32).float(), **dict(kw, dtype=torch.float32,
+                                                     io_dtype=None))
+    rel = (mse_k.double() - mse_p.double()).abs() / mse_p.double().abs()
+    gap = float(((mse_32.double() - mse_p.double()).abs() / mse_p.double().abs()).mean())
+    dy = float((r_k.double().sqrt() - r_p.double().sqrt()).abs().max())
+    tmax, _, tdy = BF16_GATE_TOL["attention"]
+    ok = float(rel.max()) <= tmax and dy <= tdy and (
+        tmean is None or float(rel.mean()) <= tmean < gap)
+    print(f"[phase21]   {tag}: mse rel max {float(rel.max()):.3e} mean "
+          f"{float(rel.mean()):.3e} (bars {tmax:g} / {tmean}); |x - y| max "
+          f"diff {dy:.3e} (bar {tdy:g}); float32 gap mean {gap:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    check(bool(torch.isfinite(mse_k).all()) and r_k.dtype == (io or torch.float32),
+          f"{tag}: mse not finite or residual of another type")
+    check(ok, f"{tag}: bf16 kernel disagrees with its plain bf16 version, or "
+              f"the mean bar does not separate bf16 from float32")
+    return float((mse_k - mse_p).abs().max())
+
+
+def phase21_kernels(readings: bool = False) -> dict:
+    """(a) each width of P21_WIDTHS in the resident body (T=100) and the long
+    body (T=512), each softmax form, against its plain version: float32
+    under phase 2's bar, bf16 with float32 and bf16 io under phase 17's
+    with the mean bar of P21_BF16_MEAN (``readings``: print the numbers
+    that bar rests on instead); every launch moves its counters alone, the
+    MLP-width counter for M other than 4H. Returns the largest |mse diff|
+    by precision."""
+    import torch
+
+    from shm_tpu_torch.ops import (
+        attention_params_to_kernel_weights, fused_attention_gate,
+        fused_attention_gate_reference,
+    )
+    from shm_tpu_torch.ops.fused_attention import plan
+
+    errs = {"f32": 0.0, "bf16": 0.0}
+    for i, (name, H, r, D, Zd, L) in enumerate(P21_WIDTHS):
+        vae, rng = p21_vae(2100 + i, H, r, D, Zd, L)
+        ws = {False: attention_params_to_kernel_weights(vae),
+              True: attention_params_to_kernel_weights(vae, torch.bfloat16)}
+        for T, N in P21_BODIES:
+            Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(np.float32)).cuda()
+            long = plan(T, H).body == "long"
+            print(f"[phase21] {name} (M={r * H}): N={N} T={T} D={D} Z={Zd} L={L}: "
+                  f"the {'long' if long else 'resident'} body")
+            for stream in (False, True):
+                form = "streaming" if stream else "packed"
+                kw = dict(num_layers=L, use_layernorm=True, with_residual=True,
+                          stream=stream, mlp_ratio=r)
+                mse, resid = p21_launch(lambda: fused_attention_gate(
+                    ws[False], Z, **kw), False, stream, long, r != 4)
+                torch.cuda.synchronize()
+                mse_p, resid_p = fused_attention_gate_reference(ws[False], Z, **kw)
+                errs["f32"] = max(errs["f32"], compare(f"{name} T={T} {form} "
+                                                       "float32 mse", mse, mse_p),
+                                  compare("... resid", resid, resid_p))
+                for io in (None, torch.bfloat16):
+                    tag = f"{name} T={T} {form} bf16 io={'bf16' if io else 'f32'}"
+                    tmean = None if readings else P21_BF16_MEAN[name, T, form]
+                    errs["bf16"] = max(errs["bf16"], p21_launch(
+                        lambda: p21_bf16(tag, ws[True], Z, kw, io, tmean),
+                        True, stream, long, r != 4))
+        del vae, ws
+        torch.cuda.empty_cache()
+    return errs
+
+
+def p21_readings() -> None:
+    """(a)'s bf16 numbers alone, for setting P21_BF16_MEAN: ``python -c
+    "import chip_smoke as c; c.phase_build(); c.p21_readings()"``."""
+    from shm_tpu_torch.device import set_full_f32_precision
+
+    set_full_f32_precision()
+    print(gpu_line())
+    phase21_kernels(readings=True)
+
+
+def p21_root_vae(cell: str, dtype):
+    """The ``cell`` 4DOF root's trained VAE at ``dtype``, on the card."""
+    from dataclasses import replace
+
+    from shm_tpu_torch.cli.stage4dof import Paths, _load_vae
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.models.vae import vae_from_config
+
+    cfg = Stage4DofConfig()
+    f32 = _load_vae(Paths(str(ROOT / FAMILIES[cell]["root"])), cfg)
+    vae = vae_from_config(replace(cfg.vae, cell=cell), dtype).eval()
+    vae.load_state_dict(f32.state_dict())
+    return vae.cuda()
+
+
+def p21_held(tag: str, key: str, rel, flips: int) -> dict:
+    """The bf16 plain path's relative gap ``rel`` to the float32 one, held
+    to PLAIN_BF16_TOL[key], its mean to at least PLAIN_BF16_FLOOR of JAX's
+    and at most PLAIN_BF16_FLIPS decisions apart; printed."""
+    tmax, tmean = PLAIN_BF16_TOL[key]
+    jmean = PLAIN_BF16_READINGS[key][1]
+    mx, mn = float(np.max(rel)), float(np.mean(rel))
+    ok = mx <= tmax and PLAIN_BF16_FLOOR * jmean <= mn <= tmean and flips <= PLAIN_BF16_FLIPS
+    print(f"[phase21]   {tag}: bf16 against float32 max {mx:.4e} mean {mn:.4e} "
+          f"(bars {tmax:.4e} / {tmean:.4e}, mean at least "
+          f"{PLAIN_BF16_FLOOR * jmean:.4e}); decisions apart {flips} "
+          f"(at most {PLAIN_BF16_FLIPS}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{tag}: the bf16 plain path is not the JAX package's bf16")
+    return dict(max=mx, mean=mn, flips=flips)
+
+
+def phase21_plain_bf16(W) -> dict:
+    """(c) each 4DOF root's VAE at bf16 through ``reconstruction_mse(fused=
+    False)`` on the card against the same at float32, on the 3,636
+    committed windows, the gates at the root's threshold; ``CNNOpenLab``
+    of data/openlab at bf16 against float32 on the openLAB test fault
+    windows, the labels at the CNN's threshold. No kernel launches."""
+    import torch
+
+    from shm_tpu_torch.cli import openlab as ol
+    from shm_tpu_torch.cli.stage4dof import Paths, _load_stats
+    from shm_tpu_torch.config import OpenLabConfig
+    from shm_tpu_torch.convert import cnn_openlab_from_flax
+    from shm_tpu_torch.models.cnn import CNNOpenLab
+    from shm_tpu_torch.train import reconstruction_mse
+    from shm_tpu_torch.utils.checkpoint import load_checkpoint
+    from shm_tpu_torch.utils.io import load_json
+
+    out = {}
+    before = bf16_counts()
+    for cell, fam in FAMILIES.items():
+        root = ROOT / fam["root"]
+        mean, std = _load_stats(Paths(str(root)))
+        Z = ((W - mean) / std).astype(np.float32)
+        thr = float(load_json(root / "processed/vae_threshold.json")["threshold"])
+        m = {dt: reconstruction_mse(p21_root_vae(cell, dt), Z, fused=False,
+                                    device="cuda")
+             for dt in (torch.float32, torch.bfloat16)}
+        a, b = (m[dt].astype(np.float64) for dt in (torch.float32, torch.bfloat16))
+        check(np.isfinite(b).all() and b.shape == (len(W),), f"{cell}: bf16 mse")
+        out[cell] = p21_held(f"{fam['root']} plain VAE, {len(W)} windows",
+                             cell, np.abs(b - a) / a, int(((b > thr) != (a > thr)).sum()))
+    base = ROOT / OPENLAB_ROOT
+    paths, cfg = ol.Paths(str(base)), OpenLabConfig()
+    _, Xr, meta = ol._load_extracted(paths)
+    X, _ = ol._sf_st_split_data(Xr, meta, openlab_json(
+        base, "extracted/run_split.json"), "test")
+    mu, sd = np.load(paths.cnn_dir / "artifacts/cnn_raw_mu_sd.npy")
+    thr = float(np.load(paths.cnn_val_dir / "artifacts/cnn_best_threshold.npy").ravel()[0])
+    x = torch.from_numpy(ol.standardize_clip(X, mu, sd, cfg.standardize_clip)[..., None]).cuda()
+    f32 = cnn_openlab_from_flax(load_checkpoint(
+        paths.cnn_dir / "artifacts/cnn_model_openlab.msgpack")).cuda()
+    b16 = CNNOpenLab(f32.num_classes, f32.dropout, dtype=torch.bfloat16).cuda().eval()
+    b16.load_state_dict(f32.state_dict())
+    with torch.inference_mode():
+        p = {k: torch.softmax(c(x), dim=1)[:, 1].double().cpu().numpy()
+             for k, c in (("f32", f32), ("bf16", b16))}
+    check(np.isfinite(p["bf16"]).all(), "CNNOpenLab bf16: p(ST) not finite")
+    out["cnn_openlab"] = p21_held(
+        f"data/openlab CNNOpenLab, {len(X)} test fault windows (p(ST) |diff|)",
+        "cnn_openlab", np.abs(p["bf16"] - p["f32"]),
+        int(((p["bf16"] >= thr) != (p["f32"] >= thr)).sum()))
+    check(bf16_counts() == before, "the plain bf16 path launched a gate kernel")
+    return out
+
+
+def phase21_timing() -> dict:
+    """(d) CUDA-event times of row 7 at P21_TIME_N windows of T=100,
+    gate-only, at each width, beside its plain version, the SDPA +
+    ``torch.matmul`` composition and its bounds (float32 FMA rate; weight
+    products in 3xTF32), the work counted at the width."""
+    import torch
+
+    from shm_tpu_torch.ops import (
+        attention_params_to_kernel_weights, fused_attention_gate,
+        fused_attention_gate_reference,
+    )
+    from shm_tpu_torch.tools.workload import (
+        PEAK_BYTES, PEAK_F32_FLOPS, PEAK_TF32_FLOPS, bound_ms,
+    )
+
+    nums = {}
+    N, T = P21_TIME_N, 100
+    for i, (name, H, r, D, Zd, L) in enumerate(P21_WIDTHS):
+        vae, rng = p21_vae(2150 + i, H, r, D, Zd, L)
+        w = attention_params_to_kernel_weights(vae)
+        Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(np.float32)).cuda()
+        kw = dict(num_layers=L, use_layernorm=True, with_residual=False,
+                  mlp_ratio=r)
+        flops, nbytes = attention_work(N, T, D, H, Zd, L, with_residual=False,
+                                       M=r * H)
+        dense = attention_dense_flops(N, T, H, L, M=r * H)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+        tf32_ms = max(nbytes / PEAK_BYTES, 3 * dense / PEAK_TF32_FLOPS
+                      + (flops - dense) / PEAK_F32_FLOPS) * 1e3
+        lib = sdpa_attention_pass(vae)
+        row = dict(windows=N, T=T, H=H, M=r * H, L=L,
+                   ms=time_ms(lambda: fused_attention_gate(w, Z, **kw), P21_REPS),
+                   plain_ms=time_ms(lambda: fused_attention_gate_reference(
+                       w, Z, **kw), P21_REPS),
+                   library_ms=time_ms(lambda: lib(Z), P21_REPS),
+                   bound_ms=b_ms, bound_by=b_by, bound_3xtf32_ms=tf32_ms)
+        nums[name] = row
+        print(f"[phase21] times at N={N} T={T} {name} (M={r * H}) L={L} "
+              f"gate-only (CUDA events, median of {P21_REPS}): kernel "
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, SDPA + "
+              f"torch.matmul {row['library_ms']:.3f} ms; bound {b_ms:.3f} ms "
+              f"({b_by}: {flops / 1e9:.2f} GFLOP at {PEAK_F32_FLOPS / 1e12:g} "
+              f"TFLOP/s float32), {tf32_ms:.3f} ms with its {dense / 1e9:.2f} "
+              f"GFLOP of weight products at 3 x {PEAK_TF32_FLOPS / 1e12:g} "
+              f"TFLOP/s TF32; {gpu_line()}")
+        del vae, w, Z
+        torch.cuda.empty_cache()
+    return nums
+
+
+def phase21_main_path(W) -> int:
+    """(e) the main path at an MLP other than 4H: a ``HybridScorer`` of a
+    random attention VAE at the 4DOF widths with its MLP 6H wide (M = 768)
+    and the data/4dof_attention root's statistics and CNN, on the 3,636
+    committed windows, the counts at 0 just before: every launch of row 7
+    at that width; finite outputs of the right shape. Returns the launches."""
+    import torch
+
+    from shm_tpu_torch.serve import HybridScorer
+
+    root = HybridScorer.from_artifacts(ROOT / "data/4dof_attention")
+    vae, _ = p21_vae(2199, 128, 6, 12, 16, 2)
+    sc = HybridScorer(vae, root.cnn, root.mean.cpu().numpy(),
+                      root.std.cpu().numpy(), float(root.threshold),
+                      device="cuda")
+    from shm_tpu_torch.ops import fused_attention_gate as g
+
+    attention_counts(reset=True)
+    g.mlp_launches = 0
+    out = sc.score(W)
+    a = dict(attention_counts(), mlp_launches=g.mlp_launches)
+    print(f"[phase21] (e) HybridScorer of an attention VAE with a 6H MLP on "
+          f"{len(W)} windows: row 7 {a}")
+    check(a["mlp_launches"] > 0 and a["mlp_launches"] == a["launches"]
+          and a["bf16_launches"] == a["long_launches"] == 0,
+          f"the scorer at M=768 did not run row 7 at that width alone: {a}")
+    check(all(out[k].shape == (len(W),) for k in ("mse", "y_pred"))
+          and bool(np.isfinite(out["mse"]).all()), "the scorer's outputs")
+    del sc, root
+    torch.cuda.empty_cache()
+    return a["mlp_launches"]
+
+
+def phase_mlp_dtype(W) -> list:
+    """Phase 21: row 7's MLP width and the plain modules' bf16. Returns row
+    7's ``fused_attention_gate/mlp`` row of the kernels line."""
+    import torch
+
+    print(f"[phase21] {gpu_line()}")
+    t_phase = time.perf_counter()
+    errs = phase21_kernels()
+    torch.cuda.empty_cache()
+    print("[phase21] (b) the 4DOF attention root's default float32 mse:")
+    phase19_4dof(W)
+    plain = phase21_plain_bf16(W)
+    torch.cuda.empty_cache()
+    nums = phase21_timing()
+    launches = phase21_main_path(W)
+    main = nums["H=128 r=6"]
+    row = dict(name="fused_attention_gate/mlp", route="cuda",
+               source="shm_tpu_torch/ops/csrc/fused_attention.cu",
+               replaces="shm_tpu/ops/fused_attention.py:166",
+               launches=launches, mlp_launches=launches,
+               max_abs_err=errs["f32"], max_abs_err_bf16=errs["bf16"],
+               **main, widths=nums, plain_bf16=plain)
+    print(f"[phase21] phase 21 {time.perf_counter() - t_phase:.2f} s")
+    return [row]
+
+
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[2])
@@ -7032,6 +7429,8 @@ def main(argv) -> int:
         stream_rows = phase_attention_stream(W)
         torch.cuda.empty_cache()
         form_rows = phase_forms_transposed(wl)
+        torch.cuda.empty_cache()
+        mlp_rows = phase_mlp_dtype(W)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7064,6 +7463,10 @@ def main(argv) -> int:
     # of the non-default forms, by form in `form_launches`) and row 1's
     # transposed residual (`launches` the float32 transposed hybrid's)
     kernels += form_rows
+    # row 7 at an MLP width other than 4H (phase 21: `launches` and
+    # `mlp_launches` the 6H-MLP scorer's main path; its times at M = 768,
+    # `widths` each width's)
+    kernels += mlp_rows
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ Layouts handled here, once, at load:
 - Attention: ``query/key/value.kernel`` [H, heads, hd] -> weight [heads*hd, H]
   (bias [heads, hd] -> [heads*hd]); ``out.kernel`` [heads, hd, H] -> weight
   [H, heads*hd]; the stack's LayerNorms ``scale`` / ``bias`` -> ``weight`` /
-  ``bias``; ``in_proj``, ``mlp_in``, ``mlp_out`` are Dense.
+  ``bias``; ``in_proj``, ``mlp_in``, ``mlp_out`` are Dense. The MLP's width
+  M is the tree's (``mlp_in.kernel`` [H, M]): ``vae_from_flax`` builds the
+  stacks with ``mlp_ratio = M / H``.
 - Dense: flax ``kernel`` [in, out] -> ``nn.Linear.weight`` [out, in].
 - LayerNorm: ``scale`` / ``bias`` -> ``weight`` / ``bias`` (eps 1e-5 in both).
 - Conv: HWIO -> OIHW.
@@ -112,8 +114,30 @@ def vae_state_dict(params: Mapping, num_layers: int, use_layernorm: bool,
     return sd
 
 
-def vae_from_flax(params: Mapping, cfg: VAEConfig) -> TemporalVAE:
-    vae = vae_from_config(cfg)
+def tree_mlp_ratio(params: Mapping, hidden_dim: int) -> int:
+    """The MLP width of an attention tree's stacks in units of H, read off
+    ``encoder_lstm.layer0.mlp_in.kernel`` [H, M] (4 for every tree the JAX
+    ``TemporalVAE`` makes; any other comes from a hand-built tree, which
+    only the JAX kernel and the plain gate compute). M not a whole multiple
+    of H, or stacks of other widths, raise ``ValueError``."""
+    widths = {np.asarray(params[s][l]["mlp_in"]["kernel"]).shape[1]
+              for s in ("encoder_lstm", "decoder_lstm")
+              for l in params[s] if l.startswith("layer")}
+    if len(widths) != 1 or next(iter(widths)) % hidden_dim:
+        raise ValueError(f"the attention tree's MLP widths {sorted(widths)} "
+                         f"are not one multiple of H={hidden_dim}")
+    return next(iter(widths)) // hidden_dim
+
+
+def vae_from_flax(params: Mapping, cfg: VAEConfig,
+                  dtype: torch.dtype = torch.float32) -> TemporalVAE:
+    """The :class:`TemporalVAE` of ``cfg`` at compute precision ``dtype``
+    with the flax tree's parameters; an attention tree's MLP width comes
+    from the tree (:func:`tree_mlp_ratio`)."""
+    ratio = (tree_mlp_ratio(params, cfg.hidden_dim)
+             if cfg.cell == "attention" and tree_cell(params) == "attention"
+             else 4)
+    vae = vae_from_config(cfg, dtype, mlp_ratio=ratio)
     vae.load_state_dict(vae_state_dict(params, cfg.num_layers,
                                        cfg.use_layernorm, cfg.cell))
     return vae.eval()
@@ -287,9 +311,11 @@ def cnn_openlab_to_flax(cnn: Union[CNNOpenLab, Mapping]) -> Dict:
     return {"params": params, "batch_stats": {}}
 
 
-def random_flax_vae_params(rng: np.random.Generator, cfg: VAEConfig) -> Dict:
+def random_flax_vae_params(rng: np.random.Generator, cfg: VAEConfig,
+                           mlp_ratio: int = 4) -> Dict:
     """A flax-layout TemporalVAE parameter tree of random numpy values, of
-    the ``cfg.cell`` family.
+    the ``cfg.cell`` family (an attention tree's MLP ``mlp_ratio * H``
+    wide; the same draws in the same order at any width).
 
     Lets a test or a smoke run feed the same random weights to the JAX model
     and to the port. LayerNorm scales and biases (and the attention stack's
@@ -331,8 +357,9 @@ def random_flax_vae_params(rng: np.random.Generator, cfg: VAEConfig) -> Dict:
                     for n in _QKV}
             attn["out"] = {"kernel": u((heads, hd, H), H), "bias": u((H,), H)}
             tree[f"layer{l}"] = {"attn_norm": norm(), "attn": attn,
-                                 "mlp_norm": norm(), "mlp_in": dense(H, 4 * H),
-                                 "mlp_out": dense(4 * H, H)}
+                                 "mlp_norm": norm(),
+                                 "mlp_in": dense(H, mlp_ratio * H),
+                                 "mlp_out": dense(mlp_ratio * H, H)}
         tree["final_norm"] = norm()
         return tree
 
@@ -353,6 +380,7 @@ def random_flax_vae_params(rng: np.random.Generator, cfg: VAEConfig) -> Dict:
 
 
 __all__ = ["vae_state_dict", "vae_from_flax", "vae_to_flax", "tree_cell",
+           "tree_mlp_ratio",
            "cnn4dof_state_dict", "cnn4dof_from_flax", "cnn4dof_to_flax",
            "cnn_openlab_state_dict", "cnn_openlab_from_flax",
            "cnn_openlab_to_flax",

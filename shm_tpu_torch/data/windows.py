@@ -105,6 +105,16 @@ def slice_frac(x, frac: Tuple[float, float]):
     return x[s:e]
 
 
+def windows_from_series_batch(X: torch.Tensor, seq_len: int,
+                              stride: int = 1) -> torch.Tensor:
+    """(R, T, F) runs -> (R, N, seq_len, F) windows, the same windows as
+    :func:`make_windows` on each run (the JAX function vmaps it), as a view;
+    runs shorter than ``seq_len`` give (R, 0, seq_len, F)."""
+    if X.shape[1] < seq_len:
+        return X.new_zeros((X.shape[0], 0, seq_len) + tuple(X.shape[2:]))
+    return X.unfold(1, seq_len, stride).movedim(-1, 2)
+
+
 def make_windows_np(x: np.ndarray, seq_len: int, stride: int = 1) -> np.ndarray:
     """Host-side :func:`make_windows` of a numpy series (a copy)."""
     return make_windows(torch.from_numpy(np.ascontiguousarray(x)),
@@ -112,6 +122,7 @@ def make_windows_np(x: np.ndarray, seq_len: int, stride: int = 1) -> np.ndarray:
 
 
 __all__ = ["num_windows", "make_windows", "make_windows_np",
+           "windows_from_series_batch",
            "normalize_windows", "compute_mean_std_from_windows",
            "compute_standardizer", "standardize", "destandardize",
            "stitch_windows", "segment_rmse", "slice_frac"]

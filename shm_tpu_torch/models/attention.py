@@ -15,6 +15,18 @@ Parameters are plain ``nn.Linear`` / scale-bias pairs in torch's [out, in]
 layout (flax ``query/key/value.kernel`` [H, heads, hd] -> weight
 [heads*hd, H]; ``out.kernel`` [heads, hd, H] -> weight [H, heads*hd]), not
 ``nn.MultiheadAttention``.
+
+``dtype`` is the JAX modules' compute precision (``shm_tpu/models/
+attention.py:87-103``, :121-152; :mod:`shm_tpu_torch.models.precision`). In
+bf16 every dense layer (``in_proj``, q, k, v, ``out``, the MLP's two) runs as
+flax's ``nn.Dense(dtype=bf16)``; each LayerNorm computes in float32 and
+rounds its output to bf16 (flax's float32 statistics); the attention is
+flax's ``MultiHeadDotProductAttention(dtype=bf16)`` with its default
+``force_fp32_for_softmax=False``: the query divided by ``sqrt(head_dim)``
+rounded to bf16, the scores, the softmax (its sum in float32, rounded) and
+P.V in bf16; GELU, the residual sums and the mean over T in bf16. The
+sinusoidal table stays float32 until it is cast to bf16 and added. The
+parameters stay float32.
 """
 
 from __future__ import annotations
@@ -25,6 +37,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from shm_tpu_torch.models.precision import (compute_dtype, dense, gelu_tanh,
+                                            norm, softmax)
 
 HEAD_DIM = 32       # head size at every preset width (128 -> 4 heads, 32 -> 1)
 STACK_LN_EPS = 1e-6  # flax LayerNorm default: the stack's internal norms
@@ -76,13 +91,14 @@ class TransformerBlock(nn.Module):
     :meth:`draw_dropout_masks` draws them)."""
 
     def __init__(self, hidden_dim: int, num_heads: int, dropout: float = 0.0,
-                 mlp_ratio: int = 4):
+                 mlp_ratio: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
         H = hidden_dim
         if H % num_heads:
             raise ValueError(f"hidden_dim {H} not divisible by {num_heads} heads")
         self.num_heads = num_heads
         self.dropout = float(dropout)
+        self.dtype = compute_dtype(dtype, "TransformerBlock")
         self.attn_norm = FlaxLayerNorm(H)
         self.query = nn.Linear(H, H)
         self.key = nn.Linear(H, H)
@@ -119,6 +135,8 @@ class TransformerBlock(nn.Module):
                 masks: Optional[Tuple[torch.Tensor, ...]] = None
                 ) -> torch.Tensor:
         m_w, m_a, m_m = masks if masks is not None else (None, None, None)
+        if self.dtype != torch.float32:
+            return self._forward_cast(x, generator, m_w, m_a, m_m)
         B, T, H = x.shape
         heads = self.num_heads
         hd = H // heads
@@ -134,6 +152,26 @@ class TransformerBlock(nn.Module):
                                 approximate="tanh"))
         return x + self._drop(h, generator, mask=m_m)
 
+    def _forward_cast(self, x, generator, m_w, m_a, m_m) -> torch.Tensor:
+        """The forward in ``self.dtype`` with flax's semantics (module
+        docstring); ``x`` is already in it."""
+        dt = self.dtype
+        B, T, H = x.shape
+        heads = self.num_heads
+        hd = H // heads
+        h = norm(self.attn_norm, x, dt)
+        split = lambda t: t.view(B, T, heads, hd).transpose(1, 2)  # [B,h,T,hd]
+        q = split(dense(self.query, h, dt)) / torch.tensor(
+            math.sqrt(hd), dtype=torch.float32).to(dt)
+        k, v = split(dense(self.key, h, dt)), split(dense(self.value, h, dt))
+        w = softmax(q @ k.transpose(-1, -2))                        # [B,h,T,T]
+        w = self._drop(w, generator, (1, 1, T, T), m_w)
+        h = dense(self.out, (w @ v).transpose(1, 2).reshape(B, T, H), dt)
+        x = x + self._drop(h, generator, mask=m_a)
+        h = dense(self.mlp_in, norm(self.mlp_norm, x, dt), dt)
+        h = dense(self.mlp_out, gelu_tanh(h), dt)
+        return x + self._drop(h, generator, mask=m_m)
+
 
 class AttentionStack(nn.Module):
     """Transformer stack with the temporal-stack interface of
@@ -142,21 +180,24 @@ class AttentionStack(nn.Module):
     ``broadcast_steps`` the input is one [B, D] vector: it is projected once
     and broadcast over T, and the positions tell the steps apart.
 
-    ``num_heads=None`` derives ``max(1, hidden_dim // 32)``.
+    ``num_heads=None`` derives ``max(1, hidden_dim // 32)``. ``dtype``: the
+    compute precision of every layer (module docstring); the outputs are in
+    it.
     """
 
     def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 1,
                  dropout: float = 0.0, num_heads: Optional[int] = None,
-                 mlp_ratio: int = 4):
+                 mlp_ratio: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
         H = hidden_dim
         self.hidden_dim = H
         self.num_heads = num_heads or max(1, H // HEAD_DIM)
         self.mlp_ratio = mlp_ratio
         self.dropout = float(dropout)
+        self.dtype = compute_dtype(dtype, "AttentionStack")
         self.in_proj = nn.Linear(input_dim, H)
         self.layers = nn.ModuleList(
-            TransformerBlock(H, self.num_heads, dropout, mlp_ratio)
+            TransformerBlock(H, self.num_heads, dropout, mlp_ratio, dtype)
             for _ in range(num_layers))
         self.final_norm = FlaxLayerNorm(H)
 
@@ -198,15 +239,17 @@ class AttentionStack(nn.Module):
             raise ValueError(f"the attention stack takes one keep-mask "
                              f"triple a block ({len(self.layers)}, as "
                              "draw_dropout_masks draws them)")
-        tok = self.in_proj(x)
+        dt = self.dtype
+        tok = self.in_proj(x) if dt == torch.float32 else dense(self.in_proj, x, dt)
         T = x.shape[1] if broadcast_steps is None else broadcast_steps
         if broadcast_steps is not None:
             tok = tok[:, None, :].expand(-1, T, -1)
-        out = tok + sinusoidal_positions(T, self.hidden_dim, x.device)[None]
+        out = tok + sinusoidal_positions(T, self.hidden_dim, x.device).to(dt)[None]
         for i, block in enumerate(self.layers):
             out = block(out, generator,
                         None if dropout_masks is None else dropout_masks[i])
-        out = self.final_norm(out)
+        out = (self.final_norm(out) if dt == torch.float32
+               else norm(self.final_norm, out, dt))
         return out, out.mean(dim=1)
 
 

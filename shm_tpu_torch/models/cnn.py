@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from shm_tpu_torch.models.precision import compute_dtype, silu
+
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (same parameters and buffers, so the same state
@@ -66,12 +68,9 @@ class CNN4DOF(nn.Module):
                  num_features: int = 12, dropout: float = 0.5,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"CNN4DOF computes in float32 or bfloat16, "
-                             f"got {dtype}")
         self.num_classes = num_classes
         self.dropout = dropout
-        self.dtype = dtype
+        self.dtype = compute_dtype(dtype, "CNN4DOF")
         self.conv1 = nn.Conv2d(2, 16, 3, padding=1)
         self.bn1 = FlaxBatchNorm2d(16, eps=1e-5)
         self.conv2 = nn.Conv2d(16, 32, 3, padding=1)
@@ -276,12 +275,25 @@ class CNNOpenLab(nn.Module):
     Training mode takes the JAX model's dropout (keep each fc1 unit with
     probability ``1 - dropout``, scale the kept ones); in eval mode (the
     default) it is the inference model.
+
+    ``dtype=torch.bfloat16`` is the JAX model's ``dtype=bf16``
+    (``shm_tpu/models/cnn.py:131-154``), an inference model as
+    :class:`CNN4DOF`'s: the input cast to bf16, each convolution and dense
+    layer in bf16 with its bias added in bf16, GroupNorm computed in float32
+    from the bf16 input and cast back (flax's ``nn.GroupNorm(dtype=)``),
+    SiLU, the pools and the mean over (T, D) in bf16, the logits returned as
+    float32. Training mode raises for it, as for ``CNN4DOF``: the JAX
+    package trains this CNN in float32 only (``shm_tpu/cli/openlab.py:373``)
+    and serves bf16, so a bf16 training step has no reference to be held
+    to. The parameters stay float32.
     """
 
-    def __init__(self, num_classes: int = 2, dropout: float = 0.4):
+    def __init__(self, num_classes: int = 2, dropout: float = 0.4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.dropout = dropout
+        self.dtype = compute_dtype(dtype, "CNNOpenLab")
         cin = 1
         for i, (cout, kt) in enumerate(OPENLAB_BLOCKS, start=1):
             setattr(self, f"b{i}_conv",
@@ -316,6 +328,8 @@ class CNNOpenLab(nn.Module):
         (B, 128) boolean tensor (None draws one from torch's global
         generator); ignored in eval mode.
         """
+        if self.dtype != torch.float32:
+            return self._forward_cast(x)
         x = x.permute(0, 3, 1, 2)                                  # NCHW
         n = len(OPENLAB_BLOCKS)
         for i in range(1, n + 1):
@@ -330,7 +344,61 @@ class CNNOpenLab(nn.Module):
             x = torch.where(dropout_mask, x / keep, torch.zeros_like(x))
         return self.fc2(x)
 
+    def _forward_cast(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward in ``self.dtype`` with flax's semantics (class
+        docstring); eval mode only."""
+        if self.training:
+            raise ValueError("a CNNOpenLab of dtype bfloat16 is an inference "
+                             "model: call .eval() first")
+        dt = self.dtype
+        cast = lambda t: t.to(dt)
+        x = cast(x.permute(0, 3, 1, 2))                            # NCHW
+        n = len(OPENLAB_BLOCKS)
+        for i in range(1, n + 1):
+            c, g = getattr(self, f"b{i}_conv"), getattr(self, f"b{i}_gn")
+            x = F.conv2d(x, cast(c.weight), None, padding=c.padding) + cast(
+                c.bias)[:, None, None]
+            x = silu(cast(flax_group_norm(x.float(), g)))
+            if i < n:
+                x = F.max_pool2d(x, (2, 1))                        # T halves
+        x = silu(F.linear(x.mean(dim=(2, 3)), cast(self.fc1.weight))
+                 + cast(self.fc1.bias))
+        return (F.linear(x, cast(self.fc2.weight)) + cast(self.fc2.bias)).float()
+
+
+def flax_group_norm(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
+    """``gn`` on an NCHW ``x`` as flax's ``nn.GroupNorm`` computes it: each
+    group's variance ``E[x^2] - E[x]^2`` clamped at 0, then ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias``."""
+    B, C = x.shape[:2]
+    xg = x.reshape(B, gn.num_groups, -1)
+    mean = xg.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xg * xg).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    per_channel = lambda t: t.expand(-1, -1, C // gn.num_groups).reshape(
+        B, C, *([1] * (x.dim() - 2)))
+    mul = per_channel(torch.rsqrt(var + gn.eps)) * gn.weight.reshape(
+        1, C, *([1] * (x.dim() - 2)))
+    return (x - per_channel(mean)) * mul + gn.bias.reshape(
+        1, C, *([1] * (x.dim() - 2)))
+
+
+def cnn_from_config(cfg, dtype: torch.dtype = torch.float32) -> nn.Module:
+    """The CNN of ``cfg.variant`` (a :class:`shm_tpu_torch.config.CNNConfig`):
+    :class:`CNN4DOF` for ``"4dof"`` (its input of ``cfg.seq_len`` x
+    ``cfg.num_features``) or :class:`CNNOpenLab` for ``"openlab"``, with the
+    config's ``num_classes`` and ``dropout`` and compute precision
+    ``dtype``; any other variant raises ``ValueError`` (the JAX function,
+    ``shm_tpu/models/cnn.py:197-202``)."""
+    if cfg.variant == "4dof":
+        return CNN4DOF(num_classes=cfg.num_classes, seq_len=cfg.seq_len,
+                       num_features=cfg.num_features, dropout=cfg.dropout,
+                       dtype=dtype)
+    if cfg.variant == "openlab":
+        return CNNOpenLab(num_classes=cfg.num_classes, dropout=cfg.dropout,
+                          dtype=dtype)
+    raise ValueError(f"unknown CNN variant {cfg.variant!r}")
+
 
 __all__ = ["CNN4DOF", "CNNOpenLab", "FlaxBatchNorm2d", "batch_norm_shards",
-           "cnn4dof_apply_transposed", "forward_shards",
+           "cnn4dof_apply_transposed", "cnn_from_config", "forward_shards",
            "stack_vae_residual_nhwc"]

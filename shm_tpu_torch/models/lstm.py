@@ -6,6 +6,12 @@ Parameters use torch's own ``nn.LSTM`` naming and layout: ``weight_ih``
 [4H, in], ``weight_hh`` [4H, H] with gates in i|f|g|o order, and the two
 biases ``bias_ih`` and ``bias_hh`` [4H] that the JAX layer trains separately
 as ``b_ih`` and ``b_hh`` (the cell adds them; the optimizer does not).
+
+``dtype`` is the JAX layer's compute precision (``shm_tpu/models/lstm.py:
+64-90``, :mod:`shm_tpu_torch.models.precision`): in bf16 the input, both
+weights and the merged bias are cast to bf16, each product's result is
+bf16, and the carry h, c and the gates stay bf16 at every step; the
+parameters stay float32.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from shm_tpu_torch.models.precision import compute_dtype, sigmoid
 
 
 def uniform_init_(module: nn.Module, bound: float,
@@ -30,12 +38,15 @@ class LSTMLayer(nn.Module):
 
     With ``broadcast_steps`` the input is one [B, D] vector fed at every one
     of ``broadcast_steps`` steps; its projection is computed once.
+    ``dtype``: the compute precision (module docstring).
     """
 
-    def __init__(self, input_dim: int, hidden_dim: int):
+    def __init__(self, input_dim: int, hidden_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         H = hidden_dim
         self.hidden_dim = H
+        self.dtype = compute_dtype(dtype, "LSTMLayer")
         self.weight_ih = nn.Parameter(torch.empty(4 * H, input_dim))
         self.weight_hh = nn.Parameter(torch.empty(4 * H, H))
         self.bias_ih = nn.Parameter(torch.empty(4 * H))
@@ -44,24 +55,31 @@ class LSTMLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, broadcast_steps: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        H = self.hidden_dim
+        H, dt = self.hidden_dim, self.dtype
         bias = self.bias_ih + self.bias_hh
+        w_hh_t = self.weight_hh.t()
+        if dt == torch.float32:
+            proj = lambda v: F.linear(v, self.weight_ih, bias)
+        else:
+            # the sum of the two biases in float32, then cast (as in JAX)
+            x, w_ih, bias, w_hh_t = (t.to(dt) for t in (
+                x, self.weight_ih, bias, w_hh_t))
+            proj = lambda v: F.linear(v, w_ih) + bias
         if broadcast_steps is None:
             B, T, _ = x.shape
-            xp = F.linear(x, self.weight_ih, bias)                # [B, T, 4H]
+            xp = proj(x)                                          # [B, T, 4H]
         else:
             B, T = x.shape[0], broadcast_steps
-            xp_const = F.linear(x, self.weight_ih, bias)          # [B, 4H], once
+            xp_const = proj(x)                                    # [B, 4H], once
         h = x.new_zeros(B, H)
         c = x.new_zeros(B, H)
-        w_hh_t = self.weight_hh.t()
         outs = []
         for t in range(T):
             xp_t = xp[:, t] if broadcast_steps is None else xp_const
             gates = xp_t + h @ w_hh_t
             i, f, g, o = gates.split(H, dim=1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
+            c = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
+            h = sigmoid(o) * torch.tanh(c)
             outs.append(h)
         return torch.stack(outs, dim=1), (h, c)
 
@@ -77,15 +95,17 @@ class LSTMStack(nn.Module):
     only. ``dropout_masks`` gives the inverted masks explicitly (one
     [B, T, H] tensor of 0 or 1/keep per layer gap; a single tensor for a
     2-layer stack), so that a test can feed both frameworks the same mask;
-    without it the mask is drawn from ``generator``.
+    without it the mask is drawn from ``generator``. ``dtype`` is every
+    layer's (:class:`LSTMLayer`); the outputs are in it.
     """
 
     def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 1,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = float(dropout)
+        self.dtype = compute_dtype(dtype, "LSTMStack")
         self.layers = nn.ModuleList(
-            LSTMLayer(input_dim if l == 0 else hidden_dim, hidden_dim)
+            LSTMLayer(input_dim if l == 0 else hidden_dim, hidden_dim, dtype)
             for l in range(num_layers))
 
     def forward(self, x: torch.Tensor, broadcast_steps: Optional[int] = None,
@@ -112,13 +132,14 @@ def run_stack(stack: nn.Module, x: torch.Tensor,
             out, broadcast_steps=broadcast_steps if l == 0 else None)
         if l == gaps:
             break
+        # a bf16 stack's output times the float32 mask, rounded to bf16 once
         if dropout_masks is not None:
-            out = out * dropout_masks[l]
+            out = (out * dropout_masks[l]).to(out.dtype)
         elif stack.training and stack.dropout > 0.0:
             keep = 1.0 - stack.dropout
             mask = torch.rand(out.shape, generator=generator,
                               device=out.device) < keep
-            out = out * (mask.to(out.dtype) / keep)
+            out = (out * (mask.to(torch.float32) / keep)).to(out.dtype)
     return out, h_last
 
 

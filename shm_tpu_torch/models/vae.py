@@ -11,6 +11,16 @@ they are the checkpoint's names. ``sample=False`` decodes the posterior mean (z 
 deterministic scoring); ``sample=True`` decodes ``mu + eps * exp(0.5 * logvar)``
 with ``eps`` given or drawn from ``generator`` (training and stochastic
 validation). Dropout is active in training mode only.
+
+``dtype`` is the JAX model's compute precision (``shm_tpu/models/vae.py:
+81-101``; :mod:`shm_tpu_torch.models.precision`): both stacks, the
+LayerNorm (float32 statistics, its output rounded), the four dense heads,
+the tanh and the noise in it; ``forward`` returns recon, mu and logvar as
+float32, as the JAX model does. The parameters stay float32, so checkpoints
+and ``convert.py`` do not depend on it. ``mlp_ratio`` (attention cell only)
+is the width of the attention stacks' MLP in units of H; the JAX
+``TemporalVAE`` has no such field (its stacks are 4H wide), and
+``convert.vae_from_flax`` reads it off a tree's ``mlp_in`` kernel.
 """
 
 from __future__ import annotations
@@ -21,14 +31,17 @@ import torch
 from torch import nn
 
 from shm_tpu_torch.config import VAEConfig
+from shm_tpu_torch.models.attention import flax_layer_norm
 from shm_tpu_torch.models.lstm import LSTMStack, MaskArg, uniform_init_
+from shm_tpu_torch.models.precision import compute_dtype, dense, norm
 
 
 class TemporalVAE(nn.Module):
     def __init__(self, input_dim: int = 12, latent_dim: int = 16,
                  hidden_dim: int = 128, num_layers: int = 2,
                  use_layernorm: bool = True, dropout: float = 0.0,
-                 cell: str = "lstm", scan_impl: str = "sequential"):
+                 cell: str = "lstm", scan_impl: str = "sequential",
+                 dtype: torch.dtype = torch.float32, mlp_ratio: int = 4):
         super().__init__()
         H, Z, D = hidden_dim, latent_dim, input_dim
         self.input_dim, self.latent_dim, self.hidden_dim = D, Z, H
@@ -38,15 +51,23 @@ class TemporalVAE(nn.Module):
         self.cell = cell
         # time-scan form for cell="min_gru"; the other cells ignore it
         self.scan_impl = scan_impl
+        self.dtype = compute_dtype(dtype, "TemporalVAE")
+        self.mlp_ratio = mlp_ratio
         if cell == "lstm":
-            Stack = LSTMStack
+            def Stack(i, h, l, drop):
+                return LSTMStack(i, h, l, drop, dtype=dtype)
         elif cell == "min_gru":
             from shm_tpu_torch.models.minrnn import MinGRUStack
 
             def Stack(i, h, l, drop):
-                return MinGRUStack(i, h, l, drop, scan_impl=scan_impl)
+                return MinGRUStack(i, h, l, drop, scan_impl=scan_impl,
+                                   dtype=dtype)
         elif cell == "attention":
-            from shm_tpu_torch.models.attention import AttentionStack as Stack
+            from shm_tpu_torch.models.attention import AttentionStack
+
+            def Stack(i, h, l, drop):
+                return AttentionStack(i, h, l, drop, mlp_ratio=mlp_ratio,
+                                      dtype=dtype)
         else:
             raise ValueError(f"unknown cell {cell!r} "
                              "(expected 'lstm', 'min_gru' or 'attention')")
@@ -68,7 +89,7 @@ class TemporalVAE(nn.Module):
         copied to the module's device."""
         cpu = TemporalVAE(self.input_dim, self.latent_dim, self.hidden_dim,
                           self.num_layers, self.use_layernorm, self.dropout,
-                          self.cell, self.scan_impl)
+                          self.cell, self.scan_impl, mlp_ratio=self.mlp_ratio)
         for stack in (cpu.encoder_lstm, cpu.decoder_lstm):
             if self.cell == "attention":
                 stack.init_parameters(generator)
@@ -84,6 +105,13 @@ class TemporalVAE(nn.Module):
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         _, h_last = self.encoder_lstm(x, dropout_masks=dropout_masks,
                                       generator=generator)
+        dt = self.dtype
+        if dt != torch.float32:
+            if self.layer_norm is not None:
+                ln = self.layer_norm
+                h_last = norm(lambda v: flax_layer_norm(v, ln.weight, ln.bias,
+                                                        ln.eps), h_last, dt)
+            return dense(self.fc_mu, h_last, dt), dense(self.fc_logvar, h_last, dt)
         if self.layer_norm is not None:
             h_last = self.layer_norm(h_last)
         return self.fc_mu(h_last), self.fc_logvar(h_last)
@@ -91,36 +119,46 @@ class TemporalVAE(nn.Module):
     def decode(self, z: torch.Tensor, seq_len: int,
                dropout_masks: MaskArg = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h0 = torch.tanh(self.fc_latent_to_hidden(z))               # [B, H]
+        dt = self.dtype
+        lin = (lambda layer, v: layer(v)) if dt == torch.float32 else (
+            lambda layer, v: dense(layer, v, dt))
+        h0 = torch.tanh(lin(self.fc_latent_to_hidden, z))          # [B, H]
         decoded, _ = self.decoder_lstm(h0, broadcast_steps=seq_len,
                                        dropout_masks=dropout_masks,
                                        generator=generator)
-        return self.output_layer(decoded)                           # [B, T, D]
+        return lin(self.output_layer, decoded)                      # [B, T, D]
 
     def forward(self, x: torch.Tensor, sample: bool = False,
                 eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 dropout_masks: Optional[Tuple[MaskArg, MaskArg]] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(recon, mu, logvar). ``dropout_masks`` is an (encoder, decoder)
-        pair of explicit inverted masks (see :class:`LSTMStack`)."""
+        """(recon, mu, logvar), float32 whatever ``dtype``. ``dropout_masks``
+        is an (encoder, decoder) pair of explicit inverted masks (see
+        :class:`LSTMStack`)."""
         m_enc, m_dec = dropout_masks if dropout_masks is not None else (None, None)
         mu, logvar = self.encode(x, m_enc, generator)
         if sample:
             if eps is None:
                 eps = torch.randn(mu.shape, generator=generator,
                                   device=mu.device, dtype=mu.dtype)
-            z = mu + eps * torch.exp(0.5 * logvar)
+            z = mu + eps.to(mu.dtype) * torch.exp(0.5 * logvar)
         else:
             z = mu
-        return self.decode(z, x.shape[1], m_dec, generator), mu, logvar
+        recon = self.decode(z, x.shape[1], m_dec, generator)
+        if self.dtype == torch.float32:
+            return recon, mu, logvar
+        return recon.float(), mu.float(), logvar.float()
 
 
-def vae_from_config(cfg: VAEConfig) -> TemporalVAE:
+def vae_from_config(cfg: VAEConfig, dtype: torch.dtype = torch.float32,
+                    mlp_ratio: int = 4) -> TemporalVAE:
+    """The :class:`TemporalVAE` of ``cfg`` at compute precision ``dtype``
+    (the JAX function's; ``mlp_ratio`` as :class:`TemporalVAE`'s)."""
     return TemporalVAE(input_dim=cfg.input_dim, latent_dim=cfg.latent_dim,
                        hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
                        use_layernorm=cfg.use_layernorm, dropout=cfg.dropout,
-                       cell=cfg.cell)
+                       cell=cfg.cell, dtype=dtype, mlp_ratio=mlp_ratio)
 
 
 def vae_loss(recon: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,

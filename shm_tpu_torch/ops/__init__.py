@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels (sources under ``csrc/``), each with its plain
 PyTorch version and a launch counter."""
 
+import functools
+
 import torch
 
 from shm_tpu_torch.ops.fused_attention import (
@@ -33,11 +35,16 @@ FUSED_GATES = {
 
 def fused_gate_for(model):
     """``(weights_fn, gate_fn)`` of the fused kernel of ``model.cell``;
-    ``ValueError`` for a cell with no kernel."""
+    ``ValueError`` for a cell with no kernel. An attention model whose MLP
+    is not 4H wide gets the gate with its ``mlp_ratio`` bound."""
     cell = getattr(model, "cell", "lstm")
     if cell not in FUSED_GATES:
         raise ValueError(f"no fused kernel for cell={cell!r}")
-    return FUSED_GATES[cell][:2]
+    weights_fn, gate = FUSED_GATES[cell][:2]
+    ratio = getattr(model, "mlp_ratio", 4)
+    if cell == "attention" and ratio != 4:
+        gate = functools.partial(gate, mlp_ratio=ratio)
+    return weights_fn, gate
 
 
 def auto_fused_gate(device) -> bool:

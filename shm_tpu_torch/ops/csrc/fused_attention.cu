@@ -15,7 +15,9 @@
 // A block: LayerNorm (eps 1e-6, var = E[x^2] - E[x]^2 clamped at 0) -> QKV
 // (1/sqrt(32) already folded into the query weight and bias) -> per head
 // softmax(q k^T) v over the T keys, max-subtracted -> output projection ->
-// residual -> LayerNorm -> MLP with tanh-GELU -> residual.
+// residual -> LayerNorm -> MLP [H, M] then [M, H] with tanh-GELU -> residual,
+// M = mlp_ratio H (C argument M, a multiple of CC = 128; the TPU kernel's
+// check at :457).
 //
 // The softmax has the TPU kernel's two forms (C argument `streaming`). The
 // packed form (fused_attention.py:245-249) divides each row by its sum,
@@ -26,7 +28,7 @@
 // sum p, o = o alpha + p.V (p rounded to bf16 under BF, l summing it
 // unrounded); o / l after the last block.
 //
-// H in {32,64,128}, heads = H/32 of 32 columns, MLP width 4H, L in {1,2},
+// H in {32,64,128}, heads = H/32 of 32 columns, MLP width M, L in {1,2},
 // D <= 128, Z <= 32, any T >= 1: a window whose buffers fit a block's shared
 // memory runs in the resident body, a longer one in the long body (below;
 // the wrapper's plan() picks, from the same byte counts). Weights come in
@@ -37,8 +39,8 @@
 // T keys, so the last key block holds T - 128 floor((T-1)/128) of them.
 //
 // Bound on this card. Per window and block: QKV 2*T*H*3H, scores and PV
-// 2*2*T*T*H, output projection 2*T*H*H, MLP 2*2*T*H*4H; for the 4DOF preset
-// (T=100, D=12, H=128, L=2+2) about 178 MFLOP a window, about 970 GFLOP at
+// 2*2*T*T*H, output projection 2*T*H*H, MLP 2*2*T*H*M; for the 4DOF preset
+// (T=100, D=12, H=128, M=4H, L=2+2) about 178 MFLOP a window, 970 GFLOP at
 // N=5,440: ~14.5 ms at the 67 TFLOP/s float32 rate without tensor cores
 // (~1 ms in bf16 on the tensor cores). The bytes (x, resid, weights once) are
 // ~55 MB, ~17 us. So the kernel is bound by operations. The four weight
@@ -56,9 +58,11 @@
 //     over its dead q rows, then multiplied into s by the head's 32 rows of
 //     the output weight. Nothing of another window or of a column >= T is
 //     ever in a softmax row.
-//   * The MLP's hidden layer [T,4H] (205 KB) is cut into column chunks of
-//     CC = 128 that reuse the attention buffers: gelu(nrm W1[:,chunk]) then
-//     s += that times W2[chunk,:].
+//   * The MLP's hidden layer [T,M] (205 KB at M = 4H = 512) is cut into
+//     column chunks of CC = 128 that reuse the attention buffers: gelu(nrm
+//     W1[:,chunk]) then s += that times W2[chunk,:]. M is a runtime bound of
+//     the chunk loop and W2's k-steps (M/8); shared memory does not depend
+//     on it.
 //   * Every product with a weight (QKV, output projection, W1, W2) goes
 //     through one warp-level routine, mma_rows, on the tensor cores:
 //     mma.sync m16n8k8 TF32 in 3xTF32, a * b = a_s b_b + a_b b_s + a_b b_b
@@ -163,7 +167,7 @@ constexpr int NWARP = NT / 32;
 constexpr int HD = 32;          // head size
 constexpr int HDP = HD + 4;     // padded row of the per-head q/k/v buffers
 constexpr int QC = 32;          // query rows per score chunk
-constexpr int CC = 128;         // MLP hidden columns per chunk (divides 4H)
+constexpr int CC = 128;         // MLP hidden columns per chunk (divides M)
 constexpr int TM = 8;           // rows are padded to a multiple of TM
 constexpr int LMAX = 2;
 constexpr int HMAX = 128;
@@ -447,7 +451,7 @@ struct Smem {
 // streaming softmax.
 template <bool BF, bool STREAM>
 __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
-                                  int H) {
+                                  int H, int M) {
   const int ld = H + 4, Tld = (T + 3) & ~3, heads = H / HD;
   const int KT = H / 8;   // k-steps of a product over H (n-tiles of one over H)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -579,7 +583,7 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
   // MLP, the hidden layer in column chunks of CC
   float* h1 = m.area;
   constexpr int ldh = CC + 4;
-  for (int c0 = 0; c0 < 4 * H; c0 += CC) {
+  for (int c0 = 0; c0 < M; c0 += CC) {
     const float* b1 = w.b1 + c0;
     mma_rows<4, 2, BF>(m.nrm, ld, Tp, w.w1_f + (size_t)(c0 / 8) * KT * 32, KT,
                        KT, CC / 8, [&](int row, int col, float v0, float v1) {
@@ -591,8 +595,8 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
     // s += the chunk's h1 W2 (+ b2 with the first; under BF s rounded after
     // the last)
     const float* b2 = w.b2;
-    const bool first = c0 == 0, last = c0 + CC >= 4 * H;
-    mma_rows<4, 2, BF>(h1, ldh, Tp, w.w2_f + (size_t)(c0 / 8) * 32, 4 * KT,
+    const bool first = c0 == 0, last = c0 + CC >= M;
+    mma_rows<4, 2, BF>(h1, ldh, Tp, w.w2_f + (size_t)(c0 / 8) * 32, M / 8,
                        CC / 8, KT, [&](int row, int col, float v0, float v1) {
                          float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
                          float2 v = *dst;
@@ -686,8 +690,8 @@ __global__ void __launch_bounds__(NT)
 fused_attention_gate_kernel(const IOT* __restrict__ x,
                             const float* __restrict__ pos,   // [T, H]
                             IOT* __restrict__ resid, float* __restrict__ mse,
-                            const AttnW W, int T, int Tp, int D, int H, int Z,
-                            int L, int use_ln, int with_resid) {
+                            const AttnW W, int T, int Tp, int D, int H, int M,
+                            int Z, int L, int use_ln, int with_resid) {
   extern __shared__ __align__(16) float smem[];
   const int ld = H + 4;
   Smem m;
@@ -709,7 +713,7 @@ fused_attention_gate_kernel(const IOT* __restrict__ x,
   }
   __syncthreads();
   for (int l = 0; l < L; ++l)
-    transformer_block<BF, STREAM>(W.enc.layer[l], m, T, Tp, H);
+    transformer_block<BF, STREAM>(W.enc.layer[l], m, T, Tp, H, M);
 
   // ---------------- final norm, mean over the T real rows
   ln_rows(m.s, m.nrm, ld, T, W.enc.fs, W.enc.fb, H);
@@ -728,7 +732,7 @@ fused_attention_gate_kernel(const IOT* __restrict__ x,
   }
   __syncthreads();
   for (int l = 0; l < L; ++l)
-    transformer_block<BF, STREAM>(W.dec.layer[l], m, T, Tp, H);
+    transformer_block<BF, STREAM>(W.dec.layer[l], m, T, Tp, H, M);
 
   // ---------------- final norm, output head, residual, MSE
   ln_rows(m.s, m.nrm, ld, T, W.dec.fs, W.dec.fb, H);
@@ -781,7 +785,7 @@ __device__ __forceinline__ void store_rows(float* g, const float* tile, int ld,
 // [Tp, H] in its slot; gqkv [heads][3][Tp][HD] the slot's q | k | v.
 template <bool BF>
 __device__ void long_block(const BlockW& w, float* sm, float* gs, float* gqkv,
-                           int T, int Tp, int H, bool streaming) {
+                           int T, int Tp, int H, int M, bool streaming) {
   const int ld = H + 4, heads = H / HD, KT = H / 8;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int SLD = KB + 4;          // row stride of a key block's scores
@@ -946,7 +950,7 @@ __device__ void long_block(const BlockW& w, float* sm, float* gs, float* gqkv,
     __syncthreads();
     // MLP, the hidden layer in column chunks of CC
     constexpr int ldh = CC + 4;
-    for (int c0 = 0; c0 < 4 * H; c0 += CC) {
+    for (int c0 = 0; c0 < M; c0 += CC) {
       const float* b1 = w.b1 + c0;
       mma_rows<4, 2, BF>(nrm, ld, rows, w.w1_f + (size_t)(c0 / 8) * KT * 32, KT,
                          KT, CC / 8, [&](int row, int col, float v0, float v1) {
@@ -956,8 +960,8 @@ __device__ void long_block(const BlockW& w, float* sm, float* gs, float* gqkv,
                          });
       __syncthreads();
       const float* b2 = w.b2;
-      const bool first = c0 == 0, last = c0 + CC >= 4 * H;
-      mma_rows<4, 2, BF>(h1, ldh, rows, w.w2_f + (size_t)(c0 / 8) * 32, 4 * KT,
+      const bool first = c0 == 0, last = c0 + CC >= M;
+      mma_rows<4, 2, BF>(h1, ldh, rows, w.w2_f + (size_t)(c0 / 8) * 32, M / 8,
                          CC / 8, KT, [&](int row, int col, float v0, float v1) {
                            float2* dst = reinterpret_cast<float2*>(tile + row * ld + col);
                            float2 v = *dst;
@@ -981,7 +985,7 @@ fused_attention_long_kernel(const IOT* __restrict__ x,
                             const float* __restrict__ pos,   // [T, H]
                             IOT* __restrict__ resid, float* __restrict__ mse,
                             const AttnW W, int N, int T, int Tp, int D, int H,
-                            int Z, int L, int use_ln, int with_resid,
+                            int M, int Z, int L, int use_ln, int with_resid,
                             int streaming, float* __restrict__ scratch,
                             size_t slot) {
   extern __shared__ __align__(16) float smem[];
@@ -1003,7 +1007,7 @@ fused_attention_long_kernel(const IOT* __restrict__ x,
     }
     __syncthreads();
     for (int l = 0; l < L; ++l)
-      long_block<BF>(W.enc.layer[l], smem, gs, gqkv, T, Tp, H, streaming);
+      long_block<BF>(W.enc.layer[l], smem, gs, gqkv, T, Tp, H, M, streaming);
 
     // final norm and mean over the T real rows, a tile at a time; thread c
     // sums column c in step order
@@ -1027,7 +1031,7 @@ fused_attention_long_kernel(const IOT* __restrict__ x,
     }
     __syncthreads();
     for (int l = 0; l < L; ++l)
-      long_block<BF>(W.dec.layer[l], smem, gs, gqkv, T, Tp, H, streaming);
+      long_block<BF>(W.dec.layer[l], smem, gs, gqkv, T, Tp, H, M, streaming);
 
     // final norm, output head, residual; thread tid takes the elements
     // i = tid mod NT, in order, as the resident body does
@@ -1100,10 +1104,11 @@ namespace {
 template <bool BF, typename IOT>
 int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
                 const void* const* w, int n_w, int N, int T, int D, int H,
-                int Z, int L, int use_ln, int with_resid, int streaming,
+                int M, int Z, int L, int use_ln, int with_resid, int streaming,
                 int body, float* scratch, int slots, void* stream) {
   if (n_w != NUM_W || N <= 0 || T <= 0 || D <= 0 || D > DMAX || Z <= 0 ||
       Z > ZMAX || L < 1 || L > LMAX || H % HD || H < HD || H > HMAX ||
+      M < CC || M % CC ||
       (with_resid && resid == nullptr) || (streaming != 0 && streaming != 1))
     return (int)cudaErrorInvalidValue;
   const int Tp = padded_rows(T);
@@ -1139,8 +1144,8 @@ int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
-    kern<<<N, NT, smem_bytes, st>>>(x, pos, resid, mse, W, T, Tp, D, H, Z, L,
-                                    use_ln, with_resid);
+    kern<<<N, NT, smem_bytes, st>>>(x, pos, resid, mse, W, T, Tp, D, H, M, Z,
+                                    L, use_ln, with_resid);
     return (int)cudaGetLastError();
   }
   if (body != 1 || scratch == nullptr || slots < 1) return (int)cudaErrorInvalidValue;
@@ -1150,7 +1155,7 @@ int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   kern<<<slots < N ? slots : N, NT, smem_bytes, st>>>(
-      x, pos, resid, mse, W, N, T, Tp, D, H, Z, L, use_ln, with_resid,
+      x, pos, resid, mse, W, N, T, Tp, D, H, M, Z, L, use_ln, with_resid,
       streaming, scratch, (size_t)shm_fused_attention_slot_floats(T, H));
   return (int)cudaGetLastError();
 }
@@ -1162,7 +1167,8 @@ int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
 // and the fragments of wqkv wo w1 w2 (mma_rows; 16-byte aligned) for LMAX = 2
 // layers, then final-norm scale and bias), ln_scale ln_bias mu_w
 // mu_b z2h_w z2h_b, the decoder stack in the same order, out_w out_b
-// (pointers of an absent layer or LayerNorm may be null). `pos` is the
+// (pointers of an absent layer or LayerNorm may be null); w1 is [H, M], b1
+// [M] and w2 [M, H], M the MLP's width (a multiple of 128). `pos` is the
 // [T, H] position table. `streaming` 1 runs the streaming softmax, 0 the
 // packed one. `body` 0 runs the resident body; 1 the long body on
 // min(N, slots) blocks, `scratch` holding `slots` slots of
@@ -1172,11 +1178,11 @@ int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
 // body's shared memory, else the launch's cudaGetLastError(), 0 on success.
 extern "C" int shm_fused_attention_gate_f32(
     const float* x, const float* pos, float* resid, float* mse,
-    const void* const* w, int n_w, int N, int T, int D, int H, int Z, int L,
-    int use_ln, int with_resid, int streaming, int body, float* scratch,
+    const void* const* w, int n_w, int N, int T, int D, int H, int M, int Z,
+    int L, int use_ln, int with_resid, int streaming, int body, float* scratch,
     int slots, void* stream) {
-  return launch_gate<false, float>(x, pos, resid, mse, w, n_w, N, T, D, H, Z,
-                                   L, use_ln, with_resid, streaming, body,
+  return launch_gate<false, float>(x, pos, resid, mse, w, n_w, N, T, D, H, M,
+                                   Z, L, use_ln, with_resid, streaming, body,
                                    scratch, slots, stream);
 }
 
@@ -1186,18 +1192,18 @@ extern "C" int shm_fused_attention_gate_f32(
 // it is 0. Returns as shm_fused_attention_gate_f32 does.
 extern "C" int shm_fused_attention_gate_bf16(
     const void* x, const float* pos, void* resid, float* mse,
-    const void* const* w, int n_w, int N, int T, int D, int H, int Z, int L,
-    int use_ln, int with_resid, int streaming, int body, float* scratch,
+    const void* const* w, int n_w, int N, int T, int D, int H, int M, int Z,
+    int L, int use_ln, int with_resid, int streaming, int body, float* scratch,
     int slots, int io_bf16, void* stream) {
   if (io_bf16 == 1)
     return launch_gate<true, bf16_t>(
         static_cast<const bf16_t*>(x), pos, static_cast<bf16_t*>(resid), mse,
-        w, n_w, N, T, D, H, Z, L, use_ln, with_resid, streaming, body, scratch,
-        slots, stream);
+        w, n_w, N, T, D, H, M, Z, L, use_ln, with_resid, streaming, body,
+        scratch, slots, stream);
   if (io_bf16 != 0) return (int)cudaErrorInvalidValue;
   return launch_gate<true, float>(
       static_cast<const float*>(x), pos, static_cast<float*>(resid), mse, w,
-      n_w, N, T, D, H, Z, L, use_ln, with_resid, streaming, body, scratch,
+      n_w, N, T, D, H, M, Z, L, use_ln, with_resid, streaming, body, scratch,
       slots, stream);
 }
 

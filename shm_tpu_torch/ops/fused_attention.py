@@ -35,6 +35,13 @@ block, and shared memory holds a row tile and one key block. The kernel
 source states its bound on the card and what its design does about it.
 Computation is float32 with float32 accumulation; softmax runs over exactly
 the T keys; the MSE divides by the real ``T * D``.
+
+The MLP's width is the JAX kernel's ``mlp_ratio * H`` (``mlp_ratio``, 4 by
+default; a multiple of 128, :func:`mlp_width`), a runtime argument of the
+kernel. The weights come from a :class:`TemporalVAE` whose attention stacks
+have that width: ``convert.vae_from_flax`` reads M from a flax tree's
+``mlp_in`` kernel and builds ``AttentionStack(mlp_ratio=M / H)``, so a JAX
+tree of any MLP width reaches :func:`attention_params_to_kernel_weights`.
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ _MODEL_LN_EPS = 1e-5         # the model-level norm on the pooled summary
 # _MLP_CHUNK columns of the MLP's hidden layer at once; the long body's row
 # tiles and query chunks of _QL rows
 _TM, _QC, _SMALL, _QL = 8, 32, 512, 128
-_MLP_CHUNK = 128             # divides 4H for every H the kernel takes
+_MLP_CHUNK = 128             # the MLP's width M = mlp_ratio * H is a
+                             # multiple of it (the JAX kernel's rule)
 SMEM_LIMIT = 232_448         # bytes of shared memory one block may use (H100)
 KEY_BLOCK = 128              # keys a block of the streaming softmax (the JAX
                              # kernel's lane width; its block edges set where
@@ -192,11 +200,34 @@ def attend(q, k, v, stream: bool, rnd):
     return o / l
 
 
+def mlp_width(weights: Dict[str, torch.Tensor], num_layers: int,
+              mlp_ratio: int) -> int:
+    """The MLP's width M = ``mlp_ratio * H`` of a kernel weight dict, checked
+    as the JAX kernel checks it (``ValueError`` with its words when M is not
+    a multiple of 128) and against every layer's ``*_w1`` [H, M], ``*_b1``
+    [M] and ``*_w2`` [M, H] of both stacks."""
+    H = weights["mu_w"].shape[0]
+    if (mlp_ratio * H) % _MLP_CHUNK:
+        raise ValueError(f"mlp width {mlp_ratio}*{H} must be a multiple of 128")
+    M = mlp_ratio * H
+    for p in ("enc", "dec"):
+        for l in range(num_layers):
+            k = f"{p}{l}"
+            got = (tuple(weights[f"{k}_w1"].shape), tuple(weights[f"{k}_b1"].shape),
+                   tuple(weights[f"{k}_w2"].shape))
+            if got != ((H, M), (M,), (M, H)):
+                raise ValueError(
+                    f"{k}'s MLP weights w1 {got[0]}, b1 {got[1]}, w2 {got[2]} "
+                    f"are not an MLP of width mlp_ratio*H = {mlp_ratio}*{H} = "
+                    f"{M} (w1 [{H}, {M}], b1 [{M}], w2 [{M}, {H}])")
+    return M
+
+
 def fused_attention_gate_reference(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
     dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
-    stream: Optional[bool] = None,
+    stream: Optional[bool] = None, mlp_ratio: int = 4,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of the kernel: (mse [N], resid [N, T, D] | None).
 
@@ -211,9 +242,11 @@ def fused_attention_gate_reference(
     rounds the probabilities after the softmax's division, the streaming
     form before it (its p, whose float32 sum is the denominator), as the two
     forms of the JAX kernel do. ``io_dtype`` as in
-    ``fused_vae_gate_reference``."""
+    ``fused_vae_gate_reference``. ``mlp_ratio``: the JAX kernel's, the MLP's
+    width M = ``mlp_ratio * H`` (:func:`mlp_width` checks it)."""
     N, T, D = Z.shape
     H = weights["mu_w"].shape[0]
+    mlp_width(weights, num_layers, mlp_ratio)
     heads = H // HEAD_DIM
     bf16, io = gate_dtypes(Z, dtype, io_dtype)
     streaming = softmax_form(stream, T)
@@ -308,7 +341,7 @@ def plan(T: int, H: int) -> Plan:
 
 
 def _check(weights, Z, num_layers, use_layernorm, bf16=False,
-           io=torch.float32):
+           io=torch.float32, mlp_ratio=4):
     check_windows(Z, io)
     if num_layers not in (1, 2):
         raise ValueError("the fused attention kernel supports 1- or 2-layer "
@@ -325,14 +358,14 @@ def _check(weights, Z, num_layers, use_layernorm, bf16=False,
     if weights["enc_in_w"].shape != (D, H):
         raise ValueError(f"enc_in_w {tuple(weights['enc_in_w'].shape)} does "
                          f"not match D={D}, H={H}")
-    if weights["enc0_wqkv"].shape != (H, 3 * H) \
-            or weights["enc0_w1"].shape != (H, 4 * H):
+    if weights["enc0_wqkv"].shape != (H, 3 * H):
         raise ValueError("the fused attention kernel assumes heads of "
-                         f"{HEAD_DIM} columns and an MLP of width 4H")
+                         f"{HEAD_DIM} columns")
     need = [k for k in fragment_names(_WEIGHT_ORDER, bf16)
             if not (k[3:4].isdigit() and int(k[3]) >= num_layers)
             and (use_layernorm or not k.startswith("ln_"))]
     check_weights(weights, need, Z.device)
+    mlp_width(weights, num_layers, mlp_ratio)
     check_fragments(weights, need)
     return need, H, Zd
 
@@ -342,9 +375,9 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C entry declared (built at first
     use, never at import)."""
     lib = load_library("fused_attention")
-    # x pos resid mse w, n_w N T D H Z L use_ln with_resid streaming body,
+    # x pos resid mse w, n_w N T D H M Z L use_ln with_resid streaming body,
     # scratch, slots, [io_bf16,] cuda stream
-    head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p,
+    head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p,
                                                           ctypes.c_int]
     for name, extra in (("f32", []), ("bf16", [ctypes.c_int])):
         fn = getattr(lib, f"shm_fused_attention_gate_{name}")
@@ -414,7 +447,7 @@ def _positions(T: int, H: int, device: torch.device) -> torch.Tensor:
 
 
 def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
-            io_dtype, stream=None, body=None):
+            io_dtype, stream=None, mlp_ratio=4, body=None):
     """Launch the kernel on CUDA tensors, in the body :func:`plan` picks or
     in ``body`` (``"resident"`` or ``"long"``: the long body at a window the
     resident one takes, so that the two can be held against each other; the
@@ -425,7 +458,9 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
         raise ValueError(f"the fused attention kernel launches on CUDA "
                          f"tensors, got one on {Z.device}")
     Z = Z.to(io)                        # a bf16 io: the card rounds once
-    need, H, Zd = _check(weights, Z, num_layers, use_layernorm, bf16, io)
+    need, H, Zd = _check(weights, Z, num_layers, use_layernorm, bf16, io,
+                         mlp_ratio)
+    M = mlp_ratio * H
     N, T, D = Z.shape
     pl = plan(T, H)
     body = body or pl.body
@@ -450,7 +485,7 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
                               dtype=torch.float32)
     args = (Z.data_ptr(), pos.data_ptr(),
             resid.data_ptr() if with_residual else None, mse.data_ptr(), ptrs,
-            len(order), N, T, D, H, Zd, num_layers, int(use_layernorm),
+            len(order), N, T, D, H, M, Zd, num_layers, int(use_layernorm),
             int(with_residual), int(streaming), _BODIES.index(body),
             scratch.data_ptr() if scratch is not None else None, slots)
     with torch.cuda.device(Z.device):
@@ -466,6 +501,8 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
         count_launch(fused_attention_gate, "stream_launches")
     if body == "long":
         count_launch(fused_attention_gate, "long_launches")
+    if M != 4 * H:
+        count_launch(fused_attention_gate, "mlp_launches")
     return mse, resid
 
 
@@ -473,7 +510,7 @@ def fused_attention_gate(
     weights: Dict[str, torch.Tensor], Z: torch.Tensor, *, num_layers: int,
     use_layernorm: bool, with_residual: bool = True,
     dtype: torch.dtype = torch.float32, io_dtype: Optional[torch.dtype] = None,
-    stream: Optional[bool] = None,
+    stream: Optional[bool] = None, mlp_ratio: int = 4,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused deterministic attention-VAE pass: (mse [N], resid [N, T, D] | None).
 
@@ -483,27 +520,34 @@ def fused_attention_gate(
     softmax form (``None``: :func:`auto_stream`); ``dtype`` / ``io_dtype``
     as the JAX kernel's (the plain version says where bf16 rounds):
     ``dtype=torch.bfloat16`` launches the kernel's bf16 instance, counted in
-    ``fused_attention_gate.bf16_launches``.
+    ``fused_attention_gate.bf16_launches``. ``mlp_ratio`` is the JAX
+    kernel's: the MLP's width M = ``mlp_ratio * H``, a multiple of 128, which
+    the weights' ``*_w1`` / ``*_b1`` / ``*_w2`` must have (:func:`mlp_width`);
+    a launch at M other than 4H is also counted in
+    ``fused_attention_gate.mlp_launches``.
     """
     return dispatch_gate("fused_attention_gate", Z, _launch,
                          fused_attention_gate_reference, weights,
                          num_layers=num_layers, use_layernorm=use_layernorm,
                          with_residual=with_residual, dtype=dtype,
-                         io_dtype=io_dtype, stream=stream)
+                         io_dtype=io_dtype, stream=stream, mlp_ratio=mlp_ratio)
 
 
 # kernel launches so far: of the float32 and of the bf16 instance (every
-# body and form), and of those, the streaming form's and the long body's;
-# callers reset them to 0 to count one run's launches
+# body and form), and of those, the streaming form's, the long body's and
+# those at an MLP width other than 4H; callers reset them to 0 to count one
+# run's launches
 fused_attention_gate.launches = 0
 fused_attention_gate.bf16_launches = 0
 fused_attention_gate.stream_launches = 0
 fused_attention_gate.long_launches = 0
+fused_attention_gate.mlp_launches = 0
 
 
 __all__ = ["fused_attention_gate", "fused_attention_gate_reference",
            "attention_params_to_kernel_weights",
            "auto_stream", "softmax_form", "attend", "plan", "Plan", "KEY_BLOCK",
+           "mlp_width",
            "shared_memory_bytes", "long_shared_memory_bytes", "slot_floats",
            "kernel_info", "tf32_round", "tf32_round_on_card",
            "tf32x3_fragments", "unpack_fragments"]

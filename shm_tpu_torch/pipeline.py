@@ -37,7 +37,7 @@ class HybridOutputs(NamedTuple):
 
 
 def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False,
-                  fused_dtype: torch.dtype = torch.float32,
+                  fused_dtype: Optional[torch.dtype] = torch.float32,
                   sample: bool = False, fused_layout: str = "nhwc"):
     """``fn(Z, generator=None) -> (mse, xin)`` for normalized (N, T, D)
     ``Z``: one VAE pass, the gate's MSE (N,) and the CNN's NHWC input
@@ -51,10 +51,13 @@ def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False,
     :class:`TemporalVAE` modules. The kernel weights are taken from ``vae``
     once, here. ``fused_dtype`` is the fused gate's ``dtype`` (float32, the
     port's default, or ``torch.bfloat16``: the kernel's bf16 instance, as
-    the JAX package serves). The attention gate then also reads the windows
+    the JAX package serves), or ``None``: the VAE's own ``dtype``, as the
+    JAX function's ``fused_dtype or vae_model.dtype``. The attention gate
+    then also reads the windows
     and writes the residual in that type, and the residual is cast back to
     float32 for the CNN; the LSTM and minGRU gates keep float32 io, as in
-    ``shm_tpu/pipeline.py``. The plain path ignores ``fused_dtype``.
+    ``shm_tpu/pipeline.py``. The plain path ignores ``fused_dtype`` and runs
+    the modules at the VAE's ``dtype``.
     ``sample=True`` (plain path only) decodes ``mu + eps * exp(0.5 *
     logvar)`` with eps drawn from ``generator``. The caller chooses the grad
     mode.
@@ -78,6 +81,7 @@ def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False,
         raise ValueError(f"unknown fused_layout {fused_layout!r}")
     if transposed and not use_fused_vae:
         raise ValueError("fused_layout='transposed' requires use_fused_vae=True")
+    gate_dtype = vae.dtype if fused_dtype is None else fused_dtype
     layout = {}
     if transposed:
         from shm_tpu_torch.ops.fused_vae import padded_features
@@ -87,8 +91,8 @@ def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False,
         from shm_tpu_torch.ops import fused_gate_for
 
         weights_fn, fused_gate = fused_gate_for(vae)
-        weights = weights_fn(vae, fused_dtype)
-        io_dtype = (fused_dtype if getattr(vae, "cell", "lstm") == "attention"
+        weights = weights_fn(vae, gate_dtype)
+        io_dtype = (gate_dtype if getattr(vae, "cell", "lstm") == "attention"
                     else None)
 
     def vae_pass(Z: torch.Tensor, generator: Optional[torch.Generator] = None):
@@ -96,7 +100,7 @@ def make_vae_pass(vae: TemporalVAE, *, use_fused_vae: bool = False,
         if use_fused_vae:
             mse, resid = fused_gate(weights, Z, num_layers=vae.num_layers,
                                     use_layernorm=vae.use_layernorm,
-                                    dtype=fused_dtype, io_dtype=io_dtype,
+                                    dtype=gate_dtype, io_dtype=io_dtype,
                                     **layout)
             if transposed:
                 # Zt as the kernel reads the windows (shm_tpu/pipeline.py:100-103)
@@ -128,7 +132,7 @@ def hybrid_outputs(vae_pass, cnn: CNN4DOF, W: torch.Tensor, mean: torch.Tensor,
 
 def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *, sample: bool = False,
                    use_fused_vae: bool = False,
-                   fused_dtype: torch.dtype = torch.float32,
+                   fused_dtype: Optional[torch.dtype] = torch.float32,
                    fused_layout: str = "nhwc"):
     """``fn(W, mean, std, threshold, generator=None) -> HybridOutputs`` for
     raw (N, T, D) ``W``; the VAE pass is :func:`make_vae_pass`'s
@@ -140,16 +144,16 @@ def make_hybrid_fn(vae: TemporalVAE, cnn: CNN4DOF, *, sample: bool = False,
 
     ``fused_layout="transposed"`` (see :func:`make_vae_pass`) runs the
     CNN4DOF-shaped ``cnn`` through :func:`cnn4dof_apply_transposed` on the
-    gate's transposed residual, in ``fused_dtype`` (JAX: ``fused_dtype or
-    bf16``; the port's ``fused_dtype`` is never None); ``cnn.dtype`` is not
-    read there.
+    gate's transposed residual, in ``fused_dtype``, or bf16 where it is
+    None (JAX: ``fused_dtype or bf16``); ``cnn.dtype`` is not read there.
     """
     vae_pass = make_vae_pass(vae, use_fused_vae=use_fused_vae,
                              fused_dtype=fused_dtype, sample=sample,
                              fused_layout=fused_layout)
     if fused_layout == "transposed":
+        cnn_dtype = torch.bfloat16 if fused_dtype is None else fused_dtype
         apply_cnn = lambda xin: cnn4dof_apply_transposed(
-            cnn, *xin, d_real=vae.input_dim, dtype=fused_dtype)
+            cnn, *xin, d_real=vae.input_dim, dtype=cnn_dtype)
     else:
         apply_cnn = cnn
 

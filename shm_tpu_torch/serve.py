@@ -105,8 +105,9 @@ class HybridScorer:
 
     ``fused_dtype``: the fused gate's precision, float32 (the port's
     default) or ``torch.bfloat16`` (the kernel's bf16 instance, the JAX
-    scorer's serving precision; :func:`shm_tpu_torch.pipeline.make_vae_pass`
-    says what it changes); the plain path ignores it.
+    scorer's serving precision), or ``None`` for the VAE's own ``dtype``
+    (:func:`shm_tpu_torch.pipeline.make_vae_pass` says what it changes); the
+    plain path ignores it.
     ``from_artifacts(cnn_dtype=)`` builds the CNN in float32 or bf16
     (:class:`shm_tpu_torch.models.cnn.CNN4DOF`).
 
@@ -132,7 +133,7 @@ class HybridScorer:
 
     def __init__(self, vae, cnn, mean, std, threshold: float, *,
                  use_fused_vae: Optional[bool] = None,
-                 fused_dtype: torch.dtype = torch.float32,
+                 fused_dtype: Optional[torch.dtype] = torch.float32,
                  min_bucket: int = 256, max_batch: int = 8192,
                  seq_len: Optional[int] = None, device=None, mesh=None):
         if min_bucket < 1 or max_batch < min_bucket:

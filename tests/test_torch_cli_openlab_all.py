@@ -11,7 +11,8 @@ import torch
 
 from shm_tpu_torch.cli import openlab as ol
 from torch_openlab_roots import (
-    ALL_FILES, SHORT_WINDOWS, catman_runs, files_under, silence_jax_plots,
+    ALL_FILES, SHORT_WINDOWS, catman_runs, files_under, one_thread_pools,
+    silence_jax_plots,
 )
 
 torch.set_num_threads(1)
@@ -22,8 +23,9 @@ def test_jax_all_writes_all_files_and_the_port_agrees(tmp_path, monkeypatch):
 
     silence_jax_plots(monkeypatch)
     raw = catman_runs(tmp_path / "raw", SHORT_WINDOWS)
-    jol.main(["all", "--root", str(tmp_path / "jax"), "--raw-dir", str(raw),
-              "--epochs", "1"])
+    with one_thread_pools():
+        jol.main(["all", "--root", str(tmp_path / "jax"), "--raw-dir", str(raw),
+                  "--epochs", "1"])
     assert files_under(tmp_path / "jax") == set(ALL_FILES)
     for step in ("extract", "make-splits", "featurize"):
         ol.main([step, "--root", str(tmp_path / "port"), "--raw-dir", str(raw),

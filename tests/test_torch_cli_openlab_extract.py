@@ -21,7 +21,9 @@ import pytest
 import torch
 
 from shm_tpu_torch.cli import openlab as ol
-from torch_openlab_roots import ALL_FILES, SHORT_WINDOWS, catman_runs, files_under
+from torch_openlab_roots import (
+    ALL_FILES, SHORT_WINDOWS, catman_runs, files_under, one_thread_pools,
+)
 
 torch.set_num_threads(1)
 EXTRACTED = ("X_clean.npy", "X_raw.npy", "window_labels.csv", "run_diagnostics.csv")
@@ -59,8 +61,9 @@ def test_extract_matches_jax_byte_for_byte(tmp_path):
 def all_root(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("all")
     raw = catman_runs(tmp / "raw", SHORT_WINDOWS)
-    ol.main(["all", "--root", str(tmp / "port"), "--raw-dir", str(raw),
-             "--epochs", "1", "--no-plots", "--device", "cpu"])
+    with one_thread_pools():
+        ol.main(["all", "--root", str(tmp / "port"), "--raw-dir", str(raw),
+                 "--epochs", "1", "--no-plots", "--device", "cpu"])
     return tmp
 
 

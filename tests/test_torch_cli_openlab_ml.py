@@ -26,7 +26,9 @@ import torch
 
 from shm_tpu_torch.cli import openlab as ol
 from shm_tpu_torch.models import ml
-from torch_openlab_roots import OPENLAB, silence_jax_plots, small_root
+from torch_openlab_roots import (
+    OPENLAB, one_thread_pools, silence_jax_plots, small_root,
+)
 
 torch.set_num_threads(1)
 NAMES = ("cart", "gb", "hgb", "rf", "svm_rbf")
@@ -45,16 +47,17 @@ def trained(tmp_path_factory):
     base = tmp_path_factory.mktemp("openlab_ml")
     port, host, jax_root = (small_root(base / n, step=8, outputs=()) for n in
                             ("port", "host", "jax"))
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, one_thread_pools():
         silence_jax_plots(mp)
         jp = jol.Paths(str(jax_root), "")
         jol.cmd_train_ml(jp, OpenLabConfig())
         jol.cmd_validate_ml(jp, OpenLabConfig())
-    ol.main(["train-ml", "--root", str(port), "--device", "cpu"])
-    shutil.copytree(port / "output", host / "output")
-    ol.main(["validate-ml", "--root", str(port), "--device", "cpu", "--no-plots"])
-    ol.main(["validate-ml", "--root", str(host), "--device", "cpu", "--no-plots",
-             "--host-ml"])
+        ol.main(["train-ml", "--root", str(port), "--device", "cpu"])
+        shutil.copytree(port / "output", host / "output")
+        ol.main(["validate-ml", "--root", str(port), "--device", "cpu",
+                 "--no-plots"])
+        ol.main(["validate-ml", "--root", str(host), "--device", "cpu",
+                 "--no-plots", "--host-ml"])
     return port, host, jax_root
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from shm_tpu import config as jax_config
 from shm_tpu.models import CNN4DOF as JaxCNN4DOF
 from shm_tpu.utils.checkpoint import load_params
 from shm_tpu_torch.convert import cnn4dof_from_flax, cnn4dof_state_dict
@@ -86,3 +87,37 @@ def test_conv_and_batchnorm_layouts():
     np.testing.assert_array_equal(sd["conv2.weight"][5, 3].numpy(), k[:, :, 3, 5])
     np.testing.assert_array_equal(sd["bn1.running_var"].numpy(),
                                   variables["batch_stats"]["bn1"]["var"])
+
+
+@pytest.mark.parametrize("variant", ["4dof", "openlab"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cnn_from_config_builds_the_jax_variant(variant, dtype):
+    """``cnn_from_config`` gives the class JAX's gives, with the config's
+    ``num_classes``, ``dropout`` and the dtype; float32 parameters."""
+    from shm_tpu.models import cnn_from_config as jax_cnn_from_config
+    from shm_tpu_torch.config import CNNConfig
+    from shm_tpu_torch.models import cnn_from_config
+
+    cfg = CNNConfig(variant=variant, num_classes=3, dropout=0.25)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jax_cnn_from_config(jax_config.CNNConfig(variant=variant,
+                                                    num_classes=3, dropout=0.25),
+                               jdt)
+    got = cnn_from_config(cfg, dtype)
+    assert type(got).__name__ == type(want).__name__
+    assert (got.num_classes, got.dropout, got.dtype) == (3, 0.25, dtype)
+    assert want.dtype == jdt
+    assert got.fc2.out_features == 3
+    assert all(p.dtype == torch.float32 for p in got.parameters())
+
+
+def test_cnn_from_config_refuses_an_unknown_variant():
+    from shm_tpu.models import cnn_from_config as jax_cnn_from_config
+    from shm_tpu_torch.config import CNNConfig
+    from shm_tpu_torch.models import cnn_from_config
+
+    with pytest.raises(ValueError, match="unknown CNN variant 'x'"):
+        jax_cnn_from_config(jax_config.CNNConfig(variant="x"))
+    with pytest.raises(ValueError, match="unknown CNN variant 'x'"):
+        cnn_from_config(CNNConfig(variant="x"))
+

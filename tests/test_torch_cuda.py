@@ -1260,3 +1260,114 @@ def test_fused_mingru_form_instances_fit_the_card(cuda_device, H):
             info = kernel_info(100, H, 2, dtype=dtype, io_dtype=io, sigmoid_impl=s)
             assert info["threads"] == 4 * H and info["blocks_per_sm"] >= 1
             assert info["spill_bytes"] <= MINGRU_SPILL_GUARD, (dtype, io, s, info)
+
+
+# --- row 7's MLP width and the plain modules' bf16 --------------------------
+# Row 7 at each width of chip_smoke.py's P21_WIDTHS (M = 256 at H=32, 128 at
+# H=64, 256 and 768 at H=128), in the resident body (T=100) and the long
+# body (T=512), each softmax form: float32 within atol 1e-4 + rtol 1e-4 of
+# its plain version, bf16 (float32 and bf16 io) within BF16_GATE_TOL's
+# attention bars; a launch at M other than 4H moves `mlp_launches`. The bf16
+# plain modules on the card against the same modules on the CPU: nearer them
+# than the CPU's float32 modules are, their mse within chip_smoke.py's
+# PLAIN_BF16_TOL of the CPU's.
+
+MLP_WIDTHS = [(32, 8, 12, 5, 2), (64, 2, 3, 8, 1), (128, 2, 12, 16, 2),
+              (128, 6, 12, 16, 2)]   # H, mlp_ratio, D, Z, L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("T", [100, 512])
+@pytest.mark.parametrize("prec", list(PRECISIONS))
+@pytest.mark.parametrize("H, r, D, Zd, L", MLP_WIDTHS)
+def test_fused_attention_mlp_ratio_matches_plain_version(cuda_device, H, r, D, Zd, L,
+                                                         prec, T, stream):
+    from shm_tpu_torch.ops import (
+        attention_params_to_kernel_weights, fused_attention_gate,
+        fused_attention_gate_reference,
+    )
+    from shm_tpu_torch.ops.fused_attention import plan
+
+    cfg = VAEConfig(input_dim=D, latent_dim=Zd, hidden_dim=H, num_layers=L,
+                    cell="attention")
+    rng = np.random.default_rng(H * r + T)
+    vae = vae_from_flax(random_flax_vae_params(rng, cfg, mlp_ratio=r), cfg)
+    assert vae.mlp_ratio == r
+    dtype, io = PRECISIONS[prec]
+    w = attention_params_to_kernel_weights(vae.to(cuda_device), dtype)
+    Z = torch.from_numpy(rng.normal(size=(9, T, D)).astype(np.float32)).to(cuda_device)
+    kw = dict(num_layers=L, use_layernorm=True, stream=stream, mlp_ratio=r,
+              dtype=dtype, io_dtype=io)
+    g = fused_attention_gate
+    before = (g.mlp_launches, g.long_launches)
+    mse, resid = g(w, Z, **kw)
+    torch.cuda.synchronize()
+    assert (g.mlp_launches, g.long_launches) == (
+        before[0] + 1, before[1] + int(plan(T, H).body == "long"))
+    mse_p, resid_p = fused_attention_gate_reference(w, Z, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(mse, mse_p, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(resid, resid_p, atol=1e-4, rtol=1e-4)
+    else:
+        assert resid.dtype == (io or torch.float32)
+        _close_bf16("attention", mse, mse_p)
+
+
+def _cpu_and_card(module, x):
+    """``module``'s float32 output on the CPU and on the card."""
+    with torch.no_grad():
+        cpu = module.cpu()(x)
+        card = module.cuda()(x.cuda())
+    pick = lambda o: (o[0] if isinstance(o, tuple) else o).float().cpu()
+    return pick(cpu), pick(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["lstm", "min_gru", "attention"])
+def test_bf16_plain_vae_on_the_card_matches_the_cpu(cuda_device, cell):
+    from dataclasses import replace
+
+    from chip_smoke import FAMILIES, PLAIN_BF16_TOL
+    from shm_tpu_torch.cli.stage4dof import Paths, _load_vae
+    from shm_tpu_torch.config import Stage4DofConfig
+    from shm_tpu_torch.models.vae import vae_from_config
+    from shm_tpu_torch.tools.workload import load_trained_workload
+
+    cfg = Stage4DofConfig()
+    root = ROOT_DIR / FAMILIES[cell]["root"]
+    f32 = _load_vae(Paths(str(root)), cfg)
+    bf16 = vae_from_config(replace(cfg.vae, cell=cell), torch.bfloat16).eval()
+    bf16.load_state_dict(f32.state_dict())
+    wl = load_trained_workload(ROOT_DIR / "data/4dof")
+    x = torch.from_numpy(((wl.W[::57][:64] - wl.mean) / wl.std).astype(np.float32))
+    cpu, card = _cpu_and_card(bf16, x)
+    ref32, _ = _cpu_and_card(f32.eval(), x)
+    assert (card - cpu).abs().mean() < (ref32 - cpu).abs().mean()
+    mse = lambda r: ((x - r) ** 2).mean(dim=(1, 2)).double()
+    rel = (mse(card) - mse(cpu)).abs() / mse(cpu)
+    tmax, tmean = PLAIN_BF16_TOL[cell]
+    assert float(rel.max()) <= tmax and float(rel.mean()) <= tmean
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
+
+
+@pytest.mark.cuda
+def test_bf16_cnn_openlab_on_the_card_matches_the_cpu(cuda_device):
+    from chip_smoke import PLAIN_BF16_TOL
+    from shm_tpu_torch.convert import cnn_openlab_from_flax
+    from shm_tpu_torch.models.cnn import CNNOpenLab
+    from shm_tpu_torch.utils.checkpoint import load_checkpoint
+
+    art = ROOT_DIR / "data/openlab/output/CNN_Training/artifacts"
+    f32 = cnn_openlab_from_flax(load_checkpoint(art / "cnn_model_openlab.msgpack"))
+    bf16 = CNNOpenLab(f32.num_classes, f32.dropout, dtype=torch.bfloat16).eval()
+    bf16.load_state_dict(f32.state_dict())
+    x = torch.from_numpy(np.random.default_rng(21).normal(
+        size=(64, 200, 4, 1)).astype(np.float32))
+    cpu, card = _cpu_and_card(bf16, x)
+    ref32, _ = _cpu_and_card(f32, x)
+    assert (card - cpu).abs().mean() < (ref32 - cpu).abs().mean()
+    p = lambda logits: torch.softmax(logits, dim=1)[:, 1].double()
+    tmax, tmean = PLAIN_BF16_TOL["cnn_openlab"]
+    d = (p(card) - p(cpu)).abs()
+    assert float(d.max()) <= tmax and float(d.mean()) <= tmean

@@ -51,6 +51,24 @@ def test_make_windows_matches_jax(rng, T, seq_len, stride):
                                   want)
 
 
+@pytest.mark.parametrize("R, T, seq_len, stride", [(3, 120, 50, 10),
+                                                   (2, 40, 50, 1)])
+def test_windows_from_series_batch_matches_jax(rng, R, T, seq_len, stride):
+    """``tests/test_windows.py``'s case (3 runs of 120 steps, windows of 50
+    every 10) and runs shorter than a window."""
+    X = rng.normal(size=(R, T, 4)).astype(np.float32)
+    got = windows.windows_from_series_batch(torch.from_numpy(X), seq_len, stride)
+    want = np.asarray(jax_windows.windows_from_series_batch(jnp.asarray(X),
+                                                            seq_len, stride))
+    n = windows.num_windows(T, seq_len, stride)
+    assert got.shape == want.shape == (R, n, seq_len, 4)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for r in range(R):
+        assert torch.equal(got[r], windows.make_windows(torch.from_numpy(X[r]),
+                                                        seq_len, stride))
+    assert "windows_from_series_batch" in windows.__all__
+
+
 def test_normalize_windows_matches_jax(rng):
     W = rng.normal(size=(5, 8, 3)).astype(np.float32)
     W[0, 1, 2] = np.nan

@@ -13,6 +13,13 @@ command runs on a quarter of the windows in the committed root's layout.
 ``SHORT_WINDOWS`` windows (enough for every class in the training split);
 ``ALL_FILES`` is what the JAX CLI's ``all`` writes under its root, figures
 aside (read off a run of it on those short runs).
+
+``one_thread_pools`` runs a block with this process's OpenMP and BLAS pools
+at one thread. ``train-ml`` fits sklearn's ``HistGradientBoostingClassifier``,
+whose OpenMP threads meet at a barrier many times a tree; beside the other
+workers of a parallel test run they spin there for the core that one of
+them waits on (a file that takes ~25 s alone took 662 s of its worker
+among six). The fits do not depend on the pool's size.
 """
 
 from __future__ import annotations
@@ -95,6 +102,14 @@ def catman_runs(dest: Path, windows=None) -> Path:
 
     write_catman_runs(OPENLAB, dest, windows)
     return dest
+
+
+def one_thread_pools():
+    """A context in which the OpenMP and BLAS thread pools of this process
+    (sklearn's, numpy's, torch's) run one thread."""
+    from threadpoolctl import threadpool_limits
+
+    return threadpool_limits(limits=1)
 
 
 def files_under(root: Path) -> set:
