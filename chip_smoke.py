@@ -213,6 +213,7 @@ Phases (any failure exits non-zero before the final line):
    bit for bit, ``p_struct`` within ``P_STRUCT_ATOL``), the family's kernel
    launched once per shard of each bucket and nothing else, windows/s by the
    host clock; (c) ``train_vae`` at the 4DOF preset, full width, 2 epochs on
+   ``MESH_TRAIN_WINDOWS`` of the normal runs' windows, on
    the two shards against one device (plain path both; histories within
    ``MESH_TRAIN_RTOL``, the best epoch equal, parameters within
    ``MESH_PARAM_ATOL``: the JAX test's bounds), ``use_kernel=True`` with a
@@ -1712,17 +1713,15 @@ def phase_lstm_timing(errs, counts, ctx):
 GATE_ROW_NS = (N_BENCH, 8192)
 
 
-def gate_row(cell: str):
-    """A gate row of the importable tree: the trained VAE of this checkout's
-    root of ``cell`` through that tree's public calls, on the 3,636 committed
-    test windows tiled to each of ``GATE_ROW_NS``. Returns ({N: kernel ms},
-    mse at ``N_BENCH``)."""
+def gate_row_inputs(cell: str, ns):
+    """The trained VAE of this checkout's root of ``cell`` (its
+    ``HybridScorer`` through the importable tree) and, for each n of ``ns``,
+    the 3,636 committed test windows tiled to n, normalized, on the card."""
     import torch
 
     from shm_tpu_torch.cli.stage4dof import build_fraction_windows
     from shm_tpu_torch.config import Stage4DofConfig
     from shm_tpu_torch.data.windows import normalize_windows
-    from shm_tpu_torch.ops import FUSED_GATES
     from shm_tpu_torch.serve import HybridScorer
     from shm_tpu_torch.utils.io import load_json
 
@@ -1733,25 +1732,49 @@ def gate_row(cell: str):
     W = np.concatenate([build_fraction_windows(
         [str(ROOT / f) for f in splits[g]["files"]], cfg.test_frac, cfg)
         for g in ("normal", "sensor_fault", "structural_fault")])
-    weights_fn, gate, _ = FUSED_GATES[cell]
-    w = weights_fn(scorer.vae)
-    kw = dict(num_layers=scorer.vae.num_layers,
-              use_layernorm=scorer.vae.use_layernorm)
-    ms, mse = {}, None
-    for n in GATE_ROW_NS:
-        Wb = np.resize(W, (n,) + W.shape[1:]).astype(np.float32)
-        Z = normalize_windows(torch.from_numpy(Wb).cuda(), scorer.mean,
-                              scorer.std).contiguous()
-        if n == N_BENCH:
-            mse = gate(w, Z, **kw)[0].cpu()
-        ms[n] = time_ms(lambda: gate(w, Z, **kw))
-    return ms, mse
+    Zs = {n: normalize_windows(torch.from_numpy(np.resize(
+        W, (n,) + W.shape[1:]).astype(np.float32)).cuda(), scorer.mean,
+        scorer.std).contiguous() for n in ns}
+    return scorer, Zs
 
 
-# the gate rows of --child / --parent: (cell, kernel name, row number)
-PARENT_GATE_ROWS = (("lstm", "fused_vae_gate", 1),
-                    ("min_gru", "fused_mingru_gate", 6),
-                    ("attention", "fused_attention_gate", 7))
+def gate_row_call(cell: str, vae, bf16: bool):
+    """(weights, keyword arguments) of a gate row's public call: float32, or
+    bf16 with the io the JAX ``HybridScorer`` serves the cell at (bf16 for
+    attention)."""
+    import torch
+
+    from shm_tpu_torch.ops import FUSED_GATES
+
+    weights_fn = FUSED_GATES[cell][0]
+    kw = dict(num_layers=vae.num_layers, use_layernorm=vae.use_layernorm)
+    if not bf16:
+        return weights_fn(vae), kw
+    io = torch.bfloat16 if cell == "attention" else None
+    return weights_fn(vae, torch.bfloat16), dict(kw, dtype=torch.bfloat16,
+                                                 io_dtype=io)
+
+
+def gate_row(cell: str, bf16: bool = False):
+    """A gate row of the importable tree: the trained VAE of this checkout's
+    root of ``cell`` through that tree's public calls (``bf16``: its bf16
+    instance, ``gate_row_call``), on the 3,636 committed test windows tiled
+    to each of ``GATE_ROW_NS``. Returns ({N: kernel ms}, mse at
+    ``N_BENCH``)."""
+    from shm_tpu_torch.ops import FUSED_GATES
+
+    gate = FUSED_GATES[cell][1]
+    scorer, Zs = gate_row_inputs(cell, GATE_ROW_NS)
+    w, kw = gate_row_call(cell, scorer.vae, bf16)
+    mse = gate(w, Zs[N_BENCH], **kw)[0].cpu()
+    return {n: time_ms(lambda: gate(w, Z, **kw)) for n, Z in Zs.items()}, mse
+
+
+# the gate rows of --child / --parent: (cell, kernel name, row, bf16)
+PARENT_GATE_ROWS = (("lstm", "fused_vae_gate", "1", False),
+                    ("min_gru", "fused_mingru_gate", "6", False),
+                    ("attention", "fused_attention_gate", "7", False),
+                    ("attention", "fused_attention_gate/bf16", "7 bf16", True))
 
 
 def child(root: str, out: str) -> int:
@@ -1779,8 +1802,8 @@ def child(root: str, out: str) -> int:
                                * c["R_dec"]).sum(), lv)
     ms = lstm_kernel_ms(lstm_case(300, T, 12, 128, 256, 0.3), T)
     gate_mse = {}
-    for cell, name, _ in PARENT_GATE_ROWS:
-        by_n, gate_mse[name] = gate_row(cell)
+    for cell, name, _, bf16 in PARENT_GATE_ROWS:
+        by_n, gate_mse[name] = gate_row(cell, bf16)
         ms[name] = by_n[N_BENCH]
         for n, v in by_n.items():
             if n != N_BENCH:
@@ -1904,11 +1927,31 @@ def phase_parent(parent: str, rows) -> dict:
         compare_grads(f"{tag} this tree vs parent", runs[1][tag], runs[0][tag], names)
         check(all(torch.equal(a, b) for a, b in zip(runs[1][tag], runs[2][tag])),
               f"{tag}: two runs of this tree gave different gradients")
-    for _, name, row in PARENT_GATE_ROWS:
+    for cell, name, row, bf16 in PARENT_GATE_ROWS:
         new, par = runs[1]["gate_mse"][name], runs[0]["gate_mse"][name]
-        print(f"[parent] row {row} mse at N={N_BENCH}, this tree against the "
-              f"parent's:")
-        compare(f"{name} mse, this tree vs parent", new, par)
+        if bf16:
+            # a bf16 row may change its sums' order: each tree against this
+            # tree's plain bf16 version, this tree within BF16_COMMITTED_TOL
+            from shm_tpu_torch.ops import FUSED_GATES
+
+            scorer, Zs = gate_row_inputs(cell, (N_BENCH,))
+            w, kw = gate_row_call(cell, scorer.vae, True)
+            ref = FUSED_GATES[cell][2](w, Zs[N_BENCH], **kw)[0].cpu().double()
+            rel = lambda m: (m.double() - ref).abs() / ref.abs()
+            tmax, tmean, _ = BF16_COMMITTED_TOL[cell]
+            r_new, r_par = rel(new), rel(par)
+            ok = float(r_new.max()) <= tmax and float(r_new.mean()) <= tmean
+            print(f"[parent] row {row} mse at N={N_BENCH} against this tree's "
+                  f"plain bf16 version, rel max / mean: this tree "
+                  f"{float(r_new.max()):.3e} / {float(r_new.mean()):.3e}, parent "
+                  f"{float(r_par.max()):.3e} / {float(r_par.mean()):.3e} "
+                  f"(tolerance {tmax:g} / {tmean:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"row {row}: this tree disagrees with the plain bf16 version")
+            del Zs
+        else:
+            print(f"[parent] row {row} mse at N={N_BENCH}, this tree against the "
+                  f"parent's:")
+            compare(f"{name} mse, this tree vs parent", new, par)
         check(torch.equal(new, runs[2]["gate_mse"][name]),
               f"row {row}: two runs of this tree gave different mse")
         print(f"[parent] row {row} mse of this tree's two runs: equal bit for bit")
@@ -3958,9 +4001,13 @@ OPENLAB_CNN_VAL_AUROC_F32 = 0.5484376330353342
 # The port on the CPU (seed 42): 0.691032
 OPENLAB_CNN_F2_FLOOR = 0.684
 # train-vae on plain autograd (the 1-layer LSTM, T=200: no training kernel
-# takes it; host-bound), cut to this many epochs of the recipe's 100; the
-# --cell min_gru chain to OPENLAB_CELL_EPOCHS
-OPENLAB_VAE_EPOCHS = 5
+# takes it; host-bound, ~6 s an epoch), cut to this many epochs of the
+# recipe's 100; the --cell min_gru chain to OPENLAB_CELL_EPOCHS. Two epochs
+# keep every check of (e): the KL warm-up is max(1, int(0.3 n)) = 1 epoch
+# for any n of 2-6, so two epochs run as the first two of a longer run,
+# bit for bit from one seed, and the loss falls (on the CPU 0.860 -> 0.627
+# over epochs 1-2)
+OPENLAB_VAE_EPOCHS = 2
 OPENLAB_CELL_EPOCHS = 2
 OPENLAB_REPS = 5
 # row 1 against its plain version on the card at the openLAB shape (T=200,
@@ -4839,6 +4886,11 @@ def phase_extract_export(W, y) -> dict:
 
 
 MESH_TRAIN_EPOCHS = 2
+# (c) trains on the first this many of the 4DOF normal runs' 3,010 train /
+# 2,010 val windows (plain autograd, host-bound: ~28 s for all of them on
+# one device and on the two shards). Both counts leave a ragged last batch
+# of 256, as the whole split does, so the shards still split one
+MESH_TRAIN_WINDOWS = (1210, 810)
 MESH_TRAIN_RTOL, MESH_PARAM_ATOL = 1e-5, 1e-6     # tests/test_parallel.py
 MESH_CNN_STEP_RTOL, MESH_CNN_EPOCHS_RTOL = 1e-5, 1e-2
 MESH_BN_RTOL, MESH_BN_ATOL = 1e-4, 1e-6
@@ -4920,6 +4972,7 @@ def mesh_training(mesh2, nums: dict) -> None:
     cfg = Stage4DofConfig()
     files = load_json(ROOT / "data/4dof/processed/run_splits.json")["normal"]["files"]
     Wtr, Wva = build_fraction_windows_multi(files, (cfg.train_frac, cfg.val_frac), cfg)
+    Wtr, Wva = Wtr[:MESH_TRAIN_WINDOWS[0]], Wva[:MESH_TRAIN_WINDOWS[1]]
     Wtr_t = torch.from_numpy(Wtr).cuda()
     mean, std = compute_mean_std_from_windows(Wtr_t)
     Ztr = normalize_windows(Wtr_t, mean, std)
@@ -5148,8 +5201,9 @@ def phase_mesh(W) -> dict:
 # difference of the reconstructions |x - y| (the residuals' square roots).
 # ``tests/bf16_readings.py model`` models each instance's sums in its own
 # order (rows 1 and 6 chain the bias, then the products, through the mma's
-# truncating sum; row 7 chains its products from zero) and prints the gap
-# a float32 instance would show, the plain float32 version against the
+# truncating sum; row 7's resident body sums every product in k-steps of
+# 16, a pair of k-steps from zero at a time, the bias after) and prints the
+# gap a float32 instance would show, the plain float32 version against the
 # plain bf16 one (PERF.md §6). The mean bars sit between the two, and
 # bf16_kernel_vs_plain checks that the mean bar is below the float32 gap of
 # every case it holds, so that an instance that skipped the bf16 rounding
@@ -5157,13 +5211,13 @@ def phase_mesh(W) -> dict:
 # any change of sum order by up to half the whole bf16 gap, PERF.md §7):
 # its bars catch a gross fault. At phase 2's shapes, worst case of the
 # model / of the least float32 gap, (max, mean): row 1 1.9e-5 / 2.2e-5,
-# 2.4e-6 / 5.1e-6; row 6 1.7e-5 / 8.2e-5, 2.6e-7 / 1.9e-5; row 7 4.3e-4 /
-# 6.7e-4, 1.0e-4 / 1.8e-4.
+# 2.4e-6 / 5.1e-6; row 6 1.7e-5 / 8.2e-5, 2.6e-7 / 1.9e-5; row 7 5.2e-4 /
+# 7.2e-4, 8.6e-5 / 2.3e-4.
 BF16_GATE_TOL = {"lstm": (1e-4, 3.5e-6, 3e-2), "min_gru": (1e-4, 2e-6, 3e-2),
                  "attention": (1.5e-3, 1.5e-4, 5e-2)}
 # The same on the 3,636 committed windows, model / float32 gap: row 1
 # 4.97e-4 / 9.52e-4, 7.47e-6 / 5.75e-5, |x - y| 3.8e-3; row 6 1.14e-4 /
-# 6.43e-4, 6.37e-7 / 6.37e-5, 7.8e-3; row 7 5.71e-4 / 7.39e-4, 4.77e-5 /
+# 6.43e-4, 6.37e-7 / 6.37e-5, 7.8e-3; row 7 8.03e-4 / 7.39e-4, 4.14e-5 /
 # 8.32e-5, 0.124.
 BF16_COMMITTED_TOL = {"lstm": (2e-3, 1.5e-5, 1.5e-2),
                       "min_gru": (3e-4, 1.5e-6, 2e-2),
@@ -5528,6 +5582,15 @@ def phase17_timing(W, cell: str, sc, f32) -> dict:
     print(f"{tag} {gate.__name__}/bf16 N={N}: kernel {ms:.4f} ms | float32 "
           f"instance {ms32:.4f} ms | plain bf16 {plain_ms:.4f} ms | bf16 "
           f"{fam['library']} {library_ms:.4f} ms")
+    if cell == "attention":
+        from shm_tpu_torch.ops.fused_attention import kernel_info
+
+        info = kernel_info(T, vae.hidden_dim, dtype=torch.bfloat16)
+        print(f"{tag} the bf16 resident body at T={T}, H={vae.hidden_dim}: "
+              f"{info['registers']} registers and {info['spill_bytes']} B of "
+              f"local memory (spills) a thread, {info['shared_bytes']} B of "
+              f"shared memory a block, {info['blocks_per_sm']} block(s) an SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     print(f"{tag} work {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB -> "
           f"bound {bound:.4f} ms ({bound_by}; bf16 tensor cores "
           f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms, one TF32 term "
@@ -6067,7 +6130,9 @@ def phase19_kernels() -> dict:
     float32 (phase 2's bar) and bf16 with float32 and bf16 io (phase 17's,
     with the mean bar of P19_BF16_TOL and ``p19_form_control``); at the two
     resident shapes the long body's streaming form against the resident
-    body's bit for bit, its packed form within phase 2's bar. Returns the
+    body's, bit for bit in float32 and within phase 17's bars in bf16 (the
+    bf16 resident body sums its scores and P.V on the tensor cores), its
+    packed form within phase 2's bar. Returns the
     largest |mse diff| of the streaming form and of the long body, by
     precision."""
     import torch
@@ -6093,8 +6158,10 @@ def phase19_kernels() -> dict:
               True: attention_params_to_kernel_weights(vae, torch.bfloat16)}
         Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(np.float32)).cuda()
         long = plan(T, H).body == "long"
+        long16 = plan(T, H, torch.bfloat16).body == "long"
         print(f"[phase19] {name}: N={N} T={T} D={D} H={H} Z={Zd} L={L} LN={ln} "
-              f"with_residual={wr}: the {'long' if long else 'resident'} body")
+              f"with_residual={wr}: the {'long' if long else 'resident'} body, "
+              f"in bf16 the {'long' if long16 else 'resident'} body")
         for stream in (False, True):
             form = "streaming" if stream else "packed"
             kw = dict(num_layers=L, use_layernorm=ln, with_residual=wr,
@@ -6113,11 +6180,11 @@ def phase19_kernels() -> dict:
                 err["bf16"] = max(err["bf16"], p19_launch(
                     lambda: bf16_kernel_vs_plain(tag, "attention", ws[True], Z,
                                                  kw, io, P19_BF16_TOL[name]),
-                    True, stream, long))
+                    True, stream, long16))
                 p19_form_control(tag, ws[True], Z, kw, io, P19_BF16_TOL[name][1],
-                                 long)
-            for key, on in (("stream", stream and not long), ("long", long)):
-                for prec in ("f32", "bf16"):
+                                 long16)
+            for prec, lg in (("f32", long), ("bf16", long16)):
+                for key, on in (("stream", stream and not lg), ("long", lg)):
                     if on:
                         errs[key, prec] = max(errs[key, prec], err[prec])
         if long:
@@ -6128,6 +6195,19 @@ def phase19_kernels() -> dict:
             a, b = (p19_launch(lambda: _launch(
                 ws[bf16], Z, stream=True, dtype=dt, io_dtype=None, body=body,
                 **kw), bf16, True, body == "long") for body in ("resident", "long"))
+            if bf16:
+                # the bf16 resident body runs its scores and P.V on the tensor
+                # cores, the long body on the FMA pipes: other sums, held to
+                # each other within phase 17's bars
+                rel = (b[0].double() - a[0].double()).abs() / a[0].double().abs()
+                tmax, tmean, _ = BF16_GATE_TOL["attention"]
+                ok = float(rel.max()) <= tmax and float(rel.mean()) <= tmean
+                print(f"[phase19]   the long body's streaming form ({dt}) against "
+                      f"the resident body's: mse rel max {float(rel.max()):.3e} "
+                      f"mean {float(rel.mean()):.3e} (tolerance {tmax:g} / "
+                      f"{tmean:g}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"{name}: the two bodies' bf16 streaming forms disagree")
+                continue
             same = torch.equal(a[0], b[0]) and (not wr or torch.equal(a[1], b[1]))
             print(f"[phase19]   the long body's streaming form ({dt}) against the "
                   f"resident body's: {'bit for bit' if same else 'DIFFERENT'} "
@@ -7105,8 +7185,10 @@ def phase21_kernels(readings: bool = False) -> dict:
         for T, N in P21_BODIES:
             Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(np.float32)).cuda()
             long = plan(T, H).body == "long"
+            long16 = plan(T, H, torch.bfloat16).body == "long"
             print(f"[phase21] {name} (M={r * H}): N={N} T={T} D={D} Z={Zd} L={L}: "
-                  f"the {'long' if long else 'resident'} body")
+                  f"the {'long' if long else 'resident'} body, in bf16 the "
+                  f"{'long' if long16 else 'resident'} body")
             for stream in (False, True):
                 form = "streaming" if stream else "packed"
                 kw = dict(num_layers=L, use_layernorm=True, with_residual=True,
@@ -7123,7 +7205,7 @@ def phase21_kernels(readings: bool = False) -> dict:
                     tmean = None if readings else P21_BF16_MEAN[name, T, form]
                     errs["bf16"] = max(errs["bf16"], p21_launch(
                         lambda: p21_bf16(tag, ws[True], Z, kw, io, tmean),
-                        True, stream, long, r != 4))
+                        True, stream, long16, r != 4))
         del vae, ws
         torch.cuda.empty_cache()
     return errs

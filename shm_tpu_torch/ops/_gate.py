@@ -3,7 +3,7 @@ C entry, the one rule of dispatch (a CUDA tensor launches the kernel, a
 CPU tensor runs the plain version, nothing gives way), the two precisions
 a gate runs at, and the packing of the weights that a kernel multiplies on
 the tensor cores (3xTF32 B fragments, the same of bf16-rounded weights,
-bf16 A fragments)."""
+bf16 A and B fragments of m16n8k16)."""
 
 from __future__ import annotations
 
@@ -27,8 +27,10 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
 
 # the suffix of a weight's fragments in a kernel weight dict: 3xTF32 of the
 # weight as given (the float32 instances), and of the weight rounded to bf16
-# (the bf16 instances; their TF32 small parts are zero)
-FRAG, FRAG_BF16 = "_frag", "_frag_bf16"
+# (the bf16 instances of rows 1 and 6 and row 7's long body; their TF32
+# small parts are zero), and the m16n8k16 bf16 B fragments of the weight
+# rounded to bf16 (row 7's bf16 resident body)
+FRAG, FRAG_BF16, FRAG_K16 = "_frag", "_frag_bf16", "_frag_k16"
 
 
 def gate_dtypes(Z: torch.Tensor, dtype, io_dtype) -> Tuple[bool, torch.dtype]:
@@ -159,6 +161,32 @@ def unpack_fragments(f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return x[0], x[1]
 
 
+def bf16_b_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A weight ``w`` [K, N] (N a multiple of 8) as a kernel's bf16 B
+    fragments of ``mma.sync.m16n8k16`` [N/8, ceil(K/16), 32, 2] int32, 2
+    bytes a weight: for n-tile nt, k-step ks and lane (g = lane // 4,
+    t = lane % 4) the two registers {b0, b1}, each two bf16 with the lower k
+    in the low half: b0 = w[16ks + 2t, +1][8nt + g], b1 = w[16ks + 8 + 2t,
+    +1][8nt + g]. w is rounded to bf16 to nearest even; rows past K are
+    zero."""
+    w = F.pad(w.detach().to(torch.float32), (0, 0, 0, -w.shape[0] % 16))
+    K, N = w.shape
+    bits = w.to(torch.bfloat16).view(torch.int16)
+    # [ks, r, t, pair, nt, g] -> [nt, ks, g, t, r, pair]: w[16ks + 8r + 2t +
+    # pair][8nt + g], register r of lane 4g + t
+    x = bits.reshape(K // 16, 2, 4, 2, N // 8, 8).permute(4, 0, 5, 2, 1, 3)
+    return x.contiguous().view(torch.int32).reshape(N // 8, K // 16, 32, 2)
+
+
+def unpack_bf16_b_fragments(f: torch.Tensor) -> torch.Tensor:
+    """The weight [16 * ceil(K/16), N] in float32 (padding included) from
+    fragments made by :func:`bf16_b_fragments`."""
+    NT, KS = f.shape[:2]
+    bits = f.contiguous().view(torch.int16).reshape(NT, KS, 8, 4, 2, 2)
+    w = bits.permute(1, 4, 3, 5, 0, 2).reshape(16 * KS, 8 * NT)
+    return w.contiguous().view(torch.bfloat16).to(torch.float32)
+
+
 def bf16_a_fragments(w: torch.Tensor) -> torch.Tensor:
     """A weight ``w`` [K, M] (the flax layout [in, out]) as a kernel's bf16 A
     fragments of ``mma.sync.m16n8k16`` for A = w^T [M, K], row-major:
@@ -190,22 +218,26 @@ def unpack_bf16_a_fragments(f: torch.Tensor) -> torch.Tensor:
 def check_fragments(weights: Dict[str, torch.Tensor],
                     need: Iterable[str]) -> None:
     """Each ``<name>_frag`` or ``<name>_frag_bf16`` in ``need`` has the shape
-    of :func:`tf32x3_fragments` of ``weights[<name>]``."""
+    of :func:`tf32x3_fragments` of ``weights[<name>]``, each
+    ``<name>_frag_k16`` that of :func:`bf16_b_fragments`."""
     for k in need:
-        for suffix in (FRAG, FRAG_BF16):
+        for suffix in (FRAG, FRAG_BF16, FRAG_K16):
             if not k.endswith(suffix):
                 continue
             K, N = weights[k[:-len(suffix)]].shape
-            if weights[k].shape != (N // 8, -(-K // 8), 32, 4):
+            want = ((N // 8, -(-K // 16), 32, 2) if suffix == FRAG_K16
+                    else (N // 8, -(-K // 8), 32, 4))
+            if weights[k].shape != want:
                 raise ValueError(f"weight {k} {tuple(weights[k].shape)} is not "
                                  f"the fragments of a [{K}, {N}] weight")
 
 
-def fragment_names(order: Sequence[str], bf16: bool) -> Tuple[str, ...]:
+def fragment_names(order: Sequence[str], bf16: bool,
+                   bf16_suffix: str = FRAG_BF16) -> Tuple[str, ...]:
     """A C entry's pointer order with each fragment named for the
-    precision: the bf16 entries read ``*_frag_bf16`` where the float32 ones
-    read ``*_frag``."""
-    return tuple(k[:-len(FRAG)] + FRAG_BF16 if bf16 and k.endswith(FRAG)
+    precision: the bf16 entries read ``*_frag_bf16`` (or ``bf16_suffix``)
+    where the float32 ones read ``*_frag``."""
+    return tuple(k[:-len(FRAG)] + bf16_suffix if bf16 and k.endswith(FRAG)
                  else k for k in order)
 
 
@@ -223,10 +255,10 @@ def check_weights(weights: Dict[str, torch.Tensor], need: Iterable[str],
         raise ValueError(f"weights missing: {', '.join(missing)}")
     for k in need:
         w = weights[k]
-        if (w.device != device or w.dtype != torch.float32
-                or not w.is_contiguous()):
-            raise ValueError(f"weight {k} must be contiguous float32 on "
-                             f"{device}")
+        dtype = torch.int32 if k.endswith(FRAG_K16) else torch.float32
+        if w.device != device or w.dtype != dtype or not w.is_contiguous():
+            raise ValueError(f"weight {k} must be contiguous "
+                             f"{str(dtype)[6:]} on {device}")
 
 
 def pointer_array(weights: Dict[str, torch.Tensor], order: Sequence[str],

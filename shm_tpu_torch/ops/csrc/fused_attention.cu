@@ -104,8 +104,8 @@
 //     most NKB_RES key blocks. The long body's streaming form gives these
 //     bits too but takes 1.14-1.23x the time at T = 100 and 200 (PERF.md
 //     §6), so the resident body keeps its own.
-// Scores, softmax and P.V stay on the FMA pipes; several windows a block and
-// bf16 wgmma are later work.
+// Scores, softmax and P.V stay on the FMA pipes in float32; several windows
+// a block and wgmma are later work.
 //
 // Design of the long body (fused_attention_long_kernel), for a window whose
 // buffers pass a block's shared memory (at H = 128 past T = 136, at 64 past
@@ -136,25 +136,57 @@
 // 67 TFLOP/s float32 rate; the scores and P.V, 40% of them, and the packed
 // form's second pass of scores run on the FMA pipes (PERF.md §6).
 //
-// The bf16 instance (C entry shm_fused_attention_gate_bf16, template BF) is
-// the TPU kernel with dtype=bf16 (fused_attention.py:206-212, :252-353):
-// every product's two operands rounded to bf16 and summed in float32. In
-// mma_rows each A element is rounded to bf16 in place of the TF32 split and
-// the B fragments are the wrapper's packing of the bf16-rounded weights (the
-// query's scale folded in first), so a_b b_b alone, one mma a k-step, is the
-// exact bf16 product. On the FMA pipes the scores multiply the stored bf16
-// q and k, P.V the rounded probabilities (the packed form rounds them after
-// the softmax's division, the streaming form before) and the stored bf16 v,
-// and the token, latent and output heads round both operands. The residual stream s is rounded as the TPU kernel
-// stores it: after the tokens, after the output projection (its last head)
-// and after the MLP (its last chunk); q | k | v and the attention output o
-// as they are stored. LayerNorm, softmax and the pooled summary stay
-// float32. Its io is float32 or bf16 (template IOT): with bf16 the window is
-// read as bf16 (in the residual's x - y too) and the residual stored bf16.
-// The streaming form rounds p before P.V, as the TPU kernel's streaming form
-// (its mm casts p to bf16), and divides o by the float32 l after.
-// Its bound at N=5,440 (4DOF preset) is the 970.6 GFLOP at the 989 TFLOP/s
-// bf16 rate, 0.98 ms; what binds the float32 body (not its mma) binds it.
+// The bf16 instance (C entry shm_fused_attention_gate_bf16) is the TPU
+// kernel with dtype=bf16 (fused_attention.py:206-212, :252-353): every
+// product's two operands rounded to bf16 and summed in float32. The residual
+// stream s is rounded as the TPU kernel stores it: after the tokens, after
+// the output projection (its last head) and after the MLP (its last chunk);
+// q | k | v, the probabilities and the attention output o as they are
+// stored; the packed form rounds p after the softmax's division, the
+// streaming form before P.V (its mm casts p to bf16) and divides o by the
+// float32 l after. LayerNorm, softmax and the pooled summary stay float32.
+// Its io is float32 or bf16 (template IOT): with bf16 the window is read as
+// bf16 (in the residual's x - y too) and the residual stored bf16. The
+// token, latent and output heads round both operands on the FMA pipes. Its
+// bound at N=5,440 (4DOF preset) is the 970.6 GFLOP at the 989 TFLOP/s bf16
+// rate, 0.98 ms.
+//
+// Design of the bf16 resident body (fused_attention_bf16_kernel). Every
+// product runs on mma.sync.m16n8k16 bf16 with float32 sums, from operands
+// stored as bf16 in shared memory: LayerNorm's output, q | k | v, P (in
+// registers), o and the MLP's GELU chunk; s stays float32 [Tp][H+4]. A
+// comes by ldmatrix (x4) from rows of 8 + a multiple of 64 bf16 (80, 144 or
+// 272 bytes), so an ldmatrix's eight rows sit on distinct banks. The four
+// weight products read the wrapper's m16n8k16 B fragments of the
+// bf16-rounded weights, 2 bytes a weight (uint2 {b0, b1} a lane, n-tile and
+// k-step; the float32 body's fragments take 8): in mma16_rows a k-step's
+// fragments serve two row tiles and each ldmatrix of A its warp's n-tiles.
+// The heads go in groups of HG (all of them while their q | k | v fits
+// beside s; at the 4DOF preset all four): one QKV product over the group's
+// 96 HG columns, then attend16, one warp a head and 16 query rows (28 tasks
+// for 16 warps at T = 100), its scores q.k^T (k by ldmatrix), softmax and
+// P.V (P as the A fragments of its own score accumulators, v by
+// ldmatrix.trans, the keys padded to 16 with zero rows of v past the padded
+// stream) in registers, no barrier inside; then one output projection over
+// the group's rows of W_o. Every product's k-steps go in pairs chained from
+// zero, each pair's partial added to the float32 sum to nearest (rows 1 and
+// 6's sum: the tensor cores truncate inside a chain); a score is one
+// such pair. No atomics: two launches give the same bits. Shared memory at
+// the 4DOF preset: 176.6 KB (the float32 body 169.6 KB), one block of 512
+// threads an SM; a window fits up to T = 208 at H = 128 (HG 1), past the
+// float32 body's 136 (328 at H = 64, 464 at 32).
+// What binds it (PERF.md §6): not the tensor cores (the mma turned
+// into one FADD each left the time as it was), nor the weight fragments'
+// traffic (-7% when every k-step read one L1-resident fragment) or the
+// ldmatrix (-5% without it); the phases between the barriers are short and
+// latency-bound at 16 warps and 128 registers a thread (ptxas spills 280 B
+// a thread). Two blocks of 256 threads an SM (HG 1), a warp's slice of W
+// held in registers, the next k-pair's fragments prefetched, four row tiles
+// a warp, or full unrolling each ran slower.
+// The long body's bf16 instance keeps its arithmetic (float32 tiles in
+// shared memory, A rounded to bf16 in registers, one TF32 mma a k-step of 8
+// on the TF32 fragments of the bf16-rounded weights, *_frag_bf16; scores and
+// P.V on the FMA pipes).
 //
 // Accurate expf/tanhf (no --use_fast_math).
 
@@ -179,6 +211,7 @@ constexpr int NKB_RES = 4;      // key blocks a resident window may have
 constexpr int QL = 128;         // rows a tile (and query rows a chunk) of the
                                 // long body
 constexpr int NUM_W = 2 * (4 + 16 * LMAX) + 8;
+constexpr long long SMEM_LIMIT = 232448;   // shared bytes a block may use (H100)
 constexpr float STACK_EPS = 1e-6f;
 constexpr float MODEL_EPS = 1e-5f;
 
@@ -205,10 +238,12 @@ __device__ __forceinline__ void st_io(bf16_t* p, float v) {
   *p = (bf16_t)(__float_as_uint(rd<true>(v)) >> 16);
 }
 
-// the four products' weights as TF32 fragments (mma_rows), the rest as given
+// the four products' weights as fragments (float4 TF32 fragments in the
+// float32 instance and the long body's bf16 one, uint2 m16n8k16 bf16
+// fragments in the bf16 resident body), the rest as given
 struct BlockW {
   const float *ln1s, *ln1b, *bqkv, *bo, *ln2s, *ln2b, *b1, *b2;
-  const float4 *wqkv_f, *wo_f, *w1_f, *w2_f;
+  const void *wqkv_f, *wo_f, *w1_f, *w2_f;
 };
 struct StackW {
   const float *in_w, *in_b;   // [in, H], [H]
@@ -297,8 +332,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
 // One k-step of mma_rows: the MW row tiles at A + ro (this lane's two rows
 // of each, as offsets) times the NW n-tiles' fragments b. Each A element is
 // split once for the NW n-tiles; each k-step adds a_s b_b, a_b b_s, then
-// a_b b_b into one float32 accumulator. Under BF each A element is rounded
-// to bf16 and the k-step adds a_b b_b alone (b holds bf16-rounded weights).
+// a_b b_b into one float32 accumulator. Under BF (the long body's bf16
+// instance) each A element is rounded to bf16 and the k-step adds a_b b_b
+// alone (b holds bf16-rounded weights).
 template <int NW, int MW, bool BF>
 __device__ __forceinline__ void mma_kstep(float (&acc)[MW][NW][4], const float* A,
                                           const int (&ro)[MW][2],
@@ -328,14 +364,36 @@ __device__ __forceinline__ void mma_kstep(float (&acc)[MW][NW][4], const float* 
   }
 }
 
+// two float32 values as bf16x2, lo in the low half, each rounded to nearest
+// even
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += a (16x16, row) * b (16x8, col): bf16 operands, float32 accumulators.
+// Lane (g = lane/4, t = lane%4): a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1],
+// a2 = A[g][2t+8, 2t+9], a3 = A[g+8][2t+8, 2t+9]; b0 = B[2t, 2t+1][g],
+// b1 = B[2t+8, 2t+9][g] (lower k in the low half); d as mma_tf32's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // A weight product on the tensor cores in 3xTF32. For every row < M and
-// every column pair (col, col+1) of the NTL n-tiles (8 columns each) at Bf:
+// every column pair (col, col+1) of the NTL n-tiles (8 columns each) from
+// n-tile nt0:
 //   epi(row, col, sum_k A[row][k] W[k][col], sum_k A[row][k] W[k][col+1])
-// over the KS k-steps (8 rows of W each) at Bf. A [M][lda] is in
-// shared memory. W [K, N] comes packed by the wrapper as float4 {b0 big, b1
-// big, b0 small, b1 small} at [(nt * KT + kt) * 32 + lane], KT = K/8, lane
-// (g, t) holding W[8kt+t][8nt+g] and W[8kt+t+4][8nt+g]; Bf points at the
-// first (n-tile, k-step).
+// over the KS k-steps (8 rows of W each) from k-step kt0; A [M][lda] is in
+// shared memory, col counted from n-tile nt0. W [K, N] comes packed by the
+// wrapper as float4 {b0 big, b1 big, b0 small, b1 small} at
+// [(nt * KT + kt) * 32 + lane], KT = K/8, lane (g, t) holding W[8kt+t][8nt+g]
+// and W[8kt+t+4][8nt+g] (under BF the same of the bf16-rounded weight, the
+// query's scale folded in first, small parts zero).
 // Warp w owns the NW n-tiles of n-group w % NG (NG = NTL/NW) and the m16
 // row tiles of m-group w / NG (the 16 warps split the rows when NG < 16),
 // MW row tiles at a time. The k loop runs outside the row tiles, so each
@@ -349,8 +407,8 @@ __device__ __forceinline__ void mma_kstep(float (&acc)[MW][NW][4], const float* 
 // k runs in order (no atomics).
 template <int NW, int MW, bool BF, class Epi>
 __device__ __forceinline__ void mma_rows(const float* A, int lda, int M,
-                                         const float4* __restrict__ Bf, int KT,
-                                         int KS, int NTL, Epi epi) {
+                                         const void* Bw, int KT, int nt0,
+                                         int kt0, int KS, int NTL, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int NG = NTL / NW, MG = NG >= NWARP ? 1 : NWARP / NG;
@@ -358,7 +416,8 @@ __device__ __forceinline__ void mma_rows(const float* A, int lda, int M,
   const int ng = warp % NG, mg = warp / NG;
   const int MT = (M + 15) >> 4, per = (MT + MG - 1) / MG;
   const int m_end = min(MT, (mg + 1) * per);
-  const float4* bw = Bf + (size_t)ng * NW * KT * 32 + lane;
+  const float4* bw = static_cast<const float4*>(Bw) +
+                     ((size_t)(nt0 + ng * NW) * KT + kt0) * 32 + lane;
   for (int m0 = mg * per; m0 < m_end; m0 += MW) {
     int ro[MW][2];
 #pragma unroll
@@ -447,9 +506,9 @@ struct Smem {
   float* area;   // q|k|v [3][Tp][HDP] + scores [QC][Tld], or the MLP chunk
 };
 
-// One pre-LN transformer block on the window's stream, in place; STREAM: the
-// streaming softmax.
-template <bool BF, bool STREAM>
+// One pre-LN transformer block of the float32 resident body on the window's
+// stream, in place; STREAM: the streaming softmax.
+template <bool STREAM>
 __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
                                   int H, int M) {
   const int ld = H + 4, Tld = (T + 3) & ~3, heads = H / HD;
@@ -467,13 +526,12 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
   for (int h = 0; h < heads; ++h) {
     // q | k | v of head h, all rows: nrm [Tp,H] x wqkv[:, h*96 .. h*96+95]
     const float* bq = w.bqkv + h * 3 * HD;
-    mma_rows<3, 2, BF>(m.nrm, ld, Tp, w.wqkv_f + (size_t)h * 12 * KT * 32, KT,
-                       KT, 12, [&](int row, int col, float v0, float v1) {
-                         float* dst = qh + (col / HD) * Tp * HDP + row * HDP + col % HD;
-                         *reinterpret_cast<float2*>(dst) =
-                             make_float2(rd<BF>(v0 + __ldg(bq + col)),
-                                         rd<BF>(v1 + __ldg(bq + col + 1)));
-                       });
+    mma_rows<3, 2, false>(m.nrm, ld, Tp, w.wqkv_f, KT, h * 12, 0, KT, 12,
+                          [&](int row, int col, float v0, float v1) {
+                            float* dst = qh + (col / HD) * Tp * HDP + row * HDP + col % HD;
+                            *reinterpret_cast<float2*>(dst) =
+                                make_float2(v0 + __ldg(bq + col), v1 + __ldg(bq + col + 1));
+                          });
     __syncthreads();
 
     for (int r0 = 0; r0 < Tp; r0 += QC) {
@@ -505,7 +563,7 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
         for (int i = warp; i < rows; i += NWARP) {
           float mrun = -1e30f, l = 0.0f;
           for (int b = 0, j0 = 0; j0 < T; ++b, j0 += KB)
-            stream_block<BF>(S + i * Tld, j0, min(T, j0 + KB), lane, mrun, l,
+            stream_block<false>(S + i * Tld, j0, min(T, j0 + KB), lane, mrun, l,
                              m.small[i * NKB_RES + b]);
           if (lane == 0) m.small[QC * NKB_RES + i] = l;
         }
@@ -521,8 +579,7 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
                                    S + i * Tld, vh + c4 * 4, j0, min(T, j0 + KB)));
           const float l = m.small[QC * NKB_RES + i];
           *reinterpret_cast<float4*>(qh + (r0 + i) * HDP + c4 * 4) =
-              make_float4(rd<BF>(o.x / l), rd<BF>(o.y / l), rd<BF>(o.z / l),
-                          rd<BF>(o.w / l));
+              make_float4(o.x / l, o.y / l, o.z / l, o.w / l);
         }
         __syncthreads();
       } else {
@@ -539,7 +596,7 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
             sum += e;
           }
           sum = warp_sum(sum);
-          for (int j = lane; j < T; j += 32) row[j] = rd<BF>(row[j] / sum);
+          for (int j = lane; j < T; j += 32) row[j] = row[j] / sum;
         }
         __syncthreads();
         // o[r0+i] = sum_j P[i][j] v[j], written over the dead q rows
@@ -556,25 +613,22 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
             o.z = fmaf(pj, vv.z, o.z);
             o.w = fmaf(pj, vv.w, o.w);
           }
-          *reinterpret_cast<float4*>(qh + (r0 + i) * HDP + c4 * 4) =
-              make_float4(rd<BF>(o.x), rd<BF>(o.y), rd<BF>(o.z), rd<BF>(o.w));
+          *reinterpret_cast<float4*>(qh + (r0 + i) * HDP + c4 * 4) = o;
         }
         __syncthreads();
       }
     }
-    // s += o_h [Tp,32] x wo[h*32 .. h*32+31, :] (+ bo with the first head;
-    // under BF s rounded after the last)
+    // s += o_h [Tp,32] x wo[h*32 .. h*32+31, :] (+ bo with the first head)
     const float* bo = w.bo;
-    const bool first = h == 0, last = h == heads - 1;
-    mma_rows<4, 2, BF>(qh, HDP, Tp, w.wo_f + (size_t)h * (HD / 8) * 32, KT,
-                       HD / 8, KT, [&](int row, int col, float v0, float v1) {
-                         float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
-                         float2 v = *dst;
-                         v.x += first ? v0 + __ldg(bo + col) : v0;
-                         v.y += first ? v1 + __ldg(bo + col + 1) : v1;
-                         if (BF && last) v = make_float2(rd<BF>(v.x), rd<BF>(v.y));
-                         *dst = v;
-                       });
+    const bool first = h == 0;
+    mma_rows<4, 2, false>(qh, HDP, Tp, w.wo_f, KT, 0, h * (HD / 8), HD / 8, KT,
+                          [&](int row, int col, float v0, float v1) {
+                            float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
+                            float2 v = *dst;
+                            v.x += first ? v0 + __ldg(bo + col) : v0;
+                            v.y += first ? v1 + __ldg(bo + col + 1) : v1;
+                            *dst = v;
+                          });
     __syncthreads();
   }
 
@@ -585,28 +639,41 @@ __device__ void transformer_block(const BlockW& w, const Smem& m, int T, int Tp,
   constexpr int ldh = CC + 4;
   for (int c0 = 0; c0 < M; c0 += CC) {
     const float* b1 = w.b1 + c0;
-    mma_rows<4, 2, BF>(m.nrm, ld, Tp, w.w1_f + (size_t)(c0 / 8) * KT * 32, KT,
-                       KT, CC / 8, [&](int row, int col, float v0, float v1) {
-                         *reinterpret_cast<float2*>(h1 + row * ldh + col) =
-                             make_float2(gelu_tanh(v0 + __ldg(b1 + col)),
-                                         gelu_tanh(v1 + __ldg(b1 + col + 1)));
-                       });
+    mma_rows<4, 2, false>(m.nrm, ld, Tp, w.w1_f, KT, c0 / 8, 0, KT, CC / 8,
+                          [&](int row, int col, float v0, float v1) {
+                            *reinterpret_cast<float2*>(h1 + row * ldh + col) =
+                                make_float2(gelu_tanh(v0 + __ldg(b1 + col)),
+                                            gelu_tanh(v1 + __ldg(b1 + col + 1)));
+                          });
     __syncthreads();
-    // s += the chunk's h1 W2 (+ b2 with the first; under BF s rounded after
-    // the last)
+    // s += the chunk's h1 W2 (+ b2 with the first)
     const float* b2 = w.b2;
-    const bool first = c0 == 0, last = c0 + CC >= M;
-    mma_rows<4, 2, BF>(h1, ldh, Tp, w.w2_f + (size_t)(c0 / 8) * 32, M / 8,
-                       CC / 8, KT, [&](int row, int col, float v0, float v1) {
-                         float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
-                         float2 v = *dst;
-                         v.x += first ? v0 + __ldg(b2 + col) : v0;
-                         v.y += first ? v1 + __ldg(b2 + col + 1) : v1;
-                         if (BF && last) v = make_float2(rd<BF>(v.x), rd<BF>(v.y));
-                         *dst = v;
-                       });
+    const bool first = c0 == 0;
+    mma_rows<4, 2, false>(h1, ldh, Tp, w.w2_f, M / 8, 0, c0 / 8, CC / 8, KT,
+                          [&](int row, int col, float v0, float v1) {
+                            float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
+                            float2 v = *dst;
+                            v.x += first ? v0 + __ldg(b2 + col) : v0;
+                            v.y += first ? v1 + __ldg(b2 + col + 1) : v1;
+                            *dst = v;
+                          });
     __syncthreads();
   }
+}
+
+// sum over k < n of a(k) b(k), fmaf in k order; under BF (the bf16
+// bodies) unrolled by U, so that the loads of U terms are in flight at once
+// (the float32 bodies keep the compiler's own choice)
+template <bool BF, int U, class FA, class FB>
+__device__ __forceinline__ float dot(int n, FA a, FB b) {
+  float y = 0.0f;
+  if constexpr (BF) {
+#pragma unroll (U)
+    for (int k = 0; k < n; ++k) y = fmaf(a(k), b(k), y);
+  } else {
+    for (int k = 0; k < n; ++k) y = fmaf(a(k), b(k), y);
+  }
+  return y;
 }
 
 // the encoder's token at step t < T, column c: x in_proj + positions
@@ -614,9 +681,8 @@ template <bool BF, typename IOT>
 __device__ __forceinline__ float enc_token(const IOT* xw, const StackW& enc,
                                            const float* pos, int t, int c,
                                            int D, int H) {
-  float v = 0.0f;
-  for (int d = 0; d < D; ++d)
-    v = fmaf(rd<BF>(ld_io(xw + t * D + d)), rd<BF>(__ldg(enc.in_w + d * H + c)), v);
+  const float v = dot<BF, 4>(D, [&](int d) { return rd<BF>(ld_io(xw + t * D + d)); },
+                             [&](int d) { return rd<BF>(__ldg(enc.in_w + d * H + c)); });
   return rd<BF>(v + __ldg(enc.in_b + c) + __ldg(pos + t * H + c));
 }
 
@@ -624,8 +690,8 @@ __device__ __forceinline__ float enc_token(const IOT* xw, const StackW& enc,
 template <bool BF>
 __device__ __forceinline__ float out_head(const float* r, const AttnW& W,
                                           int d, int H, int D) {
-  float y = 0.0f;
-  for (int k = 0; k < H; ++k) y = fmaf(rd<BF>(r[k]), rd<BF>(__ldg(W.out_w + k * D + d)), y);
+  const float y = dot<BF, 16>(H, [&](int k) { return rd<BF>(r[k]); },
+                              [&](int k) { return rd<BF>(__ldg(W.out_w + k * D + d)); });
   return y + __ldg(W.out_b + d);
 }
 
@@ -651,20 +717,20 @@ __device__ void latent_head(const AttnW& W, float* small, int H, int Z,
     __syncthreads();
   }
   for (int z = tid; z < Z; z += NT) {
-    float a = 0.0f;
-    for (int k = 0; k < H; ++k) a = fmaf(rd<BF>(pooled[k]), rd<BF>(__ldg(W.mu_w + k * Z + z)), a);
+    const float a = dot<BF, 16>(H, [&](int k) { return rd<BF>(pooled[k]); },
+                                [&](int k) { return rd<BF>(__ldg(W.mu_w + k * Z + z)); });
     mu[z] = a + __ldg(W.mu_b + z);
   }
   __syncthreads();
   for (int c = tid; c < H; c += NT) {
-    float a = 0.0f;
-    for (int z = 0; z < Z; ++z) a = fmaf(rd<BF>(mu[z]), rd<BF>(__ldg(W.z2h_w + z * H + c)), a);
+    const float a = dot<BF, 8>(Z, [&](int z) { return rd<BF>(mu[z]); },
+                               [&](int z) { return rd<BF>(__ldg(W.z2h_w + z * H + c)); });
     h0[c] = tanhf(a + __ldg(W.z2h_b + c));
   }
   __syncthreads();
   for (int c = tid; c < H; c += NT) {
-    float a = 0.0f;
-    for (int k = 0; k < H; ++k) a = fmaf(rd<BF>(h0[k]), rd<BF>(__ldg(W.dec.in_w + k * H + c)), a);
+    const float a = dot<BF, 16>(H, [&](int k) { return rd<BF>(h0[k]); },
+                                [&](int k) { return rd<BF>(__ldg(W.dec.in_w + k * H + c)); });
     tok0[c] = a + __ldg(W.dec.in_b + c);
   }
   __syncthreads();
@@ -685,11 +751,11 @@ __device__ __forceinline__ void store_mse(float part, float* red, float* mse,
   }
 }
 
-template <bool BF, typename IOT, bool STREAM>
+template <bool STREAM>
 __global__ void __launch_bounds__(NT)
-fused_attention_gate_kernel(const IOT* __restrict__ x,
+fused_attention_gate_kernel(const float* __restrict__ x,
                             const float* __restrict__ pos,   // [T, H]
-                            IOT* __restrict__ resid, float* __restrict__ mse,
+                            float* __restrict__ resid, float* __restrict__ mse,
                             const AttnW W, int T, int Tp, int D, int H, int M,
                             int Z, int L, int use_ln, int with_resid) {
   extern __shared__ __align__(16) float smem[];
@@ -704,16 +770,16 @@ fused_attention_gate_kernel(const IOT* __restrict__ x,
 
   const int tid = threadIdx.x;
   const size_t n = blockIdx.x;
-  const IOT* xw = x + n * T * D;
+  const float* xw = x + n * T * D;
 
   // ---------------- encoder tokens: x in_proj + positions (pad rows 0)
   for (int i = tid; i < Tp * H; i += NT) {
     const int t = i / H, c = i % H;
-    m.s[t * ld + c] = t < T ? enc_token<BF>(xw, W.enc, pos, t, c, D, H) : 0.0f;
+    m.s[t * ld + c] = t < T ? enc_token<false>(xw, W.enc, pos, t, c, D, H) : 0.0f;
   }
   __syncthreads();
   for (int l = 0; l < L; ++l)
-    transformer_block<BF, STREAM>(W.enc.layer[l], m, T, Tp, H, M);
+    transformer_block<STREAM>(W.enc.layer[l], m, T, Tp, H, M);
 
   // ---------------- final norm, mean over the T real rows
   ln_rows(m.s, m.nrm, ld, T, W.enc.fs, W.enc.fb, H);
@@ -725,14 +791,14 @@ fused_attention_gate_kernel(const IOT* __restrict__ x,
   }
   __syncthreads();
   // ---------------- latent head (z = mu), decoder token
-  latent_head<BF>(W, m.small, H, Z, use_ln);
+  latent_head<false>(W, m.small, H, Z, use_ln);
   for (int i = tid; i < Tp * H; i += NT) {
     const int t = i / H, c = i % H;
-    m.s[t * ld + c] = t < T ? rd<BF>(tok0[c] + __ldg(pos + t * H + c)) : 0.0f;
+    m.s[t * ld + c] = t < T ? tok0[c] + __ldg(pos + t * H + c) : 0.0f;
   }
   __syncthreads();
   for (int l = 0; l < L; ++l)
-    transformer_block<BF, STREAM>(W.dec.layer[l], m, T, Tp, H, M);
+    transformer_block<STREAM>(W.dec.layer[l], m, T, Tp, H, M);
 
   // ---------------- final norm, output head, residual, MSE
   ln_rows(m.s, m.nrm, ld, T, W.dec.fs, W.dec.fb, H);
@@ -740,12 +806,423 @@ fused_attention_gate_kernel(const IOT* __restrict__ x,
   float part = 0.0f;
   for (int i = tid; i < T * D; i += NT) {
     const int t = i / D, d = i % D;
-    const float e = ld_io(xw + i) - out_head<BF>(m.nrm + t * ld, W, d, H, D);
+    const float e = ld_io(xw + i) - out_head<false>(m.nrm + t * ld, W, d, H, D);
     const float e2 = e * e;
     if (with_resid) st_io(resid + n * T * D + i, e2);
     part += e2;
   }
   store_mse(part, small_red(m.small), mse + n, T, D);
+}
+
+// ------------------------------------------------------- bf16 resident body
+
+// row stride (bf16 elements) of the bf16 resident body's buffers w columns
+// wide: 8 more, so that the eight rows an ldmatrix reads sit on distinct
+// banks (80, 144 or 272 bytes a row at w = 32, 64, 128)
+__host__ __device__ constexpr int bld(int w) { return w + 8; }
+
+// four 8x8 bf16 matrices of shared memory: lanes 8q..8q+7 give the row
+// addresses of matrix q, and r[q] holds lane (g, t)'s {M_q[g][2t],
+// M_q[g][2t+1]}, or under TRANS {M_q[2t][g], M_q[2t+1][g]}
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16_t* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+// the A fragment (mma_bf16) of rows r0 .. r0+15, columns k0 .. k0+15 of a
+// bf16 [M][lda] buffer; a row past M reads row M-1
+__device__ __forceinline__ void ldsm_a(unsigned (&a)[4], const bf16_t* A, int lda,
+                                       int r0, int M, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4<false>(a, A + min(r0 + (lane & 15), M - 1) * lda + k0 + (lane >> 4) * 8);
+}
+
+// acc += part, each to nearest: how a pair of k-steps, chained from zero on
+// the tensor cores, reaches the float32 sum
+template <int N>
+__device__ __forceinline__ void add_part(float (&acc)[N][4], const float (&part)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = __fadd_rn(acc[j][r], part[j][r]);
+}
+
+// A weight product of the bf16 resident body on the tensor cores. For every
+// row < M and every column pair (col, col+1) of the NTL n-tiles from n-tile
+// nt0: epi(row, col, sum_k A[row][k] W[k][col], ... W[k][col+1]) over the
+// KS k-steps of 16 from k-step ks0 (col counted from n-tile nt0). A is bf16
+// [M][lda] in shared memory, its k-th column at A + k; W comes as the
+// wrapper's m16n8k16 fragments of the bf16-rounded weight, uint2 {b0, b1}
+// at Bw[(nt * KT + ks) * 32 + lane], KT k-steps an n-tile.
+// Warp w owns the NW n-tiles of n-group w % NG (NG = NTL/NW) and the row
+// tiles of m-group w / NG (the 16 warps split the rows when NG < 16), MW
+// row tiles at a time: a k-step's NW fragments of W (one 8-byte load a
+// lane each) serve its MW row tiles, and each ldmatrix of A its NW n-tiles.
+// The k-steps go in pairs, each chained from zero, and each pair's partial
+// is added to the float32 sum to nearest (add_part), in k order. Holding a
+// warp's whole slice of W in registers instead spilled at 128 registers a
+// thread (PERF.md §6).
+template <int NW, int MW, class Epi>
+__device__ __forceinline__ void mma16_rows(const bf16_t* A, int lda, int M,
+                                           const uint2* __restrict__ Bw, int KT,
+                                           int nt0, int ks0, int KS, int NTL,
+                                           Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int NG = NTL / NW, MG = NG >= NWARP ? 1 : NWARP / NG;
+  const int MT = (M + 15) >> 4, per = (MT + MG - 1) / MG;
+  for (int task = warp; task < NG * MG; task += NWARP) {
+    const int ng = task % NG, mg = task / NG;
+    const uint2* bw = Bw + ((size_t)(nt0 + ng * NW) * KT + ks0) * 32 + lane;
+    const int m_end = min(MT, (mg + 1) * per);
+    for (int m0 = mg * per; m0 < m_end; m0 += MW) {
+      float acc[MW][NW][4] = {};
+#pragma unroll 2
+      for (int kp = 0; kp < KS; kp += 2) {
+        uint2 b[2][NW];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int j = 0; j < NW; ++j)
+            if (kp + kk < KS) b[kk][j] = __ldg(bw + ((size_t)j * KT + kp + kk) * 32);
+        float part[MW][NW][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          if (kp + kk >= KS) break;
+#pragma unroll
+          for (int i = 0; i < MW; ++i) {
+            if (m0 + i >= m_end) break;
+            unsigned a[4];
+            ldsm_a(a, A, lda, (m0 + i) * 16, M, (kp + kk) * 16);
+#pragma unroll
+            for (int j = 0; j < NW; ++j) mma_bf16(part[i][j], a, b[kk][j].x, b[kk][j].y);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < MW; ++i) add_part(acc[i], part[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < MW; ++i) {
+        if (m0 + i >= m_end) break;
+        const int r = (m0 + i) * 16 + g;
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+          const int col = (ng * NW + j) * 8 + 2 * t;
+          if (r < M) epi(r, col, acc[i][j][0], acc[i][j][1]);
+          if (r + 8 < M) epi(r + 8, col, acc[i][j][2], acc[i][j][3]);
+        }
+      }
+    }
+  }
+}
+
+// One row of LayerNorm by one warp (ln_row's arithmetic), stored as bf16
+__device__ __forceinline__ void ln_row16(const float* in, bf16_t* out,
+                                         const float* __restrict__ scale,
+                                         const float* __restrict__ bias, int H,
+                                         int lane) {
+  float sum = 0.0f, sq = 0.0f;
+#pragma unroll 4
+  for (int c = lane; c < H; c += 32) {
+    const float v = in[c];
+    sum += v;
+    sq = fmaf(v, v, sq);
+  }
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
+  const float mean = sum / H;
+  const float var = fmaxf(sq / H - mean * mean, 0.0f);
+  const float r = 1.0f / sqrtf(var + STACK_EPS);
+#pragma unroll 4
+  for (int c = lane; c < H; c += 32)
+    out[c] = (bf16_t)(__float_as_uint(
+        rd<true>((in[c] - mean) * r * __ldg(scale + c) + __ldg(bias + c))) >> 16);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The attention of a group of HG heads on the tensor cores, one warp a task
+// (a head and a tile of 16 query rows), its scores, softmax and P.V in
+// registers. qkv holds q | k | v [3][Tk][ldq] in bf16, head hl's 32 columns
+// at hl * 32 of each row; rows T .. Tk-1 of k and v are pad tokens or zeros,
+// so every product is finite. The scores of a key block (KB keys, 16 n8
+// tiles) are q.k^T, one k-step pair (head size 32) chained from zero; keys
+// at or past T are -inf, so their p is exactly 0. P enters P.V as the A
+// fragments of its own accumulators (the C fragments of two n8 tiles are
+// the A fragment of one k-step), v as B by ldmatrix.trans; P.V's k-steps
+// (16 keys) go in pairs as mma16_rows' do. The packed form (one key
+// block: one pass; more: a first pass for each row's max and online
+// denominator) rounds p = exp(s - m) / l to bf16; the streaming form starts
+// m from -1e30, rounds p = exp(s - m_new) for P.V, sums l from the
+// unrounded p, rescales o by alpha and adds the block's P_b V_b to it, and
+// divides by l at the end. The output o, rounded to bf16, is written over
+// the task's own q rows.
+template <bool STREAM>
+__device__ void attend16(bf16_t* qkv, int ldq, int Tk, int T, int HG) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nkb = (T + KB - 1) / KB;
+  for (int task = warp; task < HG * (Tk / 16); task += NWARP) {
+    const int hl = task % HG, r0 = task / HG * 16;
+    bf16_t* q = qkv + hl * HD;
+    const bf16_t* k = q + Tk * ldq;
+    const bf16_t* v = k + Tk * ldq;
+    unsigned qa[2][4];
+    ldsm_a(qa[0], q, ldq, r0, Tk, 0);
+    ldsm_a(qa[1], q, ldq, r0, Tk, 16);
+    float m[2], l[2] = {0.0f, 0.0f}, o[4][4] = {};
+    m[0] = m[1] = STREAM ? -1e30f : -3.402823466e+38f;
+    for (int pass = STREAM || nkb == 1 ? 1 : 0; pass < 2; ++pass) {
+      for (int b = 0; b < nkb; ++b) {
+        const int j0 = b * KB, ksn = (min(KB, T - j0) + 15) / 16;
+        float sc[KB / 8][4];
+#pragma unroll
+        for (int jt = 0; jt < KB / 8; ++jt) {
+          if (jt >= 2 * ksn) break;
+          unsigned kb[4];
+          ldsm_x4<false>(kb, k + (j0 + jt * 8 + (lane & 7)) * ldq + (lane >> 3) * 8);
+          sc[jt][0] = sc[jt][1] = sc[jt][2] = sc[jt][3] = 0.0f;
+          mma_bf16(sc[jt], qa[0], kb[0], kb[1]);
+          mma_bf16(sc[jt], qa[1], kb[2], kb[3]);
+          const int j = j0 + jt * 8 + 2 * t;
+          if (j >= T) sc[jt][0] = sc[jt][2] = __int_as_float(0xff800000);   // -inf
+          if (j + 1 >= T) sc[jt][1] = sc[jt][3] = __int_as_float(0xff800000);
+        }
+        float bm[2] = {-3.402823466e+38f, -3.402823466e+38f};
+#pragma unroll
+        for (int jt = 0; jt < KB / 8; ++jt) {
+          if (jt >= 2 * ksn) break;
+          bm[0] = fmaxf(bm[0], fmaxf(sc[jt][0], sc[jt][1]));
+          bm[1] = fmaxf(bm[1], fmaxf(sc[jt][2], sc[jt][3]));
+        }
+        float alpha[2], mp[2];   // the block's rescale; the max p subtracts
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          bm[h] = quad_max(bm[h]);
+          const float m_new = fmaxf(m[h], bm[h]);
+          alpha[h] = expf(m[h] - m_new);
+          mp[h] = STREAM || pass == 0 ? m_new : nkb == 1 ? bm[h] : m[h];
+        }
+        // exp(s - mp) in place, and its row sums
+        float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int jt = 0; jt < KB / 8; ++jt) {
+          if (jt >= 2 * ksn) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[jt][e] = expf(sc[jt][e] - mp[e >> 1]);
+            sum[e >> 1] += sc[jt][e];
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sum[h] = quad_sum(sum[h]);
+          if (STREAM || pass == 0) {
+            l[h] = l[h] * alpha[h] + sum[h];
+            m[h] = mp[h];
+          } else if (nkb == 1) {
+            l[h] = sum[h];
+          }
+        }
+        if (pass == 0) continue;
+        // P.V of the block, chained into o (the streaming form's rescaled
+        // first): p rounded to bf16 as it is packed, the packed form's after
+        // the division
+        if constexpr (STREAM) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+        }
+#pragma unroll
+        for (int kp = 0; kp < KB / 16; kp += 2) {
+          if (kp >= ksn) break;
+          float part[4][4] = {};
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            const int ks = kp + kk;
+            if (ks >= ksn) break;
+            float p[2][4];
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                p[u][e] = STREAM ? sc[2 * ks + u][e] : sc[2 * ks + u][e] / l[e >> 1];
+            const unsigned pa[4] = {pack_bf16x2(p[0][0], p[0][1]), pack_bf16x2(p[0][2], p[0][3]),
+                                    pack_bf16x2(p[1][0], p[1][1]), pack_bf16x2(p[1][2], p[1][3])};
+#pragma unroll
+            for (int dp = 0; dp < 2; ++dp) {
+              unsigned vb[4];
+              ldsm_x4<true>(vb, v + (j0 + ks * 16 + (lane & 15)) * ldq + dp * 16 +
+                                    (lane >> 4) * 8);
+              mma_bf16(part[2 * dp], pa, vb[0], vb[1]);
+              mma_bf16(part[2 * dp + 1], pa, vb[2], vb[3]);
+            }
+          }
+          add_part(o, part);
+        }
+      }
+    }
+    // o (the streaming form's divided by l), rounded, over this task's q rows
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float d = STREAM ? l[h] : 1.0f;
+        *reinterpret_cast<unsigned*>(q + (r0 + g + 8 * h) * ldq + n * 8 + 2 * t) =
+            pack_bf16x2(STREAM ? o[n][2 * h] / d : o[n][2 * h],
+                        STREAM ? o[n][2 * h + 1] / d : o[n][2 * h + 1]);
+      }
+  }
+}
+
+// One pre-LN transformer block of the bf16 resident body on the window's
+// stream s (float32, row stride H+4), in place: LayerNorm into xb (bf16,
+// bld(H)); per group of HG heads, q | k | v into the area (bld(32 HG) a row)
+// with the pad rows Tp .. Tk-1 zeroed, attend16, and s += o W_o over the
+// group's rows of W_o (+ bo with the first group, s rounded to bf16 after
+// the last); LayerNorm into xb; the MLP in chunks of CC columns, gelu
+// stored bf16 (bld(CC) a row) and s += that W2 (+ b2 with the first chunk,
+// s rounded after the last).
+template <bool STREAM>
+__device__ void block16(const BlockW& w, float* s, bf16_t* xb, bf16_t* area,
+                        int T, int Tp, int Tk, int H, int M, int HG) {
+  const int ld = H + 4, ldx = bld(H), ldq = bld(HG * HD), heads = H / HD;
+  const int KT = H / 16;   // k-steps of a product over H
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint2* wqkv = static_cast<const uint2*>(w.wqkv_f);
+  const uint2* wo = static_cast<const uint2*>(w.wo_f);
+  const uint2* w1 = static_cast<const uint2*>(w.w1_f);
+  const uint2* w2 = static_cast<const uint2*>(w.w2_f);
+
+  for (int r = warp; r < Tp; r += NWARP)
+    ln_row16(s + r * ld, xb + r * ldx, w.ln1s, w.ln1b, H, lane);
+  __syncthreads();
+  for (int h0 = 0; h0 < heads; h0 += HG) {
+    const int pad = (Tk - Tp) * ldq / 2;      // words of q's, k's, v's pad rows
+    for (int i = tid; i < 3 * pad; i += NT)
+      reinterpret_cast<unsigned*>(area + (i / pad * Tk + Tp) * ldq)[i % pad] = 0u;
+    const float* bq = w.bqkv + h0 * 3 * HD;
+    mma16_rows<3, 2>(xb, ldx, Tp, wqkv, KT, 12 * h0, 0, KT, 12 * HG,
+                  [&](int row, int col, float v0, float v1) {
+                    const int hl = col / (3 * HD), part = col % (3 * HD) / HD;
+                    *reinterpret_cast<unsigned*>(area + (part * Tk + row) * ldq + hl * HD +
+                                                 col % HD) =
+                        pack_bf16x2(v0 + __ldg(bq + col), v1 + __ldg(bq + col + 1));
+                  });
+    __syncthreads();
+    attend16<STREAM>(area, ldq, Tk, T, HG);
+    __syncthreads();
+    const bool first = h0 == 0, last = h0 + HG == heads;
+    mma16_rows<2, 2>(area, ldq, Tp, wo, KT, 0, 2 * h0, 2 * HG, H / 8,
+                  [&](int row, int col, float v0, float v1) {
+                    float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
+                    float2 v = *dst;
+                    v.x += first ? v0 + __ldg(w.bo + col) : v0;
+                    v.y += first ? v1 + __ldg(w.bo + col + 1) : v1;
+                    if (last) v = make_float2(rd<true>(v.x), rd<true>(v.y));
+                    *dst = v;
+                  });
+    __syncthreads();
+  }
+
+  for (int r = warp; r < Tp; r += NWARP)
+    ln_row16(s + r * ld, xb + r * ldx, w.ln2s, w.ln2b, H, lane);
+  __syncthreads();
+  bf16_t* h1 = area;
+  constexpr int ldh = bld(CC);
+  for (int c0 = 0; c0 < M; c0 += CC) {
+    const float* b1 = w.b1 + c0;
+    mma16_rows<2, 2>(xb, ldx, Tp, w1, KT, c0 / 8, 0, KT, CC / 8,
+                  [&](int row, int col, float v0, float v1) {
+                    *reinterpret_cast<unsigned*>(h1 + row * ldh + col) =
+                        pack_bf16x2(gelu_tanh(v0 + __ldg(b1 + col)),
+                                    gelu_tanh(v1 + __ldg(b1 + col + 1)));
+                  });
+    __syncthreads();
+    const bool first = c0 == 0, last = c0 + CC >= M;
+    mma16_rows<2, 2>(h1, ldh, Tp, w2, M / 16, 0, c0 / 16, CC / 16, H / 8,
+                  [&](int row, int col, float v0, float v1) {
+                    float2* dst = reinterpret_cast<float2*>(s + row * ld + col);
+                    float2 v = *dst;
+                    v.x += first ? v0 + __ldg(w.b2 + col) : v0;
+                    v.y += first ? v1 + __ldg(w.b2 + col + 1) : v1;
+                    if (last) v = make_float2(rd<true>(v.x), rd<true>(v.y));
+                    *dst = v;
+                  });
+    __syncthreads();
+  }
+}
+
+// The bf16 resident body: the float32 resident body's pass with block16 in
+// place of transformer_block; the final norms run in place on s (float32),
+// so the pooled summary and the output head read float32 rows.
+template <typename IOT, bool STREAM>
+__global__ void __launch_bounds__(NT)
+fused_attention_bf16_kernel(const IOT* __restrict__ x,
+                            const float* __restrict__ pos,   // [T, H]
+                            IOT* __restrict__ resid, float* __restrict__ mse,
+                            const AttnW W, int T, int Tp, int D, int H, int M,
+                            int Z, int L, int use_ln, int with_resid, int HG) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = H + 4, Tk = (T + 15) & ~15;
+  float* s = smem;                                              // [Tp][ld]
+  bf16_t* xb = reinterpret_cast<bf16_t*>(s + Tp * ld);          // [Tp][bld(H)]
+  float* small = reinterpret_cast<float*>(xb + Tp * bld(H));    // [SMALL]
+  bf16_t* area = reinterpret_cast<bf16_t*>(small + SMALL);
+  float* pooled = small;
+  float* tok0 = small_tok0(small);
+  const int tid = threadIdx.x;
+  const size_t n = blockIdx.x;
+  const IOT* xw = x + n * T * D;
+
+  for (int i = tid; i < Tp * H; i += NT) {
+    const int t = i / H, c = i % H;
+    s[t * ld + c] = t < T ? enc_token<true>(xw, W.enc, pos, t, c, D, H) : 0.0f;
+  }
+  __syncthreads();
+  for (int l = 0; l < L; ++l)
+    block16<STREAM>(W.enc.layer[l], s, xb, area, T, Tp, Tk, H, M, HG);
+  ln_rows(s, s, ld, T, W.enc.fs, W.enc.fb, H);
+  __syncthreads();
+  for (int c = tid; c < H; c += NT) {
+    float a = 0.0f;
+    for (int t = 0; t < T; ++t) a += s[t * ld + c];
+    pooled[c] = a / T;
+  }
+  __syncthreads();
+  latent_head<true>(W, small, H, Z, use_ln);
+  for (int i = tid; i < Tp * H; i += NT) {
+    const int t = i / H, c = i % H;
+    s[t * ld + c] = t < T ? rd<true>(tok0[c] + __ldg(pos + t * H + c)) : 0.0f;
+  }
+  __syncthreads();
+  for (int l = 0; l < L; ++l)
+    block16<STREAM>(W.dec.layer[l], s, xb, area, T, Tp, Tk, H, M, HG);
+  ln_rows(s, s, ld, T, W.dec.fs, W.dec.fb, H);
+  __syncthreads();
+  float part = 0.0f;
+  for (int i = tid; i < T * D; i += NT) {
+    const int t = i / D, d = i % D;
+    const float e = ld_io(xw + i) - out_head<true>(s + t * ld, W, d, H, D);
+    const float e2 = e * e;
+    if (with_resid) st_io(resid + n * T * D + i, e2);
+    part += e2;
+  }
+  store_mse(part, small_red(small), mse + n, T, D);
 }
 
 // ---------------------------------------------------------------- long body
@@ -808,7 +1285,7 @@ __device__ void long_block(const BlockW& w, float* sm, float* gs, float* gqkv,
     __syncthreads();
     ln_rows(tile, tile, ld, rows, w.ln1s, w.ln1b, H);
     __syncthreads();
-    mma_rows<3, 2, BF>(tile, ld, rows, w.wqkv_f, KT, KT, 12 * heads,
+    mma_rows<3, 2, BF>(tile, ld, rows, w.wqkv_f, KT, 0, 0, KT, 12 * heads,
                        [&](int row, int col, float v0, float v1) {
                          const int h = col / (3 * HD), part = col % (3 * HD) / HD;
                          float* dst = gqkv + ((size_t)(h * 3 + part) * Tp + r0 + row) * HD
@@ -934,8 +1411,8 @@ __device__ void long_block(const BlockW& w, float* sm, float* gs, float* gqkv,
       // head; under BF s rounded after the last)
       const float* bo = w.bo;
       const bool first = h == 0, last = h == heads - 1;
-      mma_rows<4, 2, BF>(qs, HDP, rows, w.wo_f + (size_t)h * (HD / 8) * 32, KT,
-                         HD / 8, KT, [&](int row, int col, float v0, float v1) {
+      mma_rows<4, 2, BF>(qs, HDP, rows, w.wo_f, KT, 0, h * (HD / 8), HD / 8, KT,
+                         [&](int row, int col, float v0, float v1) {
                            float2* dst = reinterpret_cast<float2*>(tile + row * ld + col);
                            float2 v = *dst;
                            v.x += first ? v0 + __ldg(bo + col) : v0;
@@ -952,8 +1429,8 @@ __device__ void long_block(const BlockW& w, float* sm, float* gs, float* gqkv,
     constexpr int ldh = CC + 4;
     for (int c0 = 0; c0 < M; c0 += CC) {
       const float* b1 = w.b1 + c0;
-      mma_rows<4, 2, BF>(nrm, ld, rows, w.w1_f + (size_t)(c0 / 8) * KT * 32, KT,
-                         KT, CC / 8, [&](int row, int col, float v0, float v1) {
+      mma_rows<4, 2, BF>(nrm, ld, rows, w.w1_f, KT, c0 / 8, 0, KT, CC / 8,
+                         [&](int row, int col, float v0, float v1) {
                            *reinterpret_cast<float2*>(h1 + row * ldh + col) =
                                make_float2(gelu_tanh(v0 + __ldg(b1 + col)),
                                            gelu_tanh(v1 + __ldg(b1 + col + 1)));
@@ -961,8 +1438,8 @@ __device__ void long_block(const BlockW& w, float* sm, float* gs, float* gqkv,
       __syncthreads();
       const float* b2 = w.b2;
       const bool first = c0 == 0, last = c0 + CC >= M;
-      mma_rows<4, 2, BF>(h1, ldh, rows, w.w2_f + (size_t)(c0 / 8) * 32, M / 8,
-                         CC / 8, KT, [&](int row, int col, float v0, float v1) {
+      mma_rows<4, 2, BF>(h1, ldh, rows, w.w2_f, M / 8, 0, c0 / 8, CC / 8, KT,
+                         [&](int row, int col, float v0, float v1) {
                            float2* dst = reinterpret_cast<float2*>(tile + row * ld + col);
                            float2 v = *dst;
                            v.x += first ? v0 + __ldg(b2 + col) : v0;
@@ -1083,6 +1560,33 @@ extern "C" long long shm_fused_attention_smem_bytes(int T, int H) {
          (2 * Tp * (H + 4) + SMALL + (attn > mlp ? attn : mlp));
 }
 
+// Bytes of dynamic shared memory the bf16 resident body needs for one window
+// of T steps at width H with its heads in groups of HG: the stream (float32)
+// and its normalised copy (bf16), the per-window vectors, and the larger of
+// a group's q | k | v (bf16, Tk = T rounded up to 16 rows) and one bf16
+// chunk of the MLP's hidden layer.
+static long long bf16_smem_bytes(int T, int H, int HG) {
+  const long long Tp = padded_rows(T), Tk = (T + 15) / 16 * 16;
+  const long long attn = 3 * Tk * bld(HG * HD), mlp = Tp * bld(CC);
+  return 4 * (Tp * (H + 4) + SMALL) + 2 * (Tp * bld(H) + (attn > mlp ? attn : mlp));
+}
+
+// The head group of the bf16 resident body at (T, H): the most heads (all,
+// 2 or 1) whose buffers fit a block's shared memory; 0 when none does.
+static int bf16_group(int T, int H) {
+  for (int g = H / HD; g >= 1; g /= 2)
+    if (bf16_smem_bytes(T, H, g) <= SMEM_LIMIT) return g;
+  return 0;
+}
+
+// Bytes of dynamic shared memory the bf16 resident body takes for a window
+// of T steps at width H (bf16_group's; one head a group where none fits).
+// Past what a block may use, the wrapper's plan takes the long body.
+extern "C" long long shm_fused_attention_smem_bytes_bf16(int T, int H) {
+  const int g = bf16_group(T, H);
+  return bf16_smem_bytes(T, H, g ? g : 1);
+}
+
 // Bytes of dynamic shared memory a block of the long body needs at width H,
 // whatever T: a row tile, the larger of the attention and MLP buffers, the
 // per-window vectors.
@@ -1124,7 +1628,7 @@ int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
       b.ln1s = *p++; b.ln1b = *p++; p++; b.bqkv = *p++;
       p++; b.bo = *p++; b.ln2s = *p++; b.ln2b = *p++;
       p++; b.b1 = *p++; p++; b.b2 = *p++;
-      auto frag = [&] { return reinterpret_cast<const float4*>(*p++); };
+      auto frag = [&] { return static_cast<const void*>(*p++); };
       b.wqkv_f = frag(); b.wo_f = frag(); b.w1_f = frag(); b.w2_f = frag();
     }
     s.fs = *p++;
@@ -1137,15 +1641,28 @@ int launch_gate(const IOT* x, const float* pos, IOT* resid, float* mse,
   W.out_w = *p++; W.out_b = *p++;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (body == 0) {
-    if (streaming && (T + KB - 1) / KB > NKB_RES) return (int)cudaErrorInvalidValue;
-    const int smem_bytes = (int)shm_fused_attention_smem_bytes(T, H);
-    auto kern = streaming ? fused_attention_gate_kernel<BF, IOT, true>
-                          : fused_attention_gate_kernel<BF, IOT, false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<N, NT, smem_bytes, st>>>(x, pos, resid, mse, W, T, Tp, D, H, M, Z,
-                                    L, use_ln, with_resid);
+    if constexpr (BF) {
+      const int g = bf16_group(T, H);
+      if (g == 0) return (int)cudaErrorInvalidValue;
+      const int smem_bytes = (int)bf16_smem_bytes(T, H, g);
+      auto kern = streaming ? fused_attention_bf16_kernel<IOT, true>
+                            : fused_attention_bf16_kernel<IOT, false>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+      kern<<<N, NT, smem_bytes, st>>>(x, pos, resid, mse, W, T, Tp, D, H, M,
+                                      Z, L, use_ln, with_resid, g);
+    } else {
+      if (streaming && (T + KB - 1) / KB > NKB_RES) return (int)cudaErrorInvalidValue;
+      const int smem_bytes = (int)shm_fused_attention_smem_bytes(T, H);
+      auto kern = streaming ? fused_attention_gate_kernel<true>
+                            : fused_attention_gate_kernel<false>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+      kern<<<N, NT, smem_bytes, st>>>(x, pos, resid, mse, W, T, Tp, D, H, M, Z,
+                                      L, use_ln, with_resid);
+    }
     return (int)cudaGetLastError();
   }
   if (body != 1 || scratch == nullptr || slots < 1) return (int)cudaErrorInvalidValue;
@@ -1208,29 +1725,39 @@ extern "C" int shm_fused_attention_gate_bf16(
 }
 
 // out = registers a thread, local memory (spill) bytes a thread, threads a
-// block, dynamic shared bytes a block, blocks an SM at once, of the float32
-// instance of `body` (0 resident at (T, H), packed; 1 long at H).
-extern "C" int shm_fused_attention_info(int T, int H, int body, int* out) {
-  if (body != 0 && body != 1) return (int)cudaErrorInvalidValue;
+// block, dynamic shared bytes a block, blocks an SM at once, of the packed
+// form's instance of `body` (0 resident at (T, H); 1 long at H), float32
+// (bf16 0) or bf16 with float32 io (bf16 1).
+extern "C" int shm_fused_attention_info(int T, int H, int body, int bf16, int* out) {
+  if ((body != 0 && body != 1) || (bf16 != 0 && bf16 != 1))
+    return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  const void* kern = body == 0
-      ? reinterpret_cast<const void*>(fused_attention_gate_kernel<false, float, false>)
-      : reinterpret_cast<const void*>(fused_attention_long_kernel<false, float>);
+  const void* kern;
+  long long smem_bytes;
+  if (body == 0 && bf16) {
+    kern = reinterpret_cast<const void*>(fused_attention_bf16_kernel<float, false>);
+    smem_bytes = shm_fused_attention_smem_bytes_bf16(T, H);
+  } else if (body == 0) {
+    kern = reinterpret_cast<const void*>(fused_attention_gate_kernel<false>);
+    smem_bytes = shm_fused_attention_smem_bytes(T, H);
+  } else {
+    kern = bf16 ? reinterpret_cast<const void*>(fused_attention_long_kernel<true, float>)
+                : reinterpret_cast<const void*>(fused_attention_long_kernel<false, float>);
+    smem_bytes = shm_fused_attention_long_smem_bytes(H);
+  }
   cudaError_t err = cudaFuncGetAttributes(&a, kern);
   if (err != cudaSuccess) return (int)err;
-  const int smem_bytes = (int)(body == 0 ? shm_fused_attention_smem_bytes(T, H)
-                                         : shm_fused_attention_long_smem_bytes(H));
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
+                             (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kern, NT, smem_bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, NT,
+                                                      (size_t)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = NT;
-  out[3] = smem_bytes;
+  out[3] = (int)smem_bytes;
   out[4] = blocks;
   return 0;
 }

@@ -14,9 +14,14 @@ a ``TemporalVAE(cell="attention")``.
   JAX kernel and ``chip_smoke.py`` holds the CUDA kernel against.
 
 The kernel computes its four weight products (QKV, output projection, the
-MLP's two) on the tensor cores in 3xTF32. It reads those weights as TF32
-fragments that :func:`attention_params_to_kernel_weights` packs once
-(:func:`tf32x3_fragments`); the plain version reads them as given.
+MLP's two) on the tensor cores: in 3xTF32 in float32, reading the weights
+as TF32 fragments that :func:`attention_params_to_kernel_weights` packs
+once (:func:`tf32x3_fragments`); in bf16 its resident body runs every
+product, the scores and P.V included, as ``mma.sync.m16n8k16`` bf16
+products, reading the m16n8k16 B fragments of the bf16-rounded weights
+(:func:`bf16_b_fragments`, 2 bytes a weight), and its long body one TF32
+product a k-step of bf16-rounded operands. The plain version reads the
+weights as given.
 
 The softmax takes one of the JAX kernel's two forms (``stream``): the
 packed form divides each row by its sum before P.V; the streaming form walks
@@ -28,8 +33,9 @@ probabilities at other points.
 
 The kernel has two bodies (:func:`plan`). The resident body keeps one
 window's whole pass in a block's shared memory and takes a window whose
-buffers fit there (:func:`shared_memory_bytes`: at H=128 up to 136 steps, at
-H=64 up to 208, at H=32 up to 268). The long body takes any longer window:
+buffers fit there (:func:`shared_memory_bytes`: in float32 at H=128 up to
+136 steps, at H=64 up to 208, at H=32 up to 268; in bf16, whose operands
+are stored as bf16, further). The long body takes any longer window:
 the stream and every head's q | k | v live in a device-memory slot of the
 block, and shared memory holds a row tile and one key block. The kernel
 source states its bound on the card and what its design does about it.
@@ -58,11 +64,11 @@ from shm_tpu_torch.models.attention import (
 )
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
-from shm_tpu_torch.ops._gate import (  # noqa: F401  (the TF32 helpers re-exported)
-    add_fragments, bf16_round, check_fragments, check_weights,
-    check_windows, dispatch_gate, f32, fragment_names, gate_dtypes,
-    plain_products, pointer_array, tf32_round, tf32x3_fragments,
-    unpack_fragments,
+from shm_tpu_torch.ops._gate import (  # noqa: F401  (the fragment helpers re-exported)
+    FRAG_BF16, FRAG_K16, add_fragments, bf16_b_fragments, bf16_round, check_fragments,
+    check_weights, check_windows, dispatch_gate, f32, fragment_names,
+    gate_dtypes, plain_products, pointer_array, tf32_round, tf32x3_fragments,
+    unpack_bf16_b_fragments, unpack_fragments,
 )
 
 _H_MAX, _D_MAX, _Z_MAX, _L_MAX = 128, 128, 32, 2
@@ -110,10 +116,12 @@ def attention_params_to_kernel_weights(
     folding is exact. Each of the four products' weights (``*_wqkv``,
     ``*_wo``, ``*_w1``, ``*_w2``) also comes as the fragments of the
     precision ``dtype``: ``*_frag``, its :func:`tf32x3_fragments`, which the
-    float32 kernel reads, or for ``torch.bfloat16`` ``*_frag_bf16``, the
-    same of the weight rounded to bf16 (the query's scale folded in first,
-    as the TPU kernel folds it before its bf16 cast), which the bf16 kernel
-    reads."""
+    float32 kernel reads, or for ``torch.bfloat16`` the fragments of the
+    weight rounded to bf16 (the query's scale folded in first, as the TPU
+    kernel folds it before its bf16 cast) in both layouts the bf16 kernel
+    reads: ``*_frag_k16``, its m16n8k16 B fragments (:func:`bf16_b_fragments`,
+    int32, 2 bytes a weight), for the resident body, and ``*_frag_bf16``
+    (:func:`tf32x3_fragments` of the rounded weight) for the long body."""
     if vae.cell != "attention":
         raise ValueError(f"expected a cell='attention' VAE, got {vae.cell!r}")
     w = {}
@@ -145,7 +153,10 @@ def attention_params_to_kernel_weights(
             w[f"{p}{l}_w2"] = f32(blk.mlp_out.weight.t())
             w[f"{p}{l}_b2"] = f32(blk.mlp_out.bias)
             for k in _PRODUCTS:
-                add_fragments(w, f"{p}{l}_{k}", dtype)
+                name = f"{p}{l}_{k}"
+                add_fragments(w, name, dtype)
+                if dtype == torch.bfloat16:
+                    w[name + FRAG_K16] = bf16_b_fragments(w[name])
         w[f"{p}_fn_s"] = f32(stack.final_norm.weight)
         w[f"{p}_fn_b"] = f32(stack.final_norm.bias)
     if vae.layer_norm is not None:
@@ -288,13 +299,44 @@ def fused_attention_gate_reference(
     return mse, (resid.to(io) if with_residual else None)
 
 
-def shared_memory_bytes(T: int, H: int) -> int:
-    """Shared memory the resident body needs for one window of T steps at
-    width H (the layout is the kernel's own, ``shm_fused_attention_smem_bytes``
-    in the source): the stream and its normalised copy [rows, H+4] each,
-    scratch vectors, and one area that holds a head's q | k | v [rows, 36]
-    each plus a [32, T] score chunk, or a column chunk of the MLP's hidden
-    layer. :func:`plan` holds it against the card's limit."""
+def _bld(w: int) -> int:
+    """Row stride (bf16 elements) of the bf16 resident body's buffers w
+    columns wide (``bld`` in the source)."""
+    return w + 8
+
+
+def _bf16_bytes(T: int, H: int, group: int) -> int:
+    rows, keys = -(-T // _TM) * _TM, -(-T // 16) * 16
+    attn = 3 * keys * _bld(group * HEAD_DIM)
+    return (4 * (rows * (H + 4) + _SMALL)
+            + 2 * (rows * _bld(H) + max(attn, rows * _bld(_MLP_CHUNK))))
+
+
+def bf16_head_group(T: int, H: int) -> int:
+    """Heads the bf16 resident body takes at once at (T, H): the most (all,
+    2 or 1) whose buffers fit a block's shared memory, 0 where none does
+    (``bf16_group`` in the source)."""
+    for g in (4, 2, 1):
+        if g <= H // HEAD_DIM and _bf16_bytes(T, H, g) <= SMEM_LIMIT:
+            return g
+    return 0
+
+
+def shared_memory_bytes(T: int, H: int, dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory the resident body of precision ``dtype`` needs for one
+    window of T steps at width H (the layout is the kernel's own,
+    ``shm_fused_attention_smem_bytes`` / ``..._bf16`` in the source).
+    float32: the stream and its normalised copy [rows, H+4] each, scratch
+    vectors, and one area that holds a head's q | k | v [rows, 36] each plus
+    a [32, T] score chunk, or a column chunk of the MLP's hidden layer.
+    bf16: the stream [rows, H+4] float32, its normalised copy [rows, H+8]
+    bf16, scratch vectors, and one bf16 area that holds the q | k | v of a
+    group of :func:`bf16_head_group` heads [3, T rounded up to 16, 32 heads
+    + 8], or a column chunk of the MLP's hidden layer [rows, 136] (one head
+    a group where no group fits). :func:`plan` holds it against the card's
+    limit."""
+    if dtype == torch.bfloat16:
+        return _bf16_bytes(T, H, bf16_head_group(T, H) or 1)
     rows = -(-T // _TM) * _TM
     attn = 3 * rows * (HEAD_DIM + 4) + _QC * (-(-T // 4) * 4)
     return 4 * (2 * rows * (H + 4) + _SMALL
@@ -330,18 +372,22 @@ class Plan(NamedTuple):
     slot_floats: int      # device memory a block keeps (floats; 0: resident)
 
 
-def plan(T: int, H: int) -> Plan:
-    """Which body of the kernel runs a window of T steps at width H: the
-    resident body while the window's buffers fit a block's shared memory
-    (:func:`shared_memory_bytes`), the long body past that, whatever T."""
-    nbytes = shared_memory_bytes(T, H)
+def plan(T: int, H: int, dtype: torch.dtype = torch.float32) -> Plan:
+    """Which body of the kernel's ``dtype`` instance runs a window of T steps
+    at width H: the resident body while the window's buffers fit a block's
+    shared memory (:func:`shared_memory_bytes` of that precision), the long
+    body past that, whatever T."""
+    nbytes = shared_memory_bytes(T, H, dtype)
     if nbytes <= SMEM_LIMIT:
         return Plan("resident", nbytes, 0)
     return Plan("long", long_shared_memory_bytes(H), slot_floats(T, H))
 
 
 def _check(weights, Z, num_layers, use_layernorm, bf16=False,
-           io=torch.float32, mlp_ratio=4):
+           io=torch.float32, mlp_ratio=4, bf16_suffix=FRAG_K16):
+    """The weight names a launch reads (the bf16 body's fragments named by
+    ``bf16_suffix``: the resident body's by default), H and Z; anything the
+    kernel does not take raises ``ValueError``."""
     check_windows(Z, io)
     if num_layers not in (1, 2):
         raise ValueError("the fused attention kernel supports 1- or 2-layer "
@@ -361,7 +407,7 @@ def _check(weights, Z, num_layers, use_layernorm, bf16=False,
     if weights["enc0_wqkv"].shape != (H, 3 * H):
         raise ValueError("the fused attention kernel assumes heads of "
                          f"{HEAD_DIM} columns")
-    need = [k for k in fragment_names(_WEIGHT_ORDER, bf16)
+    need = [k for k in fragment_names(_WEIGHT_ORDER, bf16, bf16_suffix)
             if not (k[3:4].isdigit() and int(k[3]) >= num_layers)
             and (use_layernorm or not k.startswith("ln_"))]
     check_weights(weights, need, Z.device)
@@ -383,13 +429,13 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, f"shm_fused_attention_gate_{name}")
         fn.restype = ctypes.c_int
         fn.argtypes = head + extra + [ctypes.c_void_p]
-    for name, n in (("smem_bytes", 2), ("long_smem_bytes", 1),
-                    ("slot_floats", 2)):
+    for name, n in (("smem_bytes", 2), ("smem_bytes_bf16", 2),
+                    ("long_smem_bytes", 1), ("slot_floats", 2)):
         fn = getattr(lib, f"shm_fused_attention_{name}")
         fn.restype = ctypes.c_longlong
         fn.argtypes = [ctypes.c_int] * n
     lib.shm_fused_attention_info.restype = ctypes.c_int
-    lib.shm_fused_attention_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.shm_fused_attention_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.shm_tf32_round.restype = ctypes.c_int
     lib.shm_tf32_round.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
@@ -399,27 +445,30 @@ def _library() -> ctypes.CDLL:
 _BODIES = ("resident", "long")
 
 
-def kernel_info(T: int, H: int, body: Optional[str] = None) -> dict:
-    """How the card takes the kernel for a window of T steps at width H, in
-    the body :func:`plan` picks (or ``body``): registers and local-memory
-    (spill) bytes a thread, threads and dynamic shared bytes a block,
-    blocks an SM at once."""
-    body = body or plan(T, H).body
+def kernel_info(T: int, H: int, body: Optional[str] = None,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """How the card takes the kernel's ``dtype`` instance (packed form,
+    float32 io) for a window of T steps at width H, in the body
+    :func:`plan` picks (or ``body``): registers and local-memory (spill)
+    bytes a thread, threads and dynamic shared bytes a block, blocks an SM
+    at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    bf16 = dtype == torch.bfloat16
+    body = body or plan(T, H, dtype).body
     lib = _library()
     out = (ctypes.c_int * 5)()
     raise_on_error(lib, lib.shm_fused_attention_info(T, H, _BODIES.index(body),
-                                                     out),
+                                                     int(bf16), out),
                    "fused_attention_gate info")
     return dict(zip(("registers", "spill_bytes", "threads", "shared_bytes",
                      "blocks_per_sm"), out))
 
 
 @functools.lru_cache(maxsize=8)
-def _long_slots(H: int, device: torch.device) -> int:
+def _long_slots(H: int, device: torch.device, dtype: torch.dtype) -> int:
     """Blocks of the long body the card runs at once (each keeps one
     window's slot of device memory): its blocks an SM times the SMs."""
     with torch.cuda.device(device):
-        per_sm = kernel_info(0, H, "long")["blocks_per_sm"]
+        per_sm = kernel_info(0, H, "long", dtype)["blocks_per_sm"]
     return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -458,29 +507,34 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
         raise ValueError(f"the fused attention kernel launches on CUDA "
                          f"tensors, got one on {Z.device}")
     Z = Z.to(io)                        # a bf16 io: the card rounds once
-    need, H, Zd = _check(weights, Z, num_layers, use_layernorm, bf16, io,
-                         mlp_ratio)
-    M = mlp_ratio * H
-    N, T, D = Z.shape
-    pl = plan(T, H)
+    check_windows(Z, io)                # plan's T, H before _check's names
+    check_weights(weights, ["mu_w"], Z.device)
+    T, H = Z.shape[1], weights["mu_w"].shape[0]
+    pl = plan(T, H, dtype)
     body = body or pl.body
     if body not in _BODIES:
         raise ValueError(f"body must be one of {_BODIES}, got {body!r}")
+    # the bf16 resident body reads the m16n8k16 fragments, the long body TF32
+    suffix = FRAG_K16 if body == "resident" else FRAG_BF16
+    need, H, Zd = _check(weights, Z, num_layers, use_layernorm, bf16, io,
+                         mlp_ratio, suffix)
     if body == "resident" and pl.body != "resident":
         raise ValueError(f"the resident body does not take T={T} at H={H}: "
                          f"its buffers pass the {SMEM_LIMIT} bytes of shared "
                          f"memory a block can use")
+    M = mlp_ratio * H
+    N, T, D = Z.shape
     mse = torch.empty(N, device=Z.device, dtype=torch.float32)
     resid = torch.empty_like(Z) if with_residual else None
     if N == 0:
         return mse, resid
     lib = _library()
-    order = fragment_names(_WEIGHT_ORDER, bf16)
+    order = fragment_names(_WEIGHT_ORDER, bf16, suffix)
     ptrs = pointer_array(weights, order, need)
     pos = _positions(T, H, Z.device)
     slots, scratch = 0, None
     if body == "long":
-        slots = min(N, _long_slots(H, Z.device))
+        slots = min(N, _long_slots(H, Z.device, dtype))
         scratch = torch.empty(slots * slot_floats(T, H), device=Z.device,
                               dtype=torch.float32)
     args = (Z.data_ptr(), pos.data_ptr(),
@@ -547,7 +601,8 @@ fused_attention_gate.mlp_launches = 0
 __all__ = ["fused_attention_gate", "fused_attention_gate_reference",
            "attention_params_to_kernel_weights",
            "auto_stream", "softmax_form", "attend", "plan", "Plan", "KEY_BLOCK",
-           "mlp_width",
+           "mlp_width", "bf16_head_group",
            "shared_memory_bytes", "long_shared_memory_bytes", "slot_floats",
            "kernel_info", "tf32_round", "tf32_round_on_card",
-           "tf32x3_fragments", "unpack_fragments"]
+           "tf32x3_fragments", "unpack_fragments", "bf16_b_fragments",
+           "unpack_bf16_b_fragments"]

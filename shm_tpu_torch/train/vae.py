@@ -276,7 +276,11 @@ def _resolve_use_kernel(model, use_kernel: Optional[bool], device,
                 "autograd path (use_kernel=None or False)")
         return False
     if use_kernel is None:
-        use_kernel = device.type == "cuda"
+        # the training kernels exist for the 2-layer stacks only, in both
+        # packages (the JAX package's are lstm2_*, and its train_vae runs
+        # XLA by default); another depth trains on the plain path, as the
+        # other cells do. A 2-layer H the kernels refuse still raises.
+        use_kernel = device.type == "cuda" and model.num_layers == 2
     if use_kernel and model.num_layers != 2:
         raise ValueError("use_kernel requires a 2-layer LSTM preset (pass "
                          "use_kernel=False for the plain autograd path)")
@@ -309,14 +313,17 @@ def train_vae(
     mode holding the LAST parameters; ``result.params`` is the state dict of
     the best validation epoch.
 
-    ``use_kernel``: None = on for an LSTM model on CUDA, off for the CPU and
-    for the ``min_gru`` and ``attention`` cells (plain autograd; True raises
-    ``ValueError`` for them). With it on, a CUDA run launches the LSTM
-    training kernels for every training batch (forward with stash, backward)
-    and for every validation batch (forward only, unit mask, no stash) and
-    never drops to the plain path; a depth other than 2 raises
-    ``ValueError``. Only an explicit ``use_kernel=False`` trains a CUDA LSTM
-    model on the plain autograd path.
+    ``use_kernel``: None = on for a 2-layer LSTM model on CUDA, off for the
+    CPU, for an LSTM of another depth (neither package has a training kernel
+    for it; the JAX trainer runs XLA by default) and for the ``min_gru`` and
+    ``attention`` cells (plain autograd; True raises ``ValueError`` for
+    them). With it on, a CUDA run launches the LSTM training kernels for
+    every training batch (forward with stash, backward) and for every
+    validation batch (forward only, unit mask, no stash) and never drops to
+    the plain path; ``use_kernel=True`` at a depth other than 2 raises
+    ``ValueError``, and a 2-layer H the kernels do not take raises their
+    shape error. Only an explicit ``use_kernel=False`` trains a CUDA 2-layer
+    LSTM model on the plain autograd path.
 
     ``kernel_dtype``: the product type of the training kernels (the JAX
     trainer's name; float32 by default here, bf16 there): ``torch.bfloat16``

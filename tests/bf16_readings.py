@@ -1,7 +1,7 @@
 """Readings of the bf16 gates that ``chip_smoke.py`` phase 17 rests on.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/bf16_readings.py jax
-    PYTHONPATH=. python tests/bf16_readings.py model [committed]
+    PYTHONPATH=. python tests/bf16_readings.py model [committed] [CELL ...]
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/bf16_readings.py rounding
 
 ``jax``: the JAX package's three gate kernels (``shm_tpu/ops/fused_*.py``,
@@ -18,12 +18,15 @@ against its float32 one is twice these readings, and it prints the JAX
 reading of any window whose gate flips.
 
 ``model``: a CPU model of each bf16 instance's sums in the kernel's own
-order, against the plain bf16 version: every weight product's bf16
-operands in k-steps of 8 chained through the mma's truncating float32 sum
-(``tc_product(..., "one_term")`` of ``tests/test_torch_vae_gate_tf32.py``),
-the accumulator starting where the kernel starts it: from the bias, and
-through the input's product and then h's, in rows 1 and 6; from zero,
-with the bias added after, in row 7. On random weights and windows at
+order, against the plain bf16 version: in rows 1 and 6 every weight
+product's bf16 operands in k-steps of 8 chained through the mma's
+truncating float32 sum (``tc_product(..., "one_term")`` of
+``tests/test_torch_vae_gate_tf32.py``), the accumulator starting where the
+kernel starts it: from the bias, and through the input's product and then
+h's; in row 7 every product (the weight products, the scores and P.V) in
+k-steps of 16, each pair chained from zero and added to the float32 sum
+(:func:`_tc16`), the bias added after. CELL names the families to model
+(all by default). On random weights and windows at
 phase 2's shapes (each with float32 and bf16 io; the windows are the
 first of phase 17's, made from the same seeds), and on the 3,636
 committed test windows through each committed root (``model committed``:
@@ -221,21 +224,90 @@ def _mingru_model(w, Z, num_layers, use_layernorm, io):
     return resid.sum(dim=(1, 2)) / (T * D), resid.to(io)
 
 
-def _attention_model(w, Z, num_layers, use_layernorm, io):
-    """Row 7's bf16 instance (``fused_attention.cu``): its products chain
-    from zero and take the bias after, so the plain version with each
-    weight product's float32 sum replaced by the truncating one."""
-    from shm_tpu_torch.ops import _gate as mod
-    from shm_tpu_torch.ops import fused_attention_gate_reference
+def _tc16(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
+    """``a @ b`` ([..., R, K] @ [..., K, C], bf16 values held in float32) as
+    row 7's bf16 resident body sums a product on ``mma.sync.m16n8k16``:
+    k-steps of 16 (K padded with zeros), each step's 16 products exact and
+    its sum truncated toward zero to float32 into the accumulator. Each
+    pair of k-steps is chained from zero and that partial added to the
+    float32 sum to nearest (``tc_bf16_product(..., "split")`` of
+    ``tests/test_torch_probe_bf16_sums.py``, batched), the sum starting
+    from ``acc`` where given (P.V of the streaming form: its rescaled o)."""
+    from test_torch_vae_gate_tf32 import _truncate
 
-    plain = mod.bf16_product
-    mod.bf16_product = lambda a, wt: _chain(a.new_zeros(()), a, wt)
+    K = a.shape[-1]
+    KS = -(-K // 16)
+    a64 = F.pad(a, (0, 16 * KS - K)).double()
+    b64 = F.pad(b, (0, 0, 0, 16 * KS - K)).double()
+    block = lambda ks: a64[..., 16 * ks:16 * ks + 16] @ b64[..., 16 * ks:16 * ks + 16, :]
+    for kp in range(0, KS, 2):
+        part = _truncate(block(kp))
+        if kp + 1 < KS:
+            part = _truncate(part + block(kp + 1))
+        acc = part.float() if acc is None else acc + part.float()
+    return acc
+
+
+def _attention_model(w, Z, num_layers, use_layernorm, io):
+    """Row 7's bf16 resident body (``fused_attention.cu``,
+    ``fused_attention_bf16_kernel``): the four weight products, the scores
+    and P.V through :func:`_tc16` (the products from zero, the bias after;
+    the streaming form's P.V added to its rescaled o),
+    the MLP's second product a chunk of 128 of M at a time, each chunk's
+    sum added to the stream in turn; the heads, softmax, LayerNorm and the
+    stores as the plain version. Run in chunks of 128 windows (the float64
+    blocks of the scores)."""
+    from shm_tpu_torch.ops import fused_attention as fa
+    from shm_tpu_torch.ops import fused_attention_gate_reference
+    from shm_tpu_torch.ops._gate import bf16_round
+
+    chunk = fa._MLP_CHUNK
+
+    def products(weights, names, bf16):
+        """plain_products with the four weight products on the tensor cores;
+        the heads stay the plain version's (the kernel's FMA sums)."""
+        plain = plain_products(weights, names, bf16)
+        wr = {k: bf16_round(weights[k]) for k in names}
+
+        def mm(a, k):
+            if not k.endswith(("_wqkv", "_wo", "_w1", "_w2")):
+                return plain(a, k)
+            a = bf16_round(a)
+            if k.endswith("_w2"):            # W2 [M, H], a chunk at a time
+                out = None
+                for c0 in range(0, wr[k].shape[0], chunk):
+                    part = _tc16(a[..., c0:c0 + chunk], wr[k][c0:c0 + chunk])
+                    out = part if out is None else out + part
+                return out
+            return _tc16(a, wr[k])
+        return mm
+
+    def attend(q, k, v, stream, rnd):
+        if not stream:
+            p = rnd(torch.softmax(_tc16(q, k.transpose(-1, -2)), dim=-1))
+            return _tc16(p, v)
+        m = q.new_full(q.shape[:-1] + (1,), -1e30)
+        l = q.new_zeros(q.shape[:-1] + (1,))
+        o = torch.zeros_like(q)
+        for j0 in range(0, k.shape[-2], fa.KEY_BLOCK):
+            s = _tc16(q, k[..., j0:j0 + fa.KEY_BLOCK, :].transpose(-1, -2))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            o = _tc16(rnd(p), v[..., j0:j0 + fa.KEY_BLOCK, :], acc=o * alpha)
+            m = m_new
+        return o / l
+
+    plain_products, plain_attend = fa.plain_products, fa.attend
+    fa.plain_products, fa.attend = products, attend
     try:
-        return fused_attention_gate_reference(
-            w, Z, num_layers=num_layers, use_layernorm=use_layernorm,
-            dtype=torch.bfloat16, io_dtype=io)
+        outs = [fused_attention_gate_reference(
+            w, Zc, num_layers=num_layers, use_layernorm=use_layernorm,
+            dtype=torch.bfloat16, io_dtype=io) for Zc in Z.split(128)]
     finally:
-        mod.bf16_product = plain
+        fa.plain_products, fa.attend = plain_products, plain_attend
+    return torch.cat([m for m, _ in outs]), torch.cat([r for _, r in outs])
 
 
 MODELS = {"lstm": _lstm_model, "min_gru": _mingru_model,
@@ -262,14 +334,14 @@ def _model_case(cell: str, name: str, w, Z, L: int, ln: bool, io) -> None:
           f"{gap.mean():.4e}", flush=True)
 
 
-def model_readings(committed_only: bool = False) -> None:
+def model_readings(committed_only: bool = False, cells=tuple(ROOTS)) -> None:
     from shm_tpu_torch.cli.stage4dof import Paths, _load_vae
     from shm_tpu_torch.config import Stage4DofConfig, VAEConfig
     from shm_tpu_torch.convert import random_flax_vae_params, vae_from_flax
     from shm_tpu_torch.ops import FUSED_GATES
     from shm_tpu_torch.tools.workload import load_trained_workload
 
-    for cell in ROOTS if not committed_only else ():
+    for cell in cells if not committed_only else ():
         shapes = SHAPES + (MINGRU_EXTRA if cell == "min_gru" else ())
         for i, (name, N, T, D, Zd, H, L, ln) in enumerate(shapes):
             cfg = VAEConfig(input_dim=D, latent_dim=Zd, hidden_dim=H,
@@ -282,6 +354,8 @@ def model_readings(committed_only: bool = False) -> None:
                 _model_case(cell, name, w, Z, L, ln, io)
     W = load_trained_workload(ROOT / ROOTS["lstm"]).W
     for cell, rel in ROOTS.items():
+        if cell not in cells:
+            continue
         root = ROOT / rel
         vae = _load_vae(Paths(str(root)), Stage4DofConfig())
         io = torch.bfloat16 if cell == "attention" else None
@@ -375,8 +449,9 @@ def main(argv) -> int:
     torch.set_num_threads(4)
     if argv == ["jax"]:
         jax_readings()
-    elif argv[:1] == ["model"] and argv[1:] in ([], ["committed"]):
-        model_readings(committed_only=argv[1:] == ["committed"])
+    elif argv[:1] == ["model"] and set(argv[1:]) <= {"committed", *ROOTS}:
+        cells = tuple(c for c in ROOTS if c in argv[1:]) or tuple(ROOTS)
+        model_readings(committed_only="committed" in argv[1:], cells=cells)
     elif argv == ["rounding"]:
         rounding_readings()
     else:

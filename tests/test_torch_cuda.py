@@ -460,8 +460,10 @@ def test_fused_attention_long_body_matches_plain_version(cuda_device, name, stre
 @pytest.mark.parametrize("T, H, L", [(100, 128, 2), (200, 64, 1)])
 def test_fused_attention_streaming_form_is_the_same_in_both_bodies(cuda_device, T, H, L, dtype):
     """At a window the resident body takes, the long body's streaming form
-    gives its bits: each row-local step and each softmax row and P.V
-    element sums in the same order in both."""
+    gives its bits in float32: each row-local step and each softmax row and
+    P.V element sums in the same order in both. In bf16 the resident body
+    runs its scores and P.V on the tensor cores, the long body on the FMA
+    pipes, so the two are held to each other within the bf16 bars."""
     from shm_tpu_torch.ops.fused_attention import _launch
 
     weights_fn, gate, _ = _gate("attention")
@@ -471,7 +473,10 @@ def test_fused_attention_streaming_form_is_the_same_in_both_bodies(cuda_device, 
     kw = dict(kw, stream=True, dtype=dtype, io_dtype=None)
     a = _launch(w, Z, body="resident", **kw)
     b = _launch(w, Z, body="long", **kw)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if dtype == torch.float32:
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    else:
+        _close_bf16("attention", b[0], a[0])
 
 
 @pytest.mark.cuda
@@ -499,6 +504,81 @@ def test_fused_attention_long_body_bytes_are_the_wrappers(cuda_device, T, H):
     assert lib.shm_fused_attention_slot_floats(T, H) == got.slot_floats
     info = fused_attention.kernel_info(T, H)
     assert info["shared_bytes"] == got.shared_bytes and info["blocks_per_sm"] >= 1
+
+
+# Row 7's bf16 resident body (every product on mma.sync m16n8k16 bf16,
+# the scores and P.V too) against its plain bf16 version: phase 17's four
+# cases (phase 2's shapes) and widths with M other than 4H, both softmax
+# forms, float32 and bf16 io, through chip_smoke.py's bf16_kernel_vs_plain
+# (BF16_GATE_TOL, each mean bar below the case's float32 gap); two launches
+# bit for bit; the launch counted in bf16_launches and not in long_launches.
+BF16_TC_CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual, mlp_ratio)
+    "4dof_N1000": (1000, 100, 12, 16, 128, 2, True, True, 4),
+    "openlab_L1_H64_T200": (300, 200, 3, 8, 64, 1, True, True, 4),
+    "1dof_H32_noln": (300, 80, 12, 5, 32, 2, False, True, 4),
+    "4dof_gate_only": (333, 100, 12, 16, 128, 2, True, False, 4),
+    "H128_M256": (300, 100, 12, 16, 128, 2, True, True, 2),
+    "H128_M768_T137": (300, 137, 12, 16, 128, 2, True, True, 6),
+    "H64_M128": (300, 100, 3, 8, 64, 1, True, True, 2),
+    "H32_M256_T269": (200, 269, 12, 5, 32, 2, True, True, 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("io", ["f32", "bf16"])
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("name", list(BF16_TC_CASES))
+def test_fused_attention_bf16_body_matches_plain_version(cuda_device, name, stream, io):
+    from chip_smoke import bf16_kernel_vs_plain
+    from shm_tpu_torch.ops.fused_attention import plan
+
+    N, T, D, Zd, H, L, ln, wr, r = BF16_TC_CASES[name]
+    cfg = VAEConfig(input_dim=D, latent_dim=Zd, hidden_dim=H, num_layers=L,
+                    use_layernorm=ln, cell="attention")
+    rng = np.random.default_rng(len(name) + 7 * r)
+    vae = vae_from_flax(random_flax_vae_params(rng, cfg, mlp_ratio=r), cfg)
+    weights_fn, gate, _ = _gate("attention")
+    w = weights_fn(vae.to(cuda_device), torch.bfloat16)
+    Z = torch.from_numpy(rng.normal(size=(N, T, D)).astype(np.float32)).to(cuda_device)
+    assert plan(T, H, torch.bfloat16).body == "resident"
+    kw = dict(num_layers=L, use_layernorm=ln, with_residual=wr, stream=stream,
+              mlp_ratio=r)
+    iot = torch.bfloat16 if io == "bf16" else None
+    before = (gate.bf16_launches, gate.long_launches)
+    bf16_kernel_vs_plain(f"{name} stream={stream} io={io}", "attention", w, Z,
+                         kw, iot)
+    assert (gate.bf16_launches, gate.long_launches) == (before[0] + 1, before[1])
+    a = gate(w, Z, dtype=torch.bfloat16, io_dtype=iot, **kw)
+    b = gate(w, Z, dtype=torch.bfloat16, io_dtype=iot, **kw)
+    assert torch.equal(a[0], b[0]) and (not wr or torch.equal(a[1], b[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, H", [(100, 128), (136, 128), (137, 128), (208, 128),
+                                  (200, 64), (328, 64), (80, 32), (269, 32),
+                                  (464, 32), (1, 32)])
+def test_fused_attention_bf16_body_bytes_are_the_wrappers(cuda_device, T, H):
+    """The bf16 resident body's shared memory as the built source counts it
+    for its launch is the wrapper's mirror; the body fits the card there
+    (one block of 512 threads an SM, no more spill than BF16_SPILL_GUARD), and
+    the next step past each width's longest window takes the long body."""
+    from shm_tpu_torch.ops import fused_attention as fa
+
+    nbytes = fa.shared_memory_bytes(T, H, torch.bfloat16)
+    assert fa._library().shm_fused_attention_smem_bytes_bf16(T, H) == nbytes
+    assert fa.plan(T, H, torch.bfloat16) == ("resident", nbytes, 0)
+    info = fa.kernel_info(T, H, dtype=torch.bfloat16)
+    assert info["shared_bytes"] == nbytes and info["threads"] == 512
+    assert info["blocks_per_sm"] >= 1
+    assert info["registers"] <= 128 and info["spill_bytes"] <= BF16_SPILL_GUARD
+    if (T, H) in ((208, 128), (328, 64), (464, 32)):
+        assert fa.plan(T + 1, H, torch.bfloat16).body == "long"
+
+
+# bytes of local memory (spills) a thread the bf16 resident body may use:
+# ptxas reported 280-304 B for the versions measured at 128 registers a
+# thread (PERF.md §6)
+BF16_SPILL_GUARD = 320
 
 
 # bytes of local memory (spills) a thread the attention kernel may use:

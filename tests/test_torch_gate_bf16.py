@@ -50,8 +50,9 @@ from shm_tpu_torch.cli.stage4dof import Paths, _load_stats, _load_vae
 from shm_tpu_torch.config import Stage4DofConfig
 from shm_tpu_torch.data.windows import normalize_windows
 from shm_tpu_torch.ops import FUSED_GATES
-from shm_tpu_torch.ops._gate import (FRAG, FRAG_BF16, bf16_fragments, bf16_round,
-                                    tf32x3_fragments, unpack_fragments)
+from shm_tpu_torch.ops._gate import (FRAG, FRAG_BF16, FRAG_K16, bf16_b_fragments,
+                                    bf16_fragments, bf16_round, tf32x3_fragments,
+                                    unpack_bf16_b_fragments, unpack_fragments)
 from shm_tpu_torch.tools.workload import load_trained_workload
 from shm_tpu_torch.utils.io import load_json
 
@@ -165,15 +166,18 @@ def test_attention_bars_admit_the_jax_kernels_other_form():
 @pytest.mark.parametrize("cell", list(FAMILIES))
 def test_kernel_weights_are_packed_for_one_precision(cell):
     """A weight dict holds the fragments of the precision it was packed
-    for: ``*_frag`` (3xTF32) by default, ``*_frag_bf16`` (of the
-    bf16-rounded weight, small parts zero) for bf16, the same names."""
+    for: ``*_frag`` (3xTF32) by default; for bf16 ``*_frag_bf16`` (of the
+    bf16-rounded weight, small parts zero), and row 7 also ``*_frag_k16``
+    (the m16n8k16 bf16 B fragments its resident body reads, 2 bytes a
+    weight), each decoding to the bf16-rounded weight."""
     vae = _load_vae(Paths(str(ROOT / FAMILIES[cell][0])), Stage4DofConfig())
     weights_fn = FUSED_GATES[cell][0]
     w32, w16 = weights_fn(vae), weights_fn(vae, torch.bfloat16)
+    suffixes = (FRAG_BF16, FRAG_K16) if cell == "attention" else (FRAG_BF16,)
     frag32 = {k[:-len(FRAG)] for k in w32 if k.endswith(FRAG)}
-    assert frag32 and not any(k.endswith(FRAG_BF16) for k in w32)
+    assert frag32 and not any(k.endswith((FRAG_BF16, FRAG_K16)) for k in w32)
     assert set(w16) == {k for k in w32 if not k.endswith(FRAG)} | {
-        b + FRAG_BF16 for b in frag32}
+        b + sfx for b in frag32 for sfx in suffixes}
     for b in frag32:
         torch.testing.assert_close(w32[b + FRAG], tf32x3_fragments(w32[b]),
                                    rtol=0, atol=0)
@@ -183,6 +187,12 @@ def test_kernel_weights_are_packed_for_one_precision(cell):
         assert not small.any()
         torch.testing.assert_close(big[:w32[b].shape[0]], bf16_round(w32[b]),
                                    rtol=0, atol=0)
+        if cell == "attention":
+            f = w16[b + FRAG_K16]
+            assert f.dtype == torch.int32 and f.numel() * 2 == w32[b].numel()
+            assert torch.equal(f, bf16_b_fragments(w32[b]))
+            torch.testing.assert_close(unpack_bf16_b_fragments(f),
+                                       bf16_round(w32[b]), rtol=0, atol=0)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         weights_fn(vae, torch.float16)
 
