@@ -331,6 +331,17 @@ Phases (any failure exits non-zero before the final line):
    every launch at that width. The kernels line ends with
    ``fused_attention_gate/mlp``.
 
+The gate and training kernels' reach (no phase of its own): phases 2 and 20
+(a) add ``REACH_CASES``, the shapes past the kernels' instances (H=48 and 96
+padded to the next instance, D and Z to 128, minGRU's largest block at 4
+layers), and 20 (b) a transposed residual of 32 feature rows; phase 3 adds
+``route_check``, a 3-layer LSTM and an H=48 attention VAE behind the root's
+CNN, which ``auto_fused_gate`` (the JAX package's rule) sends to the plain
+modules: no gate launch, the plain scorer's outputs; phase 4 times
+``REACH_TIMED`` per family (``reach_ms`` in the row); phases 6 and 18 add
+``LSTM_REACH_CASES`` (rows 2-5 at H=48, padded around the autograd
+Function) and phase 8 times rows 2-5 there (``reach_ms``).
+
 Prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
 run from a directory that does not hold the repository. Usage:
@@ -791,6 +802,23 @@ def compare(name: str, got, ref) -> float:
     return max_abs
 
 
+# the shapes past the kernels' instances that phases 2 and 20 add to their
+# cases: widths padded to an instance (32, 64, 128), D and Z past the fixed
+# tiles' 16 and 32 (the output head's slots past the registers'), to 128;
+# name, N, T, D, Z, H, L, LN, with_residual
+REACH_CASES = {
+    "lstm": [("H=48 D=64 Z=64 (the H=64 instance)", 300, 100, 64, 64, 48, 2, True, True),
+             ("H=96 D=20 Z=128 no LN", 300, 60, 20, 128, 96, 2, False, True),
+             ("1-layer H=128 D=128 Z=128", 200, 40, 128, 128, 128, 1, True, True)],
+    "min_gru": [("H=48 D=64 Z=64 (the H=64 instance)", 300, 100, 64, 64, 48, 2, True, True),
+                ("3-layer H=96 D=20 Z=128 no LN", 300, 60, 20, 128, 96, 3, False, True),
+                ("4-layer H=128 D=128 Z=128 (the largest block)", 200, 40, 128, 128,
+                 128, 4, True, True)],
+    "attention": [("Z=64 1-layer H=64", 300, 100, 12, 64, 64, 1, True, True),
+                  ("Z=128", 200, 100, 12, 128, 128, 2, True, True)],
+}
+
+
 def phase_kernel_vs_plain(cell: str = "lstm"):
     """A family's gate kernel against its plain version, random weights.
     Returns the max |diff| over the cases."""
@@ -807,6 +835,7 @@ def phase_kernel_vs_plain(cell: str = "lstm"):
     ]
     if cell == "min_gru":
         cases.append(("3-layer H=64 T=60", 200, 60, 12, 16, 64, 3, True, True))
+    cases += REACH_CASES[cell]
     worst = 0.0
     for i, (name, N, T, D, Zd, H, L, ln, wr) in enumerate(cases):
         vae, rng = random_vae(100 + i, D, Zd, H, L, ln, cell)
@@ -934,7 +963,52 @@ def phase_main_path(W, y, cell: str = "lstm"):
               f"{gate.__name__}(with_residual=False): mean {mse_k.mean():.6f}")
         compare(f"{cell} reconstruction_mse vs plain model",
                 torch.from_numpy(mse_k), torch.from_numpy(mse_p))
+    if cell in ROUTE_MODELS:
+        route_check(scorer, W, cell)
     return scorer, launches
+
+
+# phase 3's models that the JAX package's rule computes on XLA: each family's
+# scorer with the root's CNN, statistics and threshold and a VAE of these
+# (H, L) from a seed must launch no gate kernel and give the plain path's
+# outputs
+ROUTE_MODELS = {"lstm": (128, 3), "attention": (48, 1)}
+
+
+def route_check(scorer, W, cell: str) -> None:
+    """``HybridScorer`` with the default fused flag on a model of
+    ``ROUTE_MODELS[cell]``: ``auto_fused_gate`` sends it to the plain
+    modules, every gate counter stays at 0, and its outputs are the
+    ``use_fused_vae=False`` scorer's (mse, gate and y_pred bit for bit,
+    p_struct within P_STRUCT_ATOL)."""
+    import torch
+
+    from shm_tpu_torch.models import TemporalVAE
+    from shm_tpu_torch.serve import HybridScorer
+
+    H, L = ROUTE_MODELS[cell]
+    torch.manual_seed(27)
+    vae = TemporalVAE(12, 16, H, L, cell=cell)
+    make = lambda fused: HybridScorer(
+        vae, scorer.cnn, scorer.mean.cpu().numpy(), scorer.std.cpu().numpy(),
+        float(scorer.threshold), use_fused_vae=fused)
+    routed = make(None)
+    check(not routed.use_fused_vae, f"{cell} H={H} L={L}: the default fused "
+                                    f"flag chose the kernel")
+    bf16_counts(reset=True)
+    out = routed.score(W)
+    torch.cuda.synchronize()
+    counts = bf16_counts()
+    ref = make(False).score(W)
+    same = all(np.array_equal(out[k], ref[k]) for k in ("mse", "anomalous", "y_pred"))
+    dp = float(np.abs(out["p_struct"] - ref["p_struct"]).max())
+    print(f"[main {cell}] route: H={H} L={L} (the JAX rule computes it on XLA): "
+          f"use_fused_vae {routed.use_fused_vae}, gate launches {counts}; mse, "
+          f"gate and y_pred against the plain scorer "
+          f"{'bit for bit' if same else 'DIFFERENT'}, max |p_struct diff| {dp:.3e}")
+    check(not any(counts.values()), f"{cell} H={H} L={L}: a gate kernel launched")
+    check(same and dp <= P_STRUCT_ATOL and np.isfinite(out["mse"]).all(),
+          f"{cell} H={H} L={L}: the routed scorer differs from the plain one")
 
 
 def cudnn_vae_pass(vae, dtype=None):
@@ -1133,9 +1207,51 @@ def phase_timing(scorer, W, cell: str = "lstm"):
           f"{bucket} windows)")
     profile_device(lambda: scorer.score(Wb),
                    f"{cell} score() of {len(Wb)} windows")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
-            **extra}
+    reach = reach_timing(cell)
+    return {"max_abs_err": max(err, reach.pop("max_abs_err")), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms, "reach_ms": reach, **extra}
+
+
+# phase 4's timing of a shape past the kernel's instances, per family, at
+# bench.py's N and T, weights from a seed: name, D, Z, H, L, LN
+REACH_TIMED = {"lstm": ("H=48 D=64 Z=64", 64, 64, 48, 2, True),
+               "min_gru": ("H=96", 12, 16, 96, 2, True),
+               "attention": ("Z=64", 12, 64, 128, 2, True)}
+
+
+def reach_timing(cell: str) -> dict:
+    """The family's ``REACH_TIMED`` shape at N_BENCH random windows of 100
+    steps: the kernel against its plain version (phase 2's bar), its
+    CUDA-event ms, the plain version's and the bound of the model's own
+    work. Returns {name: {ms, plain_ms, bound_ms, bound_by}, "max_abs_err"}."""
+    import torch
+
+    from shm_tpu_torch.ops import FUSED_GATES
+    from shm_tpu_torch.tools.workload import PEAK_F32_FLOPS, bound_ms
+
+    name, D, Zd, H, L, ln = REACH_TIMED[cell]
+    weights_fn, gate, reference = FUSED_GATES[cell]
+    T = 100
+    vae, rng = random_vae(400, D, Zd, H, L, ln, cell)
+    w = weights_fn(vae)
+    Z = torch.from_numpy(rng.normal(size=(N_BENCH, T, D)).astype(np.float32)).cuda()
+    kw = dict(num_layers=L, use_layernorm=ln)
+    mse_k, r_k = gate(w, Z, **kw)
+    torch.cuda.synchronize()
+    mse_p, r_p = reference(w, Z, **kw)
+    print(f"[time {cell}] {name} (N={N_BENCH} T={T} D={D} Z={Zd} H={H} L={L}):")
+    err = max(compare("mse", mse_k, mse_p), compare("resid", r_k, r_p))
+    del r_k, r_p
+    ms = time_ms(lambda: gate(w, Z, **kw))
+    plain = time_ms(lambda: reference(w, Z, **kw), reps=3, warm=1)
+    flops, nbytes = FAMILIES[cell]["work"](N_BENCH, T, D, H, Zd, L)
+    bound, bound_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+    print(f"[time {cell}] {name}: kernel {ms:.4f} ms | plain {plain:.4f} ms | "
+          f"bound {bound:.4f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP of the "
+          f"model's own width)")
+    return {name: dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by),
+            "max_abs_err": err}
 
 
 def profile_device(fn, what: str, calls: int = 3, groups=None, rest: str = ""):
@@ -1280,6 +1396,27 @@ LSTM_CASES = (
     ("one window", 100, 12, 128, 1, 0.3),
     ("H=64", 40, 12, 64, 45, 0.3),
 )
+# phases 6 and 18 also hold a width that is no kernel instance's, which the
+# ops run padded to the next (H=48 at the H=64 instance)
+LSTM_REACH_CASES = (("H=48 (the H=64 instance)", 40, 12, 48, 45, 0.3),)
+
+
+def padded_case(c):
+    """An ``lstm_case`` at the width the kernels run it at: its weights,
+    masks and ``R_enc`` widened by ``pad_hidden`` to ``instance_width(H)``,
+    as the ops widen them around their autograd.Function; ``c`` itself at
+    an instance's width."""
+    from shm_tpu_torch.ops._gate import instance_width, pad_units
+    from shm_tpu_torch.ops.lstm_train import pad_hidden
+
+    H = c["enc_w"][1].shape[1]
+    Hp = instance_width(H)
+    if Hp == H:
+        return c
+    dm_e, *enc_w = pad_hidden(H, Hp, c["dm_enc"], *c["enc_w"])
+    dm_d, *dec_w = pad_hidden(H, Hp, c["dm_dec"], *c["dec_w"])
+    return dict(c, enc_w=enc_w, dm_enc=dm_e, dec_w=dec_w, dm_dec=dm_d,
+                R_enc=pad_units(c["R_enc"], H, Hp, dim=0))
 
 
 def phase_lstm_kernels_vs_plain():
@@ -1309,7 +1446,7 @@ def phase_lstm_kernels_vs_plain():
                       f"{info['local_bytes']} B of local memory (spills) a thread")
     errs = {}
     leaf = lambda ts: [a.clone().requires_grad_(True) for a in ts]
-    for i, (name, T, D, H, B, drop) in enumerate(LSTM_CASES):
+    for i, (name, T, D, H, B, drop) in enumerate(LSTM_CASES + LSTM_REACH_CASES):
         c = lstm_case(200 + i, T, D, H, B, drop)
         print(f"[lstm] {name}: T={T} D={D} H={H} B={B} dropout={drop}")
 
@@ -1370,12 +1507,15 @@ def compare_stash(c, T: int) -> float:
     ``lstm2_scan_stash_reference`` on the same inputs, in the training mode
     (the case's masks; stash and gate stash kept) and in the trainer's
     validation mode (null mask, no stash): h_last / recon, the final state,
-    and in the training mode the stash and the gate stash; max |diff|."""
+    and in the training mode the stash and the gate stash; max |diff|. A
+    width no kernel instance has runs both sides on ``padded_case``'s
+    inputs, the kernels' own width."""
     import torch
 
     from shm_tpu_torch.ops import lstm2_scan_stash_reference
     from shm_tpu_torch.ops.lstm_train import dec_forward_cuda, enc_forward_cuda
 
+    c = padded_case(c)
     worst = 0.0
     ow, ob = c["dec_w"][6:]
     with torch.no_grad():
@@ -1612,6 +1752,12 @@ def phase_lstm_timing(errs, counts, ctx):
     leaf = lambda ts: [a.clone().requires_grad_(True) for a in ts]
 
     ms = lstm_kernel_ms(c, T)
+    # a width no kernel instance has (H=48): the kernels at the H=64
+    # instance on the inputs the ops pad for them
+    reach_h = LSTM_REACH_CASES[0][3]
+    ms_reach = lstm_kernel_ms(padded_case(lstm_case(301, T, D, reach_h, B, drop)), T)
+    print(f"[time] rows 2-5 at H={reach_h} (the H=64 instance, padded inputs) "
+          f"T={T} B={B}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms_reach.items()))
     # --- plain versions under autograd (weights are the leaves, as in training)
     ew, dw = leaf(c["enc_w"]), leaf(c["dec_w"])
     din = c["din"].clone().requires_grad_(True)
@@ -1654,7 +1800,11 @@ def phase_lstm_timing(errs, counts, ctx):
             source="shm_tpu_torch/ops/csrc/lstm_train.cu", replaces=replaces,
             launches=counts[name], max_abs_err=errs[name], ms=ms[name],
             plain_ms=plain[name], bound_ms=bound, bound_by=bound_by,
-            library_ms=lib[name]))
+            library_ms=lib[name],
+            reach_ms={f"H={reach_h}": dict(
+                ms=ms_reach[name],
+                bound_ms=bound_ms(*lstm_work(name, T, D, reach_h, B, K=reach_h),
+                                  PEAK_F32_FLOPS)[0])}))
 
     # --- one training step: kernel path, plain autograd path, cuDNN yardstick
     model, xb, bmask = ctx["model"], ctx["xb"], ctx["bmask"]
@@ -5712,6 +5862,11 @@ def bf16_train_plain(c, T: int, dtype):
     r, ds = dec_forward_reference(c["din"], c["dm_dec"], *c["dec_w"], T=T,
                                   dtype=dtype)
     dg = dec_backward_reference(ds, c["R_dec"], dtype=dtype)
+    cp = padded_case(c)
+    if cp is not c:     # the stash at the kernels' width (padded_case)
+        es = enc_forward_reference(cp["xs"], cp["dm_enc"], *cp["enc_w"], dtype=dtype)[1]
+        ds = dec_forward_reference(cp["din"], cp["dm_dec"], *cp["dec_w"], T=T,
+                                   dtype=dtype)[1]
     return (h, eg, es), (r, dg, ds)
 
 
@@ -5730,9 +5885,10 @@ def bf16_train_kernels(c, T: int, dtype):
     lv = leaf([c["din"]] + c["dec_w"])
     r = lstm2_dec_head(lv[0], c["dm_dec"], *lv[1:], T=T, dtype=dtype)
     dg = torch.autograd.grad((r * c["R_dec"]).sum(), lv)
+    cp = padded_case(c)
     with torch.no_grad():
-        _, es = enc_forward_cuda(c["xs"], c["dm_enc"], *c["enc_w"], dtype=dtype)
-        _, ds = dec_forward_cuda(c["din"], c["dm_dec"], *c["dec_w"], T=T,
+        _, es = enc_forward_cuda(cp["xs"], cp["dm_enc"], *cp["enc_w"], dtype=dtype)
+        _, ds = dec_forward_cuda(cp["din"], cp["dm_dec"], *cp["dec_w"], T=T,
                                  dtype=dtype)
     torch.cuda.synchronize()
     return (h.detach(), eg, es), (r.detach(), dg, ds)
@@ -5775,7 +5931,7 @@ def phase18_kernels() -> dict:
                       f"{info['registers']} registers and "
                       f"{info['local_bytes']} B of local memory a thread")
     errs = {}
-    for i, (name, T, D, H, B, drop) in enumerate(LSTM_CASES):
+    for i, (name, T, D, H, B, drop) in enumerate(LSTM_CASES + LSTM_REACH_CASES):
         c = lstm_case(200 + i, T, D, H, B, drop)
         print(f"[bf16 train] {name}: T={T} D={D} H={H} B={B} dropout={drop}")
         with torch.no_grad():
@@ -6489,7 +6645,9 @@ P20_FORMS = {  # cell: the forms, (sigmoid_impl, tanh_impl); the first the defau
 P20_PRECISIONS = ("f32", "bf16", "bf16_io")
 # (b)'s shapes: name, N, T, D, Z, H, L, LN (the 4DOF and openLAB presets)
 P20_TRANSPOSED = (("4DOF", 1000, 100, 12, 16, 128, 2, True),
-                  ("openLAB", 300, 200, 3, 8, 64, 1, True))
+                  ("openLAB", 300, 200, 3, 8, 64, 1, True),
+                  # padded H, 32 feature rows (slots past the registers')
+                  ("H=48 D=20 Z=40", 300, 60, 20, 40, 48, 2, True))
 # (d): the 3,636 committed test windows' float32 mse through each root's
 # HybridScorer, made on the card by the tree before the forms and the
 # transposed residual existed: `git archive add5d7e shm_tpu_torch | tar -x
@@ -6589,7 +6747,7 @@ def p20_forms() -> dict:
         weights_fn, gate, reference = FUSED_GATES[cell]
         errs[cell] = {p: 0.0 for p in P20_PRECISIONS}
         extra = ([("3-layer H=64 T=60", 200, 60, 12, 16, 64, 3, True, True)]
-                 if cell == "min_gru" else [])
+                 if cell == "min_gru" else []) + REACH_CASES[cell][:1]
         for i, (name, N, T, D, Zd, H, L, ln, wr) in enumerate(cases + extra):
             vae, rng = random_vae(2000 + i, D, Zd, H, L, ln, cell)
             ws = {False: weights_fn(vae), True: weights_fn(vae, torch.bfloat16)}

@@ -448,7 +448,7 @@ def cmd_threshold(paths: Paths, cfg: Stage4DofConfig, sample: bool = False,
                              torch.from_numpy(std).to(device))
     gen = torch.Generator(device=device).manual_seed(0)
     s_all = reconstruction_mse(vae, Zall, sample=sample, generator=gen,
-                               fused=auto_fused_gate(device), device=device)
+                               fused=auto_fused_gate(vae, device), device=device)
     n, n_s = Wn.shape[0], Ws.shape[0]
     s_n, s_s, s_st = s_all[:n], s_all[n:n + n_s], s_all[n + n_s:]
     thr = percentile_threshold(s_n, cfg.threshold_percentile)
@@ -524,7 +524,7 @@ def _cnn_inputs(vae: TemporalVAE, Z: torch.Tensor,
     from shm_tpu_torch.pipeline import make_vae_pass
 
     vae.to(Z.device).eval()
-    vae_pass = make_vae_pass(vae, use_fused_vae=auto_fused_gate(Z.device))
+    vae_pass = make_vae_pass(vae, use_fused_vae=auto_fused_gate(vae, Z.device))
     outs = [vae_pass(zb)[1] for zb in Z.split(batch)]
     return torch.cat(outs) if outs else Z.new_zeros(tuple(Z.shape) + (2,))
 
@@ -624,7 +624,7 @@ def cmd_test_pipeline(paths: Paths, cfg: Stage4DofConfig, plot: bool = True,
     vae = _load_vae(paths, cfg).to(device)
     cnn = _load_cnn(paths, cfg).to(device)
     thr = load_json(paths.processed / "vae_threshold.json")["threshold"]
-    hybrid = make_hybrid_fn(vae, cnn, use_fused_vae=auto_fused_gate(device))
+    hybrid = make_hybrid_fn(vae, cnn, use_fused_vae=auto_fused_gate(vae, device))
 
     groups = [("normal", 0, "normal/test"), ("sensor_fault", 1, "sensor/test"),
               ("structural_fault", 2, "struct/test")]

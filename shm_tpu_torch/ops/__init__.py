@@ -5,6 +5,7 @@ import functools
 
 import torch
 
+from shm_tpu_torch.ops import fused_mingru
 from shm_tpu_torch.ops.fused_attention import (
     attention_params_to_kernel_weights, fused_attention_gate,
     fused_attention_gate_reference,
@@ -47,15 +48,38 @@ def fused_gate_for(model):
     return weights_fn, gate
 
 
-def auto_fused_gate(device) -> bool:
+# the JAX rule's clauses: the attention kernel's heads of 32 columns packed
+# in <= 128 columns, and the layer counts it sends to its kernels
+_ATTENTION_H_STEP, _ATTENTION_H_MAX = 32, 128
+_JAX_KERNEL_LAYERS = (1, 2)
+
+
+def auto_fused_gate(model, device) -> bool:
     """The one rule by which a surface that defaults its fused flag
-    (``HybridScorer(use_fused_vae=None)``,
-    ``reconstruction_mse(fused="auto")``) turns the fused gate on: always on
-    a CUDA device, never on the CPU. It does not look at the model: for a
-    cell or a shape its kernel does not take, :func:`fused_gate_for` and the
-    wrapper's checks raise, and nothing gives way to the plain modules on
-    the card."""
-    return torch.device(device).type == "cuda"
+    (``HybridScorer(use_fused_vae=None)``, ``OpenLabScorer``,
+    ``reconstruction_mse(fused="auto")``, the 4DOF commands) turns the fused
+    gate on for ``model`` on ``device``: never on the CPU; on a CUDA device
+    wherever the JAX package's ``auto_fused_gate``
+    (``shm_tpu/ops/__init__.py``) runs its kernel on its chip, the plain
+    modules wherever it computes on XLA. So it is False for an attention
+    VAE whose H is no multiple of 32 or past 128, and for any cell at L not
+    1 or 2, with one deliberate difference: the port's minGRU kernel takes L
+    up to 4 and computes the same function there, so a minGRU VAE of 3 or 4
+    layers keeps it. The rule reads the model's cell, ``hidden_dim`` and
+    ``num_layers`` before any launch; a shape inside the rule whose kernel
+    check refuses it (an LSTM of H > 128) still raises, and nothing falls
+    back after a failed build or launch."""
+    if torch.device(device).type != "cuda":
+        return False
+    cell = getattr(model, "cell", "lstm")
+    layers = getattr(model, "num_layers", 0)
+    if cell == "attention":
+        H = getattr(model, "hidden_dim", 0)
+        if H % _ATTENTION_H_STEP or H > _ATTENTION_H_MAX:
+            return False
+    if cell == "min_gru":
+        return 1 <= layers <= fused_mingru._L_MAX
+    return cell in FUSED_GATES and layers in _JAX_KERNEL_LAYERS
 
 
 __all__ = ["auto_fused_gate", "fused_gate_for", "FUSED_GATES",

@@ -33,6 +33,55 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
 FRAG, FRAG_BF16, FRAG_K16 = "_frag", "_frag_bf16", "_frag_k16"
 
 
+# the widths the LSTM and minGRU kernels are built for; a model of another
+# width H <= 128 runs the next one on weights padded with zeros
+# (:func:`instance_width`, :func:`pad_units`), and a weight dict so padded
+# records the model's own width under HIDDEN_KEY
+INSTANCE_WIDTHS = (32, 64, 128)
+HIDDEN_KEY = "hidden"
+
+
+def instance_width(H: int) -> int:
+    """The kernel instance's width a model of width ``H`` runs at: the
+    smallest of :data:`INSTANCE_WIDTHS` not below ``H``, or ``H`` itself past
+    the largest (which a kernel's checks then refuse)."""
+    return next((w for w in INSTANCE_WIDTHS if w >= H), H)
+
+
+def pad_units(t: torch.Tensor, H: int, Hp: int, dim: int = -1,
+              groups: int = 1) -> torch.Tensor:
+    """``t`` with ``dim`` (``groups`` blocks of ``H`` units, e.g. an LSTM's
+    gates i|f|g|o) widened to ``groups`` blocks of ``Hp``, each block's new
+    units zero: the exact padding of a recurrent layer whose padded units
+    have zero weights in and out and a zero bias. Differentiable (the
+    gradient is sliced back); ``t`` itself when ``Hp == H``."""
+    if Hp == H:
+        return t
+    dim = dim % t.dim()
+    shape = tuple(t.shape)
+    g = t.reshape(shape[:dim] + (groups, H) + shape[dim + 1:])
+    g = F.pad(g, [0, 0] * (t.dim() - dim - 1) + [0, Hp - H])
+    return g.reshape(shape[:dim] + (groups * Hp,) + shape[dim + 1:])
+
+
+def real_hidden(weights: Dict[str, torch.Tensor], H: int) -> int:
+    """The model's width of a kernel weight dict whose tensors are ``H``
+    wide: the width recorded by the padding, else ``H``."""
+    return int(weights.get(HIDDEN_KEY, H))
+
+
+def layer_norm_real(h: torch.Tensor, weights: Dict[str, torch.Tensor],
+                    eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm of ``h`` [N, H] (``ln_scale`` / ``ln_bias`` of
+    ``weights``) over the model's own units, the padded ones left at
+    zero, as the kernels normalise."""
+    H = h.shape[-1]
+    hr = real_hidden(weights, H)
+    out = F.layer_norm(h[..., :hr], (hr,), weights["ln_scale"][:hr],
+                       weights["ln_bias"][:hr], eps=eps)
+    return out if hr == H else F.pad(out, (0, H - hr))
+
+
 def gate_dtypes(Z: torch.Tensor, dtype, io_dtype) -> Tuple[bool, torch.dtype]:
     """``(bf16, io)`` of a gate call, the JAX kernels' ``dtype`` and
     ``io_dtype``: ``dtype`` float32 (the port's default) or bfloat16 (every

@@ -29,7 +29,7 @@
 // unrounded); o / l after the last block.
 //
 // H in {32,64,128}, heads = H/32 of 32 columns, MLP width M, L in {1,2},
-// D <= 128, Z <= 32, any T >= 1: a window whose buffers fit a block's shared
+// D <= 128, Z <= 128, any T >= 1: a window whose buffers fit a block's shared
 // memory runs in the resident body, a longer one in the long body (below;
 // the wrapper's plan() picks, from the same byte counts). Weights come in
 // [in, out] layout, the four products' as TF32 fragments (below); wqkv is
@@ -203,9 +203,10 @@ constexpr int CC = 128;         // MLP hidden columns per chunk (divides M)
 constexpr int TM = 8;           // rows are padded to a multiple of TM
 constexpr int LMAX = 2;
 constexpr int HMAX = 128;
-constexpr int ZMAX = 32;
+constexpr int ZMAX = 128;       // the JAX kernel's bound: fc_mu padded to 128 lanes
 constexpr int DMAX = 128;
 constexpr int SMALL = 512;      // floats for the per-window vectors
+static_assert(3 * HMAX + ZMAX <= SMALL, "pooled | mu | h0 | tok0 fit SMALL");
 constexpr int KB = 128;         // keys a block of the streaming softmax
 constexpr int NKB_RES = 4;      // key blocks a resident window may have
 constexpr int QL = 128;         // rows a tile (and query rows a chunk) of the
@@ -501,8 +502,9 @@ __device__ __forceinline__ float4 rescale_add(float4 o, float a, float4 blk) {
 struct Smem {
   float* s;      // [Tp][ld] residual stream
   float* nrm;    // [Tp][ld] normalised stream
-  float* small;  // [SMALL] pooled | mu | h0 | tok0 | reduction slots; in a
-                 // block of the streaming form, alpha [QC][NKB_RES] | l [QC]
+  float* small;  // [SMALL] pooled | mu | h0 | tok0, then the MSE's reduction
+                 // slots over pooled; in a block of the streaming form,
+                 // alpha [QC][NKB_RES] | l [QC] over pooled | mu
   float* area;   // q|k|v [3][Tp][HDP] + scores [QC][Tld], or the MLP chunk
 };
 
@@ -695,12 +697,15 @@ __device__ __forceinline__ float out_head(const float* r, const AttnW& W,
   return y + __ldg(W.out_b + d);
 }
 
-// the per-window vectors in `small`: pooled [H] | mu [Z] | h0 [H] | tok0 [H] |
-// the MSE's warp sums [NWARP]
+// the per-window vectors in `small`: pooled [H] | mu [Z] | h0 [H] | tok0 [H],
+// each slot as wide as its largest (HMAX, ZMAX); the MSE's warp sums
+// [NWARP] over pooled, read only after the decoder, when pooled, mu and h0
+// are dead (a streaming block's alpha and l sit over pooled | mu too, and
+// tok0 is read before the decoder's first block)
 __device__ __forceinline__ float* small_mu(float* small) { return small + HMAX; }
 __device__ __forceinline__ float* small_h0(float* small) { return small + HMAX + ZMAX; }
 __device__ __forceinline__ float* small_tok0(float* small) { return small + 2 * HMAX + ZMAX; }
-__device__ __forceinline__ float* small_red(float* small) { return small + 3 * HMAX + ZMAX; }
+__device__ __forceinline__ float* small_red(float* small) { return small; }
 
 // the pooled summary (in small) -> [LayerNorm eps 1e-5] -> mu (z = mu) ->
 // h0 = tanh(fc_latent_to_hidden(mu)) -> the decoder's token tok0 (in small)

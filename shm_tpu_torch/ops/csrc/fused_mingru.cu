@@ -15,9 +15,22 @@
 // so there is no recurrent product; the decoder's layer 0 has a constant
 // input, so its z and h~ are computed once and only the sweep runs over T.
 //
-// L in 1..4, H in {32,64,128} (template), D <= 16, Z <= 32, any T. Weights
-// come in the flax layout [in, out] (w_ih [in, 2H], the z half first), and
-// each w_ih also as 3xTF32 fragments (below), which is what the kernel reads.
+// L in 1..4, H in {32,64,128} (template), D <= 128, Z <= 128, any T.
+// Weights come in the flax layout [in, out] (w_ih [in, 2H], the z half
+// first), and each w_ih also as 3xTF32 fragments (below), which is what the
+// kernel reads.
+//
+// Any other width h_real <= 128 runs the instance of the next width H on
+// weights the wrapper pads with zeros (mingru_params_to_kernel_weights): a
+// padded unit's gates are z = 1/2, h~ = 0, so its h stays exactly 0 from
+// h_0 = 0, and the heads' padded rows and columns are zero. LayerNorm
+// normalises h_T over the h_real real units (a kernel argument) and leaves
+// the padded ones at 0. D and Z size the x tile and the mu buffer at run
+// time, as in fused_vae.cu: rows of max(round_up(D, 8), 16) + 4 floats and
+// max(Z, 32) rows of mu, so every D <= 16 and Z <= 32 keeps its bytes; the
+// output head's slots past the registers' (D > 16) sum their e^2 in the x
+// tile, free in the decoder, where the closing sum reads them. At L = 4,
+// H = 128 and D = Z = 128 a block takes 183,296 bytes (SMEM_LIMIT 232,448).
 //
 // Bound on this card. Per window the gate products are, for the 4DOF preset
 // (T=100, D=12, H=128, Z=16, L=2), T*2*2H*D (encoder layer 0) + T*2*2H*H
@@ -100,11 +113,22 @@
 
 namespace {
 
-constexpr int DMAX = 16;
-constexpr int ZMAX = 32;
+constexpr int DMAX = 16;        // the output head's slots a thread sums in
+                                // registers: DMAX * R
+constexpr int ZMAX = 32;        // the fewest rows of the shared mu buffer
+constexpr int DLIM = 128;       // the largest D and Z the kernel takes
+constexpr int ZLIM = 128;
 constexpr int LMAX = 4;
 constexpr int NUM_W = 4 * LMAX + 8 + 2 * LMAX;   // 24 as given, 8 fragments
-constexpr int XP = DMAX + 4;    // padded row of the shared x tile [R][XP]
+
+// padded row of the shared x tile [R][xp_of(D)]: D rounded up to 8 (at
+// least 16, the width every D <= 16 had), plus 4 (4 mod 8: conflict-free
+// fragment loads)
+__host__ __device__ constexpr int xp_of(int D) {
+  return ((D + 7) & ~7) > DMAX ? ((D + 7) & ~7) + 4 : DMAX + 4;
+}
+// rows of the shared mu buffer [zr_of(Z)][BT]
+__host__ __device__ constexpr int zr_of(int Z) { return Z > ZMAX ? Z : ZMAX; }
 
 typedef unsigned short bf16_t;  // raw bf16 bits
 
@@ -342,18 +366,19 @@ __device__ __forceinline__ void store_chunk(const float (&acc)[NM][2][4],
 }
 
 // shared floats: carried h [L][MT][NT] float4 | two chunk buffers [R][H+4] |
-// x tile [R][XP] | mu [ZMAX][BT]
+// x tile [R][xp_of(D)] | mu [zr_of(Z)][BT]
 template <int H, int MT, int TC>
-constexpr size_t tc_smem_floats(int L) {
+constexpr size_t tc_smem_floats(int L, int D, int Z) {
   constexpr int BT = 16 * MT, R = TC * BT;
-  return (size_t)L * MT * 4 * H * 4 + 2 * R * (H + 4) + R * XP + ZMAX * BT;
+  return (size_t)L * MT * 4 * H * 4 + 2 * R * (H + 4) + R * xp_of(D) + zr_of(Z) * BT;
 }
 
 template <int H, int MT, int TC, int SUM, typename IOT, bool SIG_TANH>
 __global__ void __launch_bounds__(4 * H, 1)
 fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
                        float* __restrict__ mse, const MinGruWeights Wt, int N,
-                       int T, int D, int Z, int L, int use_ln, int with_resid) {
+                       int T, int D, int Z, int L, int use_ln, int with_resid,
+                       int h_real) {
   constexpr bool BF = SUM == TC_BF16;   // stores and heads rounded too
   constexpr int NT = 4 * H;
   constexpr int BT = 16 * MT;
@@ -361,14 +386,21 @@ fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
   constexpr int NM = TC * MT;         // m-tiles of a chunk tile
   constexpr int HP = H + 4;           // padded row of the chunk buffers
   constexpr int KH = H / 8;           // k-steps of a product over H
-  constexpr int IO_SLOTS = (DMAX * R + NT - 1) / NT;
+  constexpr int IO_SLOTS = (DMAX * R + NT - 1) / NT;   // slots in registers
 
+  const int XP = xp_of(D);                                 // padded x row
   extern __shared__ __align__(16) float smem[];
   float4* const hcar = reinterpret_cast<float4*>(smem);    // [L][MT][NT]
   float* const buf0 = smem + (size_t)L * MT * NT * 4;     // buffers 0 and 1
   auto buf = [buf0](int i) { return buf0 + (i & 1) * (R * HP); };
   float* const xs = buf0 + 2 * R * HP;                     // [R][XP]
-  float* const mus = xs + R * XP;                          // [ZMAX][BT]
+  float* const mus = xs + R * XP;                          // [zr_of(Z)][BT]
+  // the output head's slot i = (d, window b, step slot s), d fastest; where
+  // the closing sum reads its total: xs[(d * TC + s) * BT + b]
+  auto slot_at = [D](int i) {
+    const int d = i % D, b = (i / D) % BT, s = i / (D * BT);
+    return (d * TC + s) * BT + b;
+  };
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * BT;
@@ -414,20 +446,20 @@ fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
     }
   }
   __syncthreads();
-  if (use_ln) {
+  if (use_ln) {                // over the h_real real units; padded ones stay 0
     if (tid < BT) {
       float* row = hl + tid * HP;
       float m = 0.0f;
-      for (int k = 0; k < H; ++k) m += row[k];
-      m /= H;
+      for (int k = 0; k < h_real; ++k) m += row[k];
+      m /= h_real;
       float v = 0.0f;
-      for (int k = 0; k < H; ++k) {
+      for (int k = 0; k < h_real; ++k) {
         const float dv = row[k] - m;
         v += dv * dv;
       }
-      v /= H;
+      v /= h_real;
       const float r = 1.0f / sqrtf(v + 1e-5f);
-      for (int k = 0; k < H; ++k)
+      for (int k = 0; k < h_real; ++k)
         row[k] = (row[k] - m) * r * __ldg(Wt.ln_scale + k) + __ldg(Wt.ln_bias + k);
     }
     __syncthreads();
@@ -465,6 +497,7 @@ fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
       }
   }
   for (int i = 0; i < L * MT; ++i) hcar[i * NT + tid] = zero4;
+  for (int i = tid + IO_SLOTS * NT; i < D * R; i += NT) xs[slot_at(i)] = 0.0f;
 
   // ---------------- decoder sweep + output head + residual + MSE
   float acc_mse[IO_SLOTS];
@@ -504,37 +537,37 @@ fused_mingru_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
     // output head for the chunk: slot i runs d, then b, then s (rows of one
     // step are apart by HP floats: conflict-free); it reads hout before the
     // next chunk's first barrier, after which it may be overwritten
+    auto head = [&](int i, float& acc) {
+      const int d = i % D, b = (i / D) % BT, s = i / (D * BT);
+      const int n = n0 + b;
+      if (s < nv && n < N) {
+        const float* hr = hout + (s * BT + b) * HP;
+        float y = __ldg(Wt.out_b + d);
+        for (int k = 0; k < H; ++k)
+          y = fmaf(rd<BF>(__ldg(Wt.out_w + k * D + d)), rd<BF>(hr[k]), y);
+        const size_t off = ((size_t)n * T + t0 + s) * D + d;
+        const float e = ld_io(x + off) - rd<BF>(y);
+        const float e2 = e * e;
+        if (with_resid) st_io(resid + off, e2);
+        acc += e2;
+      }
+    };
 #pragma unroll
     for (int r = 0; r < IO_SLOTS; ++r) {
       const int i = tid + r * NT;
-      if (i < D * R) {
-        const int d = i % D, b = (i / D) % BT, s = i / (D * BT);
-        const int n = n0 + b;
-        if (s < nv && n < N) {
-          const float* hr = hout + (s * BT + b) * HP;
-          float y = __ldg(Wt.out_b + d);
-          for (int k = 0; k < H; ++k)
-            y = fmaf(rd<BF>(__ldg(Wt.out_w + k * D + d)), rd<BF>(hr[k]), y);
-          const size_t off = ((size_t)n * T + t0 + s) * D + d;
-          const float e = ld_io(x + off) - rd<BF>(y);
-          const float e2 = e * e;
-          if (with_resid) st_io(resid + off, e2);
-          acc_mse[r] += e2;
-        }
-      }
+      if (i < D * R) head(i, acc_mse[r]);
     }
+    for (int i = tid + IO_SLOTS * NT; i < D * R; i += NT) head(i, xs[slot_at(i)]);
   }
 
   // per-window MSE: each slot's sum over the chunks, then over the step
-  // slots s, then over d, in order (xs is free in the decoder)
+  // slots s, then over d, in order (xs is free in the decoder; the slots
+  // past the registers' already in place)
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < IO_SLOTS; ++r) {
     const int i = tid + r * NT;
-    if (i < D * R) {
-      const int d = i % D, b = (i / D) % BT, s = i / (D * BT);
-      xs[(d * TC + s) * BT + b] = acc_mse[r];
-    }
+    if (i < D * R) xs[slot_at(i)] = acc_mse[r];
   }
   __syncthreads();
   if (tid < BT && n0 + tid < N) {
@@ -552,15 +585,16 @@ template <int H, int MT, int TC, int SUM, typename IOT = float,
           bool SIG_TANH = false>
 cudaError_t launch_tc(const IOT* x, IOT* resid, float* mse,
                       const MinGruWeights& W, int N, int T, int D, int Z, int L,
-                      int use_ln, int with_resid, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * tc_smem_floats<H, MT, TC>(L);
+                      int use_ln, int with_resid, cudaStream_t stream,
+                      int h_real = H) {
+  const size_t smem = sizeof(float) * tc_smem_floats<H, MT, TC>(L, D, Z);
   auto kern = fused_mingru_tc_kernel<H, MT, TC, SUM, IOT, SIG_TANH>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   constexpr int BT = 16 * MT;
   kern<<<(N + BT - 1) / BT, 4 * H, smem, stream>>>(
-      x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid);
+      x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, h_real);
   return cudaGetLastError();
 }
 
@@ -582,21 +616,21 @@ template <int H, int SUM, typename IOT>
 cudaError_t launch_sig(const IOT* x, IOT* resid, float* mse,
                        const MinGruWeights& W, int N, int T, int D, int Z,
                        int L, int use_ln, int with_resid, int sig_tanh,
-                       cudaStream_t s) {
+                       int h_real, cudaStream_t s) {
   if (sig_tanh)
     return launch_tc<H, SHIP_MT, SHIP_TC, SUM, IOT, true>(x, resid, mse, W, N, T, D, Z,
-                                                          L, use_ln, with_resid, s);
+                                                          L, use_ln, with_resid, s, h_real);
   return launch_tc<H, SHIP_MT, SHIP_TC, SUM, IOT, false>(x, resid, mse, W, N, T, D, Z,
-                                                         L, use_ln, with_resid, s);
+                                                         L, use_ln, with_resid, s, h_real);
 }
 
 template <int H>
 cudaError_t launch_ship(const float* x, float* resid, float* mse,
                         const MinGruWeights& W, int N, int T, int D, int Z,
                         int L, int use_ln, int with_resid, int sig_tanh,
-                        cudaStream_t s) {
+                        int h_real, cudaStream_t s) {
   return launch_sig<H, SHIP_SUM, float>(x, resid, mse, W, N, T, D, Z, L,
-                                        use_ln, with_resid, sig_tanh, s);
+                                        use_ln, with_resid, sig_tanh, h_real, s);
 }
 
 // the bf16 instance, at the shipping tile, with float32 or bf16 io
@@ -604,21 +638,21 @@ template <int H>
 cudaError_t launch_bf16(const void* x, void* resid, float* mse,
                         const MinGruWeights& W, int N, int T, int D, int Z,
                         int L, int use_ln, int with_resid, int sig_tanh,
-                        int io_bf16, cudaStream_t s) {
+                        int io_bf16, int h_real, cudaStream_t s) {
   if (io_bf16)
     return launch_sig<H, TC_BF16, bf16_t>(
         static_cast<const bf16_t*>(x), static_cast<bf16_t*>(resid), mse, W, N,
-        T, D, Z, L, use_ln, with_resid, sig_tanh, s);
+        T, D, Z, L, use_ln, with_resid, sig_tanh, h_real, s);
   return launch_sig<H, TC_BF16, float>(
       static_cast<const float*>(x), static_cast<float*>(resid), mse, W, N, T,
-      D, Z, L, use_ln, with_resid, sig_tanh, s);
+      D, Z, L, use_ln, with_resid, sig_tanh, h_real, s);
 }
 
 template <int H, int MT, int TC, int SUM = SHIP_SUM, typename IOT = float,
           bool SIG_TANH = false>
-cudaError_t tc_info(int L, int* out) {
+cudaError_t tc_info(int L, int D, int Z, int* out) {
   auto kern = fused_mingru_tc_kernel<H, MT, TC, SUM, IOT, SIG_TANH>;
-  const size_t smem = sizeof(float) * tc_smem_floats<H, MT, TC>(L);
+  const size_t smem = sizeof(float) * tc_smem_floats<H, MT, TC>(L, D, Z);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kern);
   if (err != cudaSuccess) return err;
@@ -659,7 +693,7 @@ bool unpack_weights(const void* const* w, int n_w, MinGruWeights& W) {
 }
 
 bool valid_shape(int N, int T, int D, int Z, int L) {
-  return N > 0 && T > 0 && D > 0 && D <= DMAX && Z > 0 && Z <= ZMAX &&
+  return N > 0 && T > 0 && D > 0 && D <= DLIM && Z > 0 && Z <= ZLIM &&
          L >= 1 && L <= LMAX;
 }
 
@@ -672,23 +706,26 @@ bool valid_shape(int N, int T, int D, int Z, int L) {
 //   aligned) of enc_w[0..3] and dec_w[0..3]
 // (pointers of layers >= L and of an unused LayerNorm may be null; the
 // w_ih as given are the plain version's, the kernel reads their fragments).
+// H is the instance's width (32, 64 or 128) and the weights' with their
+// padding; h_real <= H the model's, over which LayerNorm normalises.
 // Launches the shipping instance; returns the launch's cudaGetLastError(),
 // 0 on success.
 extern "C" int shm_fused_mingru_gate_f32(const float* x, float* resid,
                                          float* mse, const void* const* w,
                                          int n_w, int N, int T, int D, int H,
-                                         int Z, int L, int use_ln,
+                                         int h_real, int Z, int L, int use_ln,
                                          int with_resid, int sig_tanh,
                                          void* stream) {
   MinGruWeights W;
   if (!valid_shape(N, T, D, Z, L) || (with_resid && resid == nullptr) ||
-      (sig_tanh != 0 && sig_tanh != 1) || !unpack_weights(w, n_w, W))
+      (sig_tanh != 0 && sig_tanh != 1) || h_real < 1 || h_real > H ||
+      !unpack_weights(w, n_w, W))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (H) {
-    case 32: return (int)launch_ship<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, s);
-    case 64: return (int)launch_ship<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, s);
-    case 128: return (int)launch_ship<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, s);
+    case 32: return (int)launch_ship<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, h_real, s);
+    case 64: return (int)launch_ship<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, h_real, s);
+    case 128: return (int)launch_ship<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, h_real, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -700,19 +737,19 @@ extern "C" int shm_fused_mingru_gate_f32(const float* x, float* resid,
 extern "C" int shm_fused_mingru_gate_bf16(const void* x, void* resid,
                                           float* mse, const void* const* w,
                                           int n_w, int N, int T, int D, int H,
-                                          int Z, int L, int use_ln,
+                                          int h_real, int Z, int L, int use_ln,
                                           int with_resid, int sig_tanh,
                                           int io_bf16, void* stream) {
   MinGruWeights W;
   if (!valid_shape(N, T, D, Z, L) || (with_resid && resid == nullptr) ||
       (sig_tanh != 0 && sig_tanh != 1) || (io_bf16 != 0 && io_bf16 != 1) ||
-      !unpack_weights(w, n_w, W))
+      h_real < 1 || h_real > H || !unpack_weights(w, n_w, W))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (H) {
-    case 32: return (int)launch_bf16<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, io_bf16, s);
-    case 64: return (int)launch_bf16<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, io_bf16, s);
-    case 128: return (int)launch_bf16<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, io_bf16, s);
+    case 32: return (int)launch_bf16<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, io_bf16, h_real, s);
+    case 64: return (int)launch_bf16<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, io_bf16, h_real, s);
+    case 128: return (int)launch_bf16<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, sig_tanh, io_bf16, h_real, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -752,34 +789,37 @@ extern "C" int shm_fused_mingru_variant(const float* x, float* mse,
 }
 
 template <int H, bool SIG_TANH>
-cudaError_t ship_info_of(int L, int bf16, int io_bf16, int* out) {
-  if (!bf16) return tc_info<H, SHIP_MT, SHIP_TC, SHIP_SUM, float, SIG_TANH>(L, out);
-  if (io_bf16) return tc_info<H, SHIP_MT, SHIP_TC, TC_BF16, bf16_t, SIG_TANH>(L, out);
-  return tc_info<H, SHIP_MT, SHIP_TC, TC_BF16, float, SIG_TANH>(L, out);
+cudaError_t ship_info_of(int L, int D, int Z, int bf16, int io_bf16, int* out) {
+  if (!bf16) return tc_info<H, SHIP_MT, SHIP_TC, SHIP_SUM, float, SIG_TANH>(L, D, Z, out);
+  if (io_bf16) return tc_info<H, SHIP_MT, SHIP_TC, TC_BF16, bf16_t, SIG_TANH>(L, D, Z, out);
+  return tc_info<H, SHIP_MT, SHIP_TC, TC_BF16, float, SIG_TANH>(L, D, Z, out);
 }
 
 template <int H>
-cudaError_t ship_info(int L, int bf16, int io_bf16, int sig_tanh, int* out) {
-  return sig_tanh ? ship_info_of<H, true>(L, bf16, io_bf16, out)
-                  : ship_info_of<H, false>(L, bf16, io_bf16, out);
+cudaError_t ship_info(int L, int D, int Z, int bf16, int io_bf16, int sig_tanh,
+                      int* out) {
+  return sig_tanh ? ship_info_of<H, true>(L, D, Z, bf16, io_bf16, out)
+                  : ship_info_of<H, false>(L, D, Z, bf16, io_bf16, out);
 }
 
 // out = registers a thread, local memory (spill) bytes a thread, threads a
 // block, dynamic shared bytes a block, windows a block, blocks an SM at
-// once, and steps a tile of a shipping instance for windows of T steps at
-// width H with L layers (its shared memory depends on H and L): the float32
-// one (bf16 = 0) or the bf16 one with float32 or bf16 io, with the logistic
-// (sig_tanh = 0) or the tanh-form sigmoid (1).
-extern "C" int shm_fused_mingru_info(int T, int H, int L, int bf16, int io_bf16,
-                                     int sig_tanh, int* out) {
-  if (T < 1 || L < 1 || L > LMAX || (bf16 != 0 && bf16 != 1) ||
-      (io_bf16 != 0 && io_bf16 != 1) || (io_bf16 && !bf16) ||
-      (sig_tanh != 0 && sig_tanh != 1))
+// once, and steps a tile of a shipping instance for windows of T steps of D
+// features at width H with L layers and Z latents (its shared memory
+// depends on H, L, D and Z): the float32 one (bf16 = 0) or the bf16 one
+// with float32 or bf16 io, with the logistic (sig_tanh = 0) or the
+// tanh-form sigmoid (1).
+extern "C" int shm_fused_mingru_info(int T, int H, int L, int D, int Z,
+                                     int bf16, int io_bf16, int sig_tanh,
+                                     int* out) {
+  if (T < 1 || L < 1 || L > LMAX || D < 1 || D > DLIM || Z < 1 || Z > ZLIM ||
+      (bf16 != 0 && bf16 != 1) || (io_bf16 != 0 && io_bf16 != 1) ||
+      (io_bf16 && !bf16) || (sig_tanh != 0 && sig_tanh != 1))
     return (int)cudaErrorInvalidValue;
   switch (H) {
-    case 32: return (int)ship_info<32>(L, bf16, io_bf16, sig_tanh, out);
-    case 64: return (int)ship_info<64>(L, bf16, io_bf16, sig_tanh, out);
-    case 128: return (int)ship_info<128>(L, bf16, io_bf16, sig_tanh, out);
+    case 32: return (int)ship_info<32>(L, D, Z, bf16, io_bf16, sig_tanh, out);
+    case 64: return (int)ship_info<64>(L, D, Z, bf16, io_bf16, sig_tanh, out);
+    case 128: return (int)ship_info<128>(L, D, Z, bf16, io_bf16, sig_tanh, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,10 +10,26 @@
 //        is constant over T) -> L-layer LSTM decoder -> output head x_hat
 //     -> resid = (x - x_hat)^2 [N,T,D] and mse = sum(resid) / (T*D) [N]
 //
-// L in {1,2}, H in {32,64,128} (template), D <= 16, Z <= 32, any T.
+// L in {1,2}, H in {32,64,128} (template), D <= 128, Z <= 128, any T.
 // Weights come in the flax layout [in, out] (LSTM: w_ih [in,4H],
 // w_hh [H,4H], gate order i|f|g|o, bias = b_ih + b_hh), and every LSTM
 // weight also as 3xTF32 fragments (below).
+//
+// Any other width H_real <= 128 runs the instance of the next width H, on
+// weights the wrapper pads with zeros (vae_params_to_kernel_weights): a
+// padded unit has zero weights in and out and a zero bias, so its gates are
+// i = f = o = 1/2, g = 0, and c and h stay exactly 0 from c = h = 0; the
+// heads' padded rows and columns are zero too. Only LayerNorm sees the
+// width: it normalises h_T over the h_real real units (a kernel argument)
+// and leaves the padded ones at 0.
+//
+// D and Z size the x tile and the mu buffer at run time (dynamic shared
+// memory): a row of XPD = max(round_up(D, 8), 16) + 4 floats (4 mod 8, so
+// the fragment loads stay conflict-free) and max(Z, 32) rows of mu, so every
+// shape of D <= 16 and Z <= 32 keeps the bytes it had. The output head's
+// first DMAX * BT slots keep their e^2 sums in registers; the slots past
+// them (D > 16) keep theirs in the x tile, free in the decoder, at the
+// place the closing sum reads them.
 //
 // Bound on this card. Per window the matmul work is, for the 4DOF preset
 // (T=100, D=12, H=128, Z=16, L=2), 2*T*4H*(D+H) + 2*T*4H*2H (encoder)
@@ -144,8 +160,11 @@ namespace {
 constexpr int BW = 8;           // windows per thread per sub-tile
 constexpr int NG = 4;           // window groups per sub-tile (threads = NG*H)
 constexpr int SUB = NG * BW;    // windows per sub-tile (32)
-constexpr int DMAX = 16;
-constexpr int ZMAX = 32;
+constexpr int DMAX = 16;         // the probe body's D; the slots a thread
+                                 // sums in registers
+constexpr int ZMAX = 32;         // the probe body's Z; the fewest mu rows
+constexpr int DLIM = 128;        // the largest D and Z the gate takes
+constexpr int ZLIM = 128;
 constexpr int NUM_W = 28;       // 20 as given, then the 8 LSTM fragments
 constexpr int PROBE_H = 128;    // the probe variants' width (the 4DOF preset)
 
@@ -478,7 +497,13 @@ fused_vae_fma_kernel(const float* __restrict__ x, float* __restrict__ mse,
 // The shipping body: every LSTM gate product on the tensor cores in 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int XP = DMAX + 4;    // padded row of the shared x_t tile [BT][XP]
+// padded row of the shared x_t tile [BT][xp_of(D)]: D rounded up to 8 (at
+// least 16, the width every D <= 16 had), plus 4
+__host__ __device__ constexpr int xp_of(int D) {
+  return ((D + 7) & ~7) > DMAX ? ((D + 7) & ~7) + 4 : DMAX + 4;
+}
+// rows of the shared mu buffer [zr_of(Z)][BT]
+__host__ __device__ constexpr int zr_of(int Z) { return Z > ZMAX ? Z : ZMAX; }
 
 // x rounded to TF32 to nearest, ties away from zero (the low 13 bits zero),
 // in two integer operations: equal to cvt.rna.tf32.f32 for every finite x,
@@ -678,9 +703,9 @@ __device__ __forceinline__ void tc_cell_store(const float (&acc)[MT][4][4],
 }
 
 template <int H, int MT>
-constexpr size_t tc_smem_bytes() {
+constexpr size_t tc_smem_bytes(int D, int Z) {
   constexpr int BT = 16 * MT;
-  return sizeof(float) * (2 * BT * (H + 4) + BT * 4 * H + BT * XP + ZMAX * BT);
+  return sizeof(float) * (2 * BT * (H + 4) + BT * 4 * H + BT * xp_of(D) + zr_of(Z) * BT);
 }
 
 // The residual's two layouts: [N][T][D] (tr = 0), or (tr = 1) [T][DPT][N]
@@ -705,25 +730,33 @@ __global__ void __launch_bounds__(4 * H, 1)
 fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
                     float* __restrict__ mse, const VaeWeights<float> Wt, int N,
                     int T, int D, int Z, int L, int use_ln, int with_resid,
-                    float ln_eps, int act, int tr) {
+                    float ln_eps, int act, int tr, int h_real) {
   constexpr bool BF = SUM == TC_BF16;   // the heads' operands rounded too
   constexpr int NT = 4 * H;
   constexpr int BT = 16 * MT;
   constexpr int HP = H + 4;       // padded row of the shared h buffers
   constexpr int KH = H / 8;       // k-steps of a product over H
-  constexpr int IO_SLOTS = (DMAX * BT + NT - 1) / NT;
+  constexpr int IO_SLOTS = (DMAX * BT + NT - 1) / NT;   // slots in registers
 
+  const int XPD = xp_of(D);       // padded row of the x tile
   extern __shared__ __align__(16) float smem[];
   float* const hs[2] = {smem, smem + BT * HP};      // [BT][HP] each
   float* const xpc = smem + 2 * BT * HP;            // [BT*4H], accumulator order
-  float* const xs = xpc + BT * 4 * H;               // [BT][XP]
-  float* const mus = xs + BT * XP;                  // [ZMAX][BT]
+  float* const xs = xpc + BT * 4 * H;               // [BT][XPD]
+  float* const mus = xs + BT * XPD;                 // [zr_of(Z)][BT]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * BT;
   const int DP = (D + 7) & ~7;                      // x's k, zero-padded
   const int DPT = (D + 15) & ~15;                   // rows of a transposed residual
   const int slots = (tr ? DPT : D) * BT;            // the output head's slots
+  // the output head's slot i: thread slot (b, d), d fastest, or under tr
+  // TrSlot's; a slot past the registers' sums its e^2 in xs[d * BT + b]
+  auto slot_of = [&](int i, int& b, int& d) {
+    const TrSlot<BT> ts(i);
+    d = tr ? ts.d : i % D;
+    b = tr ? ts.b : i / D;
+  };
 
   for (int i = tid; i < 2 * BT * HP; i += NT) smem[i] = 0.0f;
   float c[2][MT][4];
@@ -740,7 +773,7 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
     for (int i = tid; i < BT * DP; i += NT) {       // x_t tile -> xs[b][d]
       const int d = i % DP, b = i / DP;
       const int n = n0 + b;
-      xs[b * XP + d] = (n < N && d < D) ? ld_io(x + ((size_t)n * T + t) * D + d) : 0.0f;
+      xs[b * XPD + d] = (n < N && d < D) ? ld_io(x + ((size_t)n * T + t) * D + d) : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -749,7 +782,7 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
       float acc[MT][4][4];
       tc_bias<H, MT>(acc, Wt.enc_b[l]);
       if (l == 0)
-        gate_mma<H, MT, SUM>(acc, Wt.enc_wih_f[0], DP / 8, xs, XP);
+        gate_mma<H, MT, SUM>(acc, Wt.enc_wih_f[0], DP / 8, xs, XPD);
       else
         gate_mma<H, MT, SUM>(acc, Wt.enc_wih_f[1], KH, hs[0], HP);
       gate_mma<H, MT, SUM>(acc, Wt.enc_whh_f[l], KH, hs[l], HP);
@@ -757,22 +790,23 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
     }
   }
 
-  // ---------------- LayerNorm over H + latent head (z = mu)
+  // ---------------- LayerNorm over the h_real real units + latent head
+  // (z = mu); a padded unit's h stays 0
   float* const hl = smem + (L - 1) * BT * HP;       // hs[L - 1]
   if (use_ln) {
     if (tid < BT) {
       float* row = hl + tid * HP;
       float m = 0.0f;
-      for (int k = 0; k < H; ++k) m += row[k];
-      m /= H;
+      for (int k = 0; k < h_real; ++k) m += row[k];
+      m /= h_real;
       float v = 0.0f;
-      for (int k = 0; k < H; ++k) {
+      for (int k = 0; k < h_real; ++k) {
         const float dv = row[k] - m;
         v += dv * dv;
       }
-      v /= H;
+      v /= h_real;
       const float r = 1.0f / sqrtf(v + ln_eps);
-      for (int k = 0; k < H; ++k)
+      for (int k = 0; k < h_real; ++k)
         row[k] = (row[k] - m) * r * __ldg(Wt.ln_scale + k) + __ldg(Wt.ln_bias + k);
     }
     __syncthreads();
@@ -813,6 +847,11 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
   }
   __syncthreads();
   for (int i = tid; i < 2 * BT * HP; i += NT) smem[i] = 0.0f;
+  for (int i = tid + IO_SLOTS * NT; i < slots; i += NT) {   // xs is free now
+    int b, d;
+    slot_of(i, b, d);
+    if (d < D) xs[d * BT + b] = 0.0f;
+  }
 #pragma unroll
   for (int l = 0; l < 2; ++l)
 #pragma unroll
@@ -848,43 +887,49 @@ fused_vae_tc_kernel(const IOT* __restrict__ x, IOT* __restrict__ resid,
       gate_mma<H, MT, SUM>(acc, Wt.dec_whh_f[l], KH, hs[l], HP);
       tc_cell_store<H, MT, FORMS>(acc, c[l], hs[l], act);
     }
-    // output head for step t: thread slot (b, d), d fastest (tr: TrSlot);
-    // reads hout before the next step's first barrier, after which it may
-    // be overwritten
+    // output head for step t: reads hout before the next step's first
+    // barrier, after which it may be overwritten
+    auto head = [&](int i, float& acc) {
+      int b, d;
+      slot_of(i, b, d);
+      const int n = n0 + b;
+      if (d >= D) {                                 // a transposed pad row
+        if (with_resid && n < N) st_io(resid + ((size_t)t * DPT + d) * N + n, 0.0f);
+        return;
+      }
+      float y = __ldg(Wt.out_b + d);
+      for (int k = 0; k < H; ++k)
+        y = fmaf(rd<BF>(__ldg(Wt.out_w + k * D + d)), rd<BF>(hout[b * HP + k]), y);
+      if (n < N) {
+        const size_t off = ((size_t)n * T + t) * D + d;
+        const float e = ld_io(x + off) - y;
+        const float e2 = e * e;
+        if (with_resid)
+          st_io(resid + (tr ? ((size_t)t * DPT + d) * N + n : off), e2);
+        acc += e2;
+      }
+    };
 #pragma unroll
     for (int r = 0; r < IO_SLOTS; ++r) {
       const int i = tid + r * NT;
-      if (i < slots) {
-        const TrSlot<BT> ts(i);
-        const int d = tr ? ts.d : i % D, b = tr ? ts.b : i / D;
-        const int n = n0 + b;
-        if (d >= D) {                               // a transposed pad row
-          if (with_resid && n < N) st_io(resid + ((size_t)t * DPT + d) * N + n, 0.0f);
-          continue;
-        }
-        float y = __ldg(Wt.out_b + d);
-        for (int k = 0; k < H; ++k)
-          y = fmaf(rd<BF>(__ldg(Wt.out_w + k * D + d)), rd<BF>(hout[b * HP + k]), y);
-        if (n < N) {
-          const size_t off = ((size_t)n * T + t) * D + d;
-          const float e = ld_io(x + off) - y;
-          const float e2 = e * e;
-          if (with_resid)
-            st_io(resid + (tr ? ((size_t)t * DPT + d) * N + n : off), e2);
-          acc_mse[r] += e2;
-        }
-      }
+      if (i < slots) head(i, acc_mse[r]);
+    }
+    for (int i = tid + IO_SLOTS * NT; i < slots; i += NT) {
+      int b, d;
+      slot_of(i, b, d);
+      head(i, xs[(d < D ? d : 0) * BT + b]);        // a pad row adds nothing
     }
   }
 
-  // per-window MSE: sum the D partials of each window, d in order
+  // per-window MSE: sum the D partials of each window, d in order (the
+  // slots past the registers' already in place)
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < IO_SLOTS; ++r) {
     const int i = tid + r * NT;
     if (i < slots) {
-      const TrSlot<BT> ts(i);
-      const int d = tr ? ts.d : i % D, b = tr ? ts.b : i / D;
+      int b, d;
+      slot_of(i, b, d);
       if (d < D) xs[d * BT + b] = acc_mse[r];
     }
   }
@@ -900,15 +945,17 @@ template <int H, int MT, int SUM, typename IOT = float, bool FORMS = false>
 cudaError_t launch_tc(const IOT* x, IOT* resid, float* mse,
                       const VaeWeights<float>& W, int N, int T, int D, int Z,
                       int L, int use_ln, int with_resid, float ln_eps,
-                      cudaStream_t stream, int act = 0, int tr = 0) {
-  constexpr size_t smem = tc_smem_bytes<H, MT>();
+                      cudaStream_t stream, int act = 0, int tr = 0,
+                      int h_real = H) {
+  const size_t smem = tc_smem_bytes<H, MT>(D, Z);
   auto kern = fused_vae_tc_kernel<H, MT, SUM, IOT, FORMS>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   constexpr int BT = 16 * MT;
   kern<<<(N + BT - 1) / BT, 4 * H, smem, stream>>>(
-      x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, ln_eps, act, tr);
+      x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, ln_eps, act, tr,
+      h_real);
   return cudaGetLastError();
 }
 
@@ -981,21 +1028,21 @@ template <int H, int SUM, typename IOT>
 cudaError_t launch_act(const IOT* x, IOT* resid, float* mse,
                        const VaeWeights<float>& W, int N, int T, int D, int Z,
                        int L, int use_ln, int with_resid, float ln_eps,
-                       int act, int tr, cudaStream_t s) {
+                       int act, int tr, int h_real, cudaStream_t s) {
   if (act == 0)
     return launch_tc<H, SHIP_MT, SUM, IOT, false>(x, resid, mse, W, N, T, D, Z, L, use_ln,
-                                                  with_resid, ln_eps, s, 0, tr);
+                                                  with_resid, ln_eps, s, 0, tr, h_real);
   return launch_tc<H, SHIP_MT, SUM, IOT, true>(x, resid, mse, W, N, T, D, Z, L, use_ln,
-                                               with_resid, ln_eps, s, act, tr);
+                                               with_resid, ln_eps, s, act, tr, h_real);
 }
 
 template <int H>
 cudaError_t launch_ship(const float* x, float* resid, float* mse,
                         const VaeWeights<float>& W, int N, int T, int D, int Z,
                         int L, int use_ln, int with_resid, float ln_eps,
-                        int act, int tr, cudaStream_t s) {
+                        int act, int tr, int h_real, cudaStream_t s) {
   return launch_act<H, SHIP_SUM, float>(x, resid, mse, W, N, T, D, Z, L, use_ln,
-                                        with_resid, ln_eps, act, tr, s);
+                                        with_resid, ln_eps, act, tr, h_real, s);
 }
 
 // the bf16 instance, at the shipping tile, with float32 or bf16 io
@@ -1003,20 +1050,20 @@ template <int H>
 cudaError_t launch_bf16(const void* x, void* resid, float* mse,
                         const VaeWeights<float>& W, int N, int T, int D, int Z,
                         int L, int use_ln, int with_resid, int io_bf16,
-                        float ln_eps, int act, int tr, cudaStream_t s) {
+                        float ln_eps, int act, int tr, int h_real, cudaStream_t s) {
   if (io_bf16)
     return launch_act<H, TC_BF16, bf16_t>(
         static_cast<const bf16_t*>(x), static_cast<bf16_t*>(resid), mse, W, N,
-        T, D, Z, L, use_ln, with_resid, ln_eps, act, tr, s);
+        T, D, Z, L, use_ln, with_resid, ln_eps, act, tr, h_real, s);
   return launch_act<H, TC_BF16, float>(
       static_cast<const float*>(x), static_cast<float*>(resid), mse, W, N, T,
-      D, Z, L, use_ln, with_resid, ln_eps, act, tr, s);
+      D, Z, L, use_ln, with_resid, ln_eps, act, tr, h_real, s);
 }
 
 template <int H, int MT, int SUM, typename IOT, bool FORMS>
-cudaError_t tc_info(int* out) {
+cudaError_t tc_info(int D, int Z, int* out) {
   auto kern = fused_vae_tc_kernel<H, MT, SUM, IOT, FORMS>;
-  constexpr size_t smem = tc_smem_bytes<H, MT>();
+  const size_t smem = tc_smem_bytes<H, MT>(D, Z);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kern);
   if (err != cudaSuccess) return err;
@@ -1044,26 +1091,35 @@ cudaError_t tc_info(int* out) {
 //   enc_wih1 enc_whh1 dec_wih0 dec_whh0 dec_wih1 dec_whh1
 // (layer-1 and LayerNorm pointers may be null when unused; the LSTM
 // matrices as given are the plain version's, the kernel reads their
-// fragments). `act` is the activation forms (0 to 3: ACT_SIG_TANH |
+// fragments). H is the instance's width (32, 64 or 128) and the weights'
+// with their padding; h_real <= H the model's, over which LayerNorm
+// normalises. `act` is the activation forms (0 to 3: ACT_SIG_TANH |
 // ACT_TANH_RATIONAL), `layout` the residual's (0: [N][T][D]; 1:
 // [T][DPT][N], DPT = D rounded up to 16). Launches the tensor-core body;
 // returns the launch's cudaGetLastError(), 0 on success.
+static bool gate_args_ok(int n_w, int N, int T, int D, int H, int h_real,
+                         int Z, int L, int with_resid, const void* resid,
+                         int act, int layout) {
+  return n_w == NUM_W && N > 0 && T > 0 && D > 0 && D <= DLIM && Z > 0 &&
+         Z <= ZLIM && L >= 1 && L <= 2 && !(with_resid && resid == nullptr) &&
+         act >= 0 && act <= 3 && (layout == 0 || layout == 1) && h_real >= 1 &&
+         h_real <= H;
+}
+
 extern "C" int shm_fused_vae_gate_f32(const float* x, float* resid, float* mse,
                                       const void* const* w, int n_w, int N,
-                                      int T, int D, int H, int Z, int L,
-                                      int use_ln, int with_resid, int act,
-                                      int layout, void* stream) {
-  if (n_w != NUM_W || N <= 0 || T <= 0 || D <= 0 || D > DMAX || Z <= 0 ||
-      Z > ZMAX || L < 1 || L > 2 || (with_resid && resid == nullptr) ||
-      act < 0 || act > 3 || (layout != 0 && layout != 1))
+                                      int T, int D, int H, int h_real, int Z,
+                                      int L, int use_ln, int with_resid,
+                                      int act, int layout, void* stream) {
+  if (!gate_args_ok(n_w, N, T, D, H, h_real, Z, L, with_resid, resid, act, layout))
     return (int)cudaErrorInvalidValue;
   const VaeWeights<float> W = unpack_weights<float>(w);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   constexpr float eps = 1e-5f;                        // the model's LayerNorm
   switch (H) {
-    case 32: return (int)launch_ship<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, act, layout, s);
-    case 64: return (int)launch_ship<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, act, layout, s);
-    case 128: return (int)launch_ship<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, act, layout, s);
+    case 32: return (int)launch_ship<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, act, layout, h_real, s);
+    case 64: return (int)launch_ship<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, act, layout, h_real, s);
+    case 128: return (int)launch_ship<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, eps, act, layout, h_real, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1074,54 +1130,54 @@ extern "C" int shm_fused_vae_gate_f32(const float* x, float* resid, float* mse,
 // cudaGetLastError(), 0 on success.
 extern "C" int shm_fused_vae_gate_bf16(const void* x, void* resid, float* mse,
                                        const void* const* w, int n_w, int N,
-                                       int T, int D, int H, int Z, int L,
-                                       int use_ln, int with_resid, int act,
-                                       int layout, int io_bf16, void* stream) {
-  if (n_w != NUM_W || N <= 0 || T <= 0 || D <= 0 || D > DMAX || Z <= 0 ||
-      Z > ZMAX || L < 1 || L > 2 || (with_resid && resid == nullptr) ||
-      act < 0 || act > 3 || (layout != 0 && layout != 1) ||
+                                       int T, int D, int H, int h_real, int Z,
+                                       int L, int use_ln, int with_resid,
+                                       int act, int layout, int io_bf16,
+                                       void* stream) {
+  if (!gate_args_ok(n_w, N, T, D, H, h_real, Z, L, with_resid, resid, act, layout) ||
       (io_bf16 != 0 && io_bf16 != 1))
     return (int)cudaErrorInvalidValue;
   const VaeWeights<float> W = unpack_weights<float>(w);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   constexpr float eps = 1e-5f;                        // the model's LayerNorm
   switch (H) {
-    case 32: return (int)launch_bf16<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, act, layout, s);
-    case 64: return (int)launch_bf16<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, act, layout, s);
-    case 128: return (int)launch_bf16<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, act, layout, s);
+    case 32: return (int)launch_bf16<32>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, act, layout, h_real, s);
+    case 64: return (int)launch_bf16<64>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, act, layout, h_real, s);
+    case 128: return (int)launch_bf16<128>(x, resid, mse, W, N, T, D, Z, L, use_ln, with_resid, io_bf16, eps, act, layout, h_real, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <int H, bool FORMS>
-cudaError_t ship_info_of(int bf16, int io_bf16, int* out) {
-  if (!bf16) return tc_info<H, SHIP_MT, SHIP_SUM, float, FORMS>(out);
-  if (io_bf16) return tc_info<H, SHIP_MT, TC_BF16, bf16_t, FORMS>(out);
-  return tc_info<H, SHIP_MT, TC_BF16, float, FORMS>(out);
+cudaError_t ship_info_of(int D, int Z, int bf16, int io_bf16, int* out) {
+  if (!bf16) return tc_info<H, SHIP_MT, SHIP_SUM, float, FORMS>(D, Z, out);
+  if (io_bf16) return tc_info<H, SHIP_MT, TC_BF16, bf16_t, FORMS>(D, Z, out);
+  return tc_info<H, SHIP_MT, TC_BF16, float, FORMS>(D, Z, out);
 }
 
 template <int H>
-cudaError_t ship_info(int bf16, int io_bf16, int forms, int* out) {
-  return forms ? ship_info_of<H, true>(bf16, io_bf16, out)
-               : ship_info_of<H, false>(bf16, io_bf16, out);
+cudaError_t ship_info(int D, int Z, int bf16, int io_bf16, int forms, int* out) {
+  return forms ? ship_info_of<H, true>(D, Z, bf16, io_bf16, out)
+               : ship_info_of<H, false>(D, Z, bf16, io_bf16, out);
 }
 
 // out = registers a thread, local memory (spill) bytes a thread, threads a
 // block, dynamic shared bytes a block, windows a block and blocks an SM at
-// once of a shipping instance for windows of T steps at width H with L
-// layers (its registers and shared memory depend on H alone): the float32
-// one (bf16 = 0) or the bf16 one with float32 or bf16 io, of the default
-// forms (forms = 0) or of the others (forms = 1).
-extern "C" int shm_fused_vae_info(int T, int H, int L, int bf16, int io_bf16,
-                                  int forms, int* out) {
-  if (T < 1 || L < 1 || L > 2 || (bf16 != 0 && bf16 != 1) ||
-      (io_bf16 != 0 && io_bf16 != 1) || (io_bf16 && !bf16) ||
-      (forms != 0 && forms != 1))
+// once of a shipping instance for windows of T steps of D features at width
+// H with L layers and Z latents (its registers depend on H alone, its shared
+// memory on H, D and Z): the float32 one (bf16 = 0) or the bf16 one with
+// float32 or bf16 io, of the default forms (forms = 0) or of the others
+// (forms = 1).
+extern "C" int shm_fused_vae_info(int T, int H, int L, int D, int Z, int bf16,
+                                  int io_bf16, int forms, int* out) {
+  if (T < 1 || L < 1 || L > 2 || D < 1 || D > DLIM || Z < 1 || Z > ZLIM ||
+      (bf16 != 0 && bf16 != 1) || (io_bf16 != 0 && io_bf16 != 1) ||
+      (io_bf16 && !bf16) || (forms != 0 && forms != 1))
     return (int)cudaErrorInvalidValue;
   switch (H) {
-    case 32: return (int)ship_info<32>(bf16, io_bf16, forms, out);
-    case 64: return (int)ship_info<64>(bf16, io_bf16, forms, out);
-    case 128: return (int)ship_info<128>(bf16, io_bf16, forms, out);
+    case 32: return (int)ship_info<32>(D, Z, bf16, io_bf16, forms, out);
+    case 64: return (int)ship_info<64>(D, Z, bf16, io_bf16, forms, out);
+    case 128: return (int)ship_info<128>(D, Z, bf16, io_bf16, forms, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -35,7 +35,10 @@ The kernel has two bodies (:func:`plan`). The resident body keeps one
 window's whole pass in a block's shared memory and takes a window whose
 buffers fit there (:func:`shared_memory_bytes`: in float32 at H=128 up to
 136 steps, at H=64 up to 208, at H=32 up to 268; in bf16, whose operands
-are stored as bf16, further). The long body takes any longer window:
+are stored as bf16, further; Z up to 128, the JAX kernel's 128 lanes, did
+not move them: mu's slot of the per-window vectors grew into the MSE's
+reduction slots, which now sit over the dead pooled summary, and the
+``_SMALL`` floats stay 512). The long body takes any longer window:
 the stream and every head's q | k | v live in a device-memory slot of the
 block, and shared memory holds a row tile and one key block. The kernel
 source states its bound on the card and what its design does about it.
@@ -71,7 +74,7 @@ from shm_tpu_torch.ops._gate import (  # noqa: F401  (the fragment helpers re-ex
     unpack_bf16_b_fragments, unpack_fragments,
 )
 
-_H_MAX, _D_MAX, _Z_MAX, _L_MAX = 128, 128, 32, 2
+_H_MAX, _D_MAX, _Z_MAX, _L_MAX = 128, 128, 128, 2
 _MODEL_LN_EPS = 1e-5         # the model-level norm on the pooled summary
 # the kernel's tiling (csrc/fused_attention.cu): rows padded to _TM, q/k/v
 # rows to HEAD_DIM + 4, _QC query rows a score chunk, _SMALL scratch floats,

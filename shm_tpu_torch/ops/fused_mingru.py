@@ -25,6 +25,12 @@ the float32 sum to nearest); the MSE divides by the real ``T * D``.
 and :func:`kernel_info` says how the card takes it; neither is on a main
 path. ``sigmoid_impl`` is the JAX kernel's (the port defaults to "exact",
 JAX to "tanh"); "tanh" launches the tanh-form instance of its precision.
+
+The kernel is built for H in {32, 64, 128}; a model of any other width
+H <= 128 runs the next one on weights :func:`mingru_params_to_kernel_weights`
+pads with zeros (a padded unit's z is 1/2 and its h~ 0, so its h stays 0
+from h_0 = 0), LayerNorm over the model's own H, which the dict records. D
+and Z go up to 128, L to 4; past these bounds a CUDA call raises.
 """
 
 from __future__ import annotations
@@ -34,18 +40,17 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
-    activations, add_fragments, bf16_round, check_fragments, check_weights,
-    check_windows, dispatch_gate, f32, fragment_names, gate_dtypes,
-    plain_products, pointer_array,
+    HIDDEN_KEY, INSTANCE_WIDTHS, activations, add_fragments, bf16_round,
+    check_fragments, check_weights, check_windows, dispatch_gate, f32,
+    fragment_names, gate_dtypes, instance_width, layer_norm_real, pad_units,
+    plain_products, pointer_array, real_hidden,
 )
 
-_HIDDEN = (32, 64, 128)
-_D_MAX, _Z_MAX, _L_MAX = 16, 32, 4
+_H_MAX, _D_MAX, _Z_MAX, _L_MAX = 128, 128, 128, 4
 # pointer order of the C entries (csrc/fused_mingru.cu: shm_fused_mingru_gate_f32)
 _WEIGHT_ORDER = tuple(
     [f"enc{l}_wih" for l in range(_L_MAX)] + [f"enc{l}_b" for l in range(_L_MAX)]
@@ -68,22 +73,37 @@ def mingru_params_to_kernel_weights(
     its ``tf32x3_fragments`` (the input rows padded with zeros to a multiple
     of 8: D=12 to 16, D=3 to 8), which the float32 kernel reads, or for
     ``torch.bfloat16`` ``*_wih_frag_bf16``, the same of the weight rounded
-    to bf16, which the bf16 kernel reads."""
+    to bf16, which the bf16 kernel reads.
+
+    A width H that is no kernel instance's (H <= 128, not 32, 64 or 128) is
+    padded here, once, to the next one, as
+    ``fused_vae.vae_params_to_kernel_weights`` pads (the z and h~ halves
+    each get zero units); ``dict["hidden"]`` then holds H."""
     if vae.cell != "min_gru":
         raise ValueError(f"expected a cell='min_gru' VAE, got {vae.cell!r}")
+    H = vae.hidden_dim
+    Hp = instance_width(H)
+    rows = lambda t: pad_units(t, H, Hp, dim=0)
     w = {}
     for stack, prefix in ((vae.encoder_lstm, "enc"), (vae.decoder_lstm, "dec")):
         for l, layer in enumerate(stack.layers):
-            w[f"{prefix}{l}_wih"] = f32(layer.weight_ih.t())
-            w[f"{prefix}{l}_b"] = f32(layer.bias_ih)
+            wih = layer.weight_ih.t()
+            if prefix != "enc" or l > 0:
+                wih = rows(wih)
+            w[f"{prefix}{l}_wih"] = f32(pad_units(wih, H, Hp, groups=2))
+            w[f"{prefix}{l}_b"] = f32(pad_units(layer.bias_ih, H, Hp, groups=2))
             add_fragments(w, f"{prefix}{l}_wih", dtype)
     if vae.layer_norm is not None:
-        w["ln_scale"] = f32(vae.layer_norm.weight)
-        w["ln_bias"] = f32(vae.layer_norm.bias)
-    for name, fc in (("mu", vae.fc_mu), ("z2h", vae.fc_latent_to_hidden),
-                     ("out", vae.output_layer)):
-        w[f"{name}_w"] = f32(fc.weight.t())
-        w[f"{name}_b"] = f32(fc.bias)
+        w["ln_scale"] = f32(rows(vae.layer_norm.weight))
+        w["ln_bias"] = f32(rows(vae.layer_norm.bias))
+    w["mu_w"] = f32(rows(vae.fc_mu.weight.t()))
+    w["mu_b"] = f32(vae.fc_mu.bias)
+    w["z2h_w"] = f32(pad_units(vae.fc_latent_to_hidden.weight.t(), H, Hp))
+    w["z2h_b"] = f32(rows(vae.fc_latent_to_hidden.bias))
+    w["out_w"] = f32(rows(vae.output_layer.weight.t()))
+    w["out_b"] = f32(vae.output_layer.bias)
+    if Hp != H:
+        w[HIDDEN_KEY] = H
     return w
 
 
@@ -120,7 +140,8 @@ def fused_mingru_gate_reference(
     float32; every stored h_t (the input of the next product, rounded there
     anyway); and the output head's y before the residual. The sweep's
     running h, the encoder's last h (LayerNorm's input), LayerNorm and the
-    mse stay float32. ``io_dtype`` as in ``fused_vae_gate_reference``."""
+    mse stay float32. ``io_dtype`` as in ``fused_vae_gate_reference``; a
+    padded dict as there."""
     N, T, D = Z.shape
     H = weights["mu_w"].shape[0]
     bf16, io = gate_dtypes(Z, dtype, io_dtype)
@@ -142,8 +163,7 @@ def fused_mingru_gate_reference(
         seq = layer("enc", l, seq)
     h_last = seq[:, -1]
     if use_layernorm:
-        h_last = F.layer_norm(h_last, (H,), weights["ln_scale"],
-                              weights["ln_bias"], eps=1e-5)
+        h_last = layer_norm_real(h_last, weights)
     mu = mm(h_last, "mu_w") + weights["mu_b"]
     seq = torch.tanh(mm(mu, "z2h_w") + weights["z2h_b"])  # constant input
     for l in range(num_layers):
@@ -161,10 +181,13 @@ def _check(weights, Z, num_layers, use_layernorm, bf16=False,
                          f"got {num_layers}")
     H, Zd = weights["mu_w"].shape
     D = Z.shape[2]
-    if H not in _HIDDEN or D > _D_MAX or Zd > _Z_MAX:
-        raise ValueError(f"unsupported shape for the fused minGRU kernel: "
-                         f"H={H} (need one of {_HIDDEN}), D={D} (<= {_D_MAX}), "
-                         f"Z={Zd} (<= {_Z_MAX})")
+    if (H not in INSTANCE_WIDTHS or real_hidden(weights, H) > H or D > _D_MAX
+            or Zd > _Z_MAX):
+        raise ValueError(
+            f"unsupported shape for the fused minGRU kernel: "
+            f"H={real_hidden(weights, H)} (<= {_H_MAX}; weights {H} wide, need "
+            f"one of {INSTANCE_WIDTHS} as mingru_params_to_kernel_weights pads "
+            f"them), D={D} (<= {_D_MAX}), Z={Zd} (<= {_Z_MAX})")
     if weights["enc0_wih"].shape != (D, 2 * H):
         raise ValueError(f"enc0_wih {tuple(weights['enc0_wih'].shape)} does "
                          f"not match D={D}, H={H}")
@@ -183,39 +206,44 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_mingru")
     fn = lib.shm_fused_mingru_gate_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn = lib.shm_fused_mingru_gate_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
     fn = lib.shm_fused_mingru_variant
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     lib.shm_fused_mingru_info.restype = ctypes.c_int
-    lib.shm_fused_mingru_info.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.shm_fused_mingru_info.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return lib
 
 
-def kernel_info(T: int, H: int, L: int, *, dtype: torch.dtype = torch.float32,
+def kernel_info(T: int, H: int, L: int, *, D: int = 12, Z: int = 16,
+                dtype: torch.dtype = torch.float32,
                 io_dtype: Optional[torch.dtype] = None,
                 sigmoid_impl: str = "exact") -> dict:
     """How the card takes the kernel instance a call of
     ``fused_mingru_gate`` with these ``dtype``, ``io_dtype`` and
-    ``sigmoid_impl`` launches, for windows of T steps at width H with L
-    layers: registers and local-memory (spill) bytes a thread, threads and
-    dynamic shared bytes a block, windows a block, blocks an SM at once, and
-    steps a tile. The defaults are the shipping float32 instance."""
-    if H not in _HIDDEN or not 1 <= L <= _L_MAX or T < 1:
+    ``sigmoid_impl`` launches, for windows of T steps of D features at width
+    H (the instance of ``instance_width(H)``) with L layers and Z latents:
+    registers and local-memory (spill) bytes a thread, threads and dynamic
+    shared bytes a block, windows a block, blocks an SM at once, and steps a
+    tile. The defaults are the shipping float32 instance at the 4DOF
+    preset's D and Z (every D <= 16 and Z <= 32 take the same bytes)."""
+    Hp = instance_width(H)
+    if (Hp not in INSTANCE_WIDTHS or not 1 <= L <= _L_MAX or T < 1
+            or not 1 <= D <= _D_MAX or not 1 <= Z <= _Z_MAX):
         raise ValueError(f"unsupported shape for the fused minGRU kernel: "
-                         f"T={T}, H={H}, L={L}")
+                         f"T={T}, H={H}, L={L}, D={D}, Z={Z}")
     bf16, io = gate_dtypes(torch.empty(0), dtype, io_dtype)
     activations(sigmoid_impl)                       # raises for an unknown form
     lib = _library()
     out = (ctypes.c_int * 7)()
     raise_on_error(lib, lib.shm_fused_mingru_info(
-        T, H, L, int(bf16), int(io == torch.bfloat16),
+        T, Hp, L, D, Z, int(bf16), int(io == torch.bfloat16),
         int(sigmoid_impl == "tanh"), out), "fused_mingru_gate info")
     return dict(zip(("registers", "spill_bytes", "threads", "shared_bytes",
                      "windows_per_block", "blocks_per_sm", "steps_per_tile"),
@@ -279,8 +307,9 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
     order = fragment_names(_WEIGHT_ORDER, bf16)
     ptrs = pointer_array(weights, order, need)
     args = (Z.data_ptr(), resid.data_ptr() if with_residual else None,
-            mse.data_ptr(), ptrs, len(order), N, T, D, H, Zd, num_layers,
-            int(use_layernorm), int(with_residual), sig_tanh)
+            mse.data_ptr(), ptrs, len(order), N, T, D, H,
+            real_hidden(weights, H), Zd, num_layers, int(use_layernorm),
+            int(with_residual), sig_tanh)
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         if bf16:

@@ -23,6 +23,14 @@ feature padding). The same source also holds the float32
 FMA body that the probe variants of ``shm_tpu_torch/tools/probe_vpu_bound.py``
 time (C entry ``shm_fused_vae_probe``), which reaches the shipping body too.
 
+The kernel is built for H in {32, 64, 128}; a model of any other width
+H <= 128 runs the next one on weights :func:`vae_params_to_kernel_weights`
+pads with zeros (a padded LSTM unit has zero weights in and out and a zero
+bias, so i = f = o = 1/2, g = 0 and its c and h stay 0), and LayerNorm
+normalises over the model's own H, which the dict records. D and Z go up to
+128, as far as the JAX kernel is used; past these bounds a CUDA call
+raises.
+
 The JAX kernel's options ``sigmoid_impl`` / ``tanh_impl`` (activation
 forms) and ``residual_layout`` ("transposed": [T, Dp, N]) are taken under
 the same names; the port's forms default to "exact" / "exact" (the JAX
@@ -42,9 +50,10 @@ import torch.nn.functional as F
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
 from shm_tpu_torch.ops._gate import (
-    activations, add_fragments, check_fragments, check_weights, check_windows,
-    dispatch_gate, f32, fragment_names, gate_dtypes, plain_products,
-    pointer_array,
+    HIDDEN_KEY, INSTANCE_WIDTHS, activations, add_fragments, check_fragments,
+    check_weights, check_windows, dispatch_gate, f32, fragment_names,
+    gate_dtypes, instance_width, layer_norm_real, pad_units, plain_products,
+    pointer_array, real_hidden,
 )
 
 # the kernel's tensor-core products: every LSTM weight of both stacks
@@ -57,8 +66,7 @@ _WEIGHT_ORDER = (
     "dec0_wih", "dec0_whh", "dec0_b", "dec1_wih", "dec1_whh", "dec1_b",
     "out_w", "out_b",
 ) + tuple(f"{k}_frag" for k in _PRODUCTS)
-_HIDDEN = (32, 64, 128)
-_D_MAX, _Z_MAX = 16, 32
+_H_MAX, _D_MAX, _Z_MAX = 128, 128, 128
 # every weight the kernel multiplies by (rounded to bf16 in the bf16 mode)
 _PRODUCT_WEIGHTS = tuple(k for p in ("enc", "dec") for l in range(2)
                          for k in (f"{p}{l}_wih", f"{p}{l}_whh")) + (
@@ -79,25 +87,40 @@ def vae_params_to_kernel_weights(
     of 8: D=12 to 16, D=3 to 8), which the float32 kernel reads, or for
     ``torch.bfloat16`` ``*_frag_bf16``, the same of the weight rounded to
     bf16, which the bf16 kernel reads (``_gate.add_fragments``).
+
+    A width H that is no kernel instance's (H <= 128, not 32, 64 or 128) is
+    padded here, once, to the next one Hp (``_gate.instance_width``): each
+    gate's columns and every row over H get zero units (``_gate.pad_units``),
+    as do LayerNorm's scale and bias and the heads' rows and columns over H;
+    ``dict["hidden"]`` then holds H, over which LayerNorm normalises. The
+    padded units' h is exactly 0, so the plain version on this dict computes
+    the model's function.
     """
+    H = vae.hidden_dim
+    Hp = instance_width(H)
+    rows = lambda t: pad_units(t, H, Hp, dim=0)
+    gates = lambda t: pad_units(t, H, Hp, dim=-1, groups=4)
     w = {}
     for stack, prefix in ((vae.encoder_lstm, "enc"), (vae.decoder_lstm, "dec")):
         for l, layer in enumerate(stack.layers):
             p = f"{prefix}{l}"
-            w[f"{p}_wih"] = f32(layer.weight_ih.t())
-            w[f"{p}_whh"] = f32(layer.weight_hh.t())
-            w[f"{p}_b"] = f32(layer.bias_ih + layer.bias_hh)
+            wih = layer.weight_ih.t()
+            w[f"{p}_wih"] = f32(gates(wih if p == "enc0" else rows(wih)))
+            w[f"{p}_whh"] = f32(gates(rows(layer.weight_hh.t())))
+            w[f"{p}_b"] = f32(gates(layer.bias_ih + layer.bias_hh))
             for k in ("wih", "whh"):
                 add_fragments(w, f"{p}_{k}", dtype)
     if vae.layer_norm is not None:
-        w["ln_scale"] = f32(vae.layer_norm.weight)
-        w["ln_bias"] = f32(vae.layer_norm.bias)
-    w["mu_w"] = f32(vae.fc_mu.weight.t())
+        w["ln_scale"] = f32(rows(vae.layer_norm.weight))
+        w["ln_bias"] = f32(rows(vae.layer_norm.bias))
+    w["mu_w"] = f32(rows(vae.fc_mu.weight.t()))
     w["mu_b"] = f32(vae.fc_mu.bias)
-    w["z2h_w"] = f32(vae.fc_latent_to_hidden.weight.t())
-    w["z2h_b"] = f32(vae.fc_latent_to_hidden.bias)
-    w["out_w"] = f32(vae.output_layer.weight.t())
+    w["z2h_w"] = f32(pad_units(vae.fc_latent_to_hidden.weight.t(), H, Hp))
+    w["z2h_b"] = f32(rows(vae.fc_latent_to_hidden.bias))
+    w["out_w"] = f32(rows(vae.output_layer.weight.t()))
     w["out_b"] = f32(vae.output_layer.bias)
+    if Hp != H:
+        w[HIDDEN_KEY] = H
     return w
 
 
@@ -123,7 +146,9 @@ def fused_vae_gate_reference(
     ``z2h``, the decoder's constant projection, the output head), the
     products summed in float32; h, c, LayerNorm and the mse stay float32.
     ``io_dtype`` bf16 reads the windows as bf16 (in the residual's ``x - y``
-    too) and returns the residual as bf16."""
+    too) and returns the residual as bf16. On a padded dict
+    (:func:`vae_params_to_kernel_weights`) it runs at the padded width, and
+    LayerNorm over the model's own."""
     N, T, D = Z.shape
     H = weights["enc0_whh"].shape[0]
     bf16, io = gate_dtypes(Z, dtype, io_dtype)
@@ -149,8 +174,7 @@ def fused_vae_gate_reference(
             inp = hs[l]
     h_last = hs[-1]
     if use_layernorm:
-        h_last = F.layer_norm(h_last, (H,), weights["ln_scale"],
-                              weights["ln_bias"], eps=1e-5)
+        h_last = layer_norm_real(h_last, weights)
     mu = mm(h_last, "mu_w") + weights["mu_b"]
     dec_in = tanh(mm(mu, "z2h_w") + weights["z2h_b"])
     xp_const = mm(dec_in, "dec0_wih") + weights["dec0_b"]   # once
@@ -208,10 +232,13 @@ def _check(weights, Z, num_layers, use_layernorm, bf16=False,
     H = weights["enc0_whh"].shape[0]
     D = Z.shape[2]
     Zd = weights["mu_w"].shape[1]
-    if H not in _HIDDEN or D > _D_MAX or Zd > _Z_MAX:
-        raise ValueError(f"unsupported shape for the fused kernel: H={H} "
-                         f"(need one of {_HIDDEN}), D={D} (<= {_D_MAX}), "
-                         f"Z={Zd} (<= {_Z_MAX})")
+    if (H not in INSTANCE_WIDTHS or real_hidden(weights, H) > H or D > _D_MAX
+            or Zd > _Z_MAX):
+        raise ValueError(
+            f"unsupported shape for the fused kernel: H={real_hidden(weights, H)} "
+            f"(<= {_H_MAX}; weights {H} wide, need one of {INSTANCE_WIDTHS} "
+            f"as vae_params_to_kernel_weights pads them), D={D} (<= {_D_MAX}), "
+            f"Z={Zd} (<= {_Z_MAX})")
     if weights["enc0_wih"].shape != (D, 4 * H):
         raise ValueError(f"enc0_wih {tuple(weights['enc0_wih'].shape)} does "
                          f"not match D={D}, H={H}")
@@ -230,11 +257,11 @@ def _library() -> ctypes.CDLL:
     lib = load_library("fused_vae")
     fn = lib.shm_fused_vae_gate_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
     fn = lib.shm_fused_vae_gate_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
                    + [ctypes.c_void_p])
     # the probe variants of the same kernel (tools/probe_vpu_bound.py)
     fn = lib.shm_fused_vae_probe
@@ -242,7 +269,7 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_void_p])
     lib.shm_fused_vae_info.restype = ctypes.c_int
-    lib.shm_fused_vae_info.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.shm_fused_vae_info.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return lib
 
 
@@ -254,24 +281,29 @@ def _act(sigmoid_impl: str, tanh_impl: str) -> int:
     return int(sigmoid_impl == "tanh") | 2 * int(tanh_impl == "rational")
 
 
-def kernel_info(T: int, H: int, L: int, *, dtype: torch.dtype = torch.float32,
+def kernel_info(T: int, H: int, L: int, *, D: int = 12, Z: int = 16,
+                dtype: torch.dtype = torch.float32,
                 io_dtype: Optional[torch.dtype] = None,
                 sigmoid_impl: str = "exact", tanh_impl: str = "exact") -> dict:
     """How the card takes the kernel instance a call of ``fused_vae_gate``
     with these ``dtype``, ``io_dtype`` and forms launches, for windows of T
-    steps at width H with L layers: registers and local-memory (spill)
-    bytes a thread, threads and dynamic shared bytes a block, windows a
-    block, blocks an SM at once. The defaults are the float32 instance of
-    the default forms."""
-    if H not in _HIDDEN or L not in (1, 2) or T < 1:
+    steps of D features at width H (the instance of ``instance_width(H)``)
+    with L layers and Z latents: registers and local-memory (spill) bytes a
+    thread, threads and dynamic shared bytes a block, windows a block,
+    blocks an SM at once. The defaults are the float32 instance of the
+    default forms at the 4DOF preset's D and Z (every D <= 16 and Z <= 32
+    take the same bytes)."""
+    Hp = instance_width(H)
+    if (Hp not in INSTANCE_WIDTHS or L not in (1, 2) or T < 1
+            or not 1 <= D <= _D_MAX or not 1 <= Z <= _Z_MAX):
         raise ValueError(f"unsupported shape for the fused kernel: T={T}, "
-                         f"H={H}, L={L}")
+                         f"H={H}, L={L}, D={D}, Z={Z}")
     bf16, io = gate_dtypes(torch.empty(0), dtype, io_dtype)
     forms = int(_act(sigmoid_impl, tanh_impl) != 0)
     lib = _library()
     out = (ctypes.c_int * 6)()
     raise_on_error(lib, lib.shm_fused_vae_info(
-        T, H, L, int(bf16), int(io == torch.bfloat16), forms, out),
+        T, Hp, L, D, Z, int(bf16), int(io == torch.bfloat16), forms, out),
         "fused_vae_gate info")
     return dict(zip(("registers", "spill_bytes", "threads", "shared_bytes",
                      "windows_per_block", "blocks_per_sm"), out))
@@ -297,8 +329,9 @@ def _launch(weights, Z, num_layers, use_layernorm, with_residual, dtype,
     order = fragment_names(_WEIGHT_ORDER, bf16)
     ptrs = pointer_array(weights, order, need)
     args = (Z.data_ptr(), resid.data_ptr() if with_residual else None,
-            mse.data_ptr(), ptrs, len(order), N, T, D, H, Zd, num_layers,
-            int(use_layernorm), int(with_residual), act, int(transposed))
+            mse.data_ptr(), ptrs, len(order), N, T, D, H,
+            real_hidden(weights, H), Zd, num_layers, int(use_layernorm),
+            int(with_residual), act, int(transposed))
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         if bf16:

@@ -42,6 +42,15 @@ backward, the explicit reverse scan and gradient pass
 (:func:`enc_backward_reference`, :func:`dec_backward_reference`). Autograd
 through a bf16 forward would round the gradient at the casts, which the JAX
 kernels' backward does not. Any other type raises ``ValueError``.
+
+The kernels are built for H in {32, 64, 128}. On a CUDA tensor the ops run
+any other width H <= 128 at the next one (:func:`enc_last_padded`,
+:func:`dec_head_padded`): the weights, the head and the mask are padded with
+zero units by differentiable operations outside the ``autograd.Function``
+(a padded unit's gates are i = f = o = 1/2, g = 0, so its c and h stay 0),
+and the output sliced back, so autograd slices the gradients back too and
+an optimizer never sees a padded weight. Inputs wider than ``D <= 32`` (the
+encoder's) or ``K <= 128`` (the decoder's) and H > 128 raise.
 """
 
 from __future__ import annotations
@@ -54,10 +63,11 @@ import torch
 
 from shm_tpu_torch.models.vae import TemporalVAE
 from shm_tpu_torch.ops._build import count_launch, load_library, raise_on_error
-from shm_tpu_torch.ops._gate import bf16_round
+from shm_tpu_torch.ops._gate import (
+    INSTANCE_WIDTHS, bf16_round, instance_width, pad_units,
+)
 
-_HIDDEN = (32, 64, 128)
-_D_MAX, _K_MAX = 32, 128
+_H_MAX, _D_MAX, _K_MAX = 128, 32, 128
 _T_PER_SPLIT = 4        # steps per partial sum of the weight-gradient pass
 
 
@@ -351,9 +361,10 @@ def _f32c(name: str, t: torch.Tensor, device, shape=None) -> torch.Tensor:
 def _stack_weights(dev, in_dim, H, w0i, w0h, b0, w1i, w1h, b1):
     """Checked kernel weight list (w0i, w0h, b0, w1i, w1h, b1): the tensors
     as given, [4H, in] and [4H, 1], no copy of a contiguous one."""
-    if H not in _HIDDEN:
+    if H not in INSTANCE_WIDTHS:
         raise ValueError(f"unsupported hidden size for the LSTM training "
-                         f"kernels: H={H} (need one of {_HIDDEN})")
+                         f"kernels: H={H} (<= {_H_MAX}; the ops pad it to one "
+                         f"of {INSTANCE_WIDTHS})")
     w0i = _f32c("w0i", w0i, dev, (4 * H, in_dim))
     w0h = _f32c("w0h", w0h, dev, (4 * H, H))
     w1i = _f32c("w1i", w1i, dev, (4 * H, H))
@@ -570,6 +581,47 @@ class _DecHead(torch.autograd.Function):
         return (grads[0], None, None, None, None) + grads[1:]
 
 
+def pad_hidden(H: int, Hp: int, dm, w0i, w0h, b0, w1i, w1h, b1, *head):
+    """``(dm, w0i, w0h, b0, w1i, w1h, b1, *head)`` of a stack of width H
+    widened to Hp by zero units (``_gate.pad_units``, differentiable): each
+    gate's rows of the weights and biases, the columns over H of ``w0h``,
+    ``w1i``, ``w1h`` and of the head's ``out_w`` [D, H], and the mask's units
+    (``dm`` None stays None). ``w0i``'s input columns (D, or the decoder's
+    K) and ``out_b`` are kept."""
+    gates = lambda t: pad_units(t, H, Hp, dim=0, groups=4)
+    units = lambda t: pad_units(t, H, Hp, dim=1)
+    dm = None if dm is None else units(dm)
+    ws = (gates(w0i), units(gates(w0h)), gates(b0), units(gates(w1i)),
+          units(gates(w1h)), gates(b1))
+    head = (units(head[0]), head[1]) if head else ()
+    return (dm,) + ws + head
+
+
+def enc_last_padded(xs, dm, w0i, w0h, b0, w1i, w1h, b1,
+                    dtype=torch.float32) -> torch.Tensor:
+    """The encoder op's ``autograd.Function`` at the kernel instance's width
+    ``Hp = instance_width(H)`` on the inputs padded by :func:`pad_hidden`,
+    its h_last sliced back to [H, B]: what :func:`lstm2_enc_last` runs on a
+    CUDA tensor; on a CPU tensor it runs the plain forward and backward at
+    that width."""
+    H = w0h.shape[1]
+    Hp = instance_width(H)
+    dm, *w = pad_hidden(H, Hp, dm, w0i, w0h, b0, w1i, w1h, b1)
+    h = _EncLast.apply(xs, dm, _wants_grad(xs, *w), dtype, *w)
+    return h if Hp == H else h[:H]
+
+
+def dec_head_padded(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1, out_w, out_b,
+                    T: int, dtype=torch.float32) -> torch.Tensor:
+    """The decoder op's ``autograd.Function`` at the kernel instance's
+    width, as :func:`enc_last_padded`: recon [T, D, B] (no unit of it is
+    padded)."""
+    H = w0h.shape[1]
+    Hp = instance_width(H)
+    dm, *w = pad_hidden(H, Hp, dm, w0i, w0h, b0, w1i, w1h, b1, out_w, out_b)
+    return _DecHead.apply(dec_in, dm, T, _wants_grad(dec_in, *w), dtype, *w)
+
+
 def _wants_grad(*tensors) -> bool:
     """Whether a backward can follow (decided outside the Function: autograd
     is switched off inside ``forward``); without one no stash is written."""
@@ -581,13 +633,16 @@ def lstm2_enc_last(xs, dm, w0i, w0h, b0, w1i, w1h, b1,
     """Two-layer LSTM over a sequence -> the LAST top-layer state [H, B].
 
     Differentiable in xs and the six weights; the mask is a constant. A CUDA
-    tensor runs the kernels (their bf16 instances at ``dtype=bfloat16``), a
-    CPU tensor the plain version.
+    tensor runs the kernels (their bf16 instances at ``dtype=bfloat16``; a
+    width H that is no kernel instance's padded to the next,
+    :func:`enc_last_padded`), a CPU tensor the plain version.
     """
     w = (w0i, w0h, b0, w1i, w1h, b1)
     if xs.device.type not in ("cuda", "cpu"):
         raise ValueError(f"lstm2_enc_last: unsupported device {xs.device}")
-    if xs.device.type == "cuda" or _is_bf16(dtype):
+    if xs.device.type == "cuda":
+        return enc_last_padded(xs, dm, *w, dtype=dtype)
+    if _is_bf16(dtype):
         return _EncLast.apply(xs, dm, _wants_grad(xs, *w), dtype, *w)
     return lstm2_scan_reference(xs, None if dm is None else dm.detach(), *w)[-1]
 
@@ -601,7 +656,9 @@ def lstm2_dec_head(dec_in, dm, w0i, w0h, b0, w1i, w1h, b1, out_w, out_b,
     w = (w0i, w0h, b0, w1i, w1h, b1, out_w, out_b)
     if dec_in.device.type not in ("cuda", "cpu"):
         raise ValueError(f"lstm2_dec_head: unsupported device {dec_in.device}")
-    if dec_in.device.type == "cuda" or _is_bf16(dtype):
+    if dec_in.device.type == "cuda":
+        return dec_head_padded(dec_in, dm, *w, T=T, dtype=dtype)
+    if _is_bf16(dtype):
         return _DecHead.apply(dec_in, dm, T, _wants_grad(dec_in, *w), dtype, *w)
     return lstm2_dec_head_reference(dec_in, None if dm is None else dm.detach(),
                                     *w, T)
@@ -687,4 +744,5 @@ __all__ = [
     "dec_backward_cuda", "fwd_scan_info", "bwd_scan_info",
     "enc_forward_reference", "dec_forward_reference",
     "enc_backward_reference", "dec_backward_reference",
+    "pad_hidden", "enc_last_padded", "dec_head_padded",
 ]

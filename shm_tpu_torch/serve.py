@@ -100,8 +100,9 @@ class HybridScorer:
     ``device``: ``None`` means the CUDA card (raises without one); tests pass
     ``"cpu"``. ``use_fused_vae``: ``None`` asks
     :func:`shm_tpu_torch.ops.auto_fused_gate`: on CUDA the fused kernel of
-    the VAE's cell, which raises for a cell or a shape it does not take; on
-    the CPU the plain modules.
+    the VAE's cell where the JAX package runs its kernel (which raises for a
+    shape past the port's bounds), the plain modules where the JAX package
+    computes on XLA; on the CPU the plain modules.
 
     ``fused_dtype``: the fused gate's precision, float32 (the port's
     default) or ``torch.bfloat16`` (the kernel's bf16 instance, the JAX
@@ -144,7 +145,7 @@ class HybridScorer:
         if use_fused_vae is None:
             from shm_tpu_torch.ops import auto_fused_gate
 
-            use_fused_vae = auto_fused_gate(self.device)
+            use_fused_vae = auto_fused_gate(vae, self.device)
         self.use_fused_vae = bool(use_fused_vae)
         self.fused_dtype = fused_dtype
         self.mesh = mesh

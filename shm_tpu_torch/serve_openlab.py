@@ -136,9 +136,10 @@ class OpenLabScorer:
     classical model on the anomalous windows' features (``ml_predict``:
     features (n, 76) -> p(ST) float64). ``device``: ``None`` is the CUDA
     card (raises without one); tests pass ``"cpu"``. ``use_fused_gate``:
-    ``None`` asks :func:`shm_tpu_torch.ops.auto_fused_gate` (the fused
-    kernel on CUDA, which raises for a cell or shape it does not take; the
-    plain model on the CPU). ``gate_io_dtype``: float32 (the port's
+    ``None`` asks :func:`shm_tpu_torch.ops.auto_fused_gate` (on CUDA the
+    fused kernel where the JAX package runs its kernel, which raises for a
+    shape past the port's bounds, else the plain model; the plain model on
+    the CPU). ``gate_io_dtype``: float32 (the port's
     default), or ``torch.bfloat16``, what the JAX scorer runs on its chip:
     the fused gate's bf16 instance with a bf16 window tile; the plain model
     ignores it. ``mesh``: a :class:`shm_tpu_torch.parallel.Mesh` (one
@@ -184,7 +185,7 @@ class OpenLabScorer:
         if use_fused_gate is None:
             from shm_tpu_torch.ops import auto_fused_gate
 
-            use_fused_gate = auto_fused_gate(self.device)
+            use_fused_gate = auto_fused_gate(vae, self.device)
         self.use_fused_gate = bool(use_fused_gate)
         self.use_fused_vae = self.use_fused_gate
         gate_dtypes(torch.empty(0), gate_io_dtype, gate_io_dtype)  # or raise

@@ -519,8 +519,9 @@ def reconstruction_mse(
     ``sample=True`` draws the reparameterisation noise from ``generator``.
     ``fused="auto"`` routes deterministic scoring on the card through the
     gate-only mode of the fused kernel of the model's cell
-    (``with_residual=False``: no residual store), which raises for a cell or
-    a shape it does not take;
+    (``with_residual=False``: no residual store) where
+    :func:`shm_tpu_torch.ops.auto_fused_gate` says so (the JAX package's
+    rule), which raises for a shape past the port's bounds;
     ``fused=False``, sampling, or the CPU run the model in padded batches of
     ``batch_size``. The model is moved to ``device``
     (None = the CUDA card) and put in eval mode.
@@ -535,7 +536,7 @@ def reconstruction_mse(
     from shm_tpu_torch.ops import auto_fused_gate, fused_gate_for
 
     if fused == "auto":
-        fused = auto_fused_gate(device)
+        fused = auto_fused_gate(model, device)
     if fused and not sample:
         weights_fn, fused_gate = fused_gate_for(model)
         mse, _ = fused_gate(

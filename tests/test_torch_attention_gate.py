@@ -35,6 +35,9 @@ CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
     "L2_H128_ln": (9, 12, 12, 16, 128, 2, True, True),
     "L2_H32_ln_gate_only": (13, 16, 12, 16, 32, 2, True, False),
     "L2_H32_T130": (5, 130, 5, 4, 32, 2, True, True),     # more than 128 keys
+    # latents past 32, to the JAX kernel's 128 lanes
+    "L2_H32_Z64": (13, 16, 12, 64, 32, 2, True, True),
+    "L1_H64_Z128": (10, 24, 3, 128, 64, 1, True, True),
 }
 
 
@@ -194,14 +197,15 @@ def test_shared_memory_plan_refuses_a_window_too_long_for_a_block(H, longest):
 @pytest.mark.parametrize("bad, match", [
     (dict(num_layers=3), "1- or 2-layer"),
     (dict(D=130), "unsupported shape"),
-    (dict(Zd=33), "unsupported shape"),
+    (dict(Zd=129), "unsupported shape"),
     (dict(dtype=torch.float64), "float32"),
     (dict(transpose=True), "contiguous"),
     (dict(Z_D=7), "does not match"),
     (dict(T=0), "T >= 1"),
 ])
 def test_kernel_argument_checks(bad, match):
-    """The checks the CUDA wrapper makes before a launch (run on the CPU)."""
+    """The checks the CUDA wrapper makes before a launch (run on the CPU):
+    past the kernel's bounds (D and Z to 128) a shape is refused."""
     D, Zd, T = bad.get("D", 12), bad.get("Zd", 4), bad.get("T", 5)
     cfg = VAEConfig(input_dim=D, latent_dim=Zd, hidden_dim=128, num_layers=2,
                     cell="attention")

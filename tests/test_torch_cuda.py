@@ -28,6 +28,11 @@ CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
     "gate_only": (50, 30, 12, 16, 128, 2, True, False),
     # ragged against 32 and 64 windows a block: 1 and 33 windows in the last
     "4dof_N97": (97, 100, 12, 16, 128, 2, True, True),
+    # widths padded to an instance (LayerNorm over the model's own), D and Z
+    # past 16 and 32 (the output head's slots past the registers')
+    "H48_D64_Z64": (40, 60, 64, 64, 48, 2, True, True),
+    "H96_D20_Z128_noln": (33, 40, 20, 128, 96, 2, False, True),
+    "H128_D128_Z128_L1": (20, 30, 128, 128, 128, 1, True, True),
 }
 
 # the gate kernels' shared shapes (the LSTM kernel is also held at CASES)
@@ -43,6 +48,9 @@ GATE_CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
     "T130_H32": (17, 130, 5, 4, 32, 2, True, True),
     "T136_H128": (19, 136, 12, 16, 128, 2, True, True),
     "H64_L1": (23, 100, 12, 16, 64, 1, True, True),
+    # latents past 32, to 128 (every cell)
+    "Z64_H64_L1": (23, 100, 12, 64, 64, 1, True, True),
+    "Z128_H128": (17, 50, 12, 128, 128, 2, True, True),
 }
 
 
@@ -85,7 +93,9 @@ def test_fused_vae_kernel_matches_plain_version(cuda_device, name):
 
 @pytest.mark.cuda
 def test_fused_vae_kernel_refuses_bad_input(cuda_device):
-    cfg = VAEConfig(input_dim=12, latent_dim=4, hidden_dim=48, num_layers=1)
+    """Past the kernel's reach (H > 128; any H <= 128 runs padded) a call
+    raises, and the caller never gives way to the plain model."""
+    cfg = VAEConfig(input_dim=12, latent_dim=4, hidden_dim=160, num_layers=1)
     vae = vae_from_flax(random_flax_vae_params(np.random.default_rng(0), cfg),
                         cfg).to(cuda_device)
     w = vae_params_to_kernel_weights(vae)
@@ -112,6 +122,8 @@ LSTM_CASES = {  # name: (T, D, H, B, dropout)
     "batch_1024_H128": (12, 12, 128, 1024, 0.3),
     "one_window_H128": (9, 12, 128, 1, 0.3),
     "ragged_H32": (11, 12, 32, 21, 0.3),
+    # a width padded to the H=64 instance around the autograd.Function
+    "H48": (20, 12, 48, 64, 0.3),
 }
 
 
@@ -213,9 +225,11 @@ def test_lstm_backward_is_reproducible_bit_for_bit(cuda_device):
 
 @pytest.mark.cuda
 def test_lstm_kernels_refuse_bad_input(cuda_device):
+    """Past the kernels' reach (H > 128; any H <= 128 runs padded) the op
+    raises before a launch."""
     from shm_tpu_torch.ops import lstm2_enc_last
 
-    H = 48
+    H = 160
     z = lambda *s: torch.zeros(*s, device=cuda_device)
     with pytest.raises(ValueError, match="unsupported hidden size"):
         lstm2_enc_last(z(3, 4, 2), None, z(4 * H, 4), z(4 * H, H), z(4 * H, 1),
@@ -266,12 +280,19 @@ def test_lstm_forwards_write_what_the_plain_forward_keeps(cuda_device, name):
     recon), the final state, the stash and the gate stash against
     ``lstm2_scan_stash_reference``; two runs give the same bits."""
     from shm_tpu_torch.ops import lstm2_scan_stash_reference
-    from shm_tpu_torch.ops.lstm_train import dec_forward_cuda, enc_forward_cuda
+    from shm_tpu_torch.ops._gate import instance_width
+    from shm_tpu_torch.ops.lstm_train import (
+        dec_forward_cuda, enc_forward_cuda, pad_hidden,
+    )
 
     (T, D, H, B), rng, t, u, ws, dm = _lstm_inputs(name, cuda_device)
     xs = t(rng.normal(size=(T, D, B)))
     din = t(rng.normal(size=(H, B)))
     dec_w = [u(4 * H, H)] + ws[1:] + [u(D, H), u(D, 1)]
+    Hp = instance_width(H)
+    if Hp != H:     # the kernels' width: both sides on the padded inputs
+        _, *dec_w = pad_hidden(H, Hp, dm, *dec_w)
+        dm, *ws = pad_hidden(H, Hp, dm, *ws)
     with torch.no_grad():
         h1s, stash, gates, fin = lstm2_scan_stash_reference(xs, dm, *ws)
         enc_want = (h1s[-1], stash, gates, fin)
@@ -329,6 +350,10 @@ MINGRU_CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
     "mingru_T61_L4_H64": (33, 61, 3, 8, 64, 4, False, True),
     "mingru_T5_L4_H32": (50, 5, 12, 5, 32, 4, True, True),
     "mingru_T61_L2_H32_gate_only": (20, 61, 12, 16, 32, 2, True, False),
+    # padded widths, D and Z to 128, the largest block (L=4, H=128, D=Z=128)
+    "mingru_H48_D64_Z64": (40, 60, 64, 64, 48, 2, True, True),
+    "mingru_H96_D20_Z128_L3": (33, 40, 20, 128, 96, 3, False, True),
+    "mingru_L4_H128_D128_Z128": (20, 30, 128, 128, 128, 4, True, True),
 }
 
 
@@ -676,6 +701,23 @@ def test_fused_mingru_kernel_fits_the_card(cuda_device, H, L):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H", [32, 64, 128])
+def test_gate_kernels_keep_their_bytes_and_fit_at_the_widest_inputs(cuda_device, H):
+    """Every D <= 16 and Z <= 32 takes the bytes the fixed tiles had (the 4DOF
+    preset's); at D = Z = 128 (minGRU at 4 layers) a block still fits the
+    card's shared memory."""
+    from shm_tpu_torch.ops import fused_mingru, fused_vae
+
+    for mod, L in ((fused_vae, 2), (fused_mingru, 4)):
+        base = mod.kernel_info(100, H, L)
+        assert mod.kernel_info(100, H, L, D=16, Z=32) == base
+        assert mod.kernel_info(100, H, L, D=3, Z=5) == base
+        wide = mod.kernel_info(100, H, L, D=128, Z=128)
+        assert base["shared_bytes"] < wide["shared_bytes"] <= 232448
+        assert wide["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tc, mt", [(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2)])
 def test_fused_mingru_variant_tiles_match_plain_version(cuda_device, tc, mt):
     """Each tile of the variant entry (TC steps, MT m-tiles) against the
@@ -752,19 +794,50 @@ def test_fused_mingru_variant_sums_on_the_roots_windows(cuda_device, mingru_root
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell, H, L", [("lstm", 128, 3), ("attention", 64, 3),
-                                        ("attention", 256, 1)])
-def test_default_scorer_raises_for_a_preset_the_kernel_does_not_take(cuda_device, cell, H, L):
-    """On the card the default is the fused gate for every model: a preset
-    the cell's kernel does not take raises, it never runs the plain modules."""
+                                        ("attention", 256, 1), ("attention", 48, 1)])
+def test_default_scorer_routes_a_preset_the_jax_rule_sends_to_xla(cuda_device, cell, H, L):
+    """On the card the default follows the JAX package's rule: a preset it
+    computes on XLA (any cell at 3 layers, attention at H not a multiple of
+    32 or past 128) runs the plain modules, launches no gate kernel, and
+    gives what the plain path gives; so does ``reconstruction_mse``."""
+    from shm_tpu_torch.models import CNN4DOF, TemporalVAE
+    from shm_tpu_torch.serve import HybridScorer
+    from shm_tpu_torch.train import reconstruction_mse
+
+    torch.manual_seed(0)
+    vae, cnn = TemporalVAE(12, 16, H, L, cell=cell), CNN4DOF(2, 100, 12)
+    W = np.random.default_rng(0).normal(size=(8, 100, 12)).astype(np.float32)
+    gates = [_gate(c)[1] for c in ("lstm", "min_gru", "attention")]
+    before = [(g.launches, g.bf16_launches) for g in gates]
+    make = lambda fused: HybridScorer(vae, cnn, np.zeros(12), np.ones(12), 0.5,
+                                      use_fused_vae=fused, min_bucket=8,
+                                      max_batch=8)
+    scorer = make(None)
+    assert not scorer.use_fused_vae
+    got, want = scorer.score(W), make(False).score(W)
+    for k in ("mse", "anomalous", "y_pred"):
+        np.testing.assert_array_equal(got[k], want[k])
+    # cuDNN picks the CNN's algorithm per call (phase 11's bound)
+    np.testing.assert_allclose(got["p_struct"], want["p_struct"], atol=1e-6)
+    np.testing.assert_array_equal(reconstruction_mse(vae, W),
+                                  reconstruction_mse(vae, W, fused=False))
+    assert [(g.launches, g.bf16_launches) for g in gates] == before
+
+
+@pytest.mark.cuda
+def test_default_scorer_raises_past_the_ports_bound(cuda_device):
+    """An LSTM of H=160 is inside the JAX kernel's reach, so the rule sends
+    it to the port's kernel, which refuses it: the scorer raises and never
+    runs the plain modules."""
     from shm_tpu_torch.models import CNN4DOF, TemporalVAE
     from shm_tpu_torch.serve import HybridScorer
 
-    gate = _gate(cell)[1]
+    gate = _gate("lstm")[1]
     before = gate.launches
-    with pytest.raises(ValueError, match="layer|unsupported shape"):
-        scorer = HybridScorer(TemporalVAE(12, 16, H, L, cell=cell),
-                              CNN4DOF(2, 100, 12), np.zeros(12), np.ones(12),
-                              0.5, min_bucket=8, max_batch=8)
+    with pytest.raises(ValueError, match="unsupported shape.*H=160"):
+        scorer = HybridScorer(TemporalVAE(12, 16, 160, 2), CNN4DOF(2, 100, 12),
+                              np.zeros(12), np.ones(12), 0.5, min_bucket=8,
+                              max_batch=8)
         assert scorer.use_fused_vae
         scorer.score(np.zeros((8, 100, 12), np.float32))
     assert gate.launches == before

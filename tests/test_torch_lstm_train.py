@@ -7,6 +7,12 @@ runs it. Forward values are held to atol 2e-6 and gradients to
 atol 1e-5 * max(1, max|ref|): both sides compute in float32; they differ in
 summation order and in the sigmoid's form (the Pallas kernel evaluates it
 through tanh).
+
+On the card a width H that is no kernel instance's (32, 64, 128) runs padded
+to the next one around the ``autograd.Function``; here
+``enc_last_padded`` / ``dec_head_padded`` run the same padding around the
+Function's plain forward and explicit backward, at H=8 (the JAX test's own)
+and H=48, held to the JAX custom VJP: the padding's exactness on the CPU.
 """
 
 import jax
@@ -27,6 +33,7 @@ from shm_tpu_torch.ops import (
     lstm2_dec_head, lstm2_dec_head_reference, lstm2_enc_last,
     lstm2_scan_reference, vae_train_forward,
 )
+from shm_tpu_torch.ops.lstm_train import dec_head_padded, enc_last_padded
 
 # pytest-xdist runs several test files at once on the same cores; torch's
 # default of one thread per core makes those workers spin against each other.
@@ -119,6 +126,75 @@ def test_dec_gradient_matches_jax(scan_setup, idx):
     out = lstm2_dec_head(leaves[0], torch.from_numpy(dm), *leaves[1:], T=T)
     got = torch.autograd.grad((out * torch.from_numpy(R)).sum(), leaves)
     _grad_close(got[idx], ref[idx], DEC_NAMES[idx])
+
+
+PADDED_H = (8, 48)            # run at the H=32 and H=64 instances
+
+
+@pytest.fixture(scope="module")
+def padded_runs():
+    """For H in PADDED_H, on the shapes of ``scan_setup`` (T=12, D=6, B=32,
+    a 5-wide head): the forward and every gradient of both ops through
+    ``*_padded`` (the plain forward and backward at the padded width) and
+    through the JAX custom VJP, from the same numpy-seeded inputs."""
+    out = {}
+    for H in PADDED_H:
+        rng = np.random.default_rng(H)
+        T, Din, B = 12, 6, 32
+        w = lambda *shape: (rng.normal(size=shape) * 0.3).astype(np.float32)
+        xs, din = w(T, Din, B) / 0.3, w(H, B) / 0.3
+        dm = ((rng.random((T, H, B)) > 0.3) / 0.7).astype(np.float32)
+        enc = [w(4 * H, Din), w(4 * H, H), w(4 * H, 1),
+               w(4 * H, H), w(4 * H, H), w(4 * H, 1)]
+        dec = [w(4 * H, H), w(4 * H, H), w(4 * H, 1),
+               w(4 * H, H), w(4 * H, H), w(4 * H, 1), w(5, H), w(5, 1)]
+        R_enc, R_dec = w(H, B), w(T, 5, B)
+
+        def jax_side(op, args, R):
+            f = lambda a: op(a[0], jnp.asarray(dm), *a[1:])
+            val = f([jnp.asarray(x) for x in args])
+            g = jax.grad(lambda a: jnp.sum(f(a) * R))(
+                [jnp.asarray(x) for x in args])
+            return np.asarray(val), [np.asarray(x) for x in g]
+
+        def port_side(op, args, R):
+            leaves = _leaves(args)
+            val = op(leaves[0], torch.from_numpy(dm), *leaves[1:])
+            g = torch.autograd.grad((val * torch.from_numpy(R)).sum(), leaves)
+            return val.detach(), g
+
+        out[H] = {
+            "enc": (port_side(enc_last_padded, [xs] + enc, R_enc),
+                    jax_side(lambda x, m, *a: jax_enc_last(
+                        x, m, *a, 16, jnp.float32, True), [xs] + enc, R_enc)),
+            "dec": (port_side(lambda x, m, *a: dec_head_padded(x, m, *a, T=T),
+                              [din] + dec, R_dec),
+                    jax_side(lambda x, m, *a: jax_dec_head(
+                        x, m, *a, T, 16, jnp.float32, True), [din] + dec, R_dec)),
+        }
+    return out
+
+
+@pytest.mark.parametrize("H", list(PADDED_H))
+@pytest.mark.parametrize("stack", ["enc", "dec"])
+def test_padded_forward_matches_jax(padded_runs, H, stack):
+    (got, _), (ref, _) = padded_runs[H][stack]
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("H", list(PADDED_H))
+@pytest.mark.parametrize("stack, idx", [("enc", i) for i in range(len(ENC_NAMES))]
+                         + [("dec", i) for i in range(len(DEC_NAMES))],
+                         ids=[f"enc-{n}" for n in ENC_NAMES]
+                         + [f"dec-{n}" for n in DEC_NAMES])
+def test_padded_gradient_matches_jax(padded_runs, H, stack, idx):
+    """Every gradient comes back at the model's width (autograd slices the
+    padding off) and matches the JAX custom VJP."""
+    (_, got), (_, ref) = padded_runs[H][stack]
+    names = ENC_NAMES if stack == "enc" else DEC_NAMES
+    assert tuple(got[idx].shape) == ref[idx].shape
+    _grad_close(got[idx], ref[idx], f"{stack} {names[idx]}")
 
 
 def test_mask_gets_no_gradient_and_none_is_a_unit_mask(scan_setup):

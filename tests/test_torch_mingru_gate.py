@@ -4,7 +4,9 @@ Inputs and weights are made with numpy from a seed and handed to both sides.
 The JAX side is the Pallas kernel run in interpret mode in float32 with the
 exact sigmoid, as ``tests/test_minrnn.py`` runs it. Tolerances are that
 file's: mse atol 2e-6, resid atol 5e-6 (both sides compute in float32; they
-differ in the order of sums inside the projections).
+differ in the order of sums inside the projections). The shapes past the
+kernel's instances run the plain version on the padded weight dict the
+kernel reads (``tests/test_torch_vae_gate.py`` says why).
 """
 
 import jax.numpy as jnp
@@ -31,6 +33,13 @@ CASES = {  # name: (N, T, D, Z, H, L, layernorm, with_residual)
     "L3_H32_ln": (24, 18, 4, 5, 32, 3, True, True),
     "L2_H32_ln_gate_only": (37, 16, 12, 16, 32, 2, True, False),
     "L2_H128_ln": (9, 20, 12, 16, 128, 2, True, True),
+    # widths and inputs past the kernel's instances (padded H, D, Z to 128)
+    "L2_H48_ln": (37, 16, 12, 16, 48, 2, True, True),
+    "L2_H96_noln": (20, 16, 12, 16, 96, 2, False, True),
+    "L1_H32_D20": (37, 16, 20, 16, 32, 1, True, True),
+    "L2_H48_D64": (20, 16, 64, 16, 48, 2, True, True),
+    "L2_H32_Z40": (37, 16, 12, 40, 32, 2, True, True),
+    "L1_H64_Z128": (20, 16, 12, 128, 64, 1, True, True),
 }
 
 
@@ -146,15 +155,17 @@ def test_kernel_weights_need_a_mingru_model():
 @pytest.mark.parametrize("bad, match", [
     (dict(num_layers=5), "takes 1 to 4 layers"),
     (dict(num_layers=0), "takes 1 to 4 layers"),
-    (dict(H=48), "unsupported shape"),
-    (dict(D=17), "unsupported shape"),
-    (dict(Zd=33), "unsupported shape"),
+    (dict(H=160), "unsupported shape"),
+    (dict(D=129), "unsupported shape"),
+    (dict(Zd=129), "unsupported shape"),
     (dict(dtype=torch.float64), "float32"),
     (dict(transpose=True), "contiguous"),
     (dict(Z_D=7), "does not match"),
 ])
 def test_kernel_argument_checks(bad, match):
-    """The checks the CUDA wrapper makes before a launch (run on the CPU)."""
+    """The checks the CUDA wrapper makes before a launch (run on the CPU):
+    past the kernel's bounds (H, D and Z to 128, L to 4) a shape is
+    refused."""
     D, H, Zd = bad.get("D", 12), bad.get("H", 32), bad.get("Zd", 4)
     cfg = VAEConfig(input_dim=D, latent_dim=Zd, hidden_dim=H, num_layers=2,
                     cell="min_gru")

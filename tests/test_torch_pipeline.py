@@ -273,19 +273,21 @@ def test_load_vae_refuses_unported_cells(tmp_path, cell):
     ("attention", 128, 2, "cpu", True), ("gru", 128, 2, "cuda", False),
 ])
 def test_auto_fused_gate_policy(cell, H, L, device, takes):
-    """The default turns the fused gate on for every model on CUDA and off
-    on the CPU, whatever the model. A cell or a preset the cell's kernel
-    does not take is refused with ``ValueError`` by the look-up or by the
-    checks the wrapper makes before a launch: on the card nothing gives way
-    to the plain modules."""
+    """The default turns the fused gate on, on CUDA, for the models the JAX
+    package's rule sends to its kernels (and a minGRU of 3 or 4 layers), and
+    off on the CPU; here that is every model whose kernel takes it. A cell
+    or a preset the cell's kernel does not take is refused with
+    ``ValueError`` by the look-up or by the checks the wrapper makes before
+    a launch."""
     from types import SimpleNamespace
 
     from shm_tpu_torch import ops
     from shm_tpu_torch.models import TemporalVAE
 
     on_card = device.startswith("cuda")
-    assert ops.auto_fused_gate(device) is on_card
-    assert ops.auto_fused_gate(torch.device(device)) is on_card
+    spec = SimpleNamespace(cell=cell, hidden_dim=H, num_layers=L)
+    assert ops.auto_fused_gate(spec, device) is (on_card and takes)
+    assert ops.auto_fused_gate(spec, torch.device(device)) is (on_card and takes)
 
     if cell not in ops.FUSED_GATES:
         with pytest.raises(ValueError, match=f"no fused kernel for cell={cell!r}"):

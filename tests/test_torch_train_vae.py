@@ -265,7 +265,7 @@ def test_use_kernel_needs_two_layers():
     (2, None, "cuda", True), (2, None, "cpu", False), (2, False, "cuda", False),
     (1, None, "cpu", False), (1, False, "cuda", False),
     (1, None, "cuda", False), (1, True, "cuda", ValueError),
-    ("openlab", None, "cuda", False), ("h48", None, "cuda", True),
+    ("openlab", None, "cuda", False), ("h160", None, "cuda", True),
 ])
 def test_use_kernel_default_never_gives_way_on_the_card(layers, use_kernel,
                                                         device, want):
@@ -274,16 +274,17 @@ def test_use_kernel_default_never_gives_way_on_the_card(layers, use_kernel,
     LSTM (the openLAB preset among them) resolves to the plain path: no
     training kernel exists for one layer in either package (the JAX kernels
     are ``lstm2_*``, and the JAX trainer runs XLA by default); an explicit
-    ``True`` still raises. A 2-layer H the kernels do not take (48) still
-    resolves to them, so their shape error names the gap."""
+    ``True`` still raises. A 2-layer H past the kernels' reach (160; any
+    H <= 128 runs padded to an instance) still resolves to them, so their
+    shape error names the gap."""
     from shm_tpu_torch.config import OpenLabConfig
     from shm_tpu_torch.ops.lstm_train import _stack_weights
     from shm_tpu_torch.train.vae import _resolve_use_kernel
 
     if layers == "openlab":
         cfg = OpenLabConfig().vae
-    elif layers == "h48":
-        cfg = VAEConfig(input_dim=6, latent_dim=4, hidden_dim=48, num_layers=2)
+    elif layers == "h160":
+        cfg = VAEConfig(input_dim=6, latent_dim=4, hidden_dim=160, num_layers=2)
     else:
         cfg = VAEConfig(input_dim=6, latent_dim=4, hidden_dim=8,
                         num_layers=layers)
@@ -293,9 +294,9 @@ def test_use_kernel_default_never_gives_way_on_the_card(layers, use_kernel,
             _resolve_use_kernel(model, use_kernel, torch.device(device))
     else:
         assert _resolve_use_kernel(model, use_kernel, torch.device(device)) is want
-    if layers == "h48":
-        with pytest.raises(ValueError, match="H=48"):
-            _stack_weights(torch.device("cpu"), 6, 48,
+    if layers == "h160":
+        with pytest.raises(ValueError, match="H=160"):
+            _stack_weights(torch.device("cpu"), 6, 160,
                            *([torch.zeros(1)] * 6))
 
 

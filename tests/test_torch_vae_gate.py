@@ -6,6 +6,11 @@ as ``tests/test_ops.py`` runs it, and the flax ``TemporalVAE``. Tolerances
 are those of ``tests/test_ops.py``: mse atol 2e-6, resid atol 5e-6 (both
 sides compute in float32; they differ in summation order and in the
 sigmoid's form, which the Pallas kernel evaluates through tanh).
+
+The shapes past the kernel's instances (H not 32, 64 or 128; D > 16; Z > 32)
+run the plain version on the weight dict the kernel reads, padded to the next
+width with zero units: their agreement with the JAX kernel, which takes the
+model at its own width, is the padding's exactness.
 """
 
 import jax.numpy as jnp
@@ -35,7 +40,16 @@ CASES = {  # name: (D, Z, H, L, layernorm, with_residual)
     "L1_H64_ln": (3, 8, 64, 1, True, True),
     "L2_H32_noln": (12, 5, 32, 2, False, True),
     "L2_H32_ln_gate_only": (12, 16, 32, 2, True, False),
+    # widths and inputs past the kernel's instances (padded H, D, Z to 128)
+    "L2_H48_ln": (12, 16, 48, 2, True, True),
+    "L2_H96_noln": (12, 16, 96, 2, False, True),
+    "L1_H32_D20": (20, 16, 32, 1, True, True),
+    "L2_H48_D64": (64, 16, 48, 2, True, True),
+    "L2_H32_Z40": (12, 40, 32, 2, True, True),
+    "L1_H64_Z128": (12, 128, 64, 1, True, True),
 }
+WIDE = ["L2_H48_ln", "L2_H96_noln", "L1_H32_D20", "L2_H48_D64", "L2_H32_Z40",
+        "L1_H64_Z128"]
 
 
 def _setup(seed, D, Zd, H, L, ln):
@@ -68,6 +82,30 @@ def test_gate_matches_jax_pallas_interpret(name):
                                    atol=RESID_ATOL)
     else:
         assert resid is None and resid_j is None
+
+
+@pytest.mark.parametrize("name", WIDE)
+def test_wide_gate_transposed_matches_jax_pallas_interpret(name):
+    """The shapes past the kernel's instances in the transposed layout,
+    [T, Dp, N] (Dp = D rounded up to 16), against the JAX kernel's tile (its
+    first N columns), and the padded dict's record of the model's width."""
+    D, Zd, H, L, ln, wr = CASES[name]
+    cfg, params, Z = _setup(sum(map(ord, name)) + 1, D, Zd, H, L, ln)
+    mse_j, resid_j = jax_fused_vae_gate(
+        params, jnp.asarray(Z), num_layers=L, use_layernorm=ln,
+        dtype=jnp.float32, interpret=True, batch_tile=32,
+        residual_layout="transposed")
+    w = vae_params_to_kernel_weights(vae_from_flax(params, cfg))
+    Hp = next(h for h in (32, 64, 128) if h >= H)
+    assert w["enc0_whh"].shape == (Hp, 4 * Hp)
+    assert w.get("hidden", Hp) == H
+    Dp = fused_vae_mod.padded_features(D)
+    mse, resid = fused_vae_gate(w, torch.from_numpy(Z), num_layers=L,
+                                use_layernorm=ln, residual_layout="transposed")
+    assert resid.shape == (T, Dp, N) and not resid[:, D:].any()
+    np.testing.assert_allclose(mse.numpy(), np.asarray(mse_j), atol=MSE_ATOL)
+    np.testing.assert_allclose(resid.numpy(), np.asarray(resid_j)[:, :, :N],
+                               atol=RESID_ATOL)
 
 
 @pytest.mark.parametrize("name", ["L2_H32_ln", "L1_H64_ln", "L2_H32_noln"])
@@ -129,14 +167,17 @@ def test_kernel_weights_layout():
 
 @pytest.mark.parametrize("bad, match", [
     (dict(num_layers=3), "1- or 2-layer"),
-    (dict(H=48), "unsupported shape"),
-    (dict(D=17), "unsupported shape"),
+    (dict(H=160), "unsupported shape"),
+    (dict(D=129), "unsupported shape"),
     (dict(dtype=torch.float64), "float32"),
+    (dict(Zd=129), "unsupported shape"),
 ])
 def test_kernel_argument_checks(bad, match):
-    """The checks the CUDA wrapper makes before a launch (run on the CPU)."""
+    """The checks the CUDA wrapper makes before a launch (run on the CPU):
+    past the kernel's bounds (H, D and Z to 128) a shape is refused."""
     D, H = bad.get("D", 12), bad.get("H", 32)
-    cfg = VAEConfig(input_dim=D, latent_dim=4, hidden_dim=H, num_layers=2)
+    cfg = VAEConfig(input_dim=D, latent_dim=bad.get("Zd", 4), hidden_dim=H,
+                    num_layers=2)
     w = vae_params_to_kernel_weights(
         vae_from_flax(random_flax_vae_params(np.random.default_rng(0), cfg), cfg))
     Z = torch.zeros(2, 5, D, dtype=bad.get("dtype", torch.float32))
